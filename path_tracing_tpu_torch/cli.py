@@ -1,0 +1,145 @@
+"""Headless CLI of the port (the ``--mode pt`` path of
+``path_tracing_tpu.cli``):
+
+    python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
+        --mode pt --spp 4 --width 1920 --height 1080 --device cuda \\
+        --output out.png
+
+Frame ``i`` renders from ``fold_in(PRNGKey(seed), i)``, as the JAX CLI
+does, so both packages render the same image from the same seed.
+``--device cuda`` needs a CUDA card and fails without one; it never falls
+back to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+# modes of the JAX package that the port has not reached yet, with the
+# ROADMAP.md item that ports them
+NOT_PORTED = {
+    "bdpt": "ROADMAP.md queue 1, 'BDPT, torch tier' (and kernels #8/#9)",
+    "ppm": "ROADMAP.md queue 1, 'PPM, torch tier' (and kernels #10/#11)",
+}
+
+
+class CliError(Exception):
+    """A user-facing error: printed, exit code 1."""
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .integrators.pt import TIERS
+
+    ap = argparse.ArgumentParser(prog="path_tracing_tpu_torch",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--spp", type=int, default=8)
+    ap.add_argument("--mode", choices=["pt", "bdpt", "ppm"], default="pt")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--output", default="output.png")
+    ap.add_argument("--input", default="input.txt")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=1,
+                    help="progressive accumulation passes")
+    ap.add_argument("--eye-depth", type=int, default=4)
+    ap.add_argument("--force-fov", type=float, default=None,
+                    help="override the scene fov (default honours the file)")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--fix-pt-mis", action="store_true",
+                    help="enable the MIS light-hit term the reference stubbed")
+    ap.add_argument("--tier", choices=TIERS, default="fused",
+                    help="PT bounce: fused shade_step kernel (default), "
+                         "split nearest-hit/any-blocker kernels around a "
+                         "PyTorch bounce, or plain PyTorch")
+    return ap
+
+
+def run(argv=None) -> dict:
+    """Parse ``argv``, render, write the image.  Returns the linear image
+    (numpy (H*W, 3)), its size, spp and the render seconds."""
+    args = build_parser().parse_args(argv)
+    if args.mode in NOT_PORTED:
+        raise CliError(f"--mode {args.mode} is not ported yet: "
+                       f"{NOT_PORTED[args.mode]}")
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise CliError("--device cuda: no CUDA device is available")
+    device = torch.device(args.device)
+
+    from .config import RenderConfig
+    from .film import AccumState, save_image
+    from .integrators.pt import render_pt
+    from .ops import rng
+    from .scene.camera import make_camera
+    from .scene.parser import load_scene
+
+    if not os.path.exists(args.input):
+        raise CliError(f"Cannot open input file: {args.input}")
+    parsed = load_scene(args.input)
+    W = args.width or parsed.width
+    H = args.height or parsed.height
+    scene = parsed.to_device(device)
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      W, H, device=device, force_fov=args.force_fov)
+    cfg = RenderConfig(width=W, height=H, spp=args.spp,
+                       eye_depth=args.eye_depth, seed=args.seed,
+                       pt_stub_mis_strategy_a=not args.fix_pt_mis)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print("====================================")
+    print(f" Device : {args.device} ({name})")
+    print(f" Mode   : {args.mode} ({args.tier})")
+    print(f" SPP    : {args.spp}")
+    print(f" Input  : {args.input}")
+    print(f" Output : {args.output}")
+    print(f" Res    : {W}x{H}  seed={args.seed}  iters={args.iters}")
+    print("====================================")
+    print(f"Ball: {scene.num_spheres}  Triangle: {scene.num_triangles}  "
+          f"Light: {scene.num_lights}")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    key = rng.prng_key(args.seed)
+    state = AccumState.zeros(W, H, device)
+    print("[Render] Starting Render...")
+    sync()
+    t0 = time.perf_counter()
+    for i in range(args.iters):
+        frame = render_pt(scene, cam, W, H, args.spp, cfg,
+                          rng.fold_in(key, i), tier=args.tier)
+        state = state.add(frame)
+        sync()
+        print(f"[Render] iter {i + 1}: "
+              f"{(time.perf_counter() - t0) * 1000:.1f} ms cumulative")
+    seconds = time.perf_counter() - t0
+    paths = W * H * args.spp * args.iters
+    print(f"[Render] Finished in {seconds * 1000:.1f} ms "
+          f"({paths / max(seconds, 1e-9) / 1e6:.2f} Mpaths/s, "
+          f"{args.iters} iters)")
+
+    linear = state.mean().cpu().numpy()
+    print(f"[Save] Writing to {args.output}...")
+    save_image(args.output, linear, W, H)
+    print("[Success] Image saved!")
+    return dict(image=linear, width=W, height=H, spp=args.spp,
+                iters=args.iters, seconds=seconds, device=name)
+
+
+def main(argv=None) -> int:
+    try:
+        run(argv)
+    except CliError as e:
+        print(f"[Error] {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,438 @@
+// Device functions shared by the PT kernels of pt_kernels.cu: ray-primitive
+// tests, the cluster walk, nearest hit, the shadow sweep, Fresnel, GGX,
+// VNDF sampling, BSDF eval/pdf and bsdf_sample.
+//
+// The math follows path_tracing_tpu/ops/pallas_shade.py and
+// pallas_intersect.py operation for operation (built with --fmad=false, so
+// each multiply and add rounds on its own), including the reference quirks:
+// the non-normalized GGX D (alpha^2 + tan^4), the eta = 0 Fresnel edge and
+// the light-ball material.  max/min propagate NaN as jnp.maximum does.
+//
+// Scene tables (row-major float32, see ops/cuda_intersect.py::pack_scene):
+//   sph (Ms, 16): cx cy cz r | blocks_gpu blocks_cpu 0 0 | r g b rough metal
+//                 eta is_light 0        (spheres, then light balls)
+//   tri (Mt, 24): v0 v1 v2 | blocks_gpu blocks_cpu 0 | n3 0 | r g b rough
+//                 metal eta 0 0
+//   cl  (Mc, 8):  min3 max3 start count
+//   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace ptk {
+
+constexpr float kEps = 1e-4f;      // EPSILON of ops/math3.py
+constexpr float kInf = 1e20f;      // miss sentinel
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kMinD = 1e-3f;     // shadow-ray endpoint clearance
+constexpr int kSphCols = 16, kTriCols = 24, kClCols = 8, kLightCols = 12;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 mk(float x, float y, float z) { return {x, y, z}; }
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 scale(V3 a, float k) { return {a.x * k, a.y * k, a.z * k}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ V3 sel(bool m, V3 a, V3 b) { return m ? a : b; }
+
+// NaN-propagating max/min (jnp.maximum / jnp.minimum semantics)
+__device__ __forceinline__ float jmax(float a, float b) { return a > b ? a : (a == a ? b : a); }
+__device__ __forceinline__ float jmin(float a, float b) { return a < b ? a : (a == a ? b : a); }
+
+__device__ __forceinline__ float norm3(V3 a) { return sqrtf(dot3(a, a)); }
+__device__ __forceinline__ V3 normalize3(V3 a) { return scale(a, 1.0f / jmax(norm3(a), 1e-20f)); }
+
+__device__ __forceinline__ bool valid3(V3 c) {
+  bool bad = isnan(c.x) || isnan(c.y) || isnan(c.z) || isinf(c.x) || isinf(c.y) ||
+             isinf(c.z) || c.x < 0.0f || c.y < 0.0f || c.z < 0.0f;
+  return !bad;
+}
+
+__device__ __forceinline__ V3 clamp3(V3 c, float mx) {
+  float m = jmax(c.x, jmax(c.y, c.z));
+  return scale(c, m > mx ? mx / m : 1.0f);
+}
+
+__device__ __forceinline__ V3 load3(const float* __restrict__ p, int i) {
+  return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
+}
+
+__device__ __forceinline__ void store3(float* __restrict__ p, int i, V3 v) {
+  p[3 * i] = v.x;
+  p[3 * i + 1] = v.y;
+  p[3 * i + 2] = v.z;
+}
+
+struct Mtl {
+  V3 bc;
+  float rough, metal, eta;
+};
+
+struct Tables {
+  const float* __restrict__ sph;
+  int ns, nl;
+  const float* __restrict__ tri;
+  const float* __restrict__ cl;
+  int nc;
+};
+
+// ---------------------------------------------------------------------------
+// primitive tests
+// ---------------------------------------------------------------------------
+
+// Ray-sphere distance: near root, else far root, each > kEps (and < tmax).
+__device__ __forceinline__ float sphere_t(V3 ro, V3 rd, const float* __restrict__ s, float tmax,
+                                          V3* oc_out) {
+  float r = s[3];
+  V3 oc = ro - mk(s[0], s[1], s[2]);
+  float b = oc.x * rd.x + oc.y * rd.y + oc.z * rd.z;
+  float c = oc.x * oc.x + oc.y * oc.y + oc.z * oc.z - r * r;
+  float h = b * b - c;
+  float sh = sqrtf(jmax(h, 0.0f));
+  float t1 = -b - sh;
+  float t2 = -b + sh;
+  bool ok = (h >= 0.0f) && (r > 0.0f);
+  bool v1 = ok && (t1 > kEps) && (t1 < tmax);
+  bool v2 = ok && (t2 > kEps) && (t2 < tmax);
+  *oc_out = oc;
+  return v1 ? t1 : (v2 ? t2 : kInf);
+}
+
+// Moller-Trumbore against one triangle row; returns t, or kInf on a miss.
+__device__ __forceinline__ float triangle_t(V3 ro, V3 rd, const float* __restrict__ T) {
+  V3 v0 = mk(T[0], T[1], T[2]);
+  V3 e1 = mk(T[3] - v0.x, T[4] - v0.y, T[5] - v0.z);
+  V3 e2 = mk(T[6] - v0.x, T[7] - v0.y, T[8] - v0.z);
+  V3 h = cross3(rd, e2);
+  float a = dot3(e1, h);
+  bool parallel = (a > -1e-6f) && (a < 1e-6f);
+  float f = 1.0f / (parallel ? 1.0f : a);
+  V3 s = ro - v0;
+  float u = f * dot3(s, h);
+  V3 q = cross3(s, e1);
+  float v = f * dot3(rd, q);
+  float t = f * dot3(e2, q);
+  bool ok = !parallel && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
+            (t > kEps);
+  return ok ? t : kInf;
+}
+
+__device__ __forceinline__ float safe_inv(float d) {
+  return 1.0f / (fabsf(d) < 1e-12f ? (d >= 0.0f ? 1e-12f : -1e-12f) : d);
+}
+
+// Slab test of one cluster AABB: the ray enters it before tlimit.
+__device__ __forceinline__ bool slab_hit(const float* __restrict__ C, V3 ro, V3 inv, float tlo,
+                                         float tlimit) {
+  float t0x = (C[0] - ro.x) * inv.x, t1x = (C[3] - ro.x) * inv.x;
+  float t0y = (C[1] - ro.y) * inv.y, t1y = (C[4] - ro.y) * inv.y;
+  float t0z = (C[2] - ro.z) * inv.z, t1z = (C[5] - ro.z) * inv.z;
+  float tn = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmax(jmin(t0z, t1z), tlo));
+  float tf = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmax(t0z, t1z));
+  return (tn <= tf) && (tn < tlimit);
+}
+
+// ---------------------------------------------------------------------------
+// nearest hit: spheres, then light balls, then cluster-culled triangles;
+// strictly closer wins (the reference's tie-break)
+// ---------------------------------------------------------------------------
+
+struct HitRec {
+  float t;
+  V3 n;    // flipped toward the ray
+  Mtl m;
+  int flag;  // 0 miss, 1 surface, 2 light ball
+};
+
+__device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
+  HitRec best;
+  best.t = kInf;
+  best.n = mk(0.f, 0.f, 0.f);
+  best.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
+  best.flag = 0;
+  for (int i = 0; i < tb.ns + tb.nl; ++i) {
+    const float* s = tb.sph + i * kSphCols;
+    V3 oc;
+    float t = sphere_t(ro, rd, s, INFINITY, &oc);
+    if (t < best.t) {
+      float inv_r = 1.0f / jmax(s[3], 1e-20f);
+      best.t = t;
+      best.n = scale(oc + scale(rd, t), inv_r);
+      best.m = {mk(s[8], s[9], s[10]), s[11], s[12], s[13]};
+      best.flag = s[14] > 0.0f ? 2 : 1;
+    }
+  }
+  // per-ray cluster culling: a cluster the ray cannot enter before the
+  // current best hit is skipped; culling never changes the result
+  V3 inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  for (int c = 0; c < tb.nc; ++c) {
+    const float* C = tb.cl + c * kClCols;
+    int count = (int)C[7];
+    if (count <= 0 || !slab_hit(C, ro, inv, kEps, best.t)) continue;
+    int start = (int)C[6];
+    for (int i = start; i < start + count; ++i) {
+      const float* T = tb.tri + i * kTriCols;
+      float t = triangle_t(ro, rd, T);
+      if (t < best.t) {
+        best.t = t;
+        best.n = mk(T[12], T[13], T[14]);
+        best.m = {mk(T[16], T[17], T[18]), T[19], T[20], T[21]};
+        best.flag = 1;
+      }
+    }
+  }
+  float sgn = dot3(best.n, rd) > 0.0f ? -1.0f : 1.0f;
+  best.n = scale(best.n, sgn);
+  if (!(best.t < kInf)) best.flag = 0;
+  return best;
+}
+
+// Shadow any-hit for t in (kMinD, md): spheres and triangles whose
+// can-block column (4 GPU rule / 5 oracle rule) is set; light balls never
+// block and are not visited.
+__device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int blocks_col) {
+  for (int i = 0; i < tb.ns; ++i) {
+    const float* s = tb.sph + i * kSphCols;
+    if (!(s[blocks_col] > 0.0f)) continue;
+    V3 oc;
+    float t = sphere_t(p1, rd, s, md, &oc);
+    if (t < kInf && t > kMinD) return true;
+  }
+  V3 inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  for (int c = 0; c < tb.nc; ++c) {
+    const float* C = tb.cl + c * kClCols;
+    int count = (int)C[7];
+    if (count <= 0 || !slab_hit(C, p1, inv, kMinD, md)) continue;
+    int start = (int)C[6];
+    for (int i = start; i < start + count; ++i) {
+      const float* T = tb.tri + i * kTriCols;
+      if (!(T[blocks_col + 5] > 0.0f)) continue;
+      float t = triangle_t(p1, rd, T);
+      if (t < md && t > kMinD) return true;
+    }
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// local frames, Fresnel, GGX
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void build_frame(V3 n, V3* t, V3* b) {
+  V3 ax = fabsf(n.z) < 0.999f ? mk(0.f, 0.f, 1.f) : mk(0.f, 1.f, 0.f);
+  *t = normalize3(cross3(ax, n));
+  *b = cross3(n, *t);
+}
+
+__device__ __forceinline__ V3 to_local(V3 v, V3 t, V3 b, V3 n) {
+  return mk(dot3(v, t), dot3(v, b), dot3(v, n));
+}
+
+__device__ __forceinline__ V3 to_world(V3 v, V3 t, V3 b, V3 n) {
+  return mk(t.x * v.x + b.x * v.y + n.x * v.z, t.y * v.x + b.y * v.y + n.y * v.z,
+            t.z * v.x + b.z * v.y + n.z * v.z);
+}
+
+__device__ __forceinline__ float fr_dielectric(float cos_i, float eta_i, float eta_t) {
+  cos_i = jmin(jmax(cos_i, -1.0f), 1.0f);
+  bool entering = cos_i > 0.0f;
+  float ei = entering ? eta_i : eta_t;
+  float et = entering ? eta_t : eta_i;
+  cos_i = fabsf(cos_i);
+  float sin_i = sqrtf(jmax(0.0f, 1.0f - cos_i * cos_i));
+  float sin_t = ei / et * sin_i;
+  bool tir = sin_t >= 1.0f;
+  float cos_t = sqrtf(jmax(0.0f, 1.0f - sin_t * sin_t));
+  float r_par = ((et * cos_i) - (ei * cos_t)) / ((et * cos_i) + (ei * cos_t));
+  float r_per = ((ei * cos_i) - (et * cos_t)) / ((ei * cos_i) + (et * cos_t));
+  return tir ? 1.0f : (r_par * r_par + r_per * r_per) / 2.0f;
+}
+
+__device__ __forceinline__ V3 fr_schlick(float cos_i, V3 r0) {
+  float c = jmax(0.0f, 1.0f - cos_i);
+  float c5 = c * c * c * c * c;
+  return mk(r0.x + (1.0f - r0.x) * c5, r0.y + (1.0f - r0.y) * c5, r0.z + (1.0f - r0.z) * c5);
+}
+
+__device__ __forceinline__ float tan2_theta(V3 w) {
+  float c2 = w.z * w.z;
+  float s2 = jmax(0.0f, 1.0f - c2);
+  return s2 / (c2 + 1e-7f);
+}
+
+// The reference's non-normalized GGX D: cos^4 (alpha^2 + tan^4).
+__device__ __forceinline__ float tr_d(V3 wh, float alpha) {
+  float t2 = tan2_theta(wh);
+  float cos4 = (wh.z * wh.z) * (wh.z * wh.z);
+  float e = cos4 * (alpha * alpha + t2 * t2);
+  float d = (alpha * alpha) / (kPi * e);
+  return (isinf(t2) || e < 1e-12f) ? 0.0f : d;
+}
+
+__device__ __forceinline__ float tr_lambda(V3 w, float alpha) {
+  float c2 = w.z * w.z;
+  float s2 = jmax(0.0f, 1.0f - c2);
+  float abs_tan = fabsf(sqrtf(s2) / (w.z + 1e-7f));
+  float a2t2 = (alpha * abs_tan) * (alpha * abs_tan);
+  return isinf(abs_tan) ? 0.0f : (-1.0f + sqrtf(1.0f + a2t2)) / 2.0f;
+}
+
+__device__ __forceinline__ float roughness_to_alpha(float r) {
+  float x = jmax(r, 1e-3f);
+  return x * x;
+}
+
+__device__ __forceinline__ V3 half_vector(V3 wo, V3 wi, bool* ok) {
+  V3 wh = wo + wi;
+  float ln = norm3(wh);
+  wh = scale(wh, 1.0f / jmax(ln, 1e-20f));
+  if (wh.z < 0.0f) wh = -wh;
+  *ok = ln >= 1e-6f;
+  return wh;
+}
+
+__device__ V3 eval_local(const Mtl& m, V3 wo, V3 wi, float alpha, V3 wh, bool wh_ok) {
+  bool zero_cos = (wo.z == 0.0f) || (wi.z == 0.0f);
+  bool smooth_diel = (m.eta > 0.0f) && (m.rough < 0.001f);
+  if (zero_cos || smooth_diel || !wh_ok) return mk(0.f, 0.f, 0.f);
+  bool same = wo.z * wi.z > 0.0f;
+  float kd = (1.0f - m.metal) / kPi;
+  V3 diffuse = mk(m.bc.x * kd, m.bc.y * kd, m.bc.z * kd);
+  if (wo.z * wi.z < 0.0f) diffuse = mk(0.f, 0.f, 0.f);
+  if (!same) return diffuse;
+  float d = tr_d(wh, alpha);
+  float g = 1.0f / (1.0f + tr_lambda(wo, alpha) + tr_lambda(wi, alpha));
+  V3 f;
+  if (m.metal > 0.0f) {
+    f = fr_schlick(fabsf(wo.z), m.bc);
+  } else {
+    float fr = fr_dielectric(dot3(wo, wh), 1.0f, m.eta);
+    f = mk(fr, fr, fr);
+  }
+  float denom = jmax(4.0f * fabsf(wo.z) * fabsf(wi.z), 1e-4f);
+  return diffuse + scale(f, d * g / denom);
+}
+
+__device__ float pdf_local(const Mtl& m, V3 wo, V3 wi, float alpha, V3 wh, bool wh_ok) {
+  bool opposite = wo.z * wi.z <= 0.0f;
+  bool smooth_diel = (m.eta > 0.0f) && (m.rough < 0.001f);
+  if (opposite || smooth_diel || !wh_ok) return 0.0f;
+  float pdf_diff = fabsf(wi.z) / kPi;
+  float g1 = 1.0f / (1.0f + tr_lambda(wo, alpha));
+  float dwh = dot3(wo, wh);
+  float pdf_wh = tr_d(wh, alpha) * g1 * jmax(0.0f, dwh) / jmax(fabsf(wo.z), 1e-20f);
+  float pdf_spec = pdf_wh / (4.0f * dwh + 1e-7f);
+  float sw = m.metal > 0.0f ? 1.0f : 0.5f;
+  return (1.0f - sw) * pdf_diff + sw * pdf_spec;
+}
+
+// Heitz VNDF sample; wo must be in the upper hemisphere.
+__device__ V3 sample_vndf(V3 wo, float alpha, float u1, float u2) {
+  V3 v = normalize3(mk(alpha * wo.x, alpha * wo.y, wo.z));
+  V3 cz = cross3(mk(0.f, 0.f, 1.f), v);
+  cz = scale(cz, 1.0f / jmax(norm3(cz), 1e-20f));
+  V3 t1 = v.z < 0.9999f ? cz : mk(1.f, 0.f, 0.f);
+  V3 t2 = cross3(v, t1);
+  float r = sqrtf(u1);
+  float phi = 2.0f * kPi * u2;
+  float p1 = r * cosf(phi);
+  float p2 = r * sinf(phi);
+  float s = 0.5f * (1.0f + v.z);
+  p2 = (1.0f - s) * sqrtf(jmax(0.0f, 1.0f - p1 * p1)) + s * p2;
+  V3 nh = scale(t1, p1) + scale(t2, p2) + scale(v, sqrtf(jmax(0.0f, 1.0f - p1 * p1 - p2 * p2)));
+  return normalize3(mk(alpha * nh.x, alpha * nh.y, jmax(0.0f, nh.z)));
+}
+
+struct BsdfSample {
+  V3 wi, val;
+  float pdf;
+  bool is_delta;
+  float new_eta;
+};
+
+// Sample an outgoing direction: smooth dielectric, smooth conductor or the
+// rough VNDF/cosine mix, picked by the material.
+__device__ BsdfSample bsdf_sample_dev(const Mtl& m, V3 wo_w, V3 n, float u_rr, float u1, float u2,
+                                      float cur_eta) {
+  V3 t, b;
+  build_frame(n, &t, &b);
+  V3 wo = to_local(wo_w, t, b, n);
+  bool m_diel = (m.eta > 0.0f) && (m.rough < 0.001f) && (m.metal < 0.01f);
+  bool m_cond = !m_diel && (m.metal > 0.99f) && (m.rough < 0.001f);
+  V3 refl = mk(-wo.x, -wo.y, wo.z);
+  BsdfSample out;
+  out.is_delta = m_diel || m_cond;
+  out.new_eta = cur_eta;
+  V3 wi_l;
+  if (m_diel) {
+    float f = fr_dielectric(wo.z, cur_eta, m.eta);
+    bool entering = wo.z > 0.0f;
+    float eta_ratio = entering ? cur_eta / m.eta : m.eta / cur_eta;
+    float sin2_i = jmax(0.0f, 1.0f - wo.z * wo.z);
+    float sin2_t = eta_ratio * eta_ratio * sin2_i;
+    bool tir = sin2_t >= 1.0f;
+    float cos_t = sqrtf(jmax(0.0f, 1.0f - sin2_t));
+    if (entering) cos_t = -cos_t;
+    V3 refr = mk(-eta_ratio * wo.x, -eta_ratio * wo.y, cos_t);
+    bool take_refl = u_rr < f;
+    wi_l = take_refl ? refl : refr;
+    float d_cos = jmax(fabsf(wi_l.z), 1e-20f);
+    out.pdf = take_refl ? f : 1.0f - f;
+    out.val = take_refl ? mk(f / d_cos, f / d_cos, f / d_cos) : scale(m.bc, (1.0f - f) / d_cos);
+    if (!take_refl && tir) {  // TIR reaching the refract branch kills the lane
+      out.pdf = 0.0f;
+      out.val = mk(0.f, 0.f, 0.f);
+    }
+    out.new_eta = take_refl ? cur_eta : (entering ? m.eta : 1.0f);
+  } else if (m_cond) {
+    wi_l = refl;
+    out.val = scale(fr_schlick(fabsf(wo.z), m.bc), 1.0f / jmax(fabsf(refl.z), 1e-20f));
+    out.pdf = 1.0f;
+  } else {
+    float alpha = roughness_to_alpha(m.rough);
+    float sw = m.metal > 0.0f ? 1.0f : 0.5f;
+    bool take_spec = u_rr < sw;
+    bool dead = false;
+    if (take_spec) {
+      V3 wo_up = wo.z > 0.0f ? wo : -wo;
+      V3 wh = sample_vndf(wo_up, alpha, u1, u2);
+      if (wo.z < 0.0f) wh = -wh;
+      wi_l = (-wo) - scale(wh, 2.0f * dot3(wh, -wo));
+      dead = wo.z * wi_l.z <= 0.0f;
+    } else {
+      float r = sqrtf(u1);
+      float phi = 2.0f * kPi * u2;
+      wi_l = mk(r * cosf(phi), r * sinf(phi), sqrtf(jmax(0.0f, 1.0f - u1)));
+      if (wo.z < 0.0f) wi_l.z = -wi_l.z;
+    }
+    bool wh_ok;
+    V3 wh_r = half_vector(wo, wi_l, &wh_ok);
+    out.pdf = dead ? 0.0f : pdf_local(m, wo, wi_l, alpha, wh_r, wh_ok);
+    out.val = dead ? mk(0.f, 0.f, 0.f) : eval_local(m, wo, wi_l, alpha, wh_r, wh_ok);
+  }
+  out.wi = to_world(wi_l, t, b, n);
+  return out;
+}
+
+__device__ void eval_pdf_world(const Mtl& m, V3 wo_w, V3 wi_w, V3 n, V3* f, float* pdf) {
+  V3 t, b;
+  build_frame(n, &t, &b);
+  V3 wo = to_local(wo_w, t, b, n);
+  V3 wi = to_local(wi_w, t, b, n);
+  float alpha = roughness_to_alpha(m.rough);
+  bool ok;
+  V3 wh = half_vector(wo, wi, &ok);
+  *f = eval_local(m, wo, wi, alpha, wh, ok);
+  *pdf = pdf_local(m, wo, wi, alpha, wh, ok);
+}
+
+}  // namespace ptk

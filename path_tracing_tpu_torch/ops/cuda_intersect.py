@@ -1,0 +1,255 @@
+"""Nearest-hit and any-blocker kernels on packed scene tables
+(counterpart of ``path_tracing_tpu.ops.pallas_intersect``).
+
+``pack_scene`` builds the tables every kernel reads, column for column the
+same as the JAX package's ``pack_scene``:
+
+- spheres then light balls, ``(Ms, 16)``: ``[cx, cy, cz, r, blocks_gpu,
+  blocks_cpu, 0, 0, r, g, b, roughness, metallic, eta, is_light, 0]``;
+  light balls carry the oracle light material (flux, 1, 0, 0) and zero
+  block flags, so they never block a shadow ray;
+- triangles, ``(Mt, 24)``: ``[v0, v1, v2, blocks_gpu, blocks_cpu, 0,
+  normal3, 0, r, g, b, roughness, metallic, eta, 0, 0]``;
+- clusters, ``(Mc, 8)``: ``[min3, max3, start, count]``;
+
+each padded with zero rows to a multiple of 8.
+
+Each kernel has a wrapper and a plain version side by side.  The wrapper
+takes the plain version only for CPU tensors; for CUDA tensors it launches
+the kernel of ``csrc/pt_kernels.cu`` or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..scene.types import Scene
+from . import _kernels
+from .intersect import INF, SHADOW_EPS, sphere_ts, triangle_ts
+from .math3 import cross, dot, length
+
+SUB = 8
+SPH_COLS, TRI_COLS, CL_COLS = 16, 24, 8
+HIT_FIELDS = ("t", "nx", "ny", "nz", "bcr", "bcg", "bcb", "rough", "metal",
+              "eta")
+
+
+@dataclass
+class PackedScene:
+    sph: torch.Tensor  # (Ms, 16) spheres then light balls
+    tri: torch.Tensor  # (Mt, 24)
+    cl: torch.Tensor   # (Mc, 8)
+    ns: int
+    nl: int
+    nt: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.sph.device
+
+
+def _rowpad(x: torch.Tensor, rows: int) -> torch.Tensor:
+    pad = torch.zeros((rows - x.shape[0], x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x, pad], dim=0)
+
+
+def _padded_rows(n: int) -> int:
+    return max(SUB, ((n + SUB - 1) // SUB) * SUB)
+
+
+def pack_scene(scene: Scene) -> PackedScene:
+    if scene.has_textures:
+        raise NotImplementedError(
+            "textured scenes are not ported yet (ROADMAP: shade_step_tex)")
+    ns, nl, nt = scene.num_spheres, scene.num_lights, scene.num_triangles
+    dev = scene.device
+
+    def z(n, k):
+        return torch.zeros((n, k), device=dev)
+
+    def o(n, k):
+        return torch.ones((n, k), device=dev)
+
+    def mtl_cols(m, n):
+        return torch.cat([m.base_color, m.roughness[:, None],
+                          m.metallic[:, None], m.eta[:, None], z(n, 1)], 1)
+
+    sph_rows = torch.cat([
+        torch.cat([scene.sph_center, scene.sph_radius[:, None], o(ns, 1),
+                   (scene.sph_mtl.eta <= 0.0).float()[:, None], z(ns, 2),
+                   mtl_cols(scene.sph_mtl, ns), z(ns, 1)], 1),
+        torch.cat([scene.light_pos, scene.light_ball_r[:, None], z(nl, 4),
+                   scene.light_illum, o(nl, 1), z(nl, 2), o(nl, 1),
+                   z(nl, 1)], 1),
+    ], 0)
+    sph = _rowpad(sph_rows, _padded_rows(ns + nl))
+
+    tn = cross(scene.tri_v1 - scene.tri_v0, scene.tri_v2 - scene.tri_v0)
+    tn = tn / torch.clamp(length(tn), min=1e-20)[:, None]
+    tri_rows = torch.cat([
+        scene.tri_v0, scene.tri_v1, scene.tri_v2, o(nt, 1),
+        (scene.tri_mtl.eta <= 0.0).float()[:, None], z(nt, 1), tn, z(nt, 1),
+        mtl_cols(scene.tri_mtl, nt), z(nt, 1)], 1)
+    tri = _rowpad(tri_rows, _padded_rows(nt))
+
+    cl = torch.cat([scene.tri_cluster_aabb,
+                    scene.tri_cluster_range.float()], 1)
+    cl = _rowpad(cl, _padded_rows(cl.shape[0]))
+    return PackedScene(sph=sph.contiguous(), tri=tri.contiguous(),
+                       cl=cl.contiguous(), ns=ns, nl=nl, nt=nt)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
+                      rd: torch.Tensor) -> dict:
+    """Brute-force nearest hit on the packed tables.  Returns (B,) fields
+    t, normal (flipped toward the ray), material and flag (0 miss,
+    1 surface, 2 light ball); misses report t = INF and zeros."""
+    _kernels.plain_calls["nearest_hit"] += 1
+    B = ro.shape[0]
+    n_s = packed.ns + packed.nl
+    sph = packed.sph[:n_s]
+    tri = packed.tri[:packed.nt]
+    ts = [sphere_ts(ro, rd, sph[:, 0:3], sph[:, 3], INF)] if n_s else []
+    if packed.nt:
+        ts.append(triangle_ts(ro, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
+                              INF))
+    if not ts:
+        zero = torch.zeros(B, device=ro.device)
+        out = {k: zero.clone() for k in HIT_FIELDS}
+        out["t"] = torch.full((B,), INF, device=ro.device)
+        out["flag"] = torch.zeros(B, dtype=torch.int32, device=ro.device)
+        return out
+    all_t = torch.cat(ts, dim=1)
+    idx = torch.argmin(all_t, dim=1)   # first minimum: the reference order
+    best_t = torch.gather(all_t, 1, idx[:, None])[:, 0]
+    hit = best_t < INF
+
+    is_tri = idx >= n_s
+    si = torch.clamp(idx, max=max(n_s - 1, 0))
+    ti = torch.clamp(idx - n_s, min=0, max=max(packed.nt - 1, 0))
+    srow = packed.sph[si]
+    trow = packed.tri[ti]
+    # sphere normal as the kernel forms it: (ro - c + rd t) / r
+    inv_r = 1.0 / torch.clamp(srow[:, 3], min=1e-20)
+    n_sph = ((ro - srow[:, 0:3]) + rd * best_t[:, None]) * inv_r[:, None]
+    normal = torch.where(is_tri[:, None], trow[:, 12:15], n_sph)
+    normal = torch.where((dot(normal, rd) > 0.0)[:, None], -normal, normal)
+    mtl = torch.where(is_tri[:, None], trow[:, 16:22], srow[:, 8:14])
+    flag = torch.where(is_tri | (srow[:, 14] <= 0.0),
+                       torch.ones_like(idx), torch.full_like(idx, 2))
+    flag = torch.where(hit, flag, torch.zeros_like(flag)).to(torch.int32)
+
+    keep = hit[:, None]
+    normal = torch.where(keep, normal, torch.zeros_like(normal))
+    mtl = torch.where(keep, mtl, torch.zeros_like(mtl))
+    out = {"t": torch.where(hit, best_t, torch.full_like(best_t, INF))}
+    for i, k in enumerate(("nx", "ny", "nz")):
+        out[k] = normal[:, i]
+    for i, k in enumerate(("bcr", "bcg", "bcb", "rough", "metal", "eta")):
+        out[k] = mtl[:, i]
+    out["flag"] = flag
+    return out
+
+
+def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
+                      rd: torch.Tensor, max_d: torch.Tensor,
+                      dielectrics_block: bool) -> torch.Tensor:
+    """Brute-force shadow any-hit: (B,) bool, True where a sphere or
+    triangle whose can-block column is set lies at t in (1e-3, max_d)."""
+    _kernels.plain_calls["any_blocker"] += 1
+    col = 4 if dielectrics_block else 5
+    md = max_d[:, None]
+    blocked = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
+    if packed.nt:
+        tri = packed.tri[:packed.nt]
+        t = triangle_ts(p1, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], md)
+        occ = (t < INF) & (t > SHADOW_EPS) & (tri[:, col + 5] > 0.0)[None]
+        blocked |= torch.any(occ, dim=1)
+    if packed.ns:
+        sph = packed.sph[:packed.ns]
+        t = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], md)
+        occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
+        blocked |= torch.any(occ, dim=1)
+    return blocked
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def check_tensor(name: str, x: torch.Tensor, shape, dtype=torch.float32):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_tables(packed: PackedScene, device):
+    if packed.device != device:
+        raise ValueError(f"scene tables on {packed.device}, rays on {device}")
+    check_tensor("sph", packed.sph, (packed.sph.shape[0], SPH_COLS))
+    check_tensor("tri", packed.tri, (packed.tri.shape[0], TRI_COLS))
+    check_tensor("cl", packed.cl, (packed.cl.shape[0], CL_COLS))
+
+
+def table_args(packed: PackedScene):
+    """ctypes arguments of the scene tables, as every kernel takes them."""
+    return [ctypes.c_void_p(packed.sph.data_ptr()), packed.ns, packed.nl,
+            ctypes.c_void_p(packed.tri.data_ptr()),
+            ctypes.c_void_p(packed.cl.data_ptr()), packed.cl.shape[0]]
+
+
+def nearest_hit(packed: PackedScene, ro: torch.Tensor,
+                rd: torch.Tensor) -> dict:
+    """Nearest hit per ray; same fields as :func:`nearest_hit_plain`."""
+    if ro.device.type == "cpu" and rd.device.type == "cpu":
+        return nearest_hit_plain(packed, ro, rd)
+    B = ro.shape[0]
+    check_tensor("ro", ro, (B, 3))
+    check_tensor("rd", rd, (B, 3))
+    check_tables(packed, ro.device)
+    out = torch.empty((len(HIT_FIELDS), B), device=ro.device)
+    flag = torch.empty(B, dtype=torch.int32, device=ro.device)
+    if B:
+        _kernels.launch("nearest_hit", *table_args(packed),
+                        ctypes.c_void_p(ro.data_ptr()),
+                        ctypes.c_void_p(rd.data_ptr()), B,
+                        ctypes.c_void_p(out.data_ptr()),
+                        ctypes.c_void_p(flag.data_ptr()))
+    res = {k: out[i] for i, k in enumerate(HIT_FIELDS)}
+    res["flag"] = flag
+    return res
+
+
+def any_blocker(packed: PackedScene, p1: torch.Tensor, rd: torch.Tensor,
+                max_d: torch.Tensor, dielectrics_block: bool
+                ) -> torch.Tensor:
+    """Shadow any-hit per ray; (B,) bool like :func:`any_blocker_plain`."""
+    if all(x.device.type == "cpu" for x in (p1, rd, max_d)):
+        return any_blocker_plain(packed, p1, rd, max_d, dielectrics_block)
+    B = p1.shape[0]
+    check_tensor("p1", p1, (B, 3))
+    check_tensor("rd", rd, (B, 3))
+    check_tensor("max_d", max_d, (B,))
+    check_tables(packed, p1.device)
+    out = torch.empty(B, dtype=torch.bool, device=p1.device)
+    if B:
+        _kernels.launch("any_blocker", *table_args(packed),
+                        ctypes.c_void_p(p1.data_ptr()),
+                        ctypes.c_void_p(rd.data_ptr()),
+                        ctypes.c_void_p(max_d.data_ptr()), B,
+                        4 if dielectrics_block else 5,
+                        ctypes.c_void_p(out.data_ptr()))
+    return out

@@ -1,0 +1,187 @@
+"""The fused PT bounce (counterpart of ``path_tracing_tpu.ops.pallas_shade``).
+
+``shade_step`` runs one bounce of every lane of the wavefront: nearest hit,
+light-ball emission, next-event estimation with its shadow ray, the BSDF
+sample and the path-state update.  It takes and returns what
+``shade_step_pallas`` does; the six uniforms per lane come in as rows of
+``u``, so the step matches the plain bounce lane by lane.
+
+Three step functions share that signature:
+
+- ``shade_step``: the wrapper of the CUDA kernel ``shade_step`` (CPU tensors
+  take ``shade_step_plain``);
+- ``shade_step_plain``: the plain PyTorch bounce (the JAX package's XLA
+  bounce body) on the plain nearest-hit and any-blocker sweeps;
+- ``shade_step_split``: the same PyTorch bounce on the nearest-hit and
+  any-blocker wrappers, so on CUDA it launches those two kernels and shades
+  with PyTorch (the JAX package's Pallas-intersect / XLA-shade tier).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _kernels
+from .bsdf import bsdf_sample
+from .cuda_intersect import (PackedScene, any_blocker, any_blocker_plain,
+                             check_tables, check_tensor, nearest_hit,
+                             nearest_hit_plain, table_args)
+from .intersect import hit_from_fields
+from .math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
+
+LIGHT_COLS = 12
+
+
+def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
+            last_delta, last_pdf, u, *, clamp_val, stub_mis,
+            dielectrics_block, nearest, blocker) -> dict:
+    """One PT bounce in PyTorch with the given intersection functions."""
+    from ..integrators.pt import _light_emission_radiance, _nee
+
+    nl = light_tab.shape[0]
+    hit = hit_from_fields(nearest(packed, ro, rd), ro, rd)
+    act = act & hit.hit
+    wo = -rd
+
+    # ---- 1. a BSDF ray that hit a light ball ----
+    emission, li, okl = _light_emission_radiance(light_tab, hit.pos, depth)
+    has_e = torch.any(emission > 0.0, dim=-1)
+    c_delta = tp * emission
+    c_delta = torch.where(is_valid_color(c_delta)[:, None],
+                          clamp_radiance(c_delta, clamp_val),
+                          torch.zeros_like(c_delta))
+    if stub_mis:
+        c_mis = torch.zeros_like(c_delta)   # the stubbed strategy A
+    else:
+        r = light_tab[li, 11]
+        area = 4.0 * PI * r * r
+        cos_l = torch.clamp(dot(hit.normal, wo), min=1e-6)
+        pdf_l = (1.0 / (nl * area)) * hit.t * hit.t / cos_l
+        p_b = last_pdf * last_pdf
+        p_l = pdf_l * pdf_l
+        mis_w = p_b / torch.clamp(p_b + p_l, min=1e-8)
+        c_mis = tp * emission * mis_w[:, None]
+        c_mis = torch.where((okl & is_valid_color(c_mis))[:, None],
+                            clamp_radiance(c_mis, clamp_val),
+                            torch.zeros_like(c_mis))
+    light_contrib = torch.where(last_delta[:, None], c_delta, c_mis)
+    add_light = act & hit.is_light & has_e
+    radiance = torch.where(add_light[:, None], light_contrib,
+                           torch.zeros_like(light_contrib))
+
+    # lanes that hit a light terminate
+    upd = act & ~hit.is_light
+
+    # ---- 2. NEE ----
+    m = hit.mtl
+    elig = upd & (m.eta <= 0.0) & ((m.metallic < 0.99) | (m.roughness > 0.01))
+    if nl > 0:
+        nee = _nee(packed, light_tab, hit, wo, tp, u[0], u[1], u[2],
+                   dielectrics_block=dielectrics_block, blocker=blocker)
+        nee = torch.where(is_valid_color(nee)[:, None],
+                          clamp_radiance(nee, clamp_val),
+                          torch.zeros_like(nee))
+        radiance = radiance + torch.where(elig[:, None], nee,
+                                          torch.zeros_like(nee))
+
+    # ---- 3. BSDF sample and state update ----
+    s = bsdf_sample(m, wo, hit.normal, u[3], u[4], u[5], eta)
+    dead = (s.pdf <= 0.0) & ~s.is_delta
+    alive = upd & ~dead
+    cos_wi = torch.abs(dot(hit.normal, s.wi))
+    tp_delta = tp * s.value
+    tp_rough = tp * s.value * (cos_wi / torch.clamp(s.pdf, min=1e-20))[:, None]
+    new_tp = torch.where(s.is_delta[:, None], tp_delta, tp_rough)
+    alive = alive & is_valid_color(new_tp)
+    off = torch.where((dot(s.wi, hit.normal) < 0.0)[:, None], -hit.normal,
+                      hit.normal) * EPSILON
+    new_ro = torch.where(s.is_delta[:, None], hit.pos + off,
+                         hit.pos + hit.normal * EPSILON)
+    new_depth = depth + torch.where(s.is_delta, 0, 1).to(depth.dtype)
+
+    u3 = upd[:, None]
+    return dict(
+        radiance=radiance,
+        ro=torch.where(u3, new_ro, ro),
+        rd=torch.where(u3, s.wi, rd),
+        tp=torch.where(u3, new_tp, tp),
+        eta=torch.where(upd, s.new_eta, eta),
+        depth=torch.where(upd, new_depth, depth),
+        alive=upd & alive,
+        last_is_delta=torch.where(upd, s.is_delta, last_delta),
+        last_pdf=torch.where(upd & ~s.is_delta, s.pdf, last_pdf),
+    )
+
+
+def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
+                     last_delta, last_pdf, u, *, clamp_val, stub_mis,
+                     dielectrics_block) -> dict:
+    """Plain PyTorch version of the ``shade_step`` kernel."""
+    _kernels.plain_calls["shade_step"] += 1
+    return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
+                   last_delta, last_pdf, u, clamp_val=clamp_val,
+                   stub_mis=stub_mis, dielectrics_block=dielectrics_block,
+                   nearest=nearest_hit_plain, blocker=any_blocker_plain)
+
+
+def shade_step_split(packed, light_tab, ro, rd, tp, eta, depth, act,
+                     last_delta, last_pdf, u, *, clamp_val, stub_mis,
+                     dielectrics_block) -> dict:
+    """The PyTorch bounce on the nearest-hit and any-blocker wrappers."""
+    return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
+                   last_delta, last_pdf, u, clamp_val=clamp_val,
+                   stub_mis=stub_mis, dielectrics_block=dielectrics_block,
+                   nearest=nearest_hit, blocker=any_blocker)
+
+
+def shade_step(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
+               last_delta, last_pdf, u, *, clamp_val: float, stub_mis: bool,
+               dielectrics_block: bool) -> dict:
+    """One fused bounce of every lane.  ``u`` is a ``(>= 6, B)`` tensor of
+    uniforms (rows 0-2 NEE, 3-5 BSDF).  Returns the bounce's radiance
+    (B, 3) and the updated ro, rd, tp (B, 3), eta, depth, alive,
+    last_is_delta and last_pdf (B,)."""
+    if ro.device.type == "cpu":
+        return shade_step_plain(
+            packed, light_tab, ro, rd, tp, eta, depth, act, last_delta,
+            last_pdf, u, clamp_val=clamp_val, stub_mis=stub_mis,
+            dielectrics_block=dielectrics_block)
+    B = ro.shape[0]
+    dev = ro.device
+    for name, x in (("ro", ro), ("rd", rd), ("tp", tp)):
+        check_tensor(name, x, (B, 3))
+    check_tensor("eta", eta, (B,))
+    check_tensor("depth", depth, (B,), torch.int32)
+    check_tensor("act", act, (B,), torch.bool)
+    check_tensor("last_delta", last_delta, (B,), torch.bool)
+    check_tensor("last_pdf", last_pdf, (B,))
+    if u.dim() != 2 or u.shape[0] < 6:
+        raise ValueError(f"u: expected (>= 6, {B}), got {tuple(u.shape)}")
+    check_tensor("u", u, (u.shape[0], B))
+    check_tensor("light_tab", light_tab, (packed.nl, LIGHT_COLS))
+    check_tables(packed, dev)
+    out = dict(
+        radiance=torch.empty((B, 3), device=dev),
+        ro=torch.empty((B, 3), device=dev),
+        rd=torch.empty((B, 3), device=dev),
+        tp=torch.empty((B, 3), device=dev),
+        eta=torch.empty(B, device=dev),
+        depth=torch.empty(B, dtype=torch.int32, device=dev),
+        alive=torch.empty(B, dtype=torch.bool, device=dev),
+        last_is_delta=torch.empty(B, dtype=torch.bool, device=dev),
+        last_pdf=torch.empty(B, device=dev),
+    )
+    if B:
+        ins = [light_tab, ro, rd, tp, eta, depth, act, last_delta, last_pdf,
+               u]
+        outs = [out[k] for k in ("radiance", "ro", "rd", "tp", "eta",
+                                 "depth", "alive", "last_is_delta",
+                                 "last_pdf")]
+        _kernels.launch(
+            "shade_step", *table_args(packed),
+            *[ctypes.c_void_p(x.data_ptr()) for x in ins],
+            B, float(clamp_val), int(bool(stub_mis)),
+            4 if dielectrics_block else 5,
+            *[ctypes.c_void_p(x.data_ptr()) for x in outs])
+    return out

@@ -1,0 +1,137 @@
+"""Batched ray-scene intersection and shadow transmittance
+(``path_tracing_tpu.ops.intersect``).
+
+The plain versions test every ray against every primitive as one ``(B, N)``
+computation and take the nearest hit as an argmin.  The reference scans
+spheres, then light balls, then triangles, keeping strictly-closer hits;
+concatenating the per-category ``t`` in that order and taking the first
+minimum reproduces that tie-break.
+
+``find_closest_hit`` and ``transmittance`` go through the nearest-hit and
+any-blocker wrappers of ``ops/cuda_intersect.py``: CUDA tensors launch the
+hand-written kernels, CPU tensors take the plain versions.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..scene.types import Material, Scene
+from .math3 import EPSILON, length
+
+INF = 1e20      # miss sentinel
+SHADOW_EPS = 1e-3  # endpoint clearance on both ends of a shadow ray
+
+
+@dataclass
+class Hit:
+    hit: torch.Tensor       # (B,) bool
+    t: torch.Tensor         # (B,)
+    pos: torch.Tensor       # (B, 3)
+    normal: torch.Tensor    # (B, 3) flipped to face the ray
+    mtl: Material           # (B, ...) light hits carry the light-ball material
+    is_light: torch.Tensor  # (B,) bool
+
+
+def sphere_ts(ro, rd, centers, radii, max_dist) -> torch.Tensor:
+    """Per-(ray, sphere) hit distance (B, N) or INF: the near root, else
+    the far root, each inside (EPSILON, max_dist); zero-radius rows never
+    hit.  ``max_dist``: float or (B, 1)."""
+    ocx = ro[:, 0:1] - centers[None, :, 0]
+    ocy = ro[:, 1:2] - centers[None, :, 1]
+    ocz = ro[:, 2:3] - centers[None, :, 2]
+    rdx, rdy, rdz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+    r = radii[None, :]
+    b = ocx * rdx + ocy * rdy + ocz * rdz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
+    h = b * b - c
+    sh = torch.sqrt(torch.clamp(h, min=0.0))
+    t1 = -b - sh
+    t2 = -b + sh
+    ok = (h >= 0.0) & (r > 0.0)
+    v1 = ok & (t1 > EPSILON) & (t1 < max_dist)
+    v2 = ok & (t2 > EPSILON) & (t2 < max_dist)
+    inf = torch.full_like(t1, INF)
+    return torch.where(v1, t1, torch.where(v2, t2, inf))
+
+
+def triangle_ts(ro, rd, v0, v1, v2, max_dist) -> torch.Tensor:
+    """Per-(ray, triangle) Moller-Trumbore hit distance (B, N) or INF, with
+    the reference's 1e-6 determinant window and (EPSILON, max_dist)."""
+    v0x, v0y, v0z = (v0[None, :, k] for k in range(3))
+    e1x, e1y, e1z = (v1[None, :, k] - v0[None, :, k] for k in range(3))
+    e2x, e2y, e2z = (v2[None, :, k] - v0[None, :, k] for k in range(3))
+    rdx, rdy, rdz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+    hx = rdy * e2z - rdz * e2y
+    hy = rdz * e2x - rdx * e2z
+    hz = rdx * e2y - rdy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    parallel = (a > -1e-6) & (a < 1e-6)
+    f = 1.0 / torch.where(parallel, torch.ones_like(a), a)
+    sx, sy, sz = ro[:, 0:1] - v0x, ro[:, 1:2] - v0y, ro[:, 2:3] - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (rdx * qx + rdy * qy + rdz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = (~parallel & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t > EPSILON) & (t < max_dist))
+    return torch.where(ok, t, torch.full_like(t, INF))
+
+
+def hit_from_fields(h: dict, ro, rd) -> Hit:
+    """Assemble a Hit from the nearest-hit field dict (t, nx.., flag)."""
+    flag = h["flag"]
+    return Hit(
+        hit=flag > 0, t=h["t"],
+        pos=ro + rd * h["t"][:, None],
+        normal=torch.stack([h["nx"], h["ny"], h["nz"]], dim=-1),
+        mtl=Material(base_color=torch.stack([h["bcr"], h["bcg"], h["bcb"]],
+                                            dim=-1),
+                     roughness=h["rough"], metallic=h["metal"], eta=h["eta"]),
+        is_light=flag == 2)
+
+
+def find_closest_hit(scene: Scene, ro: torch.Tensor, rd: torch.Tensor
+                     ) -> Hit:
+    """Nearest hit over spheres, light balls and triangles."""
+    from .cuda_intersect import nearest_hit, pack_scene
+
+    return hit_from_fields(nearest_hit(pack_scene(scene), ro, rd), ro, rd)
+
+
+def shadow_ray(p1: torch.Tensor, p2: torch.Tensor):
+    """Endpoint pair -> (direction (B, 3), distance (B,), max_d (B,))."""
+    diff = p2 - p1
+    dist = length(diff)
+    rd = diff * (1.0 / torch.clamp(dist, min=1e-20))[:, None]
+    return rd, dist, dist - SHADOW_EPS
+
+
+def transmittance(scene: Scene, p1: torch.Tensor, p2: torch.Tensor,
+                  dielectrics_block: bool) -> torch.Tensor:
+    """Binary shadow-ray transmittance (B,) between two points.
+
+    ``dielectrics_block=True`` is the GPU rule (every occluder blocks);
+    False is the CPU oracle's (only eta <= 0 materials block).  Light balls
+    never occlude."""
+    from .cuda_intersect import any_blocker, pack_scene
+
+    rd, _, max_d = shadow_ray(p1, p2)
+    blocked = any_blocker(pack_scene(scene), p1, rd, max_d,
+                          dielectrics_block)
+    return torch.where(blocked, torch.zeros_like(max_d),
+                       torch.ones_like(max_d))
+
+
+def shadow_factor(scene: Scene, p1, p2, dielectrics_block: bool
+                  ) -> torch.Tensor:
+    """Shadow transmittance as (B, 3).  The RGB legacy-Ks path is not
+    ported yet: such scenes raise instead of shading with the wrong rule."""
+    if dielectrics_block and scene.has_legacy_ks:
+        raise NotImplementedError(
+            "legacy Ks/refract RGB shadow transmittance is not ported yet")
+    return transmittance(scene, p1, p2, dielectrics_block)[:, None].expand(
+        p1.shape[0], 3)
