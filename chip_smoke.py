@@ -7,21 +7,31 @@ Phases, each raising on failure:
 1. Card: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit as nvidia-smi reports them.
 2. Build: builds the CUDA kernels from ``path_tracing_tpu_torch/csrc`` and
-   prints the build seconds and ptxas registers and spills.
-3. Kernels against their plain PyTorch versions on ``scenes/cornell.txt``,
-   at the main path's lane count (1920x1080 = 2,073,600), with their times
-   (CUDA events).
-4. Render: the PT main path through the CLI at 1920x1080, spp 4, eye depth
-   4 on the card, in the fused tier (one ``shade_step`` kernel per bounce)
-   and the split tier (the nearest-hit and any-blocker kernels around a
-   PyTorch bounce).  Launches are counted over the fused render alone,
-   which is the main path, and separately over the split render; no plain
-   version may run in either.  Then 128x72 spp 4 in the kernel tiers and
-   the plain tier from the same key, compared pixel by pixel.
+   prints the build seconds and each kernel's ptxas registers and spills.
+3. Kernels against their plain PyTorch versions at the main path's lane
+   count (1920x1080 = 2,073,600), with their times (CUDA events):
+   ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
+   ``shade_step`` on ``scenes/cornell.txt``; ``nearest_hit(with_uv)`` and
+   ``shade_step_tex`` on a 1,280-triangle textured icosphere; the
+   ``render_wavefront`` megakernel's 1080p spp 4 image on cornell.
+4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
+   the default tier (auto, which is the megakernel: the main path), the
+   fused tier (one ``shade_step`` per bounce) and the split tier (the
+   nearest-hit and any-blocker kernels around a PyTorch bounce).  Launches
+   are counted over each render on its own; no plain version may run.  The
+   mega image must equal the fused image pixel for pixel (bar: 99.9%).
+   Then 128x72 spp 4 in the kernel tiers and the plain tier from the same
+   key, compared pixel by pixel.
+5. Textured PT: an 81,920-triangle textured icosphere written as OBJ + MTL
+   + PNG, rendered through the CLI at 1920x1080 spp 4 (auto: the fused
+   tier with ``shade_step_tex``); then 128x72 spp 4 on the 1,280-triangle
+   icosphere in the kernel tiers against the plain tier.
 
 The line before the last is a JSON object with one entry per kernel, whose
-``launches`` are the counts of the main path's (fused) run; the last line is ``{"ok": true, "device": {...}}``.  Renders are written under
-``path_tracing_tpu_torch/build/chip_smoke/`` (gitignored).
+``launches`` are the counts of the render of the path it runs on
+(``path``); the last line is ``{"ok": true, "device": {...}}``.  Renders
+and the OBJ scene are written under ``path_tracing_tpu_torch/build/
+chip_smoke/`` (gitignored).
 """
 from __future__ import annotations
 
@@ -41,17 +51,33 @@ OUT = ROOT / "path_tracing_tpu_torch" / "build" / "chip_smoke"
 W, H, SPP = 1920, 1080, 4
 B = W * H                      # 2,073,600 lanes
 SMALL_W, SMALL_H = 128, 72
+MESH_TRIS, SMALL_MESH_TRIS = 81920, 1280
 SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
 REPLACES = {
     "nearest_hit": "path_tracing_tpu/ops/pallas_intersect.py:1685",
     "any_blocker": "path_tracing_tpu/ops/pallas_intersect.py:1753",
     "shade_step": "path_tracing_tpu/ops/pallas_shade.py:917",
+    "shade_step_tex": "path_tracing_tpu/ops/pallas_shade.py:1044",
+    "render_wavefront": "path_tracing_tpu/ops/pallas_shade.py:1281",
+    "threefry_rows": "path_tracing_tpu/ops/rng.py:60",
 }
-# Kernels the main path launches.  The fused tier runs the nearest-hit and
-# shadow sweeps as __device__ functions inside shade_step, so nearest_hit
-# and any_blocker are launched on their own only in phase 3 and the split
-# tier, and count 0 in the main path's run.
-MAIN_PATH_KERNELS = ("shade_step",)
+# the __global__ functions of each entry, as ptxas names them
+PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
+               "shade_step_tex", "shade_step", "render_wavefront",
+               "threefry_rows")
+# The path whose render each kernel's launches are counted over, and the
+# kernels each path must launch.  The megakernel and the per-bounce kernels
+# run the nearest-hit and shadow sweeps as __device__ functions, so
+# nearest_hit and any_blocker are launched on their own only by the split
+# tier (and phase 3).
+KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
+               "shade_step": "fused", "shade_step_tex": "textured",
+               "render_wavefront": "mega", "threefry_rows": "textured"}
+PATH_KERNELS = {"mega": ("render_wavefront",),
+                "fused": ("shade_step", "threefry_rows"),
+                "split": ("nearest_hit", "any_blocker", "threefry_rows"),
+                "textured": ("shade_step_tex", "threefry_rows")}
+PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -95,24 +121,35 @@ def phase_build():
     lib = _kernels.library()
     print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
           f"load {time.perf_counter() - t0:.2f} s")
-    kernel, spills = None, (0, 0)
+    kernel, spills, seen = None, (0, 0), set()
     for line in lib.ptxas_log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in REPLACES if f"{k}_kernel" in line),
-                          None)
+            kernel = next((k for k in PTXAS_NAMES
+                           if re.search(rf"\d{k}_kernel", line)), None)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and kernel:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
+            seen.add(kernel)
             print(f"[build] {kernel}: {m.group(1)} registers, spill stores "
                   f"{spills[0]} B, spill loads {spills[1]} B")
+    if lib.ptxas_log:
+        check(seen == set(PTXAS_NAMES),
+              f"ptxas reported no registers for {set(PTXAS_NAMES) - seen}")
     return lib
 
 
-def main_path_state(scene, cam, u):
-    """Camera rays of the main path's first iteration, (B, 3)."""
+def share_close(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL) -> float:
+    ok = torch.isclose(a.double(), b.double(), rtol=rtol, atol=atol)
+    if ok.dim() > 1:
+        ok = ok.all(dim=1)
+    return ok.float().mean().item()
+
+
+def camera_rays(cam, u):
+    """Camera rays of the first wavefront iteration at W x H, (B, 3)."""
     from path_tracing_tpu_torch.scene.camera import primary_ray_dirs
 
     idx = torch.arange(B, dtype=torch.int32, device="cuda")
@@ -121,43 +158,119 @@ def main_path_state(scene, cam, u):
     return ro, rd
 
 
-def phase_kernels(scene, cam) -> list:
+def fresh_state(ro, rd):
+    return [ro, rd, torch.ones(B, 3, device="cuda"),
+            torch.ones(B, device="cuda"),
+            torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.ones(B, dtype=torch.bool, device="cuda"),
+            torch.ones(B, dtype=torch.bool, device="cuda"),
+            torch.ones(B, device="cuda")]
+
+
+STATE = ("ro", "rd", "tp", "eta", "depth", "alive", "last_is_delta",
+         "last_pdf")
+
+
+def step_state(step, pk, lt, key, st, kw):
+    """The state after two bounces of ``step`` from ``st``, with a third
+    of the lanes woken, and the next iteration's uniforms."""
+    from path_tracing_tpu_torch.ops import rng
+
+    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
+    for it in (1, 2):
+        out = step(pk, lt, *st, u, **kw)
+        st = [out[k] for k in STATE]
+        u = rng.uniform_rows(rng.iter_key(key, it), B, 8, device="cuda")
+    st[5] = st[5] | (torch.arange(B, device="cuda") % 3 == 0)
+    return st, u
+
+
+def compare_step(name, fast, plain, pk, lt, st, u, kw) -> dict:
+    a = fast(pk, lt, *st, u, **kw)
+    b = plain(pk, lt, *st, u, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k in a:
+        share = share_close(a[k], b[k])
+        check(share >= 0.999, f"{name}: {k} agrees on {share:.6f}")
+        err = max(err, (a[k].double() - b[k].double()).abs().max().item())
+    print(f"[kernels] {name} on {B} lanes ({st[5].float().mean().item():.3f}"
+          f" active): every output within rtol 1e-4 / atol 1e-5 on >= 99.9%")
+    ms = time_ms(lambda: fast(pk, lt, *st, u, **kw), 10)
+    plain_ms = time_ms(lambda: plain(pk, lt, *st, u, **kw), 3)
+    return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def compare_hits(pk, ro, rd, with_uv: bool, what: str) -> float:
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops.intersect import INF
+
+    a = ci.nearest_hit(pk, ro, rd, with_uv=with_uv)
+    b = ci.nearest_hit_plain(pk, ro, rd, with_uv=with_uv)
+    torch.cuda.synchronize()
+    check(torch.equal(a["flag"], b["flag"]), f"nearest_hit {what}: flags "
+          "differ")
+    same = torch.isclose(a["t"], b["t"], rtol=1e-5) | (
+        (a["t"] >= INF) & (b["t"] >= INF))
+    share = same.float().mean().item()
+    check(share >= 0.9995, f"nearest_hit {what}: t agrees on {share:.6f}")
+    hit = a["flag"] > 0
+    fields = ci.HIT_FIELDS + (ci.UV_FIELDS if with_uv else ())
+    err = max((a[f] - b[f])[hit].abs().max().item() for f in fields)
+    msg = ""
+    if with_uv:
+        tri = hit & same & (b["tex"] >= 0)
+        uv_ok = ((a["iu"] - b["iu"]).abs() <= 1e-5) & (
+            (a["iv"] - b["iv"]).abs() <= 1e-5) & (a["tex"] == b["tex"])
+        uv_share = uv_ok[tri].float().mean().item()
+        check(uv_share >= 0.9995,
+              f"nearest_hit {what}: iu/iv agree on {uv_share:.6f}")
+        msg = f", iu/iv within 1e-5 on {uv_share:.6f} of textured hits"
+    print(f"[kernels] nearest_hit {what} on {ro.shape[0]} rays: flags "
+          f"equal, t within rtol 1e-5 on {share:.6f}{msg}")
+    return err
+
+
+def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
+    from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators.pt import _light_table
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_shade as cs
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.ops import rng
-    from path_tracing_tpu_torch.ops.intersect import INF, shadow_ray
+    from path_tracing_tpu_torch.ops.intersect import shadow_ray
+
+    results = []
+    key = rng.fold_in(rng.prng_key(0), 0)
+
+    # ---- Threefry table: bit-equal to the int64 torch version ----
+    ik = rng.iter_key(key, 3)
+    a = rng.uniform_rows(ik, B, 8, device="cuda")
+    b = rng.uniform_rows_plain(ik, B, 8, device="cuda")
+    check(torch.equal(a, b), "threefry_rows: draws differ from the plain "
+          "version")
+    print(f"[kernels] threefry_rows (8, {B}): bit-equal to the plain version")
+    results.append(dict(
+        name="threefry_rows", max_abs_err=(a - b).abs().max().item(),
+        ms=time_ms(lambda: rng.uniform_rows(ik, B, 8, device="cuda"), 10),
+        plain_ms=time_ms(
+            lambda: rng.uniform_rows_plain(ik, B, 8, device="cuda"), 3)))
 
     pk = ci.pack_scene(scene)
     lt = _light_table(scene)
-    key = rng.fold_in(rng.prng_key(0), 0)
     u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
-    ro, rd = main_path_state(scene, cam, u)
-    results = []
+    ro, rd = camera_rays(cam, u)
 
     # ---- 1. nearest hit: random rays in the box, then the camera rays ----
     ur = rng.uniform_rows(rng.prng_key(1), 1 << 18, 6, device="cuda")
     rro = (ur[0:3].T * 1.8 - 0.9).contiguous()
     rrd = shadow_ray(torch.zeros_like(rro), (ur[3:6].T - 0.5).contiguous())[0]
-    err = 0.0
-    for o, d in ((rro, rrd), (ro, rd)):
-        a = ci.nearest_hit(pk, o, d)
-        b = ci.nearest_hit_plain(pk, o, d)
-        torch.cuda.synchronize()
-        check(torch.equal(a["flag"], b["flag"]), "nearest_hit: flags differ")
-        same = torch.isclose(a["t"], b["t"], rtol=1e-5) | (
-            (a["t"] >= INF) & (b["t"] >= INF))
-        share = same.float().mean().item()
-        check(share >= 0.9995, f"nearest_hit: t agrees on {share:.6f}")
-        hit = a["flag"] > 0
-        for f in ci.HIT_FIELDS:
-            err = max(err, (a[f] - b[f])[hit].abs().max().item())
-        print(f"[kernels] nearest_hit on {o.shape[0]} rays: flags equal, "
-              f"t within rtol 1e-5 on {share:.6f}")
-    ms = time_ms(lambda: ci.nearest_hit(pk, ro, rd), 10)
-    plain_ms = time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3)
-    results.append(dict(name="nearest_hit", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+    err = max(compare_hits(pk, o, d, False, "cornell")
+              for o, d in ((rro, rrd), (ro, rd)))
+    results.append(dict(
+        name="nearest_hit", max_abs_err=err,
+        ms=time_ms(lambda: ci.nearest_hit(pk, ro, rd), 10),
+        plain_ms=time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3)))
 
     # ---- 2. any blocker: NEE-like shadow rays from the camera hits ----
     hit = ci.nearest_hit(pk, ro, rd)
@@ -181,58 +294,75 @@ def phase_kernels(scene, cam) -> list:
             err = max(err, (a.float() - b.float()).abs().max().item())
         print(f"[kernels] any_blocker dielectrics_block={rule}: verdicts "
               f"equal on {pr1.shape[0]} random and {B} NEE rays")
-    ms = time_ms(lambda: ci.any_blocker(pk, p1, srd, md, True), 10)
-    plain_ms = time_ms(lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3)
-    results.append(dict(name="any_blocker", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+    results.append(dict(
+        name="any_blocker", max_abs_err=err,
+        ms=time_ms(lambda: ci.any_blocker(pk, p1, srd, md, True), 10),
+        plain_ms=time_ms(
+            lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3)))
 
     # ---- 3. shade step on the state after two plain bounces ----
     kw = dict(clamp_val=15.0, stub_mis=True, dielectrics_block=True)
-    st = [ro, rd, torch.ones(B, 3, device="cuda"),
-          torch.ones(B, device="cuda"),
-          torch.zeros(B, dtype=torch.int32, device="cuda"),
-          torch.ones(B, dtype=torch.bool, device="cuda"),
-          torch.ones(B, dtype=torch.bool, device="cuda"),
-          torch.ones(B, device="cuda")]
-    names = ("ro", "rd", "tp", "eta", "depth", "alive", "last_is_delta",
-             "last_pdf")
-    for it in (1, 2):
-        out = cs.shade_step_plain(pk, lt, *st, u, **kw)
-        st = [out[k] for k in names]
-        u = rng.uniform_rows(rng.iter_key(key, it), B, 8, device="cuda")
-    st[5] = st[5] | (torch.arange(B, device="cuda") % 3 == 0)
-    a = cs.shade_step(pk, lt, *st, u, **kw)
-    b = cs.shade_step_plain(pk, lt, *st, u, **kw)
+    st, u2 = step_state(cs.shade_step_plain, pk, lt, key, fresh_state(ro, rd),
+                        kw)
+    results.append(compare_step("shade_step", cs.shade_step,
+                                cs.shade_step_plain, pk, lt, st, u2, kw))
+
+    # ---- 4. the textured bounce on the 1,280-triangle icosphere ----
+    mpk = ci.pack_scene(mesh)
+    mlt = _light_table(mesh)
+    mro, mrd = camera_rays(mesh_cam, u)
+    err = compare_hits(mpk, mro, mrd, True,
+                       f"with_uv ({mesh.num_triangles} tris)")
+    ms = time_ms(lambda: ci.nearest_hit(mpk, mro, mrd, True), 10)
+    plain_ms = time_ms(lambda: ci.nearest_hit_plain(mpk, mro, mrd, True), 3)
+    print(f"[kernels] nearest_hit with_uv: {ms:.3f} ms kernel, "
+          f"{plain_ms:.3f} ms plain, max abs err {err:.3g}")
+    st, u2 = step_state(cs.shade_step_tex_plain, mpk, mlt, key,
+                        fresh_state(mro, mrd), kw)
+    r = compare_step("shade_step_tex", cs.shade_step_tex,
+                     cs.shade_step_tex_plain, mpk, mlt, st, u2, kw)
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    results.append(r)
+
+    # ---- 5. the megakernel's 1080p image against the plain loop ----
+    cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    px, py = idx % W, idx // W
+
+    def mega():
+        return cw.render_wavefront(pk, lt, cam, px, py, SPP, cfg, key)
+
+    def mega_plain():
+        return cw.render_wavefront_plain(pk, lt, cam, px, py, SPP, cfg, key)
+
+    a, b = mega(), mega_plain()
     torch.cuda.synchronize()
-    err = 0.0
-    for k in a:
-        x, y = a[k].double(), b[k].double()
-        ok = torch.isclose(x, y, rtol=1e-4, atol=1e-5)
-        if ok.dim() > 1:
-            ok = ok.all(dim=1)
-        share = ok.float().mean().item()
-        check(share >= 0.999, f"shade_step: {k} agrees on {share:.6f}")
-        err = max(err, (x - y).abs().max().item())
-    print(f"[kernels] shade_step on {B} lanes ({st[5].float().mean().item():.3f}"
-          f" active): every output within rtol 1e-4 / atol 1e-5 on >= 99.9%")
-    ms = time_ms(lambda: cs.shade_step(pk, lt, *st, u, **kw), 10)
-    plain_ms = time_ms(lambda: cs.shade_step_plain(pk, lt, *st, u, **kw), 3)
-    results.append(dict(name="shade_step", max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms))
+    share = share_close(a, b)
+    rel = abs(a.mean().item() - b.mean().item()) / max(b.mean().item(), 1e-6)
+    check(share >= 0.99 and rel < 1e-3,
+          f"render_wavefront: {share:.6f} of pixels agree, mean rel {rel}")
+    equal = (a == b).all(dim=1).float().mean().item()
+    print(f"[kernels] render_wavefront {W}x{H} spp {SPP}: pixels within rtol "
+          f"1e-4 / atol 1e-5 {share:.6f}, bit-equal {equal:.6f}, mean rel "
+          f"diff {rel:.3g}")
+    results.append(dict(name="render_wavefront",
+                        max_abs_err=(a - b).abs().max().item(),
+                        ms=time_ms(mega, 10), plain_ms=time_ms(mega_plain, 1)))
+
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
               f"{r['name']}: max abs err {r['max_abs_err']}")
         print(f"[kernels] {r['name']}: {r['ms']:.3f} ms kernel, "
-              f"{r['plain_ms']:.3f} ms plain at {B} lanes, max abs err "
+              f"{r['plain_ms']:.3f} ms plain, max abs err "
               f"{r['max_abs_err']:.3g}")
     return results
 
 
-def run_cli(w, h, tier, name):
+def run_cli(inp, w, h, tier, name):
     from path_tracing_tpu_torch import cli
 
     out = OUT / f"{name}.png"
-    res = cli.run(["--input", str(SCENE), "--mode", "pt", "--spp", str(SPP),
+    res = cli.run(["--input", str(inp), "--mode", "pt", "--spp", str(SPP),
                    "--width", str(w), "--height", str(h), "--eye-depth", "4",
                    "--device", "cuda", "--tier", tier, "--output", str(out)])
     img = res["image"]
@@ -241,92 +371,125 @@ def run_cli(w, h, tier, name):
           f"{name}: image is not finite")
     check(img.mean() > 0.0, f"{name}: image mean {img.mean()}")
     mpaths = w * h * SPP / res["seconds"] / 1e6
-    print(f"[render] {name}: {w}x{h} spp {SPP} {tier} tier "
+    print(f"[render] {name}: {w}x{h} spp {SPP} {res['tier']} tier "
           f"{res['seconds']:.3f} s, {mpaths:.3f} Mpaths/s, mean "
           f"{img.mean():.6f}")
-    return res, mpaths
+    return res
 
 
-def compare(a, b, what: str) -> None:
+def counted(path, inp, w, h, tier, name, counts):
+    """Render through the CLI with the counts reset just before and read
+    just after; the path's kernels must launch and no plain version run."""
+    from path_tracing_tpu_torch.ops import _kernels
+
+    _kernels.reset_counts()
+    res = run_cli(inp, w, h, tier, name)
+    launches = dict(_kernels.launches)
+    plain = dict(_kernels.plain_calls)
+    print(f"[render] {path} path launches {launches}, plain calls {plain}")
+    check(sum(plain.values()) == 0, f"{path}: plain versions ran: {plain}")
+    for k in PATH_KERNELS[path]:
+        check(launches[k] > 0, f"kernel {k} was not launched by the {path} "
+              "path")
+    counts[path] = launches
+    return res
+
+
+def compare(a, b, what: str, pixel_share: float = 0.99) -> None:
     import numpy as np
 
     rel = abs(a.mean() - b.mean()) / max(abs(a.mean()), 1e-6)
-    close = np.isclose(a, b, rtol=1e-4, atol=1e-5).all(axis=1).mean()
+    close = np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(
+        axis=1).mean()
+    equal = (a == b).all(axis=1).mean()
     print(f"[render] {what}: mean rel diff {rel:.3g}, pixels within "
-          f"rtol 1e-4 / atol 1e-5: {close:.6f}")
+          f"rtol 1e-4 / atol 1e-5: {close:.6f}, bit-equal: {equal:.6f}")
     check(rel < 1e-3, f"{what}: mean differs by {rel}")
-    check(close >= 0.99, f"{what}: only {close} of pixels agree")
+    check(close >= pixel_share, f"{what}: only {close} of pixels agree")
 
 
-def phase_render() -> dict:
+def small_tiers(scene_src, tiers, what):
+    """128x72 spp 4 in the kernel tiers against the plain tier, same key."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators.pt import render_pt
-    from path_tracing_tpu_torch.ops import _kernels, rng
+    from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
-    from path_tracing_tpu_torch.scene.parser import load_scene
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    run_cli(SMALL_W, SMALL_H, "fused", "warmup")
-
-    # ---- the main path (fused tier), counted on its own ----
-    _kernels.reset_counts()
-    fused, _ = run_cli(W, H, "fused", "pt_1080p_fused")
-    launches = dict(_kernels.launches)
-    plain = dict(_kernels.plain_calls)
-    print(f"[render] main-path launches {launches}, plain calls {plain}")
-    check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
-    for k in MAIN_PATH_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched by the main path")
-
-    # ---- the split tier: kernels #1 and #2 launched on their own ----
-    _kernels.reset_counts()
-    split, _ = run_cli(W, H, "split", "pt_1080p_split")
-    split_launches = dict(_kernels.launches)
-    plain = dict(_kernels.plain_calls)
-    print(f"[render] split-tier launches {split_launches}, plain calls "
-          f"{plain}")
-    check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
-    for k in ("nearest_hit", "any_blocker"):
-        check(split_launches[k] > 0,
-              f"kernel {k} was not launched by the split tier")
-    rel = abs(fused["image"].mean() - split["image"].mean()) / \
-        fused["image"].mean()
-    print(f"[render] 1080p fused vs split: mean rel diff {rel:.3g}")
-    check(rel < 1e-3, "1080p fused and split tiers disagree")
-
-    # ---- 128x72: kernel tiers against the plain tier, same key ----
-    p = load_scene(str(SCENE))
-    scene = p.to_device("cuda")
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
-                      device="cuda")
+    scene = scene_src.to_device("cuda")
+    cam = make_camera(scene_src.eye, scene_src.look_at, scene_src.view_up,
+                      scene_src.fov, SMALL_W, SMALL_H, device="cuda")
     cfg = RenderConfig(width=SMALL_W, height=SMALL_H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
     imgs = {t: render_pt(scene, cam, SMALL_W, SMALL_H, SPP, cfg, key,
                          tier=t).cpu().numpy()
-            for t in ("fused", "split", "plain")}
-    compare(imgs["plain"], imgs["fused"], "128x72 fused vs plain")
-    compare(imgs["plain"], imgs["split"], "128x72 split vs plain")
-    return launches
+            for t in (*tiers, "plain")}
+    for t in tiers:
+        compare(imgs["plain"], imgs[t], f"{what} 128x72 {t} vs plain")
+
+
+def phase_render(counts: dict) -> None:
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    run_cli(SCENE, SMALL_W, SMALL_H, "auto", "warmup")
+
+    # ---- the main path: the CLI's default tier, the megakernel ----
+    mega = counted("mega", SCENE, W, H, "auto", "pt_1080p_mega", counts)
+    check(mega["tier"] == "mega", f"auto picked {mega['tier']} on cornell")
+    check(counts["mega"]["render_wavefront"] == 1
+          and counts["mega"]["shade_step"] == 0,
+          f"mega path launches {counts['mega']}")
+    fused = counted("fused", SCENE, W, H, "fused", "pt_1080p_fused", counts)
+    split = counted("split", SCENE, W, H, "split", "pt_1080p_split", counts)
+    compare(fused["image"], mega["image"], "1080p mega vs fused", 0.999)
+    compare(fused["image"], split["image"], "1080p split vs fused")
+    small_tiers(load_scene(str(SCENE)), ("mega", "fused", "split"),
+                "cornell")
+
+
+def phase_textured(counts: dict) -> None:
+    from path_tracing_tpu_torch.scene import synth
+
+    t0 = time.perf_counter()
+    obj = synth.write_obj(synth.icosphere_scene(MESH_TRIS, textured=True),
+                          str(OUT / f"icosphere_{MESH_TRIS}.obj"))
+    print(f"[textured] wrote {obj} in {time.perf_counter() - t0:.1f} s")
+    res = counted("textured", obj, W, H, "auto", "tex_1080p", counts)
+    check(res["tier"] == "fused", f"auto picked {res['tier']} on a "
+          "textured scene")
+    check(counts["textured"]["nearest_hit"] == 0,
+          "the textured bounce took its hit from the nearest_hit kernel")
+    small_tiers(synth.icosphere_scene(SMALL_MESH_TRIS, textured=True),
+                ("fused", "split"), f"textured icosphere {SMALL_MESH_TRIS}")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     name = phase_card()
     phase_build()
 
+    from path_tracing_tpu_torch.scene import synth
     from path_tracing_tpu_torch.scene.camera import make_camera
     from path_tracing_tpu_torch.scene.parser import load_scene
 
     p = load_scene(str(SCENE))
-    scene = p.to_device("cuda")
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
                       device="cuda")
-    results = phase_kernels(scene, cam)
-    launches = phase_render()
+    m = synth.icosphere_scene(SMALL_MESH_TRIS, textured=True)
+    mesh_cam = make_camera(m.eye, m.look_at, m.view_up, m.fov, W, H,
+                           device="cuda")
+    results = phase_kernels(p.to_device("cuda"), cam, m.to_device("cuda"),
+                            mesh_cam)
+    counts: dict = {}
+    phase_render(counts)
+    phase_textured(counts)
     for r in results:
+        path = KERNEL_PATH[r["name"]]
         r.update(route="cuda", source=SOURCE, replaces=REPLACES[r["name"]],
-                 launches=launches[r["name"]])
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+                 path=path, launches=counts[path][r["name"]])
+    keys = ("name", "route", "source", "replaces", "path", "launches",
+            "max_abs_err", "ms", "plain_ms")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -5,10 +5,12 @@
         --mode pt --spp 4 --width 1920 --height 1080 --device cuda \\
         --output out.png
 
-Frame ``i`` renders from ``fold_in(PRNGKey(seed), i)``, as the JAX CLI
-does, so both packages render the same image from the same seed.
-``--device cuda`` needs a CUDA card and fails without one; it never falls
-back to the CPU.
+``--input`` takes a text scene or a ``.obj`` (with its MTL and textures;
+the camera and lights come from a companion ``<name>.lights.txt`` or a
+default framing).  Frame ``i`` renders from ``fold_in(PRNGKey(seed), i)``,
+as the JAX CLI does, so both packages render the same image from the same
+seed.  ``--device cuda`` needs a CUDA card and fails without one; it never
+falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -50,10 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--fix-pt-mis", action="store_true",
                     help="enable the MIS light-hit term the reference stubbed")
-    ap.add_argument("--tier", choices=TIERS, default="fused",
-                    help="PT bounce: fused shade_step kernel (default), "
-                         "split nearest-hit/any-blocker kernels around a "
-                         "PyTorch bounce, or plain PyTorch")
+    ap.add_argument("--tier", choices=TIERS, default="auto",
+                    help="PT path: auto (default: mega, or fused for "
+                         "textured scenes), mega (one render_wavefront "
+                         "kernel), fused (one bounce kernel per iteration), "
+                         "split (nearest-hit/any-blocker kernels around a "
+                         "PyTorch bounce) or plain PyTorch")
     return ap
 
 
@@ -73,17 +77,21 @@ def run(argv=None) -> dict:
 
     from .config import RenderConfig
     from .film import AccumState, save_image
-    from .integrators.pt import render_pt
+    from .integrators.pt import render_pt, resolve_tier
     from .ops import rng
     from .scene.camera import make_camera
-    from .scene.parser import load_scene
+    from .scene.obj_loader import load_any_scene
 
     if not os.path.exists(args.input):
         raise CliError(f"Cannot open input file: {args.input}")
-    parsed = load_scene(args.input)
+    parsed = load_any_scene(args.input)
     W = args.width or parsed.width
     H = args.height or parsed.height
     scene = parsed.to_device(device)
+    try:
+        tier = resolve_tier(scene, args.tier)
+    except (ValueError, NotImplementedError) as e:
+        raise CliError(str(e)) from e
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       W, H, device=device, force_fov=args.force_fov)
     cfg = RenderConfig(width=W, height=H, spp=args.spp,
@@ -93,7 +101,7 @@ def run(argv=None) -> dict:
             else "cpu")
     print("====================================")
     print(f" Device : {args.device} ({name})")
-    print(f" Mode   : {args.mode} ({args.tier})")
+    print(f" Mode   : {args.mode} ({tier} tier)")
     print(f" SPP    : {args.spp}")
     print(f" Input  : {args.input}")
     print(f" Output : {args.output}")
@@ -113,7 +121,7 @@ def run(argv=None) -> dict:
     t0 = time.perf_counter()
     for i in range(args.iters):
         frame = render_pt(scene, cam, W, H, args.spp, cfg,
-                          rng.fold_in(key, i), tier=args.tier)
+                          rng.fold_in(key, i), tier=tier)
         state = state.add(frame)
         sync()
         print(f"[Render] iter {i + 1}: "
@@ -129,7 +137,7 @@ def run(argv=None) -> dict:
     save_image(args.output, linear, W, H)
     print("[Success] Image saved!")
     return dict(image=linear, width=W, height=H, spp=args.spp,
-                iters=args.iters, seconds=seconds, device=name)
+                iters=args.iters, seconds=seconds, device=name, tier=tier)
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,7 @@
-// Device functions shared by the PT kernels of pt_kernels.cu: ray-primitive
-// tests, the cluster walk, nearest hit, the shadow sweep, Fresnel, GGX,
-// VNDF sampling, BSDF eval/pdf and bsdf_sample.
+// Device functions shared by the PT kernels of pt_kernels.cu: Threefry,
+// ray-primitive tests, the cluster walk, nearest hit (optionally with the
+// winner's interpolated UVs), the shadow sweep, the bilinear atlas fetch,
+// Fresnel, GGX, VNDF sampling, BSDF eval/pdf and bsdf_sample.
 //
 // The math follows path_tracing_tpu/ops/pallas_shade.py and
 // pallas_intersect.py operation for operation (built with --fmad=false, so
@@ -13,12 +14,14 @@
 //                 eta is_light 0        (spheres, then light balls)
 //   tri (Mt, 24): v0 v1 v2 | blocks_gpu blocks_cpu 0 | n3 0 | r g b rough
 //                 metal eta 0 0
+//   uv  (Mt, 8):  u0 v0 u1 v1 u2 v2 tex 0   (tex = -1: untextured)
 //   cl  (Mc, 8):  min3 max3 start count
 //   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace ptk {
 
@@ -26,7 +29,7 @@ constexpr float kEps = 1e-4f;      // EPSILON of ops/math3.py
 constexpr float kInf = 1e20f;      // miss sentinel
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kMinD = 1e-3f;     // shadow-ray endpoint clearance
-constexpr int kSphCols = 16, kTriCols = 24, kClCols = 8, kLightCols = 12;
+constexpr int kSphCols = 16, kTriCols = 24, kUvCols = 8, kClCols = 8, kLightCols = 12;
 
 struct V3 {
   float x, y, z;
@@ -81,9 +84,57 @@ struct Tables {
   const float* __restrict__ sph;
   int ns, nl;
   const float* __restrict__ tri;
+  const float* __restrict__ uv;
   const float* __restrict__ cl;
   int nc;
 };
+
+// ---------------------------------------------------------------------------
+// Threefry-2x32 (20 rounds), bit-exact with jax.random and ops/rng.py on
+// native uint32 words
+// ---------------------------------------------------------------------------
+
+struct Key {
+  uint32_t k0, k1;
+};
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+__device__ __forceinline__ void threefry2x32(Key k, uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k.k0, k.k1, k.k0 ^ k.k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][j]) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + (uint32_t)(i + 1);
+  }
+}
+
+// jax.random.fold_in: threefry2x32(key, (0, d))
+__device__ __forceinline__ Key fold_in(Key k, uint32_t d) {
+  uint32_t x0 = 0u, x1 = d;
+  threefry2x32(k, x0, x1);
+  return {x0, x1};
+}
+
+// Element [j, start + lane] of a global (n, total) uniform draw: counter
+// j*total + start + lane (high word 0), o0 ^ o1, the top 23 bits as the
+// mantissa of a float in [1, 2), minus 1, then 1 - u: a float in (0, 1].
+// The counter holds in 32 bits while n*total < 2^32 (the wrappers check).
+__device__ __forceinline__ float uniform_at(Key k, int j, uint32_t lane, uint32_t start,
+                                            uint32_t total) {
+  uint32_t x0 = 0u, x1 = (uint32_t)j * total + start + lane;
+  threefry2x32(k, x0, x1);
+  float u = __uint_as_float(((x0 ^ x1) >> 9) | 0x3F800000u) - 1.0f;
+  return 1.0f - u;
+}
 
 // ---------------------------------------------------------------------------
 // primitive tests
@@ -107,8 +158,10 @@ __device__ __forceinline__ float sphere_t(V3 ro, V3 rd, const float* __restrict_
   return v1 ? t1 : (v2 ? t2 : kInf);
 }
 
-// Moller-Trumbore against one triangle row; returns t, or kInf on a miss.
-__device__ __forceinline__ float triangle_t(V3 ro, V3 rd, const float* __restrict__ T) {
+// Moller-Trumbore against one triangle row; returns t, or kInf on a miss,
+// and the barycentrics u, v (weights of v1 and v2).
+__device__ __forceinline__ float triangle_t(V3 ro, V3 rd, const float* __restrict__ T, float* u_out,
+                                            float* v_out) {
   V3 v0 = mk(T[0], T[1], T[2]);
   V3 e1 = mk(T[3] - v0.x, T[4] - v0.y, T[5] - v0.z);
   V3 e2 = mk(T[6] - v0.x, T[7] - v0.y, T[8] - v0.z);
@@ -123,6 +176,8 @@ __device__ __forceinline__ float triangle_t(V3 ro, V3 rd, const float* __restric
   float t = f * dot3(e2, q);
   bool ok = !parallel && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) &&
             (t > kEps);
+  *u_out = u;
+  *v_out = v;
   return ok ? t : kInf;
 }
 
@@ -151,14 +206,23 @@ struct HitRec {
   V3 n;    // flipped toward the ray
   Mtl m;
   int flag;  // 0 miss, 1 surface, 2 light ball
+  // kUV only: the winner's interpolated texture coordinates and texture id
+  // (0, 0, -1 for spheres, light balls, misses and untextured triangles)
+  float iu, iv, tex;
 };
 
+// kUV keeps the winning triangle's Moller-Trumbore barycentrics and
+// interpolates its vertex UVs as ops/texture.py::interpolate_uv does:
+// w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.
+template <bool kUV>
 __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
   HitRec best;
   best.t = kInf;
   best.n = mk(0.f, 0.f, 0.f);
   best.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
   best.flag = 0;
+  int best_tri = -1;
+  float best_u = 0.f, best_v = 0.f;
   for (int i = 0; i < tb.ns + tb.nl; ++i) {
     const float* s = tb.sph + i * kSphCols;
     V3 oc;
@@ -181,18 +245,34 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
     int start = (int)C[6];
     for (int i = start; i < start + count; ++i) {
       const float* T = tb.tri + i * kTriCols;
-      float t = triangle_t(ro, rd, T);
+      float u, v;
+      float t = triangle_t(ro, rd, T, &u, &v);
       if (t < best.t) {
         best.t = t;
         best.n = mk(T[12], T[13], T[14]);
         best.m = {mk(T[16], T[17], T[18]), T[19], T[20], T[21]};
         best.flag = 1;
+        if (kUV) {
+          best_tri = i;
+          best_u = u;
+          best_v = v;
+        }
       }
     }
   }
   float sgn = dot3(best.n, rd) > 0.0f ? -1.0f : 1.0f;
   best.n = scale(best.n, sgn);
   if (!(best.t < kInf)) best.flag = 0;
+  best.iu = 0.0f;
+  best.iv = 0.0f;
+  best.tex = -1.0f;
+  if (kUV && best_tri >= 0) {
+    const float* U = tb.uv + best_tri * kUvCols;
+    float w0 = 1.0f - best_u - best_v;
+    best.iu = w0 * U[0] + best_u * U[2] + best_v * U[4];
+    best.iv = w0 * U[1] + best_u * U[3] + best_v * U[5];
+    best.tex = U[6];
+  }
   return best;
 }
 
@@ -216,11 +296,58 @@ __device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int
     for (int i = start; i < start + count; ++i) {
       const float* T = tb.tri + i * kTriCols;
       if (!(T[blocks_col + 5] > 0.0f)) continue;
-      float t = triangle_t(p1, rd, T);
+      float u, v;
+      float t = triangle_t(p1, rd, T, &u, &v);
       if (t < md && t > kMinD) return true;
     }
   }
   return false;
+}
+
+// ---------------------------------------------------------------------------
+// texture atlas: (n, th1, tw1, 3) float32, texture t in the top-left
+// size[t] = (h, w) texels of its slice plus a one-texel wrapped border
+// (row h = row 0, col w = col 0), as scene/parser.py builds it
+// ---------------------------------------------------------------------------
+
+struct Tex {
+  const float* __restrict__ atlas;
+  const int* __restrict__ size;
+  int n, th1, tw1;
+};
+
+__device__ __forceinline__ int floor_mod(int a, int n) {
+  int r = a % n;
+  return r < 0 ? r + n : r;
+}
+
+// Bilinear fetch with wrap addressing (ops/texture.py::sample_bilinear):
+// uv wrapped to [0, 1), v flipped (image row 0 is the top), texel centers at
+// half-integers; the 2x2 footprint starts at the floor-mod wrapped texel and
+// is clamped into the slice as a CLIP-mode gather clamps its start.
+__device__ V3 sample_bilinear_dev(const Tex& tx, int tex_id, float iu, float iv) {
+  int t = min(max(tex_id, 0), tx.n - 1);
+  float h = (float)tx.size[2 * t];
+  float w = (float)tx.size[2 * t + 1];
+  float fu = iu - floorf(iu);
+  float fv = iv - floorf(iv);
+  float x = fu * w - 0.5f;
+  float y = (1.0f - fv) * h - 0.5f;
+  float x0 = floorf(x);
+  float y0 = floorf(y);
+  float ax = x - x0;
+  float ay = y - y0;
+  int xi = floor_mod((int)x0, max((int)w, 1));
+  int yi = floor_mod((int)y0, max((int)h, 1));
+  xi = min(max(xi, 0), tx.tw1 - 2);
+  yi = min(max(yi, 0), tx.th1 - 2);
+  const float* r0 = tx.atlas + ((size_t)(t * tx.th1 + yi) * tx.tw1 + xi) * 3;
+  const float* r1 = r0 + (size_t)tx.tw1 * 3;
+  float bx = 1.0f - ax;
+  float by = 1.0f - ay;
+  V3 top = scale(mk(r0[0], r0[1], r0[2]), bx) + scale(mk(r0[3], r0[4], r0[5]), ax);
+  V3 bot = scale(mk(r1[0], r1[1], r1[2]), bx) + scale(mk(r1[3], r1[4], r1[5]), ax);
+  return scale(top, by) + scale(bot, ay);
 }
 
 // ---------------------------------------------------------------------------

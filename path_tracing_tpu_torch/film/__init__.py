@@ -1,4 +1,4 @@
-"""Film: progressive accumulation, tone mapping and PNG output
+"""Film: progressive accumulation, tone mapping, PNG output and input
 (``path_tracing_tpu.film``; checkpoints are not ported yet)."""
 from __future__ import annotations
 
@@ -55,6 +55,60 @@ def encode_png(rgb_u8: np.ndarray) -> bytes:
 def write_png(path: str, rgb_u8: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(rgb_u8))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Dependency-free PNG reader: 8-bit RGB, not interlaced, every row
+    filter.  Returns (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, w, h, idat = 8, None, None, b""
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, bit, color, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                              body[:13])
+            if bit != 8 or color != 2 or interlace:
+                raise ValueError(f"{path}: only 8-bit RGB non-interlaced "
+                                 "PNGs are read")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + ln
+    raw = zlib.decompress(idat)
+    stride, bpp = w * 3, 3
+    out = np.zeros((h, w, 3), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for i in range(h):
+        row = raw[i * (stride + 1):(i + 1) * (stride + 1)]
+        ft = row[0]
+        line = np.frombuffer(row[1:], np.uint8).astype(np.int32)
+        if ft == 1:        # Sub
+            for j in range(bpp, stride):
+                line[j] = (line[j] + line[j - bpp]) & 0xFF
+        elif ft == 2:      # Up
+            line = (line + prev) & 0xFF
+        elif ft == 3:      # Average
+            for j in range(stride):
+                a = line[j - bpp] if j >= bpp else 0
+                line[j] = (line[j] + (a + prev[j]) // 2) & 0xFF
+        elif ft == 4:      # Paeth
+            for j in range(stride):
+                a = line[j - bpp] if j >= bpp else 0
+                b = prev[j]
+                c = prev[j - bpp] if j >= bpp else 0
+                p = a + b - c
+                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+                line[j] = (line[j] + pred) & 0xFF
+        elif ft != 0:
+            raise ValueError(f"{path}: unknown PNG row filter {ft}")
+        out[i] = line.reshape(w, 3)
+        prev = line
+    return out
 
 
 def save_image(path: str, linear, width: int, height: int) -> None:

@@ -14,19 +14,26 @@ Semantics kept from the reference, as the JAX package keeps them:
   iterations bound a path instead;
 - every contribution is validity-checked and clamped at ``cfg.clamp``.
 
-``wavefront_pt`` is the fused per-bounce tier: a Python loop that launches
-one ``shade_step`` per iteration and draws the uniforms outside the kernel
-from the global Threefry counters, exactly as the JAX package's
-``PT_TPU_NO_MEGAKERNEL`` path does, so the two render the same image from
-the same key.
+``wavefront_pt`` picks a tier as the JAX package's ``wavefront_pt`` picks
+its path on an accelerator: scenes without textures or legacy Ks render in
+the megakernel (``ops/cuda_wavefront.py``, one launch for the whole spp
+loop), textured scenes in the per-bounce tier with the textured bounce.
+The per-bounce tiers (``wavefront_loop``) are a Python loop that launches
+one bounce step per iteration and draws the uniforms from the global
+Threefry counters, exactly as the JAX package's ``PT_TPU_NO_MEGAKERNEL``
+path does, so the two render the same image from the same key; the
+megakernel draws the very same numbers in the kernel, so its image equals
+the fused tier's pixel for pixel.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..config import RenderConfig
 from ..ops import rng
-from ..ops.cuda_intersect import pack_scene
+from ..ops.cuda_intersect import PackedScene, pack_scene
 from ..ops.intersect import Hit, shadow_ray
 from ..ops.math3 import (EPSILON, PI, dot, is_valid_color, length,
                          normalize)
@@ -35,10 +42,12 @@ from ..ops.bsdf import bsdf_eval_pdf
 from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Scene
 
-# "fused": one shade_step kernel per bounce; "split": the nearest-hit and
-# any-blocker kernels around a PyTorch bounce; "plain": PyTorch only.  On
-# CPU tensors all three run the same plain code.
-TIERS = ("fused", "split", "plain")
+# "mega": one render_wavefront kernel for the whole render; "fused": one
+# shade_step (textured: shade_step_tex) kernel per bounce; "split": the
+# nearest-hit and any-blocker kernels around a PyTorch bounce; "plain":
+# PyTorch only; "auto": mega, or fused for textured scenes.  On CPU tensors
+# every tier runs the same plain code.
+TIERS = ("auto", "mega", "fused", "split", "plain")
 
 
 def _light_table(scene: Scene) -> torch.Tensor:
@@ -150,38 +159,75 @@ def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
                        torch.where(gate_sph[:, None], contrib_sph, zero))
 
 
-def _step_fn(tier: str):
-    from ..ops import cuda_shade
-
-    steps = {"fused": cuda_shade.shade_step,
-             "split": cuda_shade.shade_step_split,
-             "plain": cuda_shade.shade_step_plain}
-    if tier not in steps:
+def resolve_tier(scene: Scene, tier: str) -> str:
+    """The tier that renders ``scene`` when ``tier`` is asked for: "auto"
+    is "mega" for scenes without textures or legacy Ks and "fused"
+    otherwise, as the JAX package gates its megakernel.  Raises
+    ValueError for an unknown tier or "mega" on a textured scene, and
+    NotImplementedError for legacy-Ks scenes (not ported yet)."""
+    if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
-    return steps[tier]
+    if scene.has_legacy_ks:
+        raise NotImplementedError(
+            "legacy-Ks scenes are not ported yet (ROADMAP queue 1: legacy-Ks "
+            "transmittance)")
+    if tier == "auto":
+        return "fused" if scene.has_textures else "mega"
+    if tier == "mega" and scene.has_textures:
+        raise ValueError("tier 'mega' does not render textured scenes (the "
+                         "megakernel is gated off them, as on the TPU); use "
+                         "'auto' or 'fused'")
+    return tier
+
+
+def _step_fn(tier: str, textured: bool):
+    """The bounce step of a per-bounce tier."""
+    from ..ops import cuda_shade as cs
+
+    if textured:
+        return {"fused": cs.shade_step_tex,
+                "split": functools.partial(cs.shade_step_split, tex=True),
+                "plain": cs.shade_step_tex_plain}[tier]
+    return {"fused": cs.shade_step, "split": cs.shade_step_split,
+            "plain": cs.shade_step_plain}[tier]
 
 
 def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
                  px: torch.Tensor, py: torch.Tensor, spp: int, key,
                  start: int = 0, total: int | None = None,
-                 tier: str = "fused") -> torch.Tensor:
+                 tier: str = "auto") -> torch.Tensor:
     """Wavefront PT with path regeneration: one persistent lane per pixel;
-    a lane whose path ends starts the pixel's next sample in the next
-    iteration.  Returns the per-pixel radiance SUM over ``spp`` samples.
+    a lane whose path ends starts the pixel's next sample.  Returns the
+    per-pixel radiance SUM over ``spp`` samples.
 
     ``start``/``total``: the lanes are rows [start, start+B) of a global
     ``total``-lane render and draw the matching Threefry counters.
-    ``tier`` picks the bounce step (see ``TIERS``)."""
-    if scene.has_textures or scene.has_legacy_ks:
-        raise NotImplementedError(
-            "textured and legacy-Ks scenes are not ported yet (ROADMAP "
-            "queue 2: shade_step_tex; queue 1: legacy-Ks transmittance)")
-    step = _step_fn(tier)
-    dev = px.device
-    B = px.shape[0]
+    ``tier`` picks the path (see ``TIERS`` and ``resolve_tier``)."""
+    from ..ops.cuda_wavefront import render_wavefront
+
+    tier = resolve_tier(scene, tier)
     packed = pack_scene(scene)
     light_tab = _light_table(scene)
+    if tier == "mega":
+        return render_wavefront(packed, light_tab, cam, px, py, spp, cfg,
+                                key, start, total)
+    draw = rng.uniform_rows_plain if tier == "plain" else rng.uniform_rows
+    return wavefront_loop(packed, light_tab, cam, cfg, px, py, spp, key,
+                          start, total, _step_fn(tier, scene.has_textures),
+                          draw)
 
+
+def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
+                   cam: Camera, cfg: RenderConfig, px: torch.Tensor,
+                   py: torch.Tensor, spp: int, key, start: int,
+                   total: int | None, step, draw=rng.uniform_rows
+                   ) -> torch.Tensor:
+    """The per-bounce wavefront: one ``step`` (a bounce function of
+    ``ops/cuda_shade.py``) per iteration over every lane, with the
+    iteration's uniforms from ``draw`` (``rng.uniform_rows`` or its plain
+    version), regeneration, the iteration budget and per-pixel sums."""
+    dev = px.device
+    B = px.shape[0]
     f32 = dict(device=dev, dtype=torch.float32)
     i32 = dict(device=dev, dtype=torch.int32)
     image = torch.zeros((B, 3), **f32)
@@ -202,8 +248,7 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
     it = 0
     # one host sync per iteration: stop once no lane is alive or owes samples
     while it < max_total and bool(torch.any(alive | (sample < spp))):
-        u = rng.uniform_rows(rng.iter_key(key, it), B, 8, start, total,
-                             device=dev)
+        u = draw(rng.iter_key(key, it), B, 8, start, total, device=dev)
 
         # ---- regenerate dead lanes that still owe samples ----
         regen = ~alive & (sample < spp)
@@ -251,7 +296,7 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
 
 
 def render_pt(scene: Scene, cam: Camera, width: int, height: int, spp: int,
-              cfg: RenderConfig, key, tier: str = "fused") -> torch.Tensor:
+              cfg: RenderConfig, key, tier: str = "auto") -> torch.Tensor:
     """One PT frame: mean radiance over ``spp`` paths per pixel, (H*W, 3),
     on the scene's device."""
     B = width * height

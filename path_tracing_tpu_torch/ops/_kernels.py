@@ -32,17 +32,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-KERNELS = ("nearest_hit", "any_blocker", "shade_step")
+KERNELS = ("nearest_hit", "any_blocker", "shade_step", "shade_step_tex",
+           "render_wavefront", "threefry_rows")
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TABLES = [_P, _I, _I, _P, _P, _I]   # sph, ns, nl, tri, cl, n_clusters
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# sph, ns, nl, tri, uv, cl, n_clusters
+_TABLES = [_P, _I, _I, _P, _P, _P, _I]
+# lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u | B, clamp,
+# stub_mis, blocks_col | 9 outputs
+_STEP = [_P] * 10 + [_I, _F, _I, _I] + [_P] * 9
+# every entry ends in the stream
 _ARGTYPES = {
-    "nearest_hit": _TABLES + [_P, _P, _I, _P, _P, _P],
+    "nearest_hit": _TABLES + [_I, _P, _P, _I, _P, _P, _P],
     "any_blocker": _TABLES + [_P, _P, _P, _I, _I, _P, _P],
-    "shade_step": _TABLES + [_P] + [_P] * 9 + [_I, _F, _I, _I]
-                  + [_P] * 9 + [_P],
+    "shade_step": _TABLES + _STEP + [_P],
+    "shade_step_tex": _TABLES + [_P, _P, _I, _I, _I] + _STEP + [_P],
+    "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _U, _U, _U, _U, _F, _I, _I, _P, _P],
+    "threefry_rows": [_U, _U, _I, _I, _U, _U, _P, _P],
 }
 
 

@@ -11,12 +11,19 @@ same as the JAX package's ``pack_scene``:
 - triangles, ``(Mt, 24)``: ``[v0, v1, v2, blocks_gpu, blocks_cpu, 0,
   normal3, 0, r, g, b, roughness, metallic, eta, 0, 0]``;
 - clusters, ``(Mc, 8)``: ``[min3, max3, start, count]``;
+- triangle UVs, ``(Mt, 8)``: ``[u0, v0, u1, v1, u2, v2, tex, 0]`` with
+  ``tex = -1`` for an untextured triangle (the JAX package's columns 24-30
+  of its ``with_uv`` triangle table, kept apart here so the untextured
+  sweeps keep their 24-column stride);
 
-each padded with zero rows to a multiple of 8.
+each padded with zero rows to a multiple of 8, and the scene's texture
+atlas and sizes as they are.
 
 Each kernel has a wrapper and a plain version side by side.  The wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it launches
-the kernel of ``csrc/pt_kernels.cu`` or raises.
+the kernel of ``csrc/pt_kernels.cu`` or raises.  The plain sweeps are brute
+force over ``(rays, primitives)`` and run in chunks of rays, so a mesh at
+full lane count stays within device memory.
 """
 from __future__ import annotations
 
@@ -27,20 +34,27 @@ import torch
 
 from ..scene.types import Scene
 from . import _kernels
-from .intersect import INF, SHADOW_EPS, sphere_ts, triangle_ts
+from .intersect import INF, SHADOW_EPS, mt_core, sphere_ts, triangle_ts
 from .math3 import cross, dot, length
+from .texture import interpolate_uv
 
 SUB = 8
-SPH_COLS, TRI_COLS, CL_COLS = 16, 24, 8
+SPH_COLS, TRI_COLS, UV_COLS, CL_COLS = 16, 24, 8, 8
 HIT_FIELDS = ("t", "nx", "ny", "nz", "bcr", "bcg", "bcb", "rough", "metal",
               "eta")
+UV_FIELDS = ("iu", "iv", "tex")
+# elements of one (rays, primitives) intermediate of a plain sweep
+_PLAIN_CHUNK = 1 << 25
 
 
 @dataclass
 class PackedScene:
     sph: torch.Tensor  # (Ms, 16) spheres then light balls
     tri: torch.Tensor  # (Mt, 24)
+    uv: torch.Tensor   # (Mt, 8)
     cl: torch.Tensor   # (Mc, 8)
+    atlas: torch.Tensor     # (NT, TH+1, TW+1, 3)
+    tex_size: torch.Tensor  # (NT, 2) int32: h, w
     ns: int
     nl: int
     nt: int
@@ -48,6 +62,10 @@ class PackedScene:
     @property
     def device(self) -> torch.device:
         return self.sph.device
+
+    @property
+    def textured(self) -> bool:
+        return self.atlas.shape[0] > 0
 
 
 def _rowpad(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -61,9 +79,6 @@ def _padded_rows(n: int) -> int:
 
 
 def pack_scene(scene: Scene) -> PackedScene:
-    if scene.has_textures:
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP: shade_step_tex)")
     ns, nl, nt = scene.num_spheres, scene.num_lights, scene.num_triangles
     dev = scene.device
 
@@ -95,23 +110,37 @@ def pack_scene(scene: Scene) -> PackedScene:
         mtl_cols(scene.tri_mtl, nt), z(nt, 1)], 1)
     tri = _rowpad(tri_rows, _padded_rows(nt))
 
+    textured = scene.has_textures and scene.tri_uv.shape[0] == nt
+    uv6 = scene.tri_uv if textured else z(nt, 6)
+    tex = (scene.tri_tex.float()[:, None] if textured
+           else torch.full((nt, 1), -1.0, device=dev))
+    uv = _rowpad(torch.cat([uv6, tex, z(nt, 1)], 1), _padded_rows(nt))
+
     cl = torch.cat([scene.tri_cluster_aabb,
                     scene.tri_cluster_range.float()], 1)
     cl = _rowpad(cl, _padded_rows(cl.shape[0]))
+    atlas = (scene.tex_atlas if textured
+             else torch.zeros((0, 1, 1, 3), device=dev))
+    tex_size = (scene.tex_size.to(torch.int32) if textured
+                else torch.zeros((0, 2), dtype=torch.int32, device=dev))
     return PackedScene(sph=sph.contiguous(), tri=tri.contiguous(),
-                       cl=cl.contiguous(), ns=ns, nl=nl, nt=nt)
+                       uv=uv.contiguous(), cl=cl.contiguous(),
+                       atlas=atlas.contiguous(),
+                       tex_size=tex_size.contiguous(), ns=ns, nl=nl, nt=nt)
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
-def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
-                      rd: torch.Tensor) -> dict:
-    """Brute-force nearest hit on the packed tables.  Returns (B,) fields
-    t, normal (flipped toward the ray), material and flag (0 miss,
-    1 surface, 2 light ball); misses report t = INF and zeros."""
-    _kernels.plain_calls["nearest_hit"] += 1
+def _chunks(n_rays: int, n_prims: int):
+    """Ray ranges of a plain sweep, each within ``_PLAIN_CHUNK`` elements."""
+    step = max(1, _PLAIN_CHUNK // max(n_prims, 1))
+    return [(a, min(a + step, n_rays))
+            for a in range(0, n_rays, step)] or [(0, 0)]
+
+
+def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
     B = ro.shape[0]
     n_s = packed.ns + packed.nl
     sph = packed.sph[:n_s]
@@ -125,6 +154,8 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
         out = {k: zero.clone() for k in HIT_FIELDS}
         out["t"] = torch.full((B,), INF, device=ro.device)
         out["flag"] = torch.zeros(B, dtype=torch.int32, device=ro.device)
+        if with_uv:
+            out.update(iu=zero.clone(), iv=zero.clone(), tex=zero - 1.0)
         return out
     all_t = torch.cat(ts, dim=1)
     idx = torch.argmin(all_t, dim=1)   # first minimum: the reference order
@@ -155,16 +186,40 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     for i, k in enumerate(("bcr", "bcg", "bcb", "rough", "metal", "eta")):
         out[k] = mtl[:, i]
     out["flag"] = flag
+    if with_uv:
+        # the winner's barycentrics, by the same Moller-Trumbore arithmetic
+        # on its own row, interpolated as the kernel does
+        def xyz(a):
+            return tuple(a[:, k] for k in range(3))
+
+        _, bu, bv, _ = mt_core(xyz(ro), xyz(rd), xyz(trow[:, 0:3]),
+                               xyz(trow[:, 3:6]), xyz(trow[:, 6:9]))
+        uvt = interpolate_uv(packed.uv[ti, 0:6], bu, bv)
+        tri_hit = hit & is_tri
+        zero = torch.zeros_like(best_t)
+        out["iu"] = torch.where(tri_hit, uvt[:, 0], zero)
+        out["iv"] = torch.where(tri_hit, uvt[:, 1], zero)
+        out["tex"] = torch.where(tri_hit, packed.uv[ti, 6], zero - 1.0)
     return out
 
 
-def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
-                      rd: torch.Tensor, max_d: torch.Tensor,
-                      dielectrics_block: bool) -> torch.Tensor:
-    """Brute-force shadow any-hit: (B,) bool, True where a sphere or
-    triangle whose can-block column is set lies at t in (1e-3, max_d)."""
-    _kernels.plain_calls["any_blocker"] += 1
-    col = 4 if dielectrics_block else 5
+def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
+                      rd: torch.Tensor, with_uv: bool = False) -> dict:
+    """Brute-force nearest hit on the packed tables.  Returns (B,) fields
+    t, normal (flipped toward the ray), material and flag (0 miss,
+    1 surface, 2 light ball); misses report t = INF and zeros.
+    ``with_uv`` adds the winning triangle's interpolated ``iu``, ``iv``
+    and its texture id ``tex`` (float; 0, 0, -1 off triangles)."""
+    _kernels.plain_calls["nearest_hit"] += 1
+    parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
+             for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
+                                 + packed.nt)]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int):
     md = max_d[:, None]
     blocked = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
     if packed.nt:
@@ -178,6 +233,18 @@ def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
         occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
         blocked |= torch.any(occ, dim=1)
     return blocked
+
+
+def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
+                      rd: torch.Tensor, max_d: torch.Tensor,
+                      dielectrics_block: bool) -> torch.Tensor:
+    """Brute-force shadow any-hit: (B,) bool, True where a sphere or
+    triangle whose can-block column is set lies at t in (1e-3, max_d)."""
+    _kernels.plain_calls["any_blocker"] += 1
+    col = 4 if dielectrics_block else 5
+    return torch.cat([
+        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col)
+        for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +268,7 @@ def check_tables(packed: PackedScene, device):
         raise ValueError(f"scene tables on {packed.device}, rays on {device}")
     check_tensor("sph", packed.sph, (packed.sph.shape[0], SPH_COLS))
     check_tensor("tri", packed.tri, (packed.tri.shape[0], TRI_COLS))
+    check_tensor("uv", packed.uv, (packed.tri.shape[0], UV_COLS))
     check_tensor("cl", packed.cl, (packed.cl.shape[0], CL_COLS))
 
 
@@ -208,27 +276,29 @@ def table_args(packed: PackedScene):
     """ctypes arguments of the scene tables, as every kernel takes them."""
     return [ctypes.c_void_p(packed.sph.data_ptr()), packed.ns, packed.nl,
             ctypes.c_void_p(packed.tri.data_ptr()),
+            ctypes.c_void_p(packed.uv.data_ptr()),
             ctypes.c_void_p(packed.cl.data_ptr()), packed.cl.shape[0]]
 
 
-def nearest_hit(packed: PackedScene, ro: torch.Tensor,
-                rd: torch.Tensor) -> dict:
+def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
+                with_uv: bool = False) -> dict:
     """Nearest hit per ray; same fields as :func:`nearest_hit_plain`."""
     if ro.device.type == "cpu" and rd.device.type == "cpu":
-        return nearest_hit_plain(packed, ro, rd)
+        return nearest_hit_plain(packed, ro, rd, with_uv)
     B = ro.shape[0]
     check_tensor("ro", ro, (B, 3))
     check_tensor("rd", rd, (B, 3))
     check_tables(packed, ro.device)
-    out = torch.empty((len(HIT_FIELDS), B), device=ro.device)
+    fields = HIT_FIELDS + (UV_FIELDS if with_uv else ())
+    out = torch.empty((len(fields), B), device=ro.device)
     flag = torch.empty(B, dtype=torch.int32, device=ro.device)
     if B:
-        _kernels.launch("nearest_hit", *table_args(packed),
+        _kernels.launch("nearest_hit", *table_args(packed), int(with_uv),
                         ctypes.c_void_p(ro.data_ptr()),
                         ctypes.c_void_p(rd.data_ptr()), B,
                         ctypes.c_void_p(out.data_ptr()),
                         ctypes.c_void_p(flag.data_ptr()))
-    res = {k: out[i] for i, k in enumerate(HIT_FIELDS)}
+    res = {k: out[i] for i, k in enumerate(fields)}
     res["flag"] = flag
     return res
 

@@ -6,7 +6,7 @@ sample and the path-state update.  It takes and returns what
 ``shade_step_pallas`` does; the six uniforms per lane come in as rows of
 ``u``, so the step matches the plain bounce lane by lane.
 
-Three step functions share that signature:
+The step functions share that signature:
 
 - ``shade_step``: the wrapper of the CUDA kernel ``shade_step`` (CPU tensors
   take ``shade_step_plain``);
@@ -14,7 +14,13 @@ Three step functions share that signature:
   bounce body) on the plain nearest-hit and any-blocker sweeps;
 - ``shade_step_split``: the same PyTorch bounce on the nearest-hit and
   any-blocker wrappers, so on CUDA it launches those two kernels and shades
-  with PyTorch (the JAX package's Pallas-intersect / XLA-shade tier).
+  with PyTorch (the JAX package's Pallas-intersect / XLA-shade tier);
+  ``tex=True`` textures it;
+- ``shade_step_tex`` / ``shade_step_tex_plain``: the textured bounce of
+  ``shade_step_tex_pallas`` (the ``with_uv`` hit, the bilinear texel
+  multiplied into a textured triangle's base color, then the bounce).  The
+  JAX package runs it as three steps (its nearest-hit kernel, an XLA
+  gather, its shade kernel); the CUDA kernel does all three per lane.
 """
 from __future__ import annotations
 
@@ -29,18 +35,37 @@ from .cuda_intersect import (PackedScene, any_blocker, any_blocker_plain,
                              nearest_hit_plain, table_args)
 from .intersect import hit_from_fields
 from .math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
+from .texture import sample_bilinear
 
 LIGHT_COLS = 12
 
 
+def _textured_hit(packed: PackedScene, h: dict) -> dict:
+    """A ``with_uv`` hit with the bilinear texel multiplied into the base
+    color of textured triangles (``tex >= 0``)."""
+    tex_id = h["tex"].to(torch.int32)
+    texel = sample_bilinear(packed.atlas, packed.tex_size, tex_id,
+                            torch.stack([h["iu"], h["iv"]], dim=-1))
+    on = tex_id >= 0
+    h = dict(h)
+    for i, k in enumerate(("bcr", "bcg", "bcb")):
+        h[k] = torch.where(on, h[k] * texel[:, i], h[k])
+    return h
+
+
 def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
             last_delta, last_pdf, u, *, clamp_val, stub_mis,
-            dielectrics_block, nearest, blocker) -> dict:
-    """One PT bounce in PyTorch with the given intersection functions."""
+            dielectrics_block, nearest, blocker, tex=False) -> dict:
+    """One PT bounce in PyTorch with the given intersection functions;
+    ``tex`` textures the hit."""
     from ..integrators.pt import _light_emission_radiance, _nee
 
     nl = light_tab.shape[0]
-    hit = hit_from_fields(nearest(packed, ro, rd), ro, rd)
+    if tex:
+        h = _textured_hit(packed, nearest(packed, ro, rd, with_uv=True))
+    else:
+        h = nearest(packed, ro, rd)
+    hit = hit_from_fields(h, ro, rd)
     act = act & hit.hit
     wo = -rd
 
@@ -127,30 +152,36 @@ def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
 
 def shade_step_split(packed, light_tab, ro, rd, tp, eta, depth, act,
                      last_delta, last_pdf, u, *, clamp_val, stub_mis,
-                     dielectrics_block) -> dict:
+                     dielectrics_block, tex=False) -> dict:
     """The PyTorch bounce on the nearest-hit and any-blocker wrappers."""
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
-                   nearest=nearest_hit, blocker=any_blocker)
+                   nearest=nearest_hit, blocker=any_blocker, tex=tex)
 
 
-def shade_step(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
-               last_delta, last_pdf, u, *, clamp_val: float, stub_mis: bool,
-               dielectrics_block: bool) -> dict:
-    """One fused bounce of every lane.  ``u`` is a ``(>= 6, B)`` tensor of
-    uniforms (rows 0-2 NEE, 3-5 BSDF).  Returns the bounce's radiance
-    (B, 3) and the updated ro, rd, tp (B, 3), eta, depth, alive,
-    last_is_delta and last_pdf (B,)."""
-    if ro.device.type == "cpu":
-        return shade_step_plain(
-            packed, light_tab, ro, rd, tp, eta, depth, act, last_delta,
-            last_pdf, u, clamp_val=clamp_val, stub_mis=stub_mis,
-            dielectrics_block=dielectrics_block)
+def shade_step_tex_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
+                         last_delta, last_pdf, u, *, clamp_val, stub_mis,
+                         dielectrics_block) -> dict:
+    """Plain PyTorch version of the ``shade_step_tex`` kernel."""
+    _kernels.plain_calls["shade_step_tex"] += 1
+    return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
+                   last_delta, last_pdf, u, clamp_val=clamp_val,
+                   stub_mis=stub_mis, dielectrics_block=dielectrics_block,
+                   nearest=nearest_hit_plain, blocker=any_blocker_plain,
+                   tex=True)
+
+
+def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
+                 act, last_delta, last_pdf, u, clamp_val, stub_mis,
+                 dielectrics_block) -> dict:
+    """Check the inputs of a per-bounce kernel, allocate its outputs and
+    launch it; ``extra`` are the ctypes arguments between the scene tables
+    and the lights."""
     B = ro.shape[0]
     dev = ro.device
-    for name, x in (("ro", ro), ("rd", rd), ("tp", tp)):
-        check_tensor(name, x, (B, 3))
+    for nm, x in (("ro", ro), ("rd", rd), ("tp", tp)):
+        check_tensor(nm, x, (B, 3))
     check_tensor("eta", eta, (B,))
     check_tensor("depth", depth, (B,), torch.int32)
     check_tensor("act", act, (B,), torch.bool)
@@ -175,13 +206,50 @@ def shade_step(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
     if B:
         ins = [light_tab, ro, rd, tp, eta, depth, act, last_delta, last_pdf,
                u]
-        outs = [out[k] for k in ("radiance", "ro", "rd", "tp", "eta",
-                                 "depth", "alive", "last_is_delta",
-                                 "last_pdf")]
         _kernels.launch(
-            "shade_step", *table_args(packed),
+            name, *table_args(packed), *extra,
             *[ctypes.c_void_p(x.data_ptr()) for x in ins],
             B, float(clamp_val), int(bool(stub_mis)),
             4 if dielectrics_block else 5,
-            *[ctypes.c_void_p(x.data_ptr()) for x in outs])
+            *[ctypes.c_void_p(x.data_ptr()) for x in out.values()])
     return out
+
+
+def shade_step(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
+               last_delta, last_pdf, u, *, clamp_val: float, stub_mis: bool,
+               dielectrics_block: bool) -> dict:
+    """One fused bounce of every lane.  ``u`` is a ``(>= 6, B)`` tensor of
+    uniforms (rows 0-2 NEE, 3-5 BSDF).  Returns the bounce's radiance
+    (B, 3) and the updated ro, rd, tp (B, 3), eta, depth, alive,
+    last_is_delta and last_pdf (B,)."""
+    args = (packed, light_tab, ro, rd, tp, eta, depth, act, last_delta,
+            last_pdf, u)
+    if ro.device.type == "cpu":
+        return shade_step_plain(*args, clamp_val=clamp_val, stub_mis=stub_mis,
+                                dielectrics_block=dielectrics_block)
+    return _launch_step("shade_step", [], *args, clamp_val, stub_mis,
+                        dielectrics_block)
+
+
+def shade_step_tex(packed: PackedScene, light_tab, ro, rd, tp, eta, depth,
+                   act, last_delta, last_pdf, u, *, clamp_val: float,
+                   stub_mis: bool, dielectrics_block: bool) -> dict:
+    """One fused textured bounce of every lane; inputs and outputs as
+    :func:`shade_step`, the texture atlas from ``packed``."""
+    args = (packed, light_tab, ro, rd, tp, eta, depth, act, last_delta,
+            last_pdf, u)
+    if ro.device.type == "cpu":
+        return shade_step_tex_plain(*args, clamp_val=clamp_val,
+                                    stub_mis=stub_mis,
+                                    dielectrics_block=dielectrics_block)
+    at = packed.atlas
+    if not packed.textured or at.dim() != 4 or at.shape[3] != 3:
+        raise ValueError(f"shade_step_tex: expected a (NT > 0, TH+1, TW+1, "
+                         f"3) texture atlas, got {tuple(at.shape)}")
+    check_tensor("atlas", at, tuple(at.shape))
+    check_tensor("tex_size", packed.tex_size, (at.shape[0], 2), torch.int32)
+    extra = [ctypes.c_void_p(at.data_ptr()),
+             ctypes.c_void_p(packed.tex_size.data_ptr()), at.shape[0],
+             at.shape[1], at.shape[2]]
+    return _launch_step("shade_step_tex", extra, *args, clamp_val, stub_mis,
+                        dielectrics_block)

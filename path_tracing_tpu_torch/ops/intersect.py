@@ -56,20 +56,23 @@ def sphere_ts(ro, rd, centers, radii, max_dist) -> torch.Tensor:
     return torch.where(v1, t1, torch.where(v2, t2, inf))
 
 
-def triangle_ts(ro, rd, v0, v1, v2, max_dist) -> torch.Tensor:
-    """Per-(ray, triangle) Moller-Trumbore hit distance (B, N) or INF, with
-    the reference's 1e-6 determinant window and (EPSILON, max_dist)."""
-    v0x, v0y, v0z = (v0[None, :, k] for k in range(3))
-    e1x, e1y, e1z = (v1[None, :, k] - v0[None, :, k] for k in range(3))
-    e2x, e2y, e2z = (v2[None, :, k] - v0[None, :, k] for k in range(3))
-    rdx, rdy, rdz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
+def mt_core(ro, rd, v0, v1, v2):
+    """Moller-Trumbore with the reference's 1e-6 determinant window and
+    t > EPSILON, in the kernels' order of operations.  Every argument is
+    an (x, y, z) tuple of broadcastable tensors: (B,) rays against (B,)
+    vertices per lane, or ``triangle_ts``'s (B, 1) x (1, N) views.
+    Returns (ok, u, v, t)."""
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = (v1[k] - v0[k] for k in range(3))
+    e2x, e2y, e2z = (v2[k] - v0[k] for k in range(3))
+    rdx, rdy, rdz = rd
     hx = rdy * e2z - rdz * e2y
     hy = rdz * e2x - rdx * e2z
     hz = rdx * e2y - rdy * e2x
     a = e1x * hx + e1y * hy + e1z * hz
     parallel = (a > -1e-6) & (a < 1e-6)
     f = 1.0 / torch.where(parallel, torch.ones_like(a), a)
-    sx, sy, sz = ro[:, 0:1] - v0x, ro[:, 1:2] - v0y, ro[:, 2:3] - v0z
+    sx, sy, sz = ro[0] - v0x, ro[1] - v0y, ro[2] - v0z
     u = f * (sx * hx + sy * hy + sz * hz)
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
@@ -77,8 +80,20 @@ def triangle_ts(ro, rd, v0, v1, v2, max_dist) -> torch.Tensor:
     v = f * (rdx * qx + rdy * qy + rdz * qz)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
     ok = (~parallel & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > EPSILON) & (t < max_dist))
-    return torch.where(ok, t, torch.full_like(t, INF))
+          & (t > EPSILON))
+    return ok, u, v, t
+
+
+def triangle_ts(ro, rd, v0, v1, v2, max_dist) -> torch.Tensor:
+    """Per-(ray, triangle) Moller-Trumbore hit distance (B, N) or INF, with
+    the reference's 1e-6 determinant window and (EPSILON, max_dist)."""
+    def cols(x):
+        return tuple(x[None, :, k] for k in range(3))
+
+    ok, _, _, t = mt_core(tuple(ro[:, k:k + 1] for k in range(3)),
+                          tuple(rd[:, k:k + 1] for k in range(3)),
+                          cols(v0), cols(v1), cols(v2))
+    return torch.where(ok & (t < max_dist), t, torch.full_like(t, INF))
 
 
 def hit_from_fields(h: dict, ro, rd) -> Hit:

@@ -18,10 +18,20 @@ Layouts matched (jax with ``jax_threefry_partitionable``, its default):
 - element ``[j, i]`` of ``uniform(key, (n, B))`` takes ``o1 ^ o2`` of
   ``threefry2x32(key, (0, j*B + i))``, keeps the top 23 bits as the
   mantissa of a float in [1, 2) and subtracts 1.
+
+``uniform_rows`` on a CUDA device launches the ``threefry_rows`` kernel
+(``csrc/pt_kernels.cu``, the same Threefry on native uint32 words that the
+megakernel draws from); ``uniform_rows_plain`` is its plain version, the
+int64 torch code, which CPU draws run.  ``uniform_at`` is a scalar mirror
+of the device draw on Python ints.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from . import _kernels
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -81,20 +91,63 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return 1.0 - u
 
 
-def uniform_rows(key: torch.Tensor, P: int, n: int, start: int = 0,
-                 total: int | None = None, device="cpu") -> torch.Tensor:
-    """An ``(n, P)`` float32 tensor of uniforms on (0, 1] on ``device``.
+def uniform_at(key: torch.Tensor, j: int, lane: int, start: int = 0,
+               total: int | None = None) -> float:
+    """Element ``[j, lane]`` of ``uniform_rows(key, P, n, start, total)``
+    as a Python float: Threefry at counter ``j*total + start + lane``, as
+    the kernels draw it.  ``total=None`` means ``start + lane + 1``."""
+    total = start + lane + 1 if total is None else total
+    o0, o1 = threefry2x32(*_words(key), 0, (j * total + start + lane) & _M32)
+    # the top 23 bits as a mantissa in [1, 2), minus 1, then 1 - u: exact
+    # in float64 and representable in float32
+    return 1.0 - ((o0 ^ o1) >> 9) / float(1 << 23)
 
-    The lanes are columns ``[start, start + P)`` of a global
-    ``(n, total)`` draw; ``total=None`` draws ``(n, P)`` itself."""
-    total = P if total is None else total
+
+def _check_window(P: int, n: int, start: int, total: int) -> None:
     if n * total >= 2 ** 32:
         raise ValueError("uniform_rows: n * total must stay below 2**32")
+    if start < 0 or start + P > total:
+        raise ValueError(f"uniform_rows: lanes [{start}, {start + P}) lie "
+                         f"outside a {total}-lane draw")
+
+
+def uniform_rows_plain(key: torch.Tensor, P: int, n: int, start: int = 0,
+                       total: int | None = None, device="cpu"
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of the ``threefry_rows`` kernel: words in
+    int64 tensors, masked to 32 bits."""
+    _kernels.plain_calls["threefry_rows"] += 1
+    total = P if total is None else total
+    _check_window(P, n, start, total)
     lanes = start + torch.arange(P, dtype=torch.int64, device=device)
     rows = torch.arange(n, dtype=torch.int64, device=device)[:, None] * total
     flat = rows + lanes[None, :]
     o0, o1 = threefry2x32(*_words(key), torch.zeros_like(flat), flat)
     return _bits_to_unit(o0 ^ o1)
+
+
+def uniform_rows(key: torch.Tensor, P: int, n: int, start: int = 0,
+                 total: int | None = None, device="cpu") -> torch.Tensor:
+    """An ``(n, P)`` float32 tensor of uniforms on (0, 1] on ``device``.
+
+    The lanes are columns ``[start, start + P)`` of a global
+    ``(n, total)`` draw; ``total=None`` draws ``(n, P)`` itself.  The CPU
+    draws with :func:`uniform_rows_plain`; a CUDA device launches the
+    ``threefry_rows`` kernel; any other device raises."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return uniform_rows_plain(key, P, n, start, total, device)
+    if device.type != "cuda":
+        raise ValueError(f"uniform_rows: expected a CPU or CUDA device, "
+                         f"got {device}")
+    total = P if total is None else total
+    _check_window(P, n, start, total)
+    out = torch.empty((n, P), dtype=torch.float32, device=device)
+    if n * P:
+        k0, k1 = _words(key)
+        _kernels.launch("threefry_rows", k0, k1, n, P, start, total,
+                        ctypes.c_void_p(out.data_ptr()))
+    return out
 
 
 def uniforms_g(key: torch.Tensor, P: int, n: int, start: int = 0,

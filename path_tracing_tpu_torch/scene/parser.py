@@ -50,14 +50,41 @@ class ParsedScene:
     tri_mtl: List = field(default_factory=list)
     tri_group: List = field(default_factory=list)
     lights: List = field(default_factory=list)
+    # textures (OBJ map_Kd; empty for text scenes): per-triangle vertex UVs
+    # [u0, v0, u1, v1, u2, v2], per-triangle texture index (-1 untextured)
+    # and the decoded images (H, W, 3) float32 linear RGB
+    tri_uv: List = field(default_factory=list)
+    tri_tex: List = field(default_factory=list)
+    textures: List = field(default_factory=list)
     # legacy shadow-transmittance rows [ksr, ksg, ksb, refract] per object
     sph_legacy: List = field(default_factory=list)
     tri_legacy: List = field(default_factory=list)
+
+    def texture_atlas(self):
+        """All textures in one (NT, TH+1, TW+1, 3) atlas with a one-texel
+        wrapped border (row h = row 0, col w = col 0), so a bilinear fetch
+        reads its whole 2x2 footprint from one slice, and their (NT, 2)
+        sizes (h, w).  None, None without textures."""
+        if not self.textures:
+            return None, None
+        th = max(t.shape[0] for t in self.textures) + 1
+        tw = max(t.shape[1] for t in self.textures) + 1
+        atlas = np.zeros((len(self.textures), th, tw, 3), np.float32)
+        size = np.zeros((len(self.textures), 2), np.int32)
+        for i, t in enumerate(self.textures):
+            h, w = t.shape[0], t.shape[1]
+            atlas[i, :h, :w] = t
+            atlas[i, h, :w] = t[0]
+            atlas[i, :h, w] = t[:, 0]
+            atlas[i, h, w] = t[0, 0]
+            size[i] = (h, w)
+        return atlas, size
 
     def to_device(self, device, cluster_leaf_size: int | None = None
                   ) -> Scene:
         lights = np.asarray(self.lights, np.float32).reshape(-1, 12)
         tv = np.asarray(self.tri_verts, np.float32).reshape(-1, 3, 3)
+        tex_atlas, tex_size = self.texture_atlas()
         return scene_from_numpy(
             sph_center=np.asarray(self.sph_center, np.float32).reshape(-1, 3),
             sph_radius=np.asarray(self.sph_radius, np.float32),
@@ -69,6 +96,11 @@ class ParsedScene:
             light_is_parallel=lights[:, 10].astype(np.int32),
             light_ball_r=lights[:, 11],
             device=device, cluster_leaf_size=cluster_leaf_size,
+            tri_uv=(np.asarray(self.tri_uv, np.float32).reshape(-1, 6)
+                    if len(self.tri_uv) else None),
+            tri_tex=(np.asarray(self.tri_tex, np.int32)
+                     if len(self.tri_tex) else None),
+            tex_atlas=tex_atlas, tex_size=tex_size,
             sph_legacy=(np.asarray(self.sph_legacy, np.float32)
                         if len(self.sph_legacy) else None),
             tri_legacy=(np.asarray(self.tri_legacy, np.float32)

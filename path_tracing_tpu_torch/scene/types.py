@@ -2,8 +2,8 @@
 (``path_tracing_tpu.scene.types``).
 
 ``scene_from_numpy`` builds a Scene from host arrays: it reorders the
-triangles into spatial clusters (``ops/bvh.py``) and computes the scene
-bounds.  ``scene_from_jax_arrays`` carries a Scene and Camera over from the
+triangles, with their UVs and texture ids, into spatial clusters
+(``ops/bvh.py``) and computes the scene bounds.  ``scene_from_jax_arrays`` carries a Scene and Camera over from the
 JAX package's arrays unchanged, so both packages can render the very same
 tables.
 """
@@ -57,7 +57,8 @@ def _i32(x, device, shape=None):
 class Scene:
     """Spheres, triangles (cluster-contiguous), lights, the scene AABB and
     the triangle clusters (rows ``[min3, max3]`` and ``[start, count]``).
-    Textures and legacy Ks/refract tables are empty for text scenes."""
+    The texture atlas and legacy Ks/refract tables are empty for text
+    scenes."""
 
     sph_center: torch.Tensor
     sph_radius: torch.Tensor
@@ -134,13 +135,17 @@ def scene_from_numpy(
     sph_center, sph_radius, sph_mtl, tri_v0, tri_v1, tri_v2, tri_mtl,
     light_pos, light_dir, light_illum, light_cutoff, light_is_parallel,
     light_ball_r, *, device, cluster_leaf_size: int | None = None,
+    tri_uv=None, tri_tex=None, tex_atlas=None, tex_size=None,
     sph_legacy=None, tri_legacy=None,
 ) -> Scene:
     """Build a Scene on ``device`` from host arrays.  ``sph_mtl`` and
-    ``tri_mtl`` are ``(N, 6)`` rows ``[r, g, b, roughness, metallic, eta]``.
+    ``tri_mtl`` are ``(N, 6)`` rows ``[r, g, b, roughness, metallic, eta]``;
+    ``tri_uv`` (N, 6), ``tri_tex`` (N,) and the atlas with its sizes come
+    from ``ParsedScene.texture_atlas`` (default: no textures).
 
-    Triangles are reordered into clusters; the scene AABB is the union of
-    sphere bounds and triangle vertices (light balls excluded)."""
+    Triangles are reordered into clusters, their UVs and texture ids with
+    them; the scene AABB is the union of sphere bounds and triangle
+    vertices (light balls excluded)."""
     from ..ops.bvh import build_clusters_py
 
     f32 = np.float32
@@ -155,6 +160,13 @@ def scene_from_numpy(
     nt = tri_v0.shape[0]
     leaf = (default_leaf_size(nt) if cluster_leaf_size is None
             else cluster_leaf_size)
+    tri_uv = (np.asarray(tri_uv, f32).reshape(-1, 6) if tri_uv is not None
+              else np.zeros((nt, 6), f32))
+    tri_tex = (np.asarray(tri_tex, np.int32).reshape(-1)
+               if tri_tex is not None else np.full((nt,), -1, np.int32))
+    if tex_atlas is None or not np.size(tex_atlas):
+        tex_atlas = np.zeros((0, 1, 1, 3), f32)
+        tex_size = np.zeros((0, 2), np.int32)
 
     # legacy Ks/refract rows are kept only when some object refracts: the
     # all-zero tables are the reference's reachable state (binary blocking)
@@ -174,6 +186,7 @@ def scene_from_numpy(
         order, cl_aabb, cl_range = build_clusters_py(tris9, leaf)
         tri_v0, tri_v1, tri_v2 = tri_v0[order], tri_v1[order], tri_v2[order]
         tri_mtl = tri_mtl[order]
+        tri_uv, tri_tex = tri_uv[order], tri_tex[order]
         if tri_legacy.shape[0]:
             tri_legacy = tri_legacy[order]
     else:
@@ -221,10 +234,10 @@ def scene_from_numpy(
         scene_min=_f32(scene_min, device), scene_max=_f32(scene_max, device),
         tri_cluster_aabb=_f32(cl_aabb, device, (-1, 6)),
         tri_cluster_range=_i32(cl_range, device, (-1, 2)),
-        tri_uv=torch.zeros((nt, 6), device=device),
-        tri_tex=torch.full((nt,), -1, dtype=torch.int32, device=device),
-        tex_atlas=torch.zeros((0, 1, 1, 3), device=device),
-        tex_size=torch.zeros((0, 2), dtype=torch.int32, device=device),
+        tri_uv=_f32(tri_uv, device),
+        tri_tex=_i32(tri_tex, device),
+        tex_atlas=_f32(tex_atlas, device),
+        tex_size=_i32(tex_size, device, (-1, 2)),
         sph_ks=_f32(sph_legacy[:, 0:3], device),
         sph_refract=_f32(sph_legacy[:, 3], device),
         tri_ks=_f32(tri_legacy[:, 0:3], device),

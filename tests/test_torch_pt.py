@@ -1,9 +1,10 @@
 """The PT slice end to end: the port's ``render_pt`` against the JAX
 package's ``render_pt`` from the same key on the same tables, and the CLI.
 
-The port renders the fused per-bounce tier, so the reference is the JAX
-package's own fused tier (``PT_TPU_NO_MEGAKERNEL=1``) with its Pallas
-kernels in interpret mode.  Bar of tests/test_pallas_interpret.py
+The port's default tier is the megakernel, which draws the uniforms of the
+fused per-bounce tier, so the reference is the JAX package's own fused
+tier (``PT_TPU_NO_MEGAKERNEL=1``) with its Pallas kernels in interpret
+mode.  Bar of tests/test_pallas_interpret.py
 (fused pipeline against XLA): mean within 1e-3 relative, and at least 99%
 of pixels within rtol 1e-4 / atol 1e-5; a pixel whose path takes a
 knife-edge hit or branch the other way differs by a whole path.  Against
@@ -70,10 +71,11 @@ def test_render_tiers_identical_on_cpu():
     _, _, ts, tc = jax_cornell(8, 8)
     cfg = RenderConfig(width=8, height=8, eye_depth=3, delta_budget=3)
     imgs = [render_pt(ts, tc, 8, 8, 1, cfg, rng.prng_key(1), tier=t)
-            for t in ("fused", "split", "plain")]
-    assert torch.equal(imgs[0], imgs[1]) and torch.equal(imgs[0], imgs[2])
+            for t in ("auto", "mega", "fused", "split", "plain")]
+    for img in imgs[1:]:
+        assert torch.equal(imgs[0], img)
     with pytest.raises(ValueError):
-        render_pt(ts, tc, 8, 8, 1, cfg, rng.prng_key(1), tier="mega")
+        render_pt(ts, tc, 8, 8, 1, cfg, rng.prng_key(1), tier="bogus")
 
 
 def test_cli_writes_png(tmp_path):
@@ -91,6 +93,39 @@ def test_cli_writes_png(tmp_path):
     # the PNG is the tonemapped linear image of the same render
     np.testing.assert_array_equal(read_png(str(out)),
                                   tonemap_u8(linear, 12, 8))
+
+
+SPHERE_OBJ = CORNELL.parent.parent / "tests" / "fixtures" / "sphere.obj"
+
+
+@pytest.mark.parametrize("which", ["sphere", "textured_quad"])
+def test_cli_renders_obj(which, tmp_path, capsys):
+    """An .obj renders through the CLI with the default framing: the
+    untextured sphere in the mega tier, the textured quad in the fused
+    tier with the textured bounce."""
+    from conftest import make_textured_quad_obj
+
+    inp = SPHERE_OBJ if which == "sphere" else make_textured_quad_obj(
+        tmp_path)
+    out = tmp_path / "obj.png"
+    res = cli.run(["--input", str(inp), "--spp", "1", "--width", "8",
+                   "--height", "6", "--device", "cpu", "--output", str(out)])
+    assert res["tier"] == ("mega" if which == "sphere" else "fused")
+    assert res["image"].shape == (48, 3)
+    assert np.isfinite(res["image"]).all() and res["image"].mean() > 0
+    assert read_png(str(out)).shape == (6, 8, 3)
+    assert f"({res['tier']} tier)" in capsys.readouterr().out
+
+
+def test_cli_mega_on_textured_scene_exits_nonzero(tmp_path, capsys):
+    from conftest import make_textured_quad_obj
+
+    out = tmp_path / "out.png"
+    rc = cli.main(["--input", make_textured_quad_obj(tmp_path), "--spp", "1",
+                   "--width", "4", "--height", "4", "--device", "cpu",
+                   "--tier", "mega", "--output", str(out)])
+    assert rc != 0 and not out.exists()
+    assert "mega" in capsys.readouterr().err
 
 
 def test_cli_cuda_without_card_exits_nonzero(tmp_path, capsys):

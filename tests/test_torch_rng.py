@@ -58,6 +58,37 @@ def test_uniforms_shape_and_support():
     assert bool((u > 0).all()) and bool((u <= 1).all())   # (0, 1]
 
 
+@pytest.mark.parametrize("it,start,total", [(0, 0, None), (7, 37, 1000),
+                                            (12345, 5, 2_073_600)])
+def test_uniform_at_bit_exact(it, start, total):
+    """The scalar mirror of the kernels' draw: element [j, lane] of
+    ``uniforms_g(iter_key(k, it), P, 8, start, total)``, bit for bit."""
+    P = 64
+    kj = jrng.iter_key(jrng.make_key(5, 1), it)
+    kt = rng.iter_key(rng.make_key(5, 1), it)
+    ref = np.stack([np.asarray(x) for x in
+                    jrng.uniforms_g(kj, P, 8, start, total)])
+    for j in range(8):
+        for lane in (0, 1, 31, P - 1):
+            got = np.float32(rng.uniform_at(kt, j, lane, start,
+                                            P if total is None else total))
+            assert got == ref[j, lane]
+
+
+def test_uniform_rows_refuses_other_devices():
+    """A CPU device draws with the plain version; CUDA launches the
+    kernel; anything else raises, as does a window past the counters."""
+    k = rng.make_key(1, 1)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        rng.uniform_rows(k, 8, 2, device="meta")
+    with pytest.raises(ValueError, match="2\\*\\*32"):
+        rng.uniform_rows(k, 8, 8, total=2 ** 29)
+    with pytest.raises(ValueError, match="outside"):
+        rng.uniform_rows(k, 8, 2, start=4, total=10)
+    assert torch.equal(rng.uniform_rows(k, 8, 2),
+                       rng.uniform_rows_plain(k, 8, 2))
+
+
 def test_window_is_slice_of_global_draw():
     k = rng.make_key(11, 1)
     full = rng.uniform_rows(k, 1000, 8)
