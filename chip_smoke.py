@@ -26,6 +26,24 @@ Phases, each raising on failure:
    + PNG, rendered through the CLI at 1920x1080 spp 4 (auto: the fused
    tier with ``shade_step_tex``); then 128x72 spp 4 on the 1,280-triangle
    icosphere in the kernel tiers against the plain tier.
+6. BDPT kernels against their plain versions on cornell, on the tables of
+   the CLI's first 1920x1080 BDPT frame (spl 8, seed 0), built by the
+   integrator's ``light_side`` and ``light_table``: ``connect`` on the
+   primary hits against the exact sweep's shared table (max-channel
+   relative error < 1e-3 on every active lane); ``bdpt_eye`` with the
+   shared table at spp 1 and with the main path's 127 tile-local RIS
+   K = 32 tables at spp 4 (mean within 1e-3 and >= 99% of pixels within
+   rtol 1e-4 / atol 1e-5, else the JAX package's BDPT tier bar: >= 97%
+   within 1e-3, mean within 5%; the bar that held is printed).
+7. BDPT through the CLI on cornell at 1920x1080, spp 4, spl 8, eye and
+   light depth 4: tile-local RIS K = 32 (auto: the mega tier, the main
+   path), whose image must equal phase 6's ``bdpt_eye`` image on >= 99.9%
+   of pixels; the exact sweep in the mega tier and in the fused tier from
+   the same key.  Mega launches ``bdpt_eye`` once a frame and no
+   ``connect``, fused launches ``connect`` per bounce; both trace the light
+   paths with ``nearest_hit`` and ``threefry_rows``; no plain version may
+   run.  The exact mega image must equal the fused one on >= 99.9% of
+   pixels.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -52,7 +70,9 @@ W, H, SPP = 1920, 1080, 4
 B = W * H                      # 2,073,600 lanes
 SMALL_W, SMALL_H = 128, 72
 MESH_TRIS, SMALL_MESH_TRIS = 81920, 1280
-SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
+PT_SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
+BDPT_SOURCE = "path_tracing_tpu_torch/csrc/bdpt_kernels.cu"
+SPL, RIS_K = 8, 32
 REPLACES = {
     "nearest_hit": "path_tracing_tpu/ops/pallas_intersect.py:1685",
     "any_blocker": "path_tracing_tpu/ops/pallas_intersect.py:1753",
@@ -60,11 +80,13 @@ REPLACES = {
     "shade_step_tex": "path_tracing_tpu/ops/pallas_shade.py:1044",
     "render_wavefront": "path_tracing_tpu/ops/pallas_shade.py:1281",
     "threefry_rows": "path_tracing_tpu/ops/rng.py:60",
+    "connect": "path_tracing_tpu/ops/pallas_connect.py:258",
+    "bdpt_eye": "path_tracing_tpu/ops/pallas_bdpt_eye.py:231",
 }
 # the __global__ functions of each entry, as ptxas names them
 PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
-               "threefry_rows")
+               "threefry_rows", "connect", "bdpt_eye")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -72,11 +94,16 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
 # tier (and phase 3).
 KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "shade_step": "fused", "shade_step_tex": "textured",
-               "render_wavefront": "mega", "threefry_rows": "textured"}
+               "render_wavefront": "mega", "threefry_rows": "textured",
+               "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega"}
+BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
                 "split": ("nearest_hit", "any_blocker", "threefry_rows"),
-                "textured": ("shade_step_tex", "threefry_rows")}
+                "textured": ("shade_step_tex", "threefry_rows"),
+                "bdpt_mega": ("bdpt_eye",) + BDPT_LIGHT,
+                "bdpt_exact": ("bdpt_eye",) + BDPT_LIGHT,
+                "bdpt_fused": ("connect",) + BDPT_LIGHT}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 
 
@@ -119,8 +146,9 @@ def phase_build():
 
     t0 = time.perf_counter()
     lib = _kernels.library()
-    print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.2f} s, "
-          f"load {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {', '.join(p.name for p in lib.paths)}: nvcc "
+          f"{lib.build_seconds:.2f} s (in parallel), load "
+          f"{time.perf_counter() - t0:.2f} s")
     kernel, spills, seen = None, (0, 0), set()
     for line in lib.ptxas_log.splitlines():
         if "Compiling entry function" in line:
@@ -358,32 +386,33 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
     return results
 
 
-def run_cli(inp, w, h, tier, name):
+def run_cli(inp, w, h, tier, name, mode="pt", extra=()):
     from path_tracing_tpu_torch import cli
 
     out = OUT / f"{name}.png"
-    res = cli.run(["--input", str(inp), "--mode", "pt", "--spp", str(SPP),
+    res = cli.run(["--input", str(inp), "--mode", mode, "--spp", str(SPP),
                    "--width", str(w), "--height", str(h), "--eye-depth", "4",
-                   "--device", "cuda", "--tier", tier, "--output", str(out)])
+                   "--device", "cuda", "--tier", tier, "--output", str(out),
+                   *extra])
     img = res["image"]
     check(img.shape == (w * h, 3), f"{name}: image shape {img.shape}")
     check(bool((img == img).all()) and bool(abs(img).max() < float("inf")),
           f"{name}: image is not finite")
     check(img.mean() > 0.0, f"{name}: image mean {img.mean()}")
     mpaths = w * h * SPP / res["seconds"] / 1e6
-    print(f"[render] {name}: {w}x{h} spp {SPP} {res['tier']} tier "
+    print(f"[render] {name}: {mode} {w}x{h} spp {SPP} {res['tier']} tier "
           f"{res['seconds']:.3f} s, {mpaths:.3f} Mpaths/s, mean "
           f"{img.mean():.6f}")
     return res
 
 
-def counted(path, inp, w, h, tier, name, counts):
+def counted(path, inp, w, h, tier, name, counts, mode="pt", extra=()):
     """Render through the CLI with the counts reset just before and read
     just after; the path's kernels must launch and no plain version run."""
     from path_tracing_tpu_torch.ops import _kernels
 
     _kernels.reset_counts()
-    res = run_cli(inp, w, h, tier, name)
+    res = run_cli(inp, w, h, tier, name, mode, extra)
     launches = dict(_kernels.launches)
     plain = dict(_kernels.plain_calls)
     print(f"[render] {path} path launches {launches}, plain calls {plain}")
@@ -398,6 +427,7 @@ def counted(path, inp, w, h, tier, name, counts):
 def compare(a, b, what: str, pixel_share: float = 0.99) -> None:
     import numpy as np
 
+    a, b = np.asarray(a), np.asarray(b)
     rel = abs(a.mean() - b.mean()) / max(abs(a.mean()), 1e-6)
     close = np.isclose(a, b, rtol=PIXEL_RTOL, atol=PIXEL_ATOL).all(
         axis=1).mean()
@@ -463,6 +493,148 @@ def phase_textured(counts: dict) -> None:
                 ("fused", "split"), f"textured icosphere {SMALL_MESH_TRIS}")
 
 
+def bdpt_frame(scene, cam, K: int):
+    """The set-up of the CLI's first 1080p BDPT frame on ``scene`` (spp 4,
+    spl 8, eye and light depth 4, ``--resample K``, seed 0), built by the
+    integrator's own functions: the config, the frame key, the scene the
+    eye pass shades, the table ``bdpt_eye`` reads with its row count, the
+    lanes and the depth-0 light-hit scale."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops import rng
+
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=K)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    used, lv, scale = bdpt.light_side(scene, cfg, SPL, key)
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    px, py = idx % W, idx // W
+    tab, n_valid = bdpt.light_table(used, lv, cam, cfg, px, py, key)
+    return cfg, key, used, tab, n_valid, px, py, scale
+
+
+def once_ms(fn):
+    """``fn()`` and its wall milliseconds, the card synchronised around."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_bdpt_kernels(parsed, cam) -> tuple:
+    """#8 and #9 against their plain versions on the main path's tables;
+    returns the kernels' results and #9's 1080p tile-RIS image (the mean
+    over spp), which the main path's render must reproduce."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.ops.intersect import hit_from_fields
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    results = []
+    scene = parsed.to_device("cuda")
+    _, key, used, tab, n_valid, _, _, _ = bdpt_frame(scene, cam, 0)
+    pk = ci.pack_scene(used)
+
+    # ---- 8. connect on the 1080p primary hits, eye_f with a random G ----
+    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
+    ro, rd = camera_rays(cam, u)
+    hit = hit_from_fields(ci.nearest_hit(pk, ro, rd), ro, rd)
+    act = hit.hit & ~hit.is_light
+    g_mis = u[0] * 4.0
+    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(g_mis),
+                        1e8 * (1.0 + g_mis))
+    args = (pk, tab, n_valid, hit.pos, hit.normal,
+            (u[1:4].T * 0.5 + 0.5).contiguous(), hit.mtl, -rd,
+            normalize(cam.eye[None] - hit.pos), eye_f, act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    a = cc.connect(*args, **kw)
+    b, plain_ms = once_ms(lambda: cc.connect_plain(*args, **kw))
+    rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+    check(bool((rel < 1e-3).all()),
+          f"connect: max relative error {rel.max().item()} on active lanes")
+    equal = (a == b).all(dim=1)[act].float().mean().item()
+    print(f"[bdpt] connect on {B} lanes ({act.float().mean().item():.3f} "
+          f"active) against {n_valid} light vertices: max-channel relative "
+          f"error {rel.max().item():.3g} < 1e-3 on every active lane, "
+          f"bit-equal {equal:.6f}")
+    results.append(dict(name="connect",
+                        max_abs_err=(a - b).abs().max().item(),
+                        ms=time_ms(lambda: cc.connect(*args, **kw), 3),
+                        plain_ms=plain_ms))
+
+    # ---- 9. bdpt_eye on the 1080p frame's tables: the exact sweep's
+    # shared table (spp 1, for the plain version's time) and the main
+    # path's tile-RIS tables (spp 4) ----
+    err, ris_img = 0.0, None
+    for what, K, spp in (("exact sweep", 0, 1),
+                         (f"tile-RIS K={RIS_K}", RIS_K, SPP)):
+        cfg, key, used, etab, env, px, py, scale = bdpt_frame(scene, cam, K)
+        epk = ci.pack_scene(used)
+        eargs = (epk, etab, env, cam, px, py, spp, cfg, key, scale)
+        a, ms = once_ms(lambda: ce.bdpt_eye(*eargs))
+        b, plain_ms = once_ms(lambda: ce.bdpt_eye_plain(*eargs))
+        share = share_close(a, b)
+        mean_rel = abs(a.mean().item() - b.mean().item()) / max(
+            b.mean().item(), 1e-6)
+        if share >= 0.99 and mean_rel < 1e-3:
+            bar = "rtol 1e-4 / atol 1e-5 on >= 99%, mean within 1e-3"
+        else:
+            loose = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values
+            loose = (loose < 1e-3).float().mean().item()
+            check(loose >= 0.97 and mean_rel < 0.05,
+                  f"bdpt_eye {what}: {share:.6f} within rtol 1e-4, "
+                  f"{loose:.6f} within 1e-3, mean rel {mean_rel}")
+            bar = f"the BDPT tier bar ({loose:.6f} within 1e-3)"
+        equal = (a == b).all(dim=1).float().mean().item()
+        print(f"[bdpt] bdpt_eye {what} (table {tuple(etab.shape)}, {env} "
+              f"rows): {W}x{H} spp {spp} within rtol 1e-4 / atol 1e-5 "
+              f"{share:.6f}, bit-equal {equal:.6f}, mean rel {mean_rel:.3g};"
+              f" held: {bar}; {ms:.1f} ms kernel, {plain_ms:.1f} ms plain")
+        err = max(err, (a - b).abs().max().item())
+        ris_img = a / spp
+    results.append(dict(name="bdpt_eye", max_abs_err=err,
+                        ms=time_ms(lambda: ce.bdpt_eye(*eargs), 3),
+                        plain_ms=plain_ms))
+    for r in results:
+        check(math.isfinite(r["max_abs_err"]),
+              f"{r['name']}: max abs err {r['max_abs_err']}")
+        print(f"[bdpt] {r['name']}: {r['ms']:.3f} ms kernel, "
+              f"{r['plain_ms']:.3f} ms plain, max abs err "
+              f"{r['max_abs_err']:.3g}")
+    return results, ris_img.cpu().numpy()
+
+
+def phase_bdpt_render(counts: dict, ris_img) -> None:
+    bdpt = ["--spl", str(SPL), "--light-depth", "4"]
+    run_cli(SCENE, SMALL_W, SMALL_H, "auto", "bdpt_warmup", "bdpt",
+            bdpt + ["--resample", str(RIS_K)])
+
+    # ---- the main path: tile-local RIS in the megakernel ----
+    ris = counted("bdpt_mega", SCENE, W, H, "auto", "bdpt_1080p_ris", counts,
+                  "bdpt", bdpt + ["--resample", str(RIS_K)])
+    check(ris["tier"] == "mega", f"auto picked {ris['tier']} for BDPT")
+    check(counts["bdpt_mega"]["bdpt_eye"] == 1
+          and counts["bdpt_mega"]["connect"] == 0,
+          f"BDPT mega path launches {counts['bdpt_mega']}")
+    compare(ris_img, ris["image"], "BDPT 1080p main path vs phase 6's "
+            "bdpt_eye image", 0.999)
+
+    # ---- the exact sweep: mega and fused from the same key ----
+    exact = counted("bdpt_exact", SCENE, W, H, "mega", "bdpt_1080p_exact",
+                    counts, "bdpt", bdpt + ["--resample", "0"])
+    check(counts["bdpt_exact"]["connect"] == 0,
+          f"BDPT exact mega launches {counts['bdpt_exact']}")
+    fused = counted("bdpt_fused", SCENE, W, H, "fused", "bdpt_1080p_fused",
+                    counts, "bdpt", bdpt + ["--resample", "0"])
+    check(counts["bdpt_fused"]["bdpt_eye"] == 0,
+          f"BDPT fused launches {counts['bdpt_fused']}")
+    compare(fused["image"], exact["image"], "BDPT 1080p exact mega vs fused",
+            0.999)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name = phase_card()
@@ -483,9 +655,13 @@ def main() -> int:
     counts: dict = {}
     phase_render(counts)
     phase_textured(counts)
+    bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
+    results += bdpt_results
+    phase_bdpt_render(counts, ris_img)
     for r in results:
         path = KERNEL_PATH[r["name"]]
-        r.update(route="cuda", source=SOURCE, replaces=REPLACES[r["name"]],
+        source = BDPT_SOURCE if path.startswith("bdpt") else PT_SOURCE
+        r.update(route="cuda", source=source, replaces=REPLACES[r["name"]],
                  path=path, launches=counts[path][r["name"]])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms")

@@ -1,9 +1,12 @@
-"""Headless CLI of the port (the ``--mode pt`` path of
-``path_tracing_tpu.cli``):
+"""Headless CLI of the port (the ``--mode pt`` and ``--mode bdpt`` paths
+of ``path_tracing_tpu.cli``):
 
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
         --mode pt --spp 4 --width 1920 --height 1080 --device cuda \\
         --output out.png
+    python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
+        --mode bdpt --spp 4 --spl 8 --resample 32 --device cuda \\
+        --output bdpt.png
 
 ``--input`` takes a text scene or a ``.obj`` (with its MTL and textures;
 the camera and lights come from a companion ``<name>.lights.txt`` or a
@@ -22,7 +25,6 @@ import time
 # modes of the JAX package that the port has not reached yet, with the
 # ROADMAP.md item that ports them
 NOT_PORTED = {
-    "bdpt": "ROADMAP.md queue 1, 'BDPT, torch tier' (and kernels #8/#9)",
     "ppm": "ROADMAP.md queue 1, 'PPM, torch tier' (and kernels #10/#11)",
 }
 
@@ -38,6 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
                                  description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--spp", type=int, default=8)
+    ap.add_argument("--spl", type=int, default=8,
+                    help="BDPT: light samples (paths per light per light "
+                         "sample)")
     ap.add_argument("--mode", choices=["pt", "bdpt", "ppm"], default="pt")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--output", default="output.png")
@@ -46,18 +51,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--iters", type=int, default=1,
                     help="progressive accumulation passes")
     ap.add_argument("--eye-depth", type=int, default=4)
+    ap.add_argument("--light-depth", type=int, default=4)
     ap.add_argument("--force-fov", type=float, default=None,
                     help="override the scene fov (default honours the file)")
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--fix-pt-mis", action="store_true",
                     help="enable the MIS light-hit term the reference stubbed")
+    ap.add_argument("--resample", type=int, default=0, metavar="K",
+                    help="BDPT: connect each eye vertex to K light vertices "
+                         "drawn by RIS (unbiased; tile-local tables in the "
+                         "mega tier, one global table per sample "
+                         "otherwise); 0 = the exact all-pairs sweep")
     ap.add_argument("--tier", choices=TIERS, default="auto",
-                    help="PT path: auto (default: mega, or fused for "
-                         "textured scenes), mega (one render_wavefront "
-                         "kernel), fused (one bounce kernel per iteration), "
-                         "split (nearest-hit/any-blocker kernels around a "
-                         "PyTorch bounce) or plain PyTorch")
+                    help="PT: auto (default: mega, or fused for textured "
+                         "scenes), mega (one render_wavefront kernel), "
+                         "fused (one bounce kernel per iteration), split "
+                         "(nearest-hit/any-blocker kernels around a PyTorch "
+                         "bounce) or plain PyTorch.  BDPT: auto (mega), "
+                         "mega (one bdpt_eye kernel), fused (nearest-hit "
+                         "and connect kernels per bounce) or plain")
     return ap
 
 
@@ -77,7 +90,7 @@ def run(argv=None) -> dict:
 
     from .config import RenderConfig
     from .film import AccumState, save_image
-    from .integrators.pt import render_pt, resolve_tier
+    from .integrators import bdpt, pt
     from .ops import rng
     from .scene.camera import make_camera
     from .scene.obj_loader import load_any_scene
@@ -88,21 +101,27 @@ def run(argv=None) -> dict:
     W = args.width or parsed.width
     H = args.height or parsed.height
     scene = parsed.to_device(device)
+    cfg = RenderConfig(width=W, height=H, spp=args.spp, spl=args.spl,
+                       eye_depth=args.eye_depth, light_depth=args.light_depth,
+                       seed=args.seed,
+                       pt_stub_mis_strategy_a=not args.fix_pt_mis,
+                       bdpt_resample_vertices=max(0, args.resample))
     try:
-        tier = resolve_tier(scene, args.tier)
+        tier = (pt.resolve_tier(scene, args.tier) if args.mode == "pt"
+                else bdpt.resolve_tier(scene, args.tier, cfg))
     except (ValueError, NotImplementedError) as e:
         raise CliError(str(e)) from e
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       W, H, device=device, force_fov=args.force_fov)
-    cfg = RenderConfig(width=W, height=H, spp=args.spp,
-                       eye_depth=args.eye_depth, seed=args.seed,
-                       pt_stub_mis_strategy_a=not args.fix_pt_mis)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print("====================================")
     print(f" Device : {args.device} ({name})")
     print(f" Mode   : {args.mode} ({tier} tier)")
     print(f" SPP    : {args.spp}")
+    if args.mode == "bdpt":
+        print(f" SPL    : {args.spl}  light depth {args.light_depth}  "
+              f"resample {cfg.bdpt_resample_vertices}")
     print(f" Input  : {args.input}")
     print(f" Output : {args.output}")
     print(f" Res    : {W}x{H}  seed={args.seed}  iters={args.iters}")
@@ -120,8 +139,13 @@ def run(argv=None) -> dict:
     sync()
     t0 = time.perf_counter()
     for i in range(args.iters):
-        frame = render_pt(scene, cam, W, H, args.spp, cfg,
-                          rng.fold_in(key, i), tier=tier)
+        k = rng.fold_in(key, i)
+        if args.mode == "pt":
+            frame = pt.render_pt(scene, cam, W, H, args.spp, cfg, k,
+                                 tier=tier)
+        else:
+            frame = bdpt.render_bdpt(scene, cam, W, H, args.spp, args.spl,
+                                     cfg, k, tier=tier)
         state = state.add(frame)
         sync()
         print(f"[Render] iter {i + 1}: "

@@ -1,7 +1,8 @@
-// Device functions shared by the PT kernels of pt_kernels.cu: Threefry,
-// ray-primitive tests, the cluster walk, nearest hit (optionally with the
-// winner's interpolated UVs), the shadow sweep, the bilinear atlas fetch,
-// Fresnel, GGX, VNDF sampling, BSDF eval/pdf and bsdf_sample.
+// Device functions shared by the kernels of pt_kernels.cu and
+// bdpt_kernels.cu: Threefry, ray-primitive tests, the cluster walk, nearest
+// hit (optionally with the winner's interpolated UVs), the shadow sweep, the
+// bilinear atlas fetch, Fresnel, GGX, VNDF sampling, BSDF eval/pdf,
+// bsdf_sample, the camera ray and the BDPT connection sweep.
 //
 // The math follows path_tracing_tpu/ops/pallas_shade.py and
 // pallas_intersect.py operation for operation (built with --fmad=false, so
@@ -17,6 +18,7 @@
 //   uv  (Mt, 8):  u0 v0 u1 v1 u2 v2 tex 0   (tex = -1: untextured)
 //   cl  (Mc, 8):  min3 max3 start count
 //   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
+//   light vertices (V, 40): see ops/cuda_connect.py::pack_light_vertices
 #pragma once
 
 #include <cuda_runtime.h>
@@ -560,6 +562,157 @@ __device__ void eval_pdf_world(const Mtl& m, V3 wo_w, V3 wi_w, V3 n, V3* f, floa
   V3 wh = half_vector(wo, wi, &ok);
   *f = eval_local(m, wo, wi, alpha, wh, ok);
   *pdf = pdf_local(m, wo, wi, alpha, wh, ok);
+}
+
+// ---------------------------------------------------------------------------
+// camera
+// ---------------------------------------------------------------------------
+
+struct Cam {
+  V3 eye, ul, dx, dy;
+};
+
+// cam_tab: eye, ul, dx, dy as 12 floats
+__device__ __forceinline__ Cam load_cam(const float* __restrict__ cam_tab) {
+  return {load3(cam_tab, 0), load3(cam_tab, 1), load3(cam_tab, 2), load3(cam_tab, 3)};
+}
+
+// The jittered camera ray, rounded as scene/camera.py::primary_ray_dirs
+// rounds it: ((ul + dx*fx) + dy*fy) - eye, divided by its length.
+__device__ __forceinline__ V3 primary_dir(const Cam& cam, float fx, float fy) {
+  V3 d = mk(cam.ul.x + cam.dx.x * fx + cam.dy.x * fy - cam.eye.x,
+            cam.ul.y + cam.dx.y * fx + cam.dy.y * fy - cam.eye.y,
+            cam.ul.z + cam.dx.z * fx + cam.dy.z * fy - cam.eye.z);
+  float len = sqrtf(dot3(d, d));
+  return mk(d.x / len, d.y / len, d.z / len);
+}
+
+// ---------------------------------------------------------------------------
+// BDPT connection of one eye vertex against a light-vertex table
+// ---------------------------------------------------------------------------
+
+constexpr int kLvCols = 40;
+constexpr float kPdfOmegaFloor = 1e-6f;
+
+// The eye vertex's side of a connection, its frame built once.
+struct EyeVertex {
+  V3 pos, n, tp;
+  Mtl m;
+  V3 t, b, wo_e_l, wo_s_l;  // frame and local wo_e (eval) and wo_s (MIS pdf)
+  float alpha, eye_f;
+};
+
+__device__ __forceinline__ EyeVertex make_eye_vertex(V3 pos, V3 n, V3 tp, const Mtl& m, V3 wo_e,
+                                                     V3 wo_s, float eye_f) {
+  EyeVertex e;
+  e.pos = pos;
+  e.n = n;
+  e.tp = tp;
+  e.m = m;
+  build_frame(n, &e.t, &e.b);
+  e.wo_e_l = to_local(wo_e, e.t, e.b, n);
+  e.wo_s_l = to_local(wo_s, e.t, e.b, n);
+  e.alpha = roughness_to_alpha(m.rough);
+  e.eye_f = eye_f;
+  return e;
+}
+
+// The body of path_tracing_tpu/ops/pallas_connect.py::connect_core for one
+// active eye vertex: the sum, row after row, over rows [0, n_rows) of a
+// row-major (V, 40) table (ops/cuda_connect.py::pack_light_vertices) of
+// G fE fL V MIS contributions, each valid3-checked and clamp3-ed.  The
+// reference's quirks: the evals take the unit wi, both MIS pdfs wi * dist;
+// pdfs floored at 1e-6; the spot-cone gate on emitter rows; G = cosE cosL /
+// max(d^2, 1e-4); dist-scaled area conversions; mis_w = 1 / (1 +
+// pdf_t_to_s eye_f + pdf_s_to_t mis_a) where finite and > 0.  A row whose
+// gate is closed adds +0 in the reference, so it is skipped before the
+// work it would waste: invalid rows and failed geometry gates before the
+// BSDF math, zero evals before the shadow sweep, and the light-side eval
+// on emitter rows (their f_L is 1).
+__device__ V3 connect_dev(const Tables& tb, const float* __restrict__ rows, int n_rows,
+                          const EyeVertex& e, float clamp_val, int blocks_col) {
+  V3 acc = mk(0.f, 0.f, 0.f);
+  const V3 p1 = e.pos + scale(e.n, kEps);
+  for (int c = 0; c < n_rows; ++c) {
+    const float* R = rows + (size_t)c * kLvCols;
+    if (!(R[25] > 0.0f)) continue;  // invalid row
+    V3 lp = mk(R[0], R[1], R[2]);
+    V3 ln = mk(R[3], R[4], R[5]);
+    V3 d_vec = lp - e.pos;
+    float dist2 = dot3(d_vec, d_vec);
+    float dist = sqrtf(jmax(dist2, 1e-20f));
+    V3 wi = scale(d_vec, 1.0f / dist);
+    float cos_e = jmax(0.0f, dot3(e.n, wi));
+    float cos_l = jmax(0.0f, dot3(-ln, wi));
+    if (!((dist2 >= 1e-6f) && (cos_e > 0.0f) && (cos_l > 0.0f))) continue;
+    bool is_src = R[15] > 0.0f;
+    bool cone_bad = is_src && (R[16] > 0.0f) && !(R[17] > 0.0f) &&
+                    (dot3(mk(R[18], R[19], R[20]), -wi) < R[36]);
+    if (cone_bad) continue;
+
+    // eye side: eval with wo_e, MIS pdf with wo_s against wi * dist
+    V3 wi_e_l = to_local(wi, e.t, e.b, e.n);
+    bool ok;
+    V3 wh = half_vector(e.wo_e_l, wi_e_l, &ok);
+    V3 f_e = eval_local(e.m, e.wo_e_l, wi_e_l, e.alpha, wh, ok);
+    if (!((f_e.x > 0.0f) || (f_e.y > 0.0f) || (f_e.z > 0.0f))) continue;
+    V3 wi_s_l = scale(wi_e_l, dist);
+    wh = half_vector(e.wo_s_l, wi_s_l, &ok);
+    float pdf_s = jmax(pdf_local(e.m, e.wo_s_l, wi_s_l, e.alpha, wh, ok), kPdfOmegaFloor);
+
+    // light side, in the frame packed with the table
+    Mtl m_l = {mk(R[9], R[10], R[11]), R[12], R[13], R[14]};
+    V3 wo_t_l = mk(R[32], R[33], R[34]);
+    float alpha_l = R[35];
+    V3 wi_l_l = to_local(-wi, mk(R[26], R[27], R[28]), mk(R[29], R[30], R[31]), ln);
+    V3 f_l = mk(1.f, 1.f, 1.f);
+    if (!is_src) {
+      wh = half_vector(wo_t_l, wi_l_l, &ok);
+      f_l = eval_local(m_l, wo_t_l, wi_l_l, alpha_l, wh, ok);
+      if (!((f_l.x > 0.0f) || (f_l.y > 0.0f) || (f_l.z > 0.0f))) continue;
+    }
+    V3 wi_t_l = scale(wi_l_l, dist);
+    wh = half_vector(wo_t_l, wi_t_l, &ok);
+    float pdf_t = jmax(pdf_local(m_l, wo_t_l, wi_t_l, alpha_l, wh, ok), kPdfOmegaFloor);
+
+    // visibility between the two offset endpoints
+    V3 diff = (lp + scale(ln, kEps)) - p1;
+    float sdist = norm3(diff);
+    V3 srd = scale(diff, 1.0f / jmax(sdist, 1e-20f));
+    if (shadow_blocked_dev(tb, p1, srd, sdist - kMinD, blocks_col)) continue;
+
+    float g_term = cos_e * cos_l / jmax(dist2, 1e-4f);
+    float pdf_s_to_t = pdf_s * cos_l * dist / jmax(dist2, 1e-20f);
+    float pdf_t_to_s = pdf_t * cos_e * dist / jmax(dist2, 1e-20f);
+    float sum_ratios = 1.0f + pdf_t_to_s * e.eye_f + pdf_s_to_t * R[24];
+    bool mis_ok = isfinite(sum_ratios) && (sum_ratios > 0.0f);
+    float mis_w = mis_ok ? 1.0f / jmax(sum_ratios, 1e-30f) : 0.0f;
+    // the shadow factor is 1 on every pair that gets here
+    V3 contrib = scale(mul(mul(mul(e.tp, f_e), f_l), mk(R[6], R[7], R[8])), g_term * mis_w);
+    if (valid3(contrib)) acc = acc + clamp3(contrib, clamp_val);
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// launch helpers
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;
+
+inline int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                          const float* cl, int nc) {
+  Tables tb;
+  tb.sph = sph;
+  tb.ns = ns;
+  tb.nl = nl;
+  tb.tri = tri;
+  tb.uv = uv;
+  tb.cl = cl;
+  tb.nc = nc;
+  return tb;
 }
 
 }  // namespace ptk

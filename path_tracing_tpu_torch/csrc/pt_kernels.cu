@@ -389,25 +389,11 @@ __global__ void shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in,
 // render_wavefront: every sample of one pixel in one thread
 // ---------------------------------------------------------------------------
 
-struct Cam {
-  V3 eye, ul, dx, dy;
-};
-
 struct WavefrontCfg {
   Key key;
   uint32_t start, total;   // this lane is column start + i of a total-lane render
   int spp, eye_depth, max_path_iters, max_total;
 };
-
-// The jittered camera ray, rounded as scene/camera.py::primary_ray_dirs
-// rounds it: ((ul + dx*fx) + dy*fy) - eye, divided by its length.
-__device__ __forceinline__ V3 primary_dir(const Cam& cam, float fx, float fy) {
-  V3 d = mk(cam.ul.x + cam.dx.x * fx + cam.dy.x * fy - cam.eye.x,
-            cam.ul.y + cam.dx.y * fx + cam.dy.y * fy - cam.eye.y,
-            cam.ul.z + cam.dx.z * fx + cam.dy.z * fy - cam.eye.z);
-  float len = sqrtf(dot3(d, d));
-  return mk(d.x / len, d.y / len, d.z / len);
-}
 
 // The loop of _wavefront_kernel for one lane, iteration for iteration the
 // lane's column of integrators/pt.py::wavefront_loop: regenerate while
@@ -422,11 +408,7 @@ __global__ void render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __re
                                         float* __restrict__ img_out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  Cam cam;
-  cam.eye = load3(cam_tab, 0);
-  cam.ul = load3(cam_tab, 1);
-  cam.dx = load3(cam_tab, 2);
-  cam.dy = load3(cam_tab, 3);
+  const Cam cam = load_cam(cam_tab);
   const float fpx = (float)px[i], fpy = (float)py[i];
   const uint32_t lane = (uint32_t)i;
 
@@ -478,23 +460,6 @@ __global__ void render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __re
   // paths cut by the global cap still contribute what they gathered
   if (s.alive && valid3(rad)) img = img + rad;
   store3(img_out, i, img);
-}
-
-constexpr int kThreads = 128;
-
-inline int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
-
-inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc) {
-  Tables tb;
-  tb.sph = sph;
-  tb.ns = ns;
-  tb.nl = nl;
-  tb.tri = tri;
-  tb.uv = uv;
-  tb.cl = cl;
-  tb.nc = nc;
-  return tb;
 }
 
 }  // namespace

@@ -57,30 +57,18 @@ def write_png(path: str, rgb_u8: np.ndarray) -> None:
         f.write(encode_png(rgb_u8))
 
 
-def read_png(path: str) -> np.ndarray:
-    """Dependency-free PNG reader: 8-bit RGB, not interlaced, every row
-    filter.  Returns (H, W, 3) uint8."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
-    pos, w, h, idat = 8, None, None, b""
-    while pos < len(data):
-        (ln,) = struct.unpack(">I", data[pos:pos + 4])
-        tag = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + ln]
-        if tag == b"IHDR":
-            w, h, bit, color, _, _, interlace = struct.unpack(">IIBBBBB",
-                                                              body[:13])
-            if bit != 8 or color != 2 or interlace:
-                raise ValueError(f"{path}: only 8-bit RGB non-interlaced "
-                                 "PNGs are read")
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + ln
-    raw = zlib.decompress(idat)
-    stride, bpp = w * 3, 3
-    out = np.zeros((h, w, 3), np.uint8)
+# PNG colour type -> (samples per pixel, bit depths read)
+_PNG_FORMATS = {0: (1, (1, 2, 4, 8)),     # grey
+                2: (3, (8, 16)),          # RGB
+                3: (1, (1, 2, 4, 8)),     # palette
+                4: (2, (8, 16)),          # grey + alpha
+                6: (4, (8, 16))}          # RGBA
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str):
+    """Undo the per-row filters of a non-interlaced image: (h, stride)
+    uint8, ``bpp`` bytes per complete pixel (at least 1)."""
+    out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
     for i in range(h):
         row = raw[i * (stride + 1):(i + 1) * (stride + 1)]
@@ -106,9 +94,68 @@ def read_png(path: str) -> np.ndarray:
                 line[j] = (line[j] + pred) & 0xFF
         elif ft != 0:
             raise ValueError(f"{path}: unknown PNG row filter {ft}")
-        out[i] = line.reshape(w, 3)
+        out[i] = line
         prev = line
     return out
+
+
+def read_png(path: str) -> np.ndarray:
+    """Dependency-free PNG reader returning (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` does, for non-interlaced grey (1,
+    2, 4 or 8 bits, scaled to 0-255), RGB and RGBA (8 or 16 bits: the high
+    byte), palette (1, 2, 4 or 8 bits, with PLTE) and grey + alpha (8 or
+    16 bits).  Alpha is dropped and tRNS ignored.  Any other format raises
+    a ValueError naming its colour type and bit depth."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, w, h, idat, plte = 8, None, None, b"", None
+    while pos < len(data):
+        (ln,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + ln]
+        if tag == b"IHDR":
+            w, h, bit, color, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                              body[:13])
+            fmt = _PNG_FORMATS.get(color)
+            if fmt is None or bit not in fmt[1] or interlace:
+                raise ValueError(
+                    f"{path}: PNG colour type {color} at bit depth {bit}"
+                    f"{' (interlaced)' if interlace else ''} is not read")
+        elif tag == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + ln
+    if w is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    ch = _PNG_FORMATS[color][0]
+    stride = (w * ch * bit + 7) // 8
+    rows = _unfilter(zlib.decompress(idat), h, stride,
+                     max(1, ch * bit // 8), path)
+    if bit == 16:      # big-endian samples: keep the high byte
+        s = rows.reshape(h, w * ch, 2)[..., 0]
+    elif bit == 8:
+        s = rows
+    else:              # packed samples, most significant bits first
+        bits = np.unpackbits(rows, axis=1)[:, :w * bit]
+        s = (bits.reshape(h, w, bit)
+             * (1 << np.arange(bit - 1, -1, -1, dtype=np.uint8))).sum(
+                 axis=2, dtype=np.uint8)
+    s = s.reshape(h, w, ch)
+    if color == 3:
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        pal = np.zeros((256, 3), np.uint8)
+        pal[:len(plte)] = plte
+        return pal[s[..., 0]]
+    if color in (0, 4):
+        grey = s[..., 0]
+        if bit < 8:
+            grey = grey * np.uint8(255 // ((1 << bit) - 1))
+        return np.repeat(grey[..., None], 3, axis=2)
+    return np.ascontiguousarray(s[..., :3])
 
 
 def save_image(path: str, linear, width: int, height: int) -> None:

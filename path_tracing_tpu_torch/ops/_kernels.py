@@ -1,10 +1,13 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``.  The build runs at first use, into
-``path_tracing_tpu_torch/build/``, under a name keyed on a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-reused.  A failed build raises with nvcc's output; nothing falls back.
+Each library's source is compiled with ``nvcc`` into a shared library with
+a plain C interface and loaded with ``ctypes``: ``pt_kernels.cu`` (the PT
+kernels) and ``bdpt_kernels.cu`` (the BDPT kernels), both on the device
+functions of ``pt_device.cuh``.  The builds run at first use, all at once
+(one ``nvcc`` per source), into ``path_tracing_tpu_torch/build/``, each
+under a name keyed on a hash of its sources and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  A failed build raises
+with nvcc's output; nothing falls back.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
@@ -24,7 +27,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("pt_kernels.cu", "pt_device.cuh")
+HEADERS = ("pt_device.cuh",)
+# each library: its source (csrc/<name>.cu) and the kernels it holds
+LIBRARIES = {
+    "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
+                   "shade_step_tex", "render_wavefront", "threefry_rows"),
+    "bdpt_kernels": ("connect", "bdpt_eye"),
+}
 # --fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch versions round them; no --use_fast_math, so division, sqrt
 # and the transcendentals keep their IEEE-accurate forms.
@@ -32,8 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-KERNELS = ("nearest_hit", "any_blocker", "shade_step", "shade_step_tex",
-           "render_wavefront", "threefry_rows")
+KERNELS = tuple(k for ks in LIBRARIES.values() for k in ks)
 launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
@@ -52,6 +60,14 @@ _ARGTYPES = {
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _U, _U, _U, _U, _F, _I, _I, _P, _P],
     "threefry_rows": [_U, _U, _I, _I, _U, _U, _P, _P],
+    # lv, n_valid | pos n tp bc rough metal eta wo_e wo_s eye_f act | B,
+    # clamp, blocks_col | out
+    "connect": _TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
+    # lv, n_valid, tile_lanes, tile_stride | cam px py | B spp eye_depth
+    # max_iters | k0 k1 start total | clamp blocks_col light_hit_scale | img
+    "bdpt_eye": _TABLES + [_P, _I, _I, ctypes.c_longlong, _P, _P, _P,
+                           _I, _I, _I, _I, _U, _U, _U, _U, _F, _I, _F,
+                           _P, _P],
 }
 
 
@@ -63,9 +79,9 @@ def reset_counts() -> None:
 
 @dataclass
 class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float   # 0.0 when an existing build was reused
+    fns: dict              # kernel name -> its C entry point
+    paths: list            # the loaded shared libraries
+    build_seconds: float   # wall time of the builds; 0.0 when all reused
     ptxas_log: str
 
 
@@ -81,42 +97,54 @@ def _find_nvcc() -> str:
     return nvcc
 
 
-def _source_hash() -> str:
+def _source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((SRC_DIR / name).read_bytes())
+    for src in (*HEADERS, f"{name}.cu"):
+        h.update((SRC_DIR / src).read_bytes())
     return h.hexdigest()[:16]
 
 
 def library() -> KernelLibrary:
-    """The loaded kernel library, built first if needed."""
+    """Every kernel's entry point, the libraries built first if needed
+    (the missing ones in parallel)."""
     global _LOADED
     if _LOADED is not None:
         return _LOADED
-    so = BUILD_DIR / f"libpt_kernels_{_source_hash()}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(SRC_DIR / "pt_kernels.cu")]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        log = r.stderr
-        os.replace(tmp, so)
-        (so.with_suffix(".log")).write_text(log)
-    elif so.with_suffix(".log").exists():
-        log = so.with_suffix(".log").read_text()
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, f"pt_{name}")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _LOADED = KernelLibrary(lib=lib, path=so, build_seconds=seconds,
-                            ptxas_log=log)
+    sos = {n: BUILD_DIR / f"lib{n}_{_source_hash(n)}.so" for n in LIBRARIES}
+    t0 = time.perf_counter()
+    procs = {}
+    for n, so in sos.items():
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(SRC_DIR / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, sos[n])
+        sos[n].with_suffix(".log").write_text(err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    seconds = time.perf_counter() - t0 if procs else 0.0
+    fns, logs = {}, []
+    for n, so in sos.items():
+        lib = ctypes.CDLL(str(so))
+        if so.with_suffix(".log").exists():
+            logs.append(so.with_suffix(".log").read_text())
+        for k in LIBRARIES[n]:
+            fn = getattr(lib, f"pt_{k}")
+            fn.argtypes = _ARGTYPES[k]
+            fn.restype = ctypes.c_int
+            fns[k] = fn
+    _LOADED = KernelLibrary(fns=fns, paths=list(sos.values()),
+                            build_seconds=seconds, ptxas_log="".join(logs))
     return _LOADED
 
 
@@ -126,8 +154,7 @@ def launch(name: str, *args) -> None:
     import torch
 
     stream = torch.cuda.current_stream().cuda_stream
-    fn = getattr(library().lib, f"pt_{name}")
-    rc = fn(*args, ctypes.c_void_p(stream))
+    rc = library().fns[name](*args, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

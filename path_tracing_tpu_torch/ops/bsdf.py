@@ -86,15 +86,29 @@ def _pdf_local(mtl: Material, wo, wi, alpha, wh, wh_valid):
     return _where(kill, torch.zeros_like(pdf), pdf)
 
 
-def bsdf_eval_pdf(mtl: Material, wo_w, wi_w, n):
-    """Evaluate f(wo, wi) and the rough-lobe pdf in one local frame."""
+def _to_local(mtl: Material, wo_w, wi_w, n):
     t, b = build_local_frame(n)
     wo = world_to_local(wo_w, t, b, n)
     wi = world_to_local(wi_w, t, b, n)
     alpha = roughness_to_alpha(mtl.roughness)
     wh, wh_valid = _half_vector(wo, wi)
-    return (_eval_local(mtl, wo, wi, alpha, wh, wh_valid),
-            _pdf_local(mtl, wo, wi, alpha, wh, wh_valid))
+    return wo, wi, alpha, wh, wh_valid
+
+
+def bsdf_evaluate(mtl: Material, wo_w, wi_w, n) -> torch.Tensor:
+    """f(wo, wi): diffuse (1 - metallic) / pi plus the GGX specular."""
+    return _eval_local(mtl, *_to_local(mtl, wo_w, wi_w, n))
+
+
+def bsdf_pdf(mtl: Material, wo_w, wi_w, n) -> torch.Tensor:
+    """Solid-angle pdf of ``bsdf_sample``'s rough branch."""
+    return _pdf_local(mtl, *_to_local(mtl, wo_w, wi_w, n))
+
+
+def bsdf_eval_pdf(mtl: Material, wo_w, wi_w, n):
+    """Evaluate f(wo, wi) and the rough-lobe pdf in one local frame."""
+    args = _to_local(mtl, wo_w, wi_w, n)
+    return _eval_local(mtl, *args), _pdf_local(mtl, *args)
 
 
 def bsdf_sample(mtl: Material, wo_w, n, u_rr, u1, u2,

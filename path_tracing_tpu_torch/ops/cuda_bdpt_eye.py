@@ -1,0 +1,93 @@
+"""The BDPT eye megakernel (counterpart of
+``path_tracing_tpu.ops.pallas_bdpt_eye.bdpt_eye_pallas``).
+
+``bdpt_eye`` runs the whole eye pass of a frame in one launch of the CUDA
+kernel ``bdpt_eye`` (``csrc/bdpt_kernels.cu``): one thread per pixel runs
+its ``spp`` samples one after the other, each a bounded bounce loop that
+connects every vertex against the light-vertex table (the ``connect``
+kernel's body, inline) and carries the eye-side MIS scalar.  Sample ``s``
+draws from ``k_s = fold_in(fold_in(key, 0x0202), s)``: the camera jitter
+from ``fold_in(k_s, 0xA11CE)`` and bounce ``it`` from
+``fold_in(fold_in(k_s, 0xE7E), it)``, at the counters the per-bounce
+tiers' ``uniform_rows`` give the pixel's lane.  So against a shared table
+its image is the fused tier's; the TPU kernel drew from its on-core PRNG
+instead, and agreed with its scan tier only in distribution.
+
+The table is (V, 40), shared by every pixel, or (T, Kp, 40) with one
+tile-local RIS table per ``TILE_LANES`` consecutive pixels (the JAX
+package's megakernel tile: 128 rows of 128 lanes).
+
+``bdpt_eye_plain`` is the same function in PyTorch: the per-sample bounce
+loop on the plain nearest-hit, connection and Threefry versions.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _kernels
+from .cuda_connect import check_table
+from .cuda_intersect import PackedScene, check_tables, check_tensor, table_args
+from . import rng
+
+TILE_LANES = 128 * 128
+
+
+def eye_tiling(B: int):
+    """(number of tiles, lanes per tile) of a ``B``-pixel eye pass."""
+    return -(-B // TILE_LANES), TILE_LANES
+
+
+def bdpt_eye_plain(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
+                   cam, px, py, spp: int, cfg, key, light_hit_scale: float,
+                   start: int = 0, total: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the ``bdpt_eye`` kernel."""
+    from ..integrators.bdpt import bdpt_eye_plain_loop
+
+    _kernels.plain_calls["bdpt_eye"] += 1
+    return bdpt_eye_plain_loop(packed, lv_tab, n_valid, cam, px, py, spp,
+                               cfg, key, light_hit_scale, start, total)
+
+
+def bdpt_eye(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int, cam,
+             px, py, spp: int, cfg, key, light_hit_scale: float,
+             start: int = 0, total: int | None = None) -> torch.Tensor:
+    """The per-pixel radiance SUM over ``spp`` BDPT samples, (B, 3), for
+    pixel indices ``px``, ``py`` (B,) int32 against rows ``[0, n_valid)``
+    of ``lv_tab`` (of each tile's table when it is (T, Kp, 40), T =
+    ``eye_tiling(B)[0]``).  ``start``/``total``: the lanes are columns
+    [start, start + B) of a global ``total``-lane render."""
+    if px.device.type == "cpu":
+        return bdpt_eye_plain(packed, lv_tab, n_valid, cam, px, py, spp, cfg,
+                              key, light_hit_scale, start, total)
+    B = px.shape[0]
+    total = B if total is None else total
+    if 3 * total >= 2 ** 32 or start < 0 or start + B > total:
+        raise ValueError(f"bdpt_eye: lanes [{start}, {start + B}) of a "
+                         f"{total}-lane render do not fit the 32-bit "
+                         "Threefry counters")
+    check_tensor("px", px, (B,), torch.int32)
+    check_tensor("py", py, (B,), torch.int32)
+    check_table(lv_tab, n_valid, dims=(2, 3))
+    tiled = lv_tab.dim() == 3
+    if tiled and lv_tab.shape[0] != eye_tiling(B)[0]:
+        raise ValueError(f"bdpt_eye: {lv_tab.shape[0]} tile tables for "
+                         f"{eye_tiling(B)[0]} tiles of {TILE_LANES} pixels")
+    check_tables(packed, px.device)
+    cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).to(
+        device=px.device, dtype=torch.float32).contiguous()
+    out = torch.empty((B, 3), device=px.device)
+    if B:
+        k0, k1 = (int(w) for w in rng.fold_in(key, 0x0202).tolist())
+        _kernels.launch(
+            "bdpt_eye", *table_args(packed),
+            ctypes.c_void_p(lv_tab.data_ptr()), int(n_valid),
+            TILE_LANES if tiled else 0,
+            lv_tab.shape[1] * lv_tab.shape[2] if tiled else 0,
+            ctypes.c_void_p(cam_tab.data_ptr()),
+            ctypes.c_void_p(px.data_ptr()), ctypes.c_void_p(py.data_ptr()),
+            B, spp, cfg.eye_depth, cfg.max_eye_iters, k0, k1, start, total,
+            float(cfg.clamp), 4 if cfg.shadow_dielectrics_block else 5,
+            float(light_hit_scale), ctypes.c_void_p(out.data_ptr()))
+    return out

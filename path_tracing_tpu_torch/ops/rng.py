@@ -150,6 +150,23 @@ def uniform_rows(key: torch.Tensor, P: int, n: int, start: int = 0,
     return out
 
 
+def uniform(key: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1), element
+    ``i`` of the row-major flattened shape at counter ``i`` (no ``1 - u``
+    flip), bit for bit.  Small draws (the RIS strata); the bits are made
+    with the int64 Threefry on ``device``."""
+    shape = tuple(shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if size >= 2 ** 32:
+        raise ValueError("uniform: the counters hold 32 bits")
+    flat = torch.arange(size, dtype=torch.int64, device=device)
+    o0, o1 = threefry2x32(*_words(key), torch.zeros_like(flat), flat)
+    fb = (((o0 ^ o1) >> 9) | 0x3F800000).to(torch.int32)
+    return (fb.view(torch.float32) - 1.0).reshape(shape)
+
+
 def uniforms_g(key: torch.Tensor, P: int, n: int, start: int = 0,
                total: int | None = None, device="cpu"):
     """``n`` uniform (P,) tensors: the rows of :func:`uniform_rows`."""

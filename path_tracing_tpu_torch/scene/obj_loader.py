@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 import os
+import sys
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -98,8 +99,8 @@ def _parse_mtl(path: str) -> Dict[str, MtlDef]:
 def _decode_texture(path: str) -> "np.ndarray | None":
     """Image file -> (H, W, 3) float32 linear RGB in [0, 1]: the bytes are
     gamma-encoded, decoded with the 2.2 power the film encodes with.  PIL
-    when installed, else ``film.read_png``; None (the flat color) when
-    neither decodes it."""
+    when installed, else ``film.read_png``; None (the flat color, with a
+    warning naming the file) when neither decodes it."""
     try:
         from PIL import Image
 
@@ -109,7 +110,9 @@ def _decode_texture(path: str) -> "np.ndarray | None":
             from ..film import read_png
 
             raw = np.asarray(read_png(path), np.float32)
-        except Exception:
+        except Exception as e:
+            print(f"[warning] texture {path} could not be read ({e}); the "
+                  "material keeps its flat Kd", file=sys.stderr)
             return None
     return (raw / 255.0) ** 2.2
 

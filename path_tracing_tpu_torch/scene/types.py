@@ -113,6 +113,11 @@ class Scene:
     def has_legacy_ks(self) -> bool:
         return self.sph_ks.shape[0] > 0 or self.tri_ks.shape[0] > 0
 
+    def with_illum_scaled(self, scale: float) -> "Scene":
+        """The scene with light flux scaled (BDPT divides it by the light
+        sample count)."""
+        return dataclasses.replace(self, light_illum=self.light_illum * scale)
+
 
 @dataclass
 class Camera:

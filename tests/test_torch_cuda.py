@@ -1,5 +1,5 @@
-"""The CUDA kernels against their plain versions on the card, and the
-megakernel's image against the fused tier's.
+"""The CUDA kernels against their plain versions on the card, and the PT
+and BDPT megakernels' images against their fused tiers'.
 
 These need an NVIDIA card, nvcc and the port's build, so they skip
 without a card.  This file imports neither jax nor the JAX package; where
@@ -18,7 +18,7 @@ from path_tracing_tpu_torch.integrators.pt import _light_table, render_pt
 from path_tracing_tpu_torch.ops import _kernels, cuda_intersect, cuda_shade
 from path_tracing_tpu_torch.ops import intersect, rng
 from path_tracing_tpu_torch.scene import synth
-from path_tracing_tpu_torch.scene.camera import make_camera
+from path_tracing_tpu_torch.scene.camera import make_camera, primary_ray_dirs
 from path_tracing_tpu_torch.scene.parser import load_scene
 
 CORNELL = Path(__file__).resolve().parent.parent / "scenes" / "cornell.txt"
@@ -137,3 +137,91 @@ def test_megakernel_equals_fused_tier(card):
     imgs = [render_pt(scene, cam, 64, 48, 4, cfg, key, tier=t)
             for t in ("mega", "fused")]
     assert torch.equal(imgs[0], imgs[1])
+
+
+def _bdpt_table(scene, key, K=0, cam=None, w=0, h=0):
+    """The spl 4 light-vertex table of a w x h BDPT frame on ``scene``, as
+    the mega tier builds it: the compacted (V, 40) one, or with K > 0 the
+    tile-local RIS tables; with the scene whose flux it scaled."""
+    from path_tracing_tpu_torch.integrators import bdpt
+
+    cfg = RenderConfig(width=w, height=h, eye_depth=4, light_depth=4,
+                       bdpt_resample_vertices=K)
+    used, lv, _ = bdpt.light_side(scene, cfg, 4, key)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
+    return used, tab, nv
+
+
+def test_connect_kernel_matches_plain(card):
+    from path_tracing_tpu_torch.ops import cuda_connect
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    scene, _ = card
+    key = rng.prng_key(6)
+    used, tab, nv = _bdpt_table(scene, key)
+    pk = cuda_intersect.pack_scene(used)
+    p = load_scene(str(CORNELL))
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 128, 96,
+                      device="cuda")
+    B = 128 * 96
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    u = rng.uniform_rows(key, B, 6, device="cuda")
+    rd = primary_ray_dirs(cam, idx % 128, idx // 128, u[0], u[1])
+    ro = cam.eye[None].expand(B, 3).contiguous()
+    hit = intersect.hit_from_fields(cuda_intersect.nearest_hit(pk, ro, rd),
+                                    ro, rd)
+    act = hit.hit & ~hit.is_light
+    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(u[2]),
+                        1e8 * (1.0 + 4.0 * u[2]))
+    args = (pk, tab, nv, hit.pos, hit.normal, (0.5 + 0.5 * u[3:6].T)
+            .contiguous(), hit.mtl, -rd, normalize(cam.eye[None] - hit.pos),
+            eye_f, act)
+    a = cuda_connect.connect(*args, clamp_val=15.0, dielectrics_block=True)
+    b = cuda_connect.connect_plain(*args, clamp_val=15.0,
+                                   dielectrics_block=True)
+    rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+    assert act.float().mean().item() > 0.9
+    assert (rel < 1e-3).all().item(), rel.max().item()
+
+
+@pytest.mark.parametrize("K", [0, 32])
+def test_bdpt_eye_kernel_matches_plain(card, K):
+    """#9 against its plain version on the same table (shared, or
+    tile-local RIS): mean within 1e-3, 99% of pixels within rtol 1e-4 /
+    atol 1e-5 (they draw the same numbers and add in the same order)."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye
+
+    scene, _ = card
+    w, h = 160, 120
+    p = load_scene(str(CORNELL))
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    key = rng.prng_key(7)
+    used, tab, nv = _bdpt_table(scene, key, K, cam, w, h)
+    pk = cuda_intersect.pack_scene(used)
+    cfg = RenderConfig(width=w, height=h, eye_depth=4, light_depth=4)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    args = (pk, tab, nv, cam, idx % w, idx // w, 2, cfg, key, 4.0)
+    a = cuda_bdpt_eye.bdpt_eye(*args)
+    b = cuda_bdpt_eye.bdpt_eye_plain(*args)
+    assert abs(a.mean().item() - b.mean().item()) < 1e-3 * b.mean().item()
+    ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert ok.float().mean().item() >= 0.99
+
+
+def test_bdpt_megakernel_equals_fused_tier(card):
+    """The exact sweep in one bdpt_eye launch and in the per-bounce tier
+    (nearest_hit + connect + threefry_rows): the same numbers drawn and
+    added in the same order."""
+    from path_tracing_tpu_torch.integrators.bdpt import render_bdpt
+
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 64, 48,
+                      device="cuda")
+    cfg = RenderConfig(width=64, height=48, eye_depth=4, light_depth=4)
+    a, b = (render_bdpt(scene, cam, 64, 48, 2, 4, cfg, rng.prng_key(0),
+                        tier=t) for t in ("mega", "fused"))
+    ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert ok.float().mean().item() >= 0.999

@@ -39,7 +39,7 @@ from path_tracing_tpu_torch.integrators.pt import (_light_table, render_pt,
 from path_tracing_tpu_torch.ops import cuda_intersect as CI
 from path_tracing_tpu_torch.ops import cuda_shade, rng, texture
 from path_tracing_tpu_torch.scene import obj_loader, synth
-from path_tracing_tpu_torch.scene.camera import primary_ray_dirs
+from path_tracing_tpu_torch.scene.camera import make_camera, primary_ray_dirs
 from path_tracing_tpu_torch.scene.types import scene_from_jax_arrays
 
 from conftest import make_textured_quad_obj
@@ -383,3 +383,160 @@ def test_mega_tier_refuses_textured_scene(quad_obj):
     with pytest.raises(ValueError, match="mega"):
         render_pt(ts, None, 4, 4, 1, RenderConfig(**CFG), rng.prng_key(0),
                   tier="mega")
+
+
+# ---- the PNG reader on every format a texture may come in ----
+
+# (colour type, bit depth): grey 1/2/4/8, RGB 8/16, palette 1/2/4/8, grey +
+# alpha 8/16, RGBA 8/16
+PNG_FORMATS = [(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (2, 16), (3, 1),
+               (3, 2), (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _encode_png(samples, bit, color, plte=None, trns=None):
+    """A PNG from integer samples (H, W * channels), written here from the
+    PNG specification: samples packed at ``bit`` bits (16: big-endian),
+    row i stored with filter i % 5 over the format's bytes per pixel."""
+    import struct
+    import zlib
+
+    h = samples.shape[0]
+    w = samples.shape[1] // PNG_CHANNELS[color]
+    if bit == 16:
+        rows = samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    elif bit == 8:
+        rows = samples.astype(np.uint8)
+    else:
+        bits = np.unpackbits(samples.astype(np.uint8)[..., None],
+                             axis=2)[..., 8 - bit:].reshape(h, -1)
+        rows = np.packbits(bits, axis=1)
+    bpp = max(1, PNG_CHANNELS[color] * bit // 8)
+    raw, prev = b"", np.zeros(rows.shape[1], np.int64)
+    for i in range(h):
+        line = rows[i].astype(np.int64)
+        left = np.concatenate([np.zeros(bpp, np.int64), line[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        ft = i % 5
+        if ft == 4:
+            p = left + prev - upleft
+            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        else:
+            pred = [0 * line, left, prev, (left + prev) // 2, None][ft]
+        raw += bytes([ft]) + ((line - pred) & 0xFF).astype(np.uint8).tobytes()
+        prev = line
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    out = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bit, color, 0, 0,
+                                        0)))
+    if plte is not None:
+        out += chunk(b"PLTE", plte)
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    return out + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def _random_png(color, bit, h=9, w=11, seed=0):
+    rs = np.random.RandomState(seed)
+    samples = rs.randint(0, 1 << bit, (h, w * PNG_CHANNELS[color]))
+    plte = trns = None
+    if color == 3:
+        plte = rs.randint(0, 256, (1 << bit, 3)).astype(np.uint8).tobytes()
+        trns = bytes([0, 128])
+    return _encode_png(samples, bit, color, plte, trns)
+
+
+@pytest.mark.parametrize("color,bit", PNG_FORMATS,
+                         ids=[f"type{c}_{b}bit" for c, b in PNG_FORMATS])
+def test_read_png_matches_pil(color, bit, tmp_path):
+    """read_png returns what PIL's convert("RGB") returns: grey scaled to
+    0-255, 16-bit samples as their high byte, palettes looked up, alpha
+    and tRNS dropped; every row filter over the format's pixel width."""
+    Image = pytest.importorskip("PIL.Image")
+    path = tmp_path / "t.png"
+    path.write_bytes(_random_png(color, bit))
+    got = read_png(str(path))
+    assert got.shape == (9, 11, 3) and got.dtype == np.uint8
+    np.testing.assert_array_equal(
+        got, np.asarray(Image.open(str(path)).convert("RGB")))
+
+
+@pytest.mark.parametrize("color,bit,interlace", [(0, 16, 0), (2, 8, 1)])
+def test_read_png_refuses_other_formats(color, bit, interlace, tmp_path):
+    import struct
+
+    data = bytearray(_random_png(0, 8))
+    data[16:29] = struct.pack(">IIBBBBB", 11, 9, bit, color, 0, 0, interlace)
+    path = tmp_path / "x.png"
+    path.write_bytes(bytes(data))
+    with pytest.raises(ValueError, match=f"colour type {color} at bit depth "
+                                         f"{bit}"):
+        read_png(str(path))
+
+
+def _quad_with_png(dirpath, png_bytes, name):
+    """The textured quad of conftest.make_textured_quad_obj with its map_Kd
+    replaced by ``png_bytes``."""
+    d = Path(dirpath) / name
+    d.mkdir()
+    obj = Path(make_textured_quad_obj(d))
+    (d / "check.png").write_bytes(png_bytes)
+    return obj
+
+
+@pytest.mark.parametrize("fmt", ["rgba", "grey", "palette"])
+def test_textured_obj_without_pil_keeps_its_texture(fmt, tmp_path,
+                                                    monkeypatch):
+    """A map_Kd in RGBA, grey or palette form is decoded by read_png when
+    PIL cannot be imported: the OBJ loads with the texture (not the flat
+    Kd) and renders exactly as the same texture stored as RGB8."""
+    n = 8
+    y, x = np.mgrid[0:n, 0:n]
+    idx = ((y >= n // 2) * 2 + (x >= n // 2)).astype(np.int64)  # quadrants
+    pal = np.array([[255, 0, 0], [0, 255, 0], [0, 0, 255], [255, 255, 255]])
+    if fmt == "rgba":
+        samples = np.concatenate([pal[idx], 77 + idx[..., None] * 40],
+                                 -1).reshape(n, -1)
+        png = _encode_png(samples, 8, 6)
+        rgb = pal[idx]
+    elif fmt == "grey":
+        png = _encode_png(idx * 60 + 20, 8, 0)
+        rgb = np.repeat((idx * 60 + 20)[..., None], 3, axis=2)
+    else:
+        png = _encode_png(idx, 2, 3, pal.astype(np.uint8).tobytes())
+        rgb = pal[idx]
+    twin = _quad_with_png(tmp_path, b"", "rgb8")
+    write_png(str(twin.parent / "check.png"), rgb.astype(np.uint8))
+    obj = _quad_with_png(tmp_path, png, fmt)
+
+    import sys
+    monkeypatch.setitem(sys.modules, "PIL", None)   # no PIL: read_png
+    parsed = obj_loader.load_any_scene(str(obj))
+    ref = obj_loader.load_any_scene(str(twin))
+    assert len(parsed.textures) == 1 and parsed.tri_tex == [0, 0]
+    np.testing.assert_array_equal(parsed.textures[0], ref.textures[0])
+    cfg = RenderConfig(width=8, height=8, eye_depth=2, delta_budget=2)
+    imgs = []
+    for p in (parsed, ref):
+        scene = p.to_device("cpu")
+        cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 8, 8,
+                          device="cpu")
+        imgs.append(render_pt(scene, cam, 8, 8, 1, cfg, rng.prng_key(0)))
+    assert torch.equal(imgs[0], imgs[1]) and imgs[0].mean() > 0.0
+
+
+def test_unreadable_texture_warns_and_keeps_flat_kd(tmp_path, monkeypatch,
+                                                    capsys):
+    import sys
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    obj = _quad_with_png(tmp_path, b"not a png", "bad")
+    parsed = obj_loader.load_any_scene(str(obj))
+    assert parsed.textures == [] and parsed.tri_tex == [-1, -1]
+    err = capsys.readouterr().err
+    assert "check.png" in err and "flat Kd" in err
