@@ -44,12 +44,29 @@ Phases, each raising on failure:
    paths with ``nearest_hit`` and ``threefry_rows``; no plain version may
    run.  The exact mega image must equal the fused one on >= 99.9% of
    pixels.
+8. PPM kernels against their plain versions on cornell at the main path's
+   shape, the CLI's first 512x512 PPM pass (4 lights x 262,144 = 1,048,576
+   photons, eye and light depth 4, seed 0), built by the integrator's own
+   functions: ``photon_trace`` on the pass's emission (valid flags equal and
+   every field within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows; the share
+   of bit-equal rows is printed) and ``gather_flux`` on the pass's real
+   hitpoints and #10's events (counts equal on >= 99.99% of hitpoints, flux
+   within rtol 1e-4 / atol 1e-6 on >= 99.9%, means within 1e-5 relative),
+   with the candidate pairs, occupied cells and overflow.
+9. PPM through the CLI on cornell at 512x512, 262,144 photons a light, 10
+   passes (the main path): one pass first, whose image must equal phase 8's
+   on >= 99.9% of pixels, then the 10 passes with their launches counted:
+   ``photon_trace`` and ``gather_flux`` once a pass, the eye pass's
+   ``nearest_hit`` and ``threefry_rows``, no plain version.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
-(``path``); the last line is ``{"ok": true, "device": {...}}``.  Renders
-and the OBJ scene are written under ``path_tracing_tpu_torch/build/
-chip_smoke/`` (gitignored).
+(``path``), with the kernel's bound: the larger of the bytes it must move
+over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
+outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
+the operations counted per PERF.md section 6; the last line is ``{"ok":
+true, "device": {...}}``.  Renders and the OBJ scene are written under
+``path_tracing_tpu_torch/build/chip_smoke/`` (gitignored).
 """
 from __future__ import annotations
 
@@ -72,7 +89,11 @@ SMALL_W, SMALL_H = 128, 72
 MESH_TRIS, SMALL_MESH_TRIS = 81920, 1280
 PT_SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
 BDPT_SOURCE = "path_tracing_tpu_torch/csrc/bdpt_kernels.cu"
+PPM_SOURCE = "path_tracing_tpu_torch/csrc/ppm_kernels.cu"
 SPL, RIS_K = 8, 32
+PPM_W = PPM_H = 512
+PPM_SPL = 262144          # photons a light emits a pass (4 lights: 1,048,576)
+PPM_PASSES = 10
 REPLACES = {
     "nearest_hit": "path_tracing_tpu/ops/pallas_intersect.py:1685",
     "any_blocker": "path_tracing_tpu/ops/pallas_intersect.py:1753",
@@ -82,11 +103,16 @@ REPLACES = {
     "threefry_rows": "path_tracing_tpu/ops/rng.py:60",
     "connect": "path_tracing_tpu/ops/pallas_connect.py:258",
     "bdpt_eye": "path_tracing_tpu/ops/pallas_bdpt_eye.py:231",
+    "photon_trace": "path_tracing_tpu/ops/pallas_photon.py:177",
+    "gather_flux": "path_tracing_tpu/ops/pallas_ppm_gather.py:503",
 }
+SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
+           "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE}
 # the __global__ functions of each entry, as ptxas names them
 PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
-               "threefry_rows", "connect", "bdpt_eye")
+               "threefry_rows", "connect", "bdpt_eye", "photon_trace",
+               "gather_flux")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -95,7 +121,8 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
 KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "shade_step": "fused", "shade_step_tex": "textured",
                "render_wavefront": "mega", "threefry_rows": "textured",
-               "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega"}
+               "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega",
+               "photon_trace": "ppm", "gather_flux": "ppm"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -103,8 +130,38 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "textured": ("shade_step_tex", "threefry_rows"),
                 "bdpt_mega": ("bdpt_eye",) + BDPT_LIGHT,
                 "bdpt_exact": ("bdpt_eye",) + BDPT_LIGHT,
-                "bdpt_fused": ("connect",) + BDPT_LIGHT}
+                "bdpt_fused": ("connect",) + BDPT_LIGHT,
+                "ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                        "threefry_rows")}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
+# The card's published peaks (H100 SXM, 700 W) and the operations counted
+# per unit of work for the bounds (PERF.md section 6, "Bounds"): the tests
+# every ray makes against each sphere or light ball and each cluster box
+# (the triangles inside the boxes a ray enters depend on the ray, and are
+# not counted, nor are bounces after a path's first), one BSDF sample, one
+# BSDF evaluation, one Threefry draw (integer operations, counted at the
+# float32 rate), one hitpoint-event distance test and the geometry of one
+# BDPT connection.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS = dict(sphere=20, box=24, sample=150, eval=110, draw=120, pair=8,
+           connect=40)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """A kernel's least time on the card, in ms, and what sets it."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(b, o), bound_by="bytes" if b >= o else
+                "operations", library_ms=None)
+
+
+def cast_ops(pk, shadow: bool = False) -> int:
+    """Operations of one ray's sphere and cluster-box tests (a shadow ray
+    skips the light balls)."""
+    clusters = int((pk.cl[:, 7] > 0).sum())
+    spheres = pk.ns + (0 if shadow else pk.nl)
+    return spheres * OPS["sphere"] + clusters * OPS["box"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -282,7 +339,8 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
         name="threefry_rows", max_abs_err=(a - b).abs().max().item(),
         ms=time_ms(lambda: rng.uniform_rows(ik, B, 8, device="cuda"), 10),
         plain_ms=time_ms(
-            lambda: rng.uniform_rows_plain(ik, B, 8, device="cuda"), 3)))
+            lambda: rng.uniform_rows_plain(ik, B, 8, device="cuda"), 3),
+        **bound(8 * B * 4, 8 * B * OPS["draw"])))
 
     pk = ci.pack_scene(scene)
     lt = _light_table(scene)
@@ -298,7 +356,8 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
     results.append(dict(
         name="nearest_hit", max_abs_err=err,
         ms=time_ms(lambda: ci.nearest_hit(pk, ro, rd), 10),
-        plain_ms=time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3)))
+        plain_ms=time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3),
+        **bound(B * (24 + 44), B * cast_ops(pk))))
 
     # ---- 2. any blocker: NEE-like shadow rays from the camera hits ----
     hit = ci.nearest_hit(pk, ro, rd)
@@ -326,14 +385,18 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
         name="any_blocker", max_abs_err=err,
         ms=time_ms(lambda: ci.any_blocker(pk, p1, srd, md, True), 10),
         plain_ms=time_ms(
-            lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3)))
+            lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3),
+        **bound(B * (28 + 1), B * cast_ops(pk, shadow=True))))
 
     # ---- 3. shade step on the state after two plain bounces ----
     kw = dict(clamp_val=15.0, stub_mis=True, dielectrics_block=True)
     st, u2 = step_state(cs.shade_step_plain, pk, lt, key, fresh_state(ro, rd),
                         kw)
-    results.append(compare_step("shade_step", cs.shade_step,
-                                cs.shade_step_plain, pk, lt, st, u2, kw))
+    r = compare_step("shade_step", cs.shade_step, cs.shade_step_plain, pk,
+                     lt, st, u2, kw)
+    r.update(bound(B * (20 + 8 + 17) * 4, int(st[5].sum()) * (
+        cast_ops(pk) + cast_ops(pk, True) + OPS["sample"] + OPS["eval"])))
+    results.append(r)
 
     # ---- 4. the textured bounce on the 1,280-triangle icosphere ----
     mpk = ci.pack_scene(mesh)
@@ -350,6 +413,8 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
     r = compare_step("shade_step_tex", cs.shade_step_tex,
                      cs.shade_step_tex_plain, mpk, mlt, st, u2, kw)
     r["max_abs_err"] = max(r["max_abs_err"], err)
+    r.update(bound(B * (31 + 8 + 17) * 4, int(st[5].sum()) * (
+        cast_ops(mpk) + cast_ops(mpk, True) + OPS["sample"] + OPS["eval"])))
     results.append(r)
 
     # ---- 5. the megakernel's 1080p image against the plain loop ----
@@ -375,7 +440,10 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
           f"diff {rel:.3g}")
     results.append(dict(name="render_wavefront",
                         max_abs_err=(a - b).abs().max().item(),
-                        ms=time_ms(mega, 10), plain_ms=time_ms(mega_plain, 1)))
+                        ms=time_ms(mega, 10), plain_ms=time_ms(mega_plain, 1),
+                        **bound(B * (8 + 12), B * SPP * (
+                            cast_ops(pk) + cast_ops(pk, True) + OPS["sample"]
+                            + OPS["eval"] + 8 * OPS["draw"]))))
 
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
@@ -399,6 +467,14 @@ def run_cli(inp, w, h, tier, name, mode="pt", extra=()):
     check(bool((img == img).all()) and bool(abs(img).max() < float("inf")),
           f"{name}: image is not finite")
     check(img.mean() > 0.0, f"{name}: image mean {img.mean()}")
+    if mode == "ppm":
+        sec, n = res["seconds"], res["iters"]
+        print(f"[render] {name}: ppm {w}x{h} {res['photons']} photons in {n}"
+              f" passes, {res['tier']} tier {sec:.3f} s, "
+              f"{res['photons'] / sec / 1e6:.3f} Mphotons/s, "
+              f"{sec * 1e3 / n:.2f} ms per pass, "
+              f"{w * h * n / sec / 1e6:.3f} Mpaths/s, mean {img.mean():.6f}")
+        return res
     mpaths = w * h * SPP / res["seconds"] / 1e6
     print(f"[render] {name}: {mode} {w}x{h} spp {SPP} {res['tier']} tier "
           f"{res['seconds']:.3f} s, {mpaths:.3f} Mpaths/s, mean "
@@ -563,7 +639,9 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     results.append(dict(name="connect",
                         max_abs_err=(a - b).abs().max().item(),
                         ms=time_ms(lambda: cc.connect(*args, **kw), 3),
-                        plain_ms=plain_ms))
+                        plain_ms=plain_ms,
+                        **bound(B * (23 * 4 + 12) + n_valid * 160,
+                                int(act.sum()) * n_valid * OPS["connect"])))
 
     # ---- 9. bdpt_eye on the 1080p frame's tables: the exact sweep's
     # shared table (spp 1, for the plain version's time) and the main
@@ -595,9 +673,13 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
               f" held: {bar}; {ms:.1f} ms kernel, {plain_ms:.1f} ms plain")
         err = max(err, (a - b).abs().max().item())
         ris_img = a / spp
+    rows = etab.shape[1] if etab.dim() == 3 else env
     results.append(dict(name="bdpt_eye", max_abs_err=err,
                         ms=time_ms(lambda: ce.bdpt_eye(*eargs), 3),
-                        plain_ms=plain_ms))
+                        plain_ms=plain_ms,
+                        **bound(B * (8 + 12) + etab.numel() * 4, B * SPP * (
+                            rows * OPS["connect"] + cast_ops(epk)
+                            + OPS["sample"] + 5 * OPS["draw"]))))
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
               f"{r['name']}: max abs err {r['max_abs_err']}")
@@ -635,6 +717,124 @@ def phase_bdpt_render(counts: dict, ris_img) -> None:
             0.999)
 
 
+def ppm_frame(scene, cam):
+    """The set-up of the CLI's first 512x512 PPM pass on ``scene`` (seed
+    0), built by the integrator's own functions: the config, the eye pass's
+    direct term and hitpoints, the photons' emission and the photon key."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import rng
+
+    cfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
+                       eye_depth=4, light_depth=4)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
+    direct, hp = ppm.ppm_eye_trace(scene, cam, cfg, idx % PPM_W,
+                                   idx // PPM_W, rng.fold_in(key, 1))
+    kp = rng.fold_in(key, 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * PPM_SPL, PPM_SPL, kp)
+    return cfg, direct, hp, emit, kp
+
+
+def phase_ppm_kernels(parsed) -> tuple:
+    """#10 and #11 against their plain versions on the main path's first
+    pass; returns the kernels' results and the pass's image from the
+    kernels' outputs, which the main path's first pass must reproduce."""
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    results = []
+    scene = parsed.to_device("cuda")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      PPM_W, PPM_H, device="cuda")
+    cfg, direct, hp, emit, kp = ppm_frame(scene, cam)
+    pk = ci.pack_scene(scene)
+    P = emit[0].shape[0]
+    targs = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+
+    # ---- 10. photon_trace on the pass's photons ----
+    ev, valid = cp.photon_trace(*targs)
+    (ev_p, valid_p), plain_ms = once_ms(lambda: cp.photon_trace_plain(*targs))
+    same = (valid == valid_p).float().mean().item()
+    both = valid & valid_p
+    close = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(
+        dim=1).float().mean().item()
+    equal = (ev[both] == ev_p[both]).all(dim=1).float().mean().item()
+    check(same >= 0.9999 and close >= 0.9999,
+          f"photon_trace: valid flags agree on {same:.6f} of rows, fields "
+          f"on {close:.6f} of the valid ones")
+    n_valid = int(valid.sum())
+    print(f"[ppm] photon_trace {P} photons, {ev.shape[0]} event rows: valid "
+          f"flags equal on {same:.6f} of rows, {n_valid} valid; fields within"
+          f" rtol 1e-5 / atol 1e-6 on {close:.6f}, bit-equal {equal:.6f} of "
+          "valid rows")
+    tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
+    results.append(dict(
+        name="photon_trace", max_abs_err=(ev[both] - ev_p[both]).abs().max()
+        .item(), ms=time_ms(lambda: cp.photon_trace(*targs), 3),
+        plain_ms=plain_ms,
+        **bound(P * 37 + tables + n_valid * 48 + ev.shape[0],
+                (P + n_valid) * (cast_ops(pk) + OPS["sample"]
+                                 + 4 * OPS["draw"]))))
+
+    # ---- 11. gather_flux on the pass's hitpoints and #10's events ----
+    events = ppm.PhotonEvents(ev, valid)
+    t, prep_ms = once_ms(lambda: cg.prepare(scene, cfg, hp, events))
+    flux, count = cg.join(t)
+    (flux_p, count_p), gplain_ms = once_ms(lambda: cg.join_plain(t))
+    Bp = PPM_W * PPM_H
+    same = (count == count_p).float().mean().item()
+    close = share_close(flux, flux_p, 1e-4, 1e-6)
+    mean, mean_p = flux.double().mean().item(), flux_p.double().mean().item()
+    rel = abs(mean - mean_p) / max(abs(mean_p), 1e-30)
+    check(same >= 0.9999 and close >= 0.999 and rel <= 1e-5,
+          f"gather_flux: counts agree on {same:.6f}, flux on {close:.6f}, "
+          f"mean rel {rel}")
+    pairs, cells, ov = t.candidate_pairs(), t.win.shape[0], int(t.overflow)
+    accepted = int(count.sum())
+    equal = (flux == flux_p).all(dim=1).float().mean().item()
+    print(f"[ppm] gather_flux on {Bp} hitpoints ({int(hp.valid.sum())} "
+          f"valid) and {n_valid} events: {cells} occupied cells, {pairs} "
+          f"candidate pairs, {accepted} accepted, overflow {ov}; counts equal"
+          f" on {same:.6f}, flux within rtol 1e-4 / atol 1e-6 on {close:.6f}"
+          f", bit-equal {equal:.6f}"
+          f", mean rel {rel:.3g}; prep {prep_ms:.1f} ms")
+    check(ov == 0, f"gather_flux: overflow {ov} on the main path")
+    gathered = int((t.hp_cell >= 0).sum())
+    results.append(dict(
+        name="gather_flux", max_abs_err=(flux - flux_p).abs().max().item(),
+        ms=time_ms(lambda: cg.join(t), 3), plain_ms=gplain_ms,
+        **bound(gathered * 88 + Bp * 16 + min(n_valid, t.ev.shape[0]) * 48
+                + cells * 72, pairs * OPS["pair"] + accepted * OPS["eval"])))
+    for r in results:
+        check(math.isfinite(r["max_abs_err"]),
+              f"{r['name']}: max abs err {r['max_abs_err']}")
+        print(f"[ppm] {r['name']}: {r['ms']:.3f} ms kernel, "
+              f"{r['plain_ms']:.3f} ms plain, max abs err "
+              f"{r['max_abs_err']:.3g}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    img = ppm.resolve_image(cfg, direct, hp, flux)
+    return results, img.cpu().numpy()
+
+
+def phase_ppm_render(counts: dict, pass0) -> None:
+    extra = ["--spl", str(PPM_SPL), "--light-depth", "4"]
+    one = run_cli(SCENE, PPM_W, PPM_H, "auto", "ppm_512_pass0", "ppm",
+                  extra + ["--iters", "1"])
+    compare(pass0, one["image"], f"PPM {PPM_W}x{PPM_H} pass 0 vs phase 8's "
+            "kernels", 0.999)
+    # ---- the main path: 10 passes of 1,048,576 photons ----
+    res = counted("ppm", SCENE, PPM_W, PPM_H, "auto", "ppm_512_main", counts,
+                  "ppm", extra + ["--iters", str(PPM_PASSES)])
+    check(res["tier"] == "mega", f"auto picked {res['tier']} for PPM")
+    c = counts["ppm"]
+    check(c["photon_trace"] == PPM_PASSES and c["gather_flux"] == PPM_PASSES,
+          f"PPM path launches {c}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name = phase_card()
@@ -658,13 +858,17 @@ def main() -> int:
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
     results += bdpt_results
     phase_bdpt_render(counts, ris_img)
+    ppm_results, pass0 = phase_ppm_kernels(p)
+    results += ppm_results
+    phase_ppm_render(counts, pass0)
     for r in results:
         path = KERNEL_PATH[r["name"]]
-        source = BDPT_SOURCE if path.startswith("bdpt") else PT_SOURCE
-        r.update(route="cuda", source=source, replaces=REPLACES[r["name"]],
-                 path=path, launches=counts[path][r["name"]])
+        r.update(route="cuda", source=SOURCES.get(r["name"], PT_SOURCE),
+                 replaces=REPLACES[r["name"]], path=path,
+                 launches=counts[path][r["name"]])
     keys = ("name", "route", "source", "replaces", "path", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
     print(json.dumps({"ok": True, "device": {

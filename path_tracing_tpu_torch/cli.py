@@ -1,5 +1,4 @@
-"""Headless CLI of the port (the ``--mode pt`` and ``--mode bdpt`` paths
-of ``path_tracing_tpu.cli``):
+"""Headless CLI of the port (``path_tracing_tpu.cli``'s render modes):
 
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
         --mode pt --spp 4 --width 1920 --height 1080 --device cuda \\
@@ -7,6 +6,9 @@ of ``path_tracing_tpu.cli``):
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
         --mode bdpt --spp 4 --spl 8 --resample 32 --device cuda \\
         --output bdpt.png
+    python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
+        --mode ppm --spl 262144 --iters 10 --width 512 --height 512 \\
+        --output ppm.png
 
 ``--input`` takes a text scene or a ``.obj`` (with its MTL and textures;
 the camera and lights come from a companion ``<name>.lights.txt`` or a
@@ -22,13 +24,6 @@ import os
 import sys
 import time
 
-# modes of the JAX package that the port has not reached yet, with the
-# ROADMAP.md item that ports them
-NOT_PORTED = {
-    "ppm": "ROADMAP.md queue 1, 'PPM, torch tier' (and kernels #10/#11)",
-}
-
-
 class CliError(Exception):
     """A user-facing error: printed, exit code 1."""
 
@@ -42,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--spl", type=int, default=8,
                     help="BDPT: light samples (paths per light per light "
-                         "sample)")
+                         "sample); PPM: photons each light emits a pass")
     ap.add_argument("--mode", choices=["pt", "bdpt", "ppm"], default="pt")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--output", default="output.png")
@@ -58,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--fix-pt-mis", action="store_true",
                     help="enable the MIS light-hit term the reference stubbed")
+    ap.add_argument("--ppm-alpha", type=float, default=0.0,
+                    help="PPM: progressive radius shrink factor (0 = the "
+                         "reference's fixed radius)")
     ap.add_argument("--resample", type=int, default=0, metavar="K",
                     help="BDPT: connect each eye vertex to K light vertices "
                          "drawn by RIS (unbiased; tile-local tables in the "
@@ -70,17 +68,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "(nearest-hit/any-blocker kernels around a PyTorch "
                          "bounce) or plain PyTorch.  BDPT: auto (mega), "
                          "mega (one bdpt_eye kernel), fused (nearest-hit "
-                         "and connect kernels per bounce) or plain")
+                         "and connect kernels per bounce) or plain.  PPM: "
+                         "auto (mega: the photon_trace and gather_flux "
+                         "kernels) or plain")
     return ap
 
 
 def run(argv=None) -> dict:
     """Parse ``argv``, render, write the image.  Returns the linear image
-    (numpy (H*W, 3)), its size, spp and the render seconds."""
+    (numpy (H*W, 3)), its size, spp, passes, the render seconds and the
+    photons traced (PPM)."""
     args = build_parser().parse_args(argv)
-    if args.mode in NOT_PORTED:
-        raise CliError(f"--mode {args.mode} is not ported yet: "
-                       f"{NOT_PORTED[args.mode]}")
 
     import torch
 
@@ -90,7 +88,7 @@ def run(argv=None) -> dict:
 
     from .config import RenderConfig
     from .film import AccumState, save_image
-    from .integrators import bdpt, pt
+    from .integrators import bdpt, ppm, pt
     from .ops import rng
     from .scene.camera import make_camera
     from .scene.obj_loader import load_any_scene
@@ -105,10 +103,15 @@ def run(argv=None) -> dict:
                        eye_depth=args.eye_depth, light_depth=args.light_depth,
                        seed=args.seed,
                        pt_stub_mis_strategy_a=not args.fix_pt_mis,
+                       ppm_alpha=args.ppm_alpha,
                        bdpt_resample_vertices=max(0, args.resample))
     try:
-        tier = (pt.resolve_tier(scene, args.tier) if args.mode == "pt"
-                else bdpt.resolve_tier(scene, args.tier, cfg))
+        if args.mode == "pt":
+            tier = pt.resolve_tier(scene, args.tier)
+        elif args.mode == "bdpt":
+            tier = bdpt.resolve_tier(scene, args.tier, cfg)
+        else:
+            tier = ppm.resolve_tier(scene, args.tier)
     except (ValueError, NotImplementedError) as e:
         raise CliError(str(e)) from e
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
@@ -122,6 +125,10 @@ def run(argv=None) -> dict:
     if args.mode == "bdpt":
         print(f" SPL    : {args.spl}  light depth {args.light_depth}  "
               f"resample {cfg.bdpt_resample_vertices}")
+    if args.mode == "ppm":
+        print(f" Photons: {scene.num_lights * args.spl} a pass ({args.spl} "
+              f"per light)  light depth {args.light_depth}  alpha "
+              f"{args.ppm_alpha}")
     print(f" Input  : {args.input}")
     print(f" Output : {args.output}")
     print(f" Res    : {W}x{H}  seed={args.seed}  iters={args.iters}")
@@ -143,25 +150,44 @@ def run(argv=None) -> dict:
         if args.mode == "pt":
             frame = pt.render_pt(scene, cam, W, H, args.spp, cfg, k,
                                  tier=tier)
-        else:
+        elif args.mode == "bdpt":
             frame = bdpt.render_bdpt(scene, cam, W, H, args.spp, args.spl,
                                      cfg, k, tier=tier)
+        else:
+            frame, _, overflow = ppm.render_ppm_with_stats(
+                scene, cam, W, H, args.spl, cfg, k,
+                ppm.ppm_radius_scale(i, cfg.ppm_alpha), tier)
+            dropped = int(overflow)
+            if dropped:
+                print(f"[Warn] PPM gather dropped {dropped} hitpoints and "
+                      "photon events (raise ppm_max_cells or "
+                      "ppm_event_cap_frac)", file=sys.stderr)
         state = state.add(frame)
         sync()
         print(f"[Render] iter {i + 1}: "
               f"{(time.perf_counter() - t0) * 1000:.1f} ms cumulative")
     seconds = time.perf_counter() - t0
-    paths = W * H * args.spp * args.iters
-    print(f"[Render] Finished in {seconds * 1000:.1f} ms "
-          f"({paths / max(seconds, 1e-9) / 1e6:.2f} Mpaths/s, "
-          f"{args.iters} iters)")
+    rate = 1e-6 * args.iters / max(seconds, 1e-9)
+    if args.mode == "ppm":
+        print(f"[Render] Finished in {seconds * 1000:.1f} ms "
+              f"({W * H * rate:.2f} Mpaths/s, "
+              f"{scene.num_lights * args.spl * rate:.2f} Mphotons/s, "
+              f"{seconds * 1000 / max(args.iters, 1):.1f} ms per pass, "
+              f"{args.iters} iters)")
+    else:
+        print(f"[Render] Finished in {seconds * 1000:.1f} ms "
+              f"({W * H * args.spp * rate:.2f} Mpaths/s, "
+              f"{args.iters} iters)")
 
     linear = state.mean().cpu().numpy()
     print(f"[Save] Writing to {args.output}...")
     save_image(args.output, linear, W, H)
     print("[Success] Image saved!")
+    photons = scene.num_lights * args.spl * args.iters if args.mode == "ppm" \
+        else 0
     return dict(image=linear, width=W, height=H, spp=args.spp,
-                iters=args.iters, seconds=seconds, device=name, tier=tier)
+                iters=args.iters, seconds=seconds, device=name, tier=tier,
+                photons=photons)
 
 
 def main(argv=None) -> int:

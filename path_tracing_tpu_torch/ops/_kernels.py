@@ -2,8 +2,8 @@
 
 Each library's source is compiled with ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes``: ``pt_kernels.cu`` (the PT
-kernels) and ``bdpt_kernels.cu`` (the BDPT kernels), both on the device
-functions of ``pt_device.cuh``.  The builds run at first use, all at once
+kernels), ``bdpt_kernels.cu`` (the BDPT kernels) and ``ppm_kernels.cu``
+(the PPM kernels), all on the device functions of ``pt_device.cuh``.  The builds run at first use, all at once
 (one ``nvcc`` per source), into ``path_tracing_tpu_torch/build/``, each
 under a name keyed on a hash of its sources and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  A failed build raises
@@ -33,6 +33,7 @@ LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows"),
     "bdpt_kernels": ("connect", "bdpt_eye"),
+    "ppm_kernels": ("photon_trace", "gather_flux"),
 }
 # --fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch versions round them; no --use_fast_math, so division, sqrt
@@ -68,6 +69,11 @@ _ARGTYPES = {
     "bdpt_eye": _TABLES + [_P, _I, _I, ctypes.c_longlong, _P, _P, _P,
                            _I, _I, _I, _I, _U, _U, _U, _U, _F, _I, _F,
                            _P, _P],
+    # ro rd flux real P | k0 k1 start total | light_depth iters | ev valid
+    "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
+                                          _P],
+    # hp hp_cell perm B | win ev r2 | flux count
+    "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
 }
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions on the card, and the PT
-and BDPT megakernels' images against their fused tiers'.
+"""The CUDA kernels against their plain versions on the card, the PT and
+BDPT megakernels' images against their fused tiers', and the PPM kernels
+launched twice on the same inputs.
 
 These need an NVIDIA card, nvcc and the port's build, so they skip
 without a card.  This file imports neither jax nor the JAX package; where
@@ -225,3 +226,71 @@ def test_bdpt_megakernel_equals_fused_tier(card):
                         tier=t) for t in ("mega", "fused"))
     ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
     assert ok.float().mean().item() >= 0.999
+
+
+def _ppm_frame(scene, w=128, h=72, spl=16384):
+    """The first pass of a w x h PPM render of cornell (4 lights x spl
+    photons, seed 0), as the integrator builds it: the frame's config, the
+    eye pass's hitpoints, the packed scene, the photons' emission and the
+    photon key."""
+    from path_tracing_tpu_torch.integrators import ppm
+
+    p = load_scene(str(CORNELL))
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, spl=spl)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    _, hp = ppm.ppm_eye_trace(scene, cam, cfg, idx % w, idx // w,
+                              rng.fold_in(key, 1))
+    kp = rng.fold_in(key, 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * spl, spl, kp)
+    return cfg, hp, cuda_intersect.pack_scene(scene), emit, kp
+
+
+def test_photon_trace_kernel_matches_plain(card):
+    """#10 against its plain version on 65,536 photons: the same Threefry
+    draws and the same rounding, so the same events (bar: valid flags and
+    every field within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows, as
+    chip_smoke.py holds it); two launches give bit-equal events."""
+    from path_tracing_tpu_torch.ops import cuda_photon
+
+    scene, _ = card
+    cfg, _, pk, emit, kp = _ppm_frame(scene)
+    args = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    ev, valid = cuda_photon.photon_trace(*args)
+    ev_p, valid_p = cuda_photon.photon_trace_plain(*args)
+    assert (valid == valid_p).float().mean().item() >= 0.9999
+    both = valid & valid_p
+    ok = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(dim=1)
+    assert both.sum().item() > 65536 and ok.float().mean().item() >= 0.9999
+    ev2, valid2 = cuda_photon.photon_trace(*args)
+    assert torch.equal(valid, valid2) and torch.equal(ev[valid], ev2[valid])
+
+
+def test_gather_flux_kernel_matches_plain(card):
+    """#11 against its plain version on the hitpoints of a 128x72 eye pass
+    and #10's events (counts equal on >= 99.99% of hitpoints, flux within
+    rtol 1e-4 / atol 1e-6 on >= 99.9%, means within 1e-5 relative: the
+    same pairs in the same order, summed in another order by the plain
+    index_add_); two launches give bit-equal results."""
+    from path_tracing_tpu_torch.integrators.ppm import PhotonEvents
+    from path_tracing_tpu_torch.ops import cuda_photon
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as gather
+
+    scene, _ = card
+    cfg, hp, pk, emit, kp = _ppm_frame(scene)
+    events = PhotonEvents(*cuda_photon.photon_trace(
+        pk, *emit, kp, cfg.light_depth, cfg.max_light_iters))
+    t = gather.prepare(scene, cfg, hp, events)
+    assert int(t.overflow) == 0 and t.candidate_pairs() > 0
+    flux, count = gather.join(t)
+    flux_p, count_p = gather.join_plain(t)
+    assert (count == count_p).float().mean().item() >= 0.9999
+    assert count.sum().item() > 0
+    ok = torch.isclose(flux, flux_p, rtol=1e-4, atol=1e-6).all(dim=1)
+    assert ok.float().mean().item() >= 0.999
+    mean, mean_p = flux.double().mean().item(), flux_p.double().mean().item()
+    assert abs(mean - mean_p) <= 1e-5 * abs(mean_p)
+    flux2, count2 = gather.join(t)
+    assert torch.equal(flux, flux2) and torch.equal(count, count2)

@@ -141,11 +141,10 @@ def test_cli_cuda_without_card_exits_nonzero(tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["bdpt", "ppm"])
 def test_cli_unported_modes_exit_nonzero(mode, capsys, tmp_path):
-    """PPM is not ported yet; BDPT is, but not on textured scenes."""
+    """BDPT and PPM are ported, but not on textured scenes."""
     from conftest import make_textured_quad_obj
 
-    inp = (make_textured_quad_obj(tmp_path) if mode == "bdpt"
-           else str(CORNELL))
+    inp = make_textured_quad_obj(tmp_path)
     rc = cli.main(["--input", inp, "--mode", mode, "--device", "cpu"])
     assert rc != 0
     err = capsys.readouterr().err
