@@ -58,14 +58,43 @@ Phases, each raising on failure:
    on >= 99.9% of pixels, then the 10 passes with their launches counted:
    ``photon_trace`` and ``gather_flux`` once a pass, the eye pass's
    ``nearest_hit`` and ``threefry_rows``, no plain version.
+10. The mesh kernels on a 327,680-triangle textured icosphere, written as
+   OBJ + MTL + PNG (the write and the parse timed): on the lanes of the
+   stream tier's first two iterations of the CLI's 1080p frame (2,073,600
+   each), recorded from a stream-tier render and sorted by the path's own
+   ``sorted_call``, ``nearest_hit_stream`` (#6, resolved with ``with_uv``)
+   against ``nearest_hit`` (#1) on every lane (flags equal on >= 99.99%,
+   t bit-equal on >= 99.95%, the fields equal wherever the winning
+   triangle is the same, iu/iv within 1e-5 on >= 99.9% of triangle hits)
+   and against its plain version on a strided subset of >= 65,536 lanes
+   (kind, t and index, the same bars); ``any_blocker_stream`` (#7) on the
+   path's NEE shadow rays, on the NEE-eligible lanes only, against
+   ``any_blocker`` (#2) on all of them and its plain version on a strided
+   subset, then on 2,073,600 random shadow segments through the mesh,
+   under both blocking rules: verdicts equal on >= 99.99%, at most 1% of
+   the reference's blocked lanes differ, and 5-95% of the lanes are
+   blocked; both timed on the same live lanes sorted and in lane order.
+   Then ``onehot_fetch`` (#12) at rows
+   128 x D 4,352 / 16,640 / 66,048 through its entry point (the probe's
+   path), bit-equal to its plain version and to ``tab[:, idx]``, timed
+   beside both.
+11. The big-mesh path: that OBJ through the CLI at 1920x1080 spp 4 (auto:
+   the stream tier, the main path; it must launch #6, #7 and
+   ``threefry_rows`` and no ``nearest_hit``, ``shade_step_tex`` or
+   ``render_wavefront``) and in the fused tier from the same key (>= 99%
+   of pixels, means within 1e-3); the untextured 327,680-triangle
+   icosphere in process in the stream and mega tiers (>= 99.9%); every
+   image more than 1% non-zero.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6; the last line is ``{"ok":
-true, "device": {...}}``.  Renders and the OBJ scene are written under
+the operations counted per PERF.md section 6 (#6 and #7 also carry the
+lane count of their plain time and their time on unsorted rays); the last
+line is ``{"ok": true, "device": {...}}``.  Renders and the OBJ scenes are
+written under
 ``path_tracing_tpu_torch/build/chip_smoke/`` (gitignored).
 """
 from __future__ import annotations
@@ -90,6 +119,8 @@ MESH_TRIS, SMALL_MESH_TRIS = 81920, 1280
 PT_SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
 BDPT_SOURCE = "path_tracing_tpu_torch/csrc/bdpt_kernels.cu"
 PPM_SOURCE = "path_tracing_tpu_torch/csrc/ppm_kernels.cu"
+MESH_SOURCE = "path_tracing_tpu_torch/csrc/mesh_kernels.cu"
+PROBE_SOURCE = "path_tracing_tpu_torch/csrc/probe_kernels.cu"
 SPL, RIS_K = 8, 32
 PPM_W = PPM_H = 512
 PPM_SPL = 262144          # photons a light emits a pass (4 lights: 1,048,576)
@@ -105,14 +136,20 @@ REPLACES = {
     "bdpt_eye": "path_tracing_tpu/ops/pallas_bdpt_eye.py:231",
     "photon_trace": "path_tracing_tpu/ops/pallas_photon.py:177",
     "gather_flux": "path_tracing_tpu/ops/pallas_ppm_gather.py:503",
+    "nearest_hit_stream": "path_tracing_tpu/ops/pallas_intersect.py:1596",
+    "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
+    "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
-           "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE}
+           "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
+           "nearest_hit_stream": MESH_SOURCE,
+           "any_blocker_stream": MESH_SOURCE, "onehot_fetch": PROBE_SOURCE}
 # the __global__ functions of each entry, as ptxas names them
 PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
                "threefry_rows", "connect", "bdpt_eye", "photon_trace",
-               "gather_flux")
+               "gather_flux", "nearest_hit_stream", "any_blocker_stream",
+               "onehot_fetch")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -122,7 +159,9 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "shade_step": "fused", "shade_step_tex": "textured",
                "render_wavefront": "mega", "threefry_rows": "textured",
                "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega",
-               "photon_trace": "ppm", "gather_flux": "ppm"}
+               "photon_trace": "ppm", "gather_flux": "ppm",
+               "nearest_hit_stream": "stream",
+               "any_blocker_stream": "stream", "onehot_fetch": "probe"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -132,8 +171,14 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "bdpt_exact": ("bdpt_eye",) + BDPT_LIGHT,
                 "bdpt_fused": ("connect",) + BDPT_LIGHT,
                 "ppm": ("photon_trace", "gather_flux", "nearest_hit",
-                        "threefry_rows")}
+                        "threefry_rows"),
+                "stream": ("nearest_hit_stream", "any_blocker_stream",
+                           "threefry_rows"),
+                "probe": ("onehot_fetch",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
+BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS: the stream tier
+SUBSET = 65536            # lanes at least, strided, for #6/#7's plain sweeps
+PROBE_ROWS, PROBE_D = 128, (4352, 16640, 66048)   # bench.py's texprobe shapes
 # The card's published peaks (H100 SXM, 700 W) and the operations counted
 # per unit of work for the bounds (PERF.md section 6, "Bounds"): the tests
 # every ray makes against each sphere or light ball and each cluster box
@@ -835,6 +880,332 @@ def phase_ppm_render(counts: dict, pass0) -> None:
           f"PPM path launches {c}")
 
 
+class _Recorded(Exception):
+    """Stops the recording render once its lanes are kept."""
+
+
+def stream_lanes(scene, cam):
+    """The lanes of the stream tier's first two iterations of the CLI's
+    1080p spp 4 frame (seed 0) on ``scene``, recorded from the path
+    itself: the arguments of its first two ``stream_hit`` calls (the rays,
+    the active lanes live) and ``stream_blocked`` calls (the NEE shadow
+    rays, the NEE-eligible lanes live), in lane order.  The render stops
+    at the second shadow call.  Returns the path's streamed tables and the
+    two iterations' lanes."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import render_pt
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+    from path_tracing_tpu_torch.ops import rng
+
+    hit, blocked, lanes = cst.stream_hit, cst.stream_blocked, []
+
+    def record_hit(st, ro, rd, with_uv=False, live=None):
+        lanes.append(dict(st=st, ro=ro, rd=rd, live=live, with_uv=with_uv))
+        return hit(st, ro, rd, with_uv=with_uv, live=live)
+
+    def record_blocked(st, p1, rd, max_d, rule, live=None):
+        lanes[-1].update(p1=p1, srd=rd, md=max_d, elig=live, rule=rule)
+        if len(lanes) == 2:
+            raise _Recorded
+        return blocked(st, p1, rd, max_d, rule, live=live)
+
+    cst.stream_hit, cst.stream_blocked = record_hit, record_blocked
+    try:
+        render_pt(scene, cam, W, H, SPP,
+                  RenderConfig(width=W, height=H, spp=SPP),
+                  rng.fold_in(rng.prng_key(0), 0), tier="stream")
+    except _Recorded:
+        pass
+    finally:
+        cst.stream_hit, cst.stream_blocked = hit, blocked
+    check(len(lanes) == 2 and all(
+        "elig" in ln and ln["with_uv"] and ln["rule"]
+        and ln["live"] is not None and ln["elig"] is not None
+        for ln in lanes), "the stream render's first two iterations were "
+          "not recorded")
+    return lanes[0]["st"], lanes
+
+
+def sort_lanes(st, ro, rd, live, *extras):
+    """The rays (and ``extras``) in the order the path sorts them, sorted
+    by ``sorted_call`` itself, and the live count it hands the kernel."""
+    from path_tracing_tpu_torch.ops.intersect import sorted_call
+
+    got = {}
+
+    def keep(*args, n_live):
+        got["args"] = [x.contiguous() for x in args]
+        got["n_live"] = n_live
+        return args[0]
+
+    sorted_call(st.bounds, ro, rd, keep, *extras, live=live)
+    return got["args"], got["n_live"]
+
+
+def shadow_segments(st, n: int, seed: int):
+    """``tests/test_torch_cuda.py``'s shadow segments at the mesh's scale:
+    origins in a box 1.5 times the mesh's bounds, half the segments aimed
+    at its centre and half in random directions, lengths 0.05 to 1.55
+    times the half-extent.  Returns (p1, rd, max_d), every lane live."""
+    from path_tracing_tpu_torch.ops.intersect import shadow_ray
+
+    g = torch.Generator(device=st.device).manual_seed(seed)
+    u = torch.rand((7, n), device=st.device, generator=g)
+    c = (st.scene_min + st.scene_max) / 2
+    half = (st.scene_max - st.scene_min) / 2
+    p1 = c + (2.0 * u[0:3].T - 1.0) * 1.5 * half
+    d = torch.where((torch.arange(n, device=st.device) % 2 == 0)[:, None],
+                    c - p1, u[3:6].T - 0.5)
+    d = shadow_ray(torch.zeros_like(d), d)[0]
+    length = (0.05 + 1.5 * u[6]) * half.max()
+    rd, _, md = shadow_ray(p1, p1 + d * length[:, None])
+    return p1.contiguous(), rd.contiguous(), md.contiguous()
+
+
+def blocker_verdicts(what: str, a, b, a_sub, c) -> float:
+    """#7's verdicts ``a`` against #2's ``b``, and ``a_sub`` (a subset of
+    ``a``) against the plain version's ``c``, all on live lanes: equal on
+    >= 99.99% of lanes with mismatches at most 1% of the reference's
+    blocked lanes, and between 5% and 95% of the lanes blocked, so that
+    the comparison has occlusions to lose.  Returns the largest
+    difference."""
+    out = 0.0
+    for ref_name, x, ref in (("#2", a, b), ("plain", a_sub, c)):
+        n, nb = ref.numel(), int(ref.sum())
+        miss = int((x != ref).sum())
+        share = nb / max(n, 1)
+        print(f"[mesh] any_blocker_stream {what} vs {ref_name}: {n} lanes, "
+              f"{nb} blocked ({share:.4f}), {miss} verdicts differ")
+        check(0.05 < share < 0.95 and miss <= 0.01 * nb
+              and miss <= 1e-4 * n,
+              f"any_blocker_stream {what} vs {ref_name}: {miss} of {n} "
+              f"verdicts differ, {nb} blocked")
+        out = max(out, float(miss > 0))
+    return out
+
+
+def phase_mesh_kernels(counts: dict) -> tuple:
+    """#6 and #7 on the stream tier's lanes of the 327,680-triangle
+    textured frame, against #1/#2 on every live lane and their plain
+    versions on a strided subset, with their times on sorted and unsorted
+    rays, and #7 on random shadow segments through the mesh; #12
+    at the probe's shapes.  Writes the frame's OBJ; returns the results and
+    its path."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+    from path_tracing_tpu_torch.ops import probes
+    from path_tracing_tpu_torch.scene import synth
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.obj_loader import load_any_scene
+
+    t0 = time.perf_counter()
+    obj = synth.write_obj(synth.icosphere_scene(BIG_TRIS, textured=True),
+                          str(OUT / f"icosphere_{BIG_TRIS}.obj"))
+    t1 = time.perf_counter()
+    parsed = load_any_scene(obj)
+    t2 = time.perf_counter()
+    scene = parsed.to_device("cuda")
+    print(f"[mesh] {BIG_TRIS}-triangle textured icosphere: synth and OBJ "
+          f"write {t1 - t0:.1f} s, OBJ parse {t2 - t1:.1f} s, to the card "
+          f"{time.perf_counter() - t2:.1f} s")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      W, H, device="cuda")
+    st, lanes = stream_lanes(scene, cam)
+    pk = ci.pack_scene(scene)
+    print(f"[mesh] streamed tables: Tp {st.tri.shape[0]}, {st.cl.shape[0]} "
+          f"cluster rows, {st.n_super} supers, {st.blk.shape[0]} blocks")
+    sub = torch.arange(0, B, B // SUBSET, device="cuda")
+    hit_err, blk_err, res = 0.0, 0.0, {}
+    for it, ln in enumerate(lanes):
+        (sro, srd), n_live = sort_lanes(st, ln["ro"], ln["rd"], ln["live"])
+        nl = int(n_live)        # the live lanes sort first
+        uro, urd = (x[ln["live"]].contiguous() for x in (ln["ro"], ln["rd"]))
+        # ---- 6 against #1 on every lane, both with_uv ----
+        raw = cst.nearest_hit_stream(st, sro, srd)
+        a = cst.resolve_stream_attrs(st, *raw, sro, srd, with_uv=True)
+        b = ci.nearest_hit(pk, sro, srd, with_uv=True)
+        torch.cuda.synchronize()
+        flag = (a["flag"] == b["flag"]).float().mean().item()
+        t_eq = (a["t"] == b["t"]).float().mean().item()
+        tri = (a["flag"] == 1) & (b["flag"] == 1) & (a["t"] == b["t"])
+        same = tri & (a["nx"] == b["nx"]) & (a["ny"] == b["ny"]) & (
+            a["nz"] == b["nz"])
+        fields_eq = all(bool((a[k] == b[k])[same].all()) for k in (
+            "bcr", "bcg", "bcb", "rough", "metal", "eta", "tex"))
+        uv_ok = ((a["iu"] - b["iu"]).abs() <= 1e-5) & (
+            (a["iv"] - b["iv"]).abs() <= 1e-5)
+        uv = uv_ok[tri].float().mean().item()
+        check(flag >= 0.9999 and t_eq >= 0.9995 and fields_eq and uv >= 0.999,
+              f"nearest_hit_stream bounce {it}: flags {flag}, t {t_eq}, "
+              f"fields {fields_eq}, iu/iv {uv}")
+        hit_err = max(hit_err, (a["t"] - b["t"])[tri].abs().max().item())
+        # ---- 6 against its plain version on the strided subset ----
+        p = cst.nearest_hit_stream_plain(st, sro[sub], srd[sub])
+        k = [x[sub] for x in raw]
+        kind_eq = (k[2] == p[2]).float().mean().item()
+        tp_eq = (k[0] == p[0]).float().mean().item()
+        idx_eq = (k[1] == p[1]).float().mean().item()
+        check(kind_eq >= 0.9999 and tp_eq >= 0.9995 and idx_eq >= 0.9995,
+              f"nearest_hit_stream bounce {it} vs plain: kind {kind_eq}, "
+              f"t {tp_eq}, idx {idx_eq}")
+        print(f"[mesh] nearest_hit_stream bounce {it} ({nl} live of"
+              f" {B}, {tri.float().mean().item():.4f} triangle hits): vs #1 "
+              f"flags {flag:.6f}, t bit-equal {t_eq:.6f}, the same triangle "
+              f"on {same.sum().item() / max(tri.sum().item(), 1):.6f} of "
+              f"equal-t hits, its fields equal, iu/iv within 1e-5 {uv:.6f};"
+              f" vs plain on {sub.numel()} lanes kind {kind_eq:.6f}, t "
+              f"{tp_eq:.6f}, idx {idx_eq:.6f}")
+        ms_s = time_ms(lambda: cst.nearest_hit_stream(st, sro, srd, n_live),
+                       5)
+        ms_u = time_ms(lambda: cst.nearest_hit_stream(st, uro, urd), 5)
+        ms_1 = time_ms(lambda: ci.nearest_hit(pk, sro[:nl], srd[:nl]), 5)
+        _, plain_ms = once_ms(lambda: cst.nearest_hit_stream_plain(
+            st, sro[sub], srd[sub]))
+        print(f"[mesh] nearest_hit_stream bounce {it}: {ms_s:.3f} ms sorted, "
+              f"{ms_u:.3f} ms unsorted; #1 {ms_1:.3f} ms; plain "
+              f"{plain_ms:.1f} ms on {sub.numel()} lanes")
+        if it == 0:
+            res["nearest_hit_stream"] = dict(
+                name="nearest_hit_stream", ms=ms_s, plain_ms=plain_ms,
+                plain_lanes=sub.numel(), unsorted_ms=ms_u,
+                **bound(B * 12 + nl * 24, nl * (
+                    (st.ns + st.nl) * OPS["sphere"] + st.n_super * OPS["box"])))
+        # ---- 7 against #2 and its plain version on the NEE lanes ----
+        (sp1, ssrd, smd), n_elig = sort_lanes(st, ln["p1"], ln["srd"],
+                                              ln["elig"], ln["md"])
+        ne = int(n_elig)        # the NEE-eligible lanes sort first
+        esub = torch.arange(0, ne, max(1, ne // SUBSET), device="cuda")
+        for rule in (True, False):
+            a = cst.any_blocker_stream(st, sp1, ssrd, smd, rule, n_elig)
+            b = ci.any_blocker(pk, sp1[:ne], ssrd[:ne], smd[:ne], rule)
+            c = cst.any_blocker_stream_plain(st, sp1[esub], ssrd[esub],
+                                             smd[esub], rule)
+            torch.cuda.synchronize()
+            check(not a[ne:].any(), f"any_blocker_stream bounce {it}: a "
+                  "lane past n_live reports blocked")
+            blk_err = max(blk_err, blocker_verdicts(
+                f"bounce {it} NEE lanes dielectrics_block={rule}", a[:ne], b,
+                a[esub], c))
+        ms_s = time_ms(lambda: cst.any_blocker_stream(st, sp1, ssrd, smd, True,
+                                                      n_elig), 5)
+        up1, usrd, umd = (x[ln["elig"]].contiguous()
+                          for x in (ln["p1"], ln["srd"], ln["md"]))
+        ms_u = time_ms(lambda: cst.any_blocker_stream(st, up1, usrd, umd,
+                                                      True), 5)
+        ms_2 = time_ms(lambda: ci.any_blocker(pk, sp1[:ne], ssrd[:ne],
+                                              smd[:ne], True), 5)
+        _, plain_ms = once_ms(lambda: cst.any_blocker_stream_plain(
+            st, sp1[esub], ssrd[esub], smd[esub], True))
+        print(f"[mesh] any_blocker_stream bounce {it}: {ms_s:.3f} ms sorted, "
+              f"{ms_u:.3f} ms unsorted; #2 {ms_2:.3f} ms; plain "
+              f"{plain_ms:.1f} ms on {esub.numel()} lanes")
+        if it == 0:
+            res["any_blocker_stream"] = dict(
+                name="any_blocker_stream", ms=ms_s, plain_ms=plain_ms,
+                plain_lanes=esub.numel(), unsorted_ms=ms_u,
+                **bound(B + ne * 28, ne * (st.ns * OPS["sphere"]
+                                           + st.n_super * OPS["box"])))
+    # ---- 7 on random shadow segments through the mesh, every lane live
+    # (the card test's recipe at full width) ----
+    p1, rd, md = shadow_segments(st, B, 7)
+    (sp1, ssrd, smd), n_all = sort_lanes(st, p1, rd,
+                                         torch.ones_like(md, dtype=torch.bool),
+                                         md)
+    for rule in (True, False):
+        a = cst.any_blocker_stream(st, sp1, ssrd, smd, rule, n_all)
+        b = ci.any_blocker(pk, sp1, ssrd, smd, rule)
+        c = cst.any_blocker_stream_plain(st, sp1[sub], ssrd[sub], smd[sub],
+                                         rule)
+        torch.cuda.synchronize()
+        blk_err = max(blk_err, blocker_verdicts(
+            f"random segments dielectrics_block={rule}", a, b, a[sub], c))
+    res["nearest_hit_stream"]["max_abs_err"] = hit_err
+    res["any_blocker_stream"]["max_abs_err"] = blk_err
+
+    # ---- 12. the probe through its entry point, then against its plain
+    # version and tab[:, idx] ----
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ins = [(torch.rand((12, d), device="cuda", generator=g),
+            torch.randint(0, d, (PROBE_ROWS, 128), device="cuda", generator=g,
+                          dtype=torch.int32)) for d in PROBE_D]
+    _kernels.reset_counts()
+    outs = [probes.onehot_fetch(tab, idx) for tab, idx in ins]
+    counts["probe"] = dict(_kernels.launches)
+    check(counts["probe"]["onehot_fetch"] == len(PROBE_D),
+          f"probe launches {counts['probe']}")
+    for (tab, idx), out in zip(ins, outs):
+        il = idx.long()
+        lib = tab[:, il].permute(1, 0, 2).reshape(PROBE_ROWS * 12, 128)
+        plain = probes.onehot_fetch_plain(tab, idx)
+        check(torch.equal(out, plain) and torch.equal(out, lib),
+              f"onehot_fetch D {tab.shape[1]}: differs from plain or "
+              "tab[:, idx]")
+        r = dict(name="onehot_fetch", max_abs_err=(out - plain).abs().max()
+                 .item(), ms=time_ms(lambda: probes.onehot_fetch(tab, idx), 20),
+                 plain_ms=time_ms(lambda: probes.onehot_fetch_plain(tab, idx),
+                                  3),
+                 **bound(12 * tab.shape[1] * 4 + PROBE_ROWS * 128 * 4
+                         + PROBE_ROWS * 12 * 128 * 4, 0))
+        r["library_ms"] = time_ms(lambda: tab[:, il], 20)
+        print(f"[mesh] onehot_fetch rows {PROBE_ROWS} D {tab.shape[1]}: equal "
+              f"to plain and tab[:, idx] bit for bit; {r['ms']:.4f} ms kernel,"
+              f" {r['plain_ms']:.3f} ms plain, {r['library_ms']:.4f} ms "
+              f"tab[:, idx], bound {r['bound_ms']:.5f} ms")
+    res["onehot_fetch"] = r
+    for r in res.values():
+        print(f"[mesh] {r['name']}: {r['ms']:.3f} ms kernel, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    return list(res.values()), obj
+
+
+def nonzero_share(img, what: str) -> None:
+    import numpy as np
+
+    share = float((np.asarray(img).sum(axis=1) > 0).mean())
+    print(f"[big] {what}: {share:.4f} of pixels non-zero")
+    check(share > 0.01, f"{what}: only {share} of pixels are non-zero")
+
+
+def phase_big_render(counts: dict, obj: str) -> None:
+    """The 327,680-triangle icosphere: the CLI's main path (auto: the
+    stream tier) and the fused tier on the textured OBJ, then the stream
+    and mega tiers on the untextured mesh in process, from one key."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import render_pt
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.scene import synth
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    res = counted("stream", obj, W, H, "auto", "big_1080p_stream", counts)
+    c = counts["stream"]
+    check(res["tier"] == "stream", f"auto picked {res['tier']} on "
+          f"{BIG_TRIS} triangles")
+    check(c["nearest_hit"] == c["shade_step_tex"] == c["render_wavefront"] == 0,
+          f"stream path launches {c}")
+    fused = run_cli(obj, W, H, "fused", "big_1080p_fused")
+    compare(res["image"], fused["image"], f"{BIG_TRIS} textured stream vs "
+            "fused", 0.99)
+    nonzero_share(res["image"], "textured stream")
+    nonzero_share(fused["image"], "textured fused")
+
+    p = synth.icosphere_scene(BIG_TRIS)
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H, device="cuda")
+    cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    imgs = {}
+    for tier in ("stream", "mega"):
+        img, ms = once_ms(lambda: render_pt(scene, cam, W, H, SPP, cfg, key,
+                                            tier=tier))
+        imgs[tier] = img.cpu().numpy()
+        print(f"[big] untextured {BIG_TRIS} {tier} tier in process: "
+              f"{ms:.1f} ms, {B * SPP / ms / 1e3:.3f} Mpaths/s")
+        nonzero_share(imgs[tier], f"untextured {tier}")
+    compare(imgs["mega"], imgs["stream"], f"{BIG_TRIS} untextured stream vs "
+            "mega", 0.999)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     name = phase_card()
@@ -861,6 +1232,9 @@ def main() -> int:
     ppm_results, pass0 = phase_ppm_kernels(p)
     results += ppm_results
     phase_ppm_render(counts, pass0)
+    mesh_results, obj = phase_mesh_kernels(counts)
+    results += mesh_results
+    phase_big_render(counts, obj)
     for r in results:
         path = KERNEL_PATH[r["name"]]
         r.update(route="cuda", source=SOURCES.get(r["name"], PT_SOURCE),
@@ -869,8 +1243,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    extra = ("plain_lanes", "unsorted_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}))
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in results]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

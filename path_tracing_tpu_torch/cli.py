@@ -9,6 +9,8 @@
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
         --mode ppm --spl 262144 --iters 10 --width 512 --height 512 \\
         --output ppm.png
+    python -m path_tracing_tpu_torch.cli --mode pt --input mesh.obj \\
+        --width 1920 --height 1080 --spp 4     # > 131,072 triangles: stream
 
 ``--input`` takes a text scene or a ``.obj`` (with its MTL and textures;
 the camera and lights come from a companion ``<name>.lights.txt`` or a
@@ -62,11 +64,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "mega tier, one global table per sample "
                          "otherwise); 0 = the exact all-pairs sweep")
     ap.add_argument("--tier", choices=TIERS, default="auto",
-                    help="PT: auto (default: mega, or fused for textured "
-                         "scenes), mega (one render_wavefront kernel), "
-                         "fused (one bounce kernel per iteration), split "
-                         "(nearest-hit/any-blocker kernels around a PyTorch "
-                         "bounce) or plain PyTorch.  BDPT: auto (mega), "
+                    help="PT: auto (default: stream for meshes above "
+                         "131,072 triangles, else mega, or fused for "
+                         "textured scenes), mega (one render_wavefront "
+                         "kernel), fused (one bounce kernel per iteration), "
+                         "split (nearest-hit/any-blocker kernels around a "
+                         "PyTorch bounce), stream (the streamed mesh "
+                         "kernels on sorted rays around a PyTorch bounce) "
+                         "or plain PyTorch.  BDPT: auto (mega), "
                          "mega (one bdpt_eye kernel), fused (nearest-hit "
                          "and connect kernels per bounce) or plain.  PPM: "
                          "auto (mega: the photon_trace and gather_flux "

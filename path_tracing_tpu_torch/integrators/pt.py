@@ -15,8 +15,10 @@ Semantics kept from the reference, as the JAX package keeps them:
 - every contribution is validity-checked and clamped at ``cfg.clamp``.
 
 ``wavefront_pt`` picks a tier as the JAX package's ``wavefront_pt`` picks
-its path on an accelerator: scenes without textures or legacy Ks render in
-the megakernel (``ops/cuda_wavefront.py``, one launch for the whole spp
+its path on an accelerator: meshes above ``MAX_RESIDENT_TRIS`` triangles
+render in the per-bounce tier on the streamed kernels #6/#7 and sorted
+rays (``ops/cuda_stream.py``), other scenes without textures or legacy Ks
+in the megakernel (``ops/cuda_wavefront.py``, one launch for the whole spp
 loop), textured scenes in the per-bounce tier with the textured bounce.
 The per-bounce tiers (``wavefront_loop``) are a Python loop that launches
 one bounce step per iteration and draws the uniforms from the global
@@ -34,7 +36,7 @@ import torch
 from ..config import RenderConfig
 from ..ops import rng
 from ..ops.cuda_intersect import PackedScene, pack_scene
-from ..ops.intersect import Hit, shadow_ray
+from ..ops.intersect import Hit, resident, shadow_ray
 from ..ops.math3 import (EPSILON, PI, dot, is_valid_color, length,
                          normalize)
 from ..ops.sampling import uniform_sphere_dir
@@ -44,10 +46,12 @@ from ..scene.types import Camera, Scene
 
 # "mega": one render_wavefront kernel for the whole render; "fused": one
 # shade_step (textured: shade_step_tex) kernel per bounce; "split": the
-# nearest-hit and any-blocker kernels around a PyTorch bounce; "plain":
-# PyTorch only; "auto": mega, or fused for textured scenes.  On CPU tensors
-# every tier runs the same plain code.
-TIERS = ("auto", "mega", "fused", "split", "plain")
+# nearest-hit and any-blocker kernels around a PyTorch bounce; "stream":
+# the streamed nearest-hit and any-blocker kernels on coherence-sorted rays
+# around a PyTorch bounce; "plain": PyTorch only; "auto": stream above
+# MAX_RESIDENT_TRIS triangles, else mega, or fused for textured scenes.  On
+# CPU tensors every tier runs plain code (stream its own plain versions).
+TIERS = ("auto", "mega", "fused", "split", "stream", "plain")
 
 
 def _light_table(scene: Scene) -> torch.Tensor:
@@ -161,10 +165,13 @@ def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The tier that renders ``scene`` when ``tier`` is asked for: "auto"
-    is "mega" for scenes without textures or legacy Ks and "fused"
-    otherwise, as the JAX package gates its megakernel.  Raises
-    ValueError for an unknown tier or "mega" on a textured scene, and
-    NotImplementedError for legacy-Ks scenes (not ported yet)."""
+    is "stream" for meshes above ``MAX_RESIDENT_TRIS`` triangles, textured
+    or not, else "mega" for scenes without textures or legacy Ks and
+    "fused" otherwise, as the JAX package gates its megakernel and fused
+    kernels.  "mega" and "fused" stay allowed on big meshes and "stream"
+    on any scene.  Raises ValueError for an unknown tier or "mega" on a
+    textured scene, and NotImplementedError for legacy-Ks scenes (not
+    ported yet)."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
     if scene.has_legacy_ks:
@@ -172,6 +179,8 @@ def resolve_tier(scene: Scene, tier: str) -> str:
             "legacy-Ks scenes are not ported yet (ROADMAP queue 1: legacy-Ks "
             "transmittance)")
     if tier == "auto":
+        if not resident(scene):
+            return "stream"
         return "fused" if scene.has_textures else "mega"
     if tier == "mega" and scene.has_textures:
         raise ValueError("tier 'mega' does not render textured scenes (the "
@@ -184,6 +193,8 @@ def _step_fn(tier: str, textured: bool):
     """The bounce step of a per-bounce tier."""
     from ..ops import cuda_shade as cs
 
+    if tier == "stream":
+        return functools.partial(cs.shade_step_stream, tex=textured)
     if textured:
         return {"fused": cs.shade_step_tex,
                 "split": functools.partial(cs.shade_step_split, tex=True),
@@ -203,10 +214,12 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
     ``start``/``total``: the lanes are rows [start, start+B) of a global
     ``total``-lane render and draw the matching Threefry counters.
     ``tier`` picks the path (see ``TIERS`` and ``resolve_tier``)."""
+    from ..ops.cuda_stream import pack_scene_stream
     from ..ops.cuda_wavefront import render_wavefront
 
     tier = resolve_tier(scene, tier)
-    packed = pack_scene(scene)
+    packed = (pack_scene_stream(scene) if tier == "stream"
+              else pack_scene(scene))
     light_tab = _light_table(scene)
     if tier == "mega":
         return render_wavefront(packed, light_tab, cam, px, py, spp, cfg,

@@ -2,8 +2,10 @@
 
 Each library's source is compiled with ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes``: ``pt_kernels.cu`` (the PT
-kernels), ``bdpt_kernels.cu`` (the BDPT kernels) and ``ppm_kernels.cu``
-(the PPM kernels), all on the device functions of ``pt_device.cuh``.  The builds run at first use, all at once
+kernels), ``bdpt_kernels.cu`` (the BDPT kernels), ``ppm_kernels.cu`` (the
+PPM kernels) and ``mesh_kernels.cu`` (the streamed mesh kernels), all on
+the device functions of ``pt_device.cuh``, and ``probe_kernels.cu`` (the
+texture-fetch probe).  The builds run at first use, all at once
 (one ``nvcc`` per source), into ``path_tracing_tpu_torch/build/``, each
 under a name keyed on a hash of its sources and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  A failed build raises
@@ -34,6 +36,8 @@ LIBRARIES = {
                    "shade_step_tex", "render_wavefront", "threefry_rows"),
     "bdpt_kernels": ("connect", "bdpt_eye"),
     "ppm_kernels": ("photon_trace", "gather_flux"),
+    "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream"),
+    "probe_kernels": ("onehot_fetch",),
 }
 # --fmad=false keeps every multiply and add separately rounded, as the
 # plain PyTorch versions round them; no --use_fast_math, so division, sqrt
@@ -49,6 +53,8 @@ plain_calls = {k: 0 for k in KERNELS}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # sph, ns, nl, tri, uv, cl, n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
+# sph, ns, nl, tri, cl, n_clusters, sup, n_super, blk (ops/cuda_stream.py)
+_STREAM = [_P, _I, _I, _P, _P, _I, _P, _I, _P]
 # lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u | B, clamp,
 # stub_mis, blocks_col | 9 outputs
 _STEP = [_P] * 10 + [_I, _F, _I, _I] + [_P] * 9
@@ -74,6 +80,12 @@ _ARGTYPES = {
                                           _P],
     # hp hp_cell perm B | win ev r2 | flux count
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
+    # the streamed tables | ro rd B n_live | t idx kind
+    "nearest_hit_stream": _STREAM + [_P, _P, _I, _P, _P, _P, _P],
+    # the streamed tables | p1 rd max_d B n_live blocks_col | out
+    "any_blocker_stream": _STREAM + [_P, _P, _P, _I, _P, _I, _P],
+    # tab D idx rows out
+    "onehot_fetch": [_P, _I, _P, _I, _P],
 }
 
 

@@ -78,6 +78,46 @@ def _padded_rows(n: int) -> int:
     return max(SUB, ((n + SUB - 1) // SUB) * SUB)
 
 
+def _mtl_cols(m, n: int, dev) -> torch.Tensor:
+    return torch.cat([m.base_color, m.roughness[:, None], m.metallic[:, None],
+                      m.eta[:, None], torch.zeros((n, 1), device=dev)], 1)
+
+
+def sphere_table(scene: Scene) -> torch.Tensor:
+    """The ``(Ms, 16)`` table of spheres then light balls (see above)."""
+    ns, nl, dev = scene.num_spheres, scene.num_lights, scene.device
+
+    def z(n, k):
+        return torch.zeros((n, k), device=dev)
+
+    def o(n, k):
+        return torch.ones((n, k), device=dev)
+
+    sph_rows = torch.cat([
+        torch.cat([scene.sph_center, scene.sph_radius[:, None], o(ns, 1),
+                   (scene.sph_mtl.eta <= 0.0).float()[:, None], z(ns, 2),
+                   _mtl_cols(scene.sph_mtl, ns, dev), z(ns, 1)], 1),
+        torch.cat([scene.light_pos, scene.light_ball_r[:, None], z(nl, 4),
+                   scene.light_illum, o(nl, 1), z(nl, 2), o(nl, 1),
+                   z(nl, 1)], 1),
+    ], 0)
+    return _rowpad(sph_rows, _padded_rows(ns + nl)).contiguous()
+
+
+def is_textured(scene: Scene) -> bool:
+    return scene.has_textures and scene.tri_uv.shape[0] == scene.num_triangles
+
+
+def texture_tables(scene: Scene):
+    """The atlas and its (h, w) sizes, empty for an untextured scene."""
+    dev = scene.device
+    if not is_textured(scene):
+        return (torch.zeros((0, 1, 1, 3), device=dev),
+                torch.zeros((0, 2), dtype=torch.int32, device=dev))
+    return (scene.tex_atlas.contiguous(),
+            scene.tex_size.to(torch.int32).contiguous())
+
+
 def pack_scene(scene: Scene) -> PackedScene:
     ns, nl, nt = scene.num_spheres, scene.num_lights, scene.num_triangles
     dev = scene.device
@@ -88,29 +128,16 @@ def pack_scene(scene: Scene) -> PackedScene:
     def o(n, k):
         return torch.ones((n, k), device=dev)
 
-    def mtl_cols(m, n):
-        return torch.cat([m.base_color, m.roughness[:, None],
-                          m.metallic[:, None], m.eta[:, None], z(n, 1)], 1)
-
-    sph_rows = torch.cat([
-        torch.cat([scene.sph_center, scene.sph_radius[:, None], o(ns, 1),
-                   (scene.sph_mtl.eta <= 0.0).float()[:, None], z(ns, 2),
-                   mtl_cols(scene.sph_mtl, ns), z(ns, 1)], 1),
-        torch.cat([scene.light_pos, scene.light_ball_r[:, None], z(nl, 4),
-                   scene.light_illum, o(nl, 1), z(nl, 2), o(nl, 1),
-                   z(nl, 1)], 1),
-    ], 0)
-    sph = _rowpad(sph_rows, _padded_rows(ns + nl))
-
+    sph = sphere_table(scene)
     tn = cross(scene.tri_v1 - scene.tri_v0, scene.tri_v2 - scene.tri_v0)
     tn = tn / torch.clamp(length(tn), min=1e-20)[:, None]
     tri_rows = torch.cat([
         scene.tri_v0, scene.tri_v1, scene.tri_v2, o(nt, 1),
         (scene.tri_mtl.eta <= 0.0).float()[:, None], z(nt, 1), tn, z(nt, 1),
-        mtl_cols(scene.tri_mtl, nt), z(nt, 1)], 1)
+        _mtl_cols(scene.tri_mtl, nt, dev), z(nt, 1)], 1)
     tri = _rowpad(tri_rows, _padded_rows(nt))
 
-    textured = scene.has_textures and scene.tri_uv.shape[0] == nt
+    textured = is_textured(scene)
     uv6 = scene.tri_uv if textured else z(nt, 6)
     tex = (scene.tri_tex.float()[:, None] if textured
            else torch.full((nt, 1), -1.0, device=dev))
@@ -119,14 +146,10 @@ def pack_scene(scene: Scene) -> PackedScene:
     cl = torch.cat([scene.tri_cluster_aabb,
                     scene.tri_cluster_range.float()], 1)
     cl = _rowpad(cl, _padded_rows(cl.shape[0]))
-    atlas = (scene.tex_atlas if textured
-             else torch.zeros((0, 1, 1, 3), device=dev))
-    tex_size = (scene.tex_size.to(torch.int32) if textured
-                else torch.zeros((0, 2), dtype=torch.int32, device=dev))
-    return PackedScene(sph=sph.contiguous(), tri=tri.contiguous(),
+    atlas, tex_size = texture_tables(scene)
+    return PackedScene(sph=sph, tri=tri.contiguous(),
                        uv=uv.contiguous(), cl=cl.contiguous(),
-                       atlas=atlas.contiguous(),
-                       tex_size=tex_size.contiguous(), ns=ns, nl=nl, nt=nt)
+                       atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt)
 
 
 # ---------------------------------------------------------------------------
@@ -204,12 +227,15 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
 
 
 def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
-                      rd: torch.Tensor, with_uv: bool = False) -> dict:
+                      rd: torch.Tensor, with_uv: bool = False,
+                      live=None) -> dict:
     """Brute-force nearest hit on the packed tables.  Returns (B,) fields
     t, normal (flipped toward the ray), material and flag (0 miss,
     1 surface, 2 light ball); misses report t = INF and zeros.
     ``with_uv`` adds the winning triangle's interpolated ``iu``, ``iv``
-    and its texture id ``tex`` (float; 0, 0, -1 off triangles)."""
+    and its texture id ``tex`` (float; 0, 0, -1 off triangles).  ``live``
+    (the lanes whose result is read, as the bounce passes it) is ignored:
+    every lane is computed."""
     _kernels.plain_calls["nearest_hit"] += 1
     parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
              for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
@@ -237,9 +263,10 @@ def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int):
 
 def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
                       rd: torch.Tensor, max_d: torch.Tensor,
-                      dielectrics_block: bool) -> torch.Tensor:
+                      dielectrics_block: bool, live=None) -> torch.Tensor:
     """Brute-force shadow any-hit: (B,) bool, True where a sphere or
-    triangle whose can-block column is set lies at t in (1e-3, max_d)."""
+    triangle whose can-block column is set lies at t in (1e-3, max_d).
+    ``live`` is ignored, as in :func:`nearest_hit_plain`."""
     _kernels.plain_calls["any_blocker"] += 1
     col = 4 if dielectrics_block else 5
     return torch.cat([
@@ -281,8 +308,9 @@ def table_args(packed: PackedScene):
 
 
 def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
-                with_uv: bool = False) -> dict:
-    """Nearest hit per ray; same fields as :func:`nearest_hit_plain`."""
+                with_uv: bool = False, live=None) -> dict:
+    """Nearest hit per ray; same fields as :func:`nearest_hit_plain`
+    (``live`` ignored: every lane is computed)."""
     if ro.device.type == "cpu" and rd.device.type == "cpu":
         return nearest_hit_plain(packed, ro, rd, with_uv)
     B = ro.shape[0]
@@ -304,9 +332,10 @@ def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
 
 
 def any_blocker(packed: PackedScene, p1: torch.Tensor, rd: torch.Tensor,
-                max_d: torch.Tensor, dielectrics_block: bool
+                max_d: torch.Tensor, dielectrics_block: bool, live=None
                 ) -> torch.Tensor:
-    """Shadow any-hit per ray; (B,) bool like :func:`any_blocker_plain`."""
+    """Shadow any-hit per ray; (B,) bool like :func:`any_blocker_plain`
+    (``live`` ignored: every lane is computed)."""
     if all(x.device.type == "cpu" for x in (p1, rd, max_d)):
         return any_blocker_plain(packed, p1, rd, max_d, dielectrics_block)
     B = p1.shape[0]

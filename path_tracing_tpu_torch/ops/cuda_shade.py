@@ -16,6 +16,9 @@ The step functions share that signature:
   any-blocker wrappers, so on CUDA it launches those two kernels and shades
   with PyTorch (the JAX package's Pallas-intersect / XLA-shade tier);
   ``tex=True`` textures it;
+- ``shade_step_stream``: the same PyTorch bounce on the sorted streamed
+  nearest-hit and any-blocker of ``ops/cuda_stream.py`` (#6/#7), the JAX
+  package's per-bounce body on meshes above the resident ceiling;
 - ``shade_step_tex`` / ``shade_step_tex_plain``: the textured bounce of
   ``shade_step_tex_pallas`` (the ``with_uv`` hit, the bilinear texel
   multiplied into a textured triangle's base color, then the bounce).  The
@@ -25,6 +28,7 @@ The step functions share that signature:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,14 +61,17 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
             last_delta, last_pdf, u, *, clamp_val, stub_mis,
             dielectrics_block, nearest, blocker, tex=False) -> dict:
     """One PT bounce in PyTorch with the given intersection functions;
-    ``tex`` textures the hit."""
+    ``tex`` textures the hit.  ``nearest`` gets the active lanes and
+    ``blocker`` the NEE-eligible ones as ``live=`` (the lanes whose result
+    is read: the sorted stream calls skip the others)."""
     from ..integrators.pt import _light_emission_radiance, _nee
 
     nl = light_tab.shape[0]
     if tex:
-        h = _textured_hit(packed, nearest(packed, ro, rd, with_uv=True))
+        h = _textured_hit(packed, nearest(packed, ro, rd, with_uv=True,
+                                          live=act))
     else:
-        h = nearest(packed, ro, rd)
+        h = nearest(packed, ro, rd, live=act)
     hit = hit_from_fields(h, ro, rd)
     act = act & hit.hit
     wo = -rd
@@ -103,7 +110,8 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
     elig = upd & (m.eta <= 0.0) & ((m.metallic < 0.99) | (m.roughness > 0.01))
     if nl > 0:
         nee = _nee(packed, light_tab, hit, wo, tp, u[0], u[1], u[2],
-                   dielectrics_block=dielectrics_block, blocker=blocker)
+                   dielectrics_block=dielectrics_block,
+                   blocker=functools.partial(blocker, live=elig))
         nee = torch.where(is_valid_color(nee)[:, None],
                           clamp_radiance(nee, clamp_val),
                           torch.zeros_like(nee))
@@ -158,6 +166,22 @@ def shade_step_split(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
                    nearest=nearest_hit, blocker=any_blocker, tex=tex)
+
+
+def shade_step_stream(st, light_tab, ro, rd, tp, eta, depth, act, last_delta,
+                      last_pdf, u, *, clamp_val, stub_mis, dielectrics_block,
+                      tex=False) -> dict:
+    """The PyTorch bounce on the streamed tables ``st``
+    (``ops/cuda_stream.py``), as the JAX package's per-bounce body runs
+    above the resident ceiling: the hit from #6 on rays sorted with the
+    active lanes live, the NEE shadow rays through #7 sorted with the
+    NEE-eligible lanes live; ``tex`` textures the hit."""
+    from .cuda_stream import stream_blocked, stream_hit
+
+    return _bounce(st, light_tab, ro, rd, tp, eta, depth, act, last_delta,
+                   last_pdf, u, clamp_val=clamp_val, stub_mis=stub_mis,
+                   dielectrics_block=dielectrics_block, nearest=stream_hit,
+                   blocker=stream_blocked, tex=tex)
 
 
 def shade_step_tex_plain(packed, light_tab, ro, rd, tp, eta, depth, act,

@@ -9,7 +9,9 @@ minimum reproduces that tie-break.
 
 ``find_closest_hit`` and ``transmittance`` go through the nearest-hit and
 any-blocker wrappers of ``ops/cuda_intersect.py``: CUDA tensors launch the
-hand-written kernels, CPU tensors take the plain versions.
+hand-written kernels, CPU tensors take the plain versions.  Above
+``MAX_RESIDENT_TRIS`` the PT bounce sorts its rays with ``sorted_call`` for
+the streamed wrappers of ``ops/cuda_stream.py``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..scene import types as scene_types
 from ..scene.types import Material, Scene
 from .math3 import EPSILON, length
 
@@ -62,9 +65,18 @@ def mt_core(ro, rd, v0, v1, v2):
     an (x, y, z) tuple of broadcastable tensors: (B,) rays against (B,)
     vertices per lane, or ``triangle_ts``'s (B, 1) x (1, N) views.
     Returns (ok, u, v, t)."""
+    e1 = tuple(v1[k] - v0[k] for k in range(3))
+    e2 = tuple(v2[k] - v0[k] for k in range(3))
+    return mt_from_edges(ro, rd, v0, e1, e2, EPSILON)
+
+
+def mt_from_edges(ro, rd, v0, e1, e2, t_lo: float):
+    """The body of :func:`mt_core` from the edges on, with t > ``t_lo``:
+    edges precomputed by the same float32 subtraction give the same u, v,
+    t bit for bit (the streamed tables store them)."""
     v0x, v0y, v0z = v0
-    e1x, e1y, e1z = (v1[k] - v0[k] for k in range(3))
-    e2x, e2y, e2z = (v2[k] - v0[k] for k in range(3))
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
     rdx, rdy, rdz = rd
     hx = rdy * e2z - rdz * e2y
     hy = rdz * e2x - rdx * e2z
@@ -80,7 +92,7 @@ def mt_core(ro, rd, v0, v1, v2):
     v = f * (rdx * qx + rdy * qy + rdz * qz)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
     ok = (~parallel & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-          & (t > EPSILON))
+          & (t > t_lo))
     return ok, u, v, t
 
 
@@ -107,6 +119,63 @@ def hit_from_fields(h: dict, ro, rd) -> Hit:
                                             dim=-1),
                      roughness=h["rough"], metallic=h["metal"], eta=h["eta"]),
         is_light=flag == 2)
+
+
+def resident(scene: Scene) -> bool:
+    """True while the scene's triangles stay within ``MAX_RESIDENT_TRIS``
+    (``vmem_tris_ok``): above it the JAX package turns off its fused
+    kernels and megakernel and streams the mesh through #6/#7.  Read at
+    call time, so tests can lower the constant."""
+    return scene.num_triangles <= scene_types.MAX_RESIDENT_TRIS
+
+
+def _spread6(x: torch.Tensor) -> torch.Tensor:
+    """6 bits -> every third bit."""
+    x = (x | (x << 8)) & 0x0300F
+    x = (x | (x << 4)) & 0x030C3
+    return (x | (x << 2)) & 0x09249
+
+
+def coherence_key(scene_min, scene_max, ro, rd) -> torch.Tensor:
+    """Ray sort key (``_coherence_key``): the direction octant above an
+    18-bit Morton code of the origin quantized to 64 cells a side of the
+    scene AABB.  int32 (B,)."""
+    ext = torch.clamp(scene_max - scene_min, min=1e-6)
+    x = (ro - scene_min) / ext * 64.0
+    # XLA converts float to int saturating, NaN to 0
+    x = torch.nan_to_num(x, nan=0.0).clamp(-1.0, 64.0)
+    q = torch.clamp(x.to(torch.int32), 0, 63)
+    morton = (_spread6(q[:, 0]) | (_spread6(q[:, 1]) << 1)
+              | (_spread6(q[:, 2]) << 2))
+    octant = ((rd[:, 0] >= 0).to(torch.int32)
+              | ((rd[:, 1] >= 0).to(torch.int32) << 1)
+              | ((rd[:, 2] >= 0).to(torch.int32) << 2))
+    return (octant << 18) | morton
+
+
+def sorted_call(bounds, ro, rd, fn, *extras, live=None):
+    """``fn(ro, rd, *extras, n_live=...)`` on coherence-sorted rays, its
+    results (a tensor or a tuple of (B,)-leading tensors) put back in lane
+    order (``_sorted_call``).  ``bounds`` is (scene_min, scene_max).
+    ``live`` (B,) bool: dead lanes sort behind every live key (bit 30) and
+    ``n_live``, a (1,) int32 tensor on the rays' device, tells ``fn`` where
+    they start; without it ``n_live`` is None."""
+    key = coherence_key(*bounds, ro, rd)
+    n_live = None
+    if live is not None:
+        key = torch.where(live, key, key | (1 << 30))
+        n_live = live.sum(dtype=torch.int32).reshape(1)
+    order = torch.argsort(key, stable=True)
+    out = fn(ro[order], rd[order], *(e[order] for e in extras),
+             n_live=n_live)
+
+    def unsort(x):
+        y = torch.empty_like(x)
+        y[order] = x
+        return y
+
+    return (tuple(unsort(x) for x in out) if isinstance(out, tuple)
+            else unsort(out))
 
 
 def find_closest_hit(scene: Scene, ro: torch.Tensor, rd: torch.Tensor

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, the PT and
-BDPT megakernels' images against their fused tiers', and the PPM kernels
-launched twice on the same inputs.
+BDPT megakernels' images against their fused tiers', the PPM kernels
+launched twice on the same inputs, the streamed mesh kernels against #1/#2
+and their plain versions, and the fetch probe against ``tab[:, idx]``.
 
 These need an NVIDIA card, nvcc and the port's build, so they skip
 without a card.  This file imports neither jax nor the JAX package; where
@@ -23,6 +24,7 @@ from path_tracing_tpu_torch.scene.camera import make_camera, primary_ray_dirs
 from path_tracing_tpu_torch.scene.parser import load_scene
 
 CORNELL = Path(__file__).resolve().parent.parent / "scenes" / "cornell.txt"
+SPHERE_OBJ = Path(__file__).resolve().parent / "fixtures" / "sphere.obj"
 pytestmark = pytest.mark.cuda
 
 
@@ -226,6 +228,86 @@ def test_bdpt_megakernel_equals_fused_tier(card):
                         tier=t) for t in ("mega", "fused"))
     ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
     assert ok.float().mean().item() >= 0.999
+
+
+@pytest.fixture(scope="module")
+def stream_mesh(card):
+    """sphere.obj at leaf 32 (72 clusters: the super walk is on), packed
+    for #1/#2 and for #6/#7."""
+    from path_tracing_tpu_torch.ops import cuda_stream
+    from path_tracing_tpu_torch.scene.obj_loader import load_any_scene
+
+    scene = load_any_scene(str(SPHERE_OBJ)).to_device("cuda",
+                                                      cluster_leaf_size=32)
+    st = cuda_stream.pack_scene_stream(scene)
+    assert st.use_super
+    return cuda_intersect.pack_scene(scene), st
+
+
+def _mesh_rays(n, seed):
+    """Rays from inside the box around the sphere: half of them aimed at
+    its centre, the rest in random directions."""
+    ro, rd = _rays(n, seed)
+    aim = intersect.shadow_ray(ro, -0.1 * ro)[0]
+    half = (torch.arange(n, device="cuda") % 2 == 0)[:, None]
+    return ro, torch.where(half, aim, rd).contiguous()
+
+
+def test_nearest_hit_stream_matches_nearest_hit_and_plain(stream_mesh):
+    """#6 against #1 (flags equal on >= 99.99% of rays, t bit-equal on
+    >= 99.95%: the same Moller-Trumbore on the same edges; ties at one t
+    may pick another triangle) and against its plain brute force (t, idx
+    and kind equal on >= 99.95%), on sorted rays as the path runs it."""
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+
+    pk, st = stream_mesh
+    ro, rd = _mesh_rays(1 << 16, 8)
+    a = cst.stream_hit(st, ro, rd, with_uv=True)
+    b = cuda_intersect.nearest_hit(pk, ro, rd, with_uv=True)
+    assert (a["flag"] == b["flag"]).float().mean().item() >= 0.9999
+    assert (a["t"] == b["t"]).float().mean().item() >= 0.9995
+    tri = (a["flag"] == 1) & (a["t"] == b["t"])
+    assert tri.float().mean().item() > 0.3
+    for f in ("iu", "iv"):
+        ok = (a[f] - b[f]).abs() <= 1e-5
+        assert ok[tri].float().mean().item() >= 0.999, f
+    k = cst.nearest_hit_stream(st, ro, rd)
+    p = cst.nearest_hit_stream_plain(st, ro, rd)
+    same = (k[0] == p[0]) & (k[1] == p[1]) & (k[2] == p[2])
+    assert same.float().mean().item() >= 0.9995
+
+
+@pytest.mark.parametrize("dielectrics_block", [True, False])
+def test_any_blocker_stream_matches_any_blocker_and_plain(
+        stream_mesh, dielectrics_block):
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+
+    pk, st = stream_mesh
+    p1, d = _mesh_rays(1 << 16, 9)
+    length = 0.05 + 1.5 * rng.uniform_rows(rng.prng_key(10), 1 << 16, 1,
+                                            device="cuda")[0]
+    rd, _, md = intersect.shadow_ray(p1, p1 + d * length[:, None])
+    a = cst.stream_blocked(st, p1, rd, md, dielectrics_block)
+    b = cuda_intersect.any_blocker(pk, p1, rd, md, dielectrics_block)
+    c = cst.any_blocker_stream_plain(st, p1, rd, md, dielectrics_block)
+    assert 0.05 < b.float().mean().item() < 0.95
+    assert (a == b).float().mean().item() >= 0.9999
+    assert (a == c).float().mean().item() >= 0.9999
+
+
+def test_onehot_fetch_kernel_is_exact(card):
+    """#12 equals ``tab[:, idx]`` and its one-hot plain version bit for
+    bit, at the probe's first shape (rows 128, D 4,352)."""
+    from path_tracing_tpu_torch.ops import probes
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tab = torch.rand((12, 4352), device="cuda", generator=g)
+    idx = torch.randint(0, 4352, (128, 128), device="cuda", generator=g,
+                        dtype=torch.int32)
+    out = probes.onehot_fetch(tab, idx)
+    ref = tab[:, idx.long()].permute(1, 0, 2).reshape(128 * 12, 128)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, probes.onehot_fetch_plain(tab, idx))
 
 
 def _ppm_frame(scene, w=128, h=72, spl=16384):
