@@ -9,32 +9,41 @@
 //              its connections to every valid light vertex.
 // 9. bdpt_eye  replaces path_tracing_tpu/ops/pallas_bdpt_eye.py
 //              bdpt_eye_pallas (_bdpt_eye_kernel): the whole eye pass of a
-//              frame, every sample of a pixel in one thread.
+//              frame, every sample of a pixel in one lane.
 //
-// One thread per eye lane (pixel), no atomics: a pixel's sum is a pure
-// function of its inputs, added in a fixed order, so renders are
-// deterministic per seed and #9 equals the per-bounce tier that launches #8.
+// No float atomics: a pixel's sum is a pure function of its inputs, added
+// in a fixed order (row after row, as connect_row's callers add them), so
+// renders are deterministic per seed and #9 equals the per-bounce tier
+// that launches #8.  Each kernel has a counting build (kCount): the same
+// sums, and integer work counters (pt_device.cuh's CountIdx) summed per
+// warp, with one atomicAdd a counter a warp.
 //
-// What bounds them on this card: compute per thread.  Each connection is
-// ~300 flops of geometry and two BSDF evaluations plus a shadow ray that
-// walks every sphere and the clusters it enters (45 primitive tests on the
-// 36-triangle cornell box), and every eye vertex sweeps all V light
-// vertices (V ~ 810 on cornell for the exact sweep at spl 8, or Kp = 32 after tile
-// RIS).  The table is 160 bytes a row and a few hundred KB at most: it
-// stays in L1/L2 and every warp reads the same row at the same time, so
-// the loads broadcast.  Rows whose gate closes are skipped before the work
-// they would waste (geometry gates before the BSDF math, zero evaluations
-// before the shadow sweep), which gives the same sum because the reference
-// adds +0 for them.  The TPU kernel skipped the shadow sweep only when no
-// lane of its 16K-lane tile needed it; here each thread skips on its own,
-// at the price of divergence inside a warp.  Shared-memory staging of the
-// table, warp-level shadow culling and lane compaction are later work.
+// What bounds them on this card: operations (counted by the counting
+// builds; chip_smoke.py turns the counts into a bound).  On cornell 61% of
+// a connection's rows pass the geometry and cone gates and run two BSDF
+// evaluations and two pdfs, 56% need a shadow ray, and a shadow ray makes
+// ~31 sphere, box and triangle tests; the walks take most of the time.
+// #8 keeps one thread per eye vertex, each walking its own shadow rays.
 //
-// The random numbers are the per-bounce tier's Threefry stream, drawn in
-// the thread: sample s keys k_s = fold_in(k02, s) with k02 = fold_in(key,
-// 0x0202) from the host; the jitter is rows 0-1 of fold_in(k_s, 0xA11CE) and
-// bounce `it` draws rows 0-2 of fold_in(fold_in(k_s, 0xE7E), it); row j of
-// a key sits at the lane's counter j*total + start + lane.
+// #9's design for this card: one block of 128 pixels (4 warps) reads one
+// tile's table (TILE_LANES is a multiple of the block) and stages it in
+// shared memory once; larger tables stream through a per-warp buffer
+// kChunk rows at a time.  The scene's tables are read from device memory
+// (cornell's 5 KB stay in L1; staging them bought nothing).  Each lane
+// runs its own pixel's samples one after another (camera jitter, nearest
+// hit, BSDF bounce, G recurrence), so a lane whose path ends starts its
+// next sample at the next step instead of idling; at every step the warp sweeps its lanes'
+// new eye vertices together.  In the sweep each lane gates and evaluates
+// its own vertex against each row (the row a broadcast read from shared
+// memory); the pairs that need a shadow ray are packed with __ballot_sync
+// and a prefix count into a per-warp queue, and the warp walks them 32 at
+// a time, one ray a lane, so every lane walks a real ray.  A lane then
+// adds its own clear pairs of the batch in queue order, which is row
+// order: the sum is connect_dev's, add for add.  (Queuing the gate-passing
+// pairs for their evaluations too raised that step's SIMT efficiency from
+// 0.47 to 0.97 but made the kernel slower: PERF.md section 6.)
+
+#include <type_traits>
 
 #include "pt_device.cuh"
 
@@ -43,6 +52,7 @@ using namespace ptk;
 namespace {
 
 constexpr float kPdfFwdFloor = 1e-8f;
+constexpr unsigned kFull = 0xffffffffu;
 
 // Connections of the eye vertices: (B, 3) inputs row-major, the material
 // as (B,) rows, and rows [0, n_valid) of the shared (V, 40) table.
@@ -60,19 +70,37 @@ struct ConnectIn {
   const bool* __restrict__ act;
 };
 
+template <bool kCount>
 __global__ void connect_kernel(Tables tb, const float* __restrict__ lv, int n_valid, ConnectIn in,
-                               int B, float clamp_val, int blocks_col, float* __restrict__ out) {
+                               int B, float clamp_val, int blocks_col, float* __restrict__ out,
+                               unsigned long long* __restrict__ counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  V3 acc = mk(0.f, 0.f, 0.f);
-  if (in.act[i]) {
-    Mtl m = {load3(in.bc, i), in.rough[i], in.metal[i], in.eta[i]};
-    EyeVertex e = make_eye_vertex(load3(in.pos, i), load3(in.n, i), load3(in.tp, i), m,
-                                  load3(in.wo_e, i), load3(in.wo_s, i), in.eye_f[i]);
-    acc = connect_dev(tb, lv, n_valid, e, clamp_val, blocks_col);
+  typename std::conditional<kCount, Count, NoCount>::type cnt;
+  if (i < B) {
+    V3 acc = mk(0.f, 0.f, 0.f);
+    if (in.act[i]) {
+      Mtl m = {load3(in.bc, i), in.rough[i], in.metal[i], in.eta[i]};
+      EyeVertex e = make_eye_vertex(load3(in.pos, i), load3(in.n, i), load3(in.tp, i), m,
+                                    load3(in.wo_e, i), load3(in.wo_s, i), in.eye_f[i]);
+      cnt.add(kVertices);
+      acc = connect_dev(tb, lv, n_valid, e, clamp_val, blocks_col, cnt);
+    }
+    store3(out, i, acc);
   }
-  store3(out, i, acc);
+  if constexpr (kCount) cnt.flush(counts);
 }
+
+// ---------------------------------------------------------------------------
+// #9
+// ---------------------------------------------------------------------------
+
+constexpr int kEyeWarps = 4;
+constexpr int kEyeThreads = 32 * kEyeWarps;
+constexpr int kEyeMinBlocks = 6;       // __launch_bounds__: 24 warps an SM at least
+constexpr int kChunk = 16;             // rows a warp stages at a time (streamed tables)
+constexpr int kResidentRows = 64;      // tables up to this many rows are staged whole
+constexpr int kQueue = 64;             // a queue holds < 32 waiting + 32 new pairs
+constexpr int kParkFields = 24;        // a thread's parked path state, padded
 
 struct EyeCfg {
   Key k02;                 // fold_in(key, 0x0202)
@@ -80,6 +108,7 @@ struct EyeCfg {
   int spp, eye_depth, max_iters;
   float clamp_val, light_hit_scale;
   int blocks_col;
+  bool resident;           // the table fits kResidentRows
 };
 
 // The light-vertex rows of pixel i: the shared table, or its tile's table
@@ -93,100 +122,334 @@ struct EyeTable {
   }
 };
 
-// One sample of eye_trace_and_connect for one lane, iteration for
-// iteration the lane's column of integrators/bdpt.py::eye_sample: hit, the
-// depth-0 light credit, the connection sweep, the BSDF bounce and the G
-// recurrence.  A path that dies is untouched by later iterations of that
-// loop, so the thread stops.  Returns the sample's radiance.
-__device__ V3 eye_sample_dev(const Tables& tb, const Cam& cam, const EyeCfg& g,
-                             const float* __restrict__ rows, int n_valid, float fpx, float fpy,
-                             uint32_t lane, int s) {
-  Key ks = fold_in(g.k02, (uint32_t)s);
-  Key kj = fold_in(ks, 0xA11CEu);
-  Key ke = fold_in(ks, 0xE7Eu);
-  V3 rd = primary_dir(cam, fpx + uniform_at(kj, 0, lane, g.start, g.total),
-                      fpy + uniform_at(kj, 1, lane, g.start, g.total));
-  V3 ro = cam.eye, last_p = cam.eye, prev_v = cam.eye, last_n = rd;
-  V3 tp = mk(1.f, 1.f, 1.f), rad = mk(0.f, 0.f, 0.f);
-  float eta = 1.0f, last_pdf = 1.0f, g_mis = 0.0f;
-  int dep = 0;
-  for (int it = 0; it < g.max_iters; ++it) {
-    HitRec h = nearest_hit_dev<false>(tb, ro, rd);
-    if (h.flag == 0) break;  // a miss ends the path
-    const V3 n = h.n;
-    const Mtl& m = h.m;
-    V3 pos = ro + scale(rd, h.t);
-    if (h.flag == 2 && dep == 0) {  // the camera sees a light ball
-      rad = rad + scale(m.bc, g.light_hit_scale);
-      break;
-    }
+// A warp's shadow-ray queue (structure of arrays: lane j touches word j,
+// so it does not conflict on banks).
+struct WarpQueue {
+  float p1[3][32];      // each lane's eye vertex, offset along its normal
+  float p2[3][kQueue];  // a queued pair's far endpoint
+  float c[3][kQueue];   // what it adds when its ray is clear
+  int who[kQueue];      // its vertex's lane, + 32 when it failed valid3
+  unsigned mask[32];    // per lane, the entries of a batch it adds
+};
 
-    // ---- connect the vertex to the light vertices ----
-    V3 wo_e = -rd;
-    V3 wo_s = dep == 0 ? normalize3(cam.eye - pos) : normalize3(prev_v - pos);
-    float eye_f = (dep == 0 || m.eta > 0.0f) ? 0.0f : (1.0f / kPdfFwdFloor) * (1.0f + g_mis);
-    EyeVertex e = make_eye_vertex(pos, n, tp, m, wo_e, wo_s, eye_f);
-    rad = rad + connect_dev(tb, rows, n_valid, e, g.clamp_val, g.blocks_col);
+struct EyeLayout {
+  bool resident;
+  size_t bytes;
+};
 
-    // ---- bounce ----
-    V3 d_vec = pos - last_p;
-    float dist2 = dot3(d_vec, d_vec);
-    if (!(dist2 >= 1e-6f)) break;
-    float cos_at_hit = fabsf(dot3(n, -rd));
-    float cos_at_prev = fabsf(dot3(last_n, rd));
-    float pdf_fwd = last_pdf * cos_at_hit / jmax(dist2, 1e-20f);
-    Key ki = fold_in(ke, (uint32_t)it);
-    BsdfSample b = bsdf_sample_dev(m, wo_e, n, uniform_at(ki, 0, lane, g.start, g.total),
-                                   uniform_at(ki, 1, lane, g.start, g.total),
-                                   uniform_at(ki, 2, lane, g.start, g.total), eta);
-    if (!((b.pdf > 0.0f) || b.is_delta)) break;
-    bool rough = !b.is_delta;
-    // pdf_rev: bsdf_pdf(m, wo = sampled wi, wi = wo_e) in the hit frame
-    V3 ft, fb;
-    build_frame(n, &ft, &fb);
-    V3 wi_b_l = to_local(b.wi, ft, fb, n);
-    V3 wo_e_l = to_local(wo_e, ft, fb, n);
-    bool wh_ok;
-    V3 wh = half_vector(wi_b_l, wo_e_l, &wh_ok);
-    float pdf_rev = pdf_local(m, wi_b_l, wo_e_l, roughness_to_alpha(m.rough), wh, wh_ok) *
-                    cos_at_prev / jmax(dist2, 1e-20f);
-    float g_new = (dep == 0 || m.eta > 0.0f)
-                      ? 0.0f
-                      : (1.0f + pdf_rev * g_mis) / jmax(pdf_fwd, kPdfFwdFloor);
-    float w = b.is_delta ? 1.0f : fabsf(dot3(n, b.wi)) / jmax(b.pdf, 1e-20f);
-    V3 new_tp = scale(mul(tp, b.val), w);
-    V3 off = scale(dot3(b.wi, n) < 0.0f ? -n : n, kEps);
-    ro = b.is_delta ? pos + off : pos + scale(n, kEps);
-    rd = b.wi;
-    tp = new_tp;
-    eta = b.new_eta;
-    dep += rough ? 1 : 0;
-    last_n = n;
-    last_p = pos;
-    last_pdf = b.is_delta ? 1.0f : b.pdf;
-    if (rough) {
-      g_mis = g_new;
-      prev_v = pos;
-    }
-    if (!(valid3(new_tp) && (b.is_delta || dep < g.eye_depth))) break;
-  }
-  return rad;
+// The dynamic shared memory of an eye launch: the threads' parked path
+// state, the camera, the block's table or the warps' chunk buffers, then
+// the warps' queues.  Every part is a multiple of 16 bytes.
+inline EyeLayout eye_layout(int n_valid) {
+  EyeLayout L;
+  L.resident = n_valid <= kResidentRows;
+  const int table_floats = (L.resident ? n_valid : kEyeWarps * kChunk) * kLvCols;
+  L.bytes = (size_t)(kParkFields * kEyeThreads + 16 + table_floats) * 4 +
+            kEyeWarps * sizeof(WarpQueue);
+  return L;
 }
 
-__global__ void bdpt_eye_kernel(Tables tb, EyeTable tab, const float* __restrict__ cam_tab,
-                                EyeCfg g, const int* __restrict__ px, const int* __restrict__ py,
-                                int B, float* __restrict__ img_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const Cam cam = load_cam(cam_tab);
-  const float* rows = tab.rows(i);
-  V3 img = mk(0.f, 0.f, 0.f);
-  for (int s = 0; s < g.spp; ++s) {
-    V3 rad = eye_sample_dev(tb, cam, g, rows, tab.n_valid, (float)px[i], (float)py[i],
-                            (uint32_t)i, s);
-    if (valid3(rad)) img = img + rad;
+__device__ __forceinline__ void copy_f4(float* __restrict__ dst, const float* __restrict__ src,
+                                        int n_floats, int t, int stride) {
+  const float4* s = reinterpret_cast<const float4*>(src);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int k = t; k < n_floats / 4; k += stride) d[k] = __ldg(s + k);
+}
+
+// Walk the first nb queued shadow rays, one a lane, then add each lane's
+// clear pairs of the batch to its sum in queue order.
+template <class Ctr>
+__device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int nb,
+                                             int blocks_col, V3* acc, Ctr& cnt) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  bool add = false;
+  int v = 32;
+  if (lane < nb) {
+    const int who = q.who[lane];
+    const int u = who & 31;
+    const V3 p1 = mk(q.p1[0][u], q.p1[1][u], q.p1[2][u]);
+    V3 srd;
+    float md;
+    shadow_setup(p1, mk(q.p2[0][lane], q.p2[1][lane], q.p2[2][lane]), &srd, &md);
+    cnt.simt(kShLanes);
+    add = !shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt) && who < 32;
+    if (add) v = u;
   }
-  store3(img_out, i, img);
+  q.mask[lane] = 0u;
+  __syncwarp();
+  const unsigned grp = __match_any_sync(kFull, v);
+  if (add && lane == __ffs(grp) - 1) q.mask[v] = grp;
+  __syncwarp();
+  unsigned mine = q.mask[lane];
+  while (mine) {
+    const int k = __ffs(mine) - 1;
+    mine &= mine - 1u;
+    *acc = *acc + mk(q.c[0][k], q.c[1][k], q.c[2][k]);
+    cnt.add(kContribs);
+  }
+  __syncwarp();
+}
+
+// The warp's connection sweep: each lane with has_v gets the sum over rows
+// [0, n_valid) of its vertex's connections (the rest get 0).  `rows` is the
+// block's staged table, or with `chunk` the table to stream through that
+// per-warp buffer.  Each lane gates and evaluates its own vertex against
+// each row (the row a broadcast read); the pairs that need a shadow ray
+// are queued with a ballot and a prefix count, row after row, and walked
+// 32 at a time, one ray a lane.  Every lane of the warp calls this.
+template <class Ctr>
+__device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
+                         const float* __restrict__ rows, float* chunk, int n_valid,
+                         WarpQueue& q, float clamp_val, int blocks_col, Ctr& cnt) {
+  V3 acc = mk(0.f, 0.f, 0.f);
+  if (!__any_sync(kFull, has_v)) return acc;
+  const int lane = threadIdx.x & 31;
+  if (has_v) {
+    cnt.add(kVertices);
+    const V3 p1 = e.pos + scale(e.n, kEps);
+    q.p1[0][lane] = p1.x;
+    q.p1[1][lane] = p1.y;
+    q.p1[2][lane] = p1.z;
+  }
+  int nq = 0;
+  for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
+    const int nr = chunk ? min(kChunk, n_valid - c0) : n_valid;
+    const float* R0 = rows + (size_t)c0 * kLvCols;
+    if (chunk) {
+      __syncwarp();
+      copy_f4(chunk, R0, nr * kLvCols, lane, 32);
+      __syncwarp();
+      R0 = chunk;
+    }
+    for (int r = 0; r < nr; ++r) {
+      V3 contrib, p2;
+      bool ok = false;
+      const bool pass =
+          has_v && connect_row(e, R0 + r * kLvCols, clamp_val, cnt, &contrib, &ok, &p2);
+      const unsigned pm = __ballot_sync(kFull, pass);
+      if (pass) {
+        const int k = nq + __popc(pm & ((1u << lane) - 1u));
+        q.p2[0][k] = p2.x;
+        q.p2[1][k] = p2.y;
+        q.p2[2][k] = p2.z;
+        q.c[0][k] = contrib.x;
+        q.c[1][k] = contrib.y;
+        q.c[2][k] = contrib.z;
+        q.who[k] = lane + (ok ? 0 : 32);
+      }
+      nq += __popc(pm);
+      if (nq >= 32) {
+        shadow_batch(tb, q, 32, blocks_col, &acc, cnt);
+        nq -= 32;
+        if (lane < nq) {  // the rest of the queue moves to its front
+          for (int d = 0; d < 3; ++d) {
+            q.p2[d][lane] = q.p2[d][32 + lane];
+            q.c[d][lane] = q.c[d][32 + lane];
+          }
+          q.who[lane] = q.who[32 + lane];
+        }
+        __syncwarp();
+      }
+    }
+    if (!chunk) break;
+  }
+  if (nq > 0) shadow_batch(tb, q, nq, blocks_col, &acc, cnt);
+  return acc;
+}
+
+// Every sample of each lane's pixel, iteration for iteration the lane's
+// column of integrators/bdpt.py::eye_sample: hit, the depth-0 light
+// credit, the connection sweep (warp_sweep), the BSDF bounce and the G
+// recurrence; a sample ends where that loop's lane stops changing, and the
+// lane's next sample starts at the next step.
+template <bool kCount>
+__global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
+    bdpt_eye_kernel(Tables tb, EyeTable tab, const float* __restrict__ cam_tab, EyeCfg g,
+                    const int* __restrict__ px, const int* __restrict__ py, int B,
+                    float* __restrict__ img_out, unsigned long long* __restrict__ counts) {
+  extern __shared__ __align__(16) float smem[];
+  typename std::conditional<kCount, Count, NoCount>::type cnt;
+  const int i = blockIdx.x * kEyeThreads + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+
+  // ---- stage this block's table ----
+  float* sp = smem;
+  const float* rows = tab.rows(blockIdx.x * kEyeThreads);
+  float* const park = sp;
+  sp += kParkFields * kEyeThreads;
+  float* const cam_s = sp;  // the camera (eye, ul, dx, dy), read when needed
+  if (threadIdx.x < 12) cam_s[threadIdx.x] = cam_tab[threadIdx.x];
+  sp += 16;
+  float* chunk = nullptr;
+  if (g.resident) {
+    copy_f4(sp, rows, tab.n_valid * kLvCols, threadIdx.x, kEyeThreads);
+    rows = sp;
+    sp += tab.n_valid * kLvCols;
+  } else {
+    chunk = sp + warp * kChunk * kLvCols;
+    sp += kEyeWarps * kChunk * kLvCols;
+  }
+  WarpQueue& q = reinterpret_cast<WarpQueue*>(sp)[warp];
+  __syncthreads();
+
+  // ---- each lane's samples, one step at a time ----
+  const bool in_range = i < B;
+  const uint32_t lane_id = (uint32_t)i;
+  int s = in_range ? 0 : g.spp;  // the lane's sample; spp when it is done
+  bool fresh = true;             // sample s starts at this step
+  int it = 0, dep = 0;
+  Key ke = {0u, 0u};
+  V3 ro, rd, last_p, prev_v, last_n;
+  ro = rd = last_p = prev_v = last_n = load3(cam_s, 0);
+  V3 tp = mk(1.f, 1.f, 1.f), rad = mk(0.f, 0.f, 0.f), img = mk(0.f, 0.f, 0.f);
+  float eta = 1.0f, last_pdf = 1.0f, g_mis = 0.0f;
+  // the path state the sweep does not read waits in this thread's column
+  // of `park`, so its registers are free for the sweep
+  float* const pk = park + threadIdx.x;
+  auto put = [&](int f, V3 v) {
+    pk[f * kEyeThreads] = v.x;
+    pk[(f + 1) * kEyeThreads] = v.y;
+    pk[(f + 2) * kEyeThreads] = v.z;
+  };
+  auto get = [&](int f) {
+    return mk(pk[f * kEyeThreads], pk[(f + 1) * kEyeThreads], pk[(f + 2) * kEyeThreads]);
+  };
+  while (__any_sync(kFull, s < g.spp)) {
+    bool has_v = false, ends = false;
+    EyeVertex e;
+    if (s < g.spp) {
+      if (fresh) {
+        cnt.add(kSamples);
+        Key ks = fold_in(g.k02, (uint32_t)s);
+        Key kj = fold_in(ks, 0xA11CEu);
+        ke = fold_in(ks, 0xE7Eu);
+        rd = primary_dir(load_cam(cam_s),
+                         (float)px[i] + uniform_at(kj, 0, lane_id, g.start, g.total),
+                         (float)py[i] + uniform_at(kj, 1, lane_id, g.start, g.total));
+        ro = last_p = prev_v = load3(cam_s, 0);
+        last_n = rd;
+        tp = mk(1.f, 1.f, 1.f);
+        rad = mk(0.f, 0.f, 0.f);
+        eta = 1.0f;
+        last_pdf = 1.0f;
+        g_mis = 0.0f;
+        dep = 0;
+        it = 0;
+        fresh = false;
+      }
+      if (it >= g.max_iters) {
+        ends = true;
+      } else {
+        HitRec h = nearest_hit_dev<false>(tb, ro, rd, cnt);
+        if (h.flag == 0) {  // a miss ends the path
+          ends = true;
+        } else {
+          const V3 pos = ro + scale(rd, h.t);
+          if (h.flag == 2 && dep == 0) {  // the camera sees a light ball
+            rad = rad + scale(h.m.bc, g.light_hit_scale);
+            ends = true;
+          } else {
+            V3 wo_s = normalize3((dep == 0 ? load3(cam_s, 0) : prev_v) - pos);
+            float eye_f =
+                (dep == 0 || h.m.eta > 0.0f) ? 0.0f : (1.0f / kPdfFwdFloor) * (1.0f + g_mis);
+            e = make_eye_vertex(pos, h.n, tp, h.m, -rd, wo_s, eye_f);
+            has_v = true;
+          }
+        }
+      }
+    }
+    put(0, rd);
+    put(3, last_p);
+    put(6, last_n);
+    put(9, prev_v);
+    put(12, rad);
+    put(15, img);
+    pk[18 * kEyeThreads] = eta;
+    pk[19 * kEyeThreads] = last_pdf;
+    pk[20 * kEyeThreads] = g_mis;
+    pk[21 * kEyeThreads] = __uint_as_float(ke.k0);
+    pk[22 * kEyeThreads] = __uint_as_float(ke.k1);
+
+    // ---- connect the warp's vertices to the light vertices ----
+    const V3 acc =
+        warp_sweep(tb, e, has_v, rows, chunk, tab.n_valid, q, g.clamp_val, g.blocks_col, cnt);
+
+    rd = get(0);
+    last_p = get(3);
+    last_n = get(6);
+    prev_v = get(9);
+    rad = get(12);
+    img = get(15);
+    eta = pk[18 * kEyeThreads];
+    last_pdf = pk[19 * kEyeThreads];
+    g_mis = pk[20 * kEyeThreads];
+    ke = {__float_as_uint(pk[21 * kEyeThreads]), __float_as_uint(pk[22 * kEyeThreads])};
+
+    // ---- bounce, from the vertex ----
+    // (ro and tp are set on every path, so nothing holds them over the
+    // sweep: a lane whose sample ends takes both from its next sample)
+    ro = mk(0.f, 0.f, 0.f);
+    tp = mk(1.f, 1.f, 1.f);
+    if (has_v) {
+      rad = rad + acc;
+      const V3 pos = e.pos, n = e.n;
+      const Mtl& m = e.m;
+      const V3 wo_e = -rd;
+      V3 d_vec = pos - last_p;
+      float dist2 = dot3(d_vec, d_vec);
+      ends = !(dist2 >= 1e-6f);
+      if (!ends) {
+        float cos_at_hit = fabsf(dot3(n, -rd));
+        float cos_at_prev = fabsf(dot3(last_n, rd));
+        float pdf_fwd = last_pdf * cos_at_hit / jmax(dist2, 1e-20f);
+        Key ki = fold_in(ke, (uint32_t)it);
+        BsdfSample b = bsdf_sample_dev(m, wo_e, n, uniform_at(ki, 0, lane_id, g.start, g.total),
+                                       uniform_at(ki, 1, lane_id, g.start, g.total),
+                                       uniform_at(ki, 2, lane_id, g.start, g.total), eta);
+        ends = !((b.pdf > 0.0f) || b.is_delta);
+        if (!ends) {
+          bool rough = !b.is_delta;
+          // pdf_rev: bsdf_pdf(m, wo = sampled wi, wi = wo_e) in the hit frame
+          V3 ft, fb;
+          build_frame(n, &ft, &fb);
+          V3 wi_b_l = to_local(b.wi, ft, fb, n);
+          V3 wo_e_l = to_local(wo_e, ft, fb, n);
+          bool wh_ok;
+          V3 wh = half_vector(wi_b_l, wo_e_l, &wh_ok);
+          float pdf_rev = pdf_local(m, wi_b_l, wo_e_l, roughness_to_alpha(m.rough), wh, wh_ok) *
+                          cos_at_prev / jmax(dist2, 1e-20f);
+          float g_new = (dep == 0 || m.eta > 0.0f)
+                            ? 0.0f
+                            : (1.0f + pdf_rev * g_mis) / jmax(pdf_fwd, kPdfFwdFloor);
+          float w = b.is_delta ? 1.0f : fabsf(dot3(n, b.wi)) / jmax(b.pdf, 1e-20f);
+          V3 new_tp = scale(mul(e.tp, b.val), w);
+          V3 off = scale(dot3(b.wi, n) < 0.0f ? -n : n, kEps);
+          ro = b.is_delta ? pos + off : pos + scale(n, kEps);
+          rd = b.wi;
+          tp = new_tp;
+          eta = b.new_eta;
+          dep += rough ? 1 : 0;
+          last_n = n;
+          last_p = pos;
+          last_pdf = b.is_delta ? 1.0f : b.pdf;
+          if (rough) {
+            g_mis = g_new;
+            prev_v = pos;
+          }
+          ++it;
+          ends = !(valid3(new_tp) && (b.is_delta || dep < g.eye_depth)) || it >= g.max_iters;
+        }
+      }
+    }
+    if (ends) {
+      if (valid3(rad)) img = img + rad;
+      ++s;
+      fresh = true;
+    }
+  }
+  if (in_range) store3(img_out, i, img);
+  if constexpr (kCount) cnt.flush(counts);
 }
 
 }  // namespace
@@ -197,30 +460,121 @@ extern "C" {
 // (0 on success); the Python wrapper raises on anything else.  The scene
 // tables come first: sph, ns, nl, tri, uv, cl, n_clusters.
 
+static int launch_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                          const float* cl, int nc, const float* lv, int n_valid, const float* pos,
+                          const float* n, const float* tp, const float* bc, const float* rough,
+                          const float* metal, const float* eta, const float* wo_e,
+                          const float* wo_s, const float* eye_f, const bool* act, int B,
+                          float clamp_val, int blocks_col, float* out,
+                          unsigned long long* counts, void* stream) {
+  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc);
+  if (counts)
+    connect_kernel<true><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        tb, lv, n_valid, in, B, clamp_val, blocks_col, out, counts);
+  else
+    connect_kernel<false><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        tb, lv, n_valid, in, B, clamp_val, blocks_col, out, nullptr);
+  return (int)cudaGetLastError();
+}
+
 int pt_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
                const float* cl, int nc, const float* lv, int n_valid, const float* pos,
                const float* n, const float* tp, const float* bc, const float* rough,
                const float* metal, const float* eta, const float* wo_e, const float* wo_s,
                const float* eye_f, const bool* act, int B, float clamp_val, int blocks_col,
                float* out, void* stream) {
-  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  connect_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), lv, n_valid, in, B, clamp_val, blocks_col, out);
+  return launch_connect(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, pos, n, tp, bc, rough, metal,
+                        eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, nullptr,
+                        stream);
+}
+
+// The counting build of #8: the same sums, and the work counters added
+// into counts[kNumCounts] (zeroed by the caller).
+int pt_connect_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                      const float* cl, int nc, const float* lv, int n_valid, const float* pos,
+                      const float* n, const float* tp, const float* bc, const float* rough,
+                      const float* metal, const float* eta, const float* wo_e,
+                      const float* wo_s, const float* eye_f, const bool* act, int B,
+                      float clamp_val, int blocks_col, float* out, unsigned long long* counts,
+                      void* stream) {
+  return launch_connect(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, pos, n, tp, bc, rough, metal,
+                        eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, counts,
+                        stream);
+}
+
+static int launch_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                      const float* cl, int nc, const float* lv, int n_valid,
+                      int tile_lanes, long long tile_stride, const float* cam, const int* px,
+                      const int* py, int B, int spp, int eye_depth, int max_iters, uint32_t k0,
+                      uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
+                      int blocks_col, float light_hit_scale, float* img,
+                      unsigned long long* counts, void* stream) {
+  const EyeLayout L = eye_layout(n_valid);
+  EyeTable tab{lv, n_valid, tile_lanes, tile_stride};
+  EyeCfg g{{k0, k1}, start, total, spp, eye_depth, max_iters, clamp_val, light_hit_scale,
+           blocks_col, L.resident};
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc);
+  const int blocks = (B + kEyeThreads - 1) / kEyeThreads;
+  if (counts)
+    bdpt_eye_kernel<true><<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(
+        tb, tab, cam, g, px, py, B, img, counts);
+  else
+    bdpt_eye_kernel<false><<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(
+        tb, tab, cam, g, px, py, B, img, nullptr);
   return (int)cudaGetLastError();
 }
 
 int pt_bdpt_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                const float* cl, int nc, const float* lv, int n_valid, int tile_lanes,
-                long long tile_stride, const float* cam, const int* px, const int* py, int B,
-                int spp, int eye_depth, int max_iters, uint32_t k0, uint32_t k1, uint32_t start,
-                uint32_t total, float clamp_val, int blocks_col, float light_hit_scale,
-                float* img, void* stream) {
-  EyeTable tab{lv, n_valid, tile_lanes, tile_stride};
-  EyeCfg g{{k0, k1}, start, total, spp, eye_depth, max_iters, clamp_val, light_hit_scale,
-           blocks_col};
-  bdpt_eye_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), tab, cam, g, px, py, B, img);
-  return (int)cudaGetLastError();
+                const float* cl, int nc, const float* lv, int n_valid,
+                int tile_lanes, long long tile_stride, const float* cam, const int* px,
+                const int* py, int B, int spp, int eye_depth, int max_iters, uint32_t k0,
+                uint32_t k1, uint32_t start, uint32_t total, float clamp_val, int blocks_col,
+                float light_hit_scale, float* img, void* stream) {
+  return launch_eye(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, tile_lanes, tile_stride, cam,
+                    px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
+                    blocks_col, light_hit_scale, img, nullptr, stream);
+}
+
+// The counting build of #9: the same image, and the work counters added
+// into counts[kNumCounts] (zeroed by the caller).
+int pt_bdpt_eye_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                       const float* cl, int nc, const float* lv, int n_valid,
+                       int tile_lanes, long long tile_stride, const float* cam, const int* px,
+                       const int* py, int B, int spp, int eye_depth, int max_iters,
+                       uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
+                       float clamp_val, int blocks_col, float light_hit_scale, float* img,
+                       unsigned long long* counts, void* stream) {
+  return launch_eye(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, tile_lanes, tile_stride, cam,
+                    px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
+                    blocks_col, light_hit_scale, img, counts, stream);
+}
+
+// For connect, connect_counts, bdpt_eye and bdpt_eye_counts in turn, five
+// ints: resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// at the launch's block size and dynamic shared memory), threads per block,
+// registers per thread, local (spill) bytes per thread and dynamic shared
+// bytes, for an eye launch against n_valid table rows.  Returns a
+// cudaError_t.
+int pt_bdpt_occupancy(int n_valid, int* out) {
+  const int eye_smem = (int)eye_layout(n_valid).bytes;
+  const void* fns[4] = {(const void*)connect_kernel<false>, (const void*)connect_kernel<true>,
+                        (const void*)bdpt_eye_kernel<false>, (const void*)bdpt_eye_kernel<true>};
+  const int threads[4] = {kThreads, kThreads, kEyeThreads, kEyeThreads};
+  const int smem[4] = {0, 0, eye_smem, eye_smem};
+  for (int k = 0; k < 4; ++k) {
+    cudaFuncAttributes a;
+    cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * k, fns[k], threads[k],
+                                                          smem[k]);
+    if (err != cudaSuccess) return (int)err;
+    out[5 * k + 1] = threads[k];
+    out[5 * k + 2] = a.numRegs;
+    out[5 * k + 3] = (int)a.localSizeBytes;
+    out[5 * k + 4] = smem[k];
+  }
+  return 0;
 }
 
 }  // extern "C"

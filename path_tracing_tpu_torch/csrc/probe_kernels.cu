@@ -10,32 +10,36 @@
 //
 // The TPU has no per-lane gather inside a kernel, so its probe builds a
 // one-hot (D, 128) matrix per row and contracts it on the MXU: D times the
-// work of the fetch.  The card gathers directly: one thread per output
-// element reads its lane's index (a warp reads 32 consecutive indices) and
-// loads one table element, and the warp writes 32 consecutive floats.  An
-// index outside [0, D) gives 0, as the one-hot product does.
+// work of the fetch.  The card gathers directly.  One block per row r and
+// one thread per lane l: the thread reads its index once (the warp reads
+// 32 consecutive indices), issues its 12 table loads together through the
+// read-only path, and makes 12 stores, each warp-coalesced (32 consecutive
+// floats of out row r*12 + j).  No division: r and l are the block and the
+// thread.  An index outside [0, D) gives 0, as the one-hot product does.
 // Bound on this card: bytes.  12 * D * 4 bytes of table (read once, it
 // stays in L2), rows * 128 * 4 of indices and rows * 12 * 128 * 4 of
 // output: 3.9 MB at rows 128, D 66,048, about 1.2 us at 3.35 TB/s; a
-// launch costs more than that.
+// launch costs more than that, so the host's enqueue decides the time of
+// a single call (ops/probes.py keeps it short).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 128, kCols = 12, kThreads = 256;
+constexpr int kLanes = 128, kCols = 12;
 
-__global__ void onehot_fetch_kernel(const float* __restrict__ tab, int D,
-                                    const int* __restrict__ idx, int rows,
-                                    float* __restrict__ out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)rows * kCols * kLanes) return;
-  const int l = (int)(e % kLanes);
-  const long long rj = e / kLanes;
-  const int j = (int)(rj % kCols);
-  const long long r = rj / kCols;
+__global__ void __launch_bounds__(kLanes) onehot_fetch_kernel(const float* __restrict__ tab, int D,
+                                                              const int* __restrict__ idx,
+                                                              float* __restrict__ out) {
+  const int r = blockIdx.x, l = threadIdx.x;
   const int k = __ldg(idx + r * kLanes + l);
-  out[e] = (k >= 0 && k < D) ? __ldg(tab + (size_t)j * D + k) : 0.0f;
+  const bool in = k >= 0 && k < D;
+  float v[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) v[j] = in ? __ldg(tab + (size_t)j * D + k) : 0.0f;
+  float* o = out + (size_t)r * kCols * kLanes + l;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) o[j * kLanes] = v[j];
 }
 
 }  // namespace
@@ -45,10 +49,8 @@ extern "C" {
 // Launches on the caller's stream and returns cudaGetLastError().
 int pt_onehot_fetch(const float* tab, int D, const int* idx, int rows, float* out,
                     void* stream) {
-  const long long n = (long long)rows * kCols * kLanes;
-  const int blocks = (int)((n + kThreads - 1) / kThreads);
-  if (blocks > 0)
-    onehot_fetch_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(tab, D, idx, rows, out);
+  if (rows > 0)
+    onehot_fetch_kernel<<<rows, kLanes, 0, (cudaStream_t)stream>>>(tab, D, idx, out);
   return (int)cudaGetLastError();
 }
 

@@ -92,6 +92,52 @@ struct Tables {
 };
 
 // ---------------------------------------------------------------------------
+// work counters of the counting builds (bdpt_kernels.cu's *_counts entries;
+// ops/cuda_connect.py::COUNT_NAMES names them in this order)
+// ---------------------------------------------------------------------------
+
+enum CountIdx {
+  kSamples, kVertices, kRows, kRowsGated, kEvals, kPdfs, kShadowRays, kContribs,
+  kHitSph, kHitBox, kHitTri, kShSph, kShBox, kShTri,
+  kRowLanes, kRowSlots, kShLanes, kShSlots, kTriLanes, kTriSlots, kNumCounts
+};
+
+// The plain builds count nothing: every call inlines away.
+struct NoCount {
+  __device__ __forceinline__ void add(int, unsigned = 1u) {}
+  __device__ __forceinline__ void simt(int) {}
+};
+
+// Per-thread integer tallies, summed over the warp and added with one
+// atomicAdd a counter a warp; nothing here touches radiance.
+struct Count {
+  unsigned v[kNumCounts];
+  __device__ __forceinline__ Count() {
+#pragma unroll
+    for (int k = 0; k < kNumCounts; ++k) v[k] = 0u;
+  }
+  __device__ __forceinline__ void add(int k, unsigned n = 1u) { v[k] += n; }
+  // the lanes that run this step together, and 32 slots, counted once a
+  // warp step by its lowest active lane (SIMT efficiency = lanes / slots)
+  __device__ __forceinline__ void simt(int k) {
+    unsigned m = __activemask();
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
+      v[k] += __popc(m);
+      v[k + 1] += 32u;
+    }
+  }
+  // every lane of the warp must call this
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+#pragma unroll
+    for (int k = 0; k < kNumCounts; ++k) {
+      unsigned long long s = v[k];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+      if ((threadIdx.x & 31) == 0 && s) atomicAdd(out + k, s);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Threefry-2x32 (20 rounds), bit-exact with jax.random and ops/rng.py on
 // native uint32 words
 // ---------------------------------------------------------------------------
@@ -215,9 +261,9 @@ struct HitRec {
 
 // kUV keeps the winning triangle's Moller-Trumbore barycentrics and
 // interpolates its vertex UVs as ops/texture.py::interpolate_uv does:
-// w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.
-template <bool kUV>
-__device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
+// w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.  cnt counts the primitive tests.
+template <bool kUV, class Ctr>
+__device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd, Ctr& cnt) {
   HitRec best;
   best.t = kInf;
   best.n = mk(0.f, 0.f, 0.f);
@@ -228,6 +274,7 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
   for (int i = 0; i < tb.ns + tb.nl; ++i) {
     const float* s = tb.sph + i * kSphCols;
     V3 oc;
+    cnt.add(kHitSph);
     float t = sphere_t(ro, rd, s, INFINITY, &oc);
     if (t < best.t) {
       float inv_r = 1.0f / jmax(s[3], 1e-20f);
@@ -243,8 +290,11 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
   for (int c = 0; c < tb.nc; ++c) {
     const float* C = tb.cl + c * kClCols;
     int count = (int)C[7];
-    if (count <= 0 || !slab_hit(C, ro, inv, kEps, best.t)) continue;
+    if (count <= 0) continue;
+    cnt.add(kHitBox);
+    if (!slab_hit(C, ro, inv, kEps, best.t)) continue;
     int start = (int)C[6];
+    cnt.add(kHitTri, (unsigned)count);
     for (int i = start; i < start + count; ++i) {
       const float* T = tb.tri + i * kTriCols;
       float u, v;
@@ -278,14 +328,23 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
   return best;
 }
 
+template <bool kUV>
+__device__ __forceinline__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd) {
+  NoCount cnt;
+  return nearest_hit_dev<kUV>(tb, ro, rd, cnt);
+}
+
 // Shadow any-hit for t in (kMinD, md): spheres and triangles whose
 // can-block column (4 GPU rule / 5 oracle rule) is set; light balls never
-// block and are not visited.
-__device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int blocks_col) {
+// block and are not visited.  cnt counts the primitive tests.
+template <class Ctr>
+__device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int blocks_col,
+                                   Ctr& cnt) {
   for (int i = 0; i < tb.ns; ++i) {
     const float* s = tb.sph + i * kSphCols;
     if (!(s[blocks_col] > 0.0f)) continue;
     V3 oc;
+    cnt.add(kShSph);
     float t = sphere_t(p1, rd, s, md, &oc);
     if (t < kInf && t > kMinD) return true;
   }
@@ -293,17 +352,27 @@ __device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int
   for (int c = 0; c < tb.nc; ++c) {
     const float* C = tb.cl + c * kClCols;
     int count = (int)C[7];
-    if (count <= 0 || !slab_hit(C, p1, inv, kMinD, md)) continue;
+    if (count <= 0) continue;
+    cnt.add(kShBox);
+    if (!slab_hit(C, p1, inv, kMinD, md)) continue;
     int start = (int)C[6];
     for (int i = start; i < start + count; ++i) {
       const float* T = tb.tri + i * kTriCols;
       if (!(T[blocks_col + 5] > 0.0f)) continue;
       float u, v;
+      cnt.add(kShTri);
+      cnt.simt(kTriLanes);
       float t = triangle_t(p1, rd, T, &u, &v);
       if (t < md && t > kMinD) return true;
     }
   }
   return false;
+}
+
+__device__ __forceinline__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md,
+                                                   int blocks_col) {
+  NoCount cnt;
+  return shadow_blocked_dev(tb, p1, rd, md, blocks_col, cnt);
 }
 
 // ---------------------------------------------------------------------------
@@ -617,79 +686,138 @@ __device__ __forceinline__ EyeVertex make_eye_vertex(V3 pos, V3 n, V3 tp, const 
   return e;
 }
 
-// The body of path_tracing_tpu/ops/pallas_connect.py::connect_core for one
-// active eye vertex: the sum, row after row, over rows [0, n_rows) of a
-// row-major (V, 40) table (ops/cuda_connect.py::pack_light_vertices) of
-// G fE fL V MIS contributions, each valid3-checked and clamp3-ed.  The
-// reference's quirks: the evals take the unit wi, both MIS pdfs wi * dist;
-// pdfs floored at 1e-6; the spot-cone gate on emitter rows; G = cosE cosL /
-// max(d^2, 1e-4); dist-scaled area conversions; mis_w = 1 / (1 +
-// pdf_t_to_s eye_f + pdf_s_to_t mis_a) where finite and > 0.  A row whose
-// gate is closed adds +0 in the reference, so it is skipped before the
-// work it would waste: invalid rows and failed geometry gates before the
-// BSDF math, zero evals before the shadow sweep, and the light-side eval
-// on emitter rows (their f_L is 1).
+// One pair of path_tracing_tpu/ops/pallas_connect.py::connect_core: an
+// active eye vertex against one row of a row-major (V, 40) table
+// (ops/cuda_connect.py::pack_light_vertices), in two halves that #8 and #9
+// both call, so their sums agree.  The reference's quirks: the evals take
+// the unit wi, both MIS pdfs wi * dist; pdfs floored at 1e-6; the
+// spot-cone gate on emitter rows; G = cosE cosL / max(d^2, 1e-4);
+// dist-scaled area conversions; mis_w = 1 / (1 + pdf_t_to_s eye_f +
+// pdf_s_to_t mis_a) where finite and > 0.  A pair whose gate is closed adds
+// +0 in the reference, so it stops before the work it would waste: invalid
+// rows and failed geometry or cone gates before the BSDF math (row_gate),
+// zero evals before the shadow ray, and the light-side eval on emitter
+// rows, whose f_L is 1 (row_eval).
+
+// The pair's geometry, as row_gate leaves it for row_eval.
+struct RowGeo {
+  V3 wi;
+  float dist2, dist, cos_e, cos_l;
+};
+
+// The validity, geometry and spot-cone gates of the pair (eye vertex at
+// pos with normal n): whether it goes on to row_eval.
+__device__ __forceinline__ bool row_gate(V3 pos, V3 n, const float* __restrict__ R, RowGeo* g) {
+  if (!(R[25] > 0.0f)) return false;  // invalid row
+  V3 d_vec = mk(R[0], R[1], R[2]) - pos;
+  g->dist2 = dot3(d_vec, d_vec);
+  g->dist = sqrtf(jmax(g->dist2, 1e-20f));
+  g->wi = scale(d_vec, 1.0f / g->dist);
+  g->cos_e = jmax(0.0f, dot3(n, g->wi));
+  g->cos_l = jmax(0.0f, dot3(-mk(R[3], R[4], R[5]), g->wi));
+  if (!((g->dist2 >= 1e-6f) && (g->cos_e > 0.0f) && (g->cos_l > 0.0f))) return false;
+  bool cone_bad = (R[15] > 0.0f) && (R[16] > 0.0f) && !(R[17] > 0.0f) &&
+                  (dot3(mk(R[18], R[19], R[20]), -g->wi) < R[36]);
+  return !cone_bad;
+}
+
+// Both BSDF evaluations and their zero gates, both MIS pdfs and the
+// contribution of a pair that passed row_gate, each evaluation and pdf
+// counted where it runs.  Returns whether the pair needs its shadow ray;
+// then *p2 is the ray's far endpoint and, when the ray is clear, the pair
+// adds *contrib (G fE fL Le MIS, clamp3-ed) if *ok (it passed valid3),
+// else nothing.
+template <class Ctr>
+__device__ __forceinline__ bool row_eval(const EyeVertex& e, const float* __restrict__ R,
+                                         const RowGeo& g, float clamp_val, Ctr& cnt, V3* contrib,
+                                         bool* ok, V3* p2) {
+  // eye side: eval with wo_e, MIS pdf with wo_s against wi * dist
+  V3 wi_e_l = to_local(g.wi, e.t, e.b, e.n);
+  bool wh_ok;
+  V3 wh = half_vector(e.wo_e_l, wi_e_l, &wh_ok);
+  cnt.add(kEvals);
+  V3 f_e = eval_local(e.m, e.wo_e_l, wi_e_l, e.alpha, wh, wh_ok);
+  if (!((f_e.x > 0.0f) || (f_e.y > 0.0f) || (f_e.z > 0.0f))) return false;
+  cnt.add(kPdfs);
+  V3 wi_s_l = scale(wi_e_l, g.dist);
+  wh = half_vector(e.wo_s_l, wi_s_l, &wh_ok);
+  float pdf_s = jmax(pdf_local(e.m, e.wo_s_l, wi_s_l, e.alpha, wh, wh_ok), kPdfOmegaFloor);
+
+  // light side, in the frame packed with the table
+  const V3 ln = mk(R[3], R[4], R[5]);
+  Mtl m_l = {mk(R[9], R[10], R[11]), R[12], R[13], R[14]};
+  V3 wo_t_l = mk(R[32], R[33], R[34]);
+  float alpha_l = R[35];
+  V3 wi_l_l = to_local(-g.wi, mk(R[26], R[27], R[28]), mk(R[29], R[30], R[31]), ln);
+  V3 f_l = mk(1.f, 1.f, 1.f);
+  if (!(R[15] > 0.0f)) {
+    wh = half_vector(wo_t_l, wi_l_l, &wh_ok);
+    cnt.add(kEvals);
+    f_l = eval_local(m_l, wo_t_l, wi_l_l, alpha_l, wh, wh_ok);
+    if (!((f_l.x > 0.0f) || (f_l.y > 0.0f) || (f_l.z > 0.0f))) return false;
+  }
+  V3 wi_t_l = scale(wi_l_l, g.dist);
+  wh = half_vector(wo_t_l, wi_t_l, &wh_ok);
+  cnt.add(kPdfs);
+  float pdf_t = jmax(pdf_local(m_l, wo_t_l, wi_t_l, alpha_l, wh, wh_ok), kPdfOmegaFloor);
+  *p2 = mk(R[0], R[1], R[2]) + scale(ln, kEps);
+
+  float g_term = g.cos_e * g.cos_l / jmax(g.dist2, 1e-4f);
+  float pdf_s_to_t = pdf_s * g.cos_l * g.dist / jmax(g.dist2, 1e-20f);
+  float pdf_t_to_s = pdf_t * g.cos_e * g.dist / jmax(g.dist2, 1e-20f);
+  float sum_ratios = 1.0f + pdf_t_to_s * e.eye_f + pdf_s_to_t * R[24];
+  bool mis_ok = isfinite(sum_ratios) && (sum_ratios > 0.0f);
+  float mis_w = mis_ok ? 1.0f / jmax(sum_ratios, 1e-30f) : 0.0f;
+  // the shadow factor is 1 on every pair that adds
+  V3 c = scale(mul(mul(mul(e.tp, f_e), f_l), mk(R[6], R[7], R[8])), g_term * mis_w);
+  *ok = valid3(c);
+  *contrib = *ok ? clamp3(c, clamp_val) : mk(0.f, 0.f, 0.f);
+  return true;
+}
+
+// Both halves on one pair, counted.
+template <class Ctr>
+__device__ __forceinline__ bool connect_row(const EyeVertex& e, const float* __restrict__ R,
+                                            float clamp_val, Ctr& cnt, V3* contrib, bool* ok,
+                                            V3* p2) {
+  cnt.add(kRows);
+  RowGeo g;
+  if (!row_gate(e.pos, e.n, R, &g)) return false;
+  cnt.add(kRowsGated);
+  cnt.simt(kRowLanes);
+  if (!row_eval(e, R, g, clamp_val, cnt, contrib, ok, p2)) return false;
+  cnt.add(kShadowRays);
+  return true;
+}
+
+// The shadow ray between the two offset endpoints of a connection.
+__device__ __forceinline__ void shadow_setup(V3 p1, V3 p2, V3* srd, float* md) {
+  V3 diff = p2 - p1;
+  float sdist = norm3(diff);
+  *srd = scale(diff, 1.0f / jmax(sdist, 1e-20f));
+  *md = sdist - kMinD;
+}
+
+// #8's connection sum of one active eye vertex: rows [0, n_rows), row after
+// row, each pair's shadow ray walked by this thread.
+template <class Ctr>
 __device__ V3 connect_dev(const Tables& tb, const float* __restrict__ rows, int n_rows,
-                          const EyeVertex& e, float clamp_val, int blocks_col) {
+                          const EyeVertex& e, float clamp_val, int blocks_col, Ctr& cnt) {
   V3 acc = mk(0.f, 0.f, 0.f);
   const V3 p1 = e.pos + scale(e.n, kEps);
   for (int c = 0; c < n_rows; ++c) {
-    const float* R = rows + (size_t)c * kLvCols;
-    if (!(R[25] > 0.0f)) continue;  // invalid row
-    V3 lp = mk(R[0], R[1], R[2]);
-    V3 ln = mk(R[3], R[4], R[5]);
-    V3 d_vec = lp - e.pos;
-    float dist2 = dot3(d_vec, d_vec);
-    float dist = sqrtf(jmax(dist2, 1e-20f));
-    V3 wi = scale(d_vec, 1.0f / dist);
-    float cos_e = jmax(0.0f, dot3(e.n, wi));
-    float cos_l = jmax(0.0f, dot3(-ln, wi));
-    if (!((dist2 >= 1e-6f) && (cos_e > 0.0f) && (cos_l > 0.0f))) continue;
-    bool is_src = R[15] > 0.0f;
-    bool cone_bad = is_src && (R[16] > 0.0f) && !(R[17] > 0.0f) &&
-                    (dot3(mk(R[18], R[19], R[20]), -wi) < R[36]);
-    if (cone_bad) continue;
-
-    // eye side: eval with wo_e, MIS pdf with wo_s against wi * dist
-    V3 wi_e_l = to_local(wi, e.t, e.b, e.n);
+    V3 contrib, p2, srd;
     bool ok;
-    V3 wh = half_vector(e.wo_e_l, wi_e_l, &ok);
-    V3 f_e = eval_local(e.m, e.wo_e_l, wi_e_l, e.alpha, wh, ok);
-    if (!((f_e.x > 0.0f) || (f_e.y > 0.0f) || (f_e.z > 0.0f))) continue;
-    V3 wi_s_l = scale(wi_e_l, dist);
-    wh = half_vector(e.wo_s_l, wi_s_l, &ok);
-    float pdf_s = jmax(pdf_local(e.m, e.wo_s_l, wi_s_l, e.alpha, wh, ok), kPdfOmegaFloor);
-
-    // light side, in the frame packed with the table
-    Mtl m_l = {mk(R[9], R[10], R[11]), R[12], R[13], R[14]};
-    V3 wo_t_l = mk(R[32], R[33], R[34]);
-    float alpha_l = R[35];
-    V3 wi_l_l = to_local(-wi, mk(R[26], R[27], R[28]), mk(R[29], R[30], R[31]), ln);
-    V3 f_l = mk(1.f, 1.f, 1.f);
-    if (!is_src) {
-      wh = half_vector(wo_t_l, wi_l_l, &ok);
-      f_l = eval_local(m_l, wo_t_l, wi_l_l, alpha_l, wh, ok);
-      if (!((f_l.x > 0.0f) || (f_l.y > 0.0f) || (f_l.z > 0.0f))) continue;
+    float md;
+    if (!connect_row(e, rows + (size_t)c * kLvCols, clamp_val, cnt, &contrib, &ok, &p2))
+      continue;
+    shadow_setup(p1, p2, &srd, &md);
+    cnt.simt(kShLanes);
+    if (shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt)) continue;
+    if (ok) {
+      acc = acc + contrib;
+      cnt.add(kContribs);
     }
-    V3 wi_t_l = scale(wi_l_l, dist);
-    wh = half_vector(wo_t_l, wi_t_l, &ok);
-    float pdf_t = jmax(pdf_local(m_l, wo_t_l, wi_t_l, alpha_l, wh, ok), kPdfOmegaFloor);
-
-    // visibility between the two offset endpoints
-    V3 diff = (lp + scale(ln, kEps)) - p1;
-    float sdist = norm3(diff);
-    V3 srd = scale(diff, 1.0f / jmax(sdist, 1e-20f));
-    if (shadow_blocked_dev(tb, p1, srd, sdist - kMinD, blocks_col)) continue;
-
-    float g_term = cos_e * cos_l / jmax(dist2, 1e-4f);
-    float pdf_s_to_t = pdf_s * cos_l * dist / jmax(dist2, 1e-20f);
-    float pdf_t_to_s = pdf_t * cos_e * dist / jmax(dist2, 1e-20f);
-    float sum_ratios = 1.0f + pdf_t_to_s * e.eye_f + pdf_s_to_t * R[24];
-    bool mis_ok = isfinite(sum_ratios) && (sum_ratios > 0.0f);
-    float mis_w = mis_ok ? 1.0f / jmax(sum_ratios, 1e-30f) : 0.0f;
-    // the shadow factor is 1 on every pair that gets here
-    V3 contrib = scale(mul(mul(mul(e.tp, f_e), f_l), mk(R[6], R[7], R[8])), g_term * mis_w);
-    if (valid3(contrib)) acc = acc + clamp3(contrib, clamp_val);
   }
   return acc;
 }

@@ -410,7 +410,7 @@ def eye_sample(packed: PackedScene, cam: Camera, cfg: RenderConfig,
         if not bool(alive.any()):   # a dead path stays dead
             break
         u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd), ro, rd)
+        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
         act = alive & hit.hit
         m, n, pos = hit.mtl, hit.normal, hit.pos
 
@@ -506,19 +506,27 @@ def eye_trace_and_connect(packed: PackedScene, cam: Camera, cfg: RenderConfig,
 def bdpt_eye_plain_loop(packed: PackedScene, lv_tab: torch.Tensor,
                         n_valid: int, cam: Camera, px, py, spp: int,
                         cfg: RenderConfig, key, light_hit_scale: float,
-                        start: int = 0, total: int | None = None
-                        ) -> torch.Tensor:
+                        start: int = 0, total: int | None = None,
+                        counts: dict | None = None) -> torch.Tensor:
     """The per-pixel radiance SUM over ``spp`` samples against a (V, 40)
     or tile-local (T, Kp, 40) table, sample after sample on the plain
-    versions: what the ``bdpt_eye`` kernel computes."""
+    versions: what the ``bdpt_eye`` kernel computes.  ``counts`` (from
+    ``cuda_connect.new_counts``), if given, gains the samples, the
+    nearest-hit casts' tests and the connection sweep's work."""
     def tiled_connect(*args, **kw):
-        return connect_plain(*args, **kw, tile_lanes=TILE_LANES)
+        return connect_plain(*args, **kw, tile_lanes=TILE_LANES,
+                             counts=counts)
+
+    def nearest(*args, **kw):
+        return nearest_hit_plain(*args, **kw, counts=counts)
 
     acc = torch.zeros((px.shape[0], 3), device=px.device)
     for s in range(spp):
+        if counts is not None:
+            counts["samples"] += px.shape[0]
         acc = acc + eye_sample(packed, cam, cfg, lv_tab, n_valid, px, py,
                                _sample_key(key, s), light_hit_scale, start,
-                               total, nearest=nearest_hit_plain,
+                               total, nearest=nearest,
                                connect_fn=tiled_connect,
                                draw=rng.uniform_rows_plain)
     return acc

@@ -109,7 +109,8 @@ def resolve_tier(scene: Scene, tier: str) -> str:
     if scene.num_triangles > MAX_RESIDENT_TRIS:
         raise NotImplementedError(
             f"PPM of meshes above {MAX_RESIDENT_TRIS} triangles is not "
-            "ported yet (ROADMAP.md queue 1, 'big meshes', kernels #6/#7)")
+            "ported yet (ROADMAP.md queue 1, item [13], 'Big meshes in BDPT "
+            "and PPM')")
     return "mega" if tier == "auto" else tier
 
 

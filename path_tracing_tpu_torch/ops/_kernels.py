@@ -13,7 +13,8 @@ with nvcc's output; nothing falls back.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
-went through.
+went through.  ``connect_counts`` and ``bdpt_eye_counts`` are the counting
+builds of ``connect`` and ``bdpt_eye``, launched under their own names.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ HEADERS = ("pt_device.cuh",)
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows"),
-    "bdpt_kernels": ("connect", "bdpt_eye"),
+    "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
     "ppm_kernels": ("photon_trace", "gather_flux"),
     "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream"),
     "probe_kernels": ("onehot_fetch",),
@@ -87,6 +88,9 @@ _ARGTYPES = {
     # tab D idx rows out
     "onehot_fetch": [_P, _I, _P, _I, _P],
 }
+# the counting builds: the same arguments, then the uint64 counters
+_ARGTYPES["connect_counts"] = _ARGTYPES["connect"][:-1] + [_P, _P]
+_ARGTYPES["bdpt_eye_counts"] = _ARGTYPES["bdpt_eye"][:-1] + [_P, _P]
 
 
 def reset_counts() -> None:
@@ -98,6 +102,7 @@ def reset_counts() -> None:
 @dataclass
 class KernelLibrary:
     fns: dict              # kernel name -> its C entry point
+    libs: dict             # library name -> the loaded ctypes.CDLL
     paths: list            # the loaded shared libraries
     build_seconds: float   # wall time of the builds; 0.0 when all reused
     ptxas_log: str
@@ -151,9 +156,9 @@ def library() -> KernelLibrary:
     if failed:
         raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0 if procs else 0.0
-    fns, logs = {}, []
+    fns, libs, logs = {}, {}, []
     for n, so in sos.items():
-        lib = ctypes.CDLL(str(so))
+        lib = libs[n] = ctypes.CDLL(str(so))
         if so.with_suffix(".log").exists():
             logs.append(so.with_suffix(".log").read_text())
         for k in LIBRARIES[n]:
@@ -161,18 +166,21 @@ def library() -> KernelLibrary:
             fn.argtypes = _ARGTYPES[k]
             fn.restype = ctypes.c_int
             fns[k] = fn
-    _LOADED = KernelLibrary(fns=fns, paths=list(sos.values()),
+    _LOADED = KernelLibrary(fns=fns, libs=libs, paths=list(sos.values()),
                             build_seconds=seconds, ptxas_log="".join(logs))
     return _LOADED
 
 
 def launch(name: str, *args) -> None:
     """Launch kernel ``name`` on the current CUDA stream and count it.
-    Raises if the launch reports an error."""
+    Raises if the launch reports an error.  The stream is read as the raw
+    handle, as PyTorch's compiler runtime reads it (no ``torch.cuda.Stream``
+    object built), since a launch's host time is most of a small kernel's
+    time."""
     import torch
 
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = library().fns[name](*args, ctypes.c_void_p(stream))
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+    rc = (_LOADED or library()).fns[name](*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")

@@ -17,7 +17,11 @@ shadow ray and the O(1) balance-heuristic MIS weight, each contribution
 validity-checked and clamped, added row after row.  On CUDA tensors it
 launches the ``connect`` kernel (``csrc/bdpt_kernels.cu``); on CPU tensors
 it runs ``connect_plain``, the same sum in PyTorch; any other device
-raises.  The reference's quirks are kept as ``connect_core`` keeps them:
+raises.  ``connect_counts`` launches the kernel's counting build, which
+also returns the work it did (``COUNT_NAMES``); given a ``counts`` dict,
+the plain version counts the same work (``PLAIN_COUNTS``), the shadow
+walks' tests as the kernels walk them.  The reference's quirks are kept as
+``connect_core`` keeps them:
 the evaluations take the unit direction and both MIS pdfs the direction
 scaled by the distance; pdfs are floored at 1e-6; the spot-cone gate;
 ``G = cos_e cos_l / max(d^2, 1e-4)``; the distance-scaled area
@@ -41,6 +45,24 @@ from .microfacet import roughness_to_alpha
 
 LV_COLS = 40
 PDF_OMEGA_FLOOR = 1e-6
+# The counting builds' counters, in csrc/pt_device.cuh's CountIdx order:
+# eye samples; connectable eye vertices (calls of the sweep); rows visited
+# (vertices x n_valid); rows past the geometry and cone gates; BSDF
+# evaluations and pdfs done (an evaluation on each gated row and, where the
+# eye side's is not zero, the eye pdf, the light side's evaluation unless
+# the row is an emitter, and where that is not zero the light pdf); rows
+# past the zero-eval gates (= shadow rays); contributions added; sphere,
+# box and triangle tests of the nearest-hit casts and of the shadow walks;
+# and at the row step (past the gates), the shadow step and a shadow walk's
+# triangle test, the lanes of each warp step and 32 slots a step (their
+# ratio is the SIMT efficiency).  The plain versions count the first 14,
+# the primitive tests by walking the clusters in the kernels' order.
+COUNT_NAMES = ("samples", "vertices", "rows", "rows_gated", "evals", "pdfs",
+               "shadow_rays", "contributions", "hit_spheres", "hit_boxes",
+               "hit_tris", "shadow_spheres", "shadow_boxes", "shadow_tris",
+               "row_lanes", "row_slots", "shadow_lanes", "shadow_slots",
+               "tri_lanes", "tri_slots")
+PLAIN_COUNTS = COUNT_NAMES[:14]
 # elements of one (lanes, rows, 3) intermediate of the plain sweep
 _PLAIN_CHUNK = 1 << 25
 _ROW_CHUNK = 128
@@ -70,14 +92,20 @@ def pack_light_vertices(lv_flat) -> torch.Tensor:
     return out
 
 
+def new_counts() -> dict:
+    return {k: 0 for k in COUNT_NAMES}
+
+
 def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
                   ev_mtl: Material, wo_e, wo_s, eye_f, clamp_val: float,
-                  dielectrics_block: bool) -> torch.Tensor:
+                  dielectrics_block: bool, counts=None) -> torch.Tensor:
     """The connection sum of every given lane (all active) against the
     rows ``R`` (C, 40), in PyTorch: one (lanes, rows) slab per chunk,
     shadow rays only for the pairs that pass every other gate, and the
     contributions added row after row as the kernel adds them."""
     Bc = ev_pos.shape[0]
+    if counts is not None:
+        counts["rows"] += Bc * R.shape[0]
     acc = torch.zeros((Bc, 3), device=ev_pos.device)
     if Bc == 0:
         return acc
@@ -113,6 +141,7 @@ def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
         cone_bad = (is_src & (cutoff > 0.0) & ~is_par
                     & (dot(emit, -wi) < cos_cut))
         gate = gate & ~cone_bad
+        _tally(counts, "rows_gated", gate)
 
         # eye side: eval with the unit wi, MIS pdf with wi * dist
         wi_e_l = world_to_local(wi, et[:, None], eb[:, None], ev_n[:, None])
@@ -132,8 +161,13 @@ def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
         wh_t, ok_t = _half_vector(wo_t_l, wi_t_l)
         pdf_t = torch.clamp(_pdf_local(m_l, wo_t_l, wi_t_l, alpha_l, wh_t,
                                        ok_t), min=PDF_OMEGA_FLOOR)
-        gate = gate & torch.any(f_e > 0.0, dim=-1) & torch.any(f_l > 0.0,
-                                                               dim=-1)
+        fe_ok = gate & torch.any(f_e > 0.0, dim=-1)
+        _tally(counts, "evals", gate)
+        _tally(counts, "evals", fe_ok & ~is_src)
+        _tally(counts, "pdfs", fe_ok)
+        gate = fe_ok & torch.any(f_l > 0.0, dim=-1)
+        _tally(counts, "pdfs", gate)
+        _tally(counts, "shadow_rays", gate)
 
         # shadow rays of the pairs still gated in
         lane, row = torch.nonzero(gate, as_tuple=True)
@@ -141,7 +175,8 @@ def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
         srd, _, md = shadow_ray(q1, (C[:, 0:3] + C[:, 3:6] * EPSILON)[row])
         tr = torch.zeros_like(dist2)
         tr[lane, row] = torch.where(
-            any_blocker_plain(packed, q1, srd, md, dielectrics_block),
+            any_blocker_plain(packed, q1, srd, md, dielectrics_block,
+                              counts=counts),
             0.0, 1.0)
         gate = gate & (tr > 0.0)
 
@@ -156,6 +191,7 @@ def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
         contrib = (ev_tp[:, None] * f_e * f_l * ltp
                    * (g_term * tr * mis_w)[..., None])
         ok = gate & is_valid_color(contrib)
+        _tally(counts, "contributions", ok)
         contrib = torch.where(ok[..., None],
                               clamp_radiance(contrib, clamp_val),
                               torch.zeros_like(contrib))
@@ -164,14 +200,23 @@ def _connect_rows(packed: PackedScene, R: torch.Tensor, ev_pos, ev_n, ev_tp,
     return acc
 
 
+def _tally(counts, name: str, mask: torch.Tensor) -> None:
+    if counts is not None:
+        counts[name] += int(mask.sum())
+
+
 def connect_plain(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
                   ev_pos, ev_normal, ev_tp, ev_mtl: Material, wo_e, wo_s,
                   eye_f, act, *, clamp_val: float, dielectrics_block: bool,
-                  tile_lanes: int = 0) -> torch.Tensor:
+                  tile_lanes: int = 0, counts: dict | None = None
+                  ) -> torch.Tensor:
     """Plain PyTorch version of the ``connect`` kernel.  ``lv_tab`` is a
     (V, 40) table shared by every lane, or (T, Kp, 40) with lane ``i``
-    reading tile ``i // tile_lanes``.  Lanes that are not ``act`` get 0."""
+    reading tile ``i // tile_lanes``.  Lanes that are not ``act`` get 0.
+    ``counts`` (from ``new_counts``), if given, gains this sweep's work
+    (``PLAIN_COUNTS``)."""
     _kernels.plain_calls["connect"] += 1
+    _tally(counts, "vertices", act)
     B = ev_pos.shape[0]
     out = torch.zeros((B, 3), device=ev_pos.device)
     tiles = lv_tab[None] if lv_tab.dim() == 2 else lv_tab
@@ -189,7 +234,8 @@ def connect_plain(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
                          metallic=ev_mtl.metallic[ln], eta=ev_mtl.eta[ln])
             out[ln] = _connect_rows(packed, R, ev_pos[ln], ev_normal[ln],
                                     ev_tp[ln], m, wo_e[ln], wo_s[ln],
-                                    eye_f[ln], clamp_val, dielectrics_block)
+                                    eye_f[ln], clamp_val, dielectrics_block,
+                                    counts)
     return out
 
 
@@ -217,6 +263,33 @@ def connect(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
     if ev_pos.device.type == "cpu":
         return connect_plain(*args, clamp_val=clamp_val,
                              dielectrics_block=dielectrics_block)
+    return _launch("connect", args, clamp_val, dielectrics_block)[0]
+
+
+def connect_counts(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
+                   ev_pos, ev_normal, ev_tp, ev_mtl: Material, wo_e, wo_s,
+                   eye_f, act, *, clamp_val: float, dielectrics_block: bool
+                   ) -> tuple:
+    """``connect`` through the kernel's counting build: (the same sums, the
+    counters as a dict keyed by ``COUNT_NAMES``).  CUDA tensors only."""
+    args = (packed, lv_tab, n_valid, ev_pos, ev_normal, ev_tp, ev_mtl, wo_e,
+            wo_s, eye_f, act)
+    return _launch("connect_counts", args, clamp_val, dielectrics_block)
+
+
+def counts_buffer(device) -> torch.Tensor:
+    """The zeroed buffer a counting build adds into (uint64 on the
+    card; int64 here, every count staying below 2**63)."""
+    return torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=device)
+
+
+def read_counts(buf: torch.Tensor) -> dict:
+    return dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+
+
+def _launch(name: str, args, clamp_val: float, dielectrics_block: bool):
+    (packed, lv_tab, n_valid, ev_pos, ev_normal, ev_tp, ev_mtl, wo_e, wo_s,
+     eye_f, act) = args
     B = ev_pos.shape[0]
     vec3 = (ev_pos, ev_normal, ev_tp, ev_mtl.base_color, wo_e, wo_s)
     for nm, x in zip(("ev_pos", "ev_normal", "ev_tp", "base_color", "wo_e",
@@ -230,12 +303,16 @@ def connect(packed: PackedScene, lv_tab: torch.Tensor, n_valid: int,
     check_table(lv_tab, n_valid)
     check_tables(packed, ev_pos.device)
     out = torch.empty((B, 3), device=ev_pos.device)
+    counted = name.endswith("_counts")
+    buf = counts_buffer(ev_pos.device) if counted else None
     if B:
         ins = [*vec3[:4], ev_mtl.roughness, ev_mtl.metallic, ev_mtl.eta,
                wo_e, wo_s, eye_f, act]
-        _kernels.launch("connect", *table_args(packed),
+        _kernels.launch(name, *table_args(packed),
                         ctypes.c_void_p(lv_tab.data_ptr()), int(n_valid),
                         *[ctypes.c_void_p(x.data_ptr()) for x in ins], B,
                         float(clamp_val), 4 if dielectrics_block else 5,
-                        ctypes.c_void_p(out.data_ptr()))
-    return out
+                        ctypes.c_void_p(out.data_ptr()),
+                        *([ctypes.c_void_p(buf.data_ptr())] if counted
+                          else []))
+    return out, (read_counts(buf) if counted else None)

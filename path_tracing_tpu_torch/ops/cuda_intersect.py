@@ -35,7 +35,7 @@ import torch
 from ..scene.types import Scene
 from . import _kernels
 from .intersect import INF, SHADOW_EPS, mt_core, sphere_ts, triangle_ts
-from .math3 import cross, dot, length
+from .math3 import EPSILON, cross, dot, length
 from .texture import interpolate_uv
 
 SUB = 8
@@ -163,7 +163,84 @@ def _chunks(n_rays: int, n_prims: int):
             for a in range(0, n_rays, step)] or [(0, 0)]
 
 
-def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
+def _clusters(packed: PackedScene):
+    """(index, start, count) of each non-empty cluster, in the order the
+    kernels walk them."""
+    return [(c, int(a), int(n))
+            for c, (a, n) in enumerate(packed.cl[:, 6:8].tolist()) if n > 0]
+
+
+def _slab_hit(box, ro, inv, tlo: float, tlimit):
+    """``csrc/pt_device.cuh::slab_hit`` on every ray: the ray enters the
+    cluster box ``box`` (8,) before ``tlimit``."""
+    t0 = (box[0:3] - ro) * inv
+    t1 = (box[3:6] - ro) * inv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
+                       torch.maximum(lo[:, 2], lo.new_tensor(tlo)))
+    tf = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    return (tn <= tf) & (tn < tlimit)
+
+
+def _safe_inv(rd):
+    return 1.0 / torch.where(torch.abs(rd) < 1e-12,
+                             torch.where(rd >= 0.0, 1e-12, -1e-12), rd)
+
+
+def _count_nearest_walk(packed: PackedScene, ro, rd, sph_t, tri_t,
+                        counts: dict) -> None:
+    """Add the sphere, box and triangle tests of the kernels' nearest-hit
+    walk (``nearest_hit_dev``) of these rays to ``counts``: every sphere
+    and light ball, every non-empty cluster's box, and every triangle of
+    a box the ray enters before its running nearest t, clusters in order.
+    ``sph_t``/``tri_t`` are the rays' distances to every sphere and
+    triangle."""
+    R = ro.shape[0]
+    counts["hit_spheres"] += R * sph_t.shape[1]
+    best = (sph_t.amin(dim=1) if sph_t.shape[1]
+            else torch.full((R,), INF, device=ro.device))
+    inv = _safe_inv(rd)
+    for c, a, n in _clusters(packed):
+        counts["hit_boxes"] += R
+        ent = _slab_hit(packed.cl[c], ro, inv, EPSILON, best)
+        counts["hit_tris"] += int(ent.sum()) * n
+        best = torch.where(ent, torch.minimum(best, tri_t[:, a:a + n]
+                                              .amin(dim=1)), best)
+
+
+def _count_shadow_walk(packed: PackedScene, p1, rd, max_d, col: int,
+                       sph_occ, tri_occ, counts: dict) -> None:
+    """Add the tests of the kernels' shadow walk (``shadow_blocked_dev``)
+    of these rays to ``counts``: the blocking spheres in order up to the
+    first that occludes; then, if none did, each non-empty cluster's box
+    and, in a box the segment enters, its blocking triangles in order up
+    to the first that occludes, which ends the walk.  ``sph_occ`` and
+    ``tri_occ`` mark each sphere and triangle that occludes the
+    segment."""
+    sph_cb = torch.cumsum((packed.sph[:packed.ns, col] > 0.0).long(), 0)
+    alive = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
+    if packed.ns:
+        hit = sph_occ.any(dim=1)
+        first = torch.argmax(sph_occ.int(), dim=1)
+        counts["shadow_spheres"] += int(torch.where(
+            hit, sph_cb[first], sph_cb[-1]).sum())
+        alive = ~hit
+    inv = _safe_inv(rd)
+    tri_cb = packed.tri[:packed.nt, col + 5] > 0.0
+    for c, a, n in _clusters(packed):
+        counts["shadow_boxes"] += int(alive.sum())
+        ent = alive & _slab_hit(packed.cl[c], p1, inv, SHADOW_EPS, max_d)
+        cb = torch.cumsum(tri_cb[a:a + n].long(), 0)
+        occ = tri_occ[:, a:a + n]
+        hit = ent & occ.any(dim=1)
+        first = torch.argmax(occ.int(), dim=1)
+        counts["shadow_tris"] += int(torch.where(
+            hit, cb[first], torch.where(ent, cb[-1], 0)).sum())
+        alive = alive & ~hit
+
+
+def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool, live=None,
+                  counts=None) -> dict:
     B = ro.shape[0]
     n_s = packed.ns + packed.nl
     sph = packed.sph[:n_s]
@@ -172,6 +249,12 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
     if packed.nt:
         ts.append(triangle_ts(ro, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
                               INF))
+    if counts is not None:
+        keep = slice(None) if live is None else live
+        empty = ro.new_zeros((B, 0))
+        _count_nearest_walk(packed, ro[keep], rd[keep],
+                            (ts[0] if n_s else empty)[keep],
+                            (ts[-1] if packed.nt else empty)[keep], counts)
     if not ts:
         zero = torch.zeros(B, device=ro.device)
         out = {k: zero.clone() for k in HIT_FIELDS}
@@ -228,16 +311,19 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
 
 def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
                       rd: torch.Tensor, with_uv: bool = False,
-                      live=None) -> dict:
+                      live=None, counts: dict | None = None) -> dict:
     """Brute-force nearest hit on the packed tables.  Returns (B,) fields
     t, normal (flipped toward the ray), material and flag (0 miss,
     1 surface, 2 light ball); misses report t = INF and zeros.
     ``with_uv`` adds the winning triangle's interpolated ``iu``, ``iv``
     and its texture id ``tex`` (float; 0, 0, -1 off triangles).  ``live``
-    (the lanes whose result is read, as the bounce passes it) is ignored:
-    every lane is computed."""
+    (the lanes whose result is read, as the bounce passes it) does not
+    change the result: every lane is computed.  ``counts`` (from
+    ``cuda_connect.new_counts``), if given, gains the primitive tests the
+    kernels' walk makes for the live lanes."""
     _kernels.plain_calls["nearest_hit"] += 1
-    parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
+    parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv,
+                           None if live is None else live[a:b], counts)
              for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
                                  + packed.nt)]
     if len(parts) == 1:
@@ -245,32 +331,39 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int):
+def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int,
+                  counts=None):
     md = max_d[:, None]
-    blocked = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
+    none = torch.zeros((p1.shape[0], 0), dtype=torch.bool, device=p1.device)
+    tri_occ = sph_occ = none
     if packed.nt:
         tri = packed.tri[:packed.nt]
         t = triangle_ts(p1, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], md)
-        occ = (t < INF) & (t > SHADOW_EPS) & (tri[:, col + 5] > 0.0)[None]
-        blocked |= torch.any(occ, dim=1)
+        tri_occ = ((t < INF) & (t > SHADOW_EPS)
+                   & (tri[:, col + 5] > 0.0)[None])
     if packed.ns:
         sph = packed.sph[:packed.ns]
         t = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], md)
-        occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
-        blocked |= torch.any(occ, dim=1)
-    return blocked
+        sph_occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
+    if counts is not None:
+        _count_shadow_walk(packed, p1, rd, max_d, col, sph_occ, tri_occ,
+                           counts)
+    return torch.any(tri_occ, dim=1) | torch.any(sph_occ, dim=1)
 
 
 def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
                       rd: torch.Tensor, max_d: torch.Tensor,
-                      dielectrics_block: bool, live=None) -> torch.Tensor:
+                      dielectrics_block: bool, live=None,
+                      counts: dict | None = None) -> torch.Tensor:
     """Brute-force shadow any-hit: (B,) bool, True where a sphere or
     triangle whose can-block column is set lies at t in (1e-3, max_d).
-    ``live`` is ignored, as in :func:`nearest_hit_plain`."""
+    ``live`` is ignored, as in :func:`nearest_hit_plain`.  ``counts``, if
+    given, gains the primitive tests the kernels' walk makes for every
+    ray."""
     _kernels.plain_calls["any_blocker"] += 1
     col = 4 if dielectrics_block else 5
     return torch.cat([
-        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col)
+        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col, counts)
         for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
 
 

@@ -12,8 +12,6 @@ is a TPU parameter and is not kept.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _kernels
@@ -44,16 +42,27 @@ def onehot_fetch(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``(rows * 12, 128)`` gathered table columns (see above)."""
     if tab.device.type == "cpu" and idx.device.type == "cpu":
         return onehot_fetch_plain(tab, idx)
+    # one test on the path a call takes, since a call's time is mostly the
+    # host's; _refuse says what is wrong
+    if not (tab.dim() == 2 and tab.shape[0] == COLS and idx.dim() == 2
+            and idx.shape[1] == LANES and tab.dtype == torch.float32
+            and idx.dtype == torch.int32 and tab.is_cuda
+            and idx.device == tab.device and tab.is_contiguous()
+            and idx.is_contiguous()):
+        _refuse(tab, idx)
+    rows = idx.shape[0]
+    out = torch.empty((rows * COLS, LANES), device=tab.device)
+    if rows:
+        _kernels.launch("onehot_fetch", tab.data_ptr(), tab.shape[1],
+                        idx.data_ptr(), rows, out.data_ptr())
+    return out
+
+
+def _refuse(tab: torch.Tensor, idx: torch.Tensor) -> None:
     if tab.dim() != 2 or tab.shape[0] != COLS:
         raise ValueError(f"tab: expected (12, D), got {tuple(tab.shape)}")
     if idx.dim() != 2 or idx.shape[1] != LANES:
         raise ValueError(f"idx: expected (rows, 128), got {tuple(idx.shape)}")
     check_tensor("tab", tab, tuple(tab.shape))
     check_tensor("idx", idx, tuple(idx.shape), torch.int32)
-    rows = idx.shape[0]
-    out = torch.empty((rows * COLS, LANES), device=tab.device)
-    if rows:
-        _kernels.launch("onehot_fetch", ctypes.c_void_p(tab.data_ptr()),
-                        tab.shape[1], ctypes.c_void_p(idx.data_ptr()), rows,
-                        ctypes.c_void_p(out.data_ptr()))
-    return out
+    raise ValueError(f"idx on {idx.device}, tab on {tab.device}")

@@ -213,6 +213,117 @@ def test_bdpt_eye_kernel_matches_plain(card, K):
     assert ok.float().mean().item() >= 0.99
 
 
+def _bdpt_args(parsed, K, w=128, h=72, spp=4):
+    """#9's arguments for a w x h spp 4 BDPT frame (spl 8, depths 4, seed
+    0) on a parsed scene, as the mega tier builds them."""
+    from path_tracing_tpu_torch.integrators import bdpt
+
+    scene = parsed.to_device("cuda")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      w, h, device="cuda")
+    cfg = RenderConfig(width=w, height=h, spp=spp, spl=8, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=K)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    used, lv, scale = bdpt.light_side(scene, cfg, 8, key)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
+    return (cuda_intersect.pack_scene(used), tab, nv, cam, idx % w, idx // w,
+            spp, cfg, key, scale)
+
+
+BDPT_CASES = {"tile-RIS K=32": (CORNELL, 32), "exact": (CORNELL, 0),
+              "icosphere tile-RIS K=32": (None, 32)}
+
+
+@pytest.mark.parametrize("case", sorted(BDPT_CASES))
+def test_bdpt_eye_kernel_matches_plain_at_128x72(card, case):
+    """The warp-cooperative #9 against its plain version at 128x72 spp 4:
+    tile-RIS K = 32 and the exact sweep on cornell, and tile-RIS K = 32 on
+    a second scene, the 1,280-triangle icosphere.  Mean within 1e-3 and
+    >= 99% of pixels within rtol 1e-4 / atol 1e-5 (chip_smoke.py's bar)."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye
+
+    path, K = BDPT_CASES[case]
+    parsed = load_scene(str(path)) if path else synth.icosphere_scene(1280)
+    args = _bdpt_args(parsed, K)
+    a = cuda_bdpt_eye.bdpt_eye(*args)
+    b = cuda_bdpt_eye.bdpt_eye_plain(*args)
+    assert b.mean().item() > 0
+    assert abs(a.mean().item() - b.mean().item()) < 1e-3 * b.mean().item()
+    ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert ok.float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("K", [32, 0])
+def test_bdpt_eye_counting_build_matches_plain_counts(card, K):
+    """The counting build's counters equal the plain version's count of
+    the same work, the walks' tests in the kernels' cluster order, within
+    0.1% (a rounding flip may move a rare lane), its image is the
+    plain build's bit for bit, and its SIMT efficiencies are shares."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye, cuda_connect
+
+    args = _bdpt_args(load_scene(str(CORNELL)), K)
+    img, kc = cuda_bdpt_eye.bdpt_eye_counts(*args)
+    assert torch.equal(img, cuda_bdpt_eye.bdpt_eye(*args))
+    pc = cuda_connect.new_counts()
+    cuda_bdpt_eye.bdpt_eye_plain(*args, counts=pc)
+    for k in cuda_connect.PLAIN_COUNTS:
+        assert pc[k] > 0 and abs(kc[k] - pc[k]) <= 1e-3 * pc[k], k
+    assert kc["shadow_tris"] > 0 and kc["hit_boxes"] > 0
+    for k in ("row", "shadow"):
+        assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"]
+
+
+def test_connect_counting_build_matches_plain_counts(card):
+    from path_tracing_tpu_torch.ops import cuda_connect
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    pk, tab, nv, cam, px, py, _, _, key, _ = _bdpt_args(
+        load_scene(str(CORNELL)), 0)
+    u = rng.uniform_rows(key, px.shape[0], 6, device="cuda")
+    rd = primary_ray_dirs(cam, px, py, u[0], u[1])
+    ro = cam.eye[None].expand(px.shape[0], 3).contiguous()
+    hit = intersect.hit_from_fields(cuda_intersect.nearest_hit(pk, ro, rd),
+                                    ro, rd)
+    act = hit.hit & ~hit.is_light
+    args = (pk, tab, nv, hit.pos, hit.normal, (0.5 + 0.5 * u[3:6].T)
+            .contiguous(), hit.mtl, -rd, normalize(cam.eye[None] - hit.pos),
+            1e8 * (1.0 + u[2]) * (hit.mtl.eta <= 0.0), act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    out, kc = cuda_connect.connect_counts(*args, **kw)
+    assert torch.equal(out, cuda_connect.connect(*args, **kw))
+    pc = cuda_connect.new_counts()
+    cuda_connect.connect_plain(*args, **kw, counts=pc)
+    for k in cuda_connect.PLAIN_COUNTS:
+        # connect draws no samples and casts no nearest-hit rays
+        assert (pc[k] > 0) == (k != "samples" and not k.startswith("hit_")), k
+        assert abs(kc[k] - pc[k]) <= 1e-3 * pc[k], k
+
+
+@pytest.mark.parametrize("D,rows", [(4352, 0), (4352, 3), (1003, 5)])
+def test_onehot_fetch_kernel_edges(card, D, rows):
+    """#12 at no rows, at the indices -1, 0, D - 1 and D (outside [0, D)
+    gives 0), and at a D that is not a multiple of 32."""
+    from path_tracing_tpu_torch.ops import probes
+
+    g = torch.Generator(device="cuda").manual_seed(D + rows)
+    tab = torch.rand((12, D), device="cuda", generator=g)
+    idx = torch.randint(-1, D + 1, (rows, 128), device="cuda", generator=g,
+                        dtype=torch.int32)
+    if rows:
+        idx[0, :4] = torch.tensor([-1, 0, D - 1, D], dtype=torch.int32)
+    out = probes.onehot_fetch(tab, idx)
+    assert out.shape == (rows * 12, 128)
+    assert torch.equal(out, probes.onehot_fetch_plain(tab, idx))
+    inside = (idx >= 0) & (idx < D)
+    ref = (tab[:, idx.clamp(0, D - 1).long()] * inside).permute(1, 0, 2)
+    assert torch.equal(out, ref.reshape(rows * 12, 128))
+    if rows:
+        assert (out[0:12, [0, 3]] == 0).all()
+        assert torch.equal(out[0:12, 1], tab[:, 0])
+        assert torch.equal(out[0:12, 2], tab[:, D - 1])
+
+
 def test_bdpt_megakernel_equals_fused_tier(card):
     """The exact sweep in one bdpt_eye launch and in the per-bounce tier
     (nearest_hit + connect + threefry_rows): the same numbers drawn and
