@@ -8,16 +8,26 @@ Phases, each raising on failure:
    power limit as nvidia-smi reports them.
 2. Build: builds the CUDA kernels from ``path_tracing_tpu_torch/csrc`` and
    prints the build seconds and each kernel's ptxas registers and spills
-   (``connect_counts``/``bdpt_eye_counts``: the counting builds); then the
-   occupancy of each BDPT kernel (resident blocks and warps per SM at its
-   launch shape, registers, local and dynamic shared bytes) for #9 on
-   cornell against the main path's K = 32 tables and the exact table.
+   (``*_counts``: the counting builds); then the occupancy (resident blocks
+   and warps per SM at the launch shape, registers, local and shared
+   bytes) of each BDPT kernel, for #9 on cornell against the main path's
+   K = 32 tables and the exact table, and of #5 and #11 and their counting
+   builds.
 3. Kernels against their plain PyTorch versions at the main path's lane
    count (1920x1080 = 2,073,600), with their times (CUDA events):
    ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
    ``shade_step`` on ``scenes/cornell.txt``; ``nearest_hit(with_uv)`` and
    ``shade_step_tex`` on a 1,280-triangle textured icosphere; the
-   ``render_wavefront`` megakernel's 1080p spp 4 image on cornell.
+   ``render_wavefront`` megakernel's 1080p spp 4 image on cornell.  Then
+   #5's counting build (``render_wavefront_counts``): its image bit-equal
+   to #5's and its counters equal to the plain loop's count of the same
+   work (paths, iterations, NEE shadow rays with their evaluations and
+   pdfs, BSDF samples, draws, and the walks' sphere, box and triangle
+   tests in the kernel's cluster order) exactly at 128x72 spp 4 and within
+   0.1% at 1080p, with the SIMT efficiency of the walk, the shade and the
+   shadow step, the share of each warp's lane-iterations that are busy
+   (against one thread a pixel, from the plain counts) and #5's bound
+   from the plain counts.
 4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
    the default tier (auto, which is the megakernel: the main path), the
    fused tier (one ``shade_step`` per bounce) and the split tier (the
@@ -67,7 +77,15 @@ Phases, each raising on failure:
    of bit-equal rows is printed) and ``gather_flux`` on the pass's real
    hitpoints and #10's events (counts equal on >= 99.99% of hitpoints, flux
    within rtol 1e-4 / atol 1e-6 on >= 99.9%, means within 1e-5 relative),
-   with the candidate pairs, occupied cells and overflow.
+   with the candidate pairs, occupied cells and overflow.  Then #11's
+   counting build (``gather_flux_counts``): flux and counts bit-equal to
+   #11's, its counters (candidate pairs, pairs past the distance gate and
+   both gates, evaluations, accepted pairs) equal to the plain join's
+   count exactly on a 128x128 eye pass against the same photons and within
+   0.1% on the main path's pass, with the SIMT efficiency of the pair test
+   and the evaluation, the largest warp's candidate pairs against the
+   mean warp's, the work items and the event bytes staged in shared
+   memory.
 9. PPM through the CLI on cornell at 512x512, 262,144 photons a light, 10
    passes (the main path): one pass first, whose image must equal phase 8's
    on >= 99.9% of pixels, then the 10 passes with their launches counted:
@@ -108,11 +126,14 @@ The line before the last is a JSON object with one entry per kernel, whose
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6: for #8 and #9 from the
+the operations counted per PERF.md section 6: for #5, #8 and #9 from the
 plain versions' counts of their algorithm's work in this run, which the
 counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
 must equal; #6 and #7 also carry the lane count of their plain time
-and their time on unsorted rays.  The last line is ``{"ok": true,
+and their time on unsorted rays.  The counting builds of #5 and #11
+(``render_wavefront_counts``, ``gather_flux_counts``) have entries of
+their own, their launches counted over their 1080p / main-pass call.
+The last line is ``{"ok": true,
 "device": {...}}``.  Renders and the OBJ scenes are
 written under
 ``path_tracing_tpu_torch/build/chip_smoke/`` (gitignored).
@@ -160,8 +181,11 @@ REPLACES = {
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
+REPLACES["render_wavefront_counts"] = REPLACES["render_wavefront"]
+REPLACES["gather_flux_counts"] = REPLACES["gather_flux"]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
+           "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
            "any_blocker_stream": MESH_SOURCE, "onehot_fetch": PROBE_SOURCE}
 # the __global__ functions of each entry, as ptxas names them
@@ -171,7 +195,7 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
                "onehot_fetch")
 # the kernels with a counting build (their *_counts entries)
-COUNTED = ("connect", "bdpt_eye")
+COUNTED = ("connect", "bdpt_eye", "render_wavefront", "gather_flux")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -183,7 +207,9 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega",
                "photon_trace": "ppm", "gather_flux": "ppm",
                "nearest_hit_stream": "stream",
-               "any_blocker_stream": "stream", "onehot_fetch": "probe"}
+               "any_blocker_stream": "stream", "onehot_fetch": "probe",
+               "render_wavefront_counts": "pt_counting",
+               "gather_flux_counts": "ppm_counting"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -196,7 +222,9 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                         "threefry_rows"),
                 "stream": ("nearest_hit_stream", "any_blocker_stream",
                            "threefry_rows"),
-                "probe": ("onehot_fetch",)}
+                "probe": ("onehot_fetch",),
+                "pt_counting": ("render_wavefront_counts",),
+                "ppm_counting": ("gather_flux_counts",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS: the stream tier
 SUBSET = 65536            # lanes at least, strided, for #6/#7's plain sweeps
@@ -246,11 +274,46 @@ def eye_ops(c: dict) -> int:
             + c["samples"] * 2 * OPS["draw"])
 
 
+def walk_ops(c: dict) -> int:
+    """Operations of the counted nearest-hit and shadow walks' tests."""
+    return ((c["hit_spheres"] + c["shadow_spheres"]) * OPS["sphere"]
+            + (c["hit_boxes"] + c["shadow_boxes"]) * OPS["box"]
+            + (c["hit_tris"] + c["shadow_tris"]) * OPS["tri"])
+
+
+def mega_ops(c: dict) -> int:
+    """#5's counted operations (the plain loop's counts): its walks, its
+    BSDF samples, NEE evaluations and pdfs, and its Threefry draws, the
+    fold_in of an iteration once per iteration of the frame (its key is
+    every pixel's), not once per pixel-iteration as the kernel draws it."""
+    draws = c["draws"] - c["iterations"] + c["iteration_keys"]
+    return (walk_ops(c) + c["bsdf_samples"] * OPS["sample"]
+            + c["evals"] * OPS["eval"] + c["pdfs"] * OPS["pdf"]
+            + draws * OPS["draw"])
+
+
+def lane_share(c: dict, k: str) -> float:
+    """The SIMT efficiency of step ``k``: its lanes over its slots."""
+    return c[f"{k}_lanes"] / max(c[f"{k}_slots"], 1)
+
+
+def hold_counts(what: str, kc: dict, pc: dict, names, exact: bool) -> float:
+    """A counting build's counters ``kc`` against the plain version's
+    ``pc`` on ``names``: equal, or within 0.1% (a rounding flip can move a
+    rare lane).  Returns the largest relative difference."""
+    worst = max(abs(kc[k] - pc[k]) / max(pc[k], 1) for k in names)
+    check(worst == 0 if exact else worst <= 1e-3,
+          f"{what}: kernel counts {kc} against plain {pc}")
+    held = "equal to" if worst == 0 else f"within {worst:.2e} of"
+    print(f"[counts] {what}: {held} the plain counts "
+          f"{ {k: pc[k] for k in names} }")
+    return worst
+
+
 def simt(c: dict) -> dict:
     """The lane efficiency of the row step, the shadow step and a shadow
     walk's triangle test."""
-    return {k: c[f"{k}_lanes"] / max(c[f"{k}_slots"], 1)
-            for k in ("row", "shadow", "tri")}
+    return {k: lane_share(c, k) for k in ("row", "shadow", "tri")}
 
 
 def cast_ops(pk, shadow: bool = False) -> int:
@@ -341,8 +404,18 @@ def phase_occupancy() -> dict:
                   f"{o['blocks_per_sm']} blocks x {o['threads']} threads = "
                   f"{o['warps_per_sm']} warps an SM, {o['registers']} "
                   f"registers, {o['local_bytes']} B local, "
-                  f"{o['smem_bytes']} B dynamic shared")
+                  f"{o['smem_bytes']} B shared")
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    for k, o in {**cw.occupancy(), **cg.occupancy()}.items():
+        occ[k] = o
+        print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
+              f"{o['threads']} threads = {o['warps_per_sm']} warps an SM, "
+              f"{o['registers']} registers, {o['local_bytes']} B local, "
+              f"{o['smem_bytes']} B shared")
+        check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
     return occ
 
 
@@ -436,8 +509,33 @@ def compare_hits(pk, ro, rd, with_uv: bool, what: str) -> float:
     return err
 
 
-def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
+def mega_small_counts(pk, lt, key) -> None:
+    """#5's counting build at 128x72 spp 4 on cornell: its image #5's bit
+    for bit, its counters the plain loop's exactly."""
     from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    p = load_scene(str(SCENE))
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
+                      device="cuda")
+    idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
+    args = (pk, lt, cam, idx % SMALL_W, idx // SMALL_W, SPP,
+            RenderConfig(width=SMALL_W, height=SMALL_H, spp=SPP, eye_depth=4),
+            key)
+    img, kc = cw.render_wavefront_counts(*args)
+    check(torch.equal(img, cw.render_wavefront(*args)),
+          "render_wavefront_counts 128x72: its image differs")
+    pc = cw.new_counts()
+    cw.render_wavefront_plain(*args, counts=pc)
+    hold_counts(f"render_wavefront {SMALL_W}x{SMALL_H} spp {SPP}", kc, pc,
+                cw.PLAIN_COUNTS, exact=True)
+
+
+def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.ops import _kernels
     from path_tracing_tpu_torch.integrators.pt import _light_table
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_shade as cs
@@ -537,19 +635,16 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
         cast_ops(mpk) + cast_ops(mpk, True) + OPS["sample"] + OPS["eval"])))
     results.append(r)
 
-    # ---- 5. the megakernel's 1080p image against the plain loop ----
+    # ---- 5. the megakernel's 1080p image against the plain loop, which
+    # counts the kernel's work; its counting build against those counts ----
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     idx = torch.arange(B, dtype=torch.int32, device="cuda")
     px, py = idx % W, idx // W
-
-    def mega():
-        return cw.render_wavefront(pk, lt, cam, px, py, SPP, cfg, key)
-
-    def mega_plain():
-        return cw.render_wavefront_plain(pk, lt, cam, px, py, SPP, cfg, key)
-
-    a, b = mega(), mega_plain()
-    torch.cuda.synchronize()
+    margs = (pk, lt, cam, px, py, SPP, cfg, key)
+    pc = cw.new_counts()
+    a = cw.render_wavefront(*margs)
+    b, count_ms = once_ms(lambda: cw.render_wavefront_plain(*margs,
+                                                            counts=pc))
     share = share_close(a, b)
     rel = abs(a.mean().item() - b.mean().item()) / max(b.mean().item(), 1e-6)
     check(share >= 0.99 and rel < 1e-3,
@@ -558,12 +653,43 @@ def phase_kernels(scene, cam, mesh, mesh_cam) -> list:
     print(f"[kernels] render_wavefront {W}x{H} spp {SPP}: pixels within rtol "
           f"1e-4 / atol 1e-5 {share:.6f}, bit-equal {equal:.6f}, mean rel "
           f"diff {rel:.3g}")
+    mega_small_counts(pk, lt, key)
+    _kernels.reset_counts()
+    a_c, kc = cw.render_wavefront_counts(*margs)
+    counts["pt_counting"] = dict(_kernels.launches)
+    check(torch.equal(a_c, a), "render_wavefront_counts: its image differs "
+          "from render_wavefront's")
+    hold_counts(f"render_wavefront {W}x{H} spp {SPP}", kc, pc,
+                cw.PLAIN_COUNTS, exact=False)
+    bnd = bound(B * (8 + 12), mega_ops(pc))
+    ms = time_ms(lambda: cw.render_wavefront(*margs), 10)
+    eff = {k: lane_share(kc, k) for k in ("walk", "shade", "shadow", "tri")}
+    print(f"[kernels] render_wavefront counts: {pc['iterations']} iterations"
+          f", {pc['samples']} paths, {pc['shadow_rays']} shadow rays, "
+          f"{pc['bsdf_samples']} BSDF samples, {pc['draws']} draws (the "
+          f"bound's fold_ins: {pc['iteration_keys']}); tests: "
+          f"nearest-hit spheres {pc['hit_spheres']}, boxes {pc['hit_boxes']}"
+          f", triangles {pc['hit_tris']}; shadow spheres "
+          f"{pc['shadow_spheres']}, boxes {pc['shadow_boxes']}, triangles "
+          f"{pc['shadow_tris']}; SIMT walk {eff['walk']:.4f}, shade "
+          f"{eff['shade']:.4f}, shadow step {eff['shadow']:.4f}, a shadow "
+          f"walk's triangle test {eff['tri']:.4f}; busy lane-iterations "
+          f"{kc['iterations'] / kc['warp_iter_slots']:.4f} of each warp's "
+          f"(one thread a pixel: "
+          f"{pc['iterations'] / pc['pixel_warp_slots']:.4f}); counted bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel's {ms:.3f} ms")
+    simt_pt = dict(eff, busy=kc["iterations"] / kc["warp_iter_slots"],
+                   busy_one_thread_a_pixel=pc["iterations"]
+                   / pc["pixel_warp_slots"])
     results.append(dict(name="render_wavefront",
-                        max_abs_err=(a - b).abs().max().item(),
-                        ms=time_ms(mega, 10), plain_ms=time_ms(mega_plain, 1),
-                        **bound(B * (8 + 12), B * SPP * (
-                            cast_ops(pk) + cast_ops(pk, True) + OPS["sample"]
-                            + OPS["eval"] + 8 * OPS["draw"]))))
+                        max_abs_err=(a - b).abs().max().item(), ms=ms,
+                        plain_ms=time_ms(lambda: cw.render_wavefront_plain(
+                            *margs), 1), counts=kc, simt=simt_pt, **bnd))
+    results.append(dict(name="render_wavefront_counts",
+                        max_abs_err=(a_c - b).abs().max().item(),
+                        ms=time_ms(lambda: cw.render_wavefront_counts(*margs),
+                                   3), plain_ms=count_ms, **bnd))
 
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
@@ -973,14 +1099,17 @@ def ppm_frame(scene, cam):
     return cfg, direct, hp, emit, kp
 
 
-def phase_ppm_kernels(parsed) -> tuple:
+def phase_ppm_kernels(parsed, counts: dict) -> tuple:
     """#10 and #11 against their plain versions on the main path's first
-    pass; returns the kernels' results and the pass's image from the
-    kernels' outputs, which the main path's first pass must reproduce."""
+    pass, #11's counting build against the plain join's counts; returns the
+    kernels' results and the pass's image from the kernels' outputs, which
+    the main path's first pass must reproduce."""
     from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import _kernels
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
+    from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
 
     results = []
@@ -1021,7 +1150,8 @@ def phase_ppm_kernels(parsed) -> tuple:
     events = ppm.PhotonEvents(ev, valid)
     t, prep_ms = once_ms(lambda: cg.prepare(scene, cfg, hp, events))
     flux, count = cg.join(t)
-    (flux_p, count_p), gplain_ms = once_ms(lambda: cg.join_plain(t))
+    pc = cg.new_counts()
+    (flux_p, count_p), gplain_ms = once_ms(lambda: cg.join_plain(t, pc))
     Bp = PPM_W * PPM_H
     same = (count == count_p).float().mean().item()
     close = share_close(flux, flux_p, 1e-4, 1e-6)
@@ -1040,12 +1170,54 @@ def phase_ppm_kernels(parsed) -> tuple:
           f", bit-equal {equal:.6f}"
           f", mean rel {rel:.3g}; prep {prep_ms:.1f} ms")
     check(ov == 0, f"gather_flux: overflow {ov} on the main path")
+    # ---- the counting build: exact on a 128x128 eye pass against the same
+    # photons, within 0.1% on the main path's pass ----
+    small_cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up,
+                            parsed.fov, 128, 128, device="cuda")
+    sidx = torch.arange(128 * 128, dtype=torch.int32, device="cuda")
+    _, shp = ppm.ppm_eye_trace(scene, small_cam, cfg, sidx % 128, sidx // 128,
+                               rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 1))
+    ts = cg.prepare(scene, cfg, shp, events)
+    sf, sc, skc = cg.join_counts(ts)
+    f0, c0 = cg.join(ts)
+    check(torch.equal(sf, f0) and torch.equal(sc, c0),
+          "gather_flux_counts 128x128: flux or counts differ from #11's")
+    spc = cg.new_counts()
+    cg.join_plain(ts, spc)
+    hold_counts("gather_flux 128x128 pass", skc, spc, cg.PLAIN_COUNTS,
+                exact=True)
+    _kernels.reset_counts()
+    flux_c, count_c, kc = cg.join_counts(t)
+    counts["ppm_counting"] = dict(_kernels.launches)
+    check(torch.equal(flux_c, flux) and torch.equal(count_c, count),
+          "gather_flux_counts: flux or counts differ from #11's")
+    hold_counts(f"gather_flux {PPM_W}x{PPM_H} pass", kc, pc, cg.PLAIN_COUNTS,
+                exact=False)
+    items = int((t.items[:, 2] > 0).sum())
+    simt_g = dict(pair=lane_share(kc, "pair"), eval=lane_share(kc, "eval"),
+                  warp_pairs_max_over_mean=kc["warp_pairs_max"] * kc["warps"]
+                  / max(kc["pairs"], 1), items=items,
+                  staged_bytes=t.staged_bytes())
     gathered = int((t.hp_cell >= 0).sum())
+    bnd = bound(gathered * 88 + Bp * 16 + min(n_valid, t.ev.shape[0]) * 48
+                + cells * 72, pc["pairs"] * OPS["pair"]
+                + pc["accepted"] * OPS["eval"])
+    ms = time_ms(lambda: cg.join(t), 3)
+    print(f"[ppm] gather_flux counts: {pc['near']} pairs past the distance "
+          f"gate, {pc['facing']} past both, {pc['evals']} evaluated; SIMT "
+          f"pair test {simt_g['pair']:.4f}, evaluation {simt_g['eval']:.4f}"
+          f"; the largest of {kc['warps']} warps holds "
+          f"{simt_g['warp_pairs_max_over_mean']:.2f}x the mean warp's pairs"
+          f"; {items} work items stage {simt_g['staged_bytes']} event "
+          f"bytes; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel's {ms:.3f} ms")
     results.append(dict(
         name="gather_flux", max_abs_err=(flux - flux_p).abs().max().item(),
-        ms=time_ms(lambda: cg.join(t), 3), plain_ms=gplain_ms,
-        **bound(gathered * 88 + Bp * 16 + min(n_valid, t.ev.shape[0]) * 48
-                + cells * 72, pairs * OPS["pair"] + accepted * OPS["eval"])))
+        ms=ms, plain_ms=gplain_ms, counts=kc, simt=simt_g, **bnd))
+    results.append(dict(
+        name="gather_flux_counts",
+        max_abs_err=(flux_c - flux_p).abs().max().item(),
+        ms=time_ms(lambda: cg.join_counts(t), 3), plain_ms=gplain_ms, **bnd))
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
               f"{r['name']}: max abs err {r['max_abs_err']}")
@@ -1419,9 +1591,9 @@ def main() -> int:
     m = synth.icosphere_scene(SMALL_MESH_TRIS, textured=True)
     mesh_cam = make_camera(m.eye, m.look_at, m.view_up, m.fov, W, H,
                            device="cuda")
-    results = phase_kernels(p.to_device("cuda"), cam, m.to_device("cuda"),
-                            mesh_cam)
     counts: dict = {}
+    results = phase_kernels(p.to_device("cuda"), cam, m.to_device("cuda"),
+                            mesh_cam, counts)
     phase_render(counts)
     phase_textured(counts)
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
@@ -1429,13 +1601,15 @@ def main() -> int:
         r["occupancy"] = occupancy["tile-RIS"][r["name"]]
     results += bdpt_results
     phase_bdpt_render(counts, ris_img)
-    ppm_results, pass0 = phase_ppm_kernels(p)
+    ppm_results, pass0 = phase_ppm_kernels(p, counts)
     results += ppm_results
     phase_ppm_render(counts, pass0)
     mesh_results, obj = phase_mesh_kernels(counts)
     results += mesh_results
     phase_big_render(counts, obj)
     for r in results:
+        if r["name"] in occupancy:
+            r["occupancy"] = occupancy[r["name"]]
         path = KERNEL_PATH[r["name"]]
         r.update(route="cuda", source=SOURCES.get(r["name"], PT_SOURCE),
                  replaces=REPLACES[r["name"]], path=path,

@@ -550,12 +550,8 @@ int pt_bdpt_eye_counts(const float* sph, int ns, int nl, const float* tri, const
                     blocks_col, light_hit_scale, img, counts, stream);
 }
 
-// For connect, connect_counts, bdpt_eye and bdpt_eye_counts in turn, five
-// ints: resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// at the launch's block size and dynamic shared memory), threads per block,
-// registers per thread, local (spill) bytes per thread and dynamic shared
-// bytes, for an eye launch against n_valid table rows.  Returns a
-// cudaError_t.
+// occupancy_row of connect, connect_counts, bdpt_eye and bdpt_eye_counts
+// in turn, for an eye launch against n_valid table rows.
 int pt_bdpt_occupancy(int n_valid, int* out) {
   const int eye_smem = (int)eye_layout(n_valid).bytes;
   const void* fns[4] = {(const void*)connect_kernel<false>, (const void*)connect_kernel<true>,
@@ -563,16 +559,8 @@ int pt_bdpt_occupancy(int n_valid, int* out) {
   const int threads[4] = {kThreads, kThreads, kEyeThreads, kEyeThreads};
   const int smem[4] = {0, 0, eye_smem, eye_smem};
   for (int k = 0; k < 4; ++k) {
-    cudaFuncAttributes a;
-    cudaError_t err = cudaFuncGetAttributes(&a, fns[k]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 5 * k, fns[k], threads[k],
-                                                          smem[k]);
+    cudaError_t err = occupancy_row(fns[k], threads[k], smem[k], out + 5 * k);
     if (err != cudaSuccess) return (int)err;
-    out[5 * k + 1] = threads[k];
-    out[5 * k + 2] = a.numRegs;
-    out[5 * k + 3] = (int)a.localSizeBytes;
-    out[5 * k + 4] = smem[k];
   }
   return 0;
 }

@@ -29,22 +29,39 @@
 // path.  Sorting photons by their fate or compacting live lanes is later
 // work.
 //
-// #11: one thread per hitpoint, in cell-sorted order, so the threads of a
-// warp mostly share a cell, walk the same 9 event windows (the 27
-// neighbour cells fold to 9 runs of 3 consecutive keys) and read the same
-// event rows at the same time: the loads broadcast and the rows stay in
-// L1/L2.  The per-hitpoint terms (frame, local wo, alpha, material) live in
-// registers.  A pair passes the distance gate, then the normal gate, then
-// is evaluated with eval_local; a BRDF that is not a valid colour drops the
-// pair before the product, so NaN never reaches a sum.  Each thread sums
-// its pairs in a fixed order (window 0..8, events in sorted order) and
-// writes its flux (times the hitpoint's throughput) and count once, at the
-// hitpoint's original index: deterministic, no atomics.
+// #11: the design for this card.  prepare (ops/cuda_ppm_gather.py) cuts
+// the gathered hitpoint rows into work items: a cell's rows in sorted
+// order, at most kGatherRows of them, heaviest first (rows x the cell's
+// candidate events).  One block of kGatherRows threads takes one item, one
+// thread per hitpoint, so a warp never straddles two cells and a
+// hitpoint's whole sum stays in one thread.  The block streams its cell's
+// 9 event windows (the 27 neighbour cells fold to 9 runs of 3 consecutive
+// keys) through shared memory, kGatherTile events a stage, double-buffered
+// with cp.async: each event row leaves L2 once per item and every thread
+// reads it as a broadcast.  A thread gates its hitpoint against 32 staged
+// events at a time (the distance gate, then the normal gate), keeping a
+// 32-bit mask of the pairs that pass both.  The warp then packs its set
+// bits lane after lane (a prefix count of the masks) and evaluates them 32
+// at a time, one pair a lane, each lane reading its pair's hitpoint terms
+// from shared memory; each lane then adds its own results in event order.
+// So the evaluation (eval_local, most of the work) runs on full warps,
+// where a lane evaluating its own set bits left the warp waiting on its
+// busiest lane, and a pair evaluated where it passed its gates waited on
+// every lane's branch (PERF.md section 6 has the three, and events read
+// straight from global memory).  A BRDF that is not a valid colour drops
+// the pair before the product, so NaN never reaches a sum.  Sums keep the
+// parent's order (window 0..8, events in sorted order), so flux and count
+// are its own bit for bit; each thread writes them once, at the
+// hitpoint's original index: deterministic, no atomics.  Rows no item
+// holds keep the wrapper's zeros.
 // Bound on this card: operations.  A 1M-photon pass on cornell at 512^2
-// gives ~10^8-10^9 candidate pairs (each needs its distance test), against
-// ~200 MB of rows read once.  A warp whose hitpoints straddle two cells
-// walks both cells' windows with half its lanes idle; block-per-cell
-// staging of the windows in shared memory is later work.
+// tests ~9e8 candidate pairs and evaluates about a third of them, against
+// ~100 MB of rows read once.  The counting build (kCount) counts the pairs,
+// the gates, the evaluations and the accepted pairs, the SIMT efficiency
+// of the pair test and the evaluation, and each warp's candidate pairs
+// (the largest against the mean: how far the densest cells set the pace).
+
+#include <type_traits>
 
 #include "pt_device.cuh"
 
@@ -109,56 +126,228 @@ __global__ void photon_trace_kernel(Tables tb, const float* __restrict__ ro_in,
   }
 }
 
+constexpr int kGatherRows = 32;   // rows of a work item at most: the block, one thread each
+constexpr int kGatherTile = 128;  // events a shared-memory stage holds
+constexpr int kSub = 32;          // events a thread gates before the warp evaluates
+constexpr int kGatherMinBlocks = 32;  // __launch_bounds__: at most 64 registers
+constexpr int kHpFields = 19;     // a lane's hitpoint terms the packed evaluation reads
+
+// A warp's packed evaluations: each lane's hitpoint terms (t3 b3 n3 wo_l3
+// bc3 rough metal eta alpha), each lane's mask and the end of its entries,
+// and one batch's results (structure of arrays: lane j touches word j).
+struct EvalWarp {
+  float hp[kHpFields][32];
+  unsigned mask[32], end[32];
+  float f[3][32];
+  int ok[32];
+};
+
+// the gather's counters (ops/cuda_ppm_gather.py::COUNT_NAMES), warps and
+// the largest warp's candidate pairs last
+enum GatherCountIdx {
+  kPairs, kNear, kFacing, kGEvals, kAccepted, kPairLanes, kPairSlots, kGEvalLanes,
+  kGEvalSlots, kGWarps, kWarpPairsMax, kGatherCounts
+};
+
 struct GatherIn {
-  const float* __restrict__ hp;     // (B, 20) cell-sorted hitpoint rows
-  const int* __restrict__ hp_cell;  // (B,) the row's gathered cell, or -1
-  const int* __restrict__ perm;     // (B,) the row's original hitpoint index
-  const int* __restrict__ win;      // (C, 18) event windows of each cell
-  const float* __restrict__ ev;     // (E, 12) key-sorted event rows
+  const float* __restrict__ hp;    // (B, 20) cell-sorted hitpoint rows
+  const int* __restrict__ perm;    // (B,) the row's original hitpoint index
+  const int* __restrict__ win;     // (C, 18) event windows of each cell
+  const float* __restrict__ ev;    // (E, 12) key-sorted event rows
+  const int4* __restrict__ items;  // (N,) cell, first row, rows (0: padding), events
   float r2;
 };
 
-__global__ void gather_flux_kernel(GatherIn in, int B, float* __restrict__ flux_out,
-                                   int* __restrict__ count_out) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= B) return;
-  const int cell = in.hp_cell[j];
-  V3 acc = mk(0.f, 0.f, 0.f), tp = mk(0.f, 0.f, 0.f);
-  int count = 0;
-  if (cell >= 0) {
-    const float* R = in.hp + (size_t)j * kHpCols;
-    const V3 p = mk(R[0], R[1], R[2]);
-    const V3 n = mk(R[3], R[4], R[5]);
-    const Mtl m = {mk(R[9], R[10], R[11]), R[12], R[13], R[14]};
-    tp = mk(R[15], R[16], R[17]);
-    V3 t, b;
-    build_frame(n, &t, &b);
-    const V3 wo_l = to_local(mk(R[6], R[7], R[8]), t, b, n);
-    const float alpha = roughness_to_alpha(m.rough);
-    const int* W = in.win + (size_t)cell * kWinCols;
-    const float4* ev4 = reinterpret_cast<const float4*>(in.ev);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool kCount>
+__global__ void __launch_bounds__(kGatherRows, kGatherMinBlocks)
+    gather_flux_kernel(GatherIn in, float* __restrict__ flux_out, int* __restrict__ count_out,
+                       unsigned long long* __restrict__ counts) {
+  __shared__ __align__(16) float4 stage[2][kGatherTile * 3];
+  __shared__ int w_lo[9], w_pre[10];
+  __shared__ EvalWarp eval_warps[kGatherRows / 32];
+  const int4 item = in.items[blockIdx.x];
+  if (item.z <= 0) return;  // the list's padding: the whole block leaves
+  typename std::conditional<kCount, CountN<kGWarps>, NoCount>::type cnt;
+  const int tid = threadIdx.x;
+  if (tid == 0) {  // the cell's windows as one run of E events
+    const int* W = in.win + (size_t)item.x * kWinCols;
+    int e = 0;
     for (int o = 0; o < 9; ++o) {
-      const int hi = W[2 * o + 1];
-      for (int e = W[2 * o]; e < hi; ++e) {
-        const float4 a = __ldg(ev4 + 3 * (size_t)e);  // pos3, normal.x
-        float dx = p.x - a.x, dy = p.y - a.y, dz = p.z - a.z;
-        if (!(dx * dx + dy * dy + dz * dz < in.r2)) continue;
-        const float4 c = __ldg(ev4 + 3 * (size_t)e + 1);  // normal.yz, wi.xy
-        if (!(dot3(n, mk(a.w, c.x, c.y)) > 0.01f)) continue;
-        const float4 d = __ldg(ev4 + 3 * (size_t)e + 2);  // wi.z, flux3
-        V3 wi_l = to_local(mk(c.z, c.w, d.x), t, b, n);
-        bool ok;
-        V3 wh = half_vector(wo_l, wi_l, &ok);
-        V3 f = eval_local(m, wo_l, wi_l, alpha, wh, ok);
-        if (!valid3(f)) continue;
-        acc = acc + mul(mk(d.y, d.z, d.w), f);
-        ++count;
+      w_lo[o] = W[2 * o];
+      w_pre[o] = e;
+      e += W[2 * o + 1] - W[2 * o];
+    }
+    w_pre[9] = e;
+  }
+  __syncthreads();
+  const int E = w_pre[9];
+  const float4* ev4 = reinterpret_cast<const float4*>(in.ev);
+  // stage events [t * kGatherTile, ...) of the run into buffer `buf`
+  auto load_tile = [&](int t, int buf) {
+    const int base = t * kGatherTile;
+    const int n = min(kGatherTile, E - base) * 3;
+    for (int k = tid; k < n; k += kGatherRows) {
+      const int v = base + k / 3;
+      int o = 0;
+#pragma unroll
+      for (int q = 1; q < 9; ++q) o += (w_pre[q] <= v);
+      const size_t e = (size_t)(w_lo[o] + (v - w_pre[o]));
+      cp_async16(&stage[buf][k], ev4 + 3 * e + k % 3);
+    }
+    cp_async_commit();
+  };
+
+  const bool has = tid < item.z;
+  const int j = item.y + tid;
+  V3 p = mk(0.f, 0.f, 0.f), n = p, t = p, b = p, wo_l = p, tp = p;
+  Mtl m = {p, 0.f, 0.f, 0.f};
+  float alpha = 0.f;
+  if (has) {
+    const float* R = in.hp + (size_t)j * kHpCols;
+    p = mk(R[0], R[1], R[2]);
+    n = mk(R[3], R[4], R[5]);
+    m = {mk(R[9], R[10], R[11]), R[12], R[13], R[14]};
+    tp = mk(R[15], R[16], R[17]);
+    build_frame(n, &t, &b);
+    wo_l = to_local(mk(R[6], R[7], R[8]), t, b, n);
+    alpha = roughness_to_alpha(m.rough);
+  }
+  V3 acc = mk(0.f, 0.f, 0.f);
+  int count = 0;
+  const int lane = tid & 31;
+  EvalWarp& ew = eval_warps[tid >> 5];
+  const float terms[kHpFields] = {t.x,    t.y,    t.z,    b.x,     b.y,     b.z,   n.x,
+                                  n.y,    n.z,    wo_l.x, wo_l.y,  wo_l.z,  m.bc.x, m.bc.y,
+                                  m.bc.z, m.rough, m.metal, m.eta, alpha};
+#pragma unroll
+  for (int k = 0; k < kHpFields; ++k) ew.hp[k][lane] = terms[k];
+  __syncwarp();
+  // the BRDF of hitpoint terms (t, b, n, wo_l, m, alpha) against the event
+  // row R's wi, times its flux; ok: the BRDF is a valid colour
+  auto eval_row = [](const float4* R, V3 t, V3 b, V3 n, V3 wo_l, const Mtl& m, float alpha,
+                     bool* ok) {
+    const float4 c = R[1];  // normal.yz, wi.xy
+    const float4 d = R[2];  // wi.z, flux3
+    const V3 wi_l = to_local(mk(c.z, c.w, d.x), t, b, n);
+    bool wh_ok;
+    const V3 wh = half_vector(wo_l, wi_l, &wh_ok);
+    const V3 f = eval_local(m, wo_l, wi_l, alpha, wh, wh_ok);
+    *ok = valid3(f);
+    return mul(mk(d.y, d.z, d.w), f);
+  };
+  // the warp's hitpoints against ns <= kSub consecutive event rows (every
+  // lane of the warp calls this)
+  auto sub_tile = [&](const float4* Ss, int ns) {
+    unsigned mask = 0u;  // the pairs that pass both gates
+    if (has) {
+      cnt.add(kPairs, (unsigned)ns);
+      cnt.simt(kPairLanes, (unsigned)ns);
+#pragma unroll 4
+      for (int k = 0; k < ns; ++k) {
+        const float4 a = Ss[3 * k];      // pos3, normal.x
+        const float4 c = Ss[3 * k + 1];  // normal.yz, wi.xy
+        const float dx = p.x - a.x, dy = p.y - a.y, dz = p.z - a.z;
+        const bool near = dx * dx + dy * dy + dz * dz < in.r2;
+        const bool facing = near && dot3(n, mk(a.w, c.x, c.y)) > 0.01f;
+        cnt.add(kNear, near);
+        cnt.add(kFacing, facing);
+        mask |= (unsigned)facing << k;
       }
     }
+    // the set bits packed lane after lane, each lane's in event order
+    const unsigned mine = __popc(mask);
+    unsigned end = mine;
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned y = __shfl_up_sync(0xffffffffu, end, d);
+      if (lane >= d) end += y;
+    }
+    const unsigned total = __shfl_sync(0xffffffffu, end, 31);
+    const unsigned first = end - mine;
+    ew.mask[lane] = mask;
+    ew.end[lane] = end;
+    __syncwarp();
+    for (unsigned r0 = 0; r0 < total; r0 += 32) {
+      const unsigned e = r0 + lane;
+      if (e < total) {
+        // the entry's lane o (the first whose entries end past e) and its
+        // (e - start of o)-th set bit k
+        int o = 0;
+        for (int step = 16; step > 0; step >>= 1)
+          if (ew.end[o + step - 1] <= e) o += step;
+        const unsigned om = ew.mask[o];
+        const int nth = (int)(e - (o ? ew.end[o - 1] : 0u));
+        int k = 0;
+        for (int step = 16; step > 0; step >>= 1)
+          if (__popc(om & ((1u << (k + step)) - 1u)) <= nth) k += step;
+        cnt.add(kGEvals);
+        cnt.simt(kGEvalLanes);
+        const float* H = &ew.hp[0][o];
+        const Mtl mo = {mk(H[12 * 32], H[13 * 32], H[14 * 32]), H[15 * 32], H[16 * 32],
+                        H[17 * 32]};
+        bool ok;
+        const V3 v = eval_row(Ss + 3 * k, mk(H[0], H[32], H[64]), mk(H[96], H[128], H[160]),
+                              mk(H[192], H[224], H[256]), mk(H[288], H[320], H[352]), mo,
+                              H[18 * 32], &ok);
+        ew.f[0][lane] = v.x;
+        ew.f[1][lane] = v.y;
+        ew.f[2][lane] = v.z;
+        ew.ok[lane] = ok;
+      }
+      __syncwarp();
+      // this lane's entries of the batch, in order
+      const unsigned lo = max(first, r0), hi = min(end, r0 + 32u);
+      for (unsigned q = lo; q < hi; ++q) {
+        const int sl = (int)(q - r0);
+        if (!ew.ok[sl]) continue;  // a BRDF that is not a valid colour drops the pair
+        acc = acc + mk(ew.f[0][sl], ew.f[1][sl], ew.f[2][sl]);
+        ++count;
+        cnt.add(kAccepted);
+      }
+      __syncwarp();
+    }
+  };
+
+  const int tiles = (E + kGatherTile - 1) / kGatherTile;
+  if (tiles > 0) load_tile(0, 0);
+  for (int ti = 0; ti < tiles; ++ti) {
+    if (ti + 1 < tiles) {
+      load_tile(ti + 1, (ti + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* S = stage[ti & 1];
+    const int nt = min(kGatherTile, E - ti * kGatherTile);
+    for (int s0 = 0; s0 < nt; s0 += kSub) sub_tile(S + 3 * s0, min(kSub, nt - s0));
+    __syncthreads();  // every thread is done with this buffer before it refills
   }
-  const int i = in.perm[j];
-  store3(flux_out, i, mul(acc, tp));
-  count_out[i] = count;
+  if (has) {
+    const int i = in.perm[j];
+    store3(flux_out, i, mul(acc, tp));
+    count_out[i] = count;
+  }
+  if constexpr (kCount) {
+    unsigned long long wp = cnt.v[kPairs];
+    for (int o = 16; o > 0; o >>= 1) wp += __shfl_down_sync(0xffffffffu, wp, o);
+    cnt.flush(counts);
+    if ((tid & 31) == 0 && wp) {
+      atomicAdd(counts + kGWarps, 1ull);
+      atomicMax(counts + kWarpPairsMax, wp);
+    }
+  }
 }
 
 }  // namespace
@@ -179,11 +368,45 @@ int pt_photon_trace(const float* sph, int ns, int nl, const float* tri, const fl
   return (int)cudaGetLastError();
 }
 
-int pt_gather_flux(const float* hp, const int* hp_cell, const int* perm, int B, const int* win,
-                   const float* ev, float r2, float* flux, int* count, void* stream) {
-  GatherIn in{hp, hp_cell, perm, win, ev, r2};
-  gather_flux_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(in, B, flux, count);
+static int launch_gather(const float* hp, const int* perm, const int* win, const float* ev,
+                         const int* items, int n_items, float r2, float* flux, int* count,
+                         unsigned long long* counts, void* stream) {
+  GatherIn in{hp, perm, win, ev, reinterpret_cast<const int4*>(items), r2};
+  if (counts)
+    gather_flux_kernel<true><<<n_items, kGatherRows, 0, (cudaStream_t)stream>>>(in, flux, count,
+                                                                              counts);
+  else
+    gather_flux_kernel<false><<<n_items, kGatherRows, 0, (cudaStream_t)stream>>>(in, flux, count,
+                                                                               nullptr);
   return (int)cudaGetLastError();
+}
+
+// One block per work item of items (n_items, 4); flux and count hold zeros
+// beforehand (rows no item holds keep them).
+int pt_gather_flux(const float* hp, const int* perm, const int* win, const float* ev,
+                   const int* items, int n_items, float r2, float* flux, int* count,
+                   void* stream) {
+  return launch_gather(hp, perm, win, ev, items, n_items, r2, flux, count, nullptr, stream);
+}
+
+// The counting build of #11: the same flux and counts, and the work
+// counters added into counts[kGatherCounts] (zeroed by the caller).
+int pt_gather_flux_counts(const float* hp, const int* perm, const int* win, const float* ev,
+                          const int* items, int n_items, float r2, float* flux, int* count,
+                          unsigned long long* counts, void* stream) {
+  return launch_gather(hp, perm, win, ev, items, n_items, r2, flux, count, counts, stream);
+}
+
+// The rows of a work item at most: one thread each in a block of this many
+// (prepare cuts the card's work list to it; join raises on another).
+int pt_gather_rows() { return kGatherRows; }
+
+// occupancy_row of gather_flux and gather_flux_counts in turn.
+int pt_gather_occupancy(int* out) {
+  cudaError_t err = occupancy_row((const void*)gather_flux_kernel<false>, kGatherRows, 0, out);
+  if (err == cudaSuccess)
+    err = occupancy_row((const void*)gather_flux_kernel<true>, kGatherRows, 0, out + 5);
+  return (int)err;
 }
 
 }  // extern "C"

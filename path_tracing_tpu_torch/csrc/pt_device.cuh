@@ -92,8 +92,11 @@ struct Tables {
 };
 
 // ---------------------------------------------------------------------------
-// work counters of the counting builds (bdpt_kernels.cu's *_counts entries;
-// ops/cuda_connect.py::COUNT_NAMES names them in this order)
+// work counters of the counting builds (the *_counts entries).  The BDPT
+// kernels' counters (ops/cuda_connect.py::COUNT_NAMES names them in this
+// order); the PT megakernel's (ops/cuda_wavefront.py::COUNT_NAMES) keep
+// the walk and BSDF counters at the same indices and add their own after
+// them; the PPM gather's are its own (ppm_kernels.cu).
 // ---------------------------------------------------------------------------
 
 enum CountIdx {
@@ -105,37 +108,41 @@ enum CountIdx {
 // The plain builds count nothing: every call inlines away.
 struct NoCount {
   __device__ __forceinline__ void add(int, unsigned = 1u) {}
-  __device__ __forceinline__ void simt(int) {}
+  __device__ __forceinline__ void simt(int, unsigned = 1u) {}
 };
 
 // Per-thread integer tallies, summed over the warp and added with one
 // atomicAdd a counter a warp; nothing here touches radiance.
-struct Count {
-  unsigned v[kNumCounts];
-  __device__ __forceinline__ Count() {
+template <int N>
+struct CountN {
+  unsigned v[N];
+  __device__ __forceinline__ CountN() {
 #pragma unroll
-    for (int k = 0; k < kNumCounts; ++k) v[k] = 0u;
+    for (int k = 0; k < N; ++k) v[k] = 0u;
   }
   __device__ __forceinline__ void add(int k, unsigned n = 1u) { v[k] += n; }
-  // the lanes that run this step together, and 32 slots, counted once a
-  // warp step by its lowest active lane (SIMT efficiency = lanes / slots)
-  __device__ __forceinline__ void simt(int k) {
+  // the lanes that run this step together, and 32 slots, each times n
+  // steps, counted once by the lowest active lane (SIMT efficiency = lanes
+  // / slots)
+  __device__ __forceinline__ void simt(int k, unsigned n = 1u) {
     unsigned m = __activemask();
     if ((int)(threadIdx.x & 31) == __ffs(m) - 1) {
-      v[k] += __popc(m);
-      v[k + 1] += 32u;
+      v[k] += __popc(m) * n;
+      v[k + 1] += 32u * n;
     }
   }
   // every lane of the warp must call this
   __device__ __forceinline__ void flush(unsigned long long* out) {
 #pragma unroll
-    for (int k = 0; k < kNumCounts; ++k) {
+    for (int k = 0; k < N; ++k) {
       unsigned long long s = v[k];
       for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
       if ((threadIdx.x & 31) == 0 && s) atomicAdd(out + k, s);
     }
   }
 };
+
+using Count = CountN<kNumCounts>;
 
 // ---------------------------------------------------------------------------
 // Threefry-2x32 (20 rounds), bit-exact with jax.random and ops/rng.py on
@@ -829,6 +836,22 @@ __device__ V3 connect_dev(const Tables& tb, const float* __restrict__ rows, int 
 constexpr int kThreads = 128;
 
 inline int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+
+// Five ints of kernel fn at its launch shape: resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads per block,
+// registers and local (spill) bytes per thread, shared bytes per block
+// (static and dynamic_smem).
+inline cudaError_t occupancy_row(const void* fn, int threads, int dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, fn, threads, dynamic_smem);
+  out[1] = threads;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  out[4] = (int)a.sharedSizeBytes + dynamic_smem;
+  return err;
+}
 
 inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, const float* uv,
                           const float* cl, int nc) {

@@ -7,11 +7,13 @@
 // PyTorch versions round them, so kernel and plain version agree to a few
 // ulps; no --use_fast_math.
 //
-// One thread per lane (ray or pixel), masked i < B.  Scene tables are read
-// from global memory through const __restrict__ pointers: the text scenes
-// are a few KB and stay in L1/L2, a 81,920-triangle mesh is 11 MB and stays
-// in the 50 MB L2.  No atomics; every output is a pure function of the
-// lane's inputs, so a render is deterministic per seed.
+// One thread per lane (ray or pixel), masked i < B; #5's persistent
+// threads take one pixel at a time.  Scene tables are read from global
+// memory through const __restrict__ pointers: the text scenes are a few KB
+// and stay in L1/L2, a 81,920-triangle mesh is 11 MB and stays in the 50 MB
+// L2.  No float atomics (#5's integer counter only hands out pixels); every
+// output is a pure function of the lane's inputs, so a render is
+// deterministic per seed.
 //
 // 1. nearest_hit       replaces path_tracing_tpu/ops/pallas_intersect.py
 //                      nearest_hit_pallas (_nearest_kernel /
@@ -44,9 +46,29 @@
 // large function whose cost is registers (it holds hit, material, NEE and
 // BSDF state at once): lanes that are not active, not eligible for NEE, or
 // end at a light skip the sweeps and the sample they do not need, and draw
-// only the uniforms they use.  In the megakernel a warp waits on its
-// longest path (no lane compaction yet).  Shared-memory staging of the
-// tables, the 2-level super-cluster walk and ray compaction are later work.
+// only the uniforms they use.
+//
+// #5's design for this card.  Persistent blocks fill the card; a lane runs
+// one pixel's whole regenerating spp loop and, when it is done, takes the
+// next pixel index from a global counter (one atomicAdd a warp step for the
+// lanes that need work), so no warp waits on its longest pixel and no
+// block on the last.  The lane restarts its iteration count at 0 and draws
+// at the pixel's own lane index, so every pixel is computed by one thread,
+// in the parent's order, from the same (key, it, lane) draws: the image is
+// the one-thread-per-pixel kernel's, bit for bit; the atomic only hands out
+// work.  Twelve blocks of 128 an SM (40 registers, the rest spilled) ran
+// fastest.  Each lane walks its own NEE shadow ray: packing a warp's rays
+// into a queue in shared memory and walking them 32 at a time (the step's
+// radiance waiting in a per-lane FIFO until its verdict) lifted the shadow
+// step's SIMT from about 0.73 to 0.99 but ran slower at every occupancy
+// (PERF.md section 6).  The counting build (kCount) counts the
+// iterations, each warp's iterations (its longest lane against the mean),
+// the walks and their primitive tests, the BSDF samples, evaluations and
+// pdfs, the draws and the SIMT efficiency of the walk, the shade and the
+// shadow step.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "pt_device.cuh"
 
@@ -150,14 +172,28 @@ struct ThreefryDraws {
   }
 };
 
+// The NEE shadow ray walked where it is cast (has: a ray was cast).
+template <class Ctr>
+struct WalkShadow {
+  const Tables& tb;
+  int blocks_col;
+  Ctr& cnt;
+  bool has;
+  __device__ __forceinline__ bool operator()(V3 p1, V3 rd, float md) {
+    has = true;
+    cnt.simt(kShLanes);
+    return shadow_blocked_dev(tb, p1, rd, md, blocks_col, cnt);
+  }
+};
+
 // One PT bounce of an active lane from its hit: light-ball emission, NEE
-// with its shadow sweep, BSDF sample.  Updates s as shade_step_pallas's
+// with its shadow sweep (walked by the functor sh), BSDF sample.  Updates s as shade_step_pallas's
 // outputs (a lane that missed, hit a light or died leaves with alive false
 // and the rest of its state unchanged) and returns the bounce's radiance.
 // Uniform j is drawn as u(j), only where it is used: 0-2 NEE, 3-5 BSDF.
-template <class Draws>
+template <class Draws, class Shadow>
 __device__ V3 shade_from_hit(const Tables& tb, const ShadeCfg& c, const HitRec& h, PathState& s,
-                             const Draws& u) {
+                             const Draws& u, Shadow& sh) {
   const int nl = tb.nl;
   V3 radiance = mk(0.f, 0.f, 0.f);
   const V3 n = h.n;
@@ -255,7 +291,7 @@ __device__ V3 shade_from_hit(const Tables& tb, const ShadeCfg& c, const HitRec& 
     V3 diff = p2 - p1;
     float sdist = norm3(diff);
     V3 srd = scale(diff, 1.0f / jmax(sdist, 1e-20f));
-    bool blocked = shadow_blocked_dev(tb, p1, srd, sdist - kMinD, c.blocks_col);
+    bool blocked = sh(p1, srd, sdist - kMinD);
     float tr = blocked ? 0.0f : 1.0f;
 
     V3 brdf;
@@ -363,7 +399,9 @@ __global__ void shade_step_kernel(Tables tb, ShadeCfg c, StateIn in, StateOut ou
   V3 radiance = mk(0.f, 0.f, 0.f);
   if (s.alive) {  // inactive lanes pass through with alive false
     HitRec h = nearest_hit_dev<false>(tb, s.ro, s.rd);
-    radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i});
+    NoCount nc;
+    WalkShadow<NoCount> sh{tb, c.blocks_col, nc, false};
+    radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
   }
   store_state(out, i, s, radiance);
 }
@@ -380,57 +418,97 @@ __global__ void shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in,
     HitRec h = nearest_hit_dev<true>(tb, s.ro, s.rd);
     int tex_id = (int)h.tex;
     if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
-    radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i});
+    NoCount nc;
+    WalkShadow<NoCount> sh{tb, c.blocks_col, nc, false};
+    radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
   }
   store_state(out, i, s, radiance);
 }
 
 // ---------------------------------------------------------------------------
-// render_wavefront: every sample of one pixel in one thread
+// render_wavefront: every sample of a pixel in one thread, pixels handed
+// out by a global counter
 // ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMegaThreads = 128;
+constexpr int kMegaMinBlocks = 12;  // __launch_bounds__: 48 warps an SM
+
+// #5's counters after the shared ones (ops/cuda_wavefront.py::COUNT_NAMES)
+enum MegaCountIdx {
+  kIters = kNumCounts, kBsdfSamples, kDraws, kWalkLanes, kWalkSlots, kShadeLanes, kShadeSlots,
+  kWarpIterSlots, kMegaCounts
+};
 
 struct WavefrontCfg {
   Key key;
-  uint32_t start, total;   // this lane is column start + i of a total-lane render
+  uint32_t start, total;   // pixel i is column start + i of a total-lane render
   int spp, eye_depth, max_path_iters, max_total;
 };
 
-// The loop of _wavefront_kernel for one lane, iteration for iteration the
-// lane's column of integrators/pt.py::wavefront_loop: regenerate while
-// samples are owed, one bounce, the max_path_iters budget, flush finished
-// paths.  Iteration it draws from fold_in(key, it) at the counters
-// uniform_rows(iter_key(key, it), B, 8, start, total) gives this lane, so
-// the pixel sum equals the per-bounce tier's.  A lane with no work left is
-// untouched by later iterations of that loop, so the thread stops.
-__global__ void render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __restrict__ cam_tab,
-                                        WavefrontCfg g, const int* __restrict__ px,
-                                        const int* __restrict__ py, int B,
-                                        float* __restrict__ img_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+// Each lane runs the loop of _wavefront_kernel for the pixels it takes,
+// iteration for iteration the pixel's column of integrators/pt.py::
+// wavefront_loop: regenerate while samples are owed, one bounce, the
+// max_path_iters budget, flush finished paths.  Iteration it of pixel i
+// draws from fold_in(key, it) at the counters uniform_rows(iter_key(key,
+// it), B, 8, start, total) gives lane i, so the pixel sum equals the
+// per-bounce tier's.  A pixel is done when its lane has no work left (the
+// loop of that pixel leaves it untouched from then on) or after max_total
+// iterations; paths cut by that cap still contribute what they gathered.
+template <bool kCount>
+__global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
+    render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __restrict__ cam_tab,
+                            WavefrontCfg g, const int* __restrict__ px,
+                            const int* __restrict__ py, int B, int* __restrict__ work,
+                            float* __restrict__ img_out, unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, CountN<kMegaCounts>, NoCount>::type cnt;
+  const int lane = threadIdx.x & 31;
   const Cam cam = load_cam(cam_tab);
-  const float fpx = (float)px[i], fpy = (float)py[i];
-  const uint32_t lane = (uint32_t)i;
 
-  PathState s;
-  s.ro = cam.eye;
-  s.rd = mk(0.f, 0.f, 0.f);
-  s.tp = mk(1.f, 1.f, 1.f);
-  s.eta = 1.0f;
-  s.last_pdf = 1.0f;
-  s.dep = 0;
-  s.alive = false;
-  s.last_delta = true;
-  V3 rad = mk(0.f, 0.f, 0.f), img = mk(0.f, 0.f, 0.f);
-  int sample = 0, path_it = 0;
+  PathState s = {cam.eye, cam.eye, cam.eye, 1.0f, 1.0f, 0, false, true};
+  V3 rad = mk(0.f, 0.f, 0.f), img = rad;
+  int pix = -1;  // the lane's pixel: -1 before its first, >= B once the work is out
+  int sample = 0, path_it = 0, it = 0;
+  unsigned my_iters = 0;
+  // the lane's pixel has no work left (or has had max_total iterations)
+  auto pixel_done = [&]() { return it >= g.max_total || (!s.alive && sample >= g.spp); };
+  while (true) {
+    // ---- a lane whose pixel is done writes it and takes the next ----
+    const bool done = pix < 0 || (pix < B && pixel_done());
+    if (done && pix >= 0) {
+      if (s.alive && valid3(rad)) img = img + rad;
+      store3(img_out, pix, img);
+    }
+    const unsigned nm = __ballot_sync(kFull, done);
+    if (nm) {
+      const int leader = __ffs(nm) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(work, __popc(nm));
+      base = __shfl_sync(kFull, base, leader);
+      if (done) {
+        pix = base + __popc(nm & ((1u << lane) - 1u));
+        s.ro = cam.eye;
+        s.rd = mk(0.f, 0.f, 0.f);
+        s.tp = mk(1.f, 1.f, 1.f);
+        s.eta = 1.0f;
+        s.last_pdf = 1.0f;
+        s.dep = 0;
+        s.alive = false;
+        s.last_delta = true;
+        rad = img = mk(0.f, 0.f, 0.f);
+        sample = path_it = it = 0;
+      }
+    }
+    if (!__any_sync(kFull, pix < B)) break;
+    if (pix >= B || pixel_done()) continue;  // nothing to run; its warp goes on
 
-  for (int it = 0; it < g.max_total; ++it) {
-    if (!s.alive && sample >= g.spp) break;  // no work left for this lane
-    ThreefryDraws u{fold_in(g.key, (uint32_t)it), lane, g.start, g.total};
-
-    // ---- regenerate: the pixel's next sample ----
-    if (!s.alive) {
-      s.rd = primary_dir(cam, fpx + u(6), fpy + u(7));
+    // ---- one iteration of the lane's pixel ----
+    ++my_iters;
+    cnt.add(kIters);
+    cnt.add(kDraws);
+    ThreefryDraws u{fold_in(g.key, (uint32_t)it), (uint32_t)pix, g.start, g.total};
+    if (!s.alive) {  // regenerate: the pixel's next sample
+      s.rd = primary_dir(cam, (float)px[pix] + u(6), (float)py[pix] + u(7));
       s.ro = cam.eye;
       s.tp = mk(1.f, 1.f, 1.f);
       rad = mk(0.f, 0.f, 0.f);
@@ -441,25 +519,68 @@ __global__ void render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __re
       s.last_pdf = 1.0f;
       sample += 1;
       s.alive = true;
+      cnt.add(kSamples);
+      cnt.add(kDraws, 2u);
     }
-
-    // ---- one bounce, then the depth and iteration budgets ----
-    HitRec h = nearest_hit_dev<false>(tb, s.ro, s.rd);
-    rad = rad + shade_from_hit(tb, c, h, s, u);
+    cnt.simt(kWalkLanes);
+    HitRec h = nearest_hit_dev<false>(tb, s.ro, s.rd, cnt);
+    cnt.simt(kShadeLanes);
+    WalkShadow<decltype(cnt)> walk{tb, c.blocks_col, cnt, false};
+    rad = rad + shade_from_hit(tb, c, h, s, u, walk);
+    if (walk.has) {
+      cnt.add(kShadowRays);
+      cnt.add(kEvals);
+      cnt.add(kPdfs);
+      cnt.add(kDraws, 3u);
+    }
+    if (h.flag == 1) {
+      cnt.add(kBsdfSamples);
+      cnt.add(kDraws, 3u);
+    }
     path_it += 1;
-    bool alive_out = s.alive && (s.last_delta || s.dep < g.eye_depth) &&
-                     (path_it < g.max_path_iters);
-
-    // ---- flush a finished path into the pixel ----
-    if (!alive_out) {
+    it += 1;
+    const bool alive_out = s.alive && (s.last_delta || s.dep < g.eye_depth) &&
+                           (path_it < g.max_path_iters);
+    if (!alive_out) {  // flush a finished path into the pixel
       if (valid3(rad)) img = img + rad;
       rad = mk(0.f, 0.f, 0.f);
     }
     s.alive = alive_out;
   }
-  // paths cut by the global cap still contribute what they gathered
-  if (s.alive && valid3(rad)) img = img + rad;
-  store3(img_out, i, img);
+  if constexpr (kCount) {
+    unsigned mx = my_iters;
+    for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_down_sync(kFull, mx, o));
+    if (lane == 0) cnt.add(kWarpIterSlots, 32u * mx);
+    cnt.flush(counts);
+  }
+}
+
+template <bool kCount>
+int launch_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                            const float* cl, int nc, const float* lights, const float* cam,
+                            const int* px, const int* py, int B, int spp, int eye_depth,
+                            int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
+                            uint32_t start, uint32_t total, float clamp_val, int stub_mis,
+                            int blocks_col, int* work, float* img, unsigned long long* counts,
+                            void* stream) {
+  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
+  WavefrontCfg g{{k0, k1}, start, total, spp, eye_depth, max_path_iters, max_total};
+  // persistent blocks: as many as the card holds at once, or fewer
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, render_wavefront_kernel<kCount>, kMegaThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm;
+  }
+  const int blocks = std::min(resident, (B + kMegaThreads - 1) / kMegaThreads);
+  render_wavefront_kernel<kCount><<<blocks, kMegaThreads, 0, (cudaStream_t)stream>>>(
+      make_tables(sph, ns, nl, tri, uv, cl, nc), c, cam, g, px, py, B, work, img, counts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -524,17 +645,38 @@ int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const 
   return (int)cudaGetLastError();
 }
 
+// work: one int32, zeroed by the caller (the next pixel to hand out).
 int pt_render_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
                         const float* cl, int nc, const float* lights, const float* cam,
                         const int* px, const int* py, int B, int spp, int eye_depth,
                         int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
                         uint32_t start, uint32_t total, float clamp_val, int stub_mis,
-                        int blocks_col, float* img, void* stream) {
-  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
-  WavefrontCfg g{{k0, k1}, start, total, spp, eye_depth, max_path_iters, max_total};
-  render_wavefront_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), c, cam, g, px, py, B, img);
-  return (int)cudaGetLastError();
+                        int blocks_col, int* work, float* img, void* stream) {
+  return launch_wavefront<false>(sph, ns, nl, tri, uv, cl, nc, lights, cam, px, py, B, spp,
+                                 eye_depth, max_path_iters, max_total, k0, k1, start, total,
+                                 clamp_val, stub_mis, blocks_col, work, img, nullptr, stream);
+}
+
+// The counting build of #5: the same image, and the work counters added
+// into counts[kMegaCounts] (zeroed by the caller).
+int pt_render_wavefront_counts(const float* sph, int ns, int nl, const float* tri,
+                               const float* uv, const float* cl, int nc, const float* lights,
+                               const float* cam, const int* px, const int* py, int B, int spp,
+                               int eye_depth, int max_path_iters, int max_total, uint32_t k0,
+                               uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
+                               int stub_mis, int blocks_col, int* work, float* img,
+                               unsigned long long* counts, void* stream) {
+  return launch_wavefront<true>(sph, ns, nl, tri, uv, cl, nc, lights, cam, px, py, B, spp,
+                                eye_depth, max_path_iters, max_total, k0, k1, start, total,
+                                clamp_val, stub_mis, blocks_col, work, img, counts, stream);
+}
+
+// occupancy_row of render_wavefront and render_wavefront_counts in turn.
+int pt_mega_occupancy(int* out) {
+  cudaError_t err = occupancy_row((const void*)render_wavefront_kernel<false>, kMegaThreads, 0, out);
+  if (err == cudaSuccess)
+    err = occupancy_row((const void*)render_wavefront_kernel<true>, kMegaThreads, 0, out + 5);
+  return (int)err;
 }
 
 int pt_threefry_rows(uint32_t k0, uint32_t k1, int n, int P, uint32_t start, uint32_t total,

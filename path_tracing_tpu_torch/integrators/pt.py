@@ -233,12 +233,15 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
 def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
                    cam: Camera, cfg: RenderConfig, px: torch.Tensor,
                    py: torch.Tensor, spp: int, key, start: int,
-                   total: int | None, step, draw=rng.uniform_rows
-                   ) -> torch.Tensor:
+                   total: int | None, step, draw=rng.uniform_rows,
+                   counts: dict | None = None) -> torch.Tensor:
     """The per-bounce wavefront: one ``step`` (a bounce function of
     ``ops/cuda_shade.py``) per iteration over every lane, with the
     iteration's uniforms from ``draw`` (``rng.uniform_rows`` or its plain
-    version), regeneration, the iteration budget and per-pixel sums."""
+    version), regeneration, the iteration budget and per-pixel sums.
+    ``counts`` (``cuda_wavefront.new_counts``), if given, gains the
+    megakernel's iterations, paths, their draws, ``pixel_warp_slots`` and
+    ``iteration_keys``; the step counts the rest."""
     dev = px.device
     B = px.shape[0]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -258,6 +261,7 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
     eye = cam.eye[None, :]
 
     max_total = spp * cfg.max_eye_iters + cfg.max_eye_iters
+    lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
     it = 0
     # one host sync per iteration: stop once no lane is alive or owes samples
     while it < max_total and bool(torch.any(alive | (sample < spp))):
@@ -278,6 +282,13 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
         last_pdf = torch.where(regen, torch.ones_like(last_pdf), last_pdf)
         sample = sample + regen.to(torch.int32)
         alive = alive | regen
+        if counts is not None:
+            # a fold_in an iteration and two jitter draws a path
+            lane_iters += alive
+            counts["iterations"] += int(alive.sum())
+            counts["samples"] += int(regen.sum())
+            counts["draws"] += int(alive.sum()) + 2 * int(regen.sum())
+            counts["iteration_keys"] += 1
 
         out = step(packed, light_tab, ro, rd, tp, eta, depth, alive,
                    last_delta, last_pdf, u, clamp_val=cfg.clamp,
@@ -302,6 +313,10 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
         last_pdf = out["last_pdf"]
         it += 1
 
+    if counts is not None and B:
+        warps = torch.nn.functional.pad(lane_iters, (0, -B % 32))
+        counts["pixel_warp_slots"] += 32 * int(warps.view(-1, 32).amax(1)
+                                               .sum())
     # paths cut by the global cap still contribute what they gathered
     leftover = torch.where((alive & is_valid_color(radiance))[:, None],
                            radiance, torch.zeros_like(radiance))

@@ -13,8 +13,10 @@ with nvcc's output; nothing falls back.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
-went through.  ``connect_counts`` and ``bdpt_eye_counts`` are the counting
-builds of ``connect`` and ``bdpt_eye``, launched under their own names.
+went through.  ``connect_counts``, ``bdpt_eye_counts``,
+``render_wavefront_counts`` and ``gather_flux_counts`` are the counting
+builds of ``connect``, ``bdpt_eye``, ``render_wavefront`` and
+``gather_flux``, launched under their own names.
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ HEADERS = ("pt_device.cuh",)
 # each library: its source (csrc/<name>.cu) and the kernels it holds
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
-                   "shade_step_tex", "render_wavefront", "threefry_rows"),
+                   "shade_step_tex", "render_wavefront", "threefry_rows",
+                   "render_wavefront_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
-    "ppm_kernels": ("photon_trace", "gather_flux"),
+    "ppm_kernels": ("photon_trace", "gather_flux", "gather_flux_counts"),
     "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream"),
     "probe_kernels": ("onehot_fetch",),
 }
@@ -65,8 +68,10 @@ _ARGTYPES = {
     "any_blocker": _TABLES + [_P, _P, _P, _I, _I, _P, _P],
     "shade_step": _TABLES + _STEP + [_P],
     "shade_step_tex": _TABLES + [_P, _P, _I, _I, _I] + _STEP + [_P],
+    # lights cam px py | B spp eye_depth max_path_iters max_total | k0 k1
+    # start total | clamp stub_mis blocks_col | work img
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _U, _U, _U, _U, _F, _I, _I, _P, _P],
+                                   _U, _U, _U, _U, _F, _I, _I, _P, _P, _P],
     "threefry_rows": [_U, _U, _I, _I, _U, _U, _P, _P],
     # lv, n_valid | pos n tp bc rough metal eta wo_e wo_s eye_f act | B,
     # clamp, blocks_col | out
@@ -79,8 +84,8 @@ _ARGTYPES = {
     # ro rd flux real P | k0 k1 start total | light_depth iters | ev valid
     "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
                                           _P],
-    # hp hp_cell perm B | win ev r2 | flux count
-    "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
+    # hp perm win ev items | n_items r2 | flux count
+    "gather_flux": [_P] * 5 + [_I, _F, _P, _P, _P],
     # the streamed tables | ro rd B n_live | t idx kind
     "nearest_hit_stream": _STREAM + [_P, _P, _I, _P, _P, _P, _P],
     # the streamed tables | p1 rd max_d B n_live blocks_col | out
@@ -91,6 +96,22 @@ _ARGTYPES = {
 # the counting builds: the same arguments, then the uint64 counters
 _ARGTYPES["connect_counts"] = _ARGTYPES["connect"][:-1] + [_P, _P]
 _ARGTYPES["bdpt_eye_counts"] = _ARGTYPES["bdpt_eye"][:-1] + [_P, _P]
+_ARGTYPES["render_wavefront_counts"] = (_ARGTYPES["render_wavefront"][:-1]
+                                        + [_P, _P])
+_ARGTYPES["gather_flux_counts"] = _ARGTYPES["gather_flux"][:-1] + [_P, _P]
+
+
+def occupancy_rows(names, out) -> dict:
+    """Five ints a kernel from an occupancy entry of ``csrc`` (resident
+    blocks per SM, threads per block, registers and local bytes per thread,
+    shared bytes per block) as a dict a kernel name."""
+    res = {}
+    for k, name in enumerate(names):
+        blocks, threads, regs, local, smem = out[5 * k:5 * k + 5]
+        res[name] = dict(blocks_per_sm=blocks, threads=threads,
+                         warps_per_sm=blocks * threads // 32, registers=regs,
+                         local_bytes=local, smem_bytes=smem)
+    return res
 
 
 def reset_counts() -> None:

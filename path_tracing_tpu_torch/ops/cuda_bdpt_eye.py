@@ -136,10 +136,4 @@ def occupancy(n_valid: int) -> dict:
     rc = fn(int(n_valid), out)
     if rc != 0:
         raise RuntimeError(f"pt_bdpt_occupancy failed: cudaError {rc}")
-    res = {}
-    for k, name in enumerate(OCCUPANCY_KERNELS):
-        blocks, threads, regs, local, smem = out[5 * k:5 * k + 5]
-        res[name] = dict(blocks_per_sm=blocks, threads=threads,
-                         warps_per_sm=blocks * threads // 32, registers=regs,
-                         local_bytes=local, smem_bytes=smem)
-    return res
+    return _kernels.occupancy_rows(OCCUPANCY_KERNELS, out)

@@ -332,7 +332,7 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
 
 
 def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int,
-                  counts=None):
+                  counts=None, live=None):
     md = max_d[:, None]
     none = torch.zeros((p1.shape[0], 0), dtype=torch.bool, device=p1.device)
     tri_occ = sph_occ = none
@@ -346,8 +346,9 @@ def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int,
         t = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], md)
         sph_occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
     if counts is not None:
-        _count_shadow_walk(packed, p1, rd, max_d, col, sph_occ, tri_occ,
-                           counts)
+        keep = slice(None) if live is None else live
+        _count_shadow_walk(packed, p1[keep], rd[keep], max_d[keep], col,
+                           sph_occ[keep], tri_occ[keep], counts)
     return torch.any(tri_occ, dim=1) | torch.any(sph_occ, dim=1)
 
 
@@ -357,13 +358,14 @@ def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
                       counts: dict | None = None) -> torch.Tensor:
     """Brute-force shadow any-hit: (B,) bool, True where a sphere or
     triangle whose can-block column is set lies at t in (1e-3, max_d).
-    ``live`` is ignored, as in :func:`nearest_hit_plain`.  ``counts``, if
-    given, gains the primitive tests the kernels' walk makes for every
-    ray."""
+    ``live`` does not change the result, as in :func:`nearest_hit_plain`.
+    ``counts``, if given, gains the primitive tests the kernels' walk makes
+    for the live lanes (every lane without ``live``)."""
     _kernels.plain_calls["any_blocker"] += 1
     col = 4 if dielectrics_block else 5
     return torch.cat([
-        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col, counts)
+        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col, counts,
+                      None if live is None else live[a:b])
         for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
 
 

@@ -59,14 +59,21 @@ def _textured_hit(packed: PackedScene, h: dict) -> dict:
 
 def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
             last_delta, last_pdf, u, *, clamp_val, stub_mis,
-            dielectrics_block, nearest, blocker, tex=False) -> dict:
+            dielectrics_block, nearest, blocker, tex=False,
+            counts=None) -> dict:
     """One PT bounce in PyTorch with the given intersection functions;
     ``tex`` textures the hit.  ``nearest`` gets the active lanes and
     ``blocker`` the NEE-eligible ones as ``live=`` (the lanes whose result
-    is read: the sorted stream calls skip the others)."""
+    is read: the sorted stream calls skip the others).  ``counts``, if
+    given, gains the megakernel's work of the bounce (NEE rays with their
+    evaluation, pdf and draws, BSDF samples with theirs) and is handed to
+    the intersection functions, which count their walks' tests."""
     from ..integrators.pt import _light_emission_radiance, _nee
 
     nl = light_tab.shape[0]
+    if counts is not None:
+        nearest = functools.partial(nearest, counts=counts)
+        blocker = functools.partial(blocker, counts=counts)
     if tex:
         h = _textured_hit(packed, nearest(packed, ro, rd, with_uv=True,
                                           live=act))
@@ -108,6 +115,12 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
     # ---- 2. NEE ----
     m = hit.mtl
     elig = upd & (m.eta <= 0.0) & ((m.metallic < 0.99) | (m.roughness > 0.01))
+    if counts is not None:
+        n_nee, n_bsdf = int(elig.sum()) if nl > 0 else 0, int(upd.sum())
+        for k in ("shadow_rays", "evals", "pdfs"):
+            counts[k] += n_nee
+        counts["bsdf_samples"] += n_bsdf
+        counts["draws"] += 3 * (n_nee + n_bsdf)
     if nl > 0:
         nee = _nee(packed, light_tab, hit, wo, tp, u[0], u[1], u[2],
                    dielectrics_block=dielectrics_block,
@@ -149,13 +162,15 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
 
 def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                      last_delta, last_pdf, u, *, clamp_val, stub_mis,
-                     dielectrics_block) -> dict:
-    """Plain PyTorch version of the ``shade_step`` kernel."""
+                     dielectrics_block, counts=None) -> dict:
+    """Plain PyTorch version of the ``shade_step`` kernel (``counts``: see
+    ``_bounce``)."""
     _kernels.plain_calls["shade_step"] += 1
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
-                   nearest=nearest_hit_plain, blocker=any_blocker_plain)
+                   nearest=nearest_hit_plain, blocker=any_blocker_plain,
+                   counts=counts)
 
 
 def shade_step_split(packed, light_tab, ro, rd, tp, eta, depth, act,

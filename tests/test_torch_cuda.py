@@ -487,3 +487,85 @@ def test_gather_flux_kernel_matches_plain(card):
     assert abs(mean - mean_p) <= 1e-5 * abs(mean_p)
     flux2, count2 = gather.join(t)
     assert torch.equal(flux, flux2) and torch.equal(count, count2)
+
+
+def test_render_wavefront_counting_build_matches_plain_counts(card):
+    """#5's counting build gives the megakernel's image bit for bit, and
+    its counters equal the plain loop's count of the same work exactly on
+    a 64x48 spp 4 frame (the walks' tests in the kernel's cluster order);
+    its SIMT and busy-lane shares are shares."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    scene, pk = card
+    p = load_scene(str(CORNELL))
+    w, h = 64, 48
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    args = (pk, _light_table(scene), cam, idx % w, idx // w, 4, cfg,
+            rng.prng_key(0))
+    img, kc = cw.render_wavefront_counts(*args)
+    assert torch.equal(img, cw.render_wavefront(*args))
+    pc = cw.new_counts()
+    cw.render_wavefront_plain(*args, counts=pc)
+    assert {k: kc[k] for k in cw.PLAIN_COUNTS} == {
+        k: pc[k] for k in cw.PLAIN_COUNTS}
+    for k in ("walk", "shade", "shadow"):
+        assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"], k
+    assert 0 < kc["iterations"] <= kc["warp_iter_slots"]
+
+
+def test_gather_flux_counting_build_matches_plain_counts(card):
+    """#11's counting build gives the kernel's flux and counts bit for
+    bit, and its counters equal the plain join's count of the same work
+    exactly; its SIMT shares are shares and its largest warp is at least
+    the mean."""
+    from path_tracing_tpu_torch.integrators.ppm import PhotonEvents
+    from path_tracing_tpu_torch.ops import cuda_photon
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as gather
+
+    scene, _ = card
+    cfg, hp, pk, emit, kp = _ppm_frame(scene)
+    events = PhotonEvents(*cuda_photon.photon_trace(
+        pk, *emit, kp, cfg.light_depth, cfg.max_light_iters))
+    t = gather.prepare(scene, cfg, hp, events)
+    flux, count, kc = gather.join_counts(t)
+    f, c = gather.join(t)
+    assert torch.equal(flux, f) and torch.equal(count, c)
+    pc = gather.new_counts()
+    gather.join_plain(t, counts=pc)
+    assert {k: kc[k] for k in gather.PLAIN_COUNTS} == {
+        k: pc[k] for k in gather.PLAIN_COUNTS}
+    assert kc["accepted"] == int(count.sum()) > 0
+    for k in ("pair", "eval"):
+        assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"], k
+    assert kc["warp_pairs_max"] * kc["warps"] >= kc["pairs"] > 0
+
+
+def test_gather_flux_raises_on_another_row_limit(card):
+    """``prepare`` cuts the card's work list to the kernel's block of rows;
+    a list cut to another limit (whose rows past the block would keep their
+    zeros) makes ``join`` and ``join_counts`` raise before any launch."""
+    import dataclasses
+
+    from path_tracing_tpu_torch.integrators.ppm import PhotonEvents
+    from path_tracing_tpu_torch.ops import cuda_photon
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as gather
+
+    scene, _ = card
+    cfg, hp, pk, emit, kp = _ppm_frame(scene)
+    events = PhotonEvents(*cuda_photon.photon_trace(
+        pk, *emit, kp, cfg.light_depth, cfg.max_light_iters))
+    t = gather.prepare(scene, cfg, hp, events)
+    block = gather.kernel_rows()
+    assert t.rows == block > 0
+    wide = dataclasses.replace(
+        t, items=gather.work_list(t.hp_cell, t.win, 2 * block),
+        rows=2 * block)
+    launched = dict(_kernels.launches)
+    with pytest.raises(ValueError, match="work list"):
+        gather.join(wide)
+    with pytest.raises(ValueError, match="work list"):
+        gather.join_counts(wide)
+    assert _kernels.launches == launched
