@@ -11,8 +11,8 @@ Phases, each raising on failure:
    (``*_counts``: the counting builds); then the occupancy (resident blocks
    and warps per SM at the launch shape, registers, local and shared
    bytes) of each BDPT kernel, for #9 on cornell against the main path's
-   K = 32 tables and the exact table, and of #5 and #11 and their counting
-   builds.
+   K = 32 tables and the exact table, and of #5, #10 and #11 and their
+   counting builds.
 3. Kernels against their plain PyTorch versions at the main path's lane
    count (1920x1080 = 2,073,600), with their times (CUDA events):
    ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
@@ -27,7 +27,9 @@ Phases, each raising on failure:
    0.1% at 1080p, with the SIMT efficiency of the walk, the shade and the
    shadow step, the share of each warp's lane-iterations that are busy
    (against one thread a pixel, from the plain counts) and #5's bound
-   from the plain counts.
+   from the plain counts.  Then #1 at the shapes its main paths launch it
+   on: the first launch of the PPM eye pass (262,144 rays) and of the
+   BDPT light trace, recorded from the integrators' own calls.
 4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
    the default tier (auto, which is the megakernel: the main path), the
    fused tier (one ``shade_step`` per bounce) and the split tier (the
@@ -74,7 +76,15 @@ Phases, each raising on failure:
    photons, eye and light depth 4, seed 0), built by the integrator's own
    functions: ``photon_trace`` on the pass's emission (valid flags equal and
    every field within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows; the share
-   of bit-equal rows is printed) and ``gather_flux`` on the pass's real
+   of bit-equal rows is printed), its counting build
+   (``photon_trace_counts``: events bit-equal to #10's, its counters
+   (photons, bounces, the walk's sphere, box and triangle tests, BSDF
+   samples, draws, deposits) equal to the plain loop's count exactly on a
+   pass of 4 x 4,096 photons and within 0.1% on the main pass, with the
+   bounce step's SIMT, the share of each warp's bounce slots that are busy
+   (against one thread a photon, from the plain counts) and #10's bound
+   from the plain counts; #10 timed through its wrapper, which makes no
+   device round trip) and ``gather_flux`` on the pass's real
    hitpoints and #10's events (counts equal on >= 99.99% of hitpoints, flux
    within rtol 1e-4 / atol 1e-6 on >= 99.9%, means within 1e-5 relative),
    with the candidate pairs, occupied cells and overflow.  Then #11's
@@ -100,13 +110,22 @@ Phases, each raising on failure:
    t bit-equal on >= 99.95%, the fields equal wherever the winning
    triangle is the same, iu/iv within 1e-5 on >= 99.9% of triangle hits)
    and against its plain version on a strided subset of >= 65,536 lanes
-   (kind, t and index, the same bars); ``any_blocker_stream`` (#7) on the
+   (kind, t and index, the same bars); on the first iteration, #6's
+   counting build (``nearest_hit_stream_counts``: (t, idx, kind) bit-equal
+   to #6's, its counters (rays, sphere tests, super, cluster and block
+   boxes, triangles) equal to the plain model of its walk exactly on the
+   subset's live lanes and within 0.1% on every live lane, with the
+   triangle test's SIMT and #6's bound from the model's counts, beside a
+   floor that leaves out the super boxes);
+   ``any_blocker_stream`` (#7) on the
    path's NEE shadow rays, on the NEE-eligible lanes only, against
    ``any_blocker`` (#2) on all of them and its plain version on a strided
    subset, then on 2,073,600 random shadow segments through the mesh,
    under both blocking rules: verdicts equal on >= 99.99%, at most 1% of
    the reference's blocked lanes differ, and 5-95% of the lanes are
-   blocked; both timed on the same live lanes sorted and in lane order.
+   blocked; both timed on the same live lanes sorted and in lane order,
+   then on each iteration's sorted lanes of the frame (the per-bounce
+   times, beside each live count).
    Then ``onehot_fetch`` (#12) at rows
    128 x D 4,352 / 16,640 / 66,048 through its entry point (the probe's
    path), bit-equal to its plain version and to ``tab[:, idx]``, timed
@@ -126,13 +145,18 @@ The line before the last is a JSON object with one entry per kernel, whose
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6: for #5, #8 and #9 from the
-plain versions' counts of their algorithm's work in this run, which the
-counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
-must equal; #6 and #7 also carry the lane count of their plain time
-and their time on unsorted rays.  The counting builds of #5 and #11
-(``render_wavefront_counts``, ``gather_flux_counts``) have entries of
-their own, their launches counted over their 1080p / main-pass call.
+the operations counted per PERF.md section 6: for #5, #6 and #8-#11 from
+the plain versions' counts of their algorithm's work in this run, which
+the counting builds' counters (``counts``, with ``simt`` and
+``occupancy``) must equal; #6 and #7 also carry the lane count of their
+plain time, their time on unsorted rays and their per-bounce times, #1
+its times at the PPM eye pass's and the BDPT light trace's first launch,
+#6 ``floor_ms``, its bound without the flat super list's box tests.  The
+counting builds of #5, #6, #10 and
+#11 (``render_wavefront_counts``, ``nearest_hit_stream_counts``,
+``photon_trace_counts``, ``gather_flux_counts``) have entries of their
+own, their launches counted over their 1080p / main-pass / first-bounce
+call.
 The last line is ``{"ok": true,
 "device": {...}}``.  Renders and the OBJ scenes are
 written under
@@ -181,12 +205,15 @@ REPLACES = {
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
-REPLACES["render_wavefront_counts"] = REPLACES["render_wavefront"]
-REPLACES["gather_flux_counts"] = REPLACES["gather_flux"]
+for _k in ("render_wavefront", "photon_trace", "gather_flux",
+           "nearest_hit_stream"):
+    REPLACES[f"{_k}_counts"] = REPLACES[_k]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
+           "photon_trace_counts": PPM_SOURCE,
            "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
+           "nearest_hit_stream_counts": MESH_SOURCE,
            "any_blocker_stream": MESH_SOURCE, "onehot_fetch": PROBE_SOURCE}
 # the __global__ functions of each entry, as ptxas names them
 PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
@@ -195,7 +222,8 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
                "onehot_fetch")
 # the kernels with a counting build (their *_counts entries)
-COUNTED = ("connect", "bdpt_eye", "render_wavefront", "gather_flux")
+COUNTED = ("connect", "bdpt_eye", "render_wavefront", "photon_trace",
+           "gather_flux", "nearest_hit_stream")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -209,7 +237,9 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
                "render_wavefront_counts": "pt_counting",
-               "gather_flux_counts": "ppm_counting"}
+               "photon_trace_counts": "photon_counting",
+               "gather_flux_counts": "ppm_counting",
+               "nearest_hit_stream_counts": "stream_counting"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -224,7 +254,9 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                            "threefry_rows"),
                 "probe": ("onehot_fetch",),
                 "pt_counting": ("render_wavefront_counts",),
-                "ppm_counting": ("gather_flux_counts",)}
+                "photon_counting": ("photon_trace_counts",),
+                "ppm_counting": ("gather_flux_counts",),
+                "stream_counting": ("nearest_hit_stream_counts",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS: the stream tier
 SUBSET = 65536            # lanes at least, strided, for #6/#7's plain sweeps
@@ -234,14 +266,14 @@ PROBE_ROWS, PROBE_D = 128, (4352, 16640, 66048)   # bench.py's texprobe shapes
 # test of a sphere or light ball, of a cluster box and of a triangle; one
 # BSDF sample, one BSDF evaluation, one BSDF pdf, one Threefry draw
 # (integer operations, counted at the float32 rate), one hitpoint-event
-# distance test and the geometry of one BDPT connection row.  The PT and
-# stream kernels count the spheres and boxes of every ray of the first
-# bounce (their bounds are floors).  #8 and #9 count the work their
-# algorithm does, as the plain versions count it on the same inputs (the
-# counting builds are held to those counts): the evaluations and pdfs
-# where they run, and each walk's tests in the kernels' cluster order.  So
-# theirs bound the algorithm's work (the cluster walk tests walls that no
-# segment can cross), not the least work the function needs.
+# distance test and the geometry of one BDPT connection row.  #1-#4 and #7
+# count the spheres and boxes of every ray of the first bounce (their
+# bounds are floors).  #5, #6, #8-#11 count the work their algorithm does,
+# as the plain versions count it on the same inputs (the counting builds
+# are held to those counts): the evaluations and pdfs where they run, and
+# each walk's tests in the kernels' order.  So theirs bound the
+# algorithm's work (the cluster walk tests walls that no segment can
+# cross), not the least work the function needs.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS = dict(sphere=20, box=24, tri=50, sample=150, eval=110, pdf=60, draw=120,
@@ -290,6 +322,26 @@ def mega_ops(c: dict) -> int:
     return (walk_ops(c) + c["bsdf_samples"] * OPS["sample"]
             + c["evals"] * OPS["eval"] + c["pdfs"] * OPS["pdf"]
             + draws * OPS["draw"])
+
+
+def photon_ops(c: dict) -> int:
+    """#10's counted operations (the plain loop's counts): its walks' tests,
+    its BSDF samples and their draws, and a fold_in per iteration any
+    photon sampled in (its key is every photon's), not one per sample as
+    the kernel draws it."""
+    return (c["hit_spheres"] * OPS["sphere"] + c["hit_boxes"] * OPS["box"]
+            + c["hit_tris"] * OPS["tri"] + c["bsdf_samples"] * OPS["sample"]
+            + (c["draws"] + c["iteration_keys"]) * OPS["draw"])
+
+
+def stream_ops(c: dict, supers: bool = True) -> int:
+    """#6's counted operations (the plain model's counts of its walk):
+    sphere tests, super, cluster and block boxes, triangles.  Without
+    ``supers`` the super boxes are left out: every ray tests its octant's
+    whole flat super list, which the function itself does not need."""
+    return (c["spheres"] * OPS["sphere"]
+            + (c["supers"] * supers + c["clusters"] + c["blocks"])
+            * OPS["box"] + c["tris"] * OPS["tri"])
 
 
 def lane_share(c: dict, k: str) -> float:
@@ -406,10 +458,12 @@ def phase_occupancy() -> dict:
                   f"registers, {o['local_bytes']} B local, "
                   f"{o['smem_bytes']} B shared")
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
-    for k, o in {**cw.occupancy(), **cg.occupancy()}.items():
+    for k, o in {**cw.occupancy(), **cp.occupancy(),
+                 **cg.occupancy()}.items():
         occ[k] = o
         print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
               f"{o['threads']} threads = {o['warps_per_sm']} warps an SM, "
@@ -1137,14 +1191,54 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
           f"flags equal on {same:.6f} of rows, {n_valid} valid; fields within"
           f" rtol 1e-5 / atol 1e-6 on {close:.6f}, bit-equal {equal:.6f} of "
           "valid rows")
+    # ---- its counting build: exact on a pass of 4 x 4,096 photons,
+    # within 0.1% on the main path's pass ----
+    small = (pk, *ppm.photon_emission(scene, scene.num_lights * 4096, 4096,
+                                      kp), *targs[5:])
+    sev, svalid, skc = cp.photon_trace_counts(*small)
+    sev0, svalid0 = cp.photon_trace(*small)
+    check(torch.equal(svalid, svalid0) and torch.equal(sev[svalid],
+                                                       sev0[svalid]),
+          "photon_trace_counts 16,384 photons: events differ from #10's")
+    spc = cp.new_counts()
+    cp.photon_trace_plain(*small, counts=spc)
+    hold_counts("photon_trace 16,384 photons", skc, spc, cp.PLAIN_COUNTS,
+                exact=True)
+    _kernels.reset_counts()
+    ev_c, valid_c, kc = cp.photon_trace_counts(*targs)
+    counts["photon_counting"] = dict(_kernels.launches)
+    check(torch.equal(valid_c, valid) and torch.equal(ev_c[valid], ev[valid]),
+          "photon_trace_counts: events differ from #10's")
+    pc = cp.new_counts()
+    cp.photon_trace_plain(*targs, counts=pc)
+    hold_counts(f"photon_trace {P} photons", kc, pc, cp.PLAIN_COUNTS,
+                exact=False)
+    simt_p = dict(bounce=lane_share(kc, "bounce"),
+                  busy=kc["bounces"] / max(kc["warp_bounce_slots"], 1),
+                  busy_one_thread_a_photon=pc["bounces"]
+                  / max(pc["photon_warp_slots"], 1))
     tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
+    bnd = bound(P * 37 + tables + n_valid * 48 + ev.shape[0], photon_ops(pc))
+    # the wrapper makes no device round trip (the pass's key lives on the
+    # host), so its time is the kernel's plus the launch
+    ms = time_ms(lambda: cp.photon_trace(*targs), 10)
+    print(f"[ppm] photon_trace counts: {pc['bounces']} bounces ("
+          f"{pc['bounces'] / P:.3f} a photon), {pc['bsdf_samples']} samples,"
+          f" {pc['deposits']} deposits, {pc['hit_tris']} triangle tests; "
+          f"SIMT of the bounce step {simt_p['bounce']:.4f}, busy lanes "
+          f"{simt_p['busy']:.4f} (one thread a photon "
+          f"{simt_p['busy_one_thread_a_photon']:.4f}); bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel's {ms:.3f} ms")
     results.append(dict(
         name="photon_trace", max_abs_err=(ev[both] - ev_p[both]).abs().max()
-        .item(), ms=time_ms(lambda: cp.photon_trace(*targs), 3),
-        plain_ms=plain_ms,
-        **bound(P * 37 + tables + n_valid * 48 + ev.shape[0],
-                (P + n_valid) * (cast_ops(pk) + OPS["sample"]
-                                 + 4 * OPS["draw"]))))
+        .item(), ms=ms, plain_ms=plain_ms, counts=kc,
+        simt=simt_p, **bnd))
+    results.append(dict(
+        name="photon_trace_counts",
+        max_abs_err=(ev_c[both] - ev_p[both]).abs().max().item(),
+        ms=time_ms(lambda: cp.photon_trace_counts(*targs), 3),
+        plain_ms=plain_ms, **bnd))
 
     # ---- 11. gather_flux on the pass's hitpoints and #10's events ----
     events = ppm.PhotonEvents(ev, valid)
@@ -1244,18 +1338,13 @@ def phase_ppm_render(counts: dict, pass0) -> None:
           f"PPM path launches {c}")
 
 
-class _Recorded(Exception):
-    """Stops the recording render once its lanes are kept."""
-
-
 def stream_lanes(scene, cam):
-    """The lanes of the stream tier's first two iterations of the CLI's
-    1080p spp 4 frame (seed 0) on ``scene``, recorded from the path
-    itself: the arguments of its first two ``stream_hit`` calls (the rays,
-    the active lanes live) and ``stream_blocked`` calls (the NEE shadow
-    rays, the NEE-eligible lanes live), in lane order.  The render stops
-    at the second shadow call.  Returns the path's streamed tables and the
-    two iterations' lanes."""
+    """The lanes of every iteration of the stream tier's CLI 1080p spp 4
+    frame (seed 0) on ``scene``, recorded from the path itself: the
+    arguments of each ``stream_hit`` call (the rays, the active lanes
+    live) and ``stream_blocked`` call (the NEE shadow rays, the
+    NEE-eligible lanes live), in lane order, copied as they are handed
+    over.  Returns the path's streamed tables and the iterations' lanes."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators.pt import render_pt
     from path_tracing_tpu_torch.ops import cuda_stream as cst
@@ -1264,13 +1353,13 @@ def stream_lanes(scene, cam):
     hit, blocked, lanes = cst.stream_hit, cst.stream_blocked, []
 
     def record_hit(st, ro, rd, with_uv=False, live=None):
-        lanes.append(dict(st=st, ro=ro, rd=rd, live=live, with_uv=with_uv))
+        lanes.append(dict(st=st, ro=ro.clone(), rd=rd.clone(),
+                          live=live.clone(), with_uv=with_uv))
         return hit(st, ro, rd, with_uv=with_uv, live=live)
 
     def record_blocked(st, p1, rd, max_d, rule, live=None):
-        lanes[-1].update(p1=p1, srd=rd, md=max_d, elig=live, rule=rule)
-        if len(lanes) == 2:
-            raise _Recorded
+        lanes[-1].update(p1=p1.clone(), srd=rd.clone(), md=max_d.clone(),
+                         elig=live.clone(), rule=rule)
         return blocked(st, p1, rd, max_d, rule, live=live)
 
     cst.stream_hit, cst.stream_blocked = record_hit, record_blocked
@@ -1278,15 +1367,13 @@ def stream_lanes(scene, cam):
         render_pt(scene, cam, W, H, SPP,
                   RenderConfig(width=W, height=H, spp=SPP),
                   rng.fold_in(rng.prng_key(0), 0), tier="stream")
-    except _Recorded:
-        pass
     finally:
         cst.stream_hit, cst.stream_blocked = hit, blocked
-    check(len(lanes) == 2 and all(
+    check(len(lanes) >= 2 and all(
         "elig" in ln and ln["with_uv"] and ln["rule"]
         and ln["live"] is not None and ln["elig"] is not None
-        for ln in lanes), "the stream render's first two iterations were "
-          "not recorded")
+        for ln in lanes), "the stream render's iterations were not "
+          "recorded")
     return lanes[0]["st"], lanes
 
 
@@ -1348,6 +1435,138 @@ def blocker_verdicts(what: str, a, b, a_sub, c) -> float:
     return out
 
 
+def stream_counts(st, sro, srd, n_live, sub, counts: dict) -> dict:
+    """#6's counting build on the stream frame's first bounce (sorted, as
+    the path runs it): its (t, idx, kind) #6's bit for bit, its counters
+    the plain model's (``_count_stream_walk``) exactly on the strided
+    subset's live lanes and within 0.1% on every live lane, with the
+    triangle test's SIMT; #6's bound from the model's counts of the frame.
+    Returns the results of #6 and its counting build (times to come)."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+
+    nl = int(n_live)
+    sl = sub[sub < nl]
+    *kk, skc = cst.nearest_hit_stream_counts(st, sro[sl], srd[sl])
+    spc = cst.new_counts()
+    t_model = cst._count_stream_walk(st, sro[sl], srd[sl], spc)
+    check(torch.equal(t_model, kk[0]), "the walk model's t differs from "
+          "#6's on the subset")
+    hold_counts(f"nearest_hit_stream {sl.numel()} strided live lanes", skc,
+                spc, cst.PLAIN_COUNTS, exact=True)
+    _kernels.reset_counts()
+    *kk, kc = cst.nearest_hit_stream_counts(st, sro, srd, n_live)
+    counts["stream_counting"] = dict(_kernels.launches)
+    check(all(torch.equal(a, b) for a, b in zip(
+        kk, cst.nearest_hit_stream(st, sro, srd, n_live))),
+          "nearest_hit_stream_counts: (t, idx, kind) differ from #6's")
+    pc = cst.new_counts()
+    t0 = time.perf_counter()
+    cst._count_stream_walk(st, sro[:nl], srd[:nl], pc)
+    model_s = time.perf_counter() - t0
+    hold_counts(f"nearest_hit_stream {nl} live lanes", kc, pc,
+                cst.PLAIN_COUNTS, exact=False)
+    tables = sum(x.numel() for x in (st.sph, st.tri, st.cl, st.sup,
+                                     st.blk)) * 4
+    nbytes = tables + nl * 24 + sro.shape[0] * 12
+    bnd = bound(nbytes, stream_ops(pc))
+    floor_ms = bound(nbytes, stream_ops(pc, supers=False))["bound_ms"]
+    simt = dict(tri=lane_share(kc, "tri"))
+    print(f"[mesh] nearest_hit_stream counts ({model_s:.1f} s for the "
+          f"model): {pc['supers']} super, {pc['clusters']} cluster, "
+          f"{pc['blocks']} block boxes, {pc['tris']} triangle tests "
+          f"({pc['tris'] / max(nl, 1):.1f} a ray); SIMT of the triangle test"
+          f" {simt['tri']:.4f}; bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), {floor_ms:.4f} ms without the super boxes")
+    return {"nearest_hit_stream": dict(name="nearest_hit_stream", counts=kc,
+                                       simt=simt, floor_ms=floor_ms, **bnd),
+            "nearest_hit_stream_counts": dict(
+                name="nearest_hit_stream_counts",
+                ms=time_ms(lambda: cst.nearest_hit_stream_counts(
+                    st, sro, srd, n_live), 3), **bnd)}
+
+
+def per_bounce(st, lanes, res: dict) -> None:
+    """#6's and #7's times on each iteration's sorted lanes of the stream
+    frame, beside the live count each is handed."""
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+
+    for name in ("nearest_hit_stream", "any_blocker_stream"):
+        res[name]["per_bounce"] = []
+    for it, ln in enumerate(lanes):
+        (sro, srd), n_live = sort_lanes(st, ln["ro"], ln["rd"], ln["live"])
+        (sp1, ssrd, smd), n_elig = sort_lanes(st, ln["p1"], ln["srd"],
+                                              ln["elig"], ln["md"])
+        rows = (("nearest_hit_stream", int(n_live), time_ms(
+                    lambda: cst.nearest_hit_stream(st, sro, srd, n_live), 5)),
+                ("any_blocker_stream", int(n_elig), time_ms(
+                    lambda: cst.any_blocker_stream(st, sp1, ssrd, smd,
+                                                   ln["rule"], n_elig), 5)))
+        for name, n, ms in rows:
+            res[name]["per_bounce"].append(dict(n_live=n, ms=ms))
+        print(f"[mesh] bounce {it}: nearest_hit_stream {rows[0][2]:.4f} ms "
+              f"on {rows[0][1]} live lanes, any_blocker_stream "
+              f"{rows[1][2]:.4f} ms on {rows[1][1]}")
+    for name in ("nearest_hit_stream", "any_blocker_stream"):
+        pb = res[name]["per_bounce"]
+        print(f"[mesh] {name} over the frame's {len(pb)} iterations: "
+              f"{sum(r['ms'] for r in pb):.3f} ms "
+              f"(mean {sum(r['ms'] for r in pb) / len(pb):.4f})")
+
+
+def retime_nearest_hit(parsed, row: dict) -> None:
+    """#1 at the shapes its main paths launch it on: the first launch of
+    the PPM eye pass (the first 512x512 pass of cornell, 262,144 rays) and
+    of the BDPT light trace (the 1080p frame's, spl 8), recorded from the
+    integrators' own calls; adds each time (device-only by CUDA-graph
+    replay, and with the host's enqueue), lane count and bound to #1's row
+    beside its 1080p time."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import bdpt, ppm
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    scene = parsed.to_device("cuda")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      PPM_W, PPM_H, device="cuda")
+    key = rng.fold_in(rng.prng_key(0), 0)
+    idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
+    ppm_cfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
+                           eye_depth=4, light_depth=4)
+    bdpt_cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                            light_depth=4, bdpt_resample_vertices=RIS_K)
+    for what, mod, call in (
+            ("ppm_eye", ppm, lambda: ppm.ppm_eye_trace(
+                scene, cam, ppm_cfg, idx % PPM_W, idx // PPM_W,
+                rng.fold_in(key, 1))),
+            ("bdpt_light", bdpt, lambda: bdpt.light_side(scene, bdpt_cfg, SPL,
+                                                         key))):
+        got, own = [], mod.nearest_hit
+
+        def first(pk, ro, rd, **kw):
+            if not got:
+                got.append((pk, ro.clone(), rd.clone()))
+            return own(pk, ro, rd, **kw)
+
+        mod.nearest_hit = first
+        try:
+            call()
+        finally:
+            mod.nearest_hit = own
+        pk, ro, rd = got[0]
+        n = ro.shape[0]
+        row[what] = dict(
+            rays=n, ms=graph_ms(lambda: ci.nearest_hit(pk, ro, rd), 20),
+            host_ms=time_ms(lambda: ci.nearest_hit(pk, ro, rd), 20),
+            **bound(n * (24 + 44), n * cast_ops(pk)))
+        print(f"[kernels] nearest_hit on the {what} path's first launch: "
+              f"{n} rays, {row[what]['ms']:.4f} ms device-only (graph "
+              f"replay), {row[what]['host_ms']:.4f} ms a call with the host,"
+              f" bound {row[what]['bound_ms']:.5f} ms "
+              f"({row[what]['bound_by']})")
+
+
 def phase_mesh_kernels(counts: dict) -> tuple:
     """#6 and #7 on the stream tier's lanes of the 327,680-triangle
     textured frame, against #1/#2 on every live lane and their plain
@@ -1381,7 +1600,7 @@ def phase_mesh_kernels(counts: dict) -> tuple:
           f"cluster rows, {st.n_super} supers, {st.blk.shape[0]} blocks")
     sub = torch.arange(0, B, B // SUBSET, device="cuda")
     hit_err, blk_err, res = 0.0, 0.0, {}
-    for it, ln in enumerate(lanes):
+    for it, ln in enumerate(lanes[:2]):
         (sro, srd), n_live = sort_lanes(st, ln["ro"], ln["rd"], ln["live"])
         nl = int(n_live)        # the live lanes sort first
         uro, urd = (x[ln["live"]].contiguous() for x in (ln["ro"], ln["rd"]))
@@ -1430,11 +1649,11 @@ def phase_mesh_kernels(counts: dict) -> tuple:
               f"{ms_u:.3f} ms unsorted; #1 {ms_1:.3f} ms; plain "
               f"{plain_ms:.1f} ms on {sub.numel()} lanes")
         if it == 0:
-            res["nearest_hit_stream"] = dict(
-                name="nearest_hit_stream", ms=ms_s, plain_ms=plain_ms,
-                plain_lanes=sub.numel(), unsorted_ms=ms_u,
-                **bound(B * 12 + nl * 24, nl * (
-                    (st.ns + st.nl) * OPS["sphere"] + st.n_super * OPS["box"])))
+            res.update(stream_counts(st, sro, srd, n_live, sub, counts))
+            res["nearest_hit_stream"].update(
+                ms=ms_s, plain_ms=plain_ms, plain_lanes=sub.numel(),
+                unsorted_ms=ms_u)
+            res["nearest_hit_stream_counts"]["plain_ms"] = plain_ms
         # ---- 7 against #2 and its plain version on the NEE lanes ----
         (sp1, ssrd, smd), n_elig = sort_lanes(st, ln["p1"], ln["srd"],
                                               ln["elig"], ln["md"])
@@ -1485,7 +1704,9 @@ def phase_mesh_kernels(counts: dict) -> tuple:
         blk_err = max(blk_err, blocker_verdicts(
             f"random segments dielectrics_block={rule}", a, b, a[sub], c))
     res["nearest_hit_stream"]["max_abs_err"] = hit_err
+    res["nearest_hit_stream_counts"]["max_abs_err"] = hit_err
     res["any_blocker_stream"]["max_abs_err"] = blk_err
+    per_bounce(st, lanes, res)
 
     # ---- 12. the probe through its entry point, then against its plain
     # version and tab[:, idx] ----
@@ -1594,6 +1815,8 @@ def main() -> int:
     counts: dict = {}
     results = phase_kernels(p.to_device("cuda"), cam, m.to_device("cuda"),
                             mesh_cam, counts)
+    retime_nearest_hit(p, next(r for r in results
+                               if r["name"] == "nearest_hit"))
     phase_render(counts)
     phase_textured(counts)
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
@@ -1617,7 +1840,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("plain_lanes", "unsorted_ms", "counts", "simt", "occupancy",
+    extra = ("plain_lanes", "unsorted_ms", "per_bounce", "ppm_eye",
+             "bdpt_light", "floor_ms", "counts", "simt", "occupancy",
              "host_ms", "library_host_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

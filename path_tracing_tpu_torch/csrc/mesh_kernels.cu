@@ -18,28 +18,50 @@
 // [min3 max3 0 count | super order per octant]; blk (NB, 8) [min3 max3 0 0]
 // per 32-triangle block.
 //
-// One thread per ray.  The TPU kernel streams 8-block windows of the
-// triangle table through VMEM by DMA, double-buffered across a super's
-// children, and culls per 4096-ray tile in the tile's lane-0 octant order.
-// Here every thread walks on its own: the spheres, then the supers in its
-// own octant's front-to-back order, each entered super's children in
-// their order, each entered cluster's 32-triangle blocks, and the
-// Moller-Trumbore test (pallas_intersect.py _mt_from_edges) on the edges
-// stored at pack time, so t equals #1's bit for bit.  Every box is culled
-// against the thread's running best t (#7: the segment length, and the
-// walk ends once the ray is blocked); culling never changes a result,
-// and between two hits at exactly the same t the first visited wins, so
-// on rare lanes the triangle (not t) differs from the TPU kernel's, whose
-// visit order is its tile's.  Lanes at or past *n_live (the ray sort puts
-// dead lanes last) write the miss and skip all work.
-// Bound on this card: operations.  A ray tests every sphere and the 80
-// super boxes of the 327,680-triangle mesh, then the clusters, blocks and
-// triangles its walk enters (data-dependent), for 28-40 bytes of ray in
-// and 12 (#6) or 1 (#7) out.  The rays are coherence-sorted so that
-// neighbouring threads walk the same boxes and read the same rows (the
-// table, 17.7 MB at that size, stays in the 50 MB L2).  Threads of a warp
-// still diverge where their walks part; shared-memory staging of a warp's
-// common blocks is later work.
+// The TPU kernels stream 8-block windows of the triangle table through
+// VMEM by DMA, double-buffered across a super's children, and cull per
+// 4096-ray tile in the tile's lane-0 octant order.  Here both walk the
+// spheres, then the supers in the ray's own octant's front-to-back order,
+// each entered super's children in their order, each entered cluster's
+// 32-triangle blocks, and the Moller-Trumbore test (pallas_intersect.py
+// _mt_from_edges) on the edges stored at pack time, so t equals #1's bit
+// for bit.  Every box is culled against the ray's running best t (#7: the
+// segment length, and the walk ends once the ray is blocked); culling
+// never changes a result, and between two hits at exactly the same t the
+// first visited wins, so on rare lanes the triangle (not t) differs from
+// the TPU kernel's, whose visit order is its tile's.  Lanes at or past
+// *n_live (the ray sort puts dead lanes last) write the miss and skip all
+// work.
+//
+// #7 walks one thread per ray (stream_walk).  #6 is the design for this
+// card: the warp walks.  It ballots its live lanes' octants and walks once
+// per octant present (sorted rays carry the octant in the key's top bits,
+// so nearly every warp has one), the lanes of that octant together; a box
+// is entered by the warp if any lane enters it, and each lane decides for
+// itself, against its own running t, whether it tests the box's contents.
+// So each lane visits exactly the boxes and triangles of its own walk, in
+// the same order: t, idx and kind are the per-thread walk's bit for bit,
+// ties included.  A block that some lane enters is staged once per warp
+// into shared memory (32 rows of 48 bytes, one a lane, coalesced); its
+// lanes then read the rows as broadcasts.  The slab test reads a box as
+// two float4 and takes its NaN-propagating min/max as one instruction
+// each (min.NaN / max.NaN): the same verdicts as slab_hit.  Measured on an
+// H100 on the stream frame's first bounce (PERF.md section 6), against the
+// per-thread walk's 1.63 ms: the warp walk alone 1.66, without staging
+// (rows read with __ldg) 1.81; float4 boxes and 12 blocks an SM 1.54; the
+// one-instruction min/max 1.29; 10 blocks an SM (48 registers) 1.27; the
+// per-thread walk with that same box test and launch bounds 1.37.
+// Bound on this card: operations.  A camera ray of the 327,680-triangle
+// mesh tests all 128 super boxes (70% of the counted operations), 3.8
+// cluster and 1.2 block boxes and 17.7 triangles; 28-40 bytes of ray in
+// and 12 (#6) or 1 (#7) out, the table (17.7 MB) staying in the 50 MB L2.
+// The counting build (kCount) counts the rays, the sphere tests, the
+// super, cluster and block boxes, the triangles, and the lanes testing a
+// staged block's triangles against 32 a step (the test's SIMT
+// efficiency: 0.26 on that frame, the lanes of a warp entering different
+// blocks).
+
+#include <type_traits>
 
 #include "pt_device.cuh"
 
@@ -62,12 +84,11 @@ struct StreamTables {
   const float* __restrict__ blk;
 };
 
-// Moller-Trumbore on a stored row [v0 e1 e2 ...] (48 bytes, 16-aligned):
-// triangle_t's arithmetic from the edges on, with t > t_lo.
-__device__ __forceinline__ bool mt_edges(V3 ro, V3 rd, const float* __restrict__ T, float t_lo,
-                                         float* t_out) {
-  const float4* T4 = reinterpret_cast<const float4*>(T);
-  const float4 a = __ldg(T4), b = __ldg(T4 + 1), c = __ldg(T4 + 2);
+// Moller-Trumbore on a stored row [v0 e1 e2 ...] (48 bytes, 16-aligned)
+// held as three float4 a, b, c: triangle_t's arithmetic from the edges
+// on, with t > t_lo.
+__device__ __forceinline__ bool mt_row(V3 ro, V3 rd, float4 a, float4 b, float4 c, float t_lo,
+                                       float* t_out) {
   V3 v0 = mk(a.x, a.y, a.z);
   V3 e1 = mk(a.w, b.x, b.y);
   V3 e2 = mk(b.z, b.w, c.x);
@@ -82,6 +103,13 @@ __device__ __forceinline__ bool mt_edges(V3 ro, V3 rd, const float* __restrict__
   float t = f * dot3(e2, q);
   *t_out = t;
   return !parallel && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_lo);
+}
+
+// mt_row on the row at T in global memory
+__device__ __forceinline__ bool mt_edges(V3 ro, V3 rd, const float* __restrict__ T, float t_lo,
+                                         float* t_out) {
+  const float4* T4 = reinterpret_cast<const float4*>(T);
+  return mt_row(ro, rd, __ldg(T4), __ldg(T4 + 1), __ldg(T4 + 2), t_lo, t_out);
 }
 
 __device__ __forceinline__ int octant(V3 rd) {
@@ -125,22 +153,6 @@ __device__ void stream_walk(const StreamTables& tb, int oct, Visit& w) {
   }
 }
 
-struct NearestWalk {
-  V3 ro, rd, inv;
-  float t;
-  int idx, kind;
-  __device__ bool enters(const float* B) const { return slab_hit(B, ro, inv, kEps, t); }
-  __device__ bool done() const { return false; }
-  __device__ void test(int i, const float* T) {
-    float tt;
-    if (mt_edges(ro, rd, T, kEps, &tt) && tt < t) {
-      t = tt;
-      idx = i;
-      kind = 3;
-    }
-  }
-};
-
 struct BlockerWalk {
   V3 ro, rd, inv;
   float md;
@@ -157,24 +169,157 @@ struct BlockerWalk {
   }
 };
 
-__global__ void nearest_hit_stream_kernel(StreamTables tb, const float* __restrict__ ro_in,
-                                          const float* __restrict__ rd_in, int B,
-                                          const int* __restrict__ n_live, float* __restrict__ t_out,
-                                          int* __restrict__ idx_out, int* __restrict__ kind_out) {
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStreamMinBlocks = 10;  // #6's __launch_bounds__: 40 warps an SM
+
+// NaN-propagating min and max in one instruction each (sm_80 on): equal
+// in value to jmin and jmax, a zero's sign aside, which no comparison sees
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// slab_hit on a 16-aligned box row [min3 max3 ...] read as two float4:
+// the same products and the same verdict, with two loads where slab_hit
+// makes six and one instruction for each of its NaN-propagating min/max
+__device__ __forceinline__ bool box_hit(const float* __restrict__ B, V3 ro, V3 inv, float tlimit) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(B));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(B) + 1);
+  const float t0x = (a.x - ro.x) * inv.x, t1x = (a.w - ro.x) * inv.x;
+  const float t0y = (a.y - ro.y) * inv.y, t1y = (b.x - ro.y) * inv.y;
+  const float t0z = (a.z - ro.z) * inv.z, t1z = (b.y - ro.z) * inv.z;
+  const float tn = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+                           max_nan(min_nan(t0z, t1z), kEps));
+  const float tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
+  return (tn <= tf) && (tn < tlimit);
+}
+
+// #6's counters (ops/cuda_stream.py::COUNT_NAMES): the live rays, the
+// walk's tests, and the lanes and slots of the block's triangle test
+enum StreamCountIdx {
+  kSRays, kSSpheres, kSSupers, kSClusters, kSBlocks, kSTris, kSTriLanes, kSTriSlots, kSCounts
+};
+
+// #6's walk, taken by a whole warp for the lanes of one octant.  Every
+// lane calls each member on the same box (the control flow is the
+// warp's); `act` says whether the lane takes part (it entered the parent
+// box), and each lane decides against its own running t whether it enters
+// a box, so it visits exactly the boxes and triangles, in the same order,
+// that its own walk visits.  A block that some lane enters is staged once
+// into the warp's 32 rows of shared memory; its lanes then read the rows
+// as broadcasts.
+template <class Ctr>
+struct WarpNearest {
+  StreamTables tb;
+  float4* stage;  // the warp's kTB rows of 3 float4
+  Ctr& cnt;
+  int lane;
+  V3 ro, rd, inv;
+  float t;
+  int idx, kind;
+
+  // the lane takes part and the slab test of box B passes against its t
+  __device__ bool enters(bool act, const float* B, int counter) {
+    if (!act) return false;
+    cnt.add(counter);
+    return box_hit(B, ro, inv, t);
+  }
+
+  __device__ void cluster(int c, bool act) {
+    const float* C = tb.cl + (size_t)c * kSclCols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    const bool in_c = enters(act, C, kSClusters);
+    if (!__any_sync(kFull, in_c)) return;
+    const int b0 = (int)C[6] / kTB;
+    const int nblk = (count + kTB - 1) / kTB;
+    for (int j = 0; j < nblk; ++j) {
+      const bool in_b = enters(in_c, tb.blk + (size_t)(b0 + j) * kBlkCols, kSBlocks);
+      const unsigned mb = __ballot_sync(kFull, in_b);
+      if (!mb) continue;
+      const int base = (b0 + j) * kTB;
+      const int n = min(kTB, count - j * kTB);  // the block's padding never hits
+      // stage the block: lane l copies row l, 48 bytes in three 16-byte loads
+      const float4* rows = reinterpret_cast<const float4*>(tb.tri + (size_t)base * kStriCols);
+      if (lane < n) {
+        stage[3 * lane] = __ldg(rows + 3 * lane);
+        stage[3 * lane + 1] = __ldg(rows + 3 * lane + 1);
+        stage[3 * lane + 2] = __ldg(rows + 3 * lane + 2);
+      }
+      __syncwarp();
+      if (in_b) {
+        cnt.add(kSTris, (unsigned)n);
+        for (int k = 0; k < n; ++k) {
+          float tt;
+          if (mt_row(ro, rd, stage[3 * k], stage[3 * k + 1], stage[3 * k + 2], kEps, &tt) &&
+              tt < t) {
+            t = tt;
+            idx = base + k;
+            kind = 3;
+          }
+        }
+      }
+      if (lane == __ffs(mb) - 1) {
+        cnt.add(kSTriLanes, (unsigned)(__popc(mb) * n));
+        cnt.add(kSTriSlots, 32u * n);
+      }
+      __syncwarp();  // every lane is done with the rows before they refill
+    }
+  }
+
+  // supers in octant oct's front-to-back order, each entered super's
+  // children in theirs; or the clusters in table order below
+  // SUPER_MIN_CLUSTERS
+  __device__ void walk(int oct, bool act) {
+    if (tb.nsup == 0) {
+      for (int c = 0; c < tb.nc; ++c) cluster(c, act);
+      return;
+    }
+    for (int si = 0; si < tb.nsup; ++si) {
+      const int s = (int)tb.sup[(size_t)si * kSupCols + 8 + oct];
+      const float* S = tb.sup + (size_t)s * kSupCols;
+      if ((int)S[7] <= 0) continue;
+      const bool in_s = enters(act, S, kSSupers);
+      if (!__any_sync(kFull, in_s)) continue;
+      const int base = s * kSuper;
+      for (int k = 0; k < kSuper; ++k)
+        cluster(base + (int)tb.cl[(size_t)(base + k) * kSclCols + 8 + oct], in_s);
+    }
+  }
+};
+
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
+    nearest_hit_stream_kernel(StreamTables tb, const float* __restrict__ ro_in,
+                              const float* __restrict__ rd_in, int B,
+                              const int* __restrict__ n_live, float* __restrict__ t_out,
+                              int* __restrict__ idx_out, int* __restrict__ kind_out,
+                              unsigned long long* __restrict__ counts) {
+  __shared__ __align__(16) float4 stage[kThreads / 32][kTB * 3];
+  typename std::conditional<kCount, CountN<kSCounts>, NoCount>::type cnt;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  NearestWalk w;
-  w.t = kInf;
-  w.idx = -1;
-  w.kind = 0;
-  if (i < (n_live ? *n_live : B)) {
+  const bool live = i < B && i < (n_live ? *n_live : B);
+  const V3 zero = mk(0.f, 0.f, 0.f);
+  WarpNearest<decltype(cnt)> w{tb, stage[threadIdx.x >> 5], cnt, (int)(threadIdx.x & 31),
+                               zero, zero, zero, kInf, -1, 0};
+  int oct = 0;
+  if (live) {
+    cnt.add(kSRays);
     w.ro = load3(ro_in, i);
     w.rd = load3(rd_in, i);
     // spheres, then light balls, in table order: the reference tie-break
     for (int s = 0; s < tb.ns + tb.nl; ++s) {
       const float* S = tb.sph + s * kSphCols;
       V3 oc;
-      float t = sphere_t(w.ro, w.rd, S, INFINITY, &oc);
+      cnt.add(kSSpheres);
+      const float t = sphere_t(w.ro, w.rd, S, INFINITY, &oc);
       if (t < w.t) {
         w.t = t;
         w.idx = s;
@@ -182,11 +327,25 @@ __global__ void nearest_hit_stream_kernel(StreamTables tb, const float* __restri
       }
     }
     w.inv = mk(safe_inv(w.rd.x), safe_inv(w.rd.y), safe_inv(w.rd.z));
-    stream_walk(tb, octant(w.rd), w);
+    oct = octant(w.rd);
   }
-  t_out[i] = w.t;
-  idx_out[i] = w.idx;
-  kind_out[i] = w.kind;
+  if (tb.nsup == 0) {
+    w.walk(0, live);  // the flat walk's order is every octant's
+  } else {
+    // once per octant among the warp's live lanes (sorted rays: mostly one)
+    unsigned octs = __reduce_or_sync(kFull, live ? 1u << oct : 0u);
+    while (octs) {
+      const int o = __ffs(octs) - 1;
+      octs &= octs - 1;
+      w.walk(o, live && oct == o);
+    }
+  }
+  if (i < B) {
+    t_out[i] = w.t;
+    idx_out[i] = w.idx;
+    kind_out[i] = w.kind;
+  }
+  if constexpr (kCount) cnt.flush(counts);
 }
 
 __global__ void any_blocker_stream_kernel(StreamTables tb, const float* __restrict__ p1_in,
@@ -249,9 +408,22 @@ int pt_nearest_hit_stream(const float* sph, int ns, int nl, const float* tri, co
                           int nc, const float* sup, int nsup, const float* blk, const float* ro,
                           const float* rd, int B, const int* n_live, float* t, int* idx, int* kind,
                           void* stream) {
-  nearest_hit_stream_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+  nearest_hit_stream_kernel<false><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
       make_stream_tables(sph, ns, nl, tri, cl, nc, sup, nsup, blk), ro, rd, B, n_live, t, idx,
-      kind);
+      kind, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The counting build of #6: the same (t, idx, kind), and the work counters
+// added into counts[kSCounts] (zeroed by the caller).
+int pt_nearest_hit_stream_counts(const float* sph, int ns, int nl, const float* tri,
+                                 const float* cl, int nc, const float* sup, int nsup,
+                                 const float* blk, const float* ro, const float* rd, int B,
+                                 const int* n_live, float* t, int* idx, int* kind,
+                                 unsigned long long* counts, void* stream) {
+  nearest_hit_stream_kernel<true><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_stream_tables(sph, ns, nl, tri, cl, nc, sup, nsup, blk), ro, rd, B, n_live, t, idx,
+      kind, counts);
   return (int)cudaGetLastError();
 }
 

@@ -11,23 +11,43 @@
 //                   gather_flux_pallas (_gather_kernel): the exact join of
 //                   hitpoints and photon events over 27 neighbour cells.
 //
-// #10: one thread per photon runs its whole bounce loop (nearest hit, the
-// deposit, the BSDF sample, the flux update) and leaves it when the photon
-// dies.  It draws the XLA scan's Threefry stream in the thread: bounce `it`
-// takes rows 0-2 of fold_in(k408, it), k408 = fold_in(key, 0x408) from the
-// host, at the lane's counter j*total + start + lane, so its events are the
-// scan's and the plain version's.  A deposit is a non-delta bounce, which
-// raises the photon's depth, so a photon deposits at most once per depth:
-// event row dep*P + lane has one writer and needs no atomics.  Rows are
-// [pos3, normal3, wi3, flux3], the layout the gather's prep sorts; the
-// wrapper zeroes the valid flags, and rows never written are never read.
-// Bound on this card: compute per thread.  Each bounce walks every sphere
-// and the clusters the ray enters (45 primitive tests on the 36-triangle
-// cornell box) for 12 events' worth of bytes, so the 218 MB of events a
-// 1M-photon pass writes take 0.07 ms at 3.35 TB/s while the ray tests take
-// longer; photons that die early leave their warp waiting on the longest
-// path.  Sorting photons by their fate or compacting live lanes is later
-// work.
+// #10: the design for this card.  Persistent blocks of kPhotonThreads fill
+// the card (as many an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives at the first launch: 8); each lane traces one photon at a time
+// through its whole bounce loop (nearest hit, the deposit, the BSDF
+// sample, the flux update) and, when the photon dies,
+// takes the next photon index from a global counter (one atomicAdd a warp
+// step for the lanes that need work, ballot and shuffle; indices that are
+// not real are skipped).  Photons live 1 to iters bounces (light depth
+// plus the delta budget; mirror and glass chains run longest), so one
+// thread a photon left each warp waiting on its longest photon: its lanes
+// were busy 0.48 of their warp's bounce slots on cornell's first 512^2
+// pass, and are 0.89 here (the rest is the tail, when the counter has run
+// out and the last photons finish).  The photon keeps its own index: it
+// draws the XLA scan's Threefry stream (bounce it takes rows 0-2 of
+// fold_in(k408, it), k408 = fold_in(key, 0x408) from the host, at counter
+// j*total + start + photon), so its events are the scan's and the plain
+// version's, and the atomic only hands out work.  A deposit is a
+// non-delta bounce, which raises the photon's depth, so a photon deposits
+// at most once per depth: event row dep*P + photon has one writer and
+// needs no atomics.  Rows are [pos3, normal3, wi3, flux3] (48 bytes, the
+// layout the gather's prep sorts), written as three 16-byte stores; the
+// wrapper zeroes the valid flags and the counter, and rows never written
+// are never read.  Measured on an H100 (PERF.md section 6): 1.22 ms
+// against the one-thread-a-photon kernel's 1.98 in turns, bit-equal on
+// every event row.  The parent already held 8 blocks an SM (62
+// registers), so the gain is work stealing's; __launch_bounds__ for 6
+// blocks (62 registers, 8 resident) ran 0.5-1% faster than for 8 (60) or
+// none, for 10 and 12 (48 and 40 registers, spilling) 1-9% slower, and
+// fewer resident blocks (4 or 6 an SM: a shorter tail, less latency
+// hidden) 4-19% slower.
+// Bound on this card: operations.  A pass of 1M photons on cornell makes
+// 4.4 bounces a photon, each walking every sphere and cluster box and the
+// triangles of the boxes it enters (24.5 a bounce), for 48 bytes an event
+// (155 MB) written once.  The counting build (kCount) counts the photons,
+// the bounces, the walk's tests, the BSDF samples, draws and deposits, the
+// SIMT efficiency of the bounce step and each warp's most bounces in one
+// lane (the busy share of its lanes).
 //
 // #11: the design for this card.  prepare (ops/cuda_ppm_gather.py) cuts
 // the gathered hitpoint rows into work items: a cell's rows in sorted
@@ -61,6 +81,7 @@
 // of the pair test and the evaluation, and each warp's candidate pairs
 // (the largest against the mean: how far the densest cells set the pace).
 
+#include <algorithm>
 #include <type_traits>
 
 #include "pt_device.cuh"
@@ -69,6 +90,7 @@ using namespace ptk;
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kEvCols = 12;  // pos3 normal3 wi3 flux3
 constexpr int kHpCols = 20;  // pos3 normal3 wo3 bc3 rough metal eta tp3 0 0
 constexpr int kWinCols = 18; // [lo, hi) of windows 0..8
@@ -79,51 +101,136 @@ struct PhotonCfg {
   int light_depth, iters;
 };
 
-// One photon, iteration for iteration its lane of the XLA scan
-// (path_tracing_tpu/integrators/ppm.py ppm_photon_trace): a lane that is
-// not alive is untouched by later iterations, so the thread stops.
-__global__ void photon_trace_kernel(Tables tb, const float* __restrict__ ro_in,
-                                    const float* __restrict__ rd_in,
-                                    const float* __restrict__ flux_in,
-                                    const bool* __restrict__ real, PhotonCfg g, int P,
-                                    float* __restrict__ ev, bool* __restrict__ valid) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P || !real[i]) return;
-  V3 ro = load3(ro_in, i), rd = load3(rd_in, i), flux = load3(flux_in, i);
+constexpr int kPhotonThreads = 128;
+constexpr int kPhotonMinBlocks = 6;  // __launch_bounds__: at most 85 registers
+
+// #10's counters (ops/cuda_photon.py::COUNT_NAMES): the walk's tests at
+// the BDPT kernels' indices (kHitSph, kHitBox, kHitTri), then its own
+enum PhotonCountIdx {
+  kPhotons = kNumCounts, kBounces, kPSamples, kPDraws, kDeposits, kBounceLanes, kBounceSlots,
+  kWarpBounceSlots, kPhotonCounts
+};
+
+// Each lane traces the photons it takes, one at a time, iteration for
+// iteration the photon's lane of the XLA scan (path_tracing_tpu/
+// integrators/ppm.py ppm_photon_trace): a lane that is not alive is
+// untouched by later iterations, so the photon is done.  A lane whose
+// photon is done takes the next index from *work (one atomicAdd a warp
+// step for the lanes that need one); indices that are not real are
+// skipped.  The photon keeps its own index, so its draws and its event
+// rows are the one-thread-per-photon kernel's.
+template <bool kCount>
+__global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
+    photon_trace_kernel(Tables tb, const float* __restrict__ ro_in,
+                        const float* __restrict__ rd_in, const float* __restrict__ flux_in,
+                        const bool* __restrict__ real, PhotonCfg g, int P, int* __restrict__ work,
+                        float* __restrict__ ev, bool* __restrict__ valid,
+                        unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, CountN<kPhotonCounts>, NoCount>::type cnt;
+  const int lane = threadIdx.x & 31;
+  int i = -1;         // the lane's photon: -1 before its first, >= P once the work is out
+  bool live = false;  // the photon bounces on
+  V3 ro = mk(0.f, 0.f, 0.f), rd = ro, flux = ro;
   float eta = 1.0f;
-  int dep = 0;
-  for (int it = 0; it < g.iters; ++it) {
-    HitRec h = nearest_hit_dev<false>(tb, ro, rd);
-    // a miss, a light ball or the depth limit ends the photon
-    if (h.flag != 1 || dep >= g.light_depth) break;
-    const V3 n = h.n;
-    const Mtl& m = h.m;
-    V3 pos = ro + scale(rd, h.t);
-    V3 wi_light = -rd;
-    if ((m.eta <= 0.0f) && ((m.metal < 0.99f) || (m.rough > 0.01f))) {
-      size_t r = (size_t)dep * P + i;
-      float* row = ev + r * kEvCols;
-      store3(row, 0, pos);
-      store3(row, 1, n);
-      store3(row, 2, wi_light);
-      store3(row, 3, flux);
-      valid[r] = true;
+  int dep = 0, it = 0;
+  unsigned my_bounces = 0;
+  while (true) {
+    // ---- a lane whose photon is done takes the next ----
+    const bool need = !live && i < P;
+    const unsigned nm = __ballot_sync(kFull, need);
+    if (nm) {
+      const int leader = __ffs(nm) - 1;
+      int base = 0;
+      if (lane == leader) base = atomicAdd(work, __popc(nm));
+      base = __shfl_sync(kFull, base, leader);
+      if (need) {
+        i = base + __popc(nm & ((1u << lane) - 1u));
+        if (i < P && real[i]) {
+          ro = load3(ro_in, i);
+          rd = load3(rd_in, i);
+          flux = load3(flux_in, i);
+          eta = 1.0f;
+          dep = it = 0;
+          live = g.iters > 0;
+          cnt.add(kPhotons);
+        }
+      }
     }
-    Key ki = fold_in(g.k408, (uint32_t)it);
-    BsdfSample b = bsdf_sample_dev(m, wi_light, n, uniform_at(ki, 0, i, g.start, g.total),
-                                   uniform_at(ki, 1, i, g.start, g.total),
-                                   uniform_at(ki, 2, i, g.start, g.total), eta);
-    if (!(b.pdf > 0.0f)) break;  // the photon pass kills pdf <= 0, deltas too
-    float w = b.is_delta ? 1.0f : fabsf(dot3(n, b.wi)) / jmax(b.pdf, 1e-20f);
-    V3 new_flux = scale(mul(flux, b.val), w);
-    if (!valid3(new_flux)) break;
-    V3 off = scale(dot3(b.wi, n) < 0.0f ? -n : n, kEps);
-    ro = pos + off;
-    rd = b.wi;
-    flux = new_flux;
-    eta = b.new_eta;
-    dep += b.is_delta ? 0 : 1;
+    if (!__any_sync(kFull, live || i < P)) break;
+    if (!live) continue;  // no photon this step; its warp goes on
+
+    // ---- one bounce of the lane's photon ----
+    ++my_bounces;
+    cnt.add(kBounces);
+    cnt.simt(kBounceLanes);
+    const HitRec h = nearest_hit_dev<false>(tb, ro, rd, cnt);
+    live = false;
+    // a miss, a light ball or the depth limit ends the photon
+    if (h.flag == 1 && dep < g.light_depth) {
+      const V3 n = h.n;
+      const Mtl& m = h.m;
+      const V3 pos = ro + scale(rd, h.t);
+      const V3 wi_light = -rd;
+      if ((m.eta <= 0.0f) && ((m.metal < 0.99f) || (m.rough > 0.01f))) {
+        // the deposit row [pos3 normal3 wi3 flux3] as three 16-byte stores
+        const size_t r = (size_t)dep * P + i;
+        float4* row = reinterpret_cast<float4*>(ev + r * kEvCols);
+        row[0] = make_float4(pos.x, pos.y, pos.z, n.x);
+        row[1] = make_float4(n.y, n.z, wi_light.x, wi_light.y);
+        row[2] = make_float4(wi_light.z, flux.x, flux.y, flux.z);
+        valid[r] = true;
+        cnt.add(kDeposits);
+      }
+      cnt.add(kPSamples);
+      cnt.add(kPDraws, 3u);
+      const Key ki = fold_in(g.k408, (uint32_t)it);
+      const BsdfSample b =
+          bsdf_sample_dev(m, wi_light, n, uniform_at(ki, 0, i, g.start, g.total),
+                          uniform_at(ki, 1, i, g.start, g.total),
+                          uniform_at(ki, 2, i, g.start, g.total), eta);
+      if (b.pdf > 0.0f) {  // the photon pass kills pdf <= 0, deltas too
+        const float w = b.is_delta ? 1.0f : fabsf(dot3(n, b.wi)) / jmax(b.pdf, 1e-20f);
+        const V3 new_flux = scale(mul(flux, b.val), w);
+        if (valid3(new_flux)) {
+          const V3 off = scale(dot3(b.wi, n) < 0.0f ? -n : n, kEps);
+          ro = pos + off;
+          rd = b.wi;
+          flux = new_flux;
+          eta = b.new_eta;
+          dep += b.is_delta ? 0 : 1;
+          live = ++it < g.iters;
+        }
+      }
+    }
   }
+  if constexpr (kCount) {
+    unsigned mx = my_bounces;
+    for (int o = 16; o > 0; o >>= 1) mx = max(mx, __shfl_down_sync(kFull, mx, o));
+    if (lane == 0) cnt.add(kWarpBounceSlots, 32u * mx);
+    cnt.flush(counts);
+  }
+}
+
+template <bool kCount>
+int launch_photon(const Tables& tb, const float* ro, const float* rd, const float* flux,
+                  const bool* real, int P, const PhotonCfg& g, int* work, float* ev, bool* valid,
+                  unsigned long long* counts, void* stream) {
+  // persistent blocks: as many as the card holds at once, or fewer
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photon_trace_kernel<kCount>,
+                                                          kPhotonThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    resident = sms * per_sm;
+  }
+  const int blocks = std::min(resident, (P + kPhotonThreads - 1) / kPhotonThreads);
+  photon_trace_kernel<kCount><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
+      tb, ro, rd, flux, real, g, P, work, ev, valid, counts);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kGatherRows = 32;   // rows of a work item at most: the block, one thread each
@@ -357,15 +464,37 @@ extern "C" {
 // Each entry launches on the caller's stream and returns cudaGetLastError()
 // (0 on success); the Python wrapper raises on anything else.
 
+// work: one int32, zeroed by the caller (the next photon to hand out);
+// valid holds zeros beforehand (rows never written are never read).
 int pt_photon_trace(const float* sph, int ns, int nl, const float* tri, const float* uv,
                     const float* cl, int nc, const float* ro, const float* rd, const float* flux,
                     const bool* real, int P, uint32_t k0, uint32_t k1, uint32_t start,
-                    uint32_t total, int light_depth, int iters, float* ev, bool* valid,
+                    uint32_t total, int light_depth, int iters, int* work, float* ev, bool* valid,
                     void* stream) {
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
-  photon_trace_kernel<<<blocks_for(P), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), ro, rd, flux, real, g, P, ev, valid);
-  return (int)cudaGetLastError();
+  return launch_photon<false>(make_tables(sph, ns, nl, tri, uv, cl, nc), ro, rd, flux, real, P, g,
+                              work, ev, valid, nullptr, stream);
+}
+
+// The counting build of #10: the same events, and the work counters added
+// into counts[kPhotonCounts] (zeroed by the caller).
+int pt_photon_trace_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                           const float* cl, int nc, const float* ro, const float* rd,
+                           const float* flux, const bool* real, int P, uint32_t k0, uint32_t k1,
+                           uint32_t start, uint32_t total, int light_depth, int iters, int* work,
+                           float* ev, bool* valid, unsigned long long* counts, void* stream) {
+  PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
+  return launch_photon<true>(make_tables(sph, ns, nl, tri, uv, cl, nc), ro, rd, flux, real, P, g,
+                             work, ev, valid, counts, stream);
+}
+
+// occupancy_row of photon_trace and photon_trace_counts in turn.
+int pt_photon_occupancy(int* out) {
+  cudaError_t err =
+      occupancy_row((const void*)photon_trace_kernel<false>, kPhotonThreads, 0, out);
+  if (err == cudaSuccess)
+    err = occupancy_row((const void*)photon_trace_kernel<true>, kPhotonThreads, 0, out + 5);
+  return (int)err;
 }
 
 static int launch_gather(const float* hp, const int* perm, const int* win, const float* ev,

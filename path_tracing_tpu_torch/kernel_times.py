@@ -1,24 +1,37 @@
-"""Time the PPM gather #11 ``gather_flux`` or the PT megakernel #5
-``render_wavefront`` on the card against other builds of it, on the main
-path's inputs:
+"""Time a redesigned kernel on the card against other builds of it, on
+the main path's inputs:
 
-    python -m path_tracing_tpu_torch.kernel_times --kernel gather_flux
+    python -m path_tracing_tpu_torch.kernel_times --kernel KERNEL
         [--old-csrc DIR]... [--reps N]
 
-``gather_flux``: the CLI's first 512x512 PPM pass on ``scenes/cornell.txt``
-(4 lights x 262,144 = 1,048,576 photons, depths 4, seed 0), the tables
-built by ``cuda_ppm_gather.prepare``.  ``render_wavefront``: the CLI's
-1920x1080 spp 4 frame on cornell (eye depth 4, seed 0).  The package's
-kernel is timed (CUDA events, the mean of ``--reps`` launches after a
-warm-up), then:
+``KERNEL`` and its inputs:
 
-- each ``--old-csrc DIR``: ``DIR/ppm_kernels.cu`` or ``DIR/pt_kernels.cu``
-  with its own ``pt_device.cuh`` (for example the parent commit's
-  ``csrc``, unpacked with ``git archive`` into the gitignored
-  ``path_tracing_tpu_torch/build/``), built with the same flags, called
-  through the argument list of the design before this one (``OLD_ARGS``)
-  and timed on the same inputs in turns (new, old, old, new), with the
-  share of hitpoints (flux and count) or pixels bit-equal to the new one.
+- ``gather_flux`` (#11): the CLI's first 512x512 PPM pass on
+  ``scenes/cornell.txt`` (4 lights x 262,144 = 1,048,576 photons, depths
+  4, seed 0), the tables built by ``cuda_ppm_gather.prepare``;
+- ``render_wavefront`` (#5): the CLI's 1920x1080 spp 4 frame on cornell
+  (eye depth 4, seed 0);
+- ``photon_trace`` (#10): that PPM pass's 1,048,576 emitted photons
+  (the wrapper makes no device round trip: the pass's key lives on the
+  host);
+- ``nearest_hit_stream`` (#6): the lanes of the first bounce of the
+  stream tier's 1920x1080 spp 4 frame on the 327,680-triangle textured
+  icosphere (seed 0), recorded from the render itself, sorted as the path
+  sorts them and unsorted (the live lanes in lane order); then that whole
+  frame rendered in the stream tier with the build's #6 in place of the
+  package's (its image compared pixel by pixel).
+
+The package's kernel is timed (CUDA events, the mean of ``--reps``
+launches after a warm-up), then each ``--old-csrc DIR``: the source of
+``KERNEL`` in ``DIR`` with its own ``pt_device.cuh`` (for example the
+parent commit's ``csrc``, unpacked with ``git archive`` into the
+gitignored ``path_tracing_tpu_torch/build/``, or a copy of it edited to
+try one change), all built at once with the same flags and timed on the
+same inputs in turns (new, old, old, new), with the share of rows
+(hitpoints, pixels, photons' event rows or lanes) bit-equal to the new
+one's.  A build that exports the counting entry ``pt_KERNEL_counts`` is
+called as the package calls its kernel; one without it through the
+argument list of the design before (``OLD_ARGS``).
 
 Prints one JSON object as its last line.  Needs a CUDA card.
 """
@@ -26,8 +39,8 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -36,35 +49,71 @@ import torch
 
 from .ops import _kernels
 
-SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu"}
+SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
+          "photon_trace": "ppm_kernels.cu",
+          "nearest_hit_stream": "mesh_kernels.cu"}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
-# the C entries of the designs before this one: #11 one thread per
+# the C entries of the designs before the counted ones: #11 one thread per
 # hitpoint (hp hp_cell perm B | win ev r2 | flux count | stream), #5 one
-# thread per pixel (no work counter)
+# thread per pixel (no work counter), #10 one thread per photon (no work
+# counter); #6 kept its argument list
 OLD_ARGS = {
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
                                    _U, _U, _U, _F, _I, _I, _P, _P],
+    "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
+                                          _P],
 }
 PPM_W = PPM_H = 512
 PPM_SPL = 262144
 W, H, SPP = 1920, 1080, 4
+BIG_TRIS = 327680
+ROOT = Path(__file__).resolve().parent.parent
 
 
-def build(src_dir: Path, kernel: str, tag: str, argtypes):
-    """nvcc ``src_dir``'s source of ``kernel`` (with its own header) into
-    the build directory; returns its C entry with ``argtypes`` (the stream
-    last)."""
+def _ptxas(log: str, kernel: str) -> list:
+    """ptxas's registers and spills of each build of ``kernel`` in
+    ``log``."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = re.search(rf"\d{kernel}_kernel(ILb(\d)E)?", line)
+        elif entry and "spill stores" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            n = re.search(r"Used (\d+) registers", line).group(1)
+            tag = " (counting)" if entry.group(2) == "1" else ""
+            out.append(f"{n} registers{tag}, {spill}")
+            entry = None
+    return out
+
+
+def build_all(dirs, kernel: str) -> list:
+    """nvcc each directory's source of ``kernel`` (with its own header)
+    into the build directory, all at once; returns (the C entry, whether
+    it takes the package's argument list) for each."""
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _kernels.BUILD_DIR / f"lib{kernel}_{tag}.so"
-    subprocess.run([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-o",
-                    str(so), str(src_dir / SOURCE[kernel])], check=True,
-                   capture_output=True)
-    fn = getattr(ctypes.CDLL(str(so)), f"pt_{kernel}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    sos = [_kernels.BUILD_DIR / f"lib{kernel}_old{i}.so"
+           for i in range(len(dirs))]
+    procs = [subprocess.Popen([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS,
+                               "-o", str(so), str(d / SOURCE[kernel])],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for d, so in zip(dirs, sos)]
+    out = []
+    for d, so, proc in zip(dirs, sos, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {d / SOURCE[kernel]} failed:\n{err}")
+        print(f"[build] {d}: " + "; ".join(_ptxas(err, kernel)))
+        lib = ctypes.CDLL(str(so))
+        current = hasattr(lib, f"pt_{kernel}_counts") or kernel not in OLD_ARGS
+        fn = getattr(lib, f"pt_{kernel}")
+        fn.argtypes = (_kernels._ARGTYPES[kernel] if current
+                       else OLD_ARGS[kernel])
+        fn.restype = ctypes.c_int
+        out.append((fn, current))
+    return out
 
 
 def time_ms(fn, reps: int) -> float:
@@ -93,21 +142,50 @@ def _check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: cudaError {rc}")
 
 
+def _cornell(w: int, h: int):
+    """cornell on the card and its camera at w x h."""
+    from .scene.camera import make_camera
+    from .scene.parser import load_scene
+
+    p = load_scene(str(ROOT / "scenes" / "cornell.txt"))
+    return p.to_device("cuda"), make_camera(p.eye, p.look_at, p.view_up,
+                                            p.fov, w, h, device="cuda")
+
+
+class Case:
+    """A kernel's inputs: ``run(fn, current)`` launches build ``fn`` on
+    them (``current``: with the package's argument list) and keeps its
+    outputs, ``rows()`` reads the last run's outputs as comparable rows."""
+
+    def __init__(self, label: str, run, rows, info: dict):
+        self.label, self.run, self.rows, self.info = label, run, rows, info
+
+
+def _through_wrapper(name: str, wrapper, out: dict):
+    """``run`` for a kernel timed through its package wrapper: a build
+    with the package's argument list is swapped in for the package's own
+    entry during the call; an older one is called by ``out['old']``."""
+    def run(fn, current):
+        if not current:
+            out["last"] = out["old"](fn)
+            return
+        fns = _kernels.library().fns
+        own, fns[name] = fns[name], fn
+        try:
+            out["last"] = wrapper()
+        finally:
+            fns[name] = own
+    return run
+
+
 def gather_case():
-    """The first 512x512 PPM pass's gather tables (the CLI's own set-up),
-    the new kernel and the calls of the other builds."""
+    """The first 512x512 PPM pass's gather tables (the CLI's own set-up)."""
     from .config import RenderConfig
     from .integrators import ppm
     from .ops import cuda_ppm_gather as cg
     from .ops import rng
-    from .scene.camera import make_camera
-    from .scene.parser import load_scene
 
-    p = load_scene(str(Path(__file__).resolve().parent.parent / "scenes"
-                       / "cornell.txt"))
-    scene = p.to_device("cuda")
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, PPM_W, PPM_H,
-                      device="cuda")
+    scene, cam = _cornell(PPM_W, PPM_H)
     cfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
                        eye_depth=4, light_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
@@ -118,10 +196,6 @@ def gather_case():
                                   PPM_SPL, rng.fold_in(key, 2))
     t = cg.prepare(scene, cfg, hp, events)
 
-    def new():
-        return torch.cat([x.float()[:, None] if x.dim() == 1 else x
-                          for x in cg.join(t)], dim=1)
-
     def old(fn):
         B = t.hp.shape[0]
         flux = torch.empty((B, 3), device="cuda")
@@ -129,30 +203,30 @@ def gather_case():
         _check(fn(_ptr(t.hp), _ptr(t.hp_cell), _ptr(t.perm), B, _ptr(t.win),
                   _ptr(t.ev), float(t.r2), _ptr(flux), _ptr(count),
                   _stream()), "old gather_flux")
+        return flux, count
+
+    out = dict(old=old)
+
+    def rows():
+        flux, count = out["last"]
         return torch.cat([flux, count.float()[:, None]], dim=1)
 
     info = dict(hitpoints=t.hp.shape[0], pairs=t.candidate_pairs(),
                 items=int((t.items[:, 2] > 0).sum()),
                 staged_bytes=t.staged_bytes())
-    return new, old, info
+    return [Case("", _through_wrapper("gather_flux", lambda: cg.join(t), out),
+                 rows, info)]
 
 
 def wavefront_case():
-    """The 1080p spp 4 cornell frame's megakernel arguments, the new
-    kernel and the calls of the other builds."""
+    """The 1080p spp 4 cornell frame's megakernel arguments."""
     from .config import RenderConfig
     from .integrators.pt import _light_table
     from .ops import cuda_intersect as ci
     from .ops import cuda_wavefront as cw
     from .ops import rng
-    from .scene.camera import make_camera
-    from .scene.parser import load_scene
 
-    p = load_scene(str(Path(__file__).resolve().parent.parent / "scenes"
-                       / "cornell.txt"))
-    scene = p.to_device("cuda")
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
-                      device="cuda")
+    scene, cam = _cornell(W, H)
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
     idx = torch.arange(W * H, dtype=torch.int32, device="cuda")
@@ -162,22 +236,145 @@ def wavefront_case():
     k0, k1 = (int(w) for w in key.tolist())
     B = W * H
 
-    def args(out):
-        return (*ci.table_args(pk), _ptr(lt), _ptr(cam_tab), _ptr(px),
-                _ptr(py), B, SPP, cfg.eye_depth, cfg.max_eye_iters,
-                SPP * cfg.max_eye_iters + cfg.max_eye_iters, k0, k1, 0, B,
-                float(cfg.clamp), int(cfg.pt_stub_mis_strategy_a),
-                4 if cfg.shadow_dielectrics_block else 5)
+    def old(fn):
+        img = torch.empty((B, 3), device="cuda")
+        _check(fn(*ci.table_args(pk), _ptr(lt), _ptr(cam_tab), _ptr(px),
+                  _ptr(py), B, SPP, cfg.eye_depth, cfg.max_eye_iters,
+                  SPP * cfg.max_eye_iters + cfg.max_eye_iters, k0, k1, 0, B,
+                  float(cfg.clamp), int(cfg.pt_stub_mis_strategy_a),
+                  4 if cfg.shadow_dielectrics_block else 5, _ptr(img),
+                  _stream()), "old render_wavefront")
+        return img
 
-    def new():
-        return cw.render_wavefront(pk, lt, cam, px, py, SPP, cfg, key)
+    out = dict(old=old)
+    wrapper = (lambda: cw.render_wavefront(pk, lt, cam, px, py, SPP, cfg,
+                                           key))
+    return [Case("", _through_wrapper("render_wavefront", wrapper, out),
+                 lambda: out["last"], dict(pixels=B, spp=SPP))]
+
+
+def photon_case():
+    """The first 512x512 PPM pass's photons on cornell."""
+    from .config import RenderConfig
+    from .integrators import ppm
+    from .ops import cuda_intersect as ci
+    from .ops import cuda_photon as cp
+    from .ops import rng
+
+    scene, _ = _cornell(PPM_W, PPM_H)
+    cfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
+                       eye_depth=4, light_depth=4)
+    kp = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * PPM_SPL, PPM_SPL, kp)
+    pk = ci.pack_scene(scene)
+    targs = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    P = emit[0].shape[0]
+    k0, k1 = (int(w) for w in rng.fold_in(kp, cp.PHOTON_STREAM).tolist())
 
     def old(fn):
-        out = torch.empty((B, 3), device="cuda")
-        _check(fn(*args(out), _ptr(out), _stream()), "old render_wavefront")
-        return out
+        slots = cp.event_slots(cfg.light_depth, cfg.max_light_iters)
+        ev = torch.empty((slots * P, cp.EV_COLS), device="cuda")
+        valid = torch.zeros(slots * P, dtype=torch.bool, device="cuda")
+        _check(fn(*ci.table_args(pk), *(_ptr(x) for x in emit), P, k0, k1, 0,
+                  P, cfg.light_depth, cfg.max_light_iters, _ptr(ev),
+                  _ptr(valid), _stream()), "old photon_trace")
+        return ev, valid
 
-    return new, old, dict(pixels=B, spp=SPP)
+    out = dict(old=old)
+
+    def rows():  # the bits of each row (a NaN equals itself)
+        ev, valid = out["last"]
+        return torch.cat([valid.int()[:, None],
+                          torch.where(valid[:, None], ev, 0.0)
+                          .view(torch.int32)], dim=1)
+
+    slots = cp.event_slots(cfg.light_depth, cfg.max_light_iters)
+    return [Case("", _through_wrapper("photon_trace",
+                                      lambda: cp.photon_trace(*targs), out),
+                 rows, dict(photons=P, event_rows=slots * P))]
+
+
+def stream_case():
+    """The first bounce's lanes of the stream tier's 1080p frame on the
+    327,680-triangle textured icosphere, recorded from the render, sorted
+    as the path sorts them and unsorted; then the whole frame."""
+    from .config import RenderConfig
+    from .integrators.pt import render_pt
+    from .ops import cuda_stream as cst
+    from .ops import rng
+    from .ops.intersect import sorted_call
+    from .scene import synth
+    from .scene.camera import make_camera
+
+    p = synth.icosphere_scene(BIG_TRIS, textured=True)
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
+                      device="cuda")
+    got = {}
+
+    class Recorded(Exception):
+        pass
+
+    def record(st, ro, rd, with_uv=False, live=None):
+        got.update(st=st, ro=ro, rd=rd, live=live)
+        raise Recorded
+
+    cfg = RenderConfig(width=W, height=H, spp=SPP)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    hit = cst.stream_hit
+    cst.stream_hit = record
+    try:
+        render_pt(scene, cam, W, H, SPP, cfg, key, tier="stream")
+    except Recorded:
+        pass
+    finally:
+        cst.stream_hit = hit
+    st, live = got["st"], got["live"]
+
+    def keep(a, b, n_live):
+        got.update(sro=a.contiguous(), srd=b.contiguous(), n_live=n_live)
+        return a
+
+    sorted_call(st.bounds, got["ro"], got["rd"], keep, live=live)
+    cases = []
+    for label, ro, rd, n_live in (
+            ("sorted", got["sro"], got["srd"], got["n_live"]),
+            ("unsorted", got["ro"][live].contiguous(),
+             got["rd"][live].contiguous(), None)):
+        B = ro.shape[0]
+        args = cst._stream_args(st, ro.device, n_live)
+        outs = (torch.empty(B, device="cuda"),
+                torch.empty(B, dtype=torch.int32, device="cuda"),
+                torch.empty(B, dtype=torch.int32, device="cuda"))
+
+        def run(fn, current, args=args, ro=ro, rd=rd, B=B, n_live=n_live,
+                outs=outs):
+            _check(fn(*args, _ptr(ro), _ptr(rd), B,
+                      ctypes.c_void_p(None if n_live is None
+                                      else n_live.data_ptr()),
+                      *(_ptr(x) for x in outs), _stream()),
+                   "nearest_hit_stream")
+
+        def rows(outs=outs):
+            return torch.stack([outs[0].view(torch.int32), outs[1], outs[2]],
+                               dim=1)
+
+        cases.append(Case(label, run, rows, dict(
+            lanes=B, live=int(live.sum()), triangles=st.nt)))
+    # the whole stream frame (its 10 bounces), the build's #6 swapped in
+    out = {}
+    frame = _through_wrapper("nearest_hit_stream", lambda: render_pt(
+        scene, cam, W, H, SPP, cfg, key, tier="stream"), out)
+    cases.append(Case("frame", frame,
+                      lambda: out["last"].reshape(-1, 3).view(torch.int32),
+                      dict(pixels=W * H, spp=SPP)))
+    return cases
+
+
+CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
+         "photon_trace": photon_case, "nearest_hit_stream": stream_case}
+ROWS = {"gather_flux": "hitpoints", "render_wavefront": "pixels",
+        "photon_trace": "event rows", "nearest_hit_stream": "lanes"}
 
 
 def main() -> int:
@@ -195,26 +392,36 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip())
-    _kernels.library()
-    olds = [(f"old {d}", build(d, k, f"old{i}", OLD_ARGS[k]))
-            for i, d in enumerate(a.old_csrc)]
-    new, old, info = (gather_case if k == "gather_flux"
-                      else wavefront_case)()
-    out = dict(card=torch.cuda.get_device_name(0), kernel=k, **info)
-    ref = new()
-    out["ms"] = time_ms(new, a.reps)
-    print(f"[{k}] {info}: {out['ms']:.3f} ms")
-    for what, fn in olds:
-        call = functools.partial(old, fn)
-        img = call()
-        torch.cuda.synchronize()
-        equal = (img == ref).all(dim=1).float().mean().item()
-        turns = [time_ms(new, a.reps), time_ms(call, a.reps),
-                 time_ms(call, a.reps), time_ms(new, a.reps)]
-        out[what] = dict(bit_equal=equal, turns_new_other_other_new=turns)
-        print(f"[{k}] {what}: bit-equal on {equal:.6f} of "
-              f"{'hitpoints' if k == 'gather_flux' else 'pixels'}; new, "
-              f"{what}, {what}, new: {[round(x, 3) for x in turns]} ms")
+    own = _kernels.library().fns[k]
+    olds = build_all(a.old_csrc, k)
+    out = dict(card=torch.cuda.get_device_name(0), kernel=k)
+    for case in CASES[k]():
+        tag = f"{k} {case.label}".strip()
+
+        def new(case=case):
+            case.run(own, True)
+
+        new()
+        ref = case.rows().clone()
+        res = dict(case.info, ms=time_ms(new, a.reps))
+        print(f"[{tag}] {case.info}: {res['ms']:.3f} ms")
+        for d, (fn, current) in zip(a.old_csrc, olds):
+            def other(fn=fn, current=current, case=case):
+                case.run(fn, current)
+
+            other()
+            equal = (case.rows() == ref).all(dim=1).float().mean().item()
+            turns = [time_ms(new, a.reps), time_ms(other, a.reps),
+                     time_ms(other, a.reps), time_ms(new, a.reps)]
+            res[f"old {d}"] = dict(bit_equal=equal,
+                                   turns_new_other_other_new=turns)
+            print(f"[{tag}] old {d}: bit-equal on {equal:.6f} of "
+                  f"{ROWS[k]}; new, old, old, new: "
+                  f"{[round(x, 4) for x in turns]} ms")
+        if case.label:
+            out[case.label] = res
+        else:
+            out.update(res)
     print(json.dumps(out))
     return 0
 

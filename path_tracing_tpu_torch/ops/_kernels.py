@@ -14,9 +14,11 @@ with nvcc's output; nothing falls back.
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
 went through.  ``connect_counts``, ``bdpt_eye_counts``,
-``render_wavefront_counts`` and ``gather_flux_counts`` are the counting
-builds of ``connect``, ``bdpt_eye``, ``render_wavefront`` and
-``gather_flux``, launched under their own names.
+``render_wavefront_counts``, ``photon_trace_counts``,
+``gather_flux_counts`` and ``nearest_hit_stream_counts`` are the counting
+builds of ``connect``, ``bdpt_eye``, ``render_wavefront``,
+``photon_trace``, ``gather_flux`` and ``nearest_hit_stream``, launched
+under their own names.
 """
 from __future__ import annotations
 
@@ -39,8 +41,10 @@ LIBRARIES = {
                    "shade_step_tex", "render_wavefront", "threefry_rows",
                    "render_wavefront_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
-    "ppm_kernels": ("photon_trace", "gather_flux", "gather_flux_counts"),
-    "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream"),
+    "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_counts",
+                    "gather_flux_counts"),
+    "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream",
+                     "nearest_hit_stream_counts"),
     "probe_kernels": ("onehot_fetch",),
 }
 # --fmad=false keeps every multiply and add separately rounded, as the
@@ -81,17 +85,18 @@ _ARGTYPES = {
     "bdpt_eye": _TABLES + [_P, _I, _I, ctypes.c_longlong, _P, _P, _P,
                            _I, _I, _I, _I, _U, _U, _U, _U, _F, _I, _F,
                            _P, _P],
-    # ro rd flux real P | k0 k1 start total | light_depth iters | ev valid
+    # ro rd flux real P | k0 k1 start total | light_depth iters | work ev
+    # valid
     "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
-                                          _P],
+                                          _P, _P],
     # hp perm win ev items | n_items r2 | flux count
     "gather_flux": [_P] * 5 + [_I, _F, _P, _P, _P],
     # the streamed tables | ro rd B n_live | t idx kind
-    "nearest_hit_stream": _STREAM + [_P, _P, _I, _P, _P, _P, _P],
+    "nearest_hit_stream": _STREAM + [_P, _P, _I, _P, _P, _P, _P, _P],
     # the streamed tables | p1 rd max_d B n_live blocks_col | out
-    "any_blocker_stream": _STREAM + [_P, _P, _P, _I, _P, _I, _P],
+    "any_blocker_stream": _STREAM + [_P, _P, _P, _I, _P, _I, _P, _P],
     # tab D idx rows out
-    "onehot_fetch": [_P, _I, _P, _I, _P],
+    "onehot_fetch": [_P, _I, _P, _I, _P, _P],
 }
 # the counting builds: the same arguments, then the uint64 counters
 _ARGTYPES["connect_counts"] = _ARGTYPES["connect"][:-1] + [_P, _P]
@@ -99,6 +104,9 @@ _ARGTYPES["bdpt_eye_counts"] = _ARGTYPES["bdpt_eye"][:-1] + [_P, _P]
 _ARGTYPES["render_wavefront_counts"] = (_ARGTYPES["render_wavefront"][:-1]
                                         + [_P, _P])
 _ARGTYPES["gather_flux_counts"] = _ARGTYPES["gather_flux"][:-1] + [_P, _P]
+_ARGTYPES["photon_trace_counts"] = _ARGTYPES["photon_trace"][:-1] + [_P, _P]
+_ARGTYPES["nearest_hit_stream_counts"] = (_ARGTYPES["nearest_hit_stream"][:-1]
+                                          + [_P, _P])
 
 
 def occupancy_rows(names, out) -> dict:

@@ -25,8 +25,12 @@ blocks; ``idx`` of a hit is the PADDED triangle index.  Its tables:
 #6 and #7 walk supers, then clusters, then blocks in the ray's octant
 order, culling each box against the running best t (#7: the segment
 length, and stopping once blocked), then run Moller-Trumbore on the
-block's triangles.  ``stream_hit`` and ``stream_blocked`` coherence-sort
-the rays first (``ops/intersect.py::sorted_call``), dead lanes last, and
+block's triangles; #6 walks them a warp at a time, each lane still
+deciding for itself which boxes it enters.  ``_count_stream_walk`` is a
+plain model of #6's walk: it counts the tests each ray makes, which
+``nearest_hit_stream_counts`` (the kernel's counting build) is held to.
+``stream_hit`` and ``stream_blocked`` coherence-sort the rays first
+(``ops/intersect.py::sorted_call``), dead lanes last, and
 ``resolve_stream_attrs`` turns (t, idx, kind) into the hit fields with the
 JAX package's own formulas, which round unlike #1's.
 
@@ -44,8 +48,8 @@ import torch
 
 from ..scene.types import Scene
 from . import _kernels
-from .cuda_intersect import (SUB, _chunks, _rowpad, check_tensor,
-                             sphere_table, texture_tables)
+from .cuda_intersect import (SUB, _chunks, _rowpad, _safe_inv, _slab_hit,
+                             check_tensor, sphere_table, texture_tables)
 from .intersect import INF, SHADOW_EPS, mt_from_edges, sorted_call, sphere_ts
 from .math3 import EPSILON, cross, dot, length
 
@@ -54,6 +58,14 @@ SUPER = 16                # clusters per super
 SUPER_MIN_CLUSTERS = 64   # below this the flat cluster walk is used
 TRI_COLS, ATTR_COLS, VERT_COLS, BLK_COLS, CL_COLS = 12, 16, 9, 8, 16
 SENTINEL = 1e30
+# #6's counting build's counters: the live rays, their sphere tests, the
+# super, cluster and block boxes they test, the triangles they test, and
+# the lanes testing a staged block's triangles against 32 times the
+# triangle-test steps issued (the test's SIMT efficiency).  The plain
+# model counts ``PLAIN_COUNTS``.
+COUNT_NAMES = ("rays", "spheres", "supers", "clusters", "blocks", "tris",
+               "tri_lanes", "tri_slots")
+PLAIN_COUNTS = COUNT_NAMES[:6]
 
 
 @dataclass
@@ -245,6 +257,75 @@ def _nearest_rows(st: StreamScene, tri: torch.Tensor, ro, rd):
             torch.where(hit, kind, 0).to(torch.int32))
 
 
+def new_counts() -> dict:
+    return {k: 0 for k in COUNT_NAMES}
+
+
+def _count_stream_walk(st: StreamScene, ro: torch.Tensor, rd: torch.Tensor,
+                       counts: dict) -> torch.Tensor:
+    """A plain model of #6's walk (``csrc/mesh_kernels.cu``
+    ``WarpNearest``: each lane's own walk) on every given ray.  Adds to
+    ``counts`` the rays, their sphere and light-ball tests, each super box
+    in the ray's octant order, each entered super's cluster boxes in their
+    order (the flat walk: every cluster's, in table order), each entered
+    cluster's block boxes and each entered block's triangles; empty supers
+    and clusters are skipped untested, and every box is culled against the
+    ray's running nearest t as ``slab_hit`` culls it.  Returns that t
+    (INF on a miss): the brute force's, since culling never drops a
+    closer hit."""
+    R, dev = ro.shape[0], ro.device
+    n_s = st.ns + st.nl
+    counts["rays"] += R
+    counts["spheres"] += R * n_s
+    t = (sphere_ts(ro, rd, st.sph[:n_s, 0:3], st.sph[:n_s, 3], INF).amin(1)
+         if n_s and R else torch.full((R,), INF, device=dev))
+    inv = _safe_inv(rd)
+    cl = st.cl[:, 6:].tolist()      # padded start, count, 8 child orders
+
+    def enter(box, lanes, name):
+        counts[name] += lanes.numel()
+        return lanes[_slab_hit(box, ro[lanes], inv[lanes], EPSILON, t[lanes])]
+
+    def cluster(c, lanes):
+        start, count = int(cl[c][0]), int(cl[c][1])
+        if count <= 0 or not lanes.numel():
+            return
+        lanes = enter(st.cl[c], lanes, "clusters")
+        for j in range((count + TB - 1) // TB if lanes.numel() else 0):
+            b = enter(st.blk[start // TB + j], lanes, "blocks")
+            n = min(TB, count - j * TB)
+            if not b.numel():
+                continue
+            rows = st.tri[start + j * TB:start + j * TB + n]
+            counts["tris"] += b.numel() * n
+            ok, _, _, tt = mt_from_edges(_rays(ro[b]), _rays(rd[b]),
+                                         _cols(rows, 0), _cols(rows, 3),
+                                         _cols(rows, 6), EPSILON)
+            tt = torch.where(ok, tt, torch.full_like(tt, INF)).amin(1)
+            t[b] = torch.minimum(t[b], tt)
+
+    if not st.n_super:
+        every = torch.arange(R, device=dev)
+        for c in range(st.cl.shape[0]):
+            cluster(c, every)
+        return t
+    sup = st.sup[:, 7:16].tolist()  # child count, 8 super orders
+    octant = ((rd[:, 0] >= 0).long() + 2 * (rd[:, 1] >= 0).long()
+              + 4 * (rd[:, 2] >= 0).long())
+    for o in range(8):
+        lanes = torch.nonzero(octant == o)[:, 0]
+        if not lanes.numel():
+            continue
+        for si in range(st.n_super):
+            s = int(sup[si][1 + o])
+            if sup[s][0] <= 0:
+                continue
+            ent = enter(st.sup[s], lanes, "supers")
+            for k in range(SUPER if ent.numel() else 0):
+                cluster(s * SUPER + int(cl[s * SUPER + k][2 + o]), ent)
+    return t
+
+
 def nearest_hit_stream_plain(st: StreamScene, ro: torch.Tensor,
                              rd: torch.Tensor, n_live=None):
     """Brute force over every sphere, light ball and real triangle:
@@ -310,6 +391,8 @@ def _stream_args(st: StreamScene, device, n_live) -> list:
                      ("cl", st.cl, CL_COLS), ("sup", st.sup, 16),
                      ("blk", st.blk, BLK_COLS)):
         check_tensor(nm, x, (x.shape[0], c))
+        if x.data_ptr() % 16:   # the kernels read rows as float4
+            raise ValueError(f"{nm}: rows must start 16-byte aligned")
     if n_live is not None:
         check_tensor("n_live", n_live, (1,), torch.int32)
     return [_ptr(st.sph), st.ns, st.nl, _ptr(st.tri), _ptr(st.cl),
@@ -325,6 +408,18 @@ def nearest_hit_stream(st: StreamScene, ro: torch.Tensor, rd: torch.Tensor,
     without work."""
     if ro.device.type == "cpu" and rd.device.type == "cpu":
         return nearest_hit_stream_plain(st, ro, rd, n_live)
+    return _launch_nearest("nearest_hit_stream", st, ro, rd, n_live)[:3]
+
+
+def nearest_hit_stream_counts(st: StreamScene, ro: torch.Tensor,
+                              rd: torch.Tensor, n_live=None) -> tuple:
+    """``nearest_hit_stream`` through the kernel's counting build: (the
+    same t, idx, kind, the counters as a dict keyed by ``COUNT_NAMES``).
+    CUDA tensors only."""
+    return _launch_nearest("nearest_hit_stream_counts", st, ro, rd, n_live)
+
+
+def _launch_nearest(name, st, ro, rd, n_live):
     B, dev = ro.shape[0], ro.device
     check_tensor("ro", ro, (B, 3))
     check_tensor("rd", rd, (B, 3))
@@ -332,10 +427,16 @@ def nearest_hit_stream(st: StreamScene, ro: torch.Tensor, rd: torch.Tensor,
     t = torch.empty(B, device=dev)
     idx = torch.empty(B, dtype=torch.int32, device=dev)
     kind = torch.empty(B, dtype=torch.int32, device=dev)
+    counted = name.endswith("_counts")
+    buf = (torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=dev)
+           if counted else None)
     if B:
-        _kernels.launch("nearest_hit_stream", *args, _ptr(ro), _ptr(rd), B,
-                        _ptr(n_live), _ptr(t), _ptr(idx), _ptr(kind))
-    return t, idx, kind
+        _kernels.launch(name, *args, _ptr(ro), _ptr(rd), B, _ptr(n_live),
+                        _ptr(t), _ptr(idx), _ptr(kind),
+                        *([_ptr(buf)] if counted else []))
+    counts = (dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+              if counted else None)
+    return t, idx, kind, counts
 
 
 def any_blocker_stream(st: StreamScene, p1: torch.Tensor, rd: torch.Tensor,

@@ -569,3 +569,67 @@ def test_gather_flux_raises_on_another_row_limit(card):
     with pytest.raises(ValueError, match="work list"):
         gather.join_counts(wide)
     assert _kernels.launches == launched
+
+
+def test_photon_trace_counting_build_matches_plain_counts(card):
+    """#10's counting build gives the kernel's events bit for bit, and its
+    counters equal the plain loop's count of the same work exactly on
+    65,536 photons (the walk's tests in the kernel's cluster order); its
+    SIMT and busy-lane shares are shares; a launch with photons that are
+    not real leaves their rows empty."""
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
+
+    scene, _ = card
+    cfg, _, pk, emit, kp = _ppm_frame(scene)
+    args = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    ev, valid, kc = cp.photon_trace_counts(*args)
+    ev0, valid0 = cp.photon_trace(*args)
+    assert torch.equal(valid, valid0) and torch.equal(ev[valid], ev0[valid])
+    pc = cp.new_counts()
+    cp.photon_trace_plain(*args, counts=pc)
+    assert {k: kc[k] for k in cp.PLAIN_COUNTS} == {
+        k: pc[k] for k in cp.PLAIN_COUNTS}
+    assert kc["deposits"] == int(valid.sum()) > 0
+    assert 0 < kc["bounce_lanes"] <= kc["bounce_slots"]
+    assert 0 < kc["bounces"] <= kc["warp_bounce_slots"]
+    real = emit[3] & (torch.arange(emit[3].shape[0], device="cuda") % 3 > 0)
+    ev_r, valid_r = cp.photon_trace(pk, *emit[:3], real, kp,
+                                    cfg.light_depth, cfg.max_light_iters)
+    lanes = torch.arange(valid_r.shape[0], device="cuda") % emit[3].shape[0]
+    assert not valid_r[~real[lanes]].any()
+    keep = valid_r & valid
+    assert torch.equal(valid_r, valid & real[lanes])
+    assert torch.equal(ev_r[keep], ev[keep])
+
+
+def test_nearest_hit_stream_counting_build_matches_plain_counts(stream_mesh):
+    """#6's counting build gives the kernel's (t, idx, kind) bit for bit,
+    and its counters equal the plain model of its walk
+    (``_count_stream_walk``) exactly on 65,536 sorted rays with a third of
+    them dead; the model's t is the kernel's; the triangle test's SIMT is
+    a share."""
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+    from path_tracing_tpu_torch.ops.intersect import sorted_call
+
+    _, st = stream_mesh
+    ro, rd = _mesh_rays(1 << 16, 11)
+    live = torch.arange(1 << 16, device="cuda") % 3 > 0
+    got = {}
+
+    def keep(a, b, n_live):
+        got.update(ro=a.contiguous(), rd=b.contiguous(), n_live=n_live)
+        return a
+
+    sorted_call(st.bounds, ro, rd, keep, live=live)
+    sro, srd, n_live = got["ro"], got["rd"], got["n_live"]
+    *k, kc = cst.nearest_hit_stream_counts(st, sro, srd, n_live)
+    k0 = cst.nearest_hit_stream(st, sro, srd, n_live)
+    assert all(torch.equal(a, b) for a, b in zip(k, k0))
+    pc = cst.new_counts()
+    n = int(n_live)
+    t = cst._count_stream_walk(st, sro[:n], srd[:n], pc)
+    assert {k: kc[k] for k in cst.PLAIN_COUNTS} == {
+        k: pc[k] for k in cst.PLAIN_COUNTS}
+    assert kc["rays"] == n and torch.equal(t, k[0][:n])
+    assert bool((k[2][n:] == 0).all())
+    assert 0 < kc["tri_lanes"] <= kc["tri_slots"]

@@ -1,6 +1,7 @@
-"""The plain join's work counters of the PPM gather (#11 ``join_plain``),
-which the card's counting build is held to, and the kernel's work list:
-both on a small cornell pass built by the integrator's own functions."""
+"""The plain versions' work counters of the PPM photon trace (#10
+``photon_trace_plain``) and gather (#11 ``join_plain``), which the card's
+counting builds are held to, and the gather kernel's work list: all on a
+small cornell pass built by the integrator's own functions."""
 import dataclasses
 
 import numpy as np
@@ -9,7 +10,9 @@ import torch
 
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.integrators import ppm
+from path_tracing_tpu_torch.ops import cuda_photon
 from path_tracing_tpu_torch.ops import cuda_ppm_gather as gather
+from path_tracing_tpu_torch.ops.cuda_intersect import pack_scene
 from path_tracing_tpu_torch.ops import rng
 from path_tracing_tpu_torch.scene.camera import make_camera
 from path_tracing_tpu_torch.scene.parser import load_scene
@@ -105,3 +108,51 @@ def test_work_list_covers_every_gathered_row_once(rows, wide):
     assert bool((cost[:-1] >= cost[1:]).all())
     staged = dataclasses.replace(t, items=items.int(), rows=rows)
     assert staged.staged_bytes() == int(real[:, 3].sum()) * 48
+
+
+def test_photon_trace_plain_counts_match_a_per_photon_recount():
+    """On 4 x 512 = 2,048 cornell photons: counting leaves the events
+    alone; the deposits equal the valid rows, every real photon starts,
+    each bounce tests every sphere and cluster box, each sample takes 3
+    draws; and a window of 96 of those photons, traced one photon at a
+    time (each at its own Threefry lane), sums to the same bounces,
+    samples, draws, deposits and walk tests as the window traced at
+    once."""
+    p = load_scene(str(CORNELL))
+    scene = p.to_device("cpu")
+    spl = 512
+    cfg = RenderConfig(width=16, height=16, spl=spl, eye_depth=4,
+                       light_depth=4)
+    kp = rng.fold_in(rng.fold_in(rng.prng_key(3), 0), 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * spl, spl, kp)
+    pk = pack_scene(scene)
+    P = emit[0].shape[0]
+    rest = (kp, cfg.light_depth, cfg.max_light_iters)
+    counts = cuda_photon.new_counts()
+    ev, valid = cuda_photon.photon_trace_plain(pk, *emit, *rest,
+                                               counts=counts)
+    ev0, valid0 = cuda_photon.photon_trace_plain(pk, *emit, *rest)
+    assert torch.equal(ev, ev0) and torch.equal(valid, valid0)
+    assert counts["photons"] == P
+    assert counts["deposits"] == int(valid.sum()) > 0
+    clusters = int((pk.cl[:, 7] > 0).sum())
+    assert counts["hit_spheres"] == counts["bounces"] * (pk.ns + pk.nl)
+    assert counts["hit_boxes"] == counts["bounces"] * clusters
+    assert counts["draws"] == 3 * counts["bsdf_samples"]
+    assert (counts["bounces"] > counts["bsdf_samples"] > counts["deposits"]
+            and counts["hit_tris"] > 0)
+    assert counts["bounces"] <= counts["photon_warp_slots"]
+    assert 0 < counts["iteration_keys"] <= cfg.max_light_iters
+
+    lo, hi = 64, 160
+    window = cuda_photon.new_counts()
+    cuda_photon.photon_trace_plain(pk, *(x[lo:hi] for x in emit), *rest,
+                                   start=lo, total=P, counts=window)
+    singles = cuda_photon.new_counts()
+    for i in range(lo, hi):
+        cuda_photon.photon_trace_plain(pk, *(x[i:i + 1] for x in emit),
+                                       *rest, start=i, total=P,
+                                       counts=singles)
+    assert {k: singles[k] for k in cuda_photon.PLAIN_COUNTS} == {
+        k: window[k] for k in cuda_photon.PLAIN_COUNTS}
+    assert window["bounces"] > hi - lo
