@@ -17,13 +17,16 @@ Phases, each raising on failure:
    count (1920x1080 = 2,073,600), with their times (CUDA events):
    ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
    ``shade_step`` on ``scenes/cornell.txt``; ``nearest_hit(with_uv)`` and
-   ``shade_step_tex`` on a 1,280-triangle textured icosphere; the
+   ``shade_step_tex`` on a 1,280-triangle textured icosphere (checked
+   only: #4 is timed at its main path's shape in phase 5); the
    ``render_wavefront`` megakernel's 1080p spp 4 image on cornell.  Then
    #5's counting build (``render_wavefront_counts``): its image bit-equal
    to #5's and its counters equal to the plain loop's count of the same
    work (paths, iterations, NEE shadow rays with their evaluations and
    pdfs, BSDF samples, draws, and the walks' sphere, box and triangle
-   tests in the kernel's cluster order) exactly at 128x72 spp 4 and within
+   tests in the kernel's walk order) exactly at 128x72 spp 4 on cornell
+   and on the untextured 17,000-triangle icosphere (512 clusters: the
+   super walk), and within
    0.1% at 1080p, with the SIMT efficiency of the walk, the shade and the
    shadow step, the share of each warp's lane-iterations that are busy
    (against one thread a pixel, from the plain counts) and #5's bound
@@ -38,9 +41,18 @@ Phases, each raising on failure:
    mega image must equal the fused image pixel for pixel (bar: 99.9%).
    Then 128x72 spp 4 in the kernel tiers and the plain tier from the same
    key, compared pixel by pixel.
-5. Textured PT: an 81,920-triangle textured icosphere written as OBJ + MTL
-   + PNG, rendered through the CLI at 1920x1080 spp 4 (auto: the fused
-   tier with ``shade_step_tex``); then 128x72 spp 4 on the 1,280-triangle
+5. Textured PT: an 81,920-triangle textured icosphere (2,048 clusters,
+   128 supers) written as OBJ + MTL + PNG, rendered through the CLI at
+   1920x1080 spp 4 (auto: the fused tier with ``shade_step_tex``), the
+   lanes of its first bounce recorded from the render: #4 on them against
+   its plain version on a strided subset of >= 65,536 lanes (every output
+   within rtol 1e-4 / atol 1e-5 on >= 99.9%), its counting build
+   (``shade_step_tex_counts``: outputs bit-equal to #4's, its counters
+   (active lanes, NEE shadow rays with their evaluations and pdfs, BSDF
+   samples, the walks' tests) equal to the plain version's exactly on the
+   subset and within 0.1% on every lane), with the SIMT of the walk, the
+   shade and the shadow step and #4's bound counted from the plain counts
+   beside its floor; then 128x72 spp 4 on the 1,280-triangle
    icosphere in the kernel tiers against the plain tier.
 6. BDPT kernels.  At 128x72 spp 4 on cornell, tile-RIS K = 32 and the
    exact sweep: #9's counting build (``bdpt_eye_counts``) bit-equal to #9,
@@ -117,10 +129,17 @@ Phases, each raising on failure:
    subset's live lanes and within 0.1% on every live lane, with the
    triangle test's SIMT and #6's bound from the model's counts, beside a
    floor that leaves out the super boxes);
-   ``any_blocker_stream`` (#7) on the
+   #1's time on the same sorted live lanes (the resident super walk)
+   beside #6's; ``any_blocker_stream`` (#7) on the
    path's NEE shadow rays, on the NEE-eligible lanes only, against
    ``any_blocker`` (#2) on all of them and its plain version on a strided
-   subset, then on 2,073,600 random shadow segments through the mesh,
+   subset; on the first iteration its counting build
+   (``any_blocker_stream_counts``: verdicts equal to #7's, its counters
+   (rays, sphere tests, super, cluster and block boxes, triangles, up to
+   the first blocker) equal to the plain model of its walk exactly on the
+   subset and within 0.1% on every live lane, and #7's bound from the
+   model's counts beside its floor), then on 2,073,600 random
+   shadow segments through the mesh,
    under both blocking rules: verdicts equal on >= 99.99%, at most 1% of
    the reference's blocked lanes differ, and 5-95% of the lanes are
    blocked; both timed on the same live lanes sorted and in lane order,
@@ -137,24 +156,28 @@ Phases, each raising on failure:
    ``threefry_rows`` and no ``nearest_hit``, ``shade_step_tex`` or
    ``render_wavefront``) and in the fused tier from the same key (>= 99%
    of pixels, means within 1e-3); the untextured 327,680-triangle
-   icosphere in process in the stream and mega tiers (>= 99.9%); every
-   image more than 1% non-zero.
+   icosphere in process in the stream and mega tiers in turns (stream,
+   mega, mega, stream; >= 99.9%); every image more than 1% non-zero.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6: for #5, #6 and #8-#11 from
-the plain versions' counts of their algorithm's work in this run, which
-the counting builds' counters (``counts``, with ``simt`` and
-``occupancy``) must equal; #6 and #7 also carry the lane count of their
-plain time, their time on unsorted rays and their per-bounce times, #1
-its times at the PPM eye pass's and the BDPT light trace's first launch,
-#6 ``floor_ms``, its bound without the flat super list's box tests.  The
-counting builds of #5, #6, #10 and
-#11 (``render_wavefront_counts``, ``nearest_hit_stream_counts``,
-``photon_trace_counts``, ``gather_flux_counts``) have entries of their
+the operations counted per PERF.md section 6: for #4-#11 from the plain
+versions' counts of their algorithm's work in this run, which the
+counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
+must equal; #6 and #7 also carry the lane count of their plain time,
+their time on unsorted rays and their per-bounce times, #4 its plain
+time's lane count, #1 its times at the PPM eye pass's and the BDPT light
+trace's first launch and on the big mesh's first bounce (``big_mesh``),
+``floor_ms`` #6's bound without the flat super list's box tests and #4's
+and #7's floors (every cast's spheres and the boxes every ray tests, its
+octant's super list; #4's with its samples, evaluations and pdfs).  The
+counting builds of #4, #5, #6, #7, #10 and #11 (``shade_step_tex_counts``,
+``render_wavefront_counts``, ``nearest_hit_stream_counts``,
+``any_blocker_stream_counts``, ``photon_trace_counts``,
+``gather_flux_counts``) have entries of their
 own, their launches counted over their 1080p / main-pass / first-bounce
 call.
 The last line is ``{"ok": true,
@@ -181,6 +204,7 @@ W, H, SPP = 1920, 1080, 4
 B = W * H                      # 2,073,600 lanes
 SMALL_W, SMALL_H = 128, 72
 MESH_TRIS, SMALL_MESH_TRIS = 81920, 1280
+SUPER_MESH_TRIS = 17000   # 512 clusters: an icosphere of the super walk
 PT_SOURCE = "path_tracing_tpu_torch/csrc/pt_kernels.cu"
 BDPT_SOURCE = "path_tracing_tpu_torch/csrc/bdpt_kernels.cu"
 PPM_SOURCE = "path_tracing_tpu_torch/csrc/ppm_kernels.cu"
@@ -205,8 +229,8 @@ REPLACES = {
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
-for _k in ("render_wavefront", "photon_trace", "gather_flux",
-           "nearest_hit_stream"):
+for _k in ("render_wavefront", "shade_step_tex", "photon_trace",
+           "gather_flux", "nearest_hit_stream", "any_blocker_stream"):
     REPLACES[f"{_k}_counts"] = REPLACES[_k]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
@@ -214,7 +238,9 @@ SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
            "nearest_hit_stream_counts": MESH_SOURCE,
-           "any_blocker_stream": MESH_SOURCE, "onehot_fetch": PROBE_SOURCE}
+           "any_blocker_stream": MESH_SOURCE,
+           "any_blocker_stream_counts": MESH_SOURCE,
+           "onehot_fetch": PROBE_SOURCE}
 # the __global__ functions of each entry, as ptxas names them
 PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
@@ -222,8 +248,9 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
                "onehot_fetch")
 # the kernels with a counting build (their *_counts entries)
-COUNTED = ("connect", "bdpt_eye", "render_wavefront", "photon_trace",
-           "gather_flux", "nearest_hit_stream")
+COUNTED = ("connect", "bdpt_eye", "render_wavefront", "shade_step_tex",
+           "photon_trace", "gather_flux", "nearest_hit_stream",
+           "any_blocker_stream")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -237,9 +264,11 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
                "render_wavefront_counts": "pt_counting",
+               "shade_step_tex_counts": "tex_counting",
                "photon_trace_counts": "photon_counting",
                "gather_flux_counts": "ppm_counting",
-               "nearest_hit_stream_counts": "stream_counting"}
+               "nearest_hit_stream_counts": "stream_counting",
+               "any_blocker_stream_counts": "blocker_counting"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -254,9 +283,11 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                            "threefry_rows"),
                 "probe": ("onehot_fetch",),
                 "pt_counting": ("render_wavefront_counts",),
+                "tex_counting": ("shade_step_tex_counts",),
                 "photon_counting": ("photon_trace_counts",),
                 "ppm_counting": ("gather_flux_counts",),
-                "stream_counting": ("nearest_hit_stream_counts",)}
+                "stream_counting": ("nearest_hit_stream_counts",),
+                "blocker_counting": ("any_blocker_stream_counts",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS: the stream tier
 SUBSET = 65536            # lanes at least, strided, for #6/#7's plain sweeps
@@ -369,11 +400,12 @@ def simt(c: dict) -> dict:
 
 
 def cast_ops(pk, shadow: bool = False) -> int:
-    """Operations of one ray's sphere and cluster-box tests (a shadow ray
-    skips the light balls)."""
-    clusters = int((pk.cl[:, 7] > 0).sum())
+    """Operations of one ray's sphere tests and the boxes every ray tests:
+    every non-empty cluster's in the flat walk, its octant's super list in
+    the super walk (a shadow ray skips the light balls)."""
+    boxes = pk.n_super or int((pk.cl[:, 7] > 0).sum())
     spheres = pk.ns + (0 if shadow else pk.nl)
-    return spheres * OPS["sphere"] + clusters * OPS["box"]
+    return spheres * OPS["sphere"] + boxes * OPS["box"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -517,7 +549,7 @@ def step_state(step, pk, lt, key, st, kw):
     return st, u
 
 
-def compare_step(name, fast, plain, pk, lt, st, u, kw) -> dict:
+def compare_step(name, fast, plain, pk, lt, st, u, kw, timed=True) -> dict:
     a = fast(pk, lt, *st, u, **kw)
     b = plain(pk, lt, *st, u, **kw)
     torch.cuda.synchronize()
@@ -528,6 +560,8 @@ def compare_step(name, fast, plain, pk, lt, st, u, kw) -> dict:
         err = max(err, (a[k].double() - b[k].double()).abs().max().item())
     print(f"[kernels] {name} on {B} lanes ({st[5].float().mean().item():.3f}"
           f" active): every output within rtol 1e-4 / atol 1e-5 on >= 99.9%")
+    if not timed:
+        return dict(name=name, max_abs_err=err)
     ms = time_ms(lambda: fast(pk, lt, *st, u, **kw), 10)
     plain_ms = time_ms(lambda: plain(pk, lt, *st, u, **kw), 3)
     return dict(name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -563,15 +597,17 @@ def compare_hits(pk, ro, rd, with_uv: bool, what: str) -> float:
     return err
 
 
-def mega_small_counts(pk, lt, key) -> None:
-    """#5's counting build at 128x72 spp 4 on cornell: its image #5's bit
-    for bit, its counters the plain loop's exactly."""
+def mega_small_counts(p, what: str, key) -> None:
+    """#5's counting build at 128x72 spp 4 on the parsed scene ``p``: its
+    image #5's bit for bit, its counters the plain loop's exactly."""
     from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import _light_table
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.scene.camera import make_camera
-    from path_tracing_tpu_torch.scene.parser import load_scene
 
-    p = load_scene(str(SCENE))
+    scene = p.to_device("cuda")
+    pk, lt = ci.pack_scene(scene), _light_table(scene)
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
                       device="cuda")
     idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
@@ -583,8 +619,8 @@ def mega_small_counts(pk, lt, key) -> None:
           "render_wavefront_counts 128x72: its image differs")
     pc = cw.new_counts()
     cw.render_wavefront_plain(*args, counts=pc)
-    hold_counts(f"render_wavefront {SMALL_W}x{SMALL_H} spp {SPP}", kc, pc,
-                cw.PLAIN_COUNTS, exact=True)
+    hold_counts(f"render_wavefront {what} {SMALL_W}x{SMALL_H} spp {SPP} "
+                f"({pk.n_super} supers)", kc, pc, cw.PLAIN_COUNTS, exact=True)
 
 
 def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
@@ -683,11 +719,9 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     st, u2 = step_state(cs.shade_step_tex_plain, mpk, mlt, key,
                         fresh_state(mro, mrd), kw)
     r = compare_step("shade_step_tex", cs.shade_step_tex,
-                     cs.shade_step_tex_plain, mpk, mlt, st, u2, kw)
-    r["max_abs_err"] = max(r["max_abs_err"], err)
-    r.update(bound(B * (31 + 8 + 17) * 4, int(st[5].sum()) * (
-        cast_ops(mpk) + cast_ops(mpk, True) + OPS["sample"] + OPS["eval"])))
-    results.append(r)
+                     cs.shade_step_tex_plain, mpk, mlt, st, u2, kw,
+                     timed=False)
+    tex_small_err = max(r["max_abs_err"], err)
 
     # ---- 5. the megakernel's 1080p image against the plain loop, which
     # counts the kernel's work; its counting build against those counts ----
@@ -707,7 +741,12 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     print(f"[kernels] render_wavefront {W}x{H} spp {SPP}: pixels within rtol "
           f"1e-4 / atol 1e-5 {share:.6f}, bit-equal {equal:.6f}, mean rel "
           f"diff {rel:.3g}")
-    mega_small_counts(pk, lt, key)
+    from path_tracing_tpu_torch.scene import synth
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    mega_small_counts(load_scene(str(SCENE)), "cornell", key)
+    mega_small_counts(synth.icosphere_scene(SUPER_MESH_TRIS),
+                      f"icosphere {SUPER_MESH_TRIS}", key)
     _kernels.reset_counts()
     a_c, kc = cw.render_wavefront_counts(*margs)
     counts["pt_counting"] = dict(_kernels.launches)
@@ -751,7 +790,7 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
         print(f"[kernels] {r['name']}: {r['ms']:.3f} ms kernel, "
               f"{r['plain_ms']:.3f} ms plain, max abs err "
               f"{r['max_abs_err']:.3g}")
-    return results
+    return results, tex_small_err
 
 
 def run_cli(inp, w, h, tier, name, mode="pt", extra=()):
@@ -853,20 +892,118 @@ def phase_render(counts: dict) -> None:
                 "cornell")
 
 
-def phase_textured(counts: dict) -> None:
+def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
+    """#4 on the lanes of the textured frame's first bounce (``args``,
+    recorded from the CLI's render): against its plain version on a
+    strided subset of >= 65,536 lanes (every output within rtol 1e-4 /
+    atol 1e-5 on >= 99.9%); its counting build bit-equal to #4 and its
+    counters (``TEX_COUNTS``) equal to the plain version's exactly on the
+    subset and within 0.1% on every lane; #4's bound counted from those
+    plain counts, beside its floor: every cast's spheres and the boxes
+    every ray tests (its octant's super list), the samples, evaluations
+    and pdfs.  Returns the rows of #4 and its counting build."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    pk, lt, *st, u = args
+    n = st[0].shape[0]
+    sub = torch.arange(0, n, max(1, n // SUBSET), device="cuda")
+    sst = [x[sub].contiguous() for x in st] + [u[:, sub].contiguous()]
+    a = cs.shade_step_tex(pk, lt, *st, u, **kw)
+    b = cs.shade_step_tex_plain(pk, lt, *sst, **kw)
+    torch.cuda.synchronize()
+    err = small_err
+    for k in a:
+        share = share_close(a[k][sub], b[k])
+        check(share >= 0.999, f"shade_step_tex {MESH_TRIS} tris: {k} agrees "
+              f"on {share:.6f}")
+        err = max(err, (a[k][sub].double() - b[k].double()).abs().max()
+                  .item())
+    print(f"[textured] shade_step_tex on the first bounce's {n} lanes "
+          f"({st[5].float().mean().item():.3f} active, {pk.n_super} supers):"
+          f" every output within rtol 1e-4 / atol 1e-5 on >= 99.9% of "
+          f"{sub.numel()} strided lanes")
+    _, skc = cs.shade_step_tex_counts(pk, lt, *sst, **kw)
+    spc = cw.new_counts()
+    cs.shade_step_tex_plain(pk, lt, *sst, **kw, counts=spc)
+    hold_counts(f"shade_step_tex {sub.numel()} strided lanes", skc, spc,
+                cs.TEX_COUNTS, exact=True)
+    _kernels.reset_counts()
+    kout, kc = cs.shade_step_tex_counts(pk, lt, *st, u, **kw)
+    counts["tex_counting"] = dict(_kernels.launches)
+    check(all(torch.equal(kout[k], a[k]) for k in a),
+          "shade_step_tex_counts: its outputs differ from #4's")
+    pc = cw.new_counts()
+    _, count_ms = once_ms(lambda: cs.shade_step_tex_plain(
+        pk, lt, *st, u, **kw, counts=pc))
+    hold_counts(f"shade_step_tex {n} lanes", kc, pc, cs.TEX_COUNTS,
+                exact=False)
+    tables = sum(x.numel() for x in (pk.sph, pk.tri, pk.uv, pk.cl, pk.sup,
+                                      pk.atlas)) * 4
+    nbytes = tables + n * (31 + 8 + 17) * 4
+    bnd = bound(nbytes, walk_ops(pc) + pc["bsdf_samples"] * OPS["sample"]
+                + pc["evals"] * OPS["eval"] + pc["pdfs"] * OPS["pdf"])
+    floor_ms = bound(nbytes, pc["iterations"] * cast_ops(pk)
+                     + pc["shadow_rays"] * cast_ops(pk, True)
+                     + pc["bsdf_samples"] * OPS["sample"]
+                     + pc["evals"] * OPS["eval"]
+                     + pc["pdfs"] * OPS["pdf"])["bound_ms"]
+    ms = time_ms(lambda: cs.shade_step_tex(pk, lt, *st, u, **kw), 10)
+    plain_ms = time_ms(lambda: cs.shade_step_tex_plain(pk, lt, *sst, **kw), 1)
+    eff = {k: lane_share(kc, k) for k in ("walk", "shade", "shadow", "tri")}
+    lanes = max(pc["iterations"], 1)
+    print(f"[textured] shade_step_tex counts ({count_ms / 1e3:.1f} s for the "
+          f"plain counts): {pc['iterations']} active lanes, a lane's "
+          f"{pc['hit_boxes'] / lanes:.1f} boxes and "
+          f"{pc['hit_tris'] / lanes:.1f} triangles, {pc['shadow_rays']} "
+          f"shadow rays with {pc['shadow_boxes']} boxes and {pc['shadow_tris']} triangles, "
+          f"{pc['bsdf_samples']} BSDF samples; SIMT walk {eff['walk']:.4f}, "
+          f"shade {eff['shade']:.4f}, shadow step {eff['shadow']:.4f}, a "
+          f"shadow walk's triangle test {eff['tri']:.4f}; {ms:.3f} ms, "
+          f"counted bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel), floor "
+          f"{floor_ms:.4f} ms")
+    return [dict(name="shade_step_tex", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, plain_lanes=sub.numel(), counts=kc,
+                 simt=eff, floor_ms=floor_ms, **bnd),
+            dict(name="shade_step_tex_counts", max_abs_err=err,
+                 ms=time_ms(lambda: cs.shade_step_tex_counts(
+                     pk, lt, *st, u, **kw), 3), plain_ms=count_ms, **bnd)]
+
+
+def phase_textured(counts: dict, small_err: float) -> list:
+    """The textured main path through the CLI with its first bounce's
+    lanes recorded; #4 on them (``tex_main_shape``); then the small
+    textured icosphere in the kernel tiers against the plain tier."""
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.scene import synth
 
     t0 = time.perf_counter()
     obj = synth.write_obj(synth.icosphere_scene(MESH_TRIS, textured=True),
                           str(OUT / f"icosphere_{MESH_TRIS}.obj"))
     print(f"[textured] wrote {obj} in {time.perf_counter() - t0:.1f} s")
-    res = counted("textured", obj, W, H, "auto", "tex_1080p", counts)
+    own, first = cs.shade_step_tex, {}
+
+    def record(*args, **kw):
+        if not first:
+            first.update(args=[x.clone() if torch.is_tensor(x) else x
+                               for x in args], kw=kw)
+        return own(*args, **kw)
+
+    cs.shade_step_tex = record
+    try:
+        res = counted("textured", obj, W, H, "auto", "tex_1080p", counts)
+    finally:
+        cs.shade_step_tex = own
     check(res["tier"] == "fused", f"auto picked {res['tier']} on a "
           "textured scene")
     check(counts["textured"]["nearest_hit"] == 0,
           "the textured bounce took its hit from the nearest_hit kernel")
+    rows = tex_main_shape(first["args"], first["kw"], small_err, counts)
     small_tiers(synth.icosphere_scene(SMALL_MESH_TRIS, textured=True),
                 ("fused", "split"), f"textured icosphere {SMALL_MESH_TRIS}")
+    return rows
 
 
 def bdpt_frame(scene, cam, K: int):
@@ -1393,26 +1530,6 @@ def sort_lanes(st, ro, rd, live, *extras):
     return got["args"], got["n_live"]
 
 
-def shadow_segments(st, n: int, seed: int):
-    """``tests/test_torch_cuda.py``'s shadow segments at the mesh's scale:
-    origins in a box 1.5 times the mesh's bounds, half the segments aimed
-    at its centre and half in random directions, lengths 0.05 to 1.55
-    times the half-extent.  Returns (p1, rd, max_d), every lane live."""
-    from path_tracing_tpu_torch.ops.intersect import shadow_ray
-
-    g = torch.Generator(device=st.device).manual_seed(seed)
-    u = torch.rand((7, n), device=st.device, generator=g)
-    c = (st.scene_min + st.scene_max) / 2
-    half = (st.scene_max - st.scene_min) / 2
-    p1 = c + (2.0 * u[0:3].T - 1.0) * 1.5 * half
-    d = torch.where((torch.arange(n, device=st.device) % 2 == 0)[:, None],
-                    c - p1, u[3:6].T - 0.5)
-    d = shadow_ray(torch.zeros_like(d), d)[0]
-    length = (0.05 + 1.5 * u[6]) * half.max()
-    rd, _, md = shadow_ray(p1, p1 + d * length[:, None])
-    return p1.contiguous(), rd.contiguous(), md.contiguous()
-
-
 def blocker_verdicts(what: str, a, b, a_sub, c) -> float:
     """#7's verdicts ``a`` against #2's ``b``, and ``a_sub`` (a subset of
     ``a``) against the plain version's ``c``, all on live lanes: equal on
@@ -1484,6 +1601,60 @@ def stream_counts(st, sro, srd, n_live, sub, counts: dict) -> dict:
                 name="nearest_hit_stream_counts",
                 ms=time_ms(lambda: cst.nearest_hit_stream_counts(
                     st, sro, srd, n_live), 3), **bnd)}
+
+
+def blocker_counts(st, sp1, ssrd, smd, n_elig, esub, rule,
+                   counts: dict) -> dict:
+    """#7's counting build on the stream frame's first NEE rays (sorted,
+    as the path runs them): its verdicts #7's, its counters the plain
+    model's (``_count_stream_shadow_walk``) exactly on the strided subset
+    and within 0.1% on every live lane; #7's bound from the model's
+    counts, beside its floor (every ray's spheres and super list).
+    Returns the rows of #7 and its counting build (times to come)."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+
+    ne = int(n_elig)
+    a, skc = cst.any_blocker_stream_counts(st, sp1[esub], ssrd[esub],
+                                           smd[esub], rule)
+    spc = cst.new_counts()
+    v = cst._count_stream_shadow_walk(st, sp1[esub], ssrd[esub], smd[esub],
+                                      rule, spc)
+    check(torch.equal(v, a), "the blocker model's verdicts differ from "
+          "#7's on the subset")
+    hold_counts(f"any_blocker_stream {esub.numel()} strided live lanes", skc,
+                spc, cst.PLAIN_COUNTS, exact=True)
+    _kernels.reset_counts()
+    a, kc = cst.any_blocker_stream_counts(st, sp1, ssrd, smd, rule, n_elig)
+    counts["blocker_counting"] = dict(_kernels.launches)
+    check(torch.equal(a, cst.any_blocker_stream(st, sp1, ssrd, smd, rule,
+                                                n_elig)),
+          "any_blocker_stream_counts: its verdicts differ from #7's")
+    pc = cst.new_counts()
+    t0 = time.perf_counter()
+    cst._count_stream_shadow_walk(st, sp1[:ne], ssrd[:ne], smd[:ne], rule, pc)
+    model_s = time.perf_counter() - t0
+    hold_counts(f"any_blocker_stream {ne} live lanes", kc, pc,
+                cst.PLAIN_COUNTS, exact=False)
+    tables = sum(x.numel() for x in (st.sph, st.tri, st.cl, st.sup,
+                                     st.blk)) * 4
+    nbytes = tables + ne * 28 + sp1.shape[0]
+    bnd = bound(nbytes, stream_ops(pc))
+    floor_ms = bound(nbytes, ne * (st.ns * OPS["sphere"]
+                                   + st.n_super * OPS["box"]))["bound_ms"]
+    print(f"[mesh] any_blocker_stream counts ({model_s:.1f} s for the "
+          f"model): {pc['spheres']} sphere tests, {pc['supers']} super, "
+          f"{pc['clusters']} cluster, {pc['blocks']} block boxes, "
+          f"{pc['tris']} triangle tests ({pc['tris'] / max(ne, 1):.1f} a "
+          f"ray), {int(a[:ne].sum())} of {ne} blocked; bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), floor "
+          f"{floor_ms:.4f} ms")
+    return {"any_blocker_stream": dict(name="any_blocker_stream", counts=kc,
+                                       floor_ms=floor_ms, **bnd),
+            "any_blocker_stream_counts": dict(
+                name="any_blocker_stream_counts",
+                ms=time_ms(lambda: cst.any_blocker_stream_counts(
+                    st, sp1, ssrd, smd, rule, n_elig), 3), **bnd)}
 
 
 def per_bounce(st, lanes, res: dict) -> None:
@@ -1574,6 +1745,7 @@ def phase_mesh_kernels(counts: dict) -> tuple:
     rays, and #7 on random shadow segments through the mesh; #12
     at the probe's shapes.  Writes the frame's OBJ; returns the results and
     its path."""
+    from path_tracing_tpu_torch.kernel_times import shadow_segments
     from path_tracing_tpu_torch.ops import _kernels
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_stream as cst
@@ -1654,6 +1826,8 @@ def phase_mesh_kernels(counts: dict) -> tuple:
                 ms=ms_s, plain_ms=plain_ms, plain_lanes=sub.numel(),
                 unsorted_ms=ms_u)
             res["nearest_hit_stream_counts"]["plain_ms"] = plain_ms
+            big = dict(rays=nl, ms=ms_1, stream_ms=ms_s,
+                       supers=pk.n_super)
         # ---- 7 against #2 and its plain version on the NEE lanes ----
         (sp1, ssrd, smd), n_elig = sort_lanes(st, ln["p1"], ln["srd"],
                                               ln["elig"], ln["md"])
@@ -1684,11 +1858,12 @@ def phase_mesh_kernels(counts: dict) -> tuple:
               f"{ms_u:.3f} ms unsorted; #2 {ms_2:.3f} ms; plain "
               f"{plain_ms:.1f} ms on {esub.numel()} lanes")
         if it == 0:
-            res["any_blocker_stream"] = dict(
-                name="any_blocker_stream", ms=ms_s, plain_ms=plain_ms,
-                plain_lanes=esub.numel(), unsorted_ms=ms_u,
-                **bound(B + ne * 28, ne * (st.ns * OPS["sphere"]
-                                           + st.n_super * OPS["box"])))
+            res.update(blocker_counts(st, sp1, ssrd, smd, n_elig, esub,
+                                      ln["rule"], counts))
+            res["any_blocker_stream"].update(
+                ms=ms_s, plain_ms=plain_ms, plain_lanes=esub.numel(),
+                unsorted_ms=ms_u)
+            res["any_blocker_stream_counts"]["plain_ms"] = plain_ms
     # ---- 7 on random shadow segments through the mesh, every lane live
     # (the card test's recipe at full width) ----
     p1, rd, md = shadow_segments(st, B, 7)
@@ -1706,6 +1881,7 @@ def phase_mesh_kernels(counts: dict) -> tuple:
     res["nearest_hit_stream"]["max_abs_err"] = hit_err
     res["nearest_hit_stream_counts"]["max_abs_err"] = hit_err
     res["any_blocker_stream"]["max_abs_err"] = blk_err
+    res["any_blocker_stream_counts"]["max_abs_err"] = blk_err
     per_bounce(st, lanes, res)
 
     # ---- 12. the probe through its entry point, then against its plain
@@ -1746,7 +1922,7 @@ def phase_mesh_kernels(counts: dict) -> tuple:
     for r in res.values():
         print(f"[mesh] {r['name']}: {r['ms']:.3f} ms kernel, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
-    return list(res.values()), obj
+    return list(res.values()), obj, big
 
 
 def nonzero_share(img, what: str) -> None:
@@ -1784,13 +1960,16 @@ def phase_big_render(counts: dict, obj: str) -> None:
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H, device="cuda")
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
-    imgs = {}
-    for tier in ("stream", "mega"):
-        img, ms = once_ms(lambda: render_pt(scene, cam, W, H, SPP, cfg, key,
-                                            tier=tier))
+    imgs, ms = {}, {"stream": [], "mega": []}
+    for tier in ("stream", "mega", "mega", "stream"):     # in turns
+        img, t = once_ms(lambda: render_pt(scene, cam, W, H, SPP, cfg, key,
+                                           tier=tier))
         imgs[tier] = img.cpu().numpy()
-        print(f"[big] untextured {BIG_TRIS} {tier} tier in process: "
-              f"{ms:.1f} ms, {B * SPP / ms / 1e3:.3f} Mpaths/s")
+        ms[tier].append(t)
+    for tier, t in ms.items():
+        print(f"[big] untextured {BIG_TRIS} {tier} tier in process, in turns:"
+              f" {', '.join(f'{x:.1f}' for x in t)} ms, "
+              f"{', '.join(f'{B * SPP / x / 1e3:.3f}' for x in t)} Mpaths/s")
         nonzero_share(imgs[tier], f"untextured {tier}")
     compare(imgs["mega"], imgs["stream"], f"{BIG_TRIS} untextured stream vs "
             "mega", 0.999)
@@ -1813,12 +1992,12 @@ def main() -> int:
     mesh_cam = make_camera(m.eye, m.look_at, m.view_up, m.fov, W, H,
                            device="cuda")
     counts: dict = {}
-    results = phase_kernels(p.to_device("cuda"), cam, m.to_device("cuda"),
-                            mesh_cam, counts)
+    results, tex_small_err = phase_kernels(
+        p.to_device("cuda"), cam, m.to_device("cuda"), mesh_cam, counts)
     retime_nearest_hit(p, next(r for r in results
                                if r["name"] == "nearest_hit"))
     phase_render(counts)
-    phase_textured(counts)
+    results += phase_textured(counts, tex_small_err)
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
     for r in bdpt_results:
         r["occupancy"] = occupancy["tile-RIS"][r["name"]]
@@ -1827,7 +2006,8 @@ def main() -> int:
     ppm_results, pass0 = phase_ppm_kernels(p, counts)
     results += ppm_results
     phase_ppm_render(counts, pass0)
-    mesh_results, obj = phase_mesh_kernels(counts)
+    mesh_results, obj, big = phase_mesh_kernels(counts)
+    next(r for r in results if r["name"] == "nearest_hit")["big_mesh"] = big
     results += mesh_results
     phase_big_render(counts, obj)
     for r in results:
@@ -1841,8 +2021,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("plain_lanes", "unsorted_ms", "per_bounce", "ppm_eye",
-             "bdpt_light", "floor_ms", "counts", "simt", "occupancy",
-             "host_ms", "library_host_ms")
+             "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
+             "occupancy", "host_ms", "library_host_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results]}))

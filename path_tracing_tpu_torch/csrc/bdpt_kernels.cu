@@ -458,17 +458,17 @@ extern "C" {
 
 // Each entry launches on the caller's stream and returns cudaGetLastError()
 // (0 on success); the Python wrapper raises on anything else.  The scene
-// tables come first: sph, ns, nl, tri, uv, cl, n_clusters.
+// tables come first: sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super.
 
 static int launch_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc, const float* lv, int n_valid, const float* pos,
-                          const float* n, const float* tp, const float* bc, const float* rough,
-                          const float* metal, const float* eta, const float* wo_e,
-                          const float* wo_s, const float* eye_f, const bool* act, int B,
-                          float clamp_val, int blocks_col, float* out,
+                          const float* cl, int nc, const float* sup, int nsup, const float* lv,
+                          int n_valid, const float* pos, const float* n, const float* tp,
+                          const float* bc, const float* rough, const float* metal, const float* eta,
+                          const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
+                          int B, float clamp_val, int blocks_col, float* out,
                           unsigned long long* counts, void* stream) {
   ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc);
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
   if (counts)
     connect_kernel<true><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
         tb, lv, n_valid, in, B, clamp_val, blocks_col, out, counts);
@@ -478,43 +478,43 @@ static int launch_connect(const float* sph, int ns, int nl, const float* tri, co
   return (int)cudaGetLastError();
 }
 
-int pt_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
-               const float* cl, int nc, const float* lv, int n_valid, const float* pos,
+int pt_connect(const float* sph, int ns, int nl, const float* tri, const float* uv, const float* cl,
+               int nc, const float* sup, int nsup, const float* lv, int n_valid, const float* pos,
                const float* n, const float* tp, const float* bc, const float* rough,
                const float* metal, const float* eta, const float* wo_e, const float* wo_s,
                const float* eye_f, const bool* act, int B, float clamp_val, int blocks_col,
                float* out, void* stream) {
-  return launch_connect(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, pos, n, tp, bc, rough, metal,
-                        eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, nullptr,
+  return launch_connect(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp, bc, rough,
+                        metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, nullptr,
                         stream);
 }
 
 // The counting build of #8: the same sums, and the work counters added
 // into counts[kNumCounts] (zeroed by the caller).
 int pt_connect_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* lv, int n_valid, const float* pos,
-                      const float* n, const float* tp, const float* bc, const float* rough,
-                      const float* metal, const float* eta, const float* wo_e,
-                      const float* wo_s, const float* eye_f, const bool* act, int B,
-                      float clamp_val, int blocks_col, float* out, unsigned long long* counts,
-                      void* stream) {
-  return launch_connect(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, pos, n, tp, bc, rough, metal,
-                        eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, counts,
+                      const float* cl, int nc, const float* sup, int nsup, const float* lv,
+                      int n_valid, const float* pos, const float* n, const float* tp,
+                      const float* bc, const float* rough, const float* metal, const float* eta,
+                      const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
+                      int B, float clamp_val, int blocks_col, float* out,
+                      unsigned long long* counts, void* stream) {
+  return launch_connect(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp, bc, rough,
+                        metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, counts,
                         stream);
 }
 
 static int launch_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* lv, int n_valid,
-                      int tile_lanes, long long tile_stride, const float* cam, const int* px,
-                      const int* py, int B, int spp, int eye_depth, int max_iters, uint32_t k0,
-                      uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
-                      int blocks_col, float light_hit_scale, float* img,
-                      unsigned long long* counts, void* stream) {
+                      const float* cl, int nc, const float* sup, int nsup, const float* lv,
+                      int n_valid, int tile_lanes, long long tile_stride, const float* cam,
+                      const int* px, const int* py, int B, int spp, int eye_depth, int max_iters,
+                      uint32_t k0, uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
+                      int blocks_col, float light_hit_scale, float* img, unsigned long long* counts,
+                      void* stream) {
   const EyeLayout L = eye_layout(n_valid);
   EyeTable tab{lv, n_valid, tile_lanes, tile_stride};
   EyeCfg g{{k0, k1}, start, total, spp, eye_depth, max_iters, clamp_val, light_hit_scale,
            blocks_col, L.resident};
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc);
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
   const int blocks = (B + kEyeThreads - 1) / kEyeThreads;
   if (counts)
     bdpt_eye_kernel<true><<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(
@@ -526,27 +526,27 @@ static int launch_eye(const float* sph, int ns, int nl, const float* tri, const 
 }
 
 int pt_bdpt_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                const float* cl, int nc, const float* lv, int n_valid,
+                const float* cl, int nc, const float* sup, int nsup, const float* lv, int n_valid,
                 int tile_lanes, long long tile_stride, const float* cam, const int* px,
                 const int* py, int B, int spp, int eye_depth, int max_iters, uint32_t k0,
                 uint32_t k1, uint32_t start, uint32_t total, float clamp_val, int blocks_col,
                 float light_hit_scale, float* img, void* stream) {
-  return launch_eye(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, tile_lanes, tile_stride, cam,
-                    px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
+  return launch_eye(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, tile_lanes, tile_stride,
+                    cam, px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
                     blocks_col, light_hit_scale, img, nullptr, stream);
 }
 
 // The counting build of #9: the same image, and the work counters added
 // into counts[kNumCounts] (zeroed by the caller).
 int pt_bdpt_eye_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                       const float* cl, int nc, const float* lv, int n_valid,
-                       int tile_lanes, long long tile_stride, const float* cam, const int* px,
-                       const int* py, int B, int spp, int eye_depth, int max_iters,
-                       uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
-                       float clamp_val, int blocks_col, float light_hit_scale, float* img,
+                       const float* cl, int nc, const float* sup, int nsup, const float* lv,
+                       int n_valid, int tile_lanes, long long tile_stride, const float* cam,
+                       const int* px, const int* py, int B, int spp, int eye_depth, int max_iters,
+                       uint32_t k0, uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
+                       int blocks_col, float light_hit_scale, float* img,
                        unsigned long long* counts, void* stream) {
-  return launch_eye(sph, ns, nl, tri, uv, cl, nc, lv, n_valid, tile_lanes, tile_stride, cam,
-                    px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
+  return launch_eye(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, tile_lanes, tile_stride,
+                    cam, px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
                     blocks_col, light_hit_scale, img, counts, stream);
 }
 

@@ -33,33 +33,37 @@
 // *n_live (the ray sort puts dead lanes last) write the miss and skip all
 // work.
 //
-// #7 walks one thread per ray (stream_walk).  #6 is the design for this
-// card: the warp walks.  It ballots its live lanes' octants and walks once
-// per octant present (sorted rays carry the octant in the key's top bits,
-// so nearly every warp has one), the lanes of that octant together; a box
-// is entered by the warp if any lane enters it, and each lane decides for
-// itself, against its own running t, whether it tests the box's contents.
-// So each lane visits exactly the boxes and triangles of its own walk, in
-// the same order: t, idx and kind are the per-thread walk's bit for bit,
-// ties included.  A block that some lane enters is staged once per warp
-// into shared memory (32 rows of 48 bytes, one a lane, coalesced); its
-// lanes then read the rows as broadcasts.  The slab test reads a box as
-// two float4 and takes its NaN-propagating min/max as one instruction
-// each (min.NaN / max.NaN): the same verdicts as slab_hit.  Measured on an
-// H100 on the stream frame's first bounce (PERF.md section 6), against the
-// per-thread walk's 1.63 ms: the warp walk alone 1.66, without staging
-// (rows read with __ldg) 1.81; float4 boxes and 12 blocks an SM 1.54; the
+// The design for this card: the warp walks.  It ballots its live lanes'
+// octants and walks once per octant present (sorted rays carry the octant
+// in the key's top bits, so nearly every warp has one), the lanes of that
+// octant together; a box is entered by the warp if any lane enters it, and
+// each lane decides for itself, against its own running t (#7: its own
+// segment, while unblocked), whether it tests the box's contents.  So each
+// lane visits exactly the boxes and triangles of its own walk, in the same
+// order: #6's t, idx and kind are the per-thread walk's bit for bit, ties
+// included, and #7's verdicts; #7's warp leaves once every lane is
+// blocked.  A block that some lane enters is staged once per warp into
+// shared memory (32 rows of 48 bytes, one a lane, coalesced); its lanes
+// then read the rows as broadcasts.  The slab test is pt_device.cuh's
+// slab_hit (a box as two float4, one-instruction NaN-propagating min/max).
+// Measured on an H100 (PERF.md section 6): #6 on the stream frame's first
+// bounce, against the per-thread walk's 1.63 ms, the warp walk alone 1.66,
+// without staging 1.81; float4 boxes and 12 blocks an SM 1.54; the
 // one-instruction min/max 1.29; 10 blocks an SM (48 registers) 1.27; the
-// per-thread walk with that same box test and launch bounds 1.37.
+// per-thread walk with that box test 1.37.  #7 per thread with that box
+// test and launch bounds 1.39 against the parent's 1.43 (the launch
+// bounds alone: none), the warp walk 1.07-1.09; 24 live lanes 1.58 ms
+// against 2.59: a lane's walk is a chain of dependent loads, and the warp
+// shares each entered block's loads among its lanes.
 // Bound on this card: operations.  A camera ray of the 327,680-triangle
 // mesh tests all 128 super boxes (70% of the counted operations), 3.8
 // cluster and 1.2 block boxes and 17.7 triangles; 28-40 bytes of ray in
 // and 12 (#6) or 1 (#7) out, the table (17.7 MB) staying in the 50 MB L2.
-// The counting build (kCount) counts the rays, the sphere tests, the
-// super, cluster and block boxes, the triangles, and the lanes testing a
-// staged block's triangles against 32 a step (the test's SIMT
-// efficiency: 0.26 on that frame, the lanes of a warp entering different
-// blocks).
+// The counting builds (kCount) count the rays, the sphere tests, the
+// super, cluster and block boxes, the triangles (#7: up to the first
+// blocker), and the lanes testing a staged block's triangles against 32 a
+// step (#6's SIMT: 0.26 on that frame, the lanes of a warp entering
+// different blocks).
 
 #include <type_traits>
 
@@ -69,9 +73,8 @@ using namespace ptk;
 
 namespace {
 
-constexpr int kTB = 32;      // triangles per block
-constexpr int kSuper = 16;   // clusters per super
-constexpr int kStriCols = 12, kSclCols = 16, kSupCols = 16, kBlkCols = 8;
+constexpr int kTB = 32;  // triangles per block
+constexpr int kStriCols = 12, kBlkCols = 8;
 
 struct StreamTables {
   const float* __restrict__ sph;
@@ -105,143 +108,48 @@ __device__ __forceinline__ bool mt_row(V3 ro, V3 rd, float4 a, float4 b, float4 
   return !parallel && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > t_lo);
 }
 
-// mt_row on the row at T in global memory
-__device__ __forceinline__ bool mt_edges(V3 ro, V3 rd, const float* __restrict__ T, float t_lo,
-                                         float* t_out) {
-  const float4* T4 = reinterpret_cast<const float4*>(T);
-  return mt_row(ro, rd, __ldg(T4), __ldg(T4 + 1), __ldg(T4 + 2), t_lo, t_out);
-}
-
-__device__ __forceinline__ int octant(V3 rd) {
-  return (rd.x >= 0.0f ? 1 : 0) + (rd.y >= 0.0f ? 2 : 0) + (rd.z >= 0.0f ? 4 : 0);
-}
-
-// The blocks of cluster c the visitor enters, their triangles tested.
-template <class Visit>
-__device__ __forceinline__ void walk_cluster(const StreamTables& tb, int c, Visit& w) {
-  const float* C = tb.cl + (size_t)c * kSclCols;
-  const int count = (int)C[7];
-  if (count <= 0 || !w.enters(C)) return;
-  const int b0 = (int)C[6] / kTB;
-  const int nblk = (count + kTB - 1) / kTB;
-  for (int j = 0; j < nblk; ++j) {
-    if (!w.enters(tb.blk + (size_t)(b0 + j) * kBlkCols)) continue;
-    const int base = (b0 + j) * kTB;
-    const int n = min(kTB, count - j * kTB);  // the block's padding never hits
-    for (int k = 0; k < n; ++k) w.test(base + k, tb.tri + (size_t)(base + k) * kStriCols);
-    if (w.done()) return;
-  }
-}
-
-// Supers in the ray's octant order, then their children in theirs; or
-// the clusters in table order below SUPER_MIN_CLUSTERS.
-template <class Visit>
-__device__ void stream_walk(const StreamTables& tb, int oct, Visit& w) {
-  if (tb.nsup == 0) {
-    for (int c = 0; c < tb.nc && !w.done(); ++c) walk_cluster(tb, c, w);
-    return;
-  }
-  for (int si = 0; si < tb.nsup; ++si) {
-    const int s = (int)tb.sup[(size_t)si * kSupCols + 8 + oct];
-    const float* S = tb.sup + (size_t)s * kSupCols;
-    if ((int)S[7] <= 0 || !w.enters(S)) continue;
-    const int base = s * kSuper;
-    for (int k = 0; k < kSuper; ++k) {
-      walk_cluster(tb, base + (int)tb.cl[(size_t)(base + k) * kSclCols + 8 + oct], w);
-      if (w.done()) return;
-    }
-  }
-}
-
-struct BlockerWalk {
-  V3 ro, rd, inv;
-  float md;
-  int cb_col;  // 9: every triangle blocks; 10: eta <= 0 only
-  bool blocked;
-  __device__ bool enters(const float* B) const {
-    return !blocked && slab_hit(B, ro, inv, kMinD, md);
-  }
-  __device__ bool done() const { return blocked; }
-  __device__ void test(int, const float* T) {
-    float tt;
-    if (!blocked && __ldg(T + cb_col) > 0.0f && mt_edges(ro, rd, T, kMinD, &tt) && tt < md)
-      blocked = true;
-  }
-};
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kStreamMinBlocks = 10;  // #6's __launch_bounds__: 40 warps an SM
-
-// NaN-propagating min and max in one instruction each (sm_80 on): equal
-// in value to jmin and jmax, a zero's sign aside, which no comparison sees
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// slab_hit on a 16-aligned box row [min3 max3 ...] read as two float4:
-// the same products and the same verdict, with two loads where slab_hit
-// makes six and one instruction for each of its NaN-propagating min/max
-__device__ __forceinline__ bool box_hit(const float* __restrict__ B, V3 ro, V3 inv, float tlimit) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(B));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(B) + 1);
-  const float t0x = (a.x - ro.x) * inv.x, t1x = (a.w - ro.x) * inv.x;
-  const float t0y = (a.y - ro.y) * inv.y, t1y = (b.x - ro.y) * inv.y;
-  const float t0z = (a.z - ro.z) * inv.z, t1z = (b.y - ro.z) * inv.z;
-  const float tn = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
-                           max_nan(min_nan(t0z, t1z), kEps));
-  const float tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
-  return (tn <= tf) && (tn < tlimit);
-}
-
-// #6's counters (ops/cuda_stream.py::COUNT_NAMES): the live rays, the
-// walk's tests, and the lanes and slots of the block's triangle test
+// #6's and #7's counters (ops/cuda_stream.py::COUNT_NAMES): the live
+// rays, the walk's tests, and the lanes entering a staged block against
+// 32, each times the block's triangles (the triangle test's SIMT)
 enum StreamCountIdx {
   kSRays, kSSpheres, kSSupers, kSClusters, kSBlocks, kSTris, kSTriLanes, kSTriSlots, kSCounts
 };
 
-// #6's walk, taken by a whole warp for the lanes of one octant.  Every
-// lane calls each member on the same box (the control flow is the
-// warp's); `act` says whether the lane takes part (it entered the parent
-// box), and each lane decides against its own running t whether it enters
-// a box, so it visits exactly the boxes and triangles, in the same order,
-// that its own walk visits.  A block that some lane enters is staged once
-// into the warp's 32 rows of shared memory; its lanes then read the rows
-// as broadcasts.
-template <class Ctr>
-struct WarpNearest {
-  StreamTables tb;
-  float4* stage;  // the warp's kTB rows of 3 float4
-  Ctr& cnt;
-  int lane;
-  V3 ro, rd, inv;
-  float t;
-  int idx, kind;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kStreamMinBlocks = 10;  // #6's and #7's __launch_bounds__: 40 warps an SM
 
-  // the lane takes part and the slab test of box B passes against its t
-  __device__ bool enters(bool act, const float* B, int counter) {
-    if (!act) return false;
-    cnt.add(counter);
-    return box_hit(B, ro, inv, t);
+// The streamed walk taken by a whole warp for the lanes of one octant (#6
+// and #7).  Every lane calls each member on the same box (the control
+// flow is the warp's); `act` says whether the lane takes part (it entered
+// the parent box), and each lane decides against its own ray (L::enters)
+// whether it enters a box, so it visits exactly the boxes and triangles,
+// in the same order, that its own walk visits.  A block that some lane
+// enters is staged once into the warp's 32 rows of shared memory; its
+// lanes then read the rows as broadcasts (L::test).  Where a lane's walk
+// can end early (L::kStops: a blocked shadow ray), the warp leaves once
+// every lane's has, a vote every lane reaches after each cluster.
+template <class L>
+struct WarpWalk {
+  const StreamTables& tb;
+  float4* stage;  // the warp's kTB rows of 3 float4
+  int lane;
+  L& l;
+
+  __device__ __forceinline__ bool finished(bool act) const {
+    if constexpr (L::kStops) return __all_sync(kFull, !act || l.done());
+    return false;
   }
 
   __device__ void cluster(int c, bool act) {
     const float* C = tb.cl + (size_t)c * kSclCols;
     const int count = (int)C[7];
     if (count <= 0) return;
-    const bool in_c = enters(act, C, kSClusters);
+    const bool in_c = l.enters(act, C, kSClusters);
     if (!__any_sync(kFull, in_c)) return;
     const int b0 = (int)C[6] / kTB;
     const int nblk = (count + kTB - 1) / kTB;
     for (int j = 0; j < nblk; ++j) {
-      const bool in_b = enters(in_c, tb.blk + (size_t)(b0 + j) * kBlkCols, kSBlocks);
+      const bool in_b = l.enters(in_c, tb.blk + (size_t)(b0 + j) * kBlkCols, kSBlocks);
       const unsigned mb = __ballot_sync(kFull, in_b);
       if (!mb) continue;
       const int base = (b0 + j) * kTB;
@@ -254,21 +162,10 @@ struct WarpNearest {
         stage[3 * lane + 2] = __ldg(rows + 3 * lane + 2);
       }
       __syncwarp();
-      if (in_b) {
-        cnt.add(kSTris, (unsigned)n);
-        for (int k = 0; k < n; ++k) {
-          float tt;
-          if (mt_row(ro, rd, stage[3 * k], stage[3 * k + 1], stage[3 * k + 2], kEps, &tt) &&
-              tt < t) {
-            t = tt;
-            idx = base + k;
-            kind = 3;
-          }
-        }
-      }
+      if (in_b) l.test(stage, base, n);
       if (lane == __ffs(mb) - 1) {
-        cnt.add(kSTriLanes, (unsigned)(__popc(mb) * n));
-        cnt.add(kSTriSlots, 32u * n);
+        l.cnt.add(kSTriLanes, (unsigned)(__popc(mb) * n));
+        l.cnt.add(kSTriSlots, 32u * n);
       }
       __syncwarp();  // every lane is done with the rows before they refill
     }
@@ -279,18 +176,97 @@ struct WarpNearest {
   // SUPER_MIN_CLUSTERS
   __device__ void walk(int oct, bool act) {
     if (tb.nsup == 0) {
-      for (int c = 0; c < tb.nc; ++c) cluster(c, act);
+      for (int c = 0; c < tb.nc; ++c) {
+        cluster(c, act);
+        if (finished(act)) return;
+      }
       return;
     }
     for (int si = 0; si < tb.nsup; ++si) {
       const int s = (int)tb.sup[(size_t)si * kSupCols + 8 + oct];
       const float* S = tb.sup + (size_t)s * kSupCols;
       if ((int)S[7] <= 0) continue;
-      const bool in_s = enters(act, S, kSSupers);
+      const bool in_s = l.enters(act, S, kSSupers);
       if (!__any_sync(kFull, in_s)) continue;
       const int base = s * kSuper;
-      for (int k = 0; k < kSuper; ++k)
+      for (int k = 0; k < kSuper; ++k) {
         cluster(base + (int)tb.cl[(size_t)(base + k) * kSclCols + 8 + oct], in_s);
+        if (finished(act)) return;
+      }
+    }
+  }
+
+  // the walk of every live lane: once per octant among the warp's live
+  // lanes (sorted rays: mostly one); the flat walk's order is every
+  // octant's
+  __device__ void run(bool live, int oct) {
+    if (tb.nsup == 0) {
+      walk(0, live);
+      return;
+    }
+    unsigned octs = __reduce_or_sync(kFull, live ? 1u << oct : 0u);
+    while (octs) {
+      const int o = __ffs(octs) - 1;
+      octs &= octs - 1;
+      walk(o, live && oct == o);
+    }
+  }
+};
+
+// #6's lane: boxes culled against its running nearest t, a staged block's
+// triangles all tested, strictly closer wins.
+template <class Ctr>
+struct NearestLane {
+  static constexpr bool kStops = false;
+  Ctr& cnt;
+  V3 ro, rd, inv;
+  float t;
+  int idx, kind;
+
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ bool enters(bool act, const float* B, int counter) {
+    if (!act) return false;
+    cnt.add(counter);
+    return slab_hit(B, ro, inv, kEps, t);
+  }
+  __device__ __forceinline__ void test(const float4* st, int base, int n) {
+    cnt.add(kSTris, (unsigned)n);
+    for (int k = 0; k < n; ++k) {
+      float tt;
+      if (mt_row(ro, rd, st[3 * k], st[3 * k + 1], st[3 * k + 2], kEps, &tt) && tt < t) {
+        t = tt;
+        idx = base + k;
+        kind = 3;
+      }
+    }
+  }
+};
+
+// #7's lane: boxes culled against its segment (kMinD, md) while it is
+// unblocked, a staged block's can-block triangles tested in order until
+// one occludes.
+template <class Ctr>
+struct BlockerLane {
+  static constexpr bool kStops = true;
+  Ctr& cnt;
+  V3 ro, rd, inv;
+  float md;
+  int cb_col;  // 9: every triangle blocks; 10: eta <= 0 only
+  bool blocked;
+
+  __device__ __forceinline__ bool done() const { return blocked; }
+  __device__ __forceinline__ bool enters(bool act, const float* B, int counter) {
+    if (!act || blocked) return false;
+    cnt.add(counter);
+    return slab_hit(B, ro, inv, kMinD, md);
+  }
+  __device__ __forceinline__ void test(const float4* st, int, int n) {
+    for (int k = 0; k < n && !blocked; ++k) {
+      const float4 c = st[3 * k + 2];  // e2.z | blocks_gpu blocks_cpu 0
+      if (!((cb_col == 9 ? c.y : c.z) > 0.0f)) continue;
+      cnt.add(kSTris);
+      float tt;
+      if (mt_row(ro, rd, st[3 * k], st[3 * k + 1], c, kMinD, &tt) && tt < md) blocked = true;
     }
   }
 };
@@ -307,77 +283,71 @@ __global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < B && i < (n_live ? *n_live : B);
   const V3 zero = mk(0.f, 0.f, 0.f);
-  WarpNearest<decltype(cnt)> w{tb, stage[threadIdx.x >> 5], cnt, (int)(threadIdx.x & 31),
-                               zero, zero, zero, kInf, -1, 0};
+  NearestLane<decltype(cnt)> l{cnt, zero, zero, zero, kInf, -1, 0};
   int oct = 0;
   if (live) {
     cnt.add(kSRays);
-    w.ro = load3(ro_in, i);
-    w.rd = load3(rd_in, i);
+    l.ro = load3(ro_in, i);
+    l.rd = load3(rd_in, i);
     // spheres, then light balls, in table order: the reference tie-break
     for (int s = 0; s < tb.ns + tb.nl; ++s) {
       const float* S = tb.sph + s * kSphCols;
       V3 oc;
       cnt.add(kSSpheres);
-      const float t = sphere_t(w.ro, w.rd, S, INFINITY, &oc);
-      if (t < w.t) {
-        w.t = t;
-        w.idx = s;
-        w.kind = S[14] > 0.0f ? 2 : 1;
+      const float t = sphere_t(l.ro, l.rd, S, INFINITY, &oc);
+      if (t < l.t) {
+        l.t = t;
+        l.idx = s;
+        l.kind = S[14] > 0.0f ? 2 : 1;
       }
     }
-    w.inv = mk(safe_inv(w.rd.x), safe_inv(w.rd.y), safe_inv(w.rd.z));
-    oct = octant(w.rd);
+    l.inv = mk(safe_inv(l.rd.x), safe_inv(l.rd.y), safe_inv(l.rd.z));
+    oct = octant(l.rd);
   }
-  if (tb.nsup == 0) {
-    w.walk(0, live);  // the flat walk's order is every octant's
-  } else {
-    // once per octant among the warp's live lanes (sorted rays: mostly one)
-    unsigned octs = __reduce_or_sync(kFull, live ? 1u << oct : 0u);
-    while (octs) {
-      const int o = __ffs(octs) - 1;
-      octs &= octs - 1;
-      w.walk(o, live && oct == o);
-    }
-  }
+  WarpWalk<decltype(l)> w{tb, stage[threadIdx.x >> 5], (int)(threadIdx.x & 31), l};
+  w.run(live, oct);
   if (i < B) {
-    t_out[i] = w.t;
-    idx_out[i] = w.idx;
-    kind_out[i] = w.kind;
+    t_out[i] = l.t;
+    idx_out[i] = l.idx;
+    kind_out[i] = l.kind;
   }
   if constexpr (kCount) cnt.flush(counts);
 }
 
-__global__ void any_blocker_stream_kernel(StreamTables tb, const float* __restrict__ p1_in,
-                                          const float* __restrict__ rd_in,
-                                          const float* __restrict__ md_in, int B,
-                                          const int* __restrict__ n_live, int blocks_col,
-                                          bool* __restrict__ out) {
+template <bool kCount>
+__global__ void __launch_bounds__(kThreads, kStreamMinBlocks)
+    any_blocker_stream_kernel(StreamTables tb, const float* __restrict__ p1_in,
+                              const float* __restrict__ rd_in, const float* __restrict__ md_in,
+                              int B, const int* __restrict__ n_live, int blocks_col,
+                              bool* __restrict__ out, unsigned long long* __restrict__ counts) {
+  __shared__ __align__(16) float4 stage[kThreads / 32][kTB * 3];
+  typename std::conditional<kCount, CountN<kSCounts>, NoCount>::type cnt;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  bool blocked = false;
-  if (i < (n_live ? *n_live : B)) {
-    BlockerWalk w;
-    w.ro = load3(p1_in, i);
-    w.rd = load3(rd_in, i);
-    w.md = md_in[i];
-    w.cb_col = blocks_col + 5;
-    w.blocked = false;
+  const bool live = i < B && i < (n_live ? *n_live : B);
+  const V3 zero = mk(0.f, 0.f, 0.f);
+  BlockerLane<decltype(cnt)> l{cnt, zero, zero, zero, 0.f, blocks_col + 5, false};
+  int oct = 0;
+  if (live) {
+    cnt.add(kSRays);
+    l.ro = load3(p1_in, i);
+    l.rd = load3(rd_in, i);
+    l.md = md_in[i];
     // spheres with their can-block flag; light balls never block
-    for (int s = 0; s < tb.ns && !w.blocked; ++s) {
+    for (int s = 0; s < tb.ns && !l.blocked; ++s) {
       const float* S = tb.sph + s * kSphCols;
       if (!(S[blocks_col] > 0.0f)) continue;
+      cnt.add(kSSpheres);
       V3 oc;
-      float t = sphere_t(w.ro, w.rd, S, w.md, &oc);
-      w.blocked = (t < kInf) && (t > kMinD);
+      const float t = sphere_t(l.ro, l.rd, S, l.md, &oc);
+      l.blocked = (t < kInf) && (t > kMinD);
     }
-    if (!w.blocked) {
-      w.inv = mk(safe_inv(w.rd.x), safe_inv(w.rd.y), safe_inv(w.rd.z));
-      stream_walk(tb, octant(w.rd), w);
-    }
-    blocked = w.blocked;
+    l.inv = mk(safe_inv(l.rd.x), safe_inv(l.rd.y), safe_inv(l.rd.z));
+    oct = octant(l.rd);
   }
-  out[i] = blocked;
+  WarpWalk<decltype(l)> w{tb, stage[threadIdx.x >> 5], (int)(threadIdx.x & 31), l};
+  w.run(live, oct);
+  if (i < B) out[i] = l.blocked;
+  if constexpr (kCount) cnt.flush(counts);
 }
 
 inline StreamTables make_stream_tables(const float* sph, int ns, int nl, const float* tri,
@@ -431,9 +401,23 @@ int pt_any_blocker_stream(const float* sph, int ns, int nl, const float* tri, co
                           int nc, const float* sup, int nsup, const float* blk, const float* p1,
                           const float* rd, const float* max_d, int B, const int* n_live,
                           int blocks_col, bool* out, void* stream) {
-  any_blocker_stream_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+  any_blocker_stream_kernel<false><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
       make_stream_tables(sph, ns, nl, tri, cl, nc, sup, nsup, blk), p1, rd, max_d, B, n_live,
-      blocks_col, out);
+      blocks_col, out, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The counting build of #7: the same verdicts, and the work counters (the
+// first six of kSCounts) added into counts[kSCounts] (zeroed by the
+// caller).
+int pt_any_blocker_stream_counts(const float* sph, int ns, int nl, const float* tri,
+                                 const float* cl, int nc, const float* sup, int nsup,
+                                 const float* blk, const float* p1, const float* rd,
+                                 const float* max_d, int B, const int* n_live, int blocks_col,
+                                 bool* out, unsigned long long* counts, void* stream) {
+  any_blocker_stream_kernel<true><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_stream_tables(sph, ns, nl, tri, cl, nc, sup, nsup, blk), p1, rd, max_d, B, n_live,
+      blocks_col, out, counts);
   return (int)cudaGetLastError();
 }
 

@@ -118,8 +118,9 @@ enum PhotonCountIdx {
 // photon is done takes the next index from *work (one atomicAdd a warp
 // step for the lanes that need one); indices that are not real are
 // skipped.  The photon keeps its own index, so its draws and its event
-// rows are the one-thread-per-photon kernel's.
-template <bool kCount>
+// rows are the one-thread-per-photon kernel's.  kW: the walk (an instance
+// per walk, pt_device.cuh::WalkKind).
+template <bool kCount, int kW>
 __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
     photon_trace_kernel(Tables tb, const float* __restrict__ ro_in,
                         const float* __restrict__ rd_in, const float* __restrict__ flux_in,
@@ -163,7 +164,7 @@ __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
     ++my_bounces;
     cnt.add(kBounces);
     cnt.simt(kBounceLanes);
-    const HitRec h = nearest_hit_dev<false>(tb, ro, rd, cnt);
+    const HitRec h = nearest_hit_dev<false, kW>(tb, ro, rd, cnt);
     live = false;
     // a miss, a light ball or the depth limit ends the photon
     if (h.flag == 1 && dep < g.light_depth) {
@@ -211,7 +212,7 @@ __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
   }
 }
 
-template <bool kCount>
+template <bool kCount, int kW>
 int launch_photon(const Tables& tb, const float* ro, const float* rd, const float* flux,
                   const bool* real, int P, const PhotonCfg& g, int* work, float* ev, bool* valid,
                   unsigned long long* counts, void* stream) {
@@ -222,13 +223,13 @@ int launch_photon(const Tables& tb, const float* ro, const float* rd, const floa
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, photon_trace_kernel<kCount>,
-                                                          kPhotonThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, photon_trace_kernel<kCount, kW>, kPhotonThreads, 0);
     if (err != cudaSuccess) return (int)err;
     resident = sms * per_sm;
   }
   const int blocks = std::min(resident, (P + kPhotonThreads - 1) / kPhotonThreads);
-  photon_trace_kernel<kCount><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
+  photon_trace_kernel<kCount, kW><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
       tb, ro, rd, flux, real, g, P, work, ev, valid, counts);
   return (int)cudaGetLastError();
 }
@@ -467,33 +468,38 @@ extern "C" {
 // work: one int32, zeroed by the caller (the next photon to hand out);
 // valid holds zeros beforehand (rows never written are never read).
 int pt_photon_trace(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                    const float* cl, int nc, const float* ro, const float* rd, const float* flux,
-                    const bool* real, int P, uint32_t k0, uint32_t k1, uint32_t start,
-                    uint32_t total, int light_depth, int iters, int* work, float* ev, bool* valid,
-                    void* stream) {
+                    const float* cl, int nc, const float* sup, int nsup, const float* ro,
+                    const float* rd, const float* flux, const bool* real, int P, uint32_t k0,
+                    uint32_t k1, uint32_t start, uint32_t total, int light_depth, int iters,
+                    int* work, float* ev, bool* valid, void* stream) {
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
-  return launch_photon<false>(make_tables(sph, ns, nl, tri, uv, cl, nc), ro, rd, flux, real, P, g,
-                              work, ev, valid, nullptr, stream);
+  auto* launch = nsup ? &launch_photon<false, kWalkSuper> : &launch_photon<false, kWalkFlat>;
+  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+                work, ev, valid, nullptr, stream);
 }
 
 // The counting build of #10: the same events, and the work counters added
 // into counts[kPhotonCounts] (zeroed by the caller).
 int pt_photon_trace_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                           const float* cl, int nc, const float* ro, const float* rd,
-                           const float* flux, const bool* real, int P, uint32_t k0, uint32_t k1,
-                           uint32_t start, uint32_t total, int light_depth, int iters, int* work,
-                           float* ev, bool* valid, unsigned long long* counts, void* stream) {
+                           const float* cl, int nc, const float* sup, int nsup, const float* ro,
+                           const float* rd, const float* flux, const bool* real, int P,
+                           uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
+                           int light_depth, int iters, int* work, float* ev, bool* valid,
+                           unsigned long long* counts, void* stream) {
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
-  return launch_photon<true>(make_tables(sph, ns, nl, tri, uv, cl, nc), ro, rd, flux, real, P, g,
-                             work, ev, valid, counts, stream);
+  auto* launch = nsup ? &launch_photon<true, kWalkSuper> : &launch_photon<true, kWalkFlat>;
+  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+                work, ev, valid, counts, stream);
 }
 
-// occupancy_row of photon_trace and photon_trace_counts in turn.
+// occupancy_row of photon_trace and photon_trace_counts in turn (their
+// flat-walk instances, the main path's on the text scenes).
 int pt_photon_occupancy(int* out) {
   cudaError_t err =
-      occupancy_row((const void*)photon_trace_kernel<false>, kPhotonThreads, 0, out);
+      occupancy_row((const void*)photon_trace_kernel<false, kWalkFlat>, kPhotonThreads, 0, out);
   if (err == cudaSuccess)
-    err = occupancy_row((const void*)photon_trace_kernel<true>, kPhotonThreads, 0, out + 5);
+    err = occupancy_row((const void*)photon_trace_kernel<true, kWalkFlat>, kPhotonThreads, 0,
+                        out + 5);
   return (int)err;
 }
 

@@ -16,7 +16,12 @@
 //   tri (Mt, 24): v0 v1 v2 | blocks_gpu blocks_cpu 0 | n3 0 | r g b rough
 //                 metal eta 0 0
 //   uv  (Mt, 8):  u0 v0 u1 v1 u2 v2 tex 0   (tex = -1: untextured)
-//   cl  (Mc, 8):  min3 max3 start count
+//   cl  (Mc, 8):  min3 max3 start count; from SUPER_MIN_CLUSTERS (64)
+//                 clusters on (Mc, 16): the same, then the relative index
+//                 of the row's child in each octant's front-to-back order
+//   sup (NS, 16): min3 max3 0 count | super order per octant, the union
+//                 boxes of 16 consecutive clusters (nsup 0: none, the flat
+//                 walk); ops/cuda_intersect.py::super_table builds both
 //   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
 //   light vertices (V, 40): see ops/cuda_connect.py::pack_light_vertices
 #pragma once
@@ -32,6 +37,8 @@ constexpr float kInf = 1e20f;      // miss sentinel
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kMinD = 1e-3f;     // shadow-ray endpoint clearance
 constexpr int kSphCols = 16, kTriCols = 24, kUvCols = 8, kClCols = 8, kLightCols = 12;
+// the super walk: 16 clusters a super, cluster and super rows of 16 columns
+constexpr int kSuper = 16, kSclCols = 16, kSupCols = 16;
 
 struct V3 {
   float x, y, z;
@@ -89,6 +96,8 @@ struct Tables {
   const float* __restrict__ uv;
   const float* __restrict__ cl;
   int nc;
+  const float* __restrict__ sup;
+  int nsup;  // super rows the walk visits; 0: the flat walk over 8-column cl rows
 };
 
 // ---------------------------------------------------------------------------
@@ -240,15 +249,77 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < 1e-12f ? (d >= 0.0f ? 1e-12f : -1e-12f) : d);
 }
 
-// Slab test of one cluster AABB: the ray enters it before tlimit.
-__device__ __forceinline__ bool slab_hit(const float* __restrict__ C, V3 ro, V3 inv, float tlo,
+// NaN-propagating min and max in one instruction each (sm_80 on): equal
+// in value to jmin and jmax, a zero's sign aside, which no comparison sees
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Slab test of one box row [min3 max3 ...] (16-byte aligned in global
+// memory: cluster, super and block rows): the ray enters it past tlo and
+// before tlimit.  The box is read as two float4 and each NaN-propagating
+// min/max is one instruction; the products and the verdict are those of
+// the six-load, select-based form it replaced (measured 19% faster in #6 on
+// an H100, PERF.md section 6).
+__device__ __forceinline__ bool slab_hit(const float* __restrict__ B, V3 ro, V3 inv, float tlo,
                                          float tlimit) {
-  float t0x = (C[0] - ro.x) * inv.x, t1x = (C[3] - ro.x) * inv.x;
-  float t0y = (C[1] - ro.y) * inv.y, t1y = (C[4] - ro.y) * inv.y;
-  float t0z = (C[2] - ro.z) * inv.z, t1z = (C[5] - ro.z) * inv.z;
-  float tn = jmax(jmax(jmin(t0x, t1x), jmin(t0y, t1y)), jmax(jmin(t0z, t1z), tlo));
-  float tf = jmin(jmin(jmax(t0x, t1x), jmax(t0y, t1y)), jmax(t0z, t1z));
+  const float4 a = __ldg(reinterpret_cast<const float4*>(B));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(B) + 1);
+  const float t0x = (a.x - ro.x) * inv.x, t1x = (a.w - ro.x) * inv.x;
+  const float t0y = (a.y - ro.y) * inv.y, t1y = (b.x - ro.y) * inv.y;
+  const float t0z = (a.z - ro.z) * inv.z, t1z = (b.y - ro.z) * inv.z;
+  const float tn = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+                           max_nan(min_nan(t0z, t1z), tlo));
+  const float tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
   return (tn <= tf) && (tn < tlimit);
+}
+
+__device__ __forceinline__ int octant(V3 rd) {
+  return (rd.x >= 0.0f ? 1 : 0) + (rd.y >= 0.0f ? 2 : 0) + (rd.z >= 0.0f ? 4 : 0);
+}
+
+// Which cluster walk a kernel instance takes: chosen at run time by nsup,
+// or fixed.  #4, #5 and #10 launch an instance per walk (the flat one
+// below SUPER_MIN_CLUSTERS), since the branch cost #5 and #10 registers
+// and time on cornell.
+enum WalkKind { kWalkAny, kWalkFlat, kWalkSuper };
+
+template <int kW>
+__device__ __forceinline__ bool flat_walk(const Tables& tb) {
+  return kW == kWalkFlat || (kW == kWalkAny && tb.nsup == 0);
+}
+
+// The cluster walk of the resident kernels, as the JAX package's kernels
+// walk super_table: below SUPER_MIN_CLUSTERS (nsup 0) every cluster row
+// in table order; else the supers in octant oct's front-to-back order, and
+// of each super whose box the visitor enters, its 16 children in their
+// order (cluster columns 8-15).  The visitor: enters_super(box) tests a
+// super box against its running limit, cluster(c) visits cluster row c
+// (its box test included), done() ends the walk (a blocked shadow ray).
+template <bool kFlat, class Visit>
+__device__ __forceinline__ void cluster_walk(const float* __restrict__ cl, int nc,
+                                             const float* __restrict__ sup, int nsup, int oct,
+                                             Visit& w) {
+  if (kFlat) {
+    for (int c = 0; c < nc && !w.done(); ++c) w.cluster(c);
+    return;
+  }
+  for (int si = 0; si < nsup && !w.done(); ++si) {
+    const int s = (int)sup[si * kSupCols + 8 + oct];
+    const float* S = sup + s * kSupCols;
+    if ((int)S[7] <= 0 || !w.enters_super(S)) continue;
+    const int base = s * kSuper;
+    for (int k = 0; k < kSuper && !w.done(); ++k)
+      w.cluster(base + (int)cl[(base + k) * kSclCols + 8 + oct]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -266,41 +337,30 @@ struct HitRec {
   float iu, iv, tex;
 };
 
-// kUV keeps the winning triangle's Moller-Trumbore barycentrics and
-// interpolates its vertex UVs as ops/texture.py::interpolate_uv does:
-// w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.  cnt counts the primitive tests.
+// The nearest-hit walk's visitor: a box is entered if the ray enters it
+// before its running nearest t (culling never changes the result), an
+// entered cluster's triangles are tested in order, strictly closer wins.
 template <bool kUV, class Ctr>
-__device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd, Ctr& cnt) {
+struct NearestVisit {
+  const Tables& tb;
+  Ctr& cnt;
+  V3 ro, rd, inv;
+  int cl_cols;  // 8 (the flat walk) or 16 (the super walk)
   HitRec best;
-  best.t = kInf;
-  best.n = mk(0.f, 0.f, 0.f);
-  best.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
-  best.flag = 0;
-  int best_tri = -1;
-  float best_u = 0.f, best_v = 0.f;
-  for (int i = 0; i < tb.ns + tb.nl; ++i) {
-    const float* s = tb.sph + i * kSphCols;
-    V3 oc;
-    cnt.add(kHitSph);
-    float t = sphere_t(ro, rd, s, INFINITY, &oc);
-    if (t < best.t) {
-      float inv_r = 1.0f / jmax(s[3], 1e-20f);
-      best.t = t;
-      best.n = scale(oc + scale(rd, t), inv_r);
-      best.m = {mk(s[8], s[9], s[10]), s[11], s[12], s[13]};
-      best.flag = s[14] > 0.0f ? 2 : 1;
-    }
-  }
-  // per-ray cluster culling: a cluster the ray cannot enter before the
-  // current best hit is skipped; culling never changes the result
-  V3 inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
-  for (int c = 0; c < tb.nc; ++c) {
-    const float* C = tb.cl + c * kClCols;
-    int count = (int)C[7];
-    if (count <= 0) continue;
+  int best_tri;
+  float best_u, best_v;
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ bool enters_super(const float* S) {
     cnt.add(kHitBox);
-    if (!slab_hit(C, ro, inv, kEps, best.t)) continue;
-    int start = (int)C[6];
+    return slab_hit(S, ro, inv, kEps, best.t);
+  }
+  __device__ __forceinline__ void cluster(int c) {
+    const float* C = tb.cl + c * cl_cols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    cnt.add(kHitBox);
+    if (!slab_hit(C, ro, inv, kEps, best.t)) return;
+    const int start = (int)C[6];
     cnt.add(kHitTri, (unsigned)count);
     for (int i = start; i < start + count; ++i) {
       const float* T = tb.tri + i * kTriCols;
@@ -319,17 +379,58 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd, Ctr& cnt) {
       }
     }
   }
+};
+
+// kUV keeps the winning triangle's Moller-Trumbore barycentrics and
+// interpolates its vertex UVs as ops/texture.py::interpolate_uv does:
+// w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.  cnt counts the primitive
+// tests (a super box as a box).  The triangles are walked by cluster_walk:
+// from 64 clusters on the supers in the ray's octant order, as
+// nearest_hit_pallas walks them; t is the flat walk's, and only the winner
+// of an exact tie may differ (the first visited wins).  kW: the walk
+// (WalkKind).
+template <bool kUV, int kW = kWalkAny, class Ctr>
+__device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd, Ctr& cnt) {
+  const bool flat = flat_walk<kW>(tb);
+  NearestVisit<kUV, Ctr> w{tb, cnt, ro, rd, mk(0.f, 0.f, 0.f), flat ? kClCols : kSclCols};
+  w.best.t = kInf;
+  w.best.n = mk(0.f, 0.f, 0.f);
+  w.best.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
+  w.best.flag = 0;
+  w.best_tri = -1;
+  w.best_u = w.best_v = 0.f;
+  for (int i = 0; i < tb.ns + tb.nl; ++i) {
+    const float* s = tb.sph + i * kSphCols;
+    V3 oc;
+    cnt.add(kHitSph);
+    float t = sphere_t(ro, rd, s, INFINITY, &oc);
+    if (t < w.best.t) {
+      float inv_r = 1.0f / jmax(s[3], 1e-20f);
+      w.best.t = t;
+      w.best.n = scale(oc + scale(rd, t), inv_r);
+      w.best.m = {mk(s[8], s[9], s[10]), s[11], s[12], s[13]};
+      w.best.flag = s[14] > 0.0f ? 2 : 1;
+    }
+  }
+  // per-ray culling: a box the ray cannot enter before the current best
+  // hit is skipped
+  w.inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  if (flat)
+    cluster_walk<true>(tb.cl, tb.nc, tb.sup, tb.nsup, 0, w);
+  else
+    cluster_walk<false>(tb.cl, tb.nc, tb.sup, tb.nsup, octant(rd), w);
+  HitRec best = w.best;
   float sgn = dot3(best.n, rd) > 0.0f ? -1.0f : 1.0f;
   best.n = scale(best.n, sgn);
   if (!(best.t < kInf)) best.flag = 0;
   best.iu = 0.0f;
   best.iv = 0.0f;
   best.tex = -1.0f;
-  if (kUV && best_tri >= 0) {
-    const float* U = tb.uv + best_tri * kUvCols;
-    float w0 = 1.0f - best_u - best_v;
-    best.iu = w0 * U[0] + best_u * U[2] + best_v * U[4];
-    best.iv = w0 * U[1] + best_u * U[3] + best_v * U[5];
+  if (kUV && w.best_tri >= 0) {
+    const float* U = tb.uv + w.best_tri * kUvCols;
+    float w0 = 1.0f - w.best_u - w.best_v;
+    best.iu = w0 * U[0] + w.best_u * U[2] + w.best_v * U[4];
+    best.iv = w0 * U[1] + w.best_u * U[3] + w.best_v * U[5];
     best.tex = U[6];
   }
   return best;
@@ -341,10 +442,52 @@ __device__ __forceinline__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd
   return nearest_hit_dev<kUV>(tb, ro, rd, cnt);
 }
 
+// The shadow walk's visitor: a box is entered if the segment enters it in
+// (kMinD, md); an entered cluster's can-block triangles are tested in
+// order up to the first that occludes, which ends the walk.
+template <class Ctr>
+struct ShadowVisit {
+  const Tables& tb;
+  Ctr& cnt;
+  V3 p1, rd, inv;
+  float md;
+  int cl_cols, blocks_col;
+  bool blocked;
+  __device__ __forceinline__ bool done() const { return blocked; }
+  __device__ __forceinline__ bool enters_super(const float* S) {
+    cnt.add(kShBox);
+    return slab_hit(S, p1, inv, kMinD, md);
+  }
+  __device__ __forceinline__ void cluster(int c) {
+    const float* C = tb.cl + c * cl_cols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    cnt.add(kShBox);
+    if (!slab_hit(C, p1, inv, kMinD, md)) return;
+    const int start = (int)C[6];
+    for (int i = start; i < start + count; ++i) {
+      const float* T = tb.tri + i * kTriCols;
+      if (!(T[blocks_col + 5] > 0.0f)) continue;
+      float u, v;
+      cnt.add(kShTri);
+      cnt.simt(kTriLanes);
+      float t = triangle_t(p1, rd, T, &u, &v);
+      if (t < md && t > kMinD) {
+        blocked = true;
+        return;
+      }
+    }
+  }
+};
+
 // Shadow any-hit for t in (kMinD, md): spheres and triangles whose
 // can-block column (4 GPU rule / 5 oracle rule) is set; light balls never
-// block and are not visited.  cnt counts the primitive tests.
-template <class Ctr>
+// block and are not visited.  cnt counts the primitive tests (a super box
+// as a box).  From 64 clusters on the walk takes the supers in the ray's
+// octant order and each entered super's children in theirs (the JAX
+// package's blocker takes the children in table order: the verdict is the
+// same, the tests up to the first blocker may differ).  kW: the walk.
+template <int kW = kWalkAny, class Ctr>
 __device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int blocks_col,
                                    Ctr& cnt) {
   for (int i = 0; i < tb.ns; ++i) {
@@ -355,25 +498,14 @@ __device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int
     float t = sphere_t(p1, rd, s, md, &oc);
     if (t < kInf && t > kMinD) return true;
   }
-  V3 inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
-  for (int c = 0; c < tb.nc; ++c) {
-    const float* C = tb.cl + c * kClCols;
-    int count = (int)C[7];
-    if (count <= 0) continue;
-    cnt.add(kShBox);
-    if (!slab_hit(C, p1, inv, kMinD, md)) continue;
-    int start = (int)C[6];
-    for (int i = start; i < start + count; ++i) {
-      const float* T = tb.tri + i * kTriCols;
-      if (!(T[blocks_col + 5] > 0.0f)) continue;
-      float u, v;
-      cnt.add(kShTri);
-      cnt.simt(kTriLanes);
-      float t = triangle_t(p1, rd, T, &u, &v);
-      if (t < md && t > kMinD) return true;
-    }
-  }
-  return false;
+  const bool flat = flat_walk<kW>(tb);
+  ShadowVisit<Ctr> w{tb, cnt, p1, rd, mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z)), md,
+                     flat ? kClCols : kSclCols, blocks_col, false};
+  if (flat)
+    cluster_walk<true>(tb.cl, tb.nc, tb.sup, tb.nsup, 0, w);
+  else
+    cluster_walk<false>(tb.cl, tb.nc, tb.sup, tb.nsup, octant(rd), w);
+  return w.blocked;
 }
 
 __device__ __forceinline__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md,
@@ -854,7 +986,7 @@ inline cudaError_t occupancy_row(const void* fn, int threads, int dynamic_smem, 
 }
 
 inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc) {
+                          const float* cl, int nc, const float* sup, int nsup) {
   Tables tb;
   tb.sph = sph;
   tb.ns = ns;
@@ -863,6 +995,8 @@ inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, co
   tb.uv = uv;
   tb.cl = cl;
   tb.nc = nc;
+  tb.sup = sup;
+  tb.nsup = nsup;
   return tb;
 }
 

@@ -36,8 +36,10 @@
 //                      that path_tracing_tpu/ops/rng.py:60 draws through XLA.
 //
 // What bounds them on this card: the primitive sweeps are compute work per
-// ray (about 45 primitive tests per ray on a 36-triangle box, a cluster slab
-// test per cluster plus the triangles of the entered clusters on a mesh);
+// ray (about 45 primitive tests per ray on a 36-triangle box; on a mesh of
+// 64 clusters or more a slab test per super of the ray's octant list, then
+// the children of the entered supers and the triangles of the entered
+// clusters, as pt_device.cuh::cluster_walk walks them);
 // memory traffic is the ray state, 40-130 bytes per lane per bounce, or
 // 12 bytes per pixel for the megakernel, whose state never leaves
 // registers.  The TPU kernels cull clusters per 4096-ray tile (jnp.any over
@@ -66,6 +68,18 @@
 // the walks and their primitive tests, the BSDF samples, evaluations and
 // pdfs, the draws and the SIMT efficiency of the walk, the shade and the
 // shadow step.
+//
+// #4's design for this card: the textured bounce takes the super walk on
+// meshes of 64 clusters or more (the 81,920-triangle icosphere: 128 supers
+// of 16 clusters), as shade_step_tex_pallas walks super_table; #4, #5 and
+// #10 launch an instance per walk, the flat one below 64 clusters.  Eight
+// blocks of 128 an SM (64 registers).  Measured on an H100 on the first
+// bounce of the textured 1080p frame, bit-equal on every lane (PERF.md
+// section 6): the flat walk 14.57 ms; the super walk 2.43 (96 registers, 20
+// warps an SM); with 6 / 8 / 10 blocks an SM 2.28 / 2.03-2.06 / 2.04-2.05;
+// the octant's 128 super rows (8 KB) staged in shared memory per block
+// 2.40-2.41 against 2.38 with the same generic loads unstaged (dropped).
+// The counting build (kCount) counts #5's counters that one bounce fills.
 
 #include <algorithm>
 #include <type_traits>
@@ -172,8 +186,9 @@ struct ThreefryDraws {
   }
 };
 
-// The NEE shadow ray walked where it is cast (has: a ray was cast).
-template <class Ctr>
+// The NEE shadow ray walked where it is cast (has: a ray was cast), by
+// the walk kW (WalkKind).
+template <class Ctr, int kW = kWalkAny>
 struct WalkShadow {
   const Tables& tb;
   int blocks_col;
@@ -182,7 +197,7 @@ struct WalkShadow {
   __device__ __forceinline__ bool operator()(V3 p1, V3 rd, float md) {
     has = true;
     cnt.simt(kShLanes);
-    return shadow_blocked_dev(tb, p1, rd, md, blocks_col, cnt);
+    return shadow_blocked_dev<kW>(tb, p1, rd, md, blocks_col, cnt);
   }
 };
 
@@ -406,25 +421,6 @@ __global__ void shade_step_kernel(Tables tb, ShadeCfg c, StateIn in, StateOut ou
   store_state(out, i, s, radiance);
 }
 
-// The textured bounce: the with_uv hit, the bilinear texel of a textured
-// triangle multiplied into its base color, then the bounce of shade_step.
-__global__ void shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in, StateOut out,
-                                      int B) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  PathState s = load_state(in, i);
-  V3 radiance = mk(0.f, 0.f, 0.f);
-  if (s.alive) {
-    HitRec h = nearest_hit_dev<true>(tb, s.ro, s.rd);
-    int tex_id = (int)h.tex;
-    if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
-    NoCount nc;
-    WalkShadow<NoCount> sh{tb, c.blocks_col, nc, false};
-    radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
-  }
-  store_state(out, i, s, radiance);
-}
-
 // ---------------------------------------------------------------------------
 // render_wavefront: every sample of a pixel in one thread, pixels handed
 // out by a global counter
@@ -433,12 +429,51 @@ __global__ void shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in,
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMegaThreads = 128;
 constexpr int kMegaMinBlocks = 12;  // __launch_bounds__: 48 warps an SM
+constexpr int kTexMinBlocks = 8;    // #4's __launch_bounds__: 32 warps an SM
 
-// #5's counters after the shared ones (ops/cuda_wavefront.py::COUNT_NAMES)
+// #5's counters after the shared ones (ops/cuda_wavefront.py::COUNT_NAMES);
+// #4's counting build fills the same
 enum MegaCountIdx {
   kIters = kNumCounts, kBsdfSamples, kDraws, kWalkLanes, kWalkSlots, kShadeLanes, kShadeSlots,
   kWarpIterSlots, kMegaCounts
 };
+
+// The textured bounce: the with_uv hit, the bilinear texel of a textured
+// triangle multiplied into its base color, then the bounce of shade_step.
+// The counting build (kCount) counts #5's counters that a bounce fills:
+// the active lanes (kIters), their walks' tests, the NEE shadow rays with
+// their evaluations and pdfs, the BSDF samples and the SIMT of the walk,
+// the shade and the shadow step (its uniforms come from the table: no
+// draws).  kW: the walk (an instance per walk, WalkKind).
+template <bool kCount, int kW>
+__global__ void __launch_bounds__(kThreads, kTexMinBlocks)
+    shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in, StateOut out, int B,
+                          unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, CountN<kMegaCounts>, NoCount>::type cnt;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B) {  // every lane of the warp reaches the counters' flush
+    PathState s = load_state(in, i);
+    V3 radiance = mk(0.f, 0.f, 0.f);
+    if (s.alive) {
+      cnt.add(kIters);
+      cnt.simt(kWalkLanes);
+      HitRec h = nearest_hit_dev<true, kW>(tb, s.ro, s.rd, cnt);
+      int tex_id = (int)h.tex;
+      if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
+      cnt.simt(kShadeLanes);
+      WalkShadow<decltype(cnt), kW> sh{tb, c.blocks_col, cnt, false};
+      radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
+      if (sh.has) {
+        cnt.add(kShadowRays);
+        cnt.add(kEvals);
+        cnt.add(kPdfs);
+      }
+      if (h.flag == 1) cnt.add(kBsdfSamples);
+    }
+    store_state(out, i, s, radiance);
+  }
+  if constexpr (kCount) cnt.flush(counts);
+}
 
 struct WavefrontCfg {
   Key key;
@@ -455,7 +490,8 @@ struct WavefrontCfg {
 // per-bounce tier's.  A pixel is done when its lane has no work left (the
 // loop of that pixel leaves it untouched from then on) or after max_total
 // iterations; paths cut by that cap still contribute what they gathered.
-template <bool kCount>
+// kW: the walk (an instance per walk, WalkKind).
+template <bool kCount, int kW>
 __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
     render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __restrict__ cam_tab,
                             WavefrontCfg g, const int* __restrict__ px,
@@ -523,9 +559,9 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
       cnt.add(kDraws, 2u);
     }
     cnt.simt(kWalkLanes);
-    HitRec h = nearest_hit_dev<false>(tb, s.ro, s.rd, cnt);
+    HitRec h = nearest_hit_dev<false, kW>(tb, s.ro, s.rd, cnt);
     cnt.simt(kShadeLanes);
-    WalkShadow<decltype(cnt)> walk{tb, c.blocks_col, cnt, false};
+    WalkShadow<decltype(cnt), kW> walk{tb, c.blocks_col, cnt, false};
     rad = rad + shade_from_hit(tb, c, h, s, u, walk);
     if (walk.has) {
       cnt.add(kShadowRays);
@@ -555,14 +591,14 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
   }
 }
 
-template <bool kCount>
+template <bool kCount, int kW>
 int launch_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                            const float* cl, int nc, const float* lights, const float* cam,
-                            const int* px, const int* py, int B, int spp, int eye_depth,
-                            int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
-                            uint32_t start, uint32_t total, float clamp_val, int stub_mis,
-                            int blocks_col, int* work, float* img, unsigned long long* counts,
-                            void* stream) {
+                     const float* cl, int nc, const float* sup, int nsup, const float* lights,
+                     const float* cam, const int* px, const int* py, int B, int spp,
+                     int eye_depth, int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
+                     uint32_t start, uint32_t total, float clamp_val, int stub_mis,
+                     int blocks_col, int* work, float* img, unsigned long long* counts,
+                     void* stream) {
   ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
   WavefrontCfg g{{k0, k1}, start, total, spp, eye_depth, max_path_iters, max_total};
   // persistent blocks: as many as the card holds at once, or fewer
@@ -573,13 +609,38 @@ int launch_wavefront(const float* sph, int ns, int nl, const float* tri, const f
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, render_wavefront_kernel<kCount>, kMegaThreads, 0);
+          &per_sm, render_wavefront_kernel<kCount, kW>, kMegaThreads, 0);
     if (err != cudaSuccess) return (int)err;
     resident = sms * per_sm;
   }
   const int blocks = std::min(resident, (B + kMegaThreads - 1) / kMegaThreads);
-  render_wavefront_kernel<kCount><<<blocks, kMegaThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), c, cam, g, px, py, B, work, img, counts);
+  render_wavefront_kernel<kCount, kW><<<blocks, kMegaThreads, 0, (cudaStream_t)stream>>>(
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, cam, g, px, py, B, work, img,
+      counts);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCount>
+int launch_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
+               const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+               const int* tex_size, int n_tex, int th1, int tw1, const float* lights,
+               const float* ro, const float* rd, const float* tp, const float* eta,
+               const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
+               const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
+               float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
+               bool* o_alive, bool* o_delta, float* o_pdf, unsigned long long* counts,
+               void* stream) {
+  StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
+  StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
+  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
+  Tex tx{atlas, tex_size, n_tex, th1, tw1};
+  const Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  if (nsup)
+    shade_step_tex_kernel<kCount, kWalkSuper><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        tb, tx, c, in, out, B, counts);
+  else
+    shade_step_tex_kernel<kCount, kWalkFlat><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        tb, tx, c, in, out, B, counts);
   return (int)cudaGetLastError();
 }
 
@@ -589,12 +650,13 @@ extern "C" {
 
 // Each entry launches on the caller's stream and returns cudaGetLastError()
 // (0 on success); the Python wrapper raises on anything else.  The scene
-// tables come first in every entry: sph, ns, nl, tri, uv, cl, n_clusters.
+// tables come first in every entry: sph, ns, nl, tri, uv, cl, n_clusters,
+// sup, n_super.
 
 int pt_nearest_hit(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, int with_uv, const float* ro, const float* rd, int B,
-                   float* out, int* flag, void* stream) {
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc);
+                   const float* cl, int nc, const float* sup, int nsup, int with_uv,
+                   const float* ro, const float* rd, int B, float* out, int* flag, void* stream) {
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
   if (with_uv) {
     nearest_hit_uv_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(tb, ro, rd, B, out,
                                                                                  flag);
@@ -606,76 +668,99 @@ int pt_nearest_hit(const float* sph, int ns, int nl, const float* tri, const flo
 }
 
 int pt_any_blocker(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* p1, const float* rd, const float* max_d,
-                   int B, int blocks_col, bool* out, void* stream) {
+                   const float* cl, int nc, const float* sup, int nsup, const float* p1,
+                   const float* rd, const float* max_d, int B, int blocks_col, bool* out,
+                   void* stream) {
   any_blocker_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), p1, rd, max_d, B, blocks_col, out);
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), p1, rd, max_d, B, blocks_col, out);
   return (int)cudaGetLastError();
 }
 
 int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                  const float* cl, int nc, const float* lights, const float* ro, const float* rd,
-                  const float* tp, const float* eta, const int* depth, const bool* act,
-                  const bool* last_delta, const float* last_pdf, const float* u, int B,
-                  float clamp_val, int stub_mis, int blocks_col, float* o_rad, float* o_ro,
-                  float* o_rd, float* o_tp, float* o_eta, int* o_depth, bool* o_alive,
-                  bool* o_delta, float* o_pdf, void* stream) {
+                  const float* cl, int nc, const float* sup, int nsup, const float* lights,
+                  const float* ro, const float* rd, const float* tp, const float* eta,
+                  const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
+                  const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
+                  float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
+                  bool* o_alive, bool* o_delta, float* o_pdf, void* stream) {
   StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
   StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
   ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
   shade_step_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), c, in, out, B);
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B);
   return (int)cudaGetLastError();
 }
 
 int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* atlas, const int* tex_size,
-                      int n_tex, int th1, int tw1, const float* lights, const float* ro,
-                      const float* rd, const float* tp, const float* eta, const int* depth,
-                      const bool* act, const bool* last_delta, const float* last_pdf,
-                      const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
-                      float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta,
-                      int* o_depth, bool* o_alive, bool* o_delta, float* o_pdf, void* stream) {
-  StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
-  StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
-  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
-  Tex tx{atlas, tex_size, n_tex, th1, tw1};
-  shade_step_tex_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc), tx, c, in, out, B);
-  return (int)cudaGetLastError();
+                      const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+                      const int* tex_size, int n_tex, int th1, int tw1, const float* lights,
+                      const float* ro, const float* rd, const float* tp, const float* eta,
+                      const int* depth, const bool* act, const bool* last_delta,
+                      const float* last_pdf, const float* u, int B, float clamp_val, int stub_mis,
+                      int blocks_col, float* o_rad, float* o_ro, float* o_rd, float* o_tp,
+                      float* o_eta, int* o_depth, bool* o_alive, bool* o_delta, float* o_pdf,
+                      void* stream) {
+  return launch_tex<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, atlas, tex_size, n_tex, th1,
+                           tw1, lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u, B,
+                           clamp_val, stub_mis, blocks_col, o_rad, o_ro, o_rd, o_tp, o_eta,
+                           o_depth, o_alive, o_delta, o_pdf, nullptr, stream);
+}
+
+// The counting build of #4: the same outputs, and the work counters added
+// into counts[kMegaCounts] (zeroed by the caller).
+int pt_shade_step_tex_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                             const float* cl, int nc, const float* sup, int nsup,
+                             const float* atlas, const int* tex_size, int n_tex, int th1,
+                             int tw1, const float* lights, const float* ro, const float* rd,
+                             const float* tp, const float* eta, const int* depth,
+                             const bool* act, const bool* last_delta, const float* last_pdf,
+                             const float* u, int B, float clamp_val, int stub_mis,
+                             int blocks_col, float* o_rad, float* o_ro, float* o_rd,
+                             float* o_tp, float* o_eta, int* o_depth, bool* o_alive,
+                             bool* o_delta, float* o_pdf, unsigned long long* counts,
+                             void* stream) {
+  return launch_tex<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, atlas, tex_size, n_tex, th1,
+                          tw1, lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u, B,
+                          clamp_val, stub_mis, blocks_col, o_rad, o_ro, o_rd, o_tp, o_eta,
+                          o_depth, o_alive, o_delta, o_pdf, counts, stream);
 }
 
 // work: one int32, zeroed by the caller (the next pixel to hand out).
 int pt_render_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                        const float* cl, int nc, const float* lights, const float* cam,
-                        const int* px, const int* py, int B, int spp, int eye_depth,
-                        int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
+                        const float* cl, int nc, const float* sup, int nsup, const float* lights,
+                        const float* cam, const int* px, const int* py, int B, int spp,
+                        int eye_depth, int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
                         uint32_t start, uint32_t total, float clamp_val, int stub_mis,
                         int blocks_col, int* work, float* img, void* stream) {
-  return launch_wavefront<false>(sph, ns, nl, tri, uv, cl, nc, lights, cam, px, py, B, spp,
-                                 eye_depth, max_path_iters, max_total, k0, k1, start, total,
-                                 clamp_val, stub_mis, blocks_col, work, img, nullptr, stream);
+  auto* launch = nsup ? &launch_wavefront<false, kWalkSuper> : &launch_wavefront<false, kWalkFlat>;
+  return launch(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, cam, px, py, B, spp, eye_depth,
+                max_path_iters, max_total, k0, k1, start, total, clamp_val, stub_mis, blocks_col,
+                work, img, nullptr, stream);
 }
 
 // The counting build of #5: the same image, and the work counters added
 // into counts[kMegaCounts] (zeroed by the caller).
-int pt_render_wavefront_counts(const float* sph, int ns, int nl, const float* tri,
-                               const float* uv, const float* cl, int nc, const float* lights,
-                               const float* cam, const int* px, const int* py, int B, int spp,
-                               int eye_depth, int max_path_iters, int max_total, uint32_t k0,
-                               uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
-                               int stub_mis, int blocks_col, int* work, float* img,
+int pt_render_wavefront_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                               const float* cl, int nc, const float* sup, int nsup,
+                               const float* lights, const float* cam, const int* px, const int* py,
+                               int B, int spp, int eye_depth, int max_path_iters, int max_total,
+                               uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
+                               float clamp_val, int stub_mis, int blocks_col, int* work, float* img,
                                unsigned long long* counts, void* stream) {
-  return launch_wavefront<true>(sph, ns, nl, tri, uv, cl, nc, lights, cam, px, py, B, spp,
-                                eye_depth, max_path_iters, max_total, k0, k1, start, total,
-                                clamp_val, stub_mis, blocks_col, work, img, counts, stream);
+  auto* launch = nsup ? &launch_wavefront<true, kWalkSuper> : &launch_wavefront<true, kWalkFlat>;
+  return launch(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, cam, px, py, B, spp, eye_depth,
+                max_path_iters, max_total, k0, k1, start, total, clamp_val, stub_mis, blocks_col,
+                work, img, counts, stream);
 }
 
-// occupancy_row of render_wavefront and render_wavefront_counts in turn.
+// occupancy_row of render_wavefront and render_wavefront_counts in turn
+// (their flat-walk instances, the main path's on the text scenes).
 int pt_mega_occupancy(int* out) {
-  cudaError_t err = occupancy_row((const void*)render_wavefront_kernel<false>, kMegaThreads, 0, out);
+  cudaError_t err = occupancy_row((const void*)render_wavefront_kernel<false, kWalkFlat>,
+                                  kMegaThreads, 0, out);
   if (err == cudaSuccess)
-    err = occupancy_row((const void*)render_wavefront_kernel<true>, kMegaThreads, 0, out + 5);
+    err = occupancy_row((const void*)render_wavefront_kernel<true, kWalkFlat>, kMegaThreads, 0,
+                        out + 5);
   return (int)err;
 }
 

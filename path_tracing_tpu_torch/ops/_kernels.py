@@ -14,11 +14,13 @@ with nvcc's output; nothing falls back.
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
 went through.  ``connect_counts``, ``bdpt_eye_counts``,
-``render_wavefront_counts``, ``photon_trace_counts``,
-``gather_flux_counts`` and ``nearest_hit_stream_counts`` are the counting
-builds of ``connect``, ``bdpt_eye``, ``render_wavefront``,
-``photon_trace``, ``gather_flux`` and ``nearest_hit_stream``, launched
-under their own names.
+``render_wavefront_counts``, ``shade_step_tex_counts``,
+``photon_trace_counts``, ``gather_flux_counts``,
+``nearest_hit_stream_counts`` and ``any_blocker_stream_counts`` are the
+counting builds of ``connect``, ``bdpt_eye``, ``render_wavefront``,
+``shade_step_tex``, ``photon_trace``, ``gather_flux``,
+``nearest_hit_stream`` and ``any_blocker_stream``, launched under their
+own names.
 """
 from __future__ import annotations
 
@@ -39,12 +41,12 @@ HEADERS = ("pt_device.cuh",)
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows",
-                   "render_wavefront_counts"),
+                   "render_wavefront_counts", "shade_step_tex_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
     "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_counts",
                     "gather_flux_counts"),
     "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream",
-                     "nearest_hit_stream_counts"),
+                     "nearest_hit_stream_counts", "any_blocker_stream_counts"),
     "probe_kernels": ("onehot_fetch",),
 }
 # --fmad=false keeps every multiply and add separately rounded, as the
@@ -59,8 +61,8 @@ launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-# sph, ns, nl, tri, uv, cl, n_clusters
-_TABLES = [_P, _I, _I, _P, _P, _P, _I]
+# sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super
+_TABLES = [_P, _I, _I, _P, _P, _P, _I, _P, _I]
 # sph, ns, nl, tri, cl, n_clusters, sup, n_super, blk (ops/cuda_stream.py)
 _STREAM = [_P, _I, _I, _P, _P, _I, _P, _I, _P]
 # lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u | B, clamp,
@@ -106,6 +108,10 @@ _ARGTYPES["render_wavefront_counts"] = (_ARGTYPES["render_wavefront"][:-1]
 _ARGTYPES["gather_flux_counts"] = _ARGTYPES["gather_flux"][:-1] + [_P, _P]
 _ARGTYPES["photon_trace_counts"] = _ARGTYPES["photon_trace"][:-1] + [_P, _P]
 _ARGTYPES["nearest_hit_stream_counts"] = (_ARGTYPES["nearest_hit_stream"][:-1]
+                                          + [_P, _P])
+_ARGTYPES["shade_step_tex_counts"] = (_ARGTYPES["shade_step_tex"][:-1]
+                                      + [_P, _P])
+_ARGTYPES["any_blocker_stream_counts"] = (_ARGTYPES["any_blocker_stream"][:-1]
                                           + [_P, _P])
 
 

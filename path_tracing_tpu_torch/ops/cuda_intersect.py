@@ -10,7 +10,11 @@ same as the JAX package's ``pack_scene``:
   block flags, so they never block a shadow ray;
 - triangles, ``(Mt, 24)``: ``[v0, v1, v2, blocks_gpu, blocks_cpu, 0,
   normal3, 0, r, g, b, roughness, metallic, eta, 0, 0]``;
-- clusters, ``(Mc, 8)``: ``[min3, max3, start, count]``;
+- clusters, ``(Mc, 8)``: ``[min3, max3, start, count]``; from
+  ``SUPER_MIN_CLUSTERS`` clusters on, ``super_table``'s: the rows padded to
+  a multiple of ``SUPER`` and grown to 16 columns by each octant's
+  front-to-back child order, beside the ``(NS, 16)`` super table the
+  kernels walk first, as the JAX package's resident kernels do;
 - triangle UVs, ``(Mt, 8)``: ``[u0, v0, u1, v1, u2, v2, tex, 0]`` with
   ``tex = -1`` for an untextured triangle (the JAX package's columns 24-30
   of its ``with_uv`` triangle table, kept apart here so the untextured
@@ -23,7 +27,10 @@ Each kernel has a wrapper and a plain version side by side.  The wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it launches
 the kernel of ``csrc/pt_kernels.cu`` or raises.  The plain sweeps are brute
 force over ``(rays, primitives)`` and run in chunks of rays, so a mesh at
-full lane count stays within device memory.
+full lane count stays within device memory.  ``_count_nearest_walk`` and
+``_count_shadow_walk`` are plain models of the kernels' walk (the flat
+cluster list, or the supers then their children), which the counting
+builds are held to.
 """
 from __future__ import annotations
 
@@ -40,6 +47,10 @@ from .texture import interpolate_uv
 
 SUB = 8
 SPH_COLS, TRI_COLS, UV_COLS, CL_COLS = 16, 24, 8, 8
+SUPER = 16                # clusters per super
+SUPER_MIN_CLUSTERS = 64   # below this the flat cluster walk is used
+SUP_COLS = 16
+SENTINEL = 1e30
 HIT_FIELDS = ("t", "nx", "ny", "nz", "bcr", "bcg", "bcb", "rough", "metal",
               "eta")
 UV_FIELDS = ("iu", "iv", "tex")
@@ -52,12 +63,14 @@ class PackedScene:
     sph: torch.Tensor  # (Ms, 16) spheres then light balls
     tri: torch.Tensor  # (Mt, 24)
     uv: torch.Tensor   # (Mt, 8)
-    cl: torch.Tensor   # (Mc, 8)
+    cl: torch.Tensor   # (Mc, 8), or (Mc, 16) with the super walk
     atlas: torch.Tensor     # (NT, TH+1, TW+1, 3)
     tex_size: torch.Tensor  # (NT, 2) int32: h, w
     ns: int
     nl: int
     nt: int
+    sup: torch.Tensor  # (NS, 16) super rows; (8, 16) zeros for the flat walk
+    n_super: int       # super rows the walk visits (0: the flat walk)
 
     @property
     def device(self) -> torch.device:
@@ -118,6 +131,50 @@ def texture_tables(scene: Scene):
             scene.tex_size.to(torch.int32).contiguous())
 
 
+def _octant_orders(ctr: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Eight stable argsort columns of the centroids' projections on
+    (+-1, +-1, +-1) (octant bit 0: x, 1: y, 2: z), dead rows last; as f32
+    (..., 8)."""
+    orders = []
+    for o in range(8):
+        d = [1.0 if o & (1 << k) else -1.0 for k in range(3)]
+        proj = ctr[..., 0] * d[0] + ctr[..., 1] * d[1] + ctr[..., 2] * d[2]
+        proj = torch.where(alive, proj, torch.full_like(proj, 3e30))
+        orders.append(torch.argsort(proj, dim=-1, stable=True).float())
+    return torch.stack(orders, dim=-1)
+
+
+def super_table(cl: torch.Tensor):
+    """(cl padded to a SUPER multiple with its child orders, sup (NS, 16),
+    use_super), as ``path_tracing_tpu.ops.pallas_intersect.super_table``:
+    super rows ``[union_min3, union_max3, 0, child_count, order_oct0..7]``
+    over SUPER consecutive cluster rows (empty children add sentinel
+    bounds); cluster columns 8-15 hold, at the k-th row of a super's run,
+    the relative index of its k-th child in each octant's front-to-back
+    order.  Below SUPER_MIN_CLUSTERS: (cl, zeros (8, 16), False)."""
+    dev = cl.device
+    if cl.shape[0] < SUPER_MIN_CLUSTERS:
+        return cl, torch.zeros((SUB, SUP_COLS), device=dev), False
+    cl = _rowpad(cl, cl.shape[0] + (-cl.shape[0]) % SUPER)
+    g = cl.shape[0] // SUPER
+    valid = cl[:, 7:8] > 0
+    mins = torch.where(valid, cl[:, 0:3], torch.full_like(cl[:, 0:3],
+                                                          SENTINEL))
+    maxs = torch.where(valid, cl[:, 3:6], torch.full_like(cl[:, 3:6],
+                                                          -SENTINEL))
+    sup = torch.cat([mins.reshape(g, SUPER, 3).amin(dim=1),
+                     maxs.reshape(g, SUPER, 3).amax(dim=1),
+                     torch.zeros((g, 1), device=dev),
+                     cl[:, 7].reshape(g, SUPER).sum(dim=1, keepdim=True)], 1)
+    sup = _rowpad(sup, g + (-g) % SUB)
+    sup = torch.cat([sup, _octant_orders((sup[:, 0:3] + sup[:, 3:6]) * 0.5,
+                                         sup[:, 7] > 0)], 1)
+    corder = _octant_orders(
+        ((cl[:, 0:3] + cl[:, 3:6]) * 0.5).reshape(g, SUPER, 3),
+        (cl[:, 7] > 0).reshape(g, SUPER))
+    return torch.cat([cl, corder.reshape(-1, 8)], 1), sup, True
+
+
 def pack_scene(scene: Scene) -> PackedScene:
     ns, nl, nt = scene.num_spheres, scene.num_lights, scene.num_triangles
     dev = scene.device
@@ -145,11 +202,13 @@ def pack_scene(scene: Scene) -> PackedScene:
 
     cl = torch.cat([scene.tri_cluster_aabb,
                     scene.tri_cluster_range.float()], 1)
-    cl = _rowpad(cl, _padded_rows(cl.shape[0]))
+    cl, sup, use_super = super_table(_rowpad(cl, _padded_rows(cl.shape[0])))
     atlas, tex_size = texture_tables(scene)
     return PackedScene(sph=sph, tri=tri.contiguous(),
                        uv=uv.contiguous(), cl=cl.contiguous(),
-                       atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt)
+                       atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt,
+                       sup=sup.contiguous(),
+                       n_super=cl.shape[0] // SUPER if use_super else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -163,16 +222,9 @@ def _chunks(n_rays: int, n_prims: int):
             for a in range(0, n_rays, step)] or [(0, 0)]
 
 
-def _clusters(packed: PackedScene):
-    """(index, start, count) of each non-empty cluster, in the order the
-    kernels walk them."""
-    return [(c, int(a), int(n))
-            for c, (a, n) in enumerate(packed.cl[:, 6:8].tolist()) if n > 0]
-
-
 def _slab_hit(box, ro, inv, tlo: float, tlimit):
     """``csrc/pt_device.cuh::slab_hit`` on every ray: the ray enters the
-    cluster box ``box`` (8,) before ``tlimit``."""
+    box ``box`` (>= 6,) past ``tlo`` and before ``tlimit``."""
     t0 = (box[0:3] - ro) * inv
     t1 = (box[3:6] - ro) * inv
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
@@ -187,60 +239,126 @@ def _safe_inv(rd):
                              torch.where(rd >= 0.0, 1e-12, -1e-12), rd)
 
 
-def _count_nearest_walk(packed: PackedScene, ro, rd, sph_t, tri_t,
-                        counts: dict) -> None:
-    """Add the sphere, box and triangle tests of the kernels' nearest-hit
-    walk (``nearest_hit_dev``) of these rays to ``counts``: every sphere
-    and light ball, every non-empty cluster's box, and every triangle of
-    a box the ray enters before its running nearest t, clusters in order.
-    ``sph_t``/``tri_t`` are the rays' distances to every sphere and
-    triangle."""
-    R = ro.shape[0]
-    counts["hit_spheres"] += R * sph_t.shape[1]
-    best = (sph_t.amin(dim=1) if sph_t.shape[1]
-            else torch.full((R,), INF, device=ro.device))
+def walk_clusters(packed, rd, enter_super, cluster) -> None:
+    """The kernels' cluster walk (``csrc/pt_device.cuh::cluster_walk``) on
+    every given ray at once, a lane set per step: without supers,
+    ``cluster(c, lanes)`` for every cluster row in table order; else, per
+    octant, ``enter_super(box, lanes)`` (the lanes that enter the super's
+    box) for each non-empty super in the octant's order, and the entered
+    lanes' ``cluster(c, lanes)`` for its 16 children in their order.
+    ``packed`` is resident or streamed: both carry ``cl``, ``sup`` and
+    ``n_super``."""
+    every = torch.arange(rd.shape[0], device=rd.device)
+    if not packed.n_super:
+        for c in range(packed.cl.shape[0]):
+            cluster(c, every)
+        return
+    sup = packed.sup[:, 7:16].tolist()    # child count, 8 super orders
+    child = packed.cl[:, 8:16].tolist()   # 8 child orders
+    # each ray's octant (bit 0: x >= 0, 1: y, 2: z): its orders' column
+    octant = ((rd[:, 0] >= 0).long() + 2 * (rd[:, 1] >= 0).long()
+              + 4 * (rd[:, 2] >= 0).long())
+    for o in range(8):
+        lanes = every[octant == o]
+        if not lanes.numel():
+            continue
+        for si in range(packed.n_super):
+            s = int(sup[si][1 + o])
+            if sup[s][0] <= 0:
+                continue
+            ent = enter_super(packed.sup[s], lanes)
+            for k in range(SUPER if ent.numel() else 0):
+                cluster(s * SUPER + int(child[s * SUPER + k][o]), ent)
+
+
+def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict
+                        ) -> torch.Tensor:
+    """A plain model of the kernels' nearest-hit walk (``nearest_hit_dev``)
+    on every given ray.  Adds to ``counts`` every sphere and light ball,
+    each box tested (the supers', then the children's of an entered super;
+    every non-empty cluster's without supers) and every triangle of a box
+    the ray enters before its running nearest t.  Returns that t (INF on a
+    miss): the brute force's, since culling never drops a closer hit."""
+    R, dev = ro.shape[0], ro.device
+    n_s = packed.ns + packed.nl
+    counts["hit_spheres"] += R * n_s
+    t = (sphere_ts(ro, rd, packed.sph[:n_s, 0:3], packed.sph[:n_s, 3],
+                   INF).amin(dim=1) if n_s and R
+         else torch.full((R,), INF, device=dev))
     inv = _safe_inv(rd)
-    for c, a, n in _clusters(packed):
-        counts["hit_boxes"] += R
-        ent = _slab_hit(packed.cl[c], ro, inv, EPSILON, best)
-        counts["hit_tris"] += int(ent.sum()) * n
-        best = torch.where(ent, torch.minimum(best, tri_t[:, a:a + n]
-                                              .amin(dim=1)), best)
+    rows = packed.cl[:, 6:8].tolist()
+
+    def enter(box, lanes):
+        counts["hit_boxes"] += lanes.numel()
+        return lanes[_slab_hit(box, ro[lanes], inv[lanes], EPSILON, t[lanes])]
+
+    def cluster(c, lanes):
+        a, n = int(rows[c][0]), int(rows[c][1])
+        if n <= 0 or not lanes.numel():
+            return
+        ent = enter(packed.cl[c], lanes)
+        if not ent.numel():
+            return
+        counts["hit_tris"] += ent.numel() * n
+        tri = packed.tri[a:a + n]
+        tt = triangle_ts(ro[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
+                         tri[:, 6:9], INF).amin(dim=1)
+        t[ent] = torch.minimum(t[ent], tt)
+
+    walk_clusters(packed, rd, enter, cluster)
+    return t
 
 
 def _count_shadow_walk(packed: PackedScene, p1, rd, max_d, col: int,
-                       sph_occ, tri_occ, counts: dict) -> None:
-    """Add the tests of the kernels' shadow walk (``shadow_blocked_dev``)
-    of these rays to ``counts``: the blocking spheres in order up to the
-    first that occludes; then, if none did, each non-empty cluster's box
-    and, in a box the segment enters, its blocking triangles in order up
-    to the first that occludes, which ends the walk.  ``sph_occ`` and
-    ``tri_occ`` mark each sphere and triangle that occludes the
-    segment."""
-    sph_cb = torch.cumsum((packed.sph[:packed.ns, col] > 0.0).long(), 0)
-    alive = torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
-    if packed.ns:
-        hit = sph_occ.any(dim=1)
-        first = torch.argmax(sph_occ.int(), dim=1)
+                       counts: dict) -> torch.Tensor:
+    """A plain model of the kernels' shadow walk (``shadow_blocked_dev``)
+    on every given segment.  Adds to ``counts`` the blocking spheres in
+    order up to the first that occludes; then, if none did, each box the
+    walk tests while the segment is unblocked and, in a cluster box it
+    enters, the blocking triangles in order up to the first that occludes,
+    which ends the walk.  Returns the verdicts."""
+    R, dev = p1.shape[0], p1.device
+    blocked = torch.zeros(R, dtype=torch.bool, device=dev)
+    if packed.ns and R:
+        sph = packed.sph[:packed.ns]
+        ts = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], max_d[:, None])
+        occ = (ts < INF) & (ts > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
+        cb = torch.cumsum((sph[:, col] > 0.0).long(), 0)
+        blocked = occ.any(dim=1)
         counts["shadow_spheres"] += int(torch.where(
-            hit, sph_cb[first], sph_cb[-1]).sum())
-        alive = ~hit
+            blocked, cb[torch.argmax(occ.int(), dim=1)], cb[-1]).sum())
     inv = _safe_inv(rd)
-    tri_cb = packed.tri[:packed.nt, col + 5] > 0.0
-    for c, a, n in _clusters(packed):
-        counts["shadow_boxes"] += int(alive.sum())
-        ent = alive & _slab_hit(packed.cl[c], p1, inv, SHADOW_EPS, max_d)
-        cb = torch.cumsum(tri_cb[a:a + n].long(), 0)
-        occ = tri_occ[:, a:a + n]
-        hit = ent & occ.any(dim=1)
-        first = torch.argmax(occ.int(), dim=1)
+    rows = packed.cl[:, 6:8].tolist()
+
+    def enter(box, lanes):
+        lanes = lanes[~blocked[lanes]]
+        counts["shadow_boxes"] += lanes.numel()
+        return lanes[_slab_hit(box, p1[lanes], inv[lanes], SHADOW_EPS,
+                               max_d[lanes])]
+
+    def cluster(c, lanes):
+        a, n = int(rows[c][0]), int(rows[c][1])
+        if n <= 0 or not lanes.numel():
+            return
+        ent = enter(packed.cl[c], lanes)
+        if not ent.numel():
+            return
+        tri = packed.tri[a:a + n]
+        cb = tri[:, col + 5] > 0.0
+        tt = triangle_ts(p1[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
+                         tri[:, 6:9], max_d[ent][:, None])
+        occ = (tt < INF) & (tt > SHADOW_EPS) & cb[None]
+        hit = occ.any(dim=1)
+        cbc = torch.cumsum(cb.long(), 0)
         counts["shadow_tris"] += int(torch.where(
-            hit, cb[first], torch.where(ent, cb[-1], 0)).sum())
-        alive = alive & ~hit
+            hit, cbc[torch.argmax(occ.int(), dim=1)], cbc[-1]).sum())
+        blocked[ent[hit]] = True
+
+    walk_clusters(packed, rd, enter, cluster)
+    return blocked
 
 
-def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool, live=None,
-                  counts=None) -> dict:
+def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
     B = ro.shape[0]
     n_s = packed.ns + packed.nl
     sph = packed.sph[:n_s]
@@ -249,12 +367,6 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool, live=None,
     if packed.nt:
         ts.append(triangle_ts(ro, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
                               INF))
-    if counts is not None:
-        keep = slice(None) if live is None else live
-        empty = ro.new_zeros((B, 0))
-        _count_nearest_walk(packed, ro[keep], rd[keep],
-                            (ts[0] if n_s else empty)[keep],
-                            (ts[-1] if packed.nt else empty)[keep], counts)
     if not ts:
         zero = torch.zeros(B, device=ro.device)
         out = {k: zero.clone() for k in HIT_FIELDS}
@@ -322,8 +434,10 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     ``cuda_connect.new_counts``), if given, gains the primitive tests the
     kernels' walk makes for the live lanes."""
     _kernels.plain_calls["nearest_hit"] += 1
-    parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv,
-                           None if live is None else live[a:b], counts)
+    if counts is not None:
+        keep = slice(None) if live is None else live
+        _count_nearest_walk(packed, ro[keep], rd[keep], counts)
+    parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
              for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
                                  + packed.nt)]
     if len(parts) == 1:
@@ -331,25 +445,20 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int,
-                  counts=None, live=None):
+def _blocked_rows(packed: PackedScene, p1, rd, max_d, col: int):
     md = max_d[:, None]
-    none = torch.zeros((p1.shape[0], 0), dtype=torch.bool, device=p1.device)
-    tri_occ = sph_occ = none
+    blocked = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
     if packed.nt:
         tri = packed.tri[:packed.nt]
         t = triangle_ts(p1, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], md)
-        tri_occ = ((t < INF) & (t > SHADOW_EPS)
-                   & (tri[:, col + 5] > 0.0)[None])
+        blocked |= torch.any((t < INF) & (t > SHADOW_EPS)
+                             & (tri[:, col + 5] > 0.0)[None], dim=1)
     if packed.ns:
         sph = packed.sph[:packed.ns]
         t = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], md)
-        sph_occ = (t < INF) & (t > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
-    if counts is not None:
-        keep = slice(None) if live is None else live
-        _count_shadow_walk(packed, p1[keep], rd[keep], max_d[keep], col,
-                           sph_occ[keep], tri_occ[keep], counts)
-    return torch.any(tri_occ, dim=1) | torch.any(sph_occ, dim=1)
+        blocked |= torch.any((t < INF) & (t > SHADOW_EPS)
+                             & (sph[:, col] > 0.0)[None], dim=1)
+    return blocked
 
 
 def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
@@ -360,12 +469,21 @@ def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
     triangle whose can-block column is set lies at t in (1e-3, max_d).
     ``live`` does not change the result, as in :func:`nearest_hit_plain`.
     ``counts``, if given, gains the primitive tests the kernels' walk makes
-    for the live lanes (every lane without ``live``)."""
+    for the live lanes (every lane without ``live``), and the verdicts
+    come from that walk's model, which finds the brute force's (culling
+    never changes a verdict), with the lanes that are not live
+    unblocked."""
     _kernels.plain_calls["any_blocker"] += 1
     col = 4 if dielectrics_block else 5
+    if counts is not None:
+        keep = (torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
+                if live is None else live)
+        out = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
+        out[keep] = _count_shadow_walk(packed, p1[keep], rd[keep],
+                                       max_d[keep], col, counts)
+        return out
     return torch.cat([
-        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col, counts,
-                      None if live is None else live[a:b])
+        _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col)
         for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
 
 
@@ -391,7 +509,13 @@ def check_tables(packed: PackedScene, device):
     check_tensor("sph", packed.sph, (packed.sph.shape[0], SPH_COLS))
     check_tensor("tri", packed.tri, (packed.tri.shape[0], TRI_COLS))
     check_tensor("uv", packed.uv, (packed.tri.shape[0], UV_COLS))
-    check_tensor("cl", packed.cl, (packed.cl.shape[0], CL_COLS))
+    check_tensor("cl", packed.cl, (packed.cl.shape[0],
+                                   2 * CL_COLS if packed.n_super else CL_COLS))
+    check_tensor("sup", packed.sup, (max(packed.sup.shape[0],
+                                         packed.n_super), SUP_COLS))
+    for nm, x in (("cl", packed.cl), ("sup", packed.sup)):
+        if x.data_ptr() % 16:   # the slab test reads a box as two float4
+            raise ValueError(f"{nm}: rows must start 16-byte aligned")
 
 
 def table_args(packed: PackedScene):
@@ -399,7 +523,8 @@ def table_args(packed: PackedScene):
     return [ctypes.c_void_p(packed.sph.data_ptr()), packed.ns, packed.nl,
             ctypes.c_void_p(packed.tri.data_ptr()),
             ctypes.c_void_p(packed.uv.data_ptr()),
-            ctypes.c_void_p(packed.cl.data_ptr()), packed.cl.shape[0]]
+            ctypes.c_void_p(packed.cl.data_ptr()), packed.cl.shape[0],
+            ctypes.c_void_p(packed.sup.data_ptr()), packed.n_super]
 
 
 def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,

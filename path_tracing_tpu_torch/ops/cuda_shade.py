@@ -24,6 +24,8 @@ The step functions share that signature:
   multiplied into a textured triangle's base color, then the bounce).  The
   JAX package runs it as three steps (its nearest-hit kernel, an XLA
   gather, its shade kernel); the CUDA kernel does all three per lane.
+  ``shade_step_tex_counts`` launches its counting build, held to the
+  plain version's counts (``TEX_COUNTS``).
 """
 from __future__ import annotations
 
@@ -42,6 +44,13 @@ from .math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
 from .texture import sample_bilinear
 
 LIGHT_COLS = 12
+# The counters of shade_step_tex's counting build that its plain version
+# counts: the megakernel's (``cuda_wavefront.COUNT_NAMES``) that one bounce
+# fills, the active lanes as ``iterations``.  The kernel draws nothing (the
+# uniforms come in ``u``), so the plain ``draws`` are not compared.
+TEX_COUNTS = ("iterations", "shadow_rays", "evals", "pdfs", "bsdf_samples",
+              "hit_spheres", "hit_boxes", "hit_tris", "shadow_spheres",
+              "shadow_boxes", "shadow_tris")
 
 
 def _textured_hit(packed: PackedScene, h: dict) -> dict:
@@ -201,22 +210,28 @@ def shade_step_stream(st, light_tab, ro, rd, tp, eta, depth, act, last_delta,
 
 def shade_step_tex_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                          last_delta, last_pdf, u, *, clamp_val, stub_mis,
-                         dielectrics_block) -> dict:
-    """Plain PyTorch version of the ``shade_step_tex`` kernel."""
+                         dielectrics_block, counts=None) -> dict:
+    """Plain PyTorch version of the ``shade_step_tex`` kernel.
+    ``counts`` (``cuda_wavefront.new_counts()``), if given, gains the work
+    its counting build counts (``TEX_COUNTS``): the active lanes as
+    ``iterations``, and ``_bounce``'s counts."""
     _kernels.plain_calls["shade_step_tex"] += 1
+    if counts is not None:
+        counts["iterations"] += int(act.sum())
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
                    nearest=nearest_hit_plain, blocker=any_blocker_plain,
-                   tex=True)
+                   tex=True, counts=counts)
 
 
 def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
                  act, last_delta, last_pdf, u, clamp_val, stub_mis,
-                 dielectrics_block) -> dict:
+                 dielectrics_block, counts=None) -> dict:
     """Check the inputs of a per-bounce kernel, allocate its outputs and
     launch it; ``extra`` are the ctypes arguments between the scene tables
-    and the lights."""
+    and the lights, ``counts`` a zeroed int64 buffer of a counting
+    build's counters."""
     B = ro.shape[0]
     dev = ro.device
     for nm, x in (("ro", ro), ("rd", rd), ("tp", tp)):
@@ -250,7 +265,8 @@ def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
             *[ctypes.c_void_p(x.data_ptr()) for x in ins],
             B, float(clamp_val), int(bool(stub_mis)),
             4 if dielectrics_block else 5,
-            *[ctypes.c_void_p(x.data_ptr()) for x in out.values()])
+            *[ctypes.c_void_p(x.data_ptr()) for x in out.values()],
+            *([] if counts is None else [ctypes.c_void_p(counts.data_ptr())]))
     return out
 
 
@@ -281,14 +297,36 @@ def shade_step_tex(packed: PackedScene, light_tab, ro, rd, tp, eta, depth,
         return shade_step_tex_plain(*args, clamp_val=clamp_val,
                                     stub_mis=stub_mis,
                                     dielectrics_block=dielectrics_block)
+    return _launch_step("shade_step_tex", _atlas_args(packed), *args,
+                        clamp_val, stub_mis, dielectrics_block)
+
+
+def shade_step_tex_counts(packed: PackedScene, light_tab, ro, rd, tp, eta,
+                          depth, act, last_delta, last_pdf, u, *,
+                          clamp_val: float, stub_mis: bool,
+                          dielectrics_block: bool) -> tuple:
+    """``shade_step_tex`` through the kernel's counting build: (the same
+    outputs, the counters as a dict keyed by
+    ``cuda_wavefront.COUNT_NAMES``).  CUDA tensors only."""
+    from .cuda_wavefront import COUNT_NAMES
+
+    buf = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=ro.device)
+    out = _launch_step("shade_step_tex_counts", _atlas_args(packed), packed,
+                       light_tab, ro, rd, tp, eta, depth, act, last_delta,
+                       last_pdf, u, clamp_val, stub_mis, dielectrics_block,
+                       counts=buf)
+    return out, dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+
+
+def _atlas_args(packed: PackedScene) -> list:
+    """The texture atlas's ctypes arguments (atlas, sizes, NT, TH+1,
+    TW+1), checked."""
     at = packed.atlas
     if not packed.textured or at.dim() != 4 or at.shape[3] != 3:
         raise ValueError(f"shade_step_tex: expected a (NT > 0, TH+1, TW+1, "
                          f"3) texture atlas, got {tuple(at.shape)}")
     check_tensor("atlas", at, tuple(at.shape))
     check_tensor("tex_size", packed.tex_size, (at.shape[0], 2), torch.int32)
-    extra = [ctypes.c_void_p(at.data_ptr()),
-             ctypes.c_void_p(packed.tex_size.data_ptr()), at.shape[0],
-             at.shape[1], at.shape[2]]
-    return _launch_step("shade_step_tex", extra, *args, clamp_val, stub_mis,
-                        dielectrics_block)
+    return [ctypes.c_void_p(at.data_ptr()),
+            ctypes.c_void_p(packed.tex_size.data_ptr()), at.shape[0],
+            at.shape[1], at.shape[2]]

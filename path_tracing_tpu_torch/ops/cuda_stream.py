@@ -26,9 +26,12 @@ blocks; ``idx`` of a hit is the PADDED triangle index.  Its tables:
 order, culling each box against the running best t (#7: the segment
 length, and stopping once blocked), then run Moller-Trumbore on the
 block's triangles; #6 walks them a warp at a time, each lane still
-deciding for itself which boxes it enters.  ``_count_stream_walk`` is a
-plain model of #6's walk: it counts the tests each ray makes, which
-``nearest_hit_stream_counts`` (the kernel's counting build) is held to.
+deciding for itself which boxes it enters.  ``_count_stream_walk`` and
+``_count_stream_shadow_walk`` are plain models of #6's and #7's walks:
+they count the tests each ray makes, which ``nearest_hit_stream_counts``
+and ``any_blocker_stream_counts`` (the kernels' counting builds) are
+held to.  The super table and the traversal order are the resident
+walk's (``cuda_intersect.super_table``, ``walk_clusters``).
 ``stream_hit`` and ``stream_blocked`` coherence-sort the rays first
 (``ops/intersect.py::sorted_call``), dead lanes last, and
 ``resolve_stream_attrs`` turns (t, idx, kind) into the hit fields with the
@@ -48,21 +51,21 @@ import torch
 
 from ..scene.types import Scene
 from . import _kernels
-from .cuda_intersect import (SUB, _chunks, _rowpad, _safe_inv, _slab_hit,
-                             check_tensor, sphere_table, texture_tables)
+from .cuda_intersect import (SENTINEL, SUB, SUPER,
+                             _chunks, _rowpad, _safe_inv, _slab_hit,
+                             check_tensor, sphere_table, super_table,
+                             texture_tables, walk_clusters)
 from .intersect import INF, SHADOW_EPS, mt_from_edges, sorted_call, sphere_ts
 from .math3 import EPSILON, cross, dot, length
 
 TB = 32                   # triangles per block; clusters start on a block
-SUPER = 16                # clusters per super
-SUPER_MIN_CLUSTERS = 64   # below this the flat cluster walk is used
 TRI_COLS, ATTR_COLS, VERT_COLS, BLK_COLS, CL_COLS = 12, 16, 9, 8, 16
-SENTINEL = 1e30
-# #6's counting build's counters: the live rays, their sphere tests, the
+# The counting builds' counters: the live rays, their sphere tests, the
 # super, cluster and block boxes they test, the triangles they test, and
-# the lanes testing a staged block's triangles against 32 times the
-# triangle-test steps issued (the test's SIMT efficiency).  The plain
-# model counts ``PLAIN_COUNTS``.
+# (#6 only) the lanes testing a staged block's triangles against 32 times
+# the triangle-test steps issued (the test's SIMT efficiency).  The plain
+# models (#6: ``_count_stream_walk``, #7: ``_count_stream_shadow_walk``)
+# count ``PLAIN_COUNTS``.
 COUNT_NAMES = ("rays", "spheres", "supers", "clusters", "blocks", "tris",
                "tri_lanes", "tri_slots")
 PLAIN_COUNTS = COUNT_NAMES[:6]
@@ -152,50 +155,6 @@ def stream_layout(scene: Scene) -> dict:
     return dict(dest=dest, Tp=Tp, attr=attr, vert=vert, blk=blk, cl=cl)
 
 
-def _octant_orders(ctr: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """Eight stable argsort columns of the centroids' projections on
-    (+-1, +-1, +-1) (octant bit 0: x, 1: y, 2: z), dead rows last; as f32
-    (..., 8)."""
-    orders = []
-    for o in range(8):
-        d = [1.0 if o & (1 << k) else -1.0 for k in range(3)]
-        proj = ctr[..., 0] * d[0] + ctr[..., 1] * d[1] + ctr[..., 2] * d[2]
-        proj = torch.where(alive, proj, torch.full_like(proj, 3e30))
-        orders.append(torch.argsort(proj, dim=-1, stable=True).float())
-    return torch.stack(orders, dim=-1)
-
-
-def super_table(cl: torch.Tensor):
-    """(cl padded to a SUPER multiple with its child orders, sup (NS, 16),
-    use_super), as ``path_tracing_tpu.ops.pallas_intersect.super_table``:
-    super rows ``[union_min3, union_max3, 0, child_count, order_oct0..7]``
-    over SUPER consecutive cluster rows (empty children add sentinel
-    bounds); cluster columns 8-15 hold, at the k-th row of a super's run,
-    the relative index of its k-th child in each octant's front-to-back
-    order.  Below SUPER_MIN_CLUSTERS: (cl, zeros (8, 16), False)."""
-    dev = cl.device
-    if cl.shape[0] < SUPER_MIN_CLUSTERS:
-        return cl, torch.zeros((SUB, 16), device=dev), False
-    cl = _rowpad(cl, cl.shape[0] + (-cl.shape[0]) % SUPER)
-    g = cl.shape[0] // SUPER
-    valid = cl[:, 7:8] > 0
-    mins = torch.where(valid, cl[:, 0:3], torch.full_like(cl[:, 0:3],
-                                                          SENTINEL))
-    maxs = torch.where(valid, cl[:, 3:6], torch.full_like(cl[:, 3:6],
-                                                          -SENTINEL))
-    sup = torch.cat([mins.reshape(g, SUPER, 3).amin(dim=1),
-                     maxs.reshape(g, SUPER, 3).amax(dim=1),
-                     torch.zeros((g, 1), device=dev),
-                     cl[:, 7].reshape(g, SUPER).sum(dim=1, keepdim=True)], 1)
-    sup = _rowpad(sup, g + (-g) % SUB)
-    sup = torch.cat([sup, _octant_orders((sup[:, 0:3] + sup[:, 3:6]) * 0.5,
-                                         sup[:, 7] > 0)], 1)
-    corder = _octant_orders(
-        ((cl[:, 0:3] + cl[:, 3:6]) * 0.5).reshape(g, SUPER, 3),
-        (cl[:, 7] > 0).reshape(g, SUPER))
-    return torch.cat([cl, corder.reshape(-1, 8)], 1), sup, True
-
-
 def pack_scene_stream(scene: Scene) -> StreamScene:
     """The streamed tables of ``scene`` on its device (see above)."""
     lay = stream_layout(scene)
@@ -280,11 +239,30 @@ def _count_stream_walk(st: StreamScene, ro: torch.Tensor, rd: torch.Tensor,
     t = (sphere_ts(ro, rd, st.sph[:n_s, 0:3], st.sph[:n_s, 3], INF).amin(1)
          if n_s and R else torch.full((R,), INF, device=dev))
     inv = _safe_inv(rd)
-    cl = st.cl[:, 6:].tolist()      # padded start, count, 8 child orders
 
     def enter(box, lanes, name):
         counts[name] += lanes.numel()
         return lanes[_slab_hit(box, ro[lanes], inv[lanes], EPSILON, t[lanes])]
+
+    def test(b, rows):
+        counts["tris"] += b.numel() * rows.shape[0]
+        ok, _, _, tt = mt_from_edges(_rays(ro[b]), _rays(rd[b]),
+                                     _cols(rows, 0), _cols(rows, 3),
+                                     _cols(rows, 6), EPSILON)
+        tt = torch.where(ok, tt, torch.full_like(tt, INF)).amin(1)
+        t[b] = torch.minimum(t[b], tt)
+
+    _walk_blocks(st, rd, enter, test)
+    return t
+
+
+def _walk_blocks(st: StreamScene, rd, enter, test) -> None:
+    """The streamed kernels' walk on every given ray: ``walk_clusters``
+    one level deeper.  Each cluster the lanes enter (``enter(box, lanes,
+    name)`` returns the lanes that enter the box), each of its 32-triangle
+    blocks they enter, and ``test(lanes, rows)`` on the block's real
+    rows."""
+    cl = st.cl[:, 6:8].tolist()     # padded start, count
 
     def cluster(c, lanes):
         start, count = int(cl[c][0]), int(cl[c][1])
@@ -293,37 +271,62 @@ def _count_stream_walk(st: StreamScene, ro: torch.Tensor, rd: torch.Tensor,
         lanes = enter(st.cl[c], lanes, "clusters")
         for j in range((count + TB - 1) // TB if lanes.numel() else 0):
             b = enter(st.blk[start // TB + j], lanes, "blocks")
-            n = min(TB, count - j * TB)
-            if not b.numel():
-                continue
-            rows = st.tri[start + j * TB:start + j * TB + n]
-            counts["tris"] += b.numel() * n
-            ok, _, _, tt = mt_from_edges(_rays(ro[b]), _rays(rd[b]),
-                                         _cols(rows, 0), _cols(rows, 3),
-                                         _cols(rows, 6), EPSILON)
-            tt = torch.where(ok, tt, torch.full_like(tt, INF)).amin(1)
-            t[b] = torch.minimum(t[b], tt)
+            if b.numel():
+                a = start + j * TB
+                test(b, st.tri[a:a + min(TB, count - j * TB)])
 
-    if not st.n_super:
-        every = torch.arange(R, device=dev)
-        for c in range(st.cl.shape[0]):
-            cluster(c, every)
-        return t
-    sup = st.sup[:, 7:16].tolist()  # child count, 8 super orders
-    octant = ((rd[:, 0] >= 0).long() + 2 * (rd[:, 1] >= 0).long()
-              + 4 * (rd[:, 2] >= 0).long())
-    for o in range(8):
-        lanes = torch.nonzero(octant == o)[:, 0]
-        if not lanes.numel():
-            continue
-        for si in range(st.n_super):
-            s = int(sup[si][1 + o])
-            if sup[s][0] <= 0:
-                continue
-            ent = enter(st.sup[s], lanes, "supers")
-            for k in range(SUPER if ent.numel() else 0):
-                cluster(s * SUPER + int(cl[s * SUPER + k][2 + o]), ent)
-    return t
+    walk_clusters(st, rd, lambda box, lanes: enter(box, lanes, "supers"),
+                  cluster)
+
+
+def _count_stream_shadow_walk(st: StreamScene, p1: torch.Tensor,
+                              rd: torch.Tensor, max_d: torch.Tensor,
+                              dielectrics_block: bool, counts: dict
+                              ) -> torch.Tensor:
+    """A plain model of #7's walk (``csrc/mesh_kernels.cu``
+    ``BlockerWalk``) on every given segment.  Adds to ``counts`` the
+    rays, their blocking spheres in order up to the first that occludes,
+    and, while the segment is unblocked, each super box in the ray's
+    octant order, each entered super's cluster boxes in their order (the
+    flat walk: every cluster's), each entered cluster's block boxes and
+    each entered block's blocking triangles in order up to the first that
+    occludes, which ends the walk; every box culled against the segment
+    (1e-3, max_d) as ``slab_hit`` culls it.  Returns the verdicts: the
+    brute force's."""
+    R, dev = p1.shape[0], p1.device
+    col = 4 if dielectrics_block else 5
+    counts["rays"] += R
+    blocked = torch.zeros(R, dtype=torch.bool, device=dev)
+    if st.ns and R:
+        sph = st.sph[:st.ns]
+        ts = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], max_d[:, None])
+        occ = (ts < INF) & (ts > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
+        cb = torch.cumsum((sph[:, col] > 0.0).long(), 0)
+        blocked = occ.any(dim=1)
+        counts["spheres"] += int(torch.where(
+            blocked, cb[torch.argmax(occ.int(), dim=1)], cb[-1]).sum())
+    inv = _safe_inv(rd)
+
+    def enter(box, lanes, name):
+        lanes = lanes[~blocked[lanes]]
+        counts[name] += lanes.numel()
+        return lanes[_slab_hit(box, p1[lanes], inv[lanes], SHADOW_EPS,
+                               max_d[lanes])]
+
+    def test(b, rows):
+        cb = rows[:, col + 5] > 0.0
+        ok, _, _, tt = mt_from_edges(_rays(p1[b]), _rays(rd[b]),
+                                     _cols(rows, 0), _cols(rows, 3),
+                                     _cols(rows, 6), SHADOW_EPS)
+        occ = ok & (tt < max_d[b][:, None]) & cb[None]
+        hit = occ.any(dim=1)
+        cbc = torch.cumsum(cb.long(), 0)
+        counts["tris"] += int(torch.where(
+            hit, cbc[torch.argmax(occ.int(), dim=1)], cbc[-1]).sum())
+        blocked[b[hit]] = True
+
+    _walk_blocks(st, rd, enter, test)
+    return blocked
 
 
 def nearest_hit_stream_plain(st: StreamScene, ro: torch.Tensor,
@@ -448,17 +451,37 @@ def any_blocker_stream(st: StreamScene, p1: torch.Tensor, rd: torch.Tensor,
     if all(x.device.type == "cpu" for x in (p1, rd, max_d)):
         return any_blocker_stream_plain(st, p1, rd, max_d, dielectrics_block,
                                         n_live)
+    return _launch_blocker("any_blocker_stream", st, p1, rd, max_d,
+                           dielectrics_block, n_live)[0]
+
+
+def any_blocker_stream_counts(st: StreamScene, p1: torch.Tensor,
+                              rd: torch.Tensor, max_d: torch.Tensor,
+                              dielectrics_block: bool, n_live=None) -> tuple:
+    """``any_blocker_stream`` through the kernel's counting build: (the
+    same verdicts, the counters as a dict keyed by ``COUNT_NAMES``, of
+    which it fills ``PLAIN_COUNTS``).  CUDA tensors only."""
+    return _launch_blocker("any_blocker_stream_counts", st, p1, rd, max_d,
+                           dielectrics_block, n_live)
+
+
+def _launch_blocker(name, st, p1, rd, max_d, dielectrics_block, n_live):
     B, dev = p1.shape[0], p1.device
     check_tensor("p1", p1, (B, 3))
     check_tensor("rd", rd, (B, 3))
     check_tensor("max_d", max_d, (B,))
     args = _stream_args(st, dev, n_live)
     out = torch.empty(B, dtype=torch.bool, device=dev)
+    counted = name.endswith("_counts")
+    buf = (torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=dev)
+           if counted else None)
     if B:
-        _kernels.launch("any_blocker_stream", *args, _ptr(p1), _ptr(rd),
-                        _ptr(max_d), B, _ptr(n_live),
-                        4 if dielectrics_block else 5, _ptr(out))
-    return out
+        _kernels.launch(name, *args, _ptr(p1), _ptr(rd), _ptr(max_d), B,
+                        _ptr(n_live), 4 if dielectrics_block else 5,
+                        _ptr(out), *([_ptr(buf)] if counted else []))
+    counts = (dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+              if counted else None)
+    return out, counts
 
 
 # ---------------------------------------------------------------------------

@@ -633,3 +633,107 @@ def test_nearest_hit_stream_counting_build_matches_plain_counts(stream_mesh):
     assert kc["rays"] == n and torch.equal(t, k[0][:n])
     assert bool((k[2][n:] == 0).all())
     assert 0 < kc["tri_lanes"] <= kc["tri_slots"]
+
+
+# ---------------------------------------------------------------------------
+# the resident super walk (64 clusters on) and the counting builds of #4, #7
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dielectrics_block", [True, False])
+def test_resident_kernels_walk_supers_as_plain(stream_mesh,
+                                               dielectrics_block):
+    """#1 and #2 on the 72-cluster sphere (the super walk): flags equal,
+    t within rtol 1e-5 on >= 99.95% of rays, verdicts equal; the counting
+    walk model's t is the kernel's bit for bit."""
+    pk, _ = stream_mesh
+    assert pk.n_super > 0
+    ro, rd = _mesh_rays(1 << 16, 12)
+    a = cuda_intersect.nearest_hit(pk, ro, rd, with_uv=True)
+    b = cuda_intersect.nearest_hit_plain(pk, ro, rd, with_uv=True)
+    assert torch.equal(a["flag"], b["flag"])
+    assert torch.isclose(a["t"], b["t"], rtol=1e-5).float().mean().item() \
+        >= 0.9995
+    t = cuda_intersect._count_nearest_walk(pk, ro, rd,
+                                           {k: 0 for k in ("hit_spheres",
+                                                           "hit_boxes",
+                                                           "hit_tris")})
+    assert torch.equal(t, a["t"])
+    p1, d = _mesh_rays(1 << 16, 13)
+    rd2, _, md = intersect.shadow_ray(p1, p1 + d * 0.8)
+    assert torch.equal(
+        cuda_intersect.any_blocker(pk, p1, rd2, md, dielectrics_block),
+        cuda_intersect.any_blocker_plain(pk, p1, rd2, md, dielectrics_block))
+
+
+def test_shade_step_tex_counting_build_matches_plain_counts(card):
+    """#4's counting build on the textured 17,000-triangle icosphere (512
+    clusters: the super walk): its outputs #4's bit for bit and the plain
+    version's within rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes, its
+    counters (``TEX_COUNTS``) the plain version's exactly."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    scene = synth.icosphere_scene(17000, textured=True).to_device("cuda")
+    pk, lt = cuda_intersect.pack_scene(scene), _light_table(scene)
+    assert pk.n_super == 32
+    B = 1 << 14
+    ro, rd = _rays(B, 14)
+    rd = intersect.shadow_ray(ro * 4.0, -ro + 0.3 * rd)[0]
+    ro = (ro * 4.0).contiguous()
+    u = rng.uniform_rows(rng.prng_key(15), B, 8, device="cuda")
+    kw = dict(clamp_val=RenderConfig().clamp, stub_mis=False,
+              dielectrics_block=True)
+    out, kc = cuda_shade.shade_step_tex_counts(pk, lt, *_state(ro, rd), u,
+                                               **kw)
+    a = cuda_shade.shade_step_tex(pk, lt, *_state(ro, rd), u, **kw)
+    assert all(torch.equal(out[k], a[k]) for k in a)
+    pc = cw.new_counts()
+    b = cuda_shade.shade_step_tex_plain(pk, lt, *_state(ro, rd), u, **kw,
+                                        counts=pc)
+    for k in a:
+        ok = torch.isclose(a[k].double(), b[k].double(), rtol=1e-4,
+                           atol=1e-5)
+        if ok.dim() > 1:
+            ok = ok.all(dim=1)
+        assert ok.float().mean().item() >= 0.999, k
+    assert {k: kc[k] for k in cuda_shade.TEX_COUNTS} == {
+        k: pc[k] for k in cuda_shade.TEX_COUNTS}
+    assert kc["iterations"] == B and kc["shadow_rays"] > 0
+    for k in ("walk", "shade", "shadow"):
+        assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"], k
+
+
+@pytest.mark.parametrize("dielectrics_block", [True, False])
+def test_any_blocker_stream_counting_build_matches_the_model(
+        stream_mesh, dielectrics_block):
+    """#7's counting build on 65,536 sorted segments, a third of them
+    dead: its verdicts #7's, its counters the plain model's
+    (``_count_stream_shadow_walk``) exactly, the model's verdicts the
+    kernel's."""
+    from path_tracing_tpu_torch.ops import cuda_stream as cst
+    from path_tracing_tpu_torch.ops.intersect import sorted_call
+
+    _, st = stream_mesh
+    p1, d = _mesh_rays(1 << 16, 16)
+    rd, _, md = intersect.shadow_ray(p1, p1 + d * 0.8)
+    live = torch.arange(1 << 16, device="cuda") % 3 > 0
+    got = {}
+
+    def keep(a, b, m, n_live):
+        got.update(args=(a.contiguous(), b.contiguous(), m.contiguous()),
+                   n_live=n_live)
+        return a
+
+    sorted_call(st.bounds, p1, rd, keep, md, live=live)
+    (sp1, srd, smd), n_live = got["args"], got["n_live"]
+    v, kc = cst.any_blocker_stream_counts(st, sp1, srd, smd,
+                                          dielectrics_block, n_live)
+    assert torch.equal(v, cst.any_blocker_stream(st, sp1, srd, smd,
+                                                 dielectrics_block, n_live))
+    n = int(n_live)
+    pc = cst.new_counts()
+    m = cst._count_stream_shadow_walk(st, sp1[:n], srd[:n], smd[:n],
+                                      dielectrics_block, pc)
+    assert torch.equal(m, v[:n]) and not bool(v[n:].any())
+    assert 0.05 < m.float().mean().item() < 0.95
+    assert {k: kc[k] for k in cst.PLAIN_COUNTS} == {
+        k: pc[k] for k in cst.PLAIN_COUNTS}
