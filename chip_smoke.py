@@ -11,12 +11,21 @@ Phases, each raising on failure:
    (``*_counts``: the counting builds); then the occupancy (resident blocks
    and warps per SM at the launch shape, registers, local and shared
    bytes) of each BDPT kernel, for #9 on cornell against the main path's
-   K = 32 tables and the exact table, and of #5, #10 and #11 and their
-   counting builds.
+   K = 32 tables and the exact table, for #8 against the exact table (its
+   path's), and of #3, #5, #10 and #11 and their counting builds.
 3. Kernels against their plain PyTorch versions at the main path's lane
    count (1920x1080 = 2,073,600), with their times (CUDA events):
    ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
-   ``shade_step`` on ``scenes/cornell.txt``; ``nearest_hit(with_uv)`` and
+   ``shade_step`` on ``scenes/cornell.txt``; #3's counting build
+   (``shade_step_counts``) over every bounce of a 128x72 spp 4 fused frame
+   on cornell (outputs bit-equal to #3's, counters summed over the bounces
+   equal to the plain version's exactly), then #3 on the lanes of the
+   1080p fused frame's first bounce, recorded from the render: against its
+   plain version, its counting build bit-equal and within 0.1% of the
+   plain counts, with the SIMT of its walk, shade and shadow step and its
+   bound counted from the plain counts beside its floor, and #3 timed on
+   each of the frame's recorded bounces;
+   ``nearest_hit(with_uv)`` and
    ``shade_step_tex`` on a 1,280-triangle textured icosphere (checked
    only: #4 is timed at its main path's shape in phase 5); the
    ``render_wavefront`` megakernel's 1080p spp 4 image on cornell.  Then
@@ -63,11 +72,14 @@ Phases, each raising on failure:
    triangle tests in the kernels' cluster order: within 0.1%), with the
    SIMT efficiency of the row and shadow steps; #9 on a second scene, the
    untextured 1,280-triangle icosphere at 128x72 (these three at the
-   strict bar alone).  Then on the tables of the CLI's first
+   strict bar alone); #8's counting build on the 128x72 frame's primary
+   hits with a third of the lanes active, its sums #8's and its counters
+   the plain version's exactly.  Then on the tables of the CLI's first
    1920x1080 BDPT frame (spl 8, seed 0), built by the integrator's
    ``light_side`` and ``light_table``: ``connect`` on the primary hits
    against the exact sweep's shared table (max-channel relative error
-   < 1e-3 on every active lane); ``bdpt_eye`` with the shared table at spp
+   < 1e-3 on every active lane, every inactive lane 0); ``bdpt_eye`` with
+   the shared table at spp
    1 and with the main path's 127 tile-local RIS K = 32 tables at spp 4
    (mean within 1e-3 and >= 99% of pixels within rtol 1e-4 / atol 1e-5,
    else the JAX package's BDPT tier bar: >= 97% within 1e-3, mean within
@@ -81,8 +93,12 @@ Phases, each raising on failure:
    the same key.  Mega launches ``bdpt_eye`` once a frame and no
    ``connect``, fused launches ``connect`` per bounce; both trace the light
    paths with ``nearest_hit`` and ``threefry_rows``; no plain version may
-   run.  The exact mega image must equal the fused one on >= 99.9% of
-   pixels.
+   run; #8 is timed (CUDA events) on each of the fused frame's launches,
+   beside its active lanes.  The exact mega image must equal the fused
+   one on >= 99.9% of pixels.  Then the BDPT ground truth,
+   ``render_oracle`` on cornell at 256x256 spp 16 (spl 8, BASELINE config
+   1's shape), whose auto tier is the fused one: rendered twice, the two
+   images bit-equal, with its wall time and #8's launches.
 8. PPM kernels against their plain versions on cornell at the main path's
    shape, the CLI's first 512x512 PPM pass (4 lights x 262,144 = 1,048,576
    photons, eye and light depth 4, seed 0), built by the integrator's own
@@ -164,22 +180,27 @@ The line before the last is a JSON object with one entry per kernel, whose
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6: for #4-#11 from the plain
+the operations counted per PERF.md section 6: for #3-#11 from the plain
 versions' counts of their algorithm's work in this run, which the
 counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
 must equal; #6 and #7 also carry the lane count of their plain time,
 their time on unsorted rays and their per-bounce times, #4 its plain
 time's lane count, #1 its times at the PPM eye pass's and the BDPT light
 trace's first launch and on the big mesh's first bounce (``big_mesh``),
-``floor_ms`` #6's bound without the flat super list's box tests and #4's
-and #7's floors (every cast's spheres and the boxes every ray tests, its
-octant's super list; #4's with its samples, evaluations and pdfs).  The
-counting builds of #4, #5, #6, #7, #10 and #11 (``shade_step_tex_counts``,
+#3 its time on each bounce of the fused frame (recorded, then timed one
+by one) and #8 on each launch of the fused exact frame (``per_launch``),
+#8 the oracle's wall times and launches (``oracle``),
+``floor_ms`` #6's bound without the flat super list's box tests and #3's,
+#4's and #7's floors (every cast's spheres and the boxes every ray tests,
+its octant's super list; #3's and #4's with their samples, evaluations and
+pdfs).  The counting builds of #3, #4, #5, #6, #7, #10 and #11
+(``shade_step_counts``, ``shade_step_tex_counts``,
 ``render_wavefront_counts``, ``nearest_hit_stream_counts``,
 ``any_blocker_stream_counts``, ``photon_trace_counts``,
 ``gather_flux_counts``) have entries of their
 own, their launches counted over their 1080p / main-pass / first-bounce
-call.
+call.  The BDPT kernels' ``simt`` has the share of a sweep's lanes that
+sweep a vertex (``sweep``).
 The last line is ``{"ok": true,
 "device": {...}}``.  Renders and the OBJ scenes are
 written under
@@ -229,7 +250,7 @@ REPLACES = {
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
-for _k in ("render_wavefront", "shade_step_tex", "photon_trace",
+for _k in ("render_wavefront", "shade_step", "shade_step_tex", "photon_trace",
            "gather_flux", "nearest_hit_stream", "any_blocker_stream"):
     REPLACES[f"{_k}_counts"] = REPLACES[_k]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
@@ -248,9 +269,9 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
                "onehot_fetch")
 # the kernels with a counting build (their *_counts entries)
-COUNTED = ("connect", "bdpt_eye", "render_wavefront", "shade_step_tex",
-           "photon_trace", "gather_flux", "nearest_hit_stream",
-           "any_blocker_stream")
+COUNTED = ("connect", "bdpt_eye", "render_wavefront", "shade_step",
+           "shade_step_tex", "photon_trace", "gather_flux",
+           "nearest_hit_stream", "any_blocker_stream")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -264,6 +285,7 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
                "render_wavefront_counts": "pt_counting",
+               "shade_step_counts": "step_counting",
                "shade_step_tex_counts": "tex_counting",
                "photon_trace_counts": "photon_counting",
                "gather_flux_counts": "ppm_counting",
@@ -283,6 +305,7 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                            "threefry_rows"),
                 "probe": ("onehot_fetch",),
                 "pt_counting": ("render_wavefront_counts",),
+                "step_counting": ("shade_step_counts",),
                 "tex_counting": ("shade_step_tex_counts",),
                 "photon_counting": ("photon_trace_counts",),
                 "ppm_counting": ("gather_flux_counts",),
@@ -395,8 +418,9 @@ def hold_counts(what: str, kc: dict, pc: dict, names, exact: bool) -> float:
 
 def simt(c: dict) -> dict:
     """The lane efficiency of the row step, the shadow step and a shadow
-    walk's triangle test."""
-    return {k: lane_share(c, k) for k in ("row", "shadow", "tri")}
+    walk's triangle test, and the share of a sweep's lanes that sweep a
+    vertex."""
+    return {k: lane_share(c, k) for k in ("row", "shadow", "tri", "sweep")}
 
 
 def cast_ops(pk, shadow: bool = False) -> int:
@@ -406,6 +430,14 @@ def cast_ops(pk, shadow: bool = False) -> int:
     boxes = pk.n_super or int((pk.cl[:, 7] > 0).sum())
     spheres = pk.ns + (0 if shadow else pk.nl)
     return spheres * OPS["sphere"] + boxes * OPS["box"]
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    """Two bounces' outputs equal bit for bit (a NaN equals itself: a lane
+    whose throughput turned invalid keeps it)."""
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               if a[k].dtype == torch.float32 else torch.equal(a[k], b[k])
+               for k in b)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -473,17 +505,19 @@ def phase_build():
 
 
 def phase_occupancy() -> dict:
-    """Resident blocks and warps per SM of each BDPT kernel, for #9's
-    launch on cornell against the main path's K = 32 tables and the exact
-    sweep's 813 rows (streamed)."""
+    """Resident blocks and warps per SM of each BDPT kernel: #9's launch on
+    cornell against the main path's K = 32 tables and the exact sweep's
+    813 rows (streamed), #8's against the exact sweep's (the table resident
+    in shared memory); then of #3, #5, #10 and #11 and their counting
+    builds."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
 
     occ = {}
     for what, rows in (("tile-RIS", RIS_K), ("exact", 813)):
         occ[what] = ce.occupancy(rows)
         for k, o in occ[what].items():
-            if what == "exact" and not k.startswith("bdpt_eye"):
-                continue
+            if what == "tile-RIS" and not k.startswith("bdpt_eye"):
+                continue    # #8 runs on the exact table (fused tier, oracle)
             print(f"[build] occupancy {k} ({what} table): "
                   f"{o['blocks_per_sm']} blocks x {o['threads']} threads = "
                   f"{o['warps_per_sm']} warps an SM, {o['registers']} "
@@ -492,9 +526,10 @@ def phase_occupancy() -> dict:
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
-    for k, o in {**cw.occupancy(), **cp.occupancy(),
+    for k, o in {**cs.occupancy(), **cw.occupancy(), **cp.occupancy(),
                  **cg.occupancy()}.items():
         occ[k] = o
         print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
@@ -623,6 +658,129 @@ def mega_small_counts(p, what: str, key) -> None:
                 f"({pk.n_super} supers)", kc, pc, cw.PLAIN_COUNTS, exact=True)
 
 
+def step_small_counts(p, key) -> None:
+    """#3's counting build over every bounce of a 128x72 spp 4 fused frame
+    of the parsed scene ``p``: its outputs #3's bit for bit, its counters
+    summed over the bounces the plain version's exactly."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import (_light_table,
+                                                       wavefront_loop)
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    scene = p.to_device("cuda")
+    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
+                      device="cuda")
+    idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
+    cfg = RenderConfig(width=SMALL_W, height=SMALL_H, spp=SPP, eye_depth=4)
+    kc, pc, n = cw.new_counts(), cw.new_counts(), [0]
+
+    def step(*args, **kw):
+        out, c = cs.shade_step_counts(*args, **kw)
+        ref = cs.shade_step(*args, **kw)
+        check(same_bits(out, ref),
+              "shade_step_counts 128x72: its outputs differ from #3's")
+        cs.shade_step_plain(*args, **kw, counts=pc)
+        for k in c:
+            kc[k] += c[k]
+        n[0] += 1
+        return out
+
+    wavefront_loop(pk, lt, cam, cfg, idx % SMALL_W, idx // SMALL_W, SPP, key,
+                   0, None, step)
+    hold_counts(f"shade_step cornell {SMALL_W}x{SMALL_H} spp {SPP} fused "
+                f"frame ({n[0]} bounces)", kc, pc, cs.STEP_COUNTS, exact=True)
+
+
+def step_main_shape(scene, cam, key, small_err: float, counts: dict) -> list:
+    """#3 on the lanes of the first bounce of the fused tier's 1080p spp 4
+    frame on cornell, recorded from the render: against its plain version
+    (every output within rtol 1e-4 / atol 1e-5 on >= 99.9%); its counting
+    build bit-equal to #3 and its counters (``STEP_COUNTS``) within 0.1% of
+    the plain version's; #3's bound counted from the plain counts, beside
+    its floor (every cast's spheres and boxes, the samples, evaluations and
+    pdfs), and the SIMT of its walk, shade and shadow step.  Returns the
+    rows of #3 and its counting build."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import render_pt
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    own, calls = cs.shade_step, []
+
+    def record(*args, **kw):
+        calls.append(([x.clone() if torch.is_tensor(x) else x for x in args],
+                      kw))
+        return own(*args, **kw)
+
+    cs.shade_step = record
+    try:
+        render_pt(scene, cam, W, H, SPP,
+                  RenderConfig(width=W, height=H, spp=SPP, eye_depth=4), key,
+                  tier="fused")
+    finally:
+        cs.shade_step = own
+    # #3 on each of the frame's bounces, each timed on its own
+    per_launch = [dict(ms=time_ms(lambda a=a, k=k: cs.shade_step(*a, **k), 3),
+                       active=int(a[7].sum())) for a, k in calls]
+    print(f"[kernels] shade_step on each of the fused frame's "
+          f"{len(per_launch)} bounces (ms / active lanes): "
+          + ", ".join(f"{x['ms']:.3f} / {x['active']}" for x in per_launch)
+          + f"; {sum(x['ms'] for x in per_launch):.2f} ms in all")
+    (pk, lt, *st, u), kw = calls[0]
+    del calls
+    a = cs.shade_step(pk, lt, *st, u, **kw)
+    pc = cw.new_counts()
+    b, count_ms = once_ms(lambda: cs.shade_step_plain(pk, lt, *st, u, **kw,
+                                                      counts=pc))
+    err = small_err
+    for k in a:
+        share = share_close(a[k], b[k])
+        check(share >= 0.999, f"shade_step first bounce: {k} agrees on "
+              f"{share:.6f}")
+        err = max(err, (a[k].double() - b[k].double()).abs().max().item())
+    _kernels.reset_counts()
+    kout, kc = cs.shade_step_counts(pk, lt, *st, u, **kw)
+    counts["step_counting"] = dict(_kernels.launches)
+    check(same_bits(kout, a), "shade_step_counts: its outputs differ from #3's")
+    hold_counts(f"shade_step {B} lanes (the fused frame's first bounce)", kc,
+                pc, cs.STEP_COUNTS, exact=False)
+    nbytes = B * (20 + 8 + 17) * 4
+    bnd = bound(nbytes, walk_ops(pc) + pc["bsdf_samples"] * OPS["sample"]
+                + pc["evals"] * OPS["eval"] + pc["pdfs"] * OPS["pdf"])
+    floor_ms = bound(nbytes, pc["iterations"] * cast_ops(pk)
+                     + pc["shadow_rays"] * cast_ops(pk, True)
+                     + pc["bsdf_samples"] * OPS["sample"]
+                     + pc["evals"] * OPS["eval"]
+                     + pc["pdfs"] * OPS["pdf"])["bound_ms"]
+    ms = time_ms(lambda: cs.shade_step(pk, lt, *st, u, **kw), 10)
+    plain_ms = time_ms(lambda: cs.shade_step_plain(pk, lt, *st, u, **kw), 3)
+    eff = {k: lane_share(kc, k) for k in ("walk", "shade", "shadow", "tri")}
+    print(f"[kernels] shade_step on the fused frame's first bounce ({B} "
+          f"lanes, {pc['iterations']} active; plain counts "
+          f"{count_ms / 1e3:.1f} s): {pc['shadow_rays']} shadow rays, "
+          f"{pc['bsdf_samples']} BSDF samples; tests: nearest-hit spheres "
+          f"{pc['hit_spheres']}, boxes {pc['hit_boxes']}, triangles "
+          f"{pc['hit_tris']}; shadow spheres {pc['shadow_spheres']}, boxes "
+          f"{pc['shadow_boxes']}, triangles {pc['shadow_tris']}; SIMT walk "
+          f"{eff['walk']:.4f}, shade {eff['shade']:.4f}, shadow step "
+          f"{eff['shadow']:.4f}, a shadow walk's triangle test "
+          f"{eff['tri']:.4f}; {ms:.3f} ms, counted bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel), floor {floor_ms:.4f} "
+          "ms")
+    return [dict(name="shade_step", max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, counts=kc, simt=eff, floor_ms=floor_ms,
+                 per_launch=per_launch, **bnd),
+            dict(name="shade_step_counts", max_abs_err=err,
+                 ms=time_ms(lambda: cs.shade_step_counts(
+                     pk, lt, *st, u, **kw), 3), plain_ms=count_ms, **bnd)]
+
+
 def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.ops import _kernels
@@ -696,15 +854,18 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
             lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3),
         **bound(B * (28 + 1), B * cast_ops(pk, shadow=True))))
 
-    # ---- 3. shade step on the state after two plain bounces ----
+    # ---- 3. shade step on the state after two plain bounces; its counting
+    # build over a 128x72 fused frame; then on the 1080p fused frame's
+    # first bounce ----
     kw = dict(clamp_val=15.0, stub_mis=True, dielectrics_block=True)
     st, u2 = step_state(cs.shade_step_plain, pk, lt, key, fresh_state(ro, rd),
                         kw)
     r = compare_step("shade_step", cs.shade_step, cs.shade_step_plain, pk,
-                     lt, st, u2, kw)
-    r.update(bound(B * (20 + 8 + 17) * 4, int(st[5].sum()) * (
-        cast_ops(pk) + cast_ops(pk, True) + OPS["sample"] + OPS["eval"])))
-    results.append(r)
+                     lt, st, u2, kw, timed=False)
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    step_small_counts(load_scene(str(SCENE)), key)
+    results += step_main_shape(scene, cam, key, r["max_abs_err"], counts)
 
     # ---- 4. the textured bounce on the 1,280-triangle icosphere ----
     mpk = ci.pack_scene(mesh)
@@ -742,7 +903,6 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
           f"1e-4 / atol 1e-5 {share:.6f}, bit-equal {equal:.6f}, mean rel "
           f"diff {rel:.3g}")
     from path_tracing_tpu_torch.scene import synth
-    from path_tracing_tpu_torch.scene.parser import load_scene
 
     mega_small_counts(load_scene(str(SCENE)), "cornell", key)
     mega_small_counts(synth.icosphere_scene(SUPER_MESH_TRIS),
@@ -897,7 +1057,7 @@ def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
     recorded from the CLI's render): against its plain version on a
     strided subset of >= 65,536 lanes (every output within rtol 1e-4 /
     atol 1e-5 on >= 99.9%); its counting build bit-equal to #4 and its
-    counters (``TEX_COUNTS``) equal to the plain version's exactly on the
+    counters (``STEP_COUNTS``) equal to the plain version's exactly on the
     subset and within 0.1% on every lane; #4's bound counted from those
     plain counts, beside its floor: every cast's spheres and the boxes
     every ray tests (its octant's super list), the samples, evaluations
@@ -928,7 +1088,7 @@ def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
     spc = cw.new_counts()
     cs.shade_step_tex_plain(pk, lt, *sst, **kw, counts=spc)
     hold_counts(f"shade_step_tex {sub.numel()} strided lanes", skc, spc,
-                cs.TEX_COUNTS, exact=True)
+                cs.STEP_COUNTS, exact=True)
     _kernels.reset_counts()
     kout, kc = cs.shade_step_tex_counts(pk, lt, *st, u, **kw)
     counts["tex_counting"] = dict(_kernels.launches)
@@ -937,7 +1097,7 @@ def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
     pc = cw.new_counts()
     _, count_ms = once_ms(lambda: cs.shade_step_tex_plain(
         pk, lt, *st, u, **kw, counts=pc))
-    hold_counts(f"shade_step_tex {n} lanes", kc, pc, cs.TEX_COUNTS,
+    hold_counts(f"shade_step_tex {n} lanes", kc, pc, cs.STEP_COUNTS,
                 exact=False)
     tables = sum(x.numel() for x in (pk.sph, pk.tri, pk.uv, pk.cl, pk.sup,
                                       pk.atlas)) * 4
@@ -1072,7 +1232,8 @@ def check_counts(what: str, kc: dict, pc: dict) -> float:
     eff = simt(kc)
     print(f"[bdpt] {what} counts: within {worst:.2e} of plain "
           f"{ {k: pc[k] for k in PLAIN_COUNTS} }; SIMT row {eff['row']:.4f}, "
-          f"shadow {eff['shadow']:.4f}, triangle {eff['tri']:.4f}; tests: "
+          f"shadow {eff['shadow']:.4f}, triangle {eff['tri']:.4f}; busy "
+          f"sweep lanes {eff['sweep']:.4f}; tests: "
           "nearest-hit spheres "
           f"{kc['hit_spheres']}, boxes {kc['hit_boxes']}, triangles "
           f"{kc['hit_tris']}; shadow spheres {kc['shadow_spheres']}, boxes "
@@ -1150,6 +1311,47 @@ def phase_bdpt_small(parsed) -> None:
     args = small_bdpt(synth.icosphere_scene(SMALL_MESH_TRIS), RIS_K)
     hold_eye(f"icosphere {SMALL_MESH_TRIS} tile-RIS K=32 128x72 spp 4",
              ce.bdpt_eye(*args), ce.bdpt_eye_plain(*args))
+    # #8's counting build on the 128x72 frame's primary hits against its
+    # exact table, a third of the lanes active
+    cargs = connect_args(*small_bdpt(parsed, 0)[:4], SMALL_W, SMALL_H,
+                         sparse=True)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    out, kc = cc.connect_counts(*cargs, **kw)
+    check(torch.equal(out, cc.connect(*cargs, **kw)),
+          "connect_counts 128x72: its sums differ from #8's")
+    pc = cc.new_counts()
+    cc.connect_plain(*cargs, **kw, counts=pc)
+    hold_counts(f"connect {SMALL_W}x{SMALL_H} ({int(cargs[-1].sum())} active)",
+                kc, pc, cc.PLAIN_COUNTS, exact=True)
+
+
+def connect_args(pk, tab, n_valid, cam, w: int, h: int,
+                 sparse=False) -> tuple:
+    """#8's arguments on the primary hits of a w x h frame's camera rays
+    (jittered by the frame key's first iteration's draws), eye_f with a
+    random G; with ``sparse`` a third of the active lanes kept (as later
+    iterations thin out)."""
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.ops.intersect import hit_from_fields
+    from path_tracing_tpu_torch.ops.math3 import normalize
+    from path_tracing_tpu_torch.scene.camera import primary_ray_dirs
+
+    key = rng.fold_in(rng.prng_key(0), 0)
+    B = w * h
+    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    rd = primary_ray_dirs(cam, idx % w, idx // w, u[6], u[7])
+    ro = cam.eye[None].expand(B, 3).contiguous()
+    hit = hit_from_fields(ci.nearest_hit(pk, ro, rd), ro, rd)
+    act = hit.hit & ~hit.is_light
+    if sparse:
+        act = act & (u[5] < 1.0 / 3.0)
+    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(u[0]),
+                        1e8 * (1.0 + u[0] * 4.0))
+    return (pk, tab, n_valid, hit.pos, hit.normal,
+            (u[1:4].T * 0.5 + 0.5).contiguous(), hit.mtl, -rd,
+            normalize(cam.eye[None] - hit.pos), eye_f, act)
 
 
 def phase_bdpt_kernels(parsed, cam) -> tuple:
@@ -1161,27 +1363,16 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
     from path_tracing_tpu_torch.ops import cuda_connect as cc
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
-    from path_tracing_tpu_torch.ops import rng
-    from path_tracing_tpu_torch.ops.intersect import hit_from_fields
-    from path_tracing_tpu_torch.ops.math3 import normalize
 
     phase_bdpt_small(parsed)
     results = []
     scene = parsed.to_device("cuda")
-    _, key, used, tab, n_valid, _, _, _ = bdpt_frame(scene, cam, 0)
+    _, _, used, tab, n_valid, _, _, _ = bdpt_frame(scene, cam, 0)
     pk = ci.pack_scene(used)
 
     # ---- 8. connect on the 1080p primary hits, eye_f with a random G ----
-    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
-    ro, rd = camera_rays(cam, u)
-    hit = hit_from_fields(ci.nearest_hit(pk, ro, rd), ro, rd)
-    act = hit.hit & ~hit.is_light
-    g_mis = u[0] * 4.0
-    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(g_mis),
-                        1e8 * (1.0 + g_mis))
-    args = (pk, tab, n_valid, hit.pos, hit.normal,
-            (u[1:4].T * 0.5 + 0.5).contiguous(), hit.mtl, -rd,
-            normalize(cam.eye[None] - hit.pos), eye_f, act)
+    args = connect_args(pk, tab, n_valid, cam, W, H)
+    act = args[-1]
     kw = dict(clamp_val=15.0, dielectrics_block=True)
     a = cc.connect(*args, **kw)
     pc = cc.new_counts()
@@ -1189,6 +1380,7 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
     check(bool((rel < 1e-3).all()),
           f"connect: max relative error {rel.max().item()} on active lanes")
+    check(bool((a[~act] == 0).all()), "connect: an inactive lane is not 0")
     equal = (a == b).all(dim=1)[act].float().mean().item()
     print(f"[bdpt] connect on {B} lanes ({act.float().mean().item():.3f} "
           f"active) against {n_valid} light vertices: max-channel relative "
@@ -1243,7 +1435,9 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     return results, ris_img.cpu().numpy()
 
 
-def phase_bdpt_render(counts: dict, ris_img) -> None:
+def phase_bdpt_render(counts: dict, ris_img) -> list:
+    """The BDPT main path and the exact sweep through the CLI; returns #8's
+    time and active lanes on each launch of the fused exact frame."""
     bdpt = ["--spl", str(SPL), "--light-depth", "4"]
     run_cli(SCENE, SMALL_W, SMALL_H, "auto", "bdpt_warmup", "bdpt",
             bdpt + ["--resample", str(RIS_K)])
@@ -1263,12 +1457,93 @@ def phase_bdpt_render(counts: dict, ris_img) -> None:
                     counts, "bdpt", bdpt + ["--resample", "0"])
     check(counts["bdpt_exact"]["connect"] == 0,
           f"BDPT exact mega launches {counts['bdpt_exact']}")
-    fused = counted("bdpt_fused", SCENE, W, H, "fused", "bdpt_1080p_fused",
-                    counts, "bdpt", bdpt + ["--resample", "0"])
+    fused, launches = connect_launches(lambda: counted(
+        "bdpt_fused", SCENE, W, H, "fused", "bdpt_1080p_fused", counts,
+        "bdpt", bdpt + ["--resample", "0"]))
     check(counts["bdpt_fused"]["bdpt_eye"] == 0,
           f"BDPT fused launches {counts['bdpt_fused']}")
     compare(fused["image"], exact["image"], "BDPT 1080p exact mega vs fused",
             0.999)
+    print(f"[bdpt] connect on each of the fused exact frame's "
+          f"{len(launches)} launches (ms / active lanes): "
+          + ", ".join(f"{x['ms']:.3f} / {x['active']}" for x in launches)
+          + f"; {sum(x['ms'] for x in launches):.1f} ms in all")
+    return launches
+
+
+def connect_launches(call) -> tuple:
+    """``call()``'s result and, for each of #8's launches it makes, the
+    kernel's device time (CUDA events around the call) and active lanes."""
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+
+    own, timed = cc.connect, []
+
+    def per_launch(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = own(*args, **kw)
+        end.record()
+        timed.append((start, end, args[10].sum()))
+        return out
+
+    cc.connect = per_launch
+    try:
+        res = call()
+    finally:
+        cc.connect = own
+    torch.cuda.synchronize()
+    return res, [dict(ms=s.elapsed_time(e), active=int(n))
+                 for s, e, n in timed]
+
+
+def phase_oracle(counts: dict) -> dict:
+    """The deterministic BDPT ground truth, ``render_oracle`` on cornell at
+    256x256 spp 16 (spl 8, BASELINE config 1's shape; seed 1337): its auto
+    tier is the fused one, which launches #8 once an eye iteration.
+    Rendered twice, the images must be bit-equal; returns its wall time
+    and launches."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.bdpt import render_oracle
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    w = h = 256
+    spp, spl = 16, 8
+    p = load_scene(str(SCENE))
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, spp=spp, spl=spl)
+    imgs, ms = [], []
+    for _ in range(2):
+        _kernels.reset_counts()
+        img, t = once_ms(lambda: render_oracle(scene, cam, w, h, spp, spl,
+                                               cfg))
+        imgs.append(img)
+        ms.append(t)
+        check(sum(_kernels.plain_calls.values()) == 0,
+              f"oracle: plain versions ran: {_kernels.plain_calls}")
+        counts["oracle"] = dict(_kernels.launches)
+    # a third render with #8's launches timed (the events stay out of the
+    # wall times above)
+    _, launches = connect_launches(lambda: render_oracle(
+        scene, cam, w, h, spp, spl, cfg))
+    connect_ms = sum(x["ms"] for x in launches)
+    check(counts["oracle"]["connect"] > 0, "the oracle launched no connect")
+    check(torch.equal(imgs[0], imgs[1]), "oracle: two renders differ")
+    img = imgs[0]
+    check(bool(torch.isfinite(img).all()) and img.mean().item() > 0,
+          f"oracle: image not finite or black (mean {img.mean().item()})")
+    print(f"[oracle] render_oracle cornell {w}x{h} spp {spp} spl {spl}: "
+          f"bit-equal twice, {ms[0]:.1f} / {ms[1]:.1f} ms, "
+          f"{w * h * spp / ms[1] / 1e3:.3f} Mpaths/s, connect launches "
+          f"{counts['oracle']['connect']} ({connect_ms:.1f} ms of device time "
+          f"in a third render), nearest_hit "
+          f"{counts['oracle']['nearest_hit']}, mean {img.mean().item():.6f}")
+    return dict(ms=ms, launches=counts["oracle"]["connect"],
+                connect_ms=connect_ms)
 
 
 def ppm_frame(scene, cam):
@@ -2000,9 +2275,12 @@ def main() -> int:
     results += phase_textured(counts, tex_small_err)
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
     for r in bdpt_results:
-        r["occupancy"] = occupancy["tile-RIS"][r["name"]]
+        r["occupancy"] = occupancy["exact" if r["name"] == "connect"
+                                   else "tile-RIS"][r["name"]]
     results += bdpt_results
-    phase_bdpt_render(counts, ris_img)
+    conn = next(r for r in bdpt_results if r["name"] == "connect")
+    conn["per_launch"] = phase_bdpt_render(counts, ris_img)
+    conn["oracle"] = phase_oracle(counts)
     ppm_results, pass0 = phase_ppm_kernels(p, counts)
     results += ppm_results
     phase_ppm_render(counts, pass0)
@@ -2020,7 +2298,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    extra = ("plain_lanes", "unsorted_ms", "per_bounce", "ppm_eye",
+    extra = ("plain_lanes", "unsorted_ms", "per_bounce", "per_launch",
+             "oracle", "ppm_eye",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
              "occupancy", "host_ms", "library_host_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

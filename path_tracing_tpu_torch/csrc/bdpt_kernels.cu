@@ -23,7 +23,24 @@
 // a connection's rows pass the geometry and cone gates and run two BSDF
 // evaluations and two pdfs, 56% need a shadow ray, and a shadow ray makes
 // ~31 sphere, box and triangle tests; the walks take most of the time.
-// #8 keeps one thread per eye vertex, each walking its own shadow rays.
+//
+// #8's design for this card: persistent blocks of 24 warps, one an SM,
+// stage the whole table in shared memory once (the exact sweep's 813 rows
+// are 130 KB; a table above the block's opt-in shared memory streams
+// through per-warp chunks instead).  Each warp takes spans of 32 lanes
+// from a global counter, writes 0 for the span's inactive lanes and
+// queues its active ones, and sweeps 32 queued vertices at a time with
+// #9's warp_sweep: a warp sweeps only active vertices (the fused tier's
+// later iterations hand it 0.06-92% of the lanes) and every lane walks a
+// real shadow ray.  Measured on an H100 (PERF.md section 6), every lane
+// bit-equal: the fused exact frame's 48 launches 4.48 s against 10.50 s
+// for one thread a lane; on the all-active 1080p primary hits 204 ms
+// against 210 (their rays were already coherent).  Over the frame's
+// launches: 24 warps an SM (80 registers, 58 B spilled) 11% faster than
+// 16 (106 registers) and level with 32; against the resident table, rows
+// read from device memory 2%, per-warp 16-row chunks 14% and block-wide
+// double-buffered cp.async stages of 32 rows (16 warps an SM, 112
+// registers) 17% slower (the stages were dropped).
 //
 // #9's design for this card: one block of 128 pixels (4 warps) reads one
 // tile's table (TILE_LANES is a multiple of the block) and stages it in
@@ -39,9 +56,10 @@
 // and a prefix count into a per-warp queue, and the warp walks them 32 at
 // a time, one ray a lane, so every lane walks a real ray.  A lane then
 // adds its own clear pairs of the batch in queue order, which is row
-// order: the sum is connect_dev's, add for add.  (Queuing the gate-passing
-// pairs for their evaluations too raised that step's SIMT efficiency from
-// 0.47 to 0.97 but made the kernel slower: PERF.md section 6.)
+// order: the sum is one thread's row after row, add for add.  (Queuing
+// the gate-passing pairs for their evaluations too raised that step's SIMT
+// efficiency from 0.47 to 0.97 but made the kernel slower: PERF.md
+// section 6.)
 
 #include <type_traits>
 
@@ -70,57 +88,12 @@ struct ConnectIn {
   const bool* __restrict__ act;
 };
 
-template <bool kCount>
-__global__ void connect_kernel(Tables tb, const float* __restrict__ lv, int n_valid, ConnectIn in,
-                               int B, float clamp_val, int blocks_col, float* __restrict__ out,
-                               unsigned long long* __restrict__ counts) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  typename std::conditional<kCount, Count, NoCount>::type cnt;
-  if (i < B) {
-    V3 acc = mk(0.f, 0.f, 0.f);
-    if (in.act[i]) {
-      Mtl m = {load3(in.bc, i), in.rough[i], in.metal[i], in.eta[i]};
-      EyeVertex e = make_eye_vertex(load3(in.pos, i), load3(in.n, i), load3(in.tp, i), m,
-                                    load3(in.wo_e, i), load3(in.wo_s, i), in.eye_f[i]);
-      cnt.add(kVertices);
-      acc = connect_dev(tb, lv, n_valid, e, clamp_val, blocks_col, cnt);
-    }
-    store3(out, i, acc);
-  }
-  if constexpr (kCount) cnt.flush(counts);
-}
-
 // ---------------------------------------------------------------------------
-// #9
+// the connection sweep of a warp, shared by #8 and #9
 // ---------------------------------------------------------------------------
 
-constexpr int kEyeWarps = 4;
-constexpr int kEyeThreads = 32 * kEyeWarps;
-constexpr int kEyeMinBlocks = 6;       // __launch_bounds__: 24 warps an SM at least
 constexpr int kChunk = 16;             // rows a warp stages at a time (streamed tables)
-constexpr int kResidentRows = 64;      // tables up to this many rows are staged whole
 constexpr int kQueue = 64;             // a queue holds < 32 waiting + 32 new pairs
-constexpr int kParkFields = 24;        // a thread's parked path state, padded
-
-struct EyeCfg {
-  Key k02;                 // fold_in(key, 0x0202)
-  uint32_t start, total;   // this lane is column start + i of a total-lane render
-  int spp, eye_depth, max_iters;
-  float clamp_val, light_hit_scale;
-  int blocks_col;
-  bool resident;           // the table fits kResidentRows
-};
-
-// The light-vertex rows of pixel i: the shared table, or its tile's table
-// (tile_stride floats apart, one per tile_lanes consecutive pixels).
-struct EyeTable {
-  const float* __restrict__ lv;
-  int n_valid, tile_lanes;
-  long long tile_stride;
-  __device__ __forceinline__ const float* rows(int i) const {
-    return tile_lanes > 0 ? lv + (long long)(i / tile_lanes) * tile_stride : lv;
-  }
-};
 
 // A warp's shadow-ray queue (structure of arrays: lane j touches word j,
 // so it does not conflict on banks).
@@ -131,23 +104,6 @@ struct WarpQueue {
   int who[kQueue];      // its vertex's lane, + 32 when it failed valid3
   unsigned mask[32];    // per lane, the entries of a batch it adds
 };
-
-struct EyeLayout {
-  bool resident;
-  size_t bytes;
-};
-
-// The dynamic shared memory of an eye launch: the threads' parked path
-// state, the camera, the block's table or the warps' chunk buffers, then
-// the warps' queues.  Every part is a multiple of 16 bytes.
-inline EyeLayout eye_layout(int n_valid) {
-  EyeLayout L;
-  L.resident = n_valid <= kResidentRows;
-  const int table_floats = (L.resident ? n_valid : kEyeWarps * kChunk) * kLvCols;
-  L.bytes = (size_t)(kParkFields * kEyeThreads + 16 + table_floats) * 4 +
-            kEyeWarps * sizeof(WarpQueue);
-  return L;
-}
 
 __device__ __forceinline__ void copy_f4(float* __restrict__ dst, const float* __restrict__ src,
                                         int n_floats, int t, int stride) {
@@ -197,7 +153,9 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int
 // per-warp buffer.  Each lane gates and evaluates its own vertex against
 // each row (the row a broadcast read); the pairs that need a shadow ray
 // are queued with a ballot and a prefix count, row after row, and walked
-// 32 at a time, one ray a lane.  Every lane of the warp calls this.
+// 32 at a time, one ray a lane.  Every lane of the warp calls this.  It
+// counts the vertices (kVertices) and the lanes that sweep one
+// (kSweepLanes).
 template <class Ctr>
 __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
                          const float* __restrict__ rows, float* chunk, int n_valid,
@@ -207,6 +165,7 @@ __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
   const int lane = threadIdx.x & 31;
   if (has_v) {
     cnt.add(kVertices);
+    cnt.simt(kSweepLanes);
     const V3 p1 = e.pos + scale(e.n, kEps);
     q.p1[0][lane] = p1.x;
     q.p1[1][lane] = p1.y;
@@ -256,6 +215,146 @@ __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
   }
   if (nq > 0) shadow_batch(tb, q, nq, blocks_col, &acc, cnt);
   return acc;
+}
+
+// ---------------------------------------------------------------------------
+// #8
+// ---------------------------------------------------------------------------
+
+// Where #8's block keeps the light-vertex table (connect_place picks one
+// per launch): the whole table in shared memory, staged once per block, or
+// per-warp kChunk-row chunks streamed through warp_sweep.
+enum RowPlace { kRowsResident, kRowsChunked };
+
+// Warps a block and __launch_bounds__ minimum blocks an SM of each
+// placement (measured: PERF.md section 6).
+constexpr int kResWarps = 24, kResMinBlocks = 1;
+constexpr int kChunkWarps = 4, kChunkMinBlocks = 6;
+// the largest table the block stages whole (0: always stream)
+constexpr int kResidentMaxRows = 1 << 20;
+
+__host__ __device__ constexpr int place_warps(int p) {
+  return p == kRowsResident ? kResWarps : kChunkWarps;
+}
+
+__host__ __device__ constexpr int place_min_blocks(int p) {
+  return p == kRowsResident ? kResMinBlocks : kChunkMinBlocks;
+}
+
+// A warp's waiting vertices: lane indices of active vertices, < 32 left
+// over from a sweep and up to 32 taken from the next span.
+struct VertexQueue {
+  int idx[64];
+};
+
+// #8's dynamic shared memory: the table or its buffers, then each warp's
+// shadow-ray and vertex queues (every part a multiple of 16 bytes).
+inline size_t connect_smem(int place, int n_valid) {
+  const int warps = place_warps(place);
+  const int rows = place == kRowsResident ? n_valid : warps * kChunk;
+  return (size_t)rows * kLvCols * 4 + warps * (sizeof(WarpQueue) + sizeof(VertexQueue));
+}
+
+// Persistent blocks fill the card.  Each warp takes the next span of 32
+// lane indices from the global counter `work` (one atomicAdd a span),
+// writes 0 for the inactive lanes of the span and packs the active ones
+// into its vertex queue with a ballot (LaneQueue), until 32 wait or the
+// lanes run out; then it sweeps them (warp_sweep), one vertex a lane, and
+// writes their sums.  Each vertex is summed by one lane in row order, so
+// the output is a pure function of the inputs and equals one thread's
+// sum of connect_row after connect_row.
+template <bool kCount, int kPlace>
+__global__ void __launch_bounds__(32 * place_warps(kPlace), place_min_blocks(kPlace))
+    connect_kernel(Tables tb, const float* __restrict__ lv, int n_valid, ConnectIn in, int B,
+                   float clamp_val, int blocks_col, int* __restrict__ work,
+                   float* __restrict__ out, unsigned long long* __restrict__ counts) {
+  constexpr int kWarps = place_warps(kPlace);
+  extern __shared__ __align__(16) float smem[];
+  typename std::conditional<kCount, Count, NoCount>::type cnt;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* sp = smem;
+  const float* rows = lv;
+  float* chunk = nullptr;
+  if constexpr (kPlace == kRowsResident) {
+    copy_f4(sp, lv, n_valid * kLvCols, threadIdx.x, 32 * kWarps);
+    rows = sp;
+    sp += n_valid * kLvCols;
+  } else {
+    chunk = sp + warp * kChunk * kLvCols;
+    sp += kWarps * kChunk * kLvCols;
+  }
+  WarpQueue& q = reinterpret_cast<WarpQueue*>(sp)[warp];
+
+  LaneQueue vq{reinterpret_cast<VertexQueue*>(sp + kWarps * sizeof(WarpQueue) / 4)[warp].idx, 0,
+               true};
+  __syncthreads();
+  for (;;) {
+    // ---- take spans until 32 vertices wait or the lanes run out ----
+    vq.fill(work, B, in.act, [&](int i) { store3(out, i, mk(0.f, 0.f, 0.f)); });
+    const int nb = min(vq.n, 32);
+    if (nb == 0) break;
+
+    // ---- sweep them, one a lane ----
+    const bool has_v = lane < nb;
+    const int i = has_v ? vq.q[lane] : 0;
+    EyeVertex e;
+    if (has_v) {
+      Mtl m = {load3(in.bc, i), in.rough[i], in.metal[i], in.eta[i]};
+      e = make_eye_vertex(load3(in.pos, i), load3(in.n, i), load3(in.tp, i), m,
+                          load3(in.wo_e, i), load3(in.wo_s, i), in.eye_f[i]);
+    }
+    const V3 acc = warp_sweep(tb, e, has_v, rows, chunk, n_valid, q, clamp_val, blocks_col, cnt);
+    if (has_v) store3(out, i, acc);
+    vq.pop(nb);
+  }
+  if constexpr (kCount) cnt.flush(counts);
+}
+
+// ---------------------------------------------------------------------------
+// #9
+// ---------------------------------------------------------------------------
+
+constexpr int kEyeWarps = 4;
+constexpr int kEyeThreads = 32 * kEyeWarps;
+constexpr int kEyeMinBlocks = 6;       // __launch_bounds__: 24 warps an SM at least
+constexpr int kResidentRows = 64;      // tables up to this many rows are staged whole
+constexpr int kParkFields = 24;        // a thread's parked path state, padded
+
+struct EyeCfg {
+  Key k02;                 // fold_in(key, 0x0202)
+  uint32_t start, total;   // this lane is column start + i of a total-lane render
+  int spp, eye_depth, max_iters;
+  float clamp_val, light_hit_scale;
+  int blocks_col;
+  bool resident;           // the table fits kResidentRows
+};
+
+// The light-vertex rows of pixel i: the shared table, or its tile's table
+// (tile_stride floats apart, one per tile_lanes consecutive pixels).
+struct EyeTable {
+  const float* __restrict__ lv;
+  int n_valid, tile_lanes;
+  long long tile_stride;
+  __device__ __forceinline__ const float* rows(int i) const {
+    return tile_lanes > 0 ? lv + (long long)(i / tile_lanes) * tile_stride : lv;
+  }
+};
+
+struct EyeLayout {
+  bool resident;
+  size_t bytes;
+};
+
+// The dynamic shared memory of an eye launch: the threads' parked path
+// state, the camera, the block's table or the warps' chunk buffers, then
+// the warps' queues.  Every part is a multiple of 16 bytes.
+inline EyeLayout eye_layout(int n_valid) {
+  EyeLayout L;
+  L.resident = n_valid <= kResidentRows;
+  const int table_floats = (L.resident ? n_valid : kEyeWarps * kChunk) * kLvCols;
+  L.bytes = (size_t)(kParkFields * kEyeThreads + 16 + table_floats) * 4 +
+            kEyeWarps * sizeof(WarpQueue);
+  return L;
 }
 
 // Every sample of each lane's pixel, iteration for iteration the lane's
@@ -452,6 +551,70 @@ __global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
   if constexpr (kCount) cnt.flush(counts);
 }
 
+// The placement of #8's launch against n_valid rows: the whole table
+// when it fits the block's opt-in shared memory, else per-warp chunks.
+inline cudaError_t connect_place(int n_valid, int* place) {
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *place = n_valid <= kResidentMaxRows && connect_smem(kRowsResident, n_valid) <= (size_t)optin
+               ? kRowsResident
+               : kRowsChunked;
+  return cudaSuccess;
+}
+
+inline const void* connect_fn(bool count, int place) {
+  if (place == kRowsResident)
+    return count ? (const void*)connect_kernel<true, kRowsResident>
+                 : (const void*)connect_kernel<false, kRowsResident>;
+  return count ? (const void*)connect_kernel<true, kRowsChunked>
+               : (const void*)connect_kernel<false, kRowsChunked>;
+}
+
+// One launch of #8's instance at kPlace: as many persistent blocks as the
+// card holds at once (fewer for a small B).
+template <bool kCount, int kPlace>
+cudaError_t launch_connect_at(const Tables& tb, const float* lv, int n_valid, const ConnectIn& in,
+                              int B, float clamp_val, int blocks_col, int* work, float* out,
+                              unsigned long long* counts, cudaStream_t stream) {
+  auto* fn = connect_kernel<kCount, kPlace>;
+  const int threads = 32 * place_warps(kPlace);
+  const size_t smem = connect_smem(kPlace, n_valid);
+  int blocks = 0;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = persistent_blocks(fn, threads, smem, (B + threads - 1) / threads, &blocks);
+  if (err != cudaSuccess) return err;
+  fn<<<blocks, threads, smem, stream>>>(tb, lv, n_valid, in, B, clamp_val, blocks_col, work, out,
+                                        counts);
+  return cudaGetLastError();
+}
+
+template <bool kCount>
+int launch_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                   const float* cl, int nc, const float* sup, int nsup, const float* lv,
+                   int n_valid, const float* pos, const float* n, const float* tp,
+                   const float* bc, const float* rough, const float* metal, const float* eta,
+                   const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
+                   int B, float clamp_val, int blocks_col, int* work, float* out,
+                   unsigned long long* counts, void* stream) {
+  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
+  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  int place = kRowsResident;
+  cudaError_t err = connect_place(n_valid, &place);
+  if (err != cudaSuccess) return (int)err;
+  auto* go = place == kRowsResident ? &launch_connect_at<kCount, kRowsResident>
+                                    : &launch_connect_at<kCount, kRowsChunked>;
+  return (int)go(tb, lv, n_valid, in, B, clamp_val, blocks_col, work, out, counts,
+                 (cudaStream_t)stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,33 +623,15 @@ extern "C" {
 // (0 on success); the Python wrapper raises on anything else.  The scene
 // tables come first: sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super.
 
-static int launch_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc, const float* sup, int nsup, const float* lv,
-                          int n_valid, const float* pos, const float* n, const float* tp,
-                          const float* bc, const float* rough, const float* metal, const float* eta,
-                          const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
-                          int B, float clamp_val, int blocks_col, float* out,
-                          unsigned long long* counts, void* stream) {
-  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
-  if (counts)
-    connect_kernel<true><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-        tb, lv, n_valid, in, B, clamp_val, blocks_col, out, counts);
-  else
-    connect_kernel<false><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-        tb, lv, n_valid, in, B, clamp_val, blocks_col, out, nullptr);
-  return (int)cudaGetLastError();
-}
-
 int pt_connect(const float* sph, int ns, int nl, const float* tri, const float* uv, const float* cl,
                int nc, const float* sup, int nsup, const float* lv, int n_valid, const float* pos,
                const float* n, const float* tp, const float* bc, const float* rough,
                const float* metal, const float* eta, const float* wo_e, const float* wo_s,
                const float* eye_f, const bool* act, int B, float clamp_val, int blocks_col,
-               float* out, void* stream) {
-  return launch_connect(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp, bc, rough,
-                        metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, nullptr,
-                        stream);
+               int* work, float* out, void* stream) {
+  return launch_connect<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp,
+                               bc, rough, metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val,
+                               blocks_col, work, out, nullptr, stream);
 }
 
 // The counting build of #8: the same sums, and the work counters added
@@ -496,11 +641,11 @@ int pt_connect_counts(const float* sph, int ns, int nl, const float* tri, const 
                       int n_valid, const float* pos, const float* n, const float* tp,
                       const float* bc, const float* rough, const float* metal, const float* eta,
                       const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
-                      int B, float clamp_val, int blocks_col, float* out,
+                      int B, float clamp_val, int blocks_col, int* work, float* out,
                       unsigned long long* counts, void* stream) {
-  return launch_connect(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp, bc, rough,
-                        metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val, blocks_col, out, counts,
-                        stream);
+  return launch_connect<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp,
+                              bc, rough, metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val,
+                              blocks_col, work, out, counts, stream);
 }
 
 static int launch_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
@@ -551,15 +696,25 @@ int pt_bdpt_eye_counts(const float* sph, int ns, int nl, const float* tri, const
 }
 
 // occupancy_row of connect, connect_counts, bdpt_eye and bdpt_eye_counts
-// in turn, for an eye launch against n_valid table rows.
+// in turn, for launches against n_valid table rows (connect's instance
+// at the placement its launch takes).
 int pt_bdpt_occupancy(int n_valid, int* out) {
+  int place = kRowsResident;
+  cudaError_t err = connect_place(n_valid, &place);
+  if (err != cudaSuccess) return (int)err;
   const int eye_smem = (int)eye_layout(n_valid).bytes;
-  const void* fns[4] = {(const void*)connect_kernel<false>, (const void*)connect_kernel<true>,
+  const int conn_smem = (int)connect_smem(place, n_valid);
+  const void* fns[4] = {connect_fn(false, place), connect_fn(true, place),
                         (const void*)bdpt_eye_kernel<false>, (const void*)bdpt_eye_kernel<true>};
-  const int threads[4] = {kThreads, kThreads, kEyeThreads, kEyeThreads};
-  const int smem[4] = {0, 0, eye_smem, eye_smem};
+  const int threads[4] = {32 * place_warps(place), 32 * place_warps(place), kEyeThreads,
+                          kEyeThreads};
+  const int smem[4] = {conn_smem, conn_smem, eye_smem, eye_smem};
   for (int k = 0; k < 4; ++k) {
-    cudaError_t err = occupancy_row(fns[k], threads[k], smem[k], out + 5 * k);
+    if (k < 2) {
+      err = cudaFuncSetAttribute(fns[k], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[k]);
+      if (err != cudaSuccess) return (int)err;
+    }
+    err = occupancy_row(fns[k], threads[k], smem[k], out + 5 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -111,7 +111,8 @@ struct Tables {
 enum CountIdx {
   kSamples, kVertices, kRows, kRowsGated, kEvals, kPdfs, kShadowRays, kContribs,
   kHitSph, kHitBox, kHitTri, kShSph, kShBox, kShTri,
-  kRowLanes, kRowSlots, kShLanes, kShSlots, kTriLanes, kTriSlots, kNumCounts
+  kRowLanes, kRowSlots, kShLanes, kShSlots, kTriLanes, kTriSlots, kSweepLanes, kSweepSlots,
+  kNumCounts
 };
 
 // The plain builds count nothing: every call inlines away.
@@ -937,28 +938,63 @@ __device__ __forceinline__ void shadow_setup(V3 p1, V3 p2, V3* srd, float* md) {
   *md = sdist - kMinD;
 }
 
-// #8's connection sum of one active eye vertex: rows [0, n_rows), row after
-// row, each pair's shadow ray walked by this thread.
-template <class Ctr>
-__device__ V3 connect_dev(const Tables& tb, const float* __restrict__ rows, int n_rows,
-                          const EyeVertex& e, float clamp_val, int blocks_col, Ctr& cnt) {
-  V3 acc = mk(0.f, 0.f, 0.f);
-  const V3 p1 = e.pos + scale(e.n, kEps);
-  for (int c = 0; c < n_rows; ++c) {
-    V3 contrib, p2, srd;
-    bool ok;
-    float md;
-    if (!connect_row(e, rows + (size_t)c * kLvCols, clamp_val, cnt, &contrib, &ok, &p2))
-      continue;
-    shadow_setup(p1, p2, &srd, &md);
-    cnt.simt(kShLanes);
-    if (shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt)) continue;
-    if (ok) {
-      acc = acc + contrib;
-      cnt.add(kContribs);
+// ---------------------------------------------------------------------------
+// persistent warps over the active lanes of a launch
+// ---------------------------------------------------------------------------
+
+// Lane indices [0, B) are handed out 32 at a time from a global counter
+// (zeroed by the caller), one atomicAdd a span.  A warp's active lanes
+// (act) wait in its queue q (64 ints: fewer than 32 left over and one
+// span); fill() takes spans until 32 wait or the lanes run out, calling
+// skip(i) for each inactive lane of a span; the warp then runs the first
+// min(n, 32), lane k taking q[k], and pop()s them.  Every lane of the
+// warp calls fill() and pop().
+struct LaneQueue {
+  int* q;
+  int n;      // lanes waiting
+  bool more;  // the counter may still hand out lanes
+  template <class Skip>
+  __device__ __forceinline__ void fill(int* work, int B, const bool* __restrict__ act, Skip skip) {
+    const int lane = threadIdx.x & 31;
+    while (more && n < 32) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(work, 32);
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (base >= B) {
+        more = false;
+        break;
+      }
+      more = base + 32 < B;
+      const int i = base + lane;
+      const bool a = i < B && act[i];
+      if (i < B && !a) skip(i);
+      const unsigned m = __ballot_sync(0xffffffffu, a);
+      if (a) q[n + __popc(m & ((1u << lane) - 1u))] = i;
+      n += __popc(m);
     }
+    __syncwarp();
   }
-  return acc;
+  __device__ __forceinline__ void pop(int nb) {
+    __syncwarp();
+    n -= nb;
+    if ((int)(threadIdx.x & 31) < n) q[threadIdx.x & 31] = q[32 + (threadIdx.x & 31)];
+    __syncwarp();
+  }
+};
+
+// As many blocks of fn as the card holds at once (for dynamic_smem bytes
+// a block), and no more than n_blocks.
+template <class F>
+inline cudaError_t persistent_blocks(F fn, int threads, size_t dynamic_smem, int n_blocks,
+                                     int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, dynamic_smem);
+  *blocks = n_blocks < sms * per_sm ? n_blocks : sms * per_sm;
+  if (*blocks < 1) *blocks = 1;
+  return err;
 }
 
 // ---------------------------------------------------------------------------

@@ -8,11 +8,12 @@
 // ulps; no --use_fast_math.
 //
 // One thread per lane (ray or pixel), masked i < B; #5's persistent
-// threads take one pixel at a time.  Scene tables are read from global
-// memory through const __restrict__ pointers: the text scenes are a few KB
-// and stay in L1/L2, a 81,920-triangle mesh is 11 MB and stays in the 50 MB
-// L2.  No float atomics (#5's integer counter only hands out pixels); every
-// output is a pure function of the lane's inputs, so a render is
+// threads take one pixel at a time, #3's persistent warps 32 active lanes.
+// Scene tables are read from global memory through const __restrict__
+// pointers: the text scenes are a few KB and stay in L1/L2, a
+// 81,920-triangle mesh is 11 MB and stays in the 50 MB L2.  No float
+// atomics (#3's and #5's integer counters only hand out lanes and pixels);
+// every output is a pure function of the lane's inputs, so a render is
 // deterministic per seed.
 //
 // 1. nearest_hit       replaces path_tracing_tpu/ops/pallas_intersect.py
@@ -80,6 +81,17 @@
 // the octant's 128 super rows (8 KB) staged in shared memory per block
 // 2.40-2.41 against 2.38 with the same generic loads unstaged (dropped).
 // The counting build (kCount) counts #5's counters that one bounce fills.
+//
+// #3's design for this card: an instance per walk (the flat one below 64
+// clusters, as #4), 8 blocks of 128 an SM (64 registers, 150-162 B
+// spilled), and persistent warps that take spans of 32 lanes from a
+// counter, copy the inactive lanes' state through and run the active ones
+// 32 at a time, so the fused frame's later bounces (down to one lane
+// alive) run full warps.  Measured on an H100 (PERF.md section 6), every
+// lane bit-equal: the fused 1080p frame's 47 launches 24.2 ms against the
+// parent's 27.6-27.8 and 24.7 for one thread a lane at 8 blocks (which
+// runs a full bounce in 0.63-0.64 ms against the persistent warps' 0.74,
+// and was dropped); 10 and 12 blocks an SM 24.8 and 24.5 ms.
 
 #include <algorithm>
 #include <type_traits>
@@ -357,6 +369,19 @@ __device__ V3 shade_from_hit(const Tables& tb, const ShadeCfg& c, const HitRec& 
 // per-bounce kernels: shade_step and shade_step_tex
 // ---------------------------------------------------------------------------
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMegaThreads = 128;
+constexpr int kMegaMinBlocks = 12;  // __launch_bounds__: 48 warps an SM
+constexpr int kTexMinBlocks = 8;    // #4's __launch_bounds__: 32 warps an SM
+constexpr int kStepMinBlocks = 8;   // #3's __launch_bounds__: 32 warps an SM
+
+// #5's counters after the shared ones (ops/cuda_wavefront.py::COUNT_NAMES);
+// #4's counting build fills the same
+enum MegaCountIdx {
+  kIters = kNumCounts, kBsdfSamples, kDraws, kWalkLanes, kWalkSlots, kShadeLanes, kShadeSlots,
+  kWarpIterSlots, kMegaCounts
+};
+
 struct StateIn {
   const float* __restrict__ ro;
   const float* __restrict__ rd;
@@ -407,73 +432,81 @@ __device__ __forceinline__ void store_state(const StateOut& out, int i, const Pa
   out.pdf[i] = s.last_pdf;
 }
 
-__global__ void shade_step_kernel(Tables tb, ShadeCfg c, StateIn in, StateOut out, int B) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
+// One bounce of lane i from its state in `in` to `out`: for #3 the hit,
+// for #4 (kTex) the with_uv hit and the bilinear texel of a textured
+// triangle multiplied into its base color, then the bounce of
+// shade_from_hit, its uniforms from the table (TableDraws).  An inactive
+// lane passes through with alive false.  The counting builds count #5's
+// counters that a bounce fills: the active lanes (kIters), their walks'
+// tests, the NEE shadow rays with their evaluations and pdfs, the BSDF
+// samples and the SIMT of the walk, the shade and the shadow step (no
+// draws: the uniforms come from the table).  kW: the walk (an instance
+// per walk, WalkKind).
+template <bool kTex, int kW, class Ctr>
+__device__ __forceinline__ void bounce_lane(const Tables& tb, const Tex& tx, const ShadeCfg& c,
+                                            const StateIn& in, const StateOut& out, int B, int i,
+                                            Ctr& cnt) {
   PathState s = load_state(in, i);
   V3 radiance = mk(0.f, 0.f, 0.f);
-  if (s.alive) {  // inactive lanes pass through with alive false
-    HitRec h = nearest_hit_dev<false>(tb, s.ro, s.rd);
-    NoCount nc;
-    WalkShadow<NoCount> sh{tb, c.blocks_col, nc, false};
+  if (s.alive) {
+    cnt.add(kIters);
+    cnt.simt(kWalkLanes);
+    HitRec h = nearest_hit_dev<kTex, kW>(tb, s.ro, s.rd, cnt);
+    if (kTex) {
+      const int tex_id = (int)h.tex;
+      if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
+    }
+    cnt.simt(kShadeLanes);
+    WalkShadow<Ctr, kW> sh{tb, c.blocks_col, cnt, false};
     radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
+    if (sh.has) {
+      cnt.add(kShadowRays);
+      cnt.add(kEvals);
+      cnt.add(kPdfs);
+    }
+    if (h.flag == 1) cnt.add(kBsdfSamples);
   }
   store_state(out, i, s, radiance);
 }
 
-// ---------------------------------------------------------------------------
-// render_wavefront: every sample of a pixel in one thread, pixels handed
-// out by a global counter
-// ---------------------------------------------------------------------------
+// #3: persistent warps take spans of 32 lanes from the counter `work`
+// (zeroed by the wrapper), copy the inactive lanes' state through and run
+// the active ones 32 at a time (LaneQueue).  kW: the walk (an instance per
+// walk, WalkKind).
+template <bool kCount, int kW>
+__global__ void __launch_bounds__(kThreads, kStepMinBlocks)
+    shade_step_kernel(Tables tb, ShadeCfg c, StateIn in, StateOut out, int B,
+                      int* __restrict__ work, unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, CountN<kMegaCounts>, NoCount>::type cnt;
+  __shared__ int lanes[kThreads / 32][64];
+  LaneQueue lq{lanes[threadIdx.x >> 5], 0, true};
+  for (;;) {
+    lq.fill(work, B, in.act,
+            [&](int i) { store_state(out, i, load_state(in, i), mk(0.f, 0.f, 0.f)); });
+    const int nb = min(lq.n, 32);
+    if (nb == 0) break;
+    if ((int)(threadIdx.x & 31) < nb)
+      bounce_lane<false, kW>(tb, Tex{}, c, in, out, B, lq.q[threadIdx.x & 31], cnt);
+    lq.pop(nb);
+  }
+  if constexpr (kCount) cnt.flush(counts);
+}
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMegaThreads = 128;
-constexpr int kMegaMinBlocks = 12;  // __launch_bounds__: 48 warps an SM
-constexpr int kTexMinBlocks = 8;    // #4's __launch_bounds__: 32 warps an SM
-
-// #5's counters after the shared ones (ops/cuda_wavefront.py::COUNT_NAMES);
-// #4's counting build fills the same
-enum MegaCountIdx {
-  kIters = kNumCounts, kBsdfSamples, kDraws, kWalkLanes, kWalkSlots, kShadeLanes, kShadeSlots,
-  kWarpIterSlots, kMegaCounts
-};
-
-// The textured bounce: the with_uv hit, the bilinear texel of a textured
-// triangle multiplied into its base color, then the bounce of shade_step.
-// The counting build (kCount) counts #5's counters that a bounce fills:
-// the active lanes (kIters), their walks' tests, the NEE shadow rays with
-// their evaluations and pdfs, the BSDF samples and the SIMT of the walk,
-// the shade and the shadow step (its uniforms come from the table: no
-// draws).  kW: the walk (an instance per walk, WalkKind).
+// #4.  kW: the walk (an instance per walk, WalkKind).
 template <bool kCount, int kW>
 __global__ void __launch_bounds__(kThreads, kTexMinBlocks)
     shade_step_tex_kernel(Tables tb, Tex tx, ShadeCfg c, StateIn in, StateOut out, int B,
                           unsigned long long* __restrict__ counts) {
   typename std::conditional<kCount, CountN<kMegaCounts>, NoCount>::type cnt;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) {  // every lane of the warp reaches the counters' flush
-    PathState s = load_state(in, i);
-    V3 radiance = mk(0.f, 0.f, 0.f);
-    if (s.alive) {
-      cnt.add(kIters);
-      cnt.simt(kWalkLanes);
-      HitRec h = nearest_hit_dev<true, kW>(tb, s.ro, s.rd, cnt);
-      int tex_id = (int)h.tex;
-      if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
-      cnt.simt(kShadeLanes);
-      WalkShadow<decltype(cnt), kW> sh{tb, c.blocks_col, cnt, false};
-      radiance = shade_from_hit(tb, c, h, s, TableDraws{in.u, B, i}, sh);
-      if (sh.has) {
-        cnt.add(kShadowRays);
-        cnt.add(kEvals);
-        cnt.add(kPdfs);
-      }
-      if (h.flag == 1) cnt.add(kBsdfSamples);
-    }
-    store_state(out, i, s, radiance);
-  }
+  if (i < B) bounce_lane<true, kW>(tb, tx, c, in, out, B, i, cnt);  // every lane flushes
   if constexpr (kCount) cnt.flush(counts);
 }
+
+// ---------------------------------------------------------------------------
+// render_wavefront: every sample of a pixel in one thread, pixels handed
+// out by a global counter
+// ---------------------------------------------------------------------------
 
 struct WavefrontCfg {
   Key key;
@@ -644,6 +677,37 @@ int launch_tex(const float* sph, int ns, int nl, const float* tri, const float* 
   return (int)cudaGetLastError();
 }
 
+
+template <bool kCount, int kW>
+cudaError_t launch_step_at(const Tables& tb, const ShadeCfg& c, const StateIn& in,
+                           const StateOut& out, int B, int* work, unsigned long long* counts,
+                           cudaStream_t stream) {
+  auto* fn = shade_step_kernel<kCount, kW>;
+  int blocks = 0;
+  cudaError_t err = persistent_blocks(fn, kThreads, 0, blocks_for(B), &blocks);
+  if (err != cudaSuccess) return err;
+  fn<<<blocks, kThreads, 0, stream>>>(tb, c, in, out, B, work, counts);
+  return cudaGetLastError();
+}
+
+// #3's instance at the scene's walk (the flat one below 64 clusters).
+template <bool kCount>
+int launch_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                const float* cl, int nc, const float* sup, int nsup, const float* lights,
+                const float* ro, const float* rd, const float* tp, const float* eta,
+                const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
+                const float* u, int B, float clamp_val, int stub_mis, int blocks_col, int* work,
+                float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
+                bool* o_alive, bool* o_delta, float* o_pdf, unsigned long long* counts,
+                void* stream) {
+  StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
+  StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
+  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
+  auto* go = nsup ? &launch_step_at<kCount, kWalkSuper> : &launch_step_at<kCount, kWalkFlat>;
+  return (int)go(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B, work,
+                 counts, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -676,19 +740,36 @@ int pt_any_blocker(const float* sph, int ns, int nl, const float* tri, const flo
   return (int)cudaGetLastError();
 }
 
+// work: one int32, zeroed by the caller (the next span of lanes to hand
+// out).
 int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
                   const float* cl, int nc, const float* sup, int nsup, const float* lights,
                   const float* ro, const float* rd, const float* tp, const float* eta,
                   const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
-                  const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
+                  const float* u, int B, float clamp_val, int stub_mis, int blocks_col, int* work,
                   float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
                   bool* o_alive, bool* o_delta, float* o_pdf, void* stream) {
-  StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
-  StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
-  ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
-  shade_step_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B);
-  return (int)cudaGetLastError();
+  return launch_step<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
+                            act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col, work,
+                            o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
+                            nullptr, stream);
+}
+
+// The counting build of #3: the same outputs, and the work counters added
+// into counts[kMegaCounts] (zeroed by the caller).
+int pt_shade_step_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                         const float* cl, int nc, const float* sup, int nsup,
+                         const float* lights, const float* ro, const float* rd, const float* tp,
+                         const float* eta, const int* depth, const bool* act,
+                         const bool* last_delta, const float* last_pdf, const float* u, int B,
+                         float clamp_val, int stub_mis, int blocks_col, int* work, float* o_rad,
+                         float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
+                         bool* o_alive, bool* o_delta, float* o_pdf,
+                         unsigned long long* counts, void* stream) {
+  return launch_step<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
+                           act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col, work,
+                           o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
+                           counts, stream);
 }
 
 int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
@@ -751,6 +832,18 @@ int pt_render_wavefront_counts(const float* sph, int ns, int nl, const float* tr
   return launch(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, cam, px, py, B, spp, eye_depth,
                 max_path_iters, max_total, k0, k1, start, total, clamp_val, stub_mis, blocks_col,
                 work, img, counts, stream);
+}
+
+// occupancy_row of shade_step and shade_step_counts in turn (their
+// flat-walk instances, the fused tier's on the text scenes).
+int pt_step_occupancy(int* out) {
+  const void* fns[2] = {(const void*)shade_step_kernel<false, kWalkFlat>,
+                        (const void*)shade_step_kernel<true, kWalkFlat>};
+  for (int k = 0; k < 2; ++k) {
+    cudaError_t err = occupancy_row(fns[k], kThreads, 0, out + 5 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // occupancy_row of render_wavefront and render_wavefront_counts in turn

@@ -240,8 +240,9 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
     iteration's uniforms from ``draw`` (``rng.uniform_rows`` or its plain
     version), regeneration, the iteration budget and per-pixel sums.
     ``counts`` (``cuda_wavefront.new_counts``), if given, gains the
-    megakernel's iterations, paths, their draws, ``pixel_warp_slots`` and
-    ``iteration_keys``; the step counts the rest."""
+    megakernel's paths, their draws, ``pixel_warp_slots`` and
+    ``iteration_keys``; the step counts the rest (its active lanes as
+    ``iterations``)."""
     dev = px.device
     B = px.shape[0]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -285,7 +286,6 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
         if counts is not None:
             # a fold_in an iteration and two jitter draws a path
             lane_iters += alive
-            counts["iterations"] += int(alive.sum())
             counts["samples"] += int(regen.sum())
             counts["draws"] += int(alive.sum()) + 2 * int(regen.sum())
             counts["iteration_keys"] += 1

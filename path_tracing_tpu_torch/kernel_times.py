@@ -31,7 +31,19 @@ the main path's inputs:
   package's (its image compared pixel by pixel);
 - ``bdpt_eye`` (#9): the tables of the 1920x1080 BDPT frame on cornell
   (spl 8, tile-local RIS K = 32, spp 4, depths 4, seed 0), as
-  ``chip_smoke.py`` builds them.
+  ``chip_smoke.py`` builds them;
+- ``connect`` (#8): the 1920x1080 primary hits of the BDPT frame on
+  cornell (spl 8, the exact sweep's shared table, spp 4, depths 4, seed 0)
+  as ``chip_smoke.py`` phase 6 builds them (``primary``); every launch of
+  that frame's fused tier, recorded from the render (``launches``, timed
+  as the sum of the frame's launches, every launch's output compared);
+  then the whole fused frame with the build's #8 in place of the
+  package's (``frame``, its image compared pixel by pixel);
+- ``shade_step`` (#3): the lanes of the first bounce of the fused tier's
+  1920x1080 spp 4 frame on cornell (eye depth 4, seed 0), recorded from
+  the render (``first``); every bounce of that frame, recorded
+  (``bounces``, timed as the sum of the frame's launches); then the whole
+  fused frame with the build's #3 in place of the package's (``frame``).
 
 The package's kernel is timed (CUDA events, the mean of ``--reps``
 launches after a warm-up), then each ``--old-csrc DIR``: the source of
@@ -49,7 +61,13 @@ through the argument list of the design before (``OLD_ARGS``).  A build
 whose ``pt_device.cuh`` predates the super table takes the seven
 scene-table arguments of before (``prev_table_args``: the 8-column
 cluster rows, no super table) in place
-of the package's nine.
+of the package's nine.  A #8 build whose ``pt_connect`` takes no ``work``
+counter is called through the argument list of the design before.
+
+``--variant NAME`` (repeatable) times a copy of the package's ``csrc``
+with one change (``VARIANTS``: a table placement, a launch bound, a
+design option), written to ``build/variants/NAME``, as another build.
+``--case LABEL`` (repeatable) times only those cases.
 
 Prints one JSON object as its last line.  Needs a CUDA card.
 """
@@ -59,6 +77,7 @@ import argparse
 import ctypes
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -71,20 +90,57 @@ SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
           "photon_trace": "ppm_kernels.cu",
           "nearest_hit_stream": "mesh_kernels.cu",
           "any_blocker_stream": "mesh_kernels.cu",
-          "shade_step_tex": "pt_kernels.cu", "bdpt_eye": "bdpt_kernels.cu"}
+          "shade_step_tex": "pt_kernels.cu", "bdpt_eye": "bdpt_kernels.cu",
+          "connect": "bdpt_kernels.cu", "shade_step": "pt_kernels.cu"}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the scene tables before the super table: sph ns nl tri uv cl n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
 # the C entries of the designs before the counted ones: #11 one thread per
 # hitpoint (hp hp_cell perm B | win ev r2 | flux count | stream), #5 one
 # thread per pixel (no work counter), #10 one thread per photon (no work
-# counter); #6 kept its argument list
+# counter), #8 and #3 one thread per lane (no work counter); #6 kept its
+# argument list
 OLD_ARGS = {
+    "shade_step": _kernels._TABLES + [_P] * 10 + [_I, _F, _I, _I] + [_P] * 10,
+    "connect": _kernels._TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
                                    _U, _U, _U, _F, _I, _I, _P, _P],
     "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
                                           _P],
+}
+# a mark in the C entry of the package's design whose argument list
+# changed with it (a build without it takes OLD_ARGS)
+NEW_MARK = {"connect": "int* work", "shade_step": "int* work"}
+# One change each to a copy of the package's csrc: (file, old, new) edits.
+_RES_MAX = "constexpr int kResidentMaxRows = 1 << 20;"
+_RES_W = "constexpr int kResWarps = 24, kResMinBlocks = 1;"
+_CHUNK_W = "constexpr int kChunkWarps = 4, kChunkMinBlocks = 6;"
+_STEP_MIN = "constexpr int kStepMinBlocks = 8;"
+VARIANTS = {
+    # #8's table placements besides the resident one: per-warp 16-row
+    # chunks, rows read from device memory (both 4 warps x 6 blocks an SM)
+    "connect-chunked": [("bdpt_kernels.cu", _RES_MAX,
+                         "constexpr int kResidentMaxRows = 0;")],
+    "connect-device": [("bdpt_kernels.cu", _RES_MAX,
+                        "constexpr int kResidentMaxRows = 0;"),
+                       ("bdpt_kernels.cu",
+                        "chunk = sp + warp * kChunk * kLvCols;",
+                        "chunk = nullptr;")],
+    # #8's warps a block with the table resident (one block an SM)
+    **{f"connect-warps{w}": [("bdpt_kernels.cu", _RES_W,
+                              f"constexpr int kResWarps = {w}, "
+                              "kResMinBlocks = 1;")] for w in (16, 32)},
+    # #8's chunked blocks an SM
+    **{f"connect-chunked-min{m}": [
+        ("bdpt_kernels.cu", _RES_MAX, "constexpr int kResidentMaxRows = 0;"),
+        ("bdpt_kernels.cu", _CHUNK_W,
+         f"constexpr int kChunkWarps = 4, kChunkMinBlocks = {m};")]
+       for m in (4, 8)},
+    # #3's blocks of 128 an SM
+    **{f"shade_step-min{m}": [("pt_kernels.cu", _STEP_MIN,
+                               f"constexpr int kStepMinBlocks = {m};")]
+       for m in (10, 12)},
 }
 PPM_W = PPM_H = 512
 PPM_SPL = 262144
@@ -117,6 +173,33 @@ def _resident(kernel: str) -> bool:
     return _kernels._ARGTYPES[kernel][:n] == _kernels._TABLES
 
 
+def make_variant(name: str) -> Path:
+    """A copy of the package's csrc with the edits of ``VARIANTS[name]``,
+    or of each variant in ``name`` joined by ``+``, in the build
+    directory."""
+    d = _kernels.BUILD_DIR / "variants" / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_kernels.SRC_DIR, d)
+    for part in name.split("+"):
+        for fname, old, new in VARIANTS[part]:
+            f = d / fname
+            text = f.read_text()
+            if old not in text and new not in text:
+                raise ValueError(f"variant {part}: {old!r} not in {fname}")
+            f.write_text(text.replace(old, new))
+    return d
+
+
+def _old_abi(lib, d: Path, kernel: str) -> bool:
+    """The build in ``d`` takes the argument list of the design before."""
+    if kernel in NEW_MARK:
+        sig = re.search(rf"int pt_{kernel}\(([^)]*)\)",
+                        (d / SOURCE[kernel]).read_text()).group(1)
+        return NEW_MARK[kernel] not in sig
+    return (kernel in OLD_ARGS
+            and not hasattr(lib, f"pt_{kernel}_counts"))
+
+
 def build_all(dirs, kernel: str) -> list:
     """nvcc each directory's source of ``kernel`` (with its own header)
     into the build directory, all at once; returns for each (the C entry,
@@ -137,8 +220,7 @@ def build_all(dirs, kernel: str) -> list:
         print(f"[build] {d}: " + "; ".join(_ptxas(err, kernel)))
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"pt_{kernel}")
-        if not (hasattr(lib, f"pt_{kernel}_counts")
-                or kernel not in OLD_ARGS):
+        if _old_abi(lib, d, kernel):
             fn.argtypes, abi = OLD_ARGS[kernel], "old"
         elif (_resident(kernel)
               and "int nsup" not in (d / "pt_device.cuh").read_text()):
@@ -208,10 +290,12 @@ def _cornell(w: int, h: int):
 class Case:
     """A kernel's inputs: ``run(fn, abi)`` launches build ``fn`` on them
     (``abi`` as ``build_all`` returns it) and keeps its outputs,
-    ``rows()`` reads the last run's outputs as comparable rows."""
+    ``rows()`` reads the last run's outputs as comparable rows; ``reps``,
+    if set, caps the timed calls (a whole frame)."""
 
-    def __init__(self, label: str, run, rows, info: dict):
+    def __init__(self, label: str, run, rows, info: dict, reps=None):
         self.label, self.run, self.rows, self.info = label, run, rows, info
+        self.reps = reps
 
 
 def _through_wrapper(name: str, wrapper, out: dict, module=None):
@@ -608,19 +692,222 @@ def eye_case():
                  dict(pixels=W * H, spp=SPP, rows=int(nv)))]
 
 
+def _connect_old(fn, args, kw) -> torch.Tensor:
+    """#8's build of the design before, on ``connect``'s arguments."""
+    from .ops import cuda_intersect as ci
+
+    (pk, tab, nv, pos, nrm, tp, m, wo_e, wo_s, eye_f, act) = args
+    B = pos.shape[0]
+    out = torch.empty((B, 3), device="cuda")
+    ins = (pos, nrm, tp, m.base_color, m.roughness, m.metallic, m.eta, wo_e,
+           wo_s, eye_f, act)
+    _check(fn(*ci.table_args(pk), _ptr(tab), int(nv), *(_ptr(x) for x in ins),
+              B, float(kw["clamp_val"]), 4 if kw["dielectrics_block"] else 5,
+              _ptr(out), _stream()), "old connect")
+    return out
+
+
+def _swapped(module, attr: str, name: str, fn, abi, call, old=None):
+    """``call()`` with build ``fn`` in place of the package's kernel
+    ``name``: swapped into the library's entries, or (a build of the
+    design before) ``module.attr`` replaced by ``old(fn)``."""
+    if abi != "old":
+        fns = _kernels.library().fns
+        own, fns[name] = fns[name], fn
+        try:
+            return call()
+        finally:
+            fns[name] = own
+    own = getattr(module, attr)
+    setattr(module, attr, old(fn))
+    try:
+        return call()
+    finally:
+        setattr(module, attr, own)
+
+
+def _recorded(module, attr: str, call, check=None) -> tuple:
+    """The arguments and keywords of every call of ``module.attr`` made by
+    ``call()``, the tensors cloned, and whether ``check(args, out)`` held
+    on every call (when given)."""
+    own, got, held = getattr(module, attr), [], []
+
+    def record(*args, **kw):
+        out = own(*args, **kw)
+        got.append(([x.clone() if torch.is_tensor(x) else x for x in args],
+                    kw))
+        if check is not None:
+            held.append(check(args, out))
+        return out
+
+    setattr(module, attr, record)
+    try:
+        call()
+    finally:
+        setattr(module, attr, own)
+    return got, all(held)
+
+
+def connect_case():
+    """#8 on the 1080p primary hits of the exact BDPT frame on cornell,
+    on every launch of its fused tier, and the whole fused frame."""
+    from .config import RenderConfig
+    from .integrators import bdpt
+    from .ops import cuda_connect as cc
+    from .ops import cuda_intersect as ci
+    from .ops import rng
+    from .ops.intersect import hit_from_fields
+    from .ops.math3 import normalize
+    from .scene.camera import primary_ray_dirs
+
+    scene, cam = _cornell(W, H)
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=0)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    B = W * H
+    used, lv, _ = bdpt.light_side(scene, cfg, SPL, key)
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % W, idx // W, key)
+    pk = ci.pack_scene(used)
+    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
+    rd = primary_ray_dirs(cam, idx % W, idx // W, u[6], u[7])
+    ro = cam.eye[None].expand(B, 3).contiguous()
+    hit = hit_from_fields(ci.nearest_hit(pk, ro, rd), ro, rd)
+    act = hit.hit & ~hit.is_light
+    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(u[0]),
+                        1e8 * (1.0 + u[0] * 4.0))
+    args = (pk, tab, nv, hit.pos, hit.normal,
+            (u[1:4].T * 0.5 + 0.5).contiguous(), hit.mtl, -rd,
+            normalize(cam.eye[None] - hit.pos), eye_f, act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+
+    def connect_with(fn, abi, a, k):
+        return _swapped(cc, "connect", "connect", fn, abi,
+                        lambda: cc.connect(*a, **k),
+                        lambda f: lambda *x, **y: _connect_old(f, x, y))
+
+    out = {}
+
+    def primary(fn, abi):
+        out["primary"] = connect_with(fn, abi, args, kw)
+
+    def render():
+        return bdpt.render_bdpt(scene, cam, W, H, SPP, SPL, cfg, key,
+                                tier="fused")
+
+    calls, zero = _recorded(cc, "connect", render,
+                            lambda a, o: bool((o[~a[10]] == 0).all()))
+
+    def launches(fn, abi):
+        out["launches"] = [connect_with(fn, abi, a, k) for a, k in calls]
+
+    def frame(fn, abi):
+        out["frame"] = _swapped(cc, "connect", "connect", fn, abi, render,
+                                lambda f: lambda *x, **y: _connect_old(
+                                    f, x, y))
+
+    def bits(x):
+        return x.reshape(-1, 3).view(torch.int32)
+
+    active = [int(a[10].sum()) for a, _ in calls]
+    primary(_kernels.library().fns["connect"], "now")
+    return [
+        Case("primary", primary, lambda: bits(out["primary"]),
+             dict(lanes=B, active=int(act.sum()), rows=int(nv),
+                  inactive_zero=bool((out["primary"][~act] == 0).all()))),
+        Case("launches", launches,
+             lambda: torch.cat([bits(x) for x in out["launches"]]),
+             dict(launches=len(calls), active=active, inactive_zero=zero),
+             reps=1),
+        Case("frame", frame, lambda: bits(out["frame"]),
+             dict(pixels=B, spp=SPP), reps=1)]
+
+
+def _step_old(fn, args, kw) -> dict:
+    """#3's build of the design before, on ``shade_step``'s arguments."""
+    from .ops import cuda_intersect as ci
+
+    pk, lt, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u = args
+    B = ro.shape[0]
+    f32 = dict(device="cuda")
+    out = dict(radiance=torch.empty((B, 3), **f32),
+               ro=torch.empty((B, 3), **f32), rd=torch.empty((B, 3), **f32),
+               tp=torch.empty((B, 3), **f32), eta=torch.empty(B, **f32),
+               depth=torch.empty(B, dtype=torch.int32, device="cuda"),
+               alive=torch.empty(B, dtype=torch.bool, device="cuda"),
+               last_is_delta=torch.empty(B, dtype=torch.bool, device="cuda"),
+               last_pdf=torch.empty(B, **f32))
+    ins = (lt, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u)
+    _check(fn(*ci.table_args(pk), *(_ptr(x) for x in ins), B,
+              float(kw["clamp_val"]), int(bool(kw["stub_mis"])),
+              4 if kw["dielectrics_block"] else 5,
+              *(_ptr(x) for x in out.values()), _stream()), "old shade_step")
+    return out
+
+
+def step_case():
+    """#3 on the first bounce and every bounce of the fused tier's 1080p
+    spp 4 frame on cornell, and the whole fused frame."""
+    from .config import RenderConfig
+    from .integrators.pt import render_pt
+    from .ops import cuda_shade as cs
+    from .ops import rng
+
+    scene, cam = _cornell(W, H)
+    cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
+    key = rng.fold_in(rng.prng_key(0), 0)
+
+    def render():
+        return render_pt(scene, cam, W, H, SPP, cfg, key, tier="fused")
+
+    calls, _ = _recorded(cs, "shade_step", render)
+    out = {}
+
+    def old(f):
+        return lambda *x, **y: _step_old(f, x, y)
+
+    def step_with(fn, abi, a, k):
+        return _swapped(cs, "shade_step", "shade_step", fn, abi,
+                        lambda: cs.shade_step(*a, **k), old)
+
+    def first(fn, abi):
+        out["first"] = step_with(fn, abi, *calls[0])
+
+    def bounces(fn, abi):
+        out["bounces"] = [step_with(fn, abi, a, k) for a, k in calls]
+
+    def frame(fn, abi):
+        out["frame"] = _swapped(cs, "shade_step", "shade_step", fn, abi,
+                                render, old)
+
+    active = [int(a[7].sum()) for a, _ in calls]
+    return [
+        Case("first", first, lambda: _state_rows(out["first"]),
+             dict(lanes=W * H, active=active[0])),
+        Case("bounces", bounces,
+             lambda: torch.cat([_state_rows(o) for o in out["bounces"]]),
+             dict(launches=len(calls), active=active)),
+        Case("frame", frame,
+             lambda: out["frame"].reshape(-1, 3).view(torch.int32),
+             dict(pixels=W * H, spp=SPP))]
+
+
 CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
          "photon_trace": photon_case, "nearest_hit_stream": stream_case,
          "any_blocker_stream": blocker_case, "shade_step_tex": tex_case,
-         "bdpt_eye": eye_case}
+         "bdpt_eye": eye_case, "connect": connect_case,
+         "shade_step": step_case}
 # the share of rows an older build must give bit for bit, where a bar is
 # set: #4 may pick another triangle on an exact tie of t (its frame the
-# image's pixels), #7's verdicts never differ
+# image's pixels), #7's verdicts never differ, #8's and #3's redesigns
+# change no lane, launch or pixel
 BARS = {("shade_step_tex", "lanes"): 0.9999,
-        ("shade_step_tex", "frame"): 0.999, ("any_blocker_stream", None): 1.0}
+        ("shade_step_tex", "frame"): 0.999, ("any_blocker_stream", None): 1.0,
+        ("connect", None): 1.0, ("shade_step", None): 1.0}
 ROWS = {"gather_flux": "hitpoints", "render_wavefront": "pixels",
         "photon_trace": "event rows", "nearest_hit_stream": "lanes",
         "any_blocker_stream": "lanes", "shade_step_tex": "lanes",
-        "bdpt_eye": "pixels"}
+        "bdpt_eye": "pixels", "connect": "lanes", "shade_step": "lanes"}
 
 
 def main() -> int:
@@ -628,6 +915,11 @@ def main() -> int:
     ap.add_argument("--kernel", required=True, choices=sorted(SOURCE))
     ap.add_argument("--old-csrc", type=Path, action="append", default=[],
                     help="an older kernel source directory (repeatable)")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="the package's csrc with one change of VARIANTS, "
+                    "or several joined by + (repeatable)")
+    ap.add_argument("--case", action="append", default=[],
+                    help="time only the cases of this label (repeatable)")
     ap.add_argument("--reps", type=int, default=5)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -639,27 +931,34 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     own = _kernels.library().fns[k]
-    olds = build_all(a.old_csrc, k)
+    dirs = a.old_csrc + [make_variant(v) for v in a.variant]
+    olds = build_all(dirs, k)
     out = dict(card=torch.cuda.get_device_name(0), kernel=k)
     missed = []
     for case in CASES[k]():
+        if a.case and case.label not in a.case:
+            continue
         tag = f"{k} {case.label}".strip()
+        reps = min(a.reps, case.reps or a.reps)
+        if case.info.get("inactive_zero") is False:
+            missed.append(f"{tag}: the package's build wrote non-zero "
+                          "inactive lanes")
 
         def new(case=case):
             case.run(own, "now")
 
         new()
         ref = case.rows().clone()
-        res = dict(case.info, ms=time_ms(new, a.reps))
+        res = dict(case.info, ms=time_ms(new, reps))
         print(f"[{tag}] {case.info}: {res['ms']:.3f} ms")
-        for d, (fn, abi) in zip(a.old_csrc, olds):
+        for d, (fn, abi) in zip(dirs, olds):
             def other(fn=fn, abi=abi, case=case):
                 case.run(fn, abi)
 
             other()
             equal = (case.rows() == ref).all(dim=1).float().mean().item()
-            turns = [time_ms(new, a.reps), time_ms(other, a.reps),
-                     time_ms(other, a.reps), time_ms(new, a.reps)]
+            turns = [time_ms(new, reps), time_ms(other, reps),
+                     time_ms(other, reps), time_ms(new, reps)]
             res[f"old {d}"] = dict(bit_equal=equal,
                                    turns_new_other_other_new=turns)
             bar = BARS.get((k, case.label), BARS.get((k, None)))

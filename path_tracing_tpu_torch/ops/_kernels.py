@@ -14,13 +14,13 @@ with nvcc's output; nothing falls back.
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
 went through.  ``connect_counts``, ``bdpt_eye_counts``,
-``render_wavefront_counts``, ``shade_step_tex_counts``,
-``photon_trace_counts``, ``gather_flux_counts``,
-``nearest_hit_stream_counts`` and ``any_blocker_stream_counts`` are the
-counting builds of ``connect``, ``bdpt_eye``, ``render_wavefront``,
-``shade_step_tex``, ``photon_trace``, ``gather_flux``,
-``nearest_hit_stream`` and ``any_blocker_stream``, launched under their
-own names.
+``render_wavefront_counts``, ``shade_step_counts``,
+``shade_step_tex_counts``, ``photon_trace_counts``,
+``gather_flux_counts``, ``nearest_hit_stream_counts`` and
+``any_blocker_stream_counts`` are the counting builds of ``connect``,
+``bdpt_eye``, ``render_wavefront``, ``shade_step``, ``shade_step_tex``,
+``photon_trace``, ``gather_flux``, ``nearest_hit_stream`` and
+``any_blocker_stream``, launched under their own names.
 """
 from __future__ import annotations
 
@@ -41,7 +41,8 @@ HEADERS = ("pt_device.cuh",)
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows",
-                   "render_wavefront_counts", "shade_step_tex_counts"),
+                   "render_wavefront_counts", "shade_step_counts",
+                   "shade_step_tex_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
     "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_counts",
                     "gather_flux_counts"),
@@ -72,7 +73,8 @@ _STEP = [_P] * 10 + [_I, _F, _I, _I] + [_P] * 9
 _ARGTYPES = {
     "nearest_hit": _TABLES + [_I, _P, _P, _I, _P, _P, _P],
     "any_blocker": _TABLES + [_P, _P, _P, _I, _I, _P, _P],
-    "shade_step": _TABLES + _STEP + [_P],
+    # ... | B, clamp, stub_mis, blocks_col | work | 9 outputs
+    "shade_step": _TABLES + _STEP[:14] + [_P] + _STEP[14:] + [_P],
     "shade_step_tex": _TABLES + [_P, _P, _I, _I, _I] + _STEP + [_P],
     # lights cam px py | B spp eye_depth max_path_iters max_total | k0 k1
     # start total | clamp stub_mis blocks_col | work img
@@ -80,8 +82,8 @@ _ARGTYPES = {
                                    _U, _U, _U, _U, _F, _I, _I, _P, _P, _P],
     "threefry_rows": [_U, _U, _I, _I, _U, _U, _P, _P],
     # lv, n_valid | pos n tp bc rough metal eta wo_e wo_s eye_f act | B,
-    # clamp, blocks_col | out
-    "connect": _TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
+    # clamp, blocks_col | work out
+    "connect": _TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P, _P],
     # lv, n_valid, tile_lanes, tile_stride | cam px py | B spp eye_depth
     # max_iters | k0 k1 start total | clamp blocks_col light_hit_scale | img
     "bdpt_eye": _TABLES + [_P, _I, _I, ctypes.c_longlong, _P, _P, _P,
@@ -109,6 +111,7 @@ _ARGTYPES["gather_flux_counts"] = _ARGTYPES["gather_flux"][:-1] + [_P, _P]
 _ARGTYPES["photon_trace_counts"] = _ARGTYPES["photon_trace"][:-1] + [_P, _P]
 _ARGTYPES["nearest_hit_stream_counts"] = (_ARGTYPES["nearest_hit_stream"][:-1]
                                           + [_P, _P])
+_ARGTYPES["shade_step_counts"] = _ARGTYPES["shade_step"][:-1] + [_P, _P]
 _ARGTYPES["shade_step_tex_counts"] = (_ARGTYPES["shade_step_tex"][:-1]
                                       + [_P, _P])
 _ARGTYPES["any_blocker_stream_counts"] = (_ARGTYPES["any_blocker_stream"][:-1]

@@ -14,8 +14,10 @@ local outgoing direction, GGX alpha and cone cosine are computed once here.
 ``connect`` sums, per eye vertex, the contributions of rows
 ``[0, n_valid)`` of the table: geometry term, both BSDF evaluations, the
 shadow ray and the O(1) balance-heuristic MIS weight, each contribution
-validity-checked and clamped, added row after row.  On CUDA tensors it
-launches the ``connect`` kernel (``csrc/bdpt_kernels.cu``); on CPU tensors
+validity-checked and clamped, added row after row; lanes that are not
+active get 0.  On CUDA tensors it launches the ``connect`` kernel
+(``csrc/bdpt_kernels.cu``: persistent warps sweep the active lanes only,
+taking spans of lanes from a counter the wrapper zeroes); on CPU tensors
 it runs ``connect_plain``, the same sum in PyTorch; any other device
 raises.  ``connect_counts`` launches the kernel's counting build, which
 also returns the work it did (``COUNT_NAMES``); given a ``counts`` dict,
@@ -55,13 +57,15 @@ PDF_OMEGA_FLOOR = 1e-6
 # box and triangle tests of the nearest-hit casts and of the shadow walks;
 # and at the row step (past the gates), the shadow step and a shadow walk's
 # triangle test, the lanes of each warp step and 32 slots a step (their
-# ratio is the SIMT efficiency).  The plain versions count the first 14,
-# the primitive tests by walking the clusters in the kernels' order.
+# ratio is the SIMT efficiency); and the lanes that sweep a vertex in each
+# warp sweep with 32 slots a sweep (their ratio: the share of a sweep's
+# lanes that are busy).  The plain versions count the first 14, the
+# primitive tests by walking the clusters in the kernels' order.
 COUNT_NAMES = ("samples", "vertices", "rows", "rows_gated", "evals", "pdfs",
                "shadow_rays", "contributions", "hit_spheres", "hit_boxes",
                "hit_tris", "shadow_spheres", "shadow_boxes", "shadow_tris",
                "row_lanes", "row_slots", "shadow_lanes", "shadow_slots",
-               "tri_lanes", "tri_slots")
+               "tri_lanes", "tri_slots", "sweep_lanes", "sweep_slots")
 PLAIN_COUNTS = COUNT_NAMES[:14]
 # elements of one (lanes, rows, 3) intermediate of the plain sweep
 _PLAIN_CHUNK = 1 << 25
@@ -308,10 +312,13 @@ def _launch(name: str, args, clamp_val: float, dielectrics_block: bool):
     if B:
         ins = [*vec3[:4], ev_mtl.roughness, ev_mtl.metallic, ev_mtl.eta,
                wo_e, wo_s, eye_f, act]
+        # the next span of lanes to hand out (the kernel's persistent warps)
+        work = torch.zeros(1, dtype=torch.int32, device=ev_pos.device)
         _kernels.launch(name, *table_args(packed),
                         ctypes.c_void_p(lv_tab.data_ptr()), int(n_valid),
                         *[ctypes.c_void_p(x.data_ptr()) for x in ins], B,
                         float(clamp_val), 4 if dielectrics_block else 5,
+                        ctypes.c_void_p(work.data_ptr()),
                         ctypes.c_void_p(out.data_ptr()),
                         *([ctypes.c_void_p(buf.data_ptr())] if counted
                           else []))

@@ -9,7 +9,10 @@ sample and the path-state update.  It takes and returns what
 The step functions share that signature:
 
 - ``shade_step``: the wrapper of the CUDA kernel ``shade_step`` (CPU tensors
-  take ``shade_step_plain``);
+  take ``shade_step_plain``); ``shade_step_counts`` launches its counting
+  build, held to the plain version's counts (``STEP_COUNTS``), and
+  ``occupancy`` reports both builds' registers, spills and resident
+  blocks;
 - ``shade_step_plain``: the plain PyTorch bounce (the JAX package's XLA
   bounce body) on the plain nearest-hit and any-blocker sweeps;
 - ``shade_step_split``: the same PyTorch bounce on the nearest-hit and
@@ -25,7 +28,7 @@ The step functions share that signature:
   JAX package runs it as three steps (its nearest-hit kernel, an XLA
   gather, its shade kernel); the CUDA kernel does all three per lane.
   ``shade_step_tex_counts`` launches its counting build, held to the
-  plain version's counts (``TEX_COUNTS``).
+  plain version's counts (``STEP_COUNTS``).
 """
 from __future__ import annotations
 
@@ -44,13 +47,14 @@ from .math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
 from .texture import sample_bilinear
 
 LIGHT_COLS = 12
-# The counters of shade_step_tex's counting build that its plain version
-# counts: the megakernel's (``cuda_wavefront.COUNT_NAMES``) that one bounce
-# fills, the active lanes as ``iterations``.  The kernel draws nothing (the
-# uniforms come in ``u``), so the plain ``draws`` are not compared.
-TEX_COUNTS = ("iterations", "shadow_rays", "evals", "pdfs", "bsdf_samples",
-              "hit_spheres", "hit_boxes", "hit_tris", "shadow_spheres",
-              "shadow_boxes", "shadow_tris")
+# The counters of the per-bounce kernels' counting builds (#3's and #4's)
+# that their plain versions count: the megakernel's
+# (``cuda_wavefront.COUNT_NAMES``) that one bounce fills, the active lanes
+# as ``iterations``.  The kernels draw nothing (the uniforms come in
+# ``u``), so the plain ``draws`` are not compared.
+STEP_COUNTS = ("iterations", "shadow_rays", "evals", "pdfs", "bsdf_samples",
+               "hit_spheres", "hit_boxes", "hit_tris", "shadow_spheres",
+               "shadow_boxes", "shadow_tris")
 
 
 def _textured_hit(packed: PackedScene, h: dict) -> dict:
@@ -74,13 +78,15 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
     ``tex`` textures the hit.  ``nearest`` gets the active lanes and
     ``blocker`` the NEE-eligible ones as ``live=`` (the lanes whose result
     is read: the sorted stream calls skip the others).  ``counts``, if
-    given, gains the megakernel's work of the bounce (NEE rays with their
-    evaluation, pdf and draws, BSDF samples with theirs) and is handed to
-    the intersection functions, which count their walks' tests."""
+    given, gains the megakernel's work of the bounce (its active lanes as
+    ``iterations``, NEE rays with their evaluation, pdf and draws, BSDF
+    samples with theirs) and is handed to the intersection functions,
+    which count their walks' tests."""
     from ..integrators.pt import _light_emission_radiance, _nee
 
     nl = light_tab.shape[0]
     if counts is not None:
+        counts["iterations"] += int(act.sum())
         nearest = functools.partial(nearest, counts=counts)
         blocker = functools.partial(blocker, counts=counts)
     if tex:
@@ -172,8 +178,9 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
 def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                      last_delta, last_pdf, u, *, clamp_val, stub_mis,
                      dielectrics_block, counts=None) -> dict:
-    """Plain PyTorch version of the ``shade_step`` kernel (``counts``: see
-    ``_bounce``)."""
+    """Plain PyTorch version of the ``shade_step`` kernel.  ``counts``
+    (``cuda_wavefront.new_counts()``), if given, gains the work its
+    counting build counts (``STEP_COUNTS``: see ``_bounce``)."""
     _kernels.plain_calls["shade_step"] += 1
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
@@ -213,11 +220,8 @@ def shade_step_tex_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                          dielectrics_block, counts=None) -> dict:
     """Plain PyTorch version of the ``shade_step_tex`` kernel.
     ``counts`` (``cuda_wavefront.new_counts()``), if given, gains the work
-    its counting build counts (``TEX_COUNTS``): the active lanes as
-    ``iterations``, and ``_bounce``'s counts."""
+    its counting build counts (``STEP_COUNTS``: see ``_bounce``)."""
     _kernels.plain_calls["shade_step_tex"] += 1
-    if counts is not None:
-        counts["iterations"] += int(act.sum())
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
@@ -260,11 +264,15 @@ def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
     if B:
         ins = [light_tab, ro, rd, tp, eta, depth, act, last_delta, last_pdf,
                u]
+        # #3's next span of lanes to hand out (its persistent warps)
+        work = ([torch.zeros(1, dtype=torch.int32, device=dev)]
+                if name in ("shade_step", "shade_step_counts") else [])
         _kernels.launch(
             name, *table_args(packed), *extra,
             *[ctypes.c_void_p(x.data_ptr()) for x in ins],
             B, float(clamp_val), int(bool(stub_mis)),
             4 if dielectrics_block else 5,
+            *[ctypes.c_void_p(x.data_ptr()) for x in work],
             *[ctypes.c_void_p(x.data_ptr()) for x in out.values()],
             *([] if counts is None else [ctypes.c_void_p(counts.data_ptr())]))
     return out
@@ -284,6 +292,43 @@ def shade_step(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
                                 dielectrics_block=dielectrics_block)
     return _launch_step("shade_step", [], *args, clamp_val, stub_mis,
                         dielectrics_block)
+
+
+def shade_step_counts(packed: PackedScene, light_tab, ro, rd, tp, eta, depth,
+                      act, last_delta, last_pdf, u, *, clamp_val: float,
+                      stub_mis: bool, dielectrics_block: bool) -> tuple:
+    """``shade_step`` through the kernel's counting build: (the same
+    outputs, the counters as a dict keyed by
+    ``cuda_wavefront.COUNT_NAMES``).  CUDA tensors only."""
+    return _counted("shade_step_counts", [], packed, light_tab, ro, rd, tp,
+                    eta, depth, act, last_delta, last_pdf, u, clamp_val,
+                    stub_mis, dielectrics_block)
+
+
+def _counted(name, extra, *args) -> tuple:
+    """A per-bounce counting build's launch: (its outputs, its counters by
+    ``cuda_wavefront.COUNT_NAMES``)."""
+    from .cuda_wavefront import COUNT_NAMES
+
+    buf = torch.zeros(len(COUNT_NAMES), dtype=torch.int64,
+                      device=args[2].device)
+    out = _launch_step(name, extra, *args, counts=buf)
+    return out, dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+
+
+def occupancy() -> dict:
+    """Per build of #3 (its flat-walk instance): resident blocks and warps
+    per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads
+    per block, registers and local (spill) bytes per thread, shared
+    bytes."""
+    names = ("shade_step", "shade_step_counts")
+    out = (ctypes.c_int * (5 * len(names)))()
+    fn = _kernels.library().libs["pt_kernels"].pt_step_occupancy
+    fn.argtypes = [ctypes.c_void_p]
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"pt_step_occupancy failed: cudaError {rc}")
+    return _kernels.occupancy_rows(names, out)
 
 
 def shade_step_tex(packed: PackedScene, light_tab, ro, rd, tp, eta, depth,
@@ -308,14 +353,9 @@ def shade_step_tex_counts(packed: PackedScene, light_tab, ro, rd, tp, eta,
     """``shade_step_tex`` through the kernel's counting build: (the same
     outputs, the counters as a dict keyed by
     ``cuda_wavefront.COUNT_NAMES``).  CUDA tensors only."""
-    from .cuda_wavefront import COUNT_NAMES
-
-    buf = torch.zeros(len(COUNT_NAMES), dtype=torch.int64, device=ro.device)
-    out = _launch_step("shade_step_tex_counts", _atlas_args(packed), packed,
-                       light_tab, ro, rd, tp, eta, depth, act, last_delta,
-                       last_pdf, u, clamp_val, stub_mis, dielectrics_block,
-                       counts=buf)
-    return out, dict(zip(COUNT_NAMES, (int(x) for x in buf.tolist())))
+    return _counted("shade_step_tex_counts", _atlas_args(packed), packed,
+                    light_tab, ro, rd, tp, eta, depth, act, last_delta,
+                    last_pdf, u, clamp_val, stub_mis, dielectrics_block)
 
 
 def _atlas_args(packed: PackedScene) -> list:

@@ -449,6 +449,33 @@ def test_connect_plain_matches_jax(monkeypatch):
     its ``connect_pallas`` (interpret mode) on the same eye vertices (the
     primary hits) and the same table, with a random eye-side G so the 1e8
     MIS prefactor is exercised (tests/test_pallas_interpret.py:204-252)."""
+    got, a, refs = _connect_against_jax(monkeypatch, keep=1.0)
+    assert a.mean() > 0.9 and np.abs(got[a]).sum() > 0
+    assert (got[~a] == 0).all()
+    for other in refs:
+        rel = np.abs(got - other)[a] / (np.abs(other[a]) + 1e-3)
+        assert (rel.max(axis=1) < 1e-3).all(), rel.max()
+
+
+def test_connect_plain_matches_jax_on_sparse_lanes(monkeypatch):
+    """The same on the exact table with about 30% of the lanes active (a
+    numpy draw), as the fused tier's later iterations hand #8 its lanes:
+    every active lane within 1e-3 of ``connect_pallas`` (interpret mode),
+    every inactive lane exactly 0 in both."""
+    got, a, (_, kern) = _connect_against_jax(monkeypatch, keep=0.3)
+    assert 0.2 < a.mean() < 0.4 and np.abs(got[a]).sum() > 0
+    assert (got[~a] == 0).all() and (kern[~a] == 0).all()
+    rel = np.abs(got - kern)[a] / (np.abs(kern[a]) + 1e-3)
+    assert (rel.max(axis=1) < 1e-3).all(), rel.max()
+
+
+def _connect_against_jax(monkeypatch, keep: float):
+    """connect_plain, the JAX package's ``_connect`` and its
+    ``connect_pallas`` (interpret mode) on the primary hits of a W x H
+    frame of cornell against its exact table (compacted light vertices),
+    each active lane (a hit that is not a light) kept with probability
+    ``keep``.  Returns (the port's sums, the active mask, (the XLA sums,
+    the kernel's sums))."""
     from path_tracing_tpu.ops.intersect import find_closest_hit
     from path_tracing_tpu.ops.math3 import normalize
     from path_tracing_tpu.ops.pallas_connect import (connect_pallas,
@@ -470,6 +497,9 @@ def test_connect_plain_matches_jax(monkeypatch):
     g = np.abs(rs.normal(size=B)).astype(np.float32)
     eye_f = jnp.where(hit.mtl.eta > 0.0, 0.0, 1e8 * (1.0 + jnp.asarray(g)))
     tp = jnp.asarray(rs.uniform(0.2, 1.0, (B, 3)).astype(np.float32))
+    if keep < 1.0:
+        act = act & jnp.asarray(np.random.RandomState(8).uniform(size=B)
+                                < keep)
     ref = np.asarray(jb._connect(js, jcfg, _jax_lv(d), nv, hit.pos,
                                  hit.normal, tp, hit.mtl, -rd, wo_s, eye_f,
                                  64))
@@ -491,12 +521,7 @@ def test_connect_plain_matches_jax(monkeypatch):
         pack_scene(ts), cuda_connect.pack_light_vertices(_port_lv(d)), nv,
         t(hit.pos), t(hit.normal), t(tp), m, t(-rd), t(wo_s), t(eye_f),
         t(act), clamp_val=15.0, dielectrics_block=True).numpy()
-    a = np.asarray(act)
-    assert a.mean() > 0.9 and np.abs(got[a]).sum() > 0
-    assert (got[~a] == 0).all()
-    for other in (ref, kern):
-        rel = np.abs(got - other)[a] / (np.abs(other[a]) + 1e-3)
-        assert (rel.max(axis=1) < 1e-3).all(), rel.max()
+    return got, np.asarray(act), (ref, kern)
 
 
 # ---- steps 12-15: the eye pass and the renders ----

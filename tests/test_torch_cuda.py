@@ -516,6 +516,130 @@ def test_render_wavefront_counting_build_matches_plain_counts(card):
     assert 0 < kc["iterations"] <= kc["warp_iter_slots"]
 
 
+def test_shade_step_counting_build_matches_plain_counts(card):
+    """#3's counting build over every bounce of a 64x48 spp 4 fused frame:
+    its outputs #3's bit for bit, its counters (``STEP_COUNTS``) summed
+    over the bounces equal to the plain version's exactly, and to the
+    megakernel's plain counts of the same frame; its SIMT shares are
+    shares."""
+    from path_tracing_tpu_torch.integrators.pt import wavefront_loop
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    scene, pk = card
+    p = load_scene(str(CORNELL))
+    w, h = 64, 48
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    lt = _light_table(scene)
+    kc, pc = cw.new_counts(), cw.new_counts()
+
+    def step(*args, **kw):
+        out, c = cuda_shade.shade_step_counts(*args, **kw)
+        ref = cuda_shade.shade_step(*args, **kw)
+        for k in ref:   # bit for bit (a NaN throughput equals itself)
+            assert torch.equal(
+                out[k].view(torch.int32), ref[k].view(torch.int32)
+            ) if ref[k].dtype == torch.float32 else torch.equal(out[k],
+                                                                ref[k]), k
+        cuda_shade.shade_step_plain(*args, **kw, counts=pc)
+        for k in c:
+            kc[k] += c[k]
+        return out
+
+    img = wavefront_loop(pk, lt, cam, cfg, idx % w, idx // w, 4,
+                         rng.prng_key(0), 0, None, step)
+    mega = cw.new_counts()
+    assert torch.equal(img, cw.render_wavefront(
+        pk, lt, cam, idx % w, idx // w, 4, cfg, rng.prng_key(0)))
+    cw.render_wavefront_plain(pk, lt, cam, idx % w, idx // w, 4, cfg,
+                              rng.prng_key(0), counts=mega)
+    for k in cuda_shade.STEP_COUNTS:
+        assert kc[k] == pc[k] == mega[k], k
+    for k in ("walk", "shade", "shadow"):
+        assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"], k
+
+
+def test_connect_kernel_on_sparse_lanes(card):
+    """#8 with about a third of its lanes active (as later iterations hand
+    them over): every inactive lane 0, every active lane within 1e-3 of
+    the plain version, its counting build's sums #8's bit for bit and its
+    counters the plain version's exactly; a sweep's busy lanes a share."""
+    from path_tracing_tpu_torch.ops import cuda_connect
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    pk, tab, nv, cam, px, py, _, _, key, _ = _bdpt_args(
+        load_scene(str(CORNELL)), 0)
+    B = px.shape[0]
+    u = rng.uniform_rows(key, B, 7, device="cuda")
+    rd = primary_ray_dirs(cam, px, py, u[0], u[1])
+    ro = cam.eye[None].expand(B, 3).contiguous()
+    hit = intersect.hit_from_fields(cuda_intersect.nearest_hit(pk, ro, rd),
+                                    ro, rd)
+    act = hit.hit & ~hit.is_light & (u[6] < 0.3)
+    args = (pk, tab, nv, hit.pos, hit.normal, (0.5 + 0.5 * u[3:6].T)
+            .contiguous(), hit.mtl, -rd, normalize(cam.eye[None] - hit.pos),
+            1e8 * (1.0 + u[2]) * (hit.mtl.eta <= 0.0), act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    a = cuda_connect.connect(*args, **kw)
+    pc = cuda_connect.new_counts()
+    b = cuda_connect.connect_plain(*args, **kw, counts=pc)
+    assert 0.2 < act.float().mean().item() < 0.4
+    assert bool((a[~act] == 0).all())
+    rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+    assert (rel < 1e-3).all().item(), rel.max().item()
+    out, kc = cuda_connect.connect_counts(*args, **kw)
+    assert torch.equal(out, a)
+    assert {k: kc[k] for k in cuda_connect.PLAIN_COUNTS} == {
+        k: pc[k] for k in cuda_connect.PLAIN_COUNTS}
+    assert kc["vertices"] == int(act.sum())
+    assert kc["vertices"] == kc["sweep_lanes"] <= kc["sweep_slots"]
+
+
+def test_connect_kernel_streams_a_table_too_large_to_stage(card):
+    """A light-vertex table above the block's shared memory (spl 16: more
+    than 1,068 rows) streams through per-warp chunks: #8 against its plain
+    version on 64x48 primary hits, its counting build's counters the plain
+    version's exactly."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops import cuda_connect
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    w, h = 64, 48
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4, light_depth=4,
+                       bdpt_resample_vertices=0)
+    key = rng.prng_key(9)
+    used, lv, _ = bdpt.light_side(scene, cfg, 16, key)
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
+    assert nv > 1100
+    pk = cuda_intersect.pack_scene(used)
+    u = rng.uniform_rows(key, w * h, 6, device="cuda")
+    rd = primary_ray_dirs(cam, idx % w, idx // w, u[0], u[1])
+    ro = cam.eye[None].expand(w * h, 3).contiguous()
+    hit = intersect.hit_from_fields(cuda_intersect.nearest_hit(pk, ro, rd),
+                                    ro, rd)
+    act = hit.hit & ~hit.is_light
+    args = (pk, tab, nv, hit.pos, hit.normal, (0.5 + 0.5 * u[3:6].T)
+            .contiguous(), hit.mtl, -rd, normalize(cam.eye[None] - hit.pos),
+            1e8 * (1.0 + u[2]) * (hit.mtl.eta <= 0.0), act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    a = cuda_connect.connect(*args, **kw)
+    pc = cuda_connect.new_counts()
+    b = cuda_connect.connect_plain(*args, **kw, counts=pc)
+    rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+    assert (rel < 1e-3).all().item(), rel.max().item()
+    out, kc = cuda_connect.connect_counts(*args, **kw)
+    assert torch.equal(out, a)
+    assert {k: kc[k] for k in cuda_connect.PLAIN_COUNTS} == {
+        k: pc[k] for k in cuda_connect.PLAIN_COUNTS}
+
+
 def test_gather_flux_counting_build_matches_plain_counts(card):
     """#11's counting build gives the kernel's flux and counts bit for
     bit, and its counters equal the plain join's count of the same work
@@ -669,7 +793,7 @@ def test_shade_step_tex_counting_build_matches_plain_counts(card):
     """#4's counting build on the textured 17,000-triangle icosphere (512
     clusters: the super walk): its outputs #4's bit for bit and the plain
     version's within rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes, its
-    counters (``TEX_COUNTS``) the plain version's exactly."""
+    counters (``STEP_COUNTS``) the plain version's exactly."""
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
     scene = synth.icosphere_scene(17000, textured=True).to_device("cuda")
@@ -695,8 +819,8 @@ def test_shade_step_tex_counting_build_matches_plain_counts(card):
         if ok.dim() > 1:
             ok = ok.all(dim=1)
         assert ok.float().mean().item() >= 0.999, k
-    assert {k: kc[k] for k in cuda_shade.TEX_COUNTS} == {
-        k: pc[k] for k in cuda_shade.TEX_COUNTS}
+    assert {k: kc[k] for k in cuda_shade.STEP_COUNTS} == {
+        k: pc[k] for k in cuda_shade.STEP_COUNTS}
     assert kc["iterations"] == B and kc["shadow_rays"] > 0
     for k in ("walk", "shade", "shadow"):
         assert 0 < kc[f"{k}_lanes"] <= kc[f"{k}_slots"], k

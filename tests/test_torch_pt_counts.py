@@ -65,3 +65,33 @@ def test_render_wavefront_plain_counts_the_loop(monkeypatch):
     assert c["iteration_keys"] * w * h >= c["iterations"]
     assert all(c[k] == 0 for k in c
                if k not in cw.PLAIN_COUNTS + cw.PLAIN_ONLY)
+
+
+def test_shade_step_plain_counts_sum_to_the_megakernel_counts():
+    """#3's plain counts (``STEP_COUNTS``, what its counting build is held
+    to), summed over the bounces of a fused frame on cornell at 16x12 spp
+    2, equal the megakernel's plain counts of the same frame on every
+    counter both fill: it is the same bounce, so the same work."""
+    import functools
+
+    from path_tracing_tpu_torch.integrators.pt import wavefront_loop
+
+    p = load_scene(str(CORNELL))
+    scene = p.to_device("cpu")
+    w, h, spp = 16, 12, 2
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h, device="cpu")
+    cfg = RenderConfig(width=w, height=h, spp=spp, eye_depth=4)
+    key = rng.fold_in(rng.prng_key(5), 0)
+    idx = torch.arange(w * h, dtype=torch.int32)
+    pk, lt = cuda_intersect.pack_scene(scene), _light_table(scene)
+    steps = cw.new_counts()
+    img = wavefront_loop(pk, lt, cam, cfg, idx % w, idx // w, spp, key, 0,
+                         None, functools.partial(cuda_shade.shade_step_plain,
+                                                 counts=steps))
+    mega = cw.new_counts()
+    assert torch.equal(cw.render_wavefront_plain(
+        pk, lt, cam, idx % w, idx // w, spp, cfg, key, counts=mega), img)
+    assert steps["iterations"] > steps["shadow_rays"] > 0
+    assert {k: steps[k] for k in cuda_shade.STEP_COUNTS} == {
+        k: mega[k] for k in cuda_shade.STEP_COUNTS}
+    assert steps["samples"] == 0 < mega["samples"]   # the loop's own work

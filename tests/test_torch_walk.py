@@ -318,7 +318,7 @@ def test_shade_step_tex_above_64_clusters_matches_pallas(tex_mesh):
 
 
 def test_shade_step_tex_plain_counts_its_walks(tex_mesh):
-    """The textured bounce's plain counts (``TEX_COUNTS``): its active
+    """The textured bounce's plain counts (``STEP_COUNTS``): its active
     lanes, their nearest-hit walks and the NEE lanes' shadow walks as the
     walk models count them, and the outputs unchanged by counting."""
     p, _, ts = tex_mesh
@@ -341,4 +341,4 @@ def test_shade_step_tex_plain_counts_its_walks(tex_mesh):
     assert c["iterations"] >= c["bsdf_samples"] >= c["shadow_rays"]
     assert c["shadow_spheres"] == 0 < c["shadow_boxes"]   # no spheres block
     assert all(c[k] == 0 for k in c
-               if k not in cuda_shade.TEX_COUNTS + ("draws",))
+               if k not in cuda_shade.STEP_COUNTS + ("draws",))
