@@ -423,6 +423,16 @@ def simt(c: dict) -> dict:
     return {k: lane_share(c, k) for k in ("row", "shadow", "tri", "sweep")}
 
 
+def bounce_bytes(lanes: int, pc: dict) -> int:
+    """The bytes a bounce of #3 or #4 moves at least: each lane's state
+    read (ro, rd, tp, eta, depth, last_pdf: 12 words; act, last_delta) and
+    written (the radiance and that state: 15 words; alive, delta), and the
+    uniforms the bounce reads (rows 0-2 for a lane's NEE, 3-5 for its BSDF
+    sample; ``pc``, the plain counts of its inputs)."""
+    return (lanes * (12 * 4 + 2 + 15 * 4 + 2)
+            + 3 * 4 * (pc["shadow_rays"] + pc["bsdf_samples"]))
+
+
 def cast_ops(pk, shadow: bool = False) -> int:
     """Operations of one ray's sphere tests and the boxes every ray tests:
     every non-empty cluster's in the flat walk, its octant's super list in
@@ -749,7 +759,7 @@ def step_main_shape(scene, cam, key, small_err: float, counts: dict) -> list:
     check(same_bits(kout, a), "shade_step_counts: its outputs differ from #3's")
     hold_counts(f"shade_step {B} lanes (the fused frame's first bounce)", kc,
                 pc, cs.STEP_COUNTS, exact=False)
-    nbytes = B * (20 + 8 + 17) * 4
+    nbytes = bounce_bytes(B, pc)
     bnd = bound(nbytes, walk_ops(pc) + pc["bsdf_samples"] * OPS["sample"]
                 + pc["evals"] * OPS["eval"] + pc["pdfs"] * OPS["pdf"])
     floor_ms = bound(nbytes, pc["iterations"] * cast_ops(pk)
@@ -1101,7 +1111,7 @@ def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
                 exact=False)
     tables = sum(x.numel() for x in (pk.sph, pk.tri, pk.uv, pk.cl, pk.sup,
                                       pk.atlas)) * 4
-    nbytes = tables + n * (31 + 8 + 17) * 4
+    nbytes = tables + bounce_bytes(n, pc)
     bnd = bound(nbytes, walk_ops(pc) + pc["bsdf_samples"] * OPS["sample"]
                 + pc["evals"] * OPS["eval"] + pc["pdfs"] * OPS["pdf"])
     floor_ms = bound(nbytes, pc["iterations"] * cast_ops(pk)
@@ -1471,27 +1481,42 @@ def phase_bdpt_render(counts: dict, ris_img) -> list:
     return launches
 
 
+class _DeviceBools:
+    """A (n,) view, as uint8, of the bools at a device pointer (the CUDA
+    array interface), for reading a launch's mask from its arguments."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = dict(
+            shape=(n,), typestr="|u1", data=(ptr, False), version=2)
+
+
 def connect_launches(call) -> tuple:
     """``call()``'s result and, for each of #8's launches it makes, the
-    kernel's device time (CUDA events around the call) and active lanes."""
-    from path_tracing_tpu_torch.ops import cuda_connect as cc
+    kernel's device time (CUDA events around its entry, swapped into the
+    library's entries for the call) and active lanes (its ``act``
+    argument)."""
+    from path_tracing_tpu_torch.ops import _kernels
 
-    own, timed = cc.connect, []
+    fns, timed = _kernels.library().fns, []
+    own = fns["connect"]
+    n = len(_kernels._TABLES) + 2  # the act mask and B follow 10 inputs
 
-    def per_launch(*args, **kw):
+    def per_launch(*args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = own(*args, **kw)
+        rc = own(*args)
         end.record()
-        timed.append((start, end, args[10].sum()))
-        return out
+        act = torch.as_tensor(_DeviceBools(args[n + 10].value, args[n + 11]),
+                              device="cuda")
+        timed.append((start, end, act.sum()))
+        return rc
 
-    cc.connect = per_launch
+    fns["connect"] = per_launch
     try:
         res = call()
     finally:
-        cc.connect = own
+        fns["connect"] = own
     torch.cuda.synchronize()
     return res, [dict(ms=s.elapsed_time(e), active=int(n))
                  for s, e, n in timed]

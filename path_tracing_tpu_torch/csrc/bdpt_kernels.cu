@@ -230,8 +230,6 @@ enum RowPlace { kRowsResident, kRowsChunked };
 // placement (measured: PERF.md section 6).
 constexpr int kResWarps = 24, kResMinBlocks = 1;
 constexpr int kChunkWarps = 4, kChunkMinBlocks = 6;
-// the largest table the block stages whole (0: always stream)
-constexpr int kResidentMaxRows = 1 << 20;
 
 __host__ __device__ constexpr int place_warps(int p) {
   return p == kRowsResident ? kResWarps : kChunkWarps;
@@ -562,9 +560,7 @@ inline cudaError_t connect_place(int n_valid, int* place) {
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
   }
-  *place = n_valid <= kResidentMaxRows && connect_smem(kRowsResident, n_valid) <= (size_t)optin
-               ? kRowsResident
-               : kRowsChunked;
+  *place = connect_smem(kRowsResident, n_valid) <= (size_t)optin ? kRowsResident : kRowsChunked;
   return cudaSuccess;
 }
 

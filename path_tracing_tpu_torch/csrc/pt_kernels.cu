@@ -8,12 +8,11 @@
 // ulps; no --use_fast_math.
 //
 // One thread per lane (ray or pixel), masked i < B; #5's persistent
-// threads take one pixel at a time, #3's persistent warps 32 active lanes.
-// Scene tables are read from global memory through const __restrict__
-// pointers: the text scenes are a few KB and stay in L1/L2, a
-// 81,920-triangle mesh is 11 MB and stays in the 50 MB L2.  No float
-// atomics (#3's and #5's integer counters only hand out lanes and pixels);
-// every output is a pure function of the lane's inputs, so a render is
+// threads take one pixel at a time.  Scene tables are read from global
+// memory through const __restrict__ pointers: the text scenes are a few KB
+// and stay in L1/L2, a 81,920-triangle mesh is 11 MB and stays in the 50 MB
+// L2.  No float atomics (#5's integer counter only hands out pixels); every
+// output is a pure function of the lane's inputs, so a render is
 // deterministic per seed.
 //
 // 1. nearest_hit       replaces path_tracing_tpu/ops/pallas_intersect.py
@@ -83,15 +82,15 @@
 // The counting build (kCount) counts #5's counters that one bounce fills.
 //
 // #3's design for this card: an instance per walk (the flat one below 64
-// clusters, as #4), 8 blocks of 128 an SM (64 registers, 150-162 B
-// spilled), and persistent warps that take spans of 32 lanes from a
-// counter, copy the inactive lanes' state through and run the active ones
-// 32 at a time, so the fused frame's later bounces (down to one lane
-// alive) run full warps.  Measured on an H100 (PERF.md section 6), every
-// lane bit-equal: the fused 1080p frame's 47 launches 24.2 ms against the
-// parent's 27.6-27.8 and 24.7 for one thread a lane at 8 blocks (which
-// runs a full bounce in 0.63-0.64 ms against the persistent warps' 0.74,
-// and was dropped); 10 and 12 blocks an SM 24.8 and 24.5 ms.
+// clusters, as #4), one thread a lane at 8 blocks of 128 an SM (64
+// registers, 142 B spilled in the flat instance), and a counting build.
+// Measured on an H100 80GB HBM3 at 700 W in turns (PERF.md section 6),
+// every lane bit-equal: a full 1080p bounce 0.61 ms against the parent's
+// 0.70; the fused frame's 47 launches 24.7 ms against 27.7.  Persistent
+// warps that run the active lanes 32 at a time (LaneQueue) took those 47
+// launches in 23.8-24.5 ms but a full bounce in 0.68-0.72, and the whole
+// frame (70-78 ms) could not tell them apart: dropped as the larger
+// design.  10 and 12 blocks an SM: 2-5% slower over the frame's launches.
 
 #include <algorithm>
 #include <type_traits>
@@ -469,26 +468,14 @@ __device__ __forceinline__ void bounce_lane(const Tables& tb, const Tex& tx, con
   store_state(out, i, s, radiance);
 }
 
-// #3: persistent warps take spans of 32 lanes from the counter `work`
-// (zeroed by the wrapper), copy the inactive lanes' state through and run
-// the active ones 32 at a time (LaneQueue).  kW: the walk (an instance per
-// walk, WalkKind).
+// #3.  kW: the walk (an instance per walk, WalkKind).
 template <bool kCount, int kW>
 __global__ void __launch_bounds__(kThreads, kStepMinBlocks)
     shade_step_kernel(Tables tb, ShadeCfg c, StateIn in, StateOut out, int B,
-                      int* __restrict__ work, unsigned long long* __restrict__ counts) {
+                      unsigned long long* __restrict__ counts) {
   typename std::conditional<kCount, CountN<kMegaCounts>, NoCount>::type cnt;
-  __shared__ int lanes[kThreads / 32][64];
-  LaneQueue lq{lanes[threadIdx.x >> 5], 0, true};
-  for (;;) {
-    lq.fill(work, B, in.act,
-            [&](int i) { store_state(out, i, load_state(in, i), mk(0.f, 0.f, 0.f)); });
-    const int nb = min(lq.n, 32);
-    if (nb == 0) break;
-    if ((int)(threadIdx.x & 31) < nb)
-      bounce_lane<false, kW>(tb, Tex{}, c, in, out, B, lq.q[threadIdx.x & 31], cnt);
-    lq.pop(nb);
-  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B) bounce_lane<false, kW>(tb, Tex{}, c, in, out, B, i, cnt);  // every lane flushes
   if constexpr (kCount) cnt.flush(counts);
 }
 
@@ -680,13 +667,10 @@ int launch_tex(const float* sph, int ns, int nl, const float* tri, const float* 
 
 template <bool kCount, int kW>
 cudaError_t launch_step_at(const Tables& tb, const ShadeCfg& c, const StateIn& in,
-                           const StateOut& out, int B, int* work, unsigned long long* counts,
+                           const StateOut& out, int B, unsigned long long* counts,
                            cudaStream_t stream) {
   auto* fn = shade_step_kernel<kCount, kW>;
-  int blocks = 0;
-  cudaError_t err = persistent_blocks(fn, kThreads, 0, blocks_for(B), &blocks);
-  if (err != cudaSuccess) return err;
-  fn<<<blocks, kThreads, 0, stream>>>(tb, c, in, out, B, work, counts);
+  fn<<<blocks_for(B), kThreads, 0, stream>>>(tb, c, in, out, B, counts);
   return cudaGetLastError();
 }
 
@@ -696,16 +680,15 @@ int launch_step(const float* sph, int ns, int nl, const float* tri, const float*
                 const float* cl, int nc, const float* sup, int nsup, const float* lights,
                 const float* ro, const float* rd, const float* tp, const float* eta,
                 const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
-                const float* u, int B, float clamp_val, int stub_mis, int blocks_col, int* work,
-                float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
-                bool* o_alive, bool* o_delta, float* o_pdf, unsigned long long* counts,
-                void* stream) {
+                const float* u, int B, float clamp_val, int stub_mis, int blocks_col, float* o_rad,
+                float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth, bool* o_alive,
+                bool* o_delta, float* o_pdf, unsigned long long* counts, void* stream) {
   StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
   StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
   ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
   auto* go = nsup ? &launch_step_at<kCount, kWalkSuper> : &launch_step_at<kCount, kWalkFlat>;
-  return (int)go(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B, work,
-                 counts, (cudaStream_t)stream);
+  return (int)go(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B, counts,
+                 (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -740,17 +723,15 @@ int pt_any_blocker(const float* sph, int ns, int nl, const float* tri, const flo
   return (int)cudaGetLastError();
 }
 
-// work: one int32, zeroed by the caller (the next span of lanes to hand
-// out).
 int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
                   const float* cl, int nc, const float* sup, int nsup, const float* lights,
                   const float* ro, const float* rd, const float* tp, const float* eta,
                   const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
-                  const float* u, int B, float clamp_val, int stub_mis, int blocks_col, int* work,
+                  const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
                   float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
                   bool* o_alive, bool* o_delta, float* o_pdf, void* stream) {
   return launch_step<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
-                            act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col, work,
+                            act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col,
                             o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
                             nullptr, stream);
 }
@@ -762,12 +743,12 @@ int pt_shade_step_counts(const float* sph, int ns, int nl, const float* tri, con
                          const float* lights, const float* ro, const float* rd, const float* tp,
                          const float* eta, const int* depth, const bool* act,
                          const bool* last_delta, const float* last_pdf, const float* u, int B,
-                         float clamp_val, int stub_mis, int blocks_col, int* work, float* o_rad,
+                         float clamp_val, int stub_mis, int blocks_col, float* o_rad,
                          float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
                          bool* o_alive, bool* o_delta, float* o_pdf,
                          unsigned long long* counts, void* stream) {
   return launch_step<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
-                           act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col, work,
+                           act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col,
                            o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
                            counts, stream);
 }

@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import RenderConfig
-from ..ops import cuda_connect, rng
+from ..ops import rng
 from ..ops.bsdf import bsdf_pdf, bsdf_sample
 from ..ops.cuda_bdpt_eye import TILE_LANES, bdpt_eye, eye_tiling
 from ..ops.cuda_connect import connect, connect_plain, pack_light_vertices
@@ -496,8 +496,7 @@ def eye_trace_and_connect(packed: PackedScene, cam: Camera, cfg: RenderConfig,
             lv_flat, n_valid, cfg.bdpt_resample_vertices,
             rng.fold_in(key, 0x5E5A))
         lv_tab = pack_light_vertices(lv_flat)
-    # the fused tier's connect is looked up when called (a run may wrap it)
-    fns = (dict(connect_fn=cuda_connect.connect) if tier == "fused" else
+    fns = ({} if tier == "fused" else
            dict(nearest=nearest_hit_plain, connect_fn=connect_plain,
                 draw=rng.uniform_rows_plain))
     return eye_sample(packed, cam, cfg, lv_tab, n_valid, px, py, key,

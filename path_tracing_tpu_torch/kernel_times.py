@@ -35,8 +35,9 @@ the main path's inputs:
 - ``connect`` (#8): the 1920x1080 primary hits of the BDPT frame on
   cornell (spl 8, the exact sweep's shared table, spp 4, depths 4, seed 0)
   as ``chip_smoke.py`` phase 6 builds them (``primary``); every launch of
-  that frame's fused tier, recorded from the render (``launches``, timed
-  as the sum of the frame's launches, every launch's output compared);
+  that frame's fused tier, recorded by running its eye samples with a
+  recording ``connect_fn`` (``launches``, timed as the sum of the frame's
+  launches, every launch's output compared);
   then the whole fused frame with the build's #8 in place of the
   package's (``frame``, its image compared pixel by pixel);
 - ``shade_step`` (#3): the lanes of the first bounce of the fused tier's
@@ -51,7 +52,8 @@ launches after a warm-up), then each ``--old-csrc DIR``: the source of
 parent commit's ``csrc``, unpacked with ``git archive`` into the
 gitignored ``path_tracing_tpu_torch/build/``, or a copy of it edited to
 try one change), all built at once with the same flags and timed on the
-same inputs in turns (new, old, old, new), with the share of rows
+same inputs in turns (new, old, old, new), swapped into the library's
+entries in place of the package's build, with the share of rows
 (hitpoints, pixels, photons' event rows or lanes) bit-equal to the new
 one's, held to ``BARS`` where one is set (the exit code is 1 if a build
 misses its bar).  A build that exports the counting entry
@@ -62,7 +64,7 @@ whose ``pt_device.cuh`` predates the super table takes the seven
 scene-table arguments of before (``prev_table_args``: the 8-column
 cluster rows, no super table) in place
 of the package's nine.  A #8 build whose ``pt_connect`` takes no ``work``
-counter is called through the argument list of the design before.
+counter is called with the package's arguments less that counter.
 
 ``--variant NAME`` (repeatable) times a copy of the package's ``csrc``
 with one change (``VARIANTS``: a table placement, a launch bound, a
@@ -98,10 +100,9 @@ _TABLES = [_P, _I, _I, _P, _P, _P, _I]
 # the C entries of the designs before the counted ones: #11 one thread per
 # hitpoint (hp hp_cell perm B | win ev r2 | flux count | stream), #5 one
 # thread per pixel (no work counter), #10 one thread per photon (no work
-# counter), #8 and #3 one thread per lane (no work counter); #6 kept its
+# counter), #8 one thread per lane (no work counter); #6 kept its
 # argument list
 OLD_ARGS = {
-    "shade_step": _kernels._TABLES + [_P] * 10 + [_I, _F, _I, _I] + [_P] * 10,
     "connect": _kernels._TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
@@ -111,19 +112,39 @@ OLD_ARGS = {
 }
 # a mark in the C entry of the package's design whose argument list
 # changed with it (a build without it takes OLD_ARGS)
-NEW_MARK = {"connect": "int* work", "shade_step": "int* work"}
+NEW_MARK = {"connect": "int* work"}
 # One change each to a copy of the package's csrc: (file, old, new) edits.
-_RES_MAX = "constexpr int kResidentMaxRows = 1 << 20;"
+_PLACE = ("*place = connect_smem(kRowsResident, n_valid) <= (size_t)optin "
+          "? kRowsResident : kRowsChunked;")
+_CHUNKED = ("bdpt_kernels.cu", _PLACE, "*place = kRowsChunked;")
 _RES_W = "constexpr int kResWarps = 24, kResMinBlocks = 1;"
 _CHUNK_W = "constexpr int kChunkWarps = 4, kChunkMinBlocks = 6;"
 _STEP_MIN = "constexpr int kStepMinBlocks = 8;"
+_STEP_LANE = """  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B) bounce_lane<false, kW>(tb, Tex{}, c, in, out, B, i, cnt);  // every lane flushes"""
+_STEP_WARPS = """  __shared__ int lanes[kThreads / 32][64];
+  LaneQueue lq{lanes[threadIdx.x >> 5], 0, true};
+  for (;;) {
+    lq.fill(&g_step_work, B, in.act, [&](int i) { SKIP; });
+    const int nb = min(lq.n, 32);
+    if (nb == 0) break;
+    if ((int)(threadIdx.x & 31) < nb)
+      bounce_lane<false, kW>(tb, Tex{}, c, in, out, B, lq.q[threadIdx.x & 31], cnt);
+    lq.pop(nb);
+  }"""
+_STEP_GRID = ("  fn<<<blocks_for(B), kThreads, 0, stream>>>(tb, c, in, out, B, "
+              "counts);")
+_STEP_PERSISTENT = """  int blocks = 0, *work = nullptr;
+  cudaError_t err = cudaGetSymbolAddress((void**)&work, g_step_work);
+  if (err == cudaSuccess) err = cudaMemsetAsync(work, 0, sizeof(int), stream);
+  if (err == cudaSuccess) err = persistent_blocks(fn, kThreads, 0, blocks_for(B), &blocks);
+  if (err != cudaSuccess) return err;
+  fn<<<blocks, kThreads, 0, stream>>>(tb, c, in, out, B, counts);"""
 VARIANTS = {
     # #8's table placements besides the resident one: per-warp 16-row
     # chunks, rows read from device memory (both 4 warps x 6 blocks an SM)
-    "connect-chunked": [("bdpt_kernels.cu", _RES_MAX,
-                         "constexpr int kResidentMaxRows = 0;")],
-    "connect-device": [("bdpt_kernels.cu", _RES_MAX,
-                        "constexpr int kResidentMaxRows = 0;"),
+    "connect-chunked": [_CHUNKED],
+    "connect-device": [_CHUNKED,
                        ("bdpt_kernels.cu",
                         "chunk = sp + warp * kChunk * kLvCols;",
                         "chunk = nullptr;")],
@@ -133,7 +154,7 @@ VARIANTS = {
                               "kResMinBlocks = 1;")] for w in (16, 32)},
     # #8's chunked blocks an SM
     **{f"connect-chunked-min{m}": [
-        ("bdpt_kernels.cu", _RES_MAX, "constexpr int kResidentMaxRows = 0;"),
+        _CHUNKED,
         ("bdpt_kernels.cu", _CHUNK_W,
          f"constexpr int kChunkWarps = 4, kChunkMinBlocks = {m};")]
        for m in (4, 8)},
@@ -141,6 +162,19 @@ VARIANTS = {
     **{f"shade_step-min{m}": [("pt_kernels.cu", _STEP_MIN,
                                f"constexpr int kStepMinBlocks = {m};")]
        for m in (10, 12)},
+    # #3 on persistent warps that take spans of 32 lanes from a counter
+    # and run the active ones 32 at a time (LaneQueue), the inactive lanes
+    # of a span passed through by a copy of their state or by the bounce
+    # body itself (its alive-false path)
+    **{f"shade_step-{v}": [
+        ("pt_kernels.cu", "// #3.  kW:",
+         "__device__ int g_step_work;  // the next span of lanes\n// #3.  kW:"),
+        ("pt_kernels.cu", _STEP_LANE, _STEP_WARPS.replace("SKIP", skip)),
+        ("pt_kernels.cu", _STEP_GRID, _STEP_PERSISTENT)]
+       for v, skip in (("copy", "store_state(out, i, load_state(in, i), "
+                        "mk(0.f, 0.f, 0.f))"),
+                       ("packed", "bounce_lane<false, kW>(tb, Tex{}, c, in, "
+                        "out, B, i, cnt)"))},
 }
 PPM_W = PPM_H = 512
 PPM_SPL = 262144
@@ -692,60 +726,49 @@ def eye_case():
                  dict(pixels=W * H, spp=SPP, rows=int(nv)))]
 
 
-def _connect_old(fn, args, kw) -> torch.Tensor:
-    """#8's build of the design before, on ``connect``'s arguments."""
-    from .ops import cuda_intersect as ci
-
-    (pk, tab, nv, pos, nrm, tp, m, wo_e, wo_s, eye_f, act) = args
-    B = pos.shape[0]
-    out = torch.empty((B, 3), device="cuda")
-    ins = (pos, nrm, tp, m.base_color, m.roughness, m.metallic, m.eta, wo_e,
-           wo_s, eye_f, act)
-    _check(fn(*ci.table_args(pk), _ptr(tab), int(nv), *(_ptr(x) for x in ins),
-              B, float(kw["clamp_val"]), 4 if kw["dielectrics_block"] else 5,
-              _ptr(out), _stream()), "old connect")
-    return out
-
-
-def _swapped(module, attr: str, name: str, fn, abi, call, old=None):
-    """``call()`` with build ``fn`` in place of the package's kernel
-    ``name``: swapped into the library's entries, or (a build of the
-    design before) ``module.attr`` replaced by ``old(fn)``."""
+def _entry(fn, abi):
+    """Build ``fn`` as the library's ``connect`` entry: one of the design
+    before (``abi`` "old", no ``work`` counter) is called with the
+    package's arguments less that counter."""
     if abi != "old":
-        fns = _kernels.library().fns
-        own, fns[name] = fns[name], fn
-        try:
-            return call()
-        finally:
-            fns[name] = own
-    own = getattr(module, attr)
-    setattr(module, attr, old(fn))
+        return fn
+    w = len(_kernels._ARGTYPES["connect"]) - 3  # ... work out | stream
+    return lambda *a: fn(*a[:w], *a[w + 1:])
+
+
+def _swapped(name: str, fn, call):
+    """``call()`` with build ``fn`` in place of the package's kernel
+    ``name`` in the library's entries."""
+    fns = _kernels.library().fns
+    own, fns[name] = fns[name], fn
     try:
         return call()
     finally:
-        setattr(module, attr, own)
+        fns[name] = own
 
 
-def _recorded(module, attr: str, call, check=None) -> tuple:
-    """The arguments and keywords of every call of ``module.attr`` made by
-    ``call()``, the tensors cloned, and whether ``check(args, out)`` held
-    on every call (when given)."""
-    own, got, held = getattr(module, attr), [], []
-
+def _recorder(fn, got: list, check=None):
+    """``fn`` that appends the arguments and keywords of every call to
+    ``got``, the tensors cloned, with whether ``check(args, out)`` held
+    (when given)."""
     def record(*args, **kw):
-        out = own(*args, **kw)
+        out = fn(*args, **kw)
         got.append(([x.clone() if torch.is_tensor(x) else x for x in args],
-                    kw))
-        if check is not None:
-            held.append(check(args, out))
+                    kw, check is None or check(args, out)))
         return out
+    return record
 
-    setattr(module, attr, record)
+
+def _recorded(module, attr: str, call) -> list:
+    """The arguments and keywords of every call of ``module.attr`` made by
+    ``call()`` (``_recorder``'s)."""
+    own, got = getattr(module, attr), []
+    setattr(module, attr, _recorder(own, got))
     try:
         call()
     finally:
         setattr(module, attr, own)
-    return got, all(held)
+    return got
 
 
 def connect_case():
@@ -765,7 +788,7 @@ def connect_case():
                        light_depth=4, bdpt_resample_vertices=0)
     key = rng.fold_in(rng.prng_key(0), 0)
     B = W * H
-    used, lv, _ = bdpt.light_side(scene, cfg, SPL, key)
+    used, lv, lhs = bdpt.light_side(scene, cfg, SPL, key)
     idx = torch.arange(B, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % W, idx // W, key)
     pk = ci.pack_scene(used)
@@ -782,9 +805,8 @@ def connect_case():
     kw = dict(clamp_val=15.0, dielectrics_block=True)
 
     def connect_with(fn, abi, a, k):
-        return _swapped(cc, "connect", "connect", fn, abi,
-                        lambda: cc.connect(*a, **k),
-                        lambda f: lambda *x, **y: _connect_old(f, x, y))
+        return _swapped("connect", _entry(fn, abi),
+                        lambda: cc.connect(*a, **k))
 
     out = {}
 
@@ -795,21 +817,26 @@ def connect_case():
         return bdpt.render_bdpt(scene, cam, W, H, SPP, SPL, cfg, key,
                                 tier="fused")
 
-    calls, zero = _recorded(cc, "connect", render,
-                            lambda a, o: bool((o[~a[10]] == 0).all()))
+    # the fused frame's launches: its eye samples, as its tier runs them,
+    # through a connect_fn that records them
+    calls = []
+    record = _recorder(cc.connect, calls,
+                       lambda a, o: bool((o[~a[10]] == 0).all()))
+    for s in range(SPP):
+        bdpt.eye_sample(pk, cam, cfg, tab, nv, idx % W, idx // W,
+                        bdpt._sample_key(key, s), lhs, connect_fn=record)
+    zero = all(z for _, _, z in calls)
 
     def launches(fn, abi):
-        out["launches"] = [connect_with(fn, abi, a, k) for a, k in calls]
+        out["launches"] = [connect_with(fn, abi, a, k) for a, k, _ in calls]
 
     def frame(fn, abi):
-        out["frame"] = _swapped(cc, "connect", "connect", fn, abi, render,
-                                lambda f: lambda *x, **y: _connect_old(
-                                    f, x, y))
+        out["frame"] = _swapped("connect", _entry(fn, abi), render)
 
     def bits(x):
         return x.reshape(-1, 3).view(torch.int32)
 
-    active = [int(a[10].sum()) for a, _ in calls]
+    active = [int(a[10].sum()) for a, _, _ in calls]
     primary(_kernels.library().fns["connect"], "now")
     return [
         Case("primary", primary, lambda: bits(out["primary"]),
@@ -821,28 +848,6 @@ def connect_case():
              reps=1),
         Case("frame", frame, lambda: bits(out["frame"]),
              dict(pixels=B, spp=SPP), reps=1)]
-
-
-def _step_old(fn, args, kw) -> dict:
-    """#3's build of the design before, on ``shade_step``'s arguments."""
-    from .ops import cuda_intersect as ci
-
-    pk, lt, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u = args
-    B = ro.shape[0]
-    f32 = dict(device="cuda")
-    out = dict(radiance=torch.empty((B, 3), **f32),
-               ro=torch.empty((B, 3), **f32), rd=torch.empty((B, 3), **f32),
-               tp=torch.empty((B, 3), **f32), eta=torch.empty(B, **f32),
-               depth=torch.empty(B, dtype=torch.int32, device="cuda"),
-               alive=torch.empty(B, dtype=torch.bool, device="cuda"),
-               last_is_delta=torch.empty(B, dtype=torch.bool, device="cuda"),
-               last_pdf=torch.empty(B, **f32))
-    ins = (lt, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u)
-    _check(fn(*ci.table_args(pk), *(_ptr(x) for x in ins), B,
-              float(kw["clamp_val"]), int(bool(kw["stub_mis"])),
-              4 if kw["dielectrics_block"] else 5,
-              *(_ptr(x) for x in out.values()), _stream()), "old shade_step")
-    return out
 
 
 def step_case():
@@ -860,27 +865,22 @@ def step_case():
     def render():
         return render_pt(scene, cam, W, H, SPP, cfg, key, tier="fused")
 
-    calls, _ = _recorded(cs, "shade_step", render)
+    calls = _recorded(cs, "shade_step", render)
     out = {}
 
-    def old(f):
-        return lambda *x, **y: _step_old(f, x, y)
-
-    def step_with(fn, abi, a, k):
-        return _swapped(cs, "shade_step", "shade_step", fn, abi,
-                        lambda: cs.shade_step(*a, **k), old)
+    def step_with(fn, a, k):
+        return _swapped("shade_step", fn, lambda: cs.shade_step(*a, **k))
 
     def first(fn, abi):
-        out["first"] = step_with(fn, abi, *calls[0])
+        out["first"] = step_with(fn, *calls[0][:2])
 
     def bounces(fn, abi):
-        out["bounces"] = [step_with(fn, abi, a, k) for a, k in calls]
+        out["bounces"] = [step_with(fn, a, k) for a, k, _ in calls]
 
     def frame(fn, abi):
-        out["frame"] = _swapped(cs, "shade_step", "shade_step", fn, abi,
-                                render, old)
+        out["frame"] = _swapped("shade_step", fn, render)
 
-    active = [int(a[7].sum()) for a, _ in calls]
+    active = [int(a[7].sum()) for a, _, _ in calls]
     return [
         Case("first", first, lambda: _state_rows(out["first"]),
              dict(lanes=W * H, active=active[0])),

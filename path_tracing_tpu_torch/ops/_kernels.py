@@ -73,8 +73,7 @@ _STEP = [_P] * 10 + [_I, _F, _I, _I] + [_P] * 9
 _ARGTYPES = {
     "nearest_hit": _TABLES + [_I, _P, _P, _I, _P, _P, _P],
     "any_blocker": _TABLES + [_P, _P, _P, _I, _I, _P, _P],
-    # ... | B, clamp, stub_mis, blocks_col | work | 9 outputs
-    "shade_step": _TABLES + _STEP[:14] + [_P] + _STEP[14:] + [_P],
+    "shade_step": _TABLES + _STEP + [_P],
     "shade_step_tex": _TABLES + [_P, _P, _I, _I, _I] + _STEP + [_P],
     # lights cam px py | B spp eye_depth max_path_iters max_total | k0 k1
     # start total | clamp stub_mis blocks_col | work img

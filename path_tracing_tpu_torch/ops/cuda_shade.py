@@ -264,15 +264,11 @@ def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
     if B:
         ins = [light_tab, ro, rd, tp, eta, depth, act, last_delta, last_pdf,
                u]
-        # #3's next span of lanes to hand out (its persistent warps)
-        work = ([torch.zeros(1, dtype=torch.int32, device=dev)]
-                if name in ("shade_step", "shade_step_counts") else [])
         _kernels.launch(
             name, *table_args(packed), *extra,
             *[ctypes.c_void_p(x.data_ptr()) for x in ins],
             B, float(clamp_val), int(bool(stub_mis)),
             4 if dielectrics_block else 5,
-            *[ctypes.c_void_p(x.data_ptr()) for x in work],
             *[ctypes.c_void_p(x.data_ptr()) for x in out.values()],
             *([] if counts is None else [ctypes.c_void_p(counts.data_ptr())]))
     return out
