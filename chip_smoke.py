@@ -12,10 +12,12 @@ Phases, each raising on failure:
    and warps per SM at the launch shape, registers, local and shared
    bytes) of each BDPT kernel, for #9 on cornell against the main path's
    K = 32 tables and the exact table, for #8 against the exact table (its
-   path's), and of #3, #5, #10 and #11 and their counting builds.
+   path's), and of #1, #2, #3, #5, #10 and #11 and their counting
+   builds.
 3. Kernels against their plain PyTorch versions at the main path's lane
    count (1920x1080 = 2,073,600), with their times (CUDA events):
-   ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` and
+   ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` (both
+   without a mask: every lane walked) and
    ``shade_step`` on ``scenes/cornell.txt``; #3's counting build
    (``shade_step_counts``) over every bounce of a 128x72 spp 4 fused frame
    on cornell (outputs bit-equal to #3's, counters summed over the bounces
@@ -40,8 +42,10 @@ Phases, each raising on failure:
    shadow step, the share of each warp's lane-iterations that are busy
    (against one thread a pixel, from the plain counts) and #5's bound
    from the plain counts.  Then #1 at the shapes its main paths launch it
-   on: the first launch of the PPM eye pass (262,144 rays) and of the
-   BDPT light trace, recorded from the integrators' own calls.
+   on, recorded from the integrators' own calls: every launch of the PPM
+   eye pass (262,144 lanes, its alive lanes live), each bit-equal to its
+   plain version on every lane and timed device-only, and the first
+   launch of the BDPT light trace.
 4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
    the default tier (auto, which is the megakernel: the main path), the
    fused tier (one ``shade_step`` per bounce) and the split tier (the
@@ -49,7 +53,19 @@ Phases, each raising on failure:
    are counted over each render on its own; no plain version may run.  The
    mega image must equal the fused image pixel for pixel (bar: 99.9%).
    Then 128x72 spp 4 in the kernel tiers and the plain tier from the same
-   key, compared pixel by pixel.
+   key, compared pixel by pixel.  #1's and #2's launches in the two split
+   frames are recorded where the wrappers launch, with their masks
+   (``kernel_times.record_launches``): each of the 1080p frame's 47 + 47
+   bit-equal to its plain version on every lane (the lanes that are not
+   live with the miss record or false) and timed device-only (CUDA-graph
+   replay); the counting builds (``nearest_hit_counts``,
+   ``any_blocker_counts``) bit-equal to the kernels, their counters (the
+   walks' sphere, box and triangle tests) summed over the 128x72 frame's
+   launches equal to the plain versions' exactly and within 0.1% on the
+   1080p frame's first launch, whose time and bound (the live lanes'
+   rays, the mask and every lane's record; the walks' counted tests)
+   are #1's and #2's, beside the floor (each live lane's spheres and every
+   box).
 5. Textured PT: an 81,920-triangle textured icosphere (2,048 clusters,
    128 supers) written as OBJ + MTL + PNG, rendered through the CLI at
    1920x1080 spp 4 (auto: the fused tier with ``shade_step_tex``), the
@@ -94,11 +110,14 @@ Phases, each raising on failure:
    ``connect``, fused launches ``connect`` per bounce; both trace the light
    paths with ``nearest_hit`` and ``threefry_rows``; no plain version may
    run; #8 is timed (CUDA events) on each of the fused frame's launches,
-   beside its active lanes.  The exact mega image must equal the fused
-   one on >= 99.9% of pixels.  Then the BDPT ground truth,
-   ``render_oracle`` on cornell at 256x256 spp 16 (spl 8, BASELINE config
-   1's shape), whose auto tier is the fused one: rendered twice, the two
-   images bit-equal, with its wall time and #8's launches.
+   beside its active lanes, and #1's 56 launches there (the light
+   trace's and the eye pass's) are recorded, each held bit for bit
+   against its plain version on every lane and timed device-only.  The
+   exact mega image must equal the fused one on >= 99.9% of pixels.  Then
+   the BDPT ground truth, ``render_oracle`` on cornell at 256x256 spp 16
+   (spl 8, BASELINE config 1's shape), whose auto tier is the fused one:
+   rendered twice, the two images bit-equal, with its wall time and #8's
+   launches.
 8. PPM kernels against their plain versions on cornell at the main path's
    shape, the CLI's first 512x512 PPM pass (4 lights x 262,144 = 1,048,576
    photons, eye and light depth 4, seed 0), built by the integrator's own
@@ -180,21 +199,25 @@ The line before the last is a JSON object with one entry per kernel, whose
 (``path``), with the kernel's bound: the larger of the bytes it must move
 over 3.35 TB/s and the operations it must do over 67 TFLOP/s (float32
 outside the tensor cores; the H100 SXM's published peaks, at 700 W), with
-the operations counted per PERF.md section 6: for #3-#11 from the plain
+the operations counted per PERF.md section 6: for #1-#11 from the plain
 versions' counts of their algorithm's work in this run, which the
 counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
 must equal; #6 and #7 also carry the lane count of their plain time,
 their time on unsorted rays and their per-bounce times, #4 its plain
 time's lane count, #1 its times at the PPM eye pass's and the BDPT light
 trace's first launch and on the big mesh's first bounce (``big_mesh``),
-#3 its time on each bounce of the fused frame (recorded, then timed one
-by one) and #8 on each launch of the fused exact frame (``per_launch``),
+its device time on each launch of the split frame (``per_launch``, summed
+in ``split_ms``) and of the BDPT fused exact frame (``bdpt_fused``) and
+on each of the PPM eye pass's (``ppm_eye``), #2 on each of the split
+frame's, #3 its time on each bounce of the fused frame (recorded, then
+timed one by one) and #8 on each launch of the fused exact frame (``per_launch``),
 #8 the oracle's wall times and launches (``oracle``),
-``floor_ms`` #6's bound without the flat super list's box tests and #3's,
-#4's and #7's floors (every cast's spheres and the boxes every ray tests,
-its octant's super list; #3's and #4's with their samples, evaluations and
-pdfs).  The counting builds of #3, #4, #5, #6, #7, #10 and #11
-(``shade_step_counts``, ``shade_step_tex_counts``,
+``floor_ms`` #6's bound without the flat super list's box tests and #1's,
+#2's, #3's, #4's and #7's floors (every cast's spheres and the boxes every
+ray tests, its octant's super list; #3's and #4's with their samples,
+evaluations and pdfs).  The counting builds of #1-#7, #10 and #11
+(``nearest_hit_counts``, ``any_blocker_counts``,
+``shade_step_counts``, ``shade_step_tex_counts``,
 ``render_wavefront_counts``, ``nearest_hit_stream_counts``,
 ``any_blocker_stream_counts``, ``photon_trace_counts``,
 ``gather_flux_counts``) have entries of their
@@ -250,8 +273,9 @@ REPLACES = {
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
 }
-for _k in ("render_wavefront", "shade_step", "shade_step_tex", "photon_trace",
-           "gather_flux", "nearest_hit_stream", "any_blocker_stream"):
+for _k in ("nearest_hit", "any_blocker", "render_wavefront", "shade_step",
+           "shade_step_tex", "photon_trace", "gather_flux",
+           "nearest_hit_stream", "any_blocker_stream"):
     REPLACES[f"{_k}_counts"] = REPLACES[_k]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
@@ -269,9 +293,10 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
                "onehot_fetch")
 # the kernels with a counting build (their *_counts entries)
-COUNTED = ("connect", "bdpt_eye", "render_wavefront", "shade_step",
-           "shade_step_tex", "photon_trace", "gather_flux",
-           "nearest_hit_stream", "any_blocker_stream")
+COUNTED = ("nearest_hit_uv", "nearest_hit", "any_blocker", "connect",
+           "bdpt_eye", "render_wavefront", "shade_step", "shade_step_tex",
+           "photon_trace", "gather_flux", "nearest_hit_stream",
+           "any_blocker_stream")
 # The path whose render each kernel's launches are counted over, and the
 # kernels each path must launch.  The megakernel and the per-bounce kernels
 # run the nearest-hit and shadow sweeps as __device__ functions, so
@@ -284,6 +309,8 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "photon_trace": "ppm", "gather_flux": "ppm",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
+               "nearest_hit_counts": "hit_counting",
+               "any_blocker_counts": "shadow_counting",
                "render_wavefront_counts": "pt_counting",
                "shade_step_counts": "step_counting",
                "shade_step_tex_counts": "tex_counting",
@@ -304,6 +331,8 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "stream": ("nearest_hit_stream", "any_blocker_stream",
                            "threefry_rows"),
                 "probe": ("onehot_fetch",),
+                "hit_counting": ("nearest_hit_counts",),
+                "shadow_counting": ("any_blocker_counts",),
                 "pt_counting": ("render_wavefront_counts",),
                 "step_counting": ("shade_step_counts",),
                 "tex_counting": ("shade_step_tex_counts",),
@@ -320,9 +349,9 @@ PROBE_ROWS, PROBE_D = 128, (4352, 16640, 66048)   # bench.py's texprobe shapes
 # test of a sphere or light ball, of a cluster box and of a triangle; one
 # BSDF sample, one BSDF evaluation, one BSDF pdf, one Threefry draw
 # (integer operations, counted at the float32 rate), one hitpoint-event
-# distance test and the geometry of one BDPT connection row.  #1-#4 and #7
-# count the spheres and boxes of every ray of the first bounce (their
-# bounds are floors).  #5, #6, #8-#11 count the work their algorithm does,
+# distance test and the geometry of one BDPT connection row.  The floors
+# of #1-#4 and #7 count the spheres and boxes of every live ray.  #1-#11
+# count the work their algorithm does,
 # as the plain versions count it on the same inputs (the counting builds
 # are held to those counts): the evaluations and pdfs where they run, and
 # each walk's tests in the kernels' order.  So theirs bound the
@@ -518,8 +547,8 @@ def phase_occupancy() -> dict:
     """Resident blocks and warps per SM of each BDPT kernel: #9's launch on
     cornell against the main path's K = 32 tables and the exact sweep's
     813 rows (streamed), #8's against the exact sweep's (the table resident
-    in shared memory); then of #3, #5, #10 and #11 and their counting
-    builds."""
+    in shared memory); then of #1, #2, #3, #5, #10 and #11 and their
+    counting builds."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
 
     occ = {}
@@ -534,13 +563,14 @@ def phase_occupancy() -> dict:
                   f"registers, {o['local_bytes']} B local, "
                   f"{o['smem_bytes']} B shared")
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
     from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
-    for k, o in {**cs.occupancy(), **cw.occupancy(), **cp.occupancy(),
-                 **cg.occupancy()}.items():
+    for k, o in {**ci.occupancy(), **cs.occupancy(), **cw.occupancy(),
+                 **cp.occupancy(), **cg.occupancy()}.items():
         occ[k] = o
         print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
               f"{o['threads']} threads = {o['warps_per_sm']} warps an SM, "
@@ -829,11 +859,12 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     rrd = shadow_ray(torch.zeros_like(rro), (ur[3:6].T - 0.5).contiguous())[0]
     err = max(compare_hits(pk, o, d, False, "cornell")
               for o, d in ((rro, rrd), (ro, rd)))
-    results.append(dict(
-        name="nearest_hit", max_abs_err=err,
+    # (without a mask: every lane walked, one thread a lane; #1's and #2's
+    # rows take their times and bounds from the split frame, phase_lanes)
+    unmasked = dict(nearest_hit=dict(
         ms=time_ms(lambda: ci.nearest_hit(pk, ro, rd), 10),
-        plain_ms=time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3),
-        **bound(B * (24 + 44), B * cast_ops(pk))))
+        plain_ms=time_ms(lambda: ci.nearest_hit_plain(pk, ro, rd), 3)))
+    results.append(dict(name="nearest_hit", max_abs_err=err))
 
     # ---- 2. any blocker: NEE-like shadow rays from the camera hits ----
     hit = ci.nearest_hit(pk, ro, rd)
@@ -857,12 +888,14 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
             err = max(err, (a.float() - b.float()).abs().max().item())
         print(f"[kernels] any_blocker dielectrics_block={rule}: verdicts "
               f"equal on {pr1.shape[0]} random and {B} NEE rays")
-    results.append(dict(
-        name="any_blocker", max_abs_err=err,
+    unmasked["any_blocker"] = dict(
         ms=time_ms(lambda: ci.any_blocker(pk, p1, srd, md, True), 10),
         plain_ms=time_ms(
-            lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3),
-        **bound(B * (28 + 1), B * cast_ops(pk, shadow=True))))
+            lambda: ci.any_blocker_plain(pk, p1, srd, md, True), 3))
+    results.append(dict(name="any_blocker", max_abs_err=err))
+    for k, r in unmasked.items():
+        print(f"[kernels] {k} without a mask on {B} lanes: {r['ms']:.3f} ms "
+              f"kernel, {r['plain_ms']:.3f} ms plain")
 
     # ---- 3. shade step on the state after two plain bounces; its counting
     # build over a 128x72 fused frame; then on the 1080p fused frame's
@@ -957,9 +990,10 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     for r in results:
         check(math.isfinite(r["max_abs_err"]),
               f"{r['name']}: max abs err {r['max_abs_err']}")
-        print(f"[kernels] {r['name']}: {r['ms']:.3f} ms kernel, "
-              f"{r['plain_ms']:.3f} ms plain, max abs err "
-              f"{r['max_abs_err']:.3g}")
+        if "ms" in r:
+            print(f"[kernels] {r['name']}: {r['ms']:.3f} ms kernel, "
+                  f"{r['plain_ms']:.3f} ms plain, max abs err "
+                  f"{r['max_abs_err']:.3g}")
     return results, tex_small_err
 
 
@@ -1042,7 +1076,11 @@ def small_tiers(scene_src, tiers, what):
         compare(imgs["plain"], imgs[t], f"{what} 128x72 {t} vs plain")
 
 
-def phase_render(counts: dict) -> None:
+def phase_render(counts: dict) -> tuple:
+    """The PT tiers on cornell; returns the #1 and #2 launches of the
+    1080p split frame and of the 128x72 one, recorded as the wrappers
+    made them (``kernel_times.record_launches``)."""
+    from path_tracing_tpu_torch.kernel_times import record_launches
     from path_tracing_tpu_torch.scene.parser import load_scene
 
     OUT.mkdir(parents=True, exist_ok=True)
@@ -1055,11 +1093,124 @@ def phase_render(counts: dict) -> None:
           and counts["mega"]["shade_step"] == 0,
           f"mega path launches {counts['mega']}")
     fused = counted("fused", SCENE, W, H, "fused", "pt_1080p_fused", counts)
-    split = counted("split", SCENE, W, H, "split", "pt_1080p_split", counts)
+    split, launches = record_launches(lambda: counted(
+        "split", SCENE, W, H, "split", "pt_1080p_split", counts))
     compare(fused["image"], mega["image"], "1080p mega vs fused", 0.999)
     compare(fused["image"], split["image"], "1080p split vs fused")
-    small_tiers(load_scene(str(SCENE)), ("mega", "fused", "split"),
-                "cornell")
+    _, small = record_launches(lambda: small_tiers(
+        load_scene(str(SCENE)), ("mega", "fused", "split"), "cornell"))
+    return launches, small
+
+
+HIT_ROWS = 11   # #1's record: 10 float rows and the flag
+WALK_KEYS = {"nearest_hit": ("hit_spheres", "hit_boxes", "hit_tris"),
+             "any_blocker": ("shadow_spheres", "shadow_boxes",
+                             "shadow_tris")}
+
+
+def same_launch(name: str, a, b) -> bool:
+    """#1's fields or #2's verdicts equal bit for bit on every lane."""
+    return torch.equal(a, b) if name == "any_blocker" else same_bits(a, b)
+
+
+def hold_launches(name: str, calls: list, what: str) -> list:
+    """Each recorded launch of #1 or #2 (``record_launches``' argument
+    tuples) against its plain version on the same inputs, bit for bit on
+    every lane (the lanes that are not live with the miss record or
+    false); returns each launch's device time (graph replay of 10 calls)
+    and live lanes."""
+    from path_tracing_tpu_torch.kernel_times import graph_ms
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+
+    fast, plain = getattr(ci, name), getattr(ci, f"{name}_plain")
+    rows = []
+    for i, a in enumerate(calls):
+        check(same_launch(name, fast(*a), plain(*a)),
+              f"{name} {what}: launch {i} differs from its plain version")
+        rows.append(dict(ms=graph_ms(lambda a=a: fast(*a), 10, 5),
+                         live=int(a[-1].sum())))
+    total = sum(r["ms"] for r in rows)
+    print(f"[kernels] {name} on each of the {what}'s {len(rows)} launches, "
+          f"every lane bit-equal to the plain version (device ms / live "
+          f"lanes of {calls[0][1].shape[0]}): "
+          + ", ".join(f"{r['ms']:.4f} / {r['live']}" for r in rows)
+          + f"; {total:.3f} ms in all")
+    return rows
+
+
+def lanes_bound(name: str, a: tuple, pc: dict) -> tuple:
+    """#1's or #2's bound on launch ``a`` from the plain counts ``pc`` of
+    its live lanes' walks: the bytes of the live lanes' rays, the mask and
+    every lane's record; the walks' counted tests.  And the floor beside
+    it: each live lane's spheres and the boxes every ray tests
+    (``cast_ops``)."""
+    pk, B, live = a[0], a[1].shape[0], int(a[-1].sum())
+    if name == "nearest_hit":
+        nbytes = live * 24 + B + B * 4 * (HIT_ROWS + 3 * a[3])
+    else:
+        nbytes = live * 28 + B + B
+    floor = live * cast_ops(pk, shadow=name == "any_blocker")
+    return bound(nbytes, walk_ops(pc)), bound(nbytes, floor)["bound_ms"]
+
+
+def phase_lanes(split: dict, small: dict, counts: dict, rows: dict) -> list:
+    """#1 and #2 on the launches of the 1080p split frame (recorded by
+    ``phase_render``): each launch bit-equal to its plain version on
+    every lane and timed; the counting builds on every launch of the
+    128x72 split frame (outputs the kernel's bit for bit, counters summed
+    the plain version's exactly) and on the 1080p frame's first launch
+    (within 0.1%); each kernel's row (``rows``) takes that first launch's
+    time (every lane live), its plain time and its bound counted from the
+    plain counts, beside the floor, and the counting build gets a row of
+    its own."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+
+    out = []
+    for name, path in (("nearest_hit", "hit_counting"),
+                       ("any_blocker", "shadow_counting")):
+        fast, plain = getattr(ci, name), getattr(ci, f"{name}_plain")
+        counting = getattr(ci, f"{name}_counts")
+        keys = WALK_KEYS[name]
+        per_launch = hold_launches(name, split[name], "1080p split frame")
+        kc, pc = cc.new_counts(), cc.new_counts()
+        for a in small[name]:
+            o, c = counting(*a)
+            check(same_launch(name, o, fast(*a)),
+                  f"{name}_counts 128x72: its outputs differ from {name}'s")
+            plain(*a, counts=pc)
+            for k in keys:
+                kc[k] += c[k]
+        hold_counts(f"{name} {SMALL_W}x{SMALL_H} split frame "
+                    f"({len(small[name])} launches)", kc, pc, keys, True)
+        first = split[name][0]
+        _kernels.reset_counts()
+        o, kc = counting(*first)
+        counts[path] = dict(_kernels.launches)
+        check(same_launch(name, o, fast(*first)),
+              f"{name}_counts: its outputs differ from {name}'s")
+        pc = cc.new_counts()
+        _, count_ms = once_ms(lambda: plain(*first, counts=pc))
+        hold_counts(f"{name} 1080p split frame's first launch", kc, pc, keys,
+                    False)
+        bnd, floor_ms = lanes_bound(name, first, pc)
+        ms = time_ms(lambda: fast(*first), 10)
+        live = int(first[-1].sum())
+        print(f"[kernels] {name} on the split frame's first launch ({live} "
+              f"live of {first[1].shape[0]}): {ms:.4f} ms, counted bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+              f"{bnd['bound_ms'] / ms:.4f} of the kernel), floor "
+              f"{floor_ms:.4f} ms; tests "
+              f"{ {k: pc[k] for k in keys} }")
+        rows[name].update(ms=ms, plain_ms=time_ms(lambda: plain(*first), 3),
+                          counts={k: kc[k] for k in keys}, floor_ms=floor_ms,
+                          per_launch=per_launch,
+                          split_ms=sum(r["ms"] for r in per_launch), **bnd)
+        out.append(dict(name=f"{name}_counts", max_abs_err=0.0,
+                        ms=time_ms(lambda: counting(*first), 3),
+                        plain_ms=count_ms, **bnd))
+    return out
 
 
 def tex_main_shape(args, kw, small_err: float, counts: dict) -> list:
@@ -1194,31 +1345,6 @@ def bdpt_frame(scene, cam, K: int):
     px, py = idx % W, idx // W
     tab, n_valid = bdpt.light_table(used, lv, cam, cfg, px, py, key)
     return cfg, key, used, tab, n_valid, px, py, scale
-
-
-def graph_ms(fn, n: int = 100, reps: int = 10) -> float:
-    """Device milliseconds a call of ``fn``: ``n`` calls captured in one
-    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
-    enqueue is left out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * n)
 
 
 def once_ms(fn):
@@ -1445,9 +1571,13 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     return results, ris_img.cpu().numpy()
 
 
-def phase_bdpt_render(counts: dict, ris_img) -> list:
+def phase_bdpt_render(counts: dict, ris_img) -> tuple:
     """The BDPT main path and the exact sweep through the CLI; returns #8's
-    time and active lanes on each launch of the fused exact frame."""
+    time and active lanes on each launch of the fused exact frame, and #1's
+    on each of that frame's launches (the light trace's and the eye
+    pass's), each held bit for bit against its plain version."""
+    from path_tracing_tpu_torch.kernel_times import record_launches
+
     bdpt = ["--spl", str(SPL), "--light-depth", "4"]
     run_cli(SCENE, SMALL_W, SMALL_H, "auto", "bdpt_warmup", "bdpt",
             bdpt + ["--resample", str(RIS_K)])
@@ -1467,9 +1597,10 @@ def phase_bdpt_render(counts: dict, ris_img) -> list:
                     counts, "bdpt", bdpt + ["--resample", "0"])
     check(counts["bdpt_exact"]["connect"] == 0,
           f"BDPT exact mega launches {counts['bdpt_exact']}")
-    fused, launches = connect_launches(lambda: counted(
-        "bdpt_fused", SCENE, W, H, "fused", "bdpt_1080p_fused", counts,
-        "bdpt", bdpt + ["--resample", "0"]))
+    (fused, launches), hits = record_launches(lambda: connect_launches(
+        lambda: counted("bdpt_fused", SCENE, W, H, "fused",
+                        "bdpt_1080p_fused", counts, "bdpt",
+                        bdpt + ["--resample", "0"])))
     check(counts["bdpt_fused"]["bdpt_eye"] == 0,
           f"BDPT fused launches {counts['bdpt_fused']}")
     compare(fused["image"], exact["image"], "BDPT 1080p exact mega vs fused",
@@ -1478,7 +1609,8 @@ def phase_bdpt_render(counts: dict, ris_img) -> list:
           f"{len(launches)} launches (ms / active lanes): "
           + ", ".join(f"{x['ms']:.3f} / {x['active']}" for x in launches)
           + f"; {sum(x['ms'] for x in launches):.1f} ms in all")
-    return launches
+    return launches, hold_launches("nearest_hit", hits["nearest_hit"],
+                                   "BDPT 1080p fused exact frame")
 
 
 class _DeviceBools:
@@ -1986,14 +2118,16 @@ def per_bounce(st, lanes, res: dict) -> None:
 
 
 def retime_nearest_hit(parsed, row: dict) -> None:
-    """#1 at the shapes its main paths launch it on: the first launch of
-    the PPM eye pass (the first 512x512 pass of cornell, 262,144 rays) and
-    of the BDPT light trace (the 1080p frame's, spl 8), recorded from the
-    integrators' own calls; adds each time (device-only by CUDA-graph
-    replay, and with the host's enqueue), lane count and bound to #1's row
-    beside its 1080p time."""
+    """#1 at the shapes its main paths launch it on, recorded from the
+    integrators' own calls: every launch of the PPM eye pass (the first
+    512x512 pass of cornell, 262,144 rays), each held bit for bit against
+    its plain version and timed device-only (CUDA-graph replay), and the
+    first launch of the BDPT light trace (the 1080p frame's, spl 8); adds
+    each first launch's time (device-only, and with the host's enqueue),
+    lane count and bound to #1's row."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt, ppm
+    from path_tracing_tpu_torch.kernel_times import graph_ms, record_launches
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
@@ -2007,30 +2141,23 @@ def retime_nearest_hit(parsed, row: dict) -> None:
                            eye_depth=4, light_depth=4)
     bdpt_cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
                             light_depth=4, bdpt_resample_vertices=RIS_K)
-    for what, mod, call in (
-            ("ppm_eye", ppm, lambda: ppm.ppm_eye_trace(
+    for what, call in (
+            ("ppm_eye", lambda: ppm.ppm_eye_trace(
                 scene, cam, ppm_cfg, idx % PPM_W, idx // PPM_W,
                 rng.fold_in(key, 1))),
-            ("bdpt_light", bdpt, lambda: bdpt.light_side(scene, bdpt_cfg, SPL,
-                                                         key))):
-        got, own = [], mod.nearest_hit
-
-        def first(pk, ro, rd, **kw):
-            if not got:
-                got.append((pk, ro.clone(), rd.clone()))
-            return own(pk, ro, rd, **kw)
-
-        mod.nearest_hit = first
-        try:
-            call()
-        finally:
-            mod.nearest_hit = own
-        pk, ro, rd = got[0]
-        n = ro.shape[0]
+            ("bdpt_light", lambda: bdpt.light_side(scene, bdpt_cfg, SPL,
+                                                   key))):
+        calls = record_launches(call)[1]["nearest_hit"]
+        a = calls[0]
+        pk, n = a[0], a[1].shape[0]
         row[what] = dict(
-            rays=n, ms=graph_ms(lambda: ci.nearest_hit(pk, ro, rd), 20),
-            host_ms=time_ms(lambda: ci.nearest_hit(pk, ro, rd), 20),
-            **bound(n * (24 + 44), n * cast_ops(pk)))
+            rays=n, live=int(a[-1].sum()),
+            ms=graph_ms(lambda: ci.nearest_hit(*a), 20),
+            host_ms=time_ms(lambda: ci.nearest_hit(*a), 20),
+            **bound(n * (24 + 1 + HIT_ROWS * 4), n * cast_ops(pk)))
+        if what == "ppm_eye":
+            row[what]["per_launch"] = hold_launches(
+                "nearest_hit", calls, f"{PPM_W}x{PPM_H} PPM eye pass")
         print(f"[kernels] nearest_hit on the {what} path's first launch: "
               f"{n} rays, {row[what]['ms']:.4f} ms device-only (graph "
               f"replay), {row[what]['host_ms']:.4f} ms a call with the host,"
@@ -2045,7 +2172,7 @@ def phase_mesh_kernels(counts: dict) -> tuple:
     rays, and #7 on random shadow segments through the mesh; #12
     at the probe's shapes.  Writes the frame's OBJ; returns the results and
     its path."""
-    from path_tracing_tpu_torch.kernel_times import shadow_segments
+    from path_tracing_tpu_torch.kernel_times import graph_ms, shadow_segments
     from path_tracing_tpu_torch.ops import _kernels
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_stream as cst
@@ -2294,9 +2421,11 @@ def main() -> int:
     counts: dict = {}
     results, tex_small_err = phase_kernels(
         p.to_device("cuda"), cam, m.to_device("cuda"), mesh_cam, counts)
-    retime_nearest_hit(p, next(r for r in results
-                               if r["name"] == "nearest_hit"))
-    phase_render(counts)
+    rows = {r["name"]: r for r in results}
+    retime_nearest_hit(p, rows["nearest_hit"])
+    split, small = phase_render(counts)
+    results += phase_lanes(split, small, counts, rows)
+    del split, small
     results += phase_textured(counts, tex_small_err)
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
     for r in bdpt_results:
@@ -2304,13 +2433,15 @@ def main() -> int:
                                    else "tile-RIS"][r["name"]]
     results += bdpt_results
     conn = next(r for r in bdpt_results if r["name"] == "connect")
-    conn["per_launch"] = phase_bdpt_render(counts, ris_img)
+    conn["per_launch"], hits = phase_bdpt_render(counts, ris_img)
+    rows["nearest_hit"]["bdpt_fused"] = dict(
+        launches=len(hits), ms=sum(r["ms"] for r in hits), per_launch=hits)
     conn["oracle"] = phase_oracle(counts)
     ppm_results, pass0 = phase_ppm_kernels(p, counts)
     results += ppm_results
     phase_ppm_render(counts, pass0)
     mesh_results, obj, big = phase_mesh_kernels(counts)
-    next(r for r in results if r["name"] == "nearest_hit")["big_mesh"] = big
+    rows["nearest_hit"]["big_mesh"] = big
     results += mesh_results
     phase_big_render(counts, obj)
     for r in results:
@@ -2324,7 +2455,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("plain_lanes", "unsorted_ms", "per_bounce", "per_launch",
-             "oracle", "ppm_eye",
+             "split_ms", "bdpt_fused", "oracle", "ppm_eye",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
              "occupancy", "host_ms", "library_host_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

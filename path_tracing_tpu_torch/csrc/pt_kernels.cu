@@ -8,8 +8,9 @@
 // ulps; no --use_fast_math.
 //
 // One thread per lane (ray or pixel), masked i < B; #5's persistent
-// threads take one pixel at a time.  Scene tables are read from global
-// memory through const __restrict__ pointers: the text scenes are a few KB
+// threads take one pixel at a time, #2's persistent warps 32 live lanes.
+// Scene tables are read from global memory through const __restrict__
+// pointers: the text scenes are a few KB
 // and stay in L1/L2, a 81,920-triangle mesh is 11 MB and stays in the 50 MB
 // L2.  No float atomics (#5's integer counter only hands out pixels); every
 // output is a pure function of the lane's inputs, so a render is
@@ -18,7 +19,8 @@
 // 1. nearest_hit       replaces path_tracing_tpu/ops/pallas_intersect.py
 //                      nearest_hit_pallas (_nearest_kernel /
 //                      _nearest_vmem_body); nearest_hit_uv is its with_uv
-//                      form (iu, iv, tex of the winning triangle).
+//                      form (iu, iv, tex of the winning triangle).  Both
+//                      take the lanes whose result is read (live).
 // 2. any_blocker       replaces pallas_intersect.py any_blocker_pallas
 //                      (_blocker_kernel / _blocker_vmem_body).
 // 3. shade_step        replaces path_tracing_tpu/ops/pallas_shade.py
@@ -91,6 +93,29 @@
 // launches in 23.8-24.5 ms but a full bounce in 0.68-0.72, and the whole
 // frame (70-78 ms) could not tell them apart: dropped as the larger
 // design.  10 and 12 blocks an SM: 2-5% slower over the frame's launches.
+//
+// #1's and #2's design for this card.  Every caller hands over the lanes
+// whose result it reads (live: the bounce's active or NEE-eligible lanes,
+// the eye passes' and the light trace's alive ones); a launch walks only
+// those and writes the miss record (#1) or false (#2) on the others,
+// which is all a lane that is not live costs: its mask byte read and its
+// record written.  Bounded by the live lanes' walks (operations; on
+// cornell's flat walk every ray tests every box) and, on the thin launches
+// of a frame's tail, by the records of the lanes that are not live.  An
+// instance per walk (the flat one below 64 clusters).  #1 one thread a
+// lane at 10 blocks of 128 an SM (48 registers); #2 on persistent warps
+// that take spans of 32 lanes from a counter and walk the live ones 32 at
+// a time (LaneQueue), 8 blocks an SM.  Measured on an H100 80GB HBM3 at
+// 700 W in turns, device-only, every live lane bit-equal to the parent
+// (PERF.md section 6): #1 1.8x the parent over the split 1080p frame's 47
+// launches and 1.5x over the BDPT fused exact frame's 56, a full-lane
+// bounce level with it; #2 1.34x over the split frame's 47.  #1 on
+// LaneQueue's warps ran the split frame's launches 8% slower, the BDPT
+// frame's 7% faster (no order over both) and the PPM eye pass's 33%
+// slower; #2 one thread a lane 13% slower.  #1 at 8 blocks an SM 1.7%
+// slower than at 10 (12: slower still); #2 at 10 or 12 blocks 2.4-7%
+// slower than at 8.  The counting builds (kCount) count the walks'
+// sphere, box and triangle tests.
 
 #include <algorithm>
 #include <type_traits>
@@ -101,13 +126,38 @@ using namespace ptk;
 
 namespace {
 
-__global__ void nearest_hit_kernel(Tables tb, const float* __restrict__ ro,
-                                   const float* __restrict__ rd, int B, float* __restrict__ out,
-                                   int* __restrict__ flag) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  HitRec h = nearest_hit_dev<false>(tb, load3(ro, i), load3(rd, i));
-  // fields as rows of a (10, B) table: t n3 bc3 rough metal eta
+// ---------------------------------------------------------------------------
+// #1 nearest_hit and #2 any_blocker
+// ---------------------------------------------------------------------------
+
+constexpr int kHitMinBlocks = 10;    // #1's __launch_bounds__: 40 warps an SM
+constexpr int kShadowMinBlocks = 8;  // #2's: 32 warps an SM
+// Whether a launch with a mask runs on persistent warps that take the
+// live lanes 32 at a time (LaneQueue), or one thread a lane: #1 one
+// thread a lane, #2 queued (measured, PERF.md section 6)
+constexpr bool kHitQueue = false;
+constexpr bool kShadowQueue = true;
+
+__device__ int g_lane_work;  // the next span of lanes of a queued launch
+
+// The record of a lane that is not live, as nearest_hit_plain writes it:
+// a miss (t = kInf, normal, material and flag 0; iu, iv 0, tex -1).
+__device__ __forceinline__ HitRec miss_rec() {
+  HitRec h;
+  h.t = kInf;
+  h.n = mk(0.f, 0.f, 0.f);
+  h.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
+  h.flag = 0;
+  h.iu = h.iv = 0.f;
+  h.tex = -1.f;
+  return h;
+}
+
+// Lane i's record as rows of a (10, B) table -- t n3 bc3 rough metal eta
+// -- and, with kUV, rows 10-12 iu iv tex; the flag apart.
+template <bool kUV>
+__device__ __forceinline__ void store_hit(float* __restrict__ out, int* __restrict__ flag, int B,
+                                          int i, const HitRec& h) {
   out[0 * B + i] = h.t;
   out[1 * B + i] = h.n.x;
   out[2 * B + i] = h.n.y;
@@ -118,38 +168,97 @@ __global__ void nearest_hit_kernel(Tables tb, const float* __restrict__ ro,
   out[7 * B + i] = h.m.rough;
   out[8 * B + i] = h.m.metal;
   out[9 * B + i] = h.m.eta;
+  if (kUV) {
+    out[10 * B + i] = h.iu;
+    out[11 * B + i] = h.iv;
+    out[12 * B + i] = h.tex;
+  }
   flag[i] = h.flag;
 }
 
-// nearest_hit with the winner's UVs: a (13, B) table, rows 10-12 iu iv tex
-__global__ void nearest_hit_uv_kernel(Tables tb, const float* __restrict__ ro,
-                                      const float* __restrict__ rd, int B,
-                                      float* __restrict__ out, int* __restrict__ flag) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  HitRec h = nearest_hit_dev<true>(tb, load3(ro, i), load3(rd, i));
-  out[0 * B + i] = h.t;
-  out[1 * B + i] = h.n.x;
-  out[2 * B + i] = h.n.y;
-  out[3 * B + i] = h.n.z;
-  out[4 * B + i] = h.m.bc.x;
-  out[5 * B + i] = h.m.bc.y;
-  out[6 * B + i] = h.m.bc.z;
-  out[7 * B + i] = h.m.rough;
-  out[8 * B + i] = h.m.metal;
-  out[9 * B + i] = h.m.eta;
-  out[10 * B + i] = h.iu;
-  out[11 * B + i] = h.iv;
-  out[12 * B + i] = h.tex;
-  flag[i] = h.flag;
+// The lanes of a launch of #1 or #2: run(i) walks live lane i, skip(i)
+// writes what a lane that is not live gets.  Without a mask (live null)
+// or without kQueue, one thread a lane; with both, the persistent warps
+// of LaneQueue take spans of 32 lanes from g_lane_work (zeroed by the
+// launch) and run the live ones 32 at a time.  Every lane of every warp
+// returns here, so a counting build can flush after it.
+template <bool kQueue, class Run, class Skip>
+__device__ __forceinline__ void for_lanes(const bool* __restrict__ live, int B, Run run,
+                                          Skip skip) {
+  if constexpr (kQueue) {
+    if (live) {
+      __shared__ int lanes[kThreads / 32][64];
+      LaneQueue lq{lanes[threadIdx.x >> 5], 0, true};
+      for (;;) {
+        lq.fill(&g_lane_work, B, live, skip);
+        const int nb = min(lq.n, 32);
+        if (nb == 0) break;
+        if ((int)(threadIdx.x & 31) < nb) run(lq.q[threadIdx.x & 31]);
+        lq.pop(nb);
+      }
+      return;
+    }
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B) {
+    if (!live || live[i])
+      run(i);
+    else
+      skip(i);
+  }
 }
 
-__global__ void any_blocker_kernel(Tables tb, const float* __restrict__ p1,
-                                   const float* __restrict__ rd, const float* __restrict__ max_d,
-                                   int B, int blocks_col, bool* __restrict__ out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  out[i] = shadow_blocked_dev(tb, load3(p1, i), load3(rd, i), max_d[i], blocks_col);
+template <bool kCount, bool kUV, int kW>
+__device__ __forceinline__ void nearest_hit_lanes(const Tables& tb, const float* __restrict__ ro,
+                                                  const float* __restrict__ rd,
+                                                  const bool* __restrict__ live, int B,
+                                                  float* __restrict__ out, int* __restrict__ flag,
+                                                  unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, Count, NoCount>::type cnt;
+  for_lanes<kHitQueue>(
+      live, B,
+      [&](int i) {
+        store_hit<kUV>(out, flag, B, i,
+                       nearest_hit_dev<kUV, kW>(tb, load3(ro, i), load3(rd, i), cnt));
+      },
+      [&](int i) { store_hit<kUV>(out, flag, B, i, miss_rec()); });
+  if constexpr (kCount) cnt.flush(counts);
+}
+
+// #1.  kCount: the counting build (the walk's sphere, box and triangle
+// tests); kW: the walk (an instance per walk, WalkKind).
+template <bool kCount, int kW>
+__global__ void __launch_bounds__(kThreads, kHitMinBlocks)
+    nearest_hit_kernel(Tables tb, const float* __restrict__ ro, const float* __restrict__ rd,
+                       const bool* __restrict__ live, int B, float* __restrict__ out,
+                       int* __restrict__ flag, unsigned long long* __restrict__ counts) {
+  nearest_hit_lanes<kCount, false, kW>(tb, ro, rd, live, B, out, flag, counts);
+}
+
+// #1 with the winner's UVs: a (13, B) table, rows 10-12 iu iv tex
+template <bool kCount, int kW>
+__global__ void __launch_bounds__(kThreads, kHitMinBlocks)
+    nearest_hit_uv_kernel(Tables tb, const float* __restrict__ ro, const float* __restrict__ rd,
+                          const bool* __restrict__ live, int B, float* __restrict__ out,
+                          int* __restrict__ flag, unsigned long long* __restrict__ counts) {
+  nearest_hit_lanes<kCount, true, kW>(tb, ro, rd, live, B, out, flag, counts);
+}
+
+// #2: a lane that is not live gets false.
+template <bool kCount, int kW>
+__global__ void __launch_bounds__(kThreads, kShadowMinBlocks)
+    any_blocker_kernel(Tables tb, const float* __restrict__ p1, const float* __restrict__ rd,
+                       const float* __restrict__ max_d, const bool* __restrict__ live, int B,
+                       int blocks_col, bool* __restrict__ out,
+                       unsigned long long* __restrict__ counts) {
+  typename std::conditional<kCount, Count, NoCount>::type cnt;
+  for_lanes<kShadowQueue>(
+      live, B,
+      [&](int i) {
+        out[i] = shadow_blocked_dev<kW>(tb, load3(p1, i), load3(rd, i), max_d[i], blocks_col, cnt);
+      },
+      [&](int i) { out[i] = false; });
+  if constexpr (kCount) cnt.flush(counts);
 }
 
 // (n, P) table of uniforms: element [j, lane] of the global (n, total) draw
@@ -691,6 +800,68 @@ int launch_step(const float* sph, int ns, int nl, const float* tri, const float*
                  (cudaStream_t)stream);
 }
 
+// The grid of a launch of #1 or #2 (for_lanes): with a mask and kQueue,
+// as many persistent blocks as the card holds at once (fewer for a small
+// B), the span counter zeroed first on the stream; else a thread a lane.
+// The host queries are made once per kernel instance, so a launch
+// enqueues only the memset and the kernel (and can be captured in a CUDA
+// graph).
+template <bool kQueue, class F>
+cudaError_t lanes_grid(F fn, const bool* live, int B, cudaStream_t stream, int* blocks) {
+  *blocks = blocks_for(B);
+  if (!kQueue || !live) return cudaSuccess;
+  static int* work = nullptr;
+  static F fns[16];
+  static int resident[16], n = 0;
+  int k = 0;
+  while (k < n && fns[k] != fn) ++k;
+  cudaError_t err = cudaSuccess;
+  if (!work) err = cudaGetSymbolAddress((void**)&work, g_lane_work);
+  if (err == cudaSuccess && k == n) {
+    err = persistent_blocks(fn, kThreads, 0, 1 << 30, &resident[k]);
+    fns[k] = fn;
+    n += err == cudaSuccess;
+  }
+  if (err == cudaSuccess) err = cudaMemsetAsync(work, 0, sizeof(int), stream);
+  *blocks = std::min(resident[k], *blocks);
+  return err;
+}
+
+// #1's instance at the scene's walk (the flat one below 64 clusters).
+template <bool kCount>
+int launch_hit(const float* sph, int ns, int nl, const float* tri, const float* uv,
+               const float* cl, int nc, const float* sup, int nsup, int with_uv, const float* ro,
+               const float* rd, const bool* live, int B, float* out, int* flag,
+               unsigned long long* counts, void* stream) {
+  auto* fn = with_uv ? (nsup ? &nearest_hit_uv_kernel<kCount, kWalkSuper>
+                             : &nearest_hit_uv_kernel<kCount, kWalkFlat>)
+                     : (nsup ? &nearest_hit_kernel<kCount, kWalkSuper>
+                             : &nearest_hit_kernel<kCount, kWalkFlat>);
+  int blocks = 0;
+  cudaError_t err = lanes_grid<kHitQueue>(fn, live, B, (cudaStream_t)stream, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, live, B, out, flag, counts);
+  return (int)cudaGetLastError();
+}
+
+// #2's instance at the scene's walk.
+template <bool kCount>
+int launch_blocker(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                   const float* cl, int nc, const float* sup, int nsup, const float* p1,
+                   const float* rd, const float* max_d, const bool* live, int B, int blocks_col,
+                   bool* out, unsigned long long* counts, void* stream) {
+  auto* fn =
+      nsup ? &any_blocker_kernel<kCount, kWalkSuper> : &any_blocker_kernel<kCount, kWalkFlat>;
+  int blocks = 0;
+  cudaError_t err = lanes_grid<kShadowQueue>(fn, live, B, (cudaStream_t)stream, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  fn<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), p1, rd, max_d, live, B, blocks_col,
+      out, counts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,27 +871,56 @@ extern "C" {
 // tables come first in every entry: sph, ns, nl, tri, uv, cl, n_clusters,
 // sup, n_super.
 
+// live: the lanes whose result is read (null: every lane); a lane that
+// is not live gets #1's miss record or #2's false.
 int pt_nearest_hit(const float* sph, int ns, int nl, const float* tri, const float* uv,
                    const float* cl, int nc, const float* sup, int nsup, int with_uv,
-                   const float* ro, const float* rd, int B, float* out, int* flag, void* stream) {
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
-  if (with_uv) {
-    nearest_hit_uv_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(tb, ro, rd, B, out,
-                                                                                 flag);
-  } else {
-    nearest_hit_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(tb, ro, rd, B, out,
-                                                                              flag);
-  }
-  return (int)cudaGetLastError();
+                   const float* ro, const float* rd, const bool* live, int B, float* out,
+                   int* flag, void* stream) {
+  return launch_hit<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, with_uv, ro, rd, live, B, out,
+                           flag, nullptr, stream);
+}
+
+// The counting build of #1: the same records, and the walk's counters
+// added into counts[kNumCounts] (zeroed by the caller).
+int pt_nearest_hit_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                          const float* cl, int nc, const float* sup, int nsup, int with_uv,
+                          const float* ro, const float* rd, const bool* live, int B, float* out,
+                          int* flag, unsigned long long* counts, void* stream) {
+  return launch_hit<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, with_uv, ro, rd, live, B, out,
+                          flag, counts, stream);
 }
 
 int pt_any_blocker(const float* sph, int ns, int nl, const float* tri, const float* uv,
                    const float* cl, int nc, const float* sup, int nsup, const float* p1,
-                   const float* rd, const float* max_d, int B, int blocks_col, bool* out,
-                   void* stream) {
-  any_blocker_kernel<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), p1, rd, max_d, B, blocks_col, out);
-  return (int)cudaGetLastError();
+                   const float* rd, const float* max_d, const bool* live, int B, int blocks_col,
+                   bool* out, void* stream) {
+  return launch_blocker<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, p1, rd, max_d, live, B,
+                               blocks_col, out, nullptr, stream);
+}
+
+// The counting build of #2: the same verdicts, and the walk's counters
+// added into counts[kNumCounts] (zeroed by the caller).
+int pt_any_blocker_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                          const float* cl, int nc, const float* sup, int nsup, const float* p1,
+                          const float* rd, const float* max_d, const bool* live, int B,
+                          int blocks_col, bool* out, unsigned long long* counts, void* stream) {
+  return launch_blocker<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, p1, rd, max_d, live, B,
+                              blocks_col, out, counts, stream);
+}
+
+// occupancy_row of nearest_hit, nearest_hit_counts, any_blocker and
+// any_blocker_counts in turn (their flat-walk instances, the text scenes').
+int pt_hit_occupancy(int* out) {
+  const void* fns[4] = {(const void*)nearest_hit_kernel<false, kWalkFlat>,
+                        (const void*)nearest_hit_kernel<true, kWalkFlat>,
+                        (const void*)any_blocker_kernel<false, kWalkFlat>,
+                        (const void*)any_blocker_kernel<true, kWalkFlat>};
+  for (int k = 0; k < 4; ++k) {
+    cudaError_t err = occupancy_row(fns[k], kThreads, 0, out + 5 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const float* uv,

@@ -182,7 +182,7 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
         if not bool(alive.any()):   # later iterations change nothing
             break
         u = draw(rng.iter_key(k_it, it), P, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd), ro, rd)
+        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
         act = alive & hit.hit
 
         # a light-ball hit stores a terminal light vertex; the throughput

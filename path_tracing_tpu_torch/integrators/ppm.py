@@ -145,7 +145,7 @@ def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
         if not bool(alive.any()):   # a dead chain stays dead
             break
         u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd), ro, rd)
+        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
         act = alive & hit.hit
         wo = -rd
         m, n = hit.mtl, hit.normal

@@ -45,6 +45,20 @@ the main path's inputs:
   the render (``first``); every bounce of that frame, recorded
   (``bounces``, timed as the sum of the frame's launches); then the whole
   fused frame with the build's #3 in place of the package's (``frame``).
+- ``nearest_hit`` (#1): every launch of the split tier's 1920x1080 spp 4
+  frame on cornell (eye depth 4, seed 0) with its mask, recorded from the
+  render (``launches``, timed as the sum of the frame's launches); its
+  first launch, every lane live (``first``); every launch of the BDPT
+  fused exact frame (spl 8, spp 4, depths 4: the light trace's and the
+  eye pass's, ``bdpt``) and of the first 512x512 PPM pass's eye pass
+  (``ppm``); then the whole split frame with the build's #1 in place of
+  the package's (``frame``);
+- ``any_blocker`` (#2): the split frame's launches (``launches``), its
+  first (``first``) and the whole split frame (``frame``), as for #1.
+
+#1's and #2's launches are recorded where the wrappers launch
+(``record_launches``), and their outputs compared on the live lanes (the
+lanes read: an older build walks every lane).
 
 The package's kernel is timed (CUDA events, the mean of ``--reps``
 launches after a warm-up), then each ``--old-csrc DIR``: the source of
@@ -59,12 +73,17 @@ one's, held to ``BARS`` where one is set (the exit code is 1 if a build
 misses its bar).  A build that exports the counting entry
 ``pt_KERNEL_counts``, or whose design kept its argument list (not in
 ``OLD_ARGS``), is called as the package calls its kernel; one without it
-through the argument list of the design before (``OLD_ARGS``).  A build
+through the argument list of the design before (``OLD_ARGS``; #1 and #2
+before they took a mask are called without it).  A build
 whose ``pt_device.cuh`` predates the super table takes the seven
 scene-table arguments of before (``prev_table_args``: the 8-column
 cluster rows, no super table) in place
 of the package's nine.  A #8 build whose ``pt_connect`` takes no ``work``
 counter is called with the package's arguments less that counter.
+
+``--graph`` times the cases whose calls make no host sync (#1's and #2's
+launch sets) device-only, by CUDA-graph replay: the PPM eye pass's small
+launches are shorter than their host enqueue.
 
 ``--variant NAME`` (repeatable) times a copy of the package's ``csrc``
 with one change (``VARIANTS``: a table placement, a launch bound, a
@@ -93,16 +112,19 @@ SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
           "nearest_hit_stream": "mesh_kernels.cu",
           "any_blocker_stream": "mesh_kernels.cu",
           "shade_step_tex": "pt_kernels.cu", "bdpt_eye": "bdpt_kernels.cu",
-          "connect": "bdpt_kernels.cu", "shade_step": "pt_kernels.cu"}
+          "connect": "bdpt_kernels.cu", "shade_step": "pt_kernels.cu",
+          "nearest_hit": "pt_kernels.cu", "any_blocker": "pt_kernels.cu"}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the scene tables before the super table: sph ns nl tri uv cl n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
 # the C entries of the designs before the counted ones: #11 one thread per
 # hitpoint (hp hp_cell perm B | win ev r2 | flux count | stream), #5 one
 # thread per pixel (no work counter), #10 one thread per photon (no work
-# counter), #8 one thread per lane (no work counter); #6 kept its
-# argument list
+# counter), #8 one thread per lane (no work counter), #1 and #2 without
+# a mask; #6 kept its argument list
 OLD_ARGS = {
+    "nearest_hit": _kernels._TABLES + [_I, _P, _P, _I, _P, _P, _P],
+    "any_blocker": _kernels._TABLES + [_P, _P, _P, _I, _I, _P, _P],
     "connect": _kernels._TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
@@ -112,7 +134,8 @@ OLD_ARGS = {
 }
 # a mark in the C entry of the package's design whose argument list
 # changed with it (a build without it takes OLD_ARGS)
-NEW_MARK = {"connect": "int* work"}
+NEW_MARK = {"connect": "int* work", "nearest_hit": "const bool* live",
+            "any_blocker": "const bool* live"}
 # One change each to a copy of the package's csrc: (file, old, new) edits.
 _PLACE = ("*place = connect_smem(kRowsResident, n_valid) <= (size_t)optin "
           "? kRowsResident : kRowsChunked;")
@@ -140,7 +163,22 @@ _STEP_PERSISTENT = """  int blocks = 0, *work = nullptr;
   if (err == cudaSuccess) err = persistent_blocks(fn, kThreads, 0, blocks_for(B), &blocks);
   if (err != cudaSuccess) return err;
   fn<<<blocks, kThreads, 0, stream>>>(tb, c, in, out, B, counts);"""
+_HIT_MIN = "constexpr int kHitMinBlocks = 10;"
+_SHADOW_MIN = "constexpr int kShadowMinBlocks = 8;"
 VARIANTS = {
+    # #1's and #2's blocks of 128 an SM
+    **{f"hit-min{m}": [("pt_kernels.cu", _HIT_MIN,
+                        f"constexpr int kHitMinBlocks = {m};")]
+       for m in (6, 8, 12)},
+    **{f"shadow-min{m}": [("pt_kernels.cu", _SHADOW_MIN,
+                           f"constexpr int kShadowMinBlocks = {m};")]
+       for m in (6, 10, 12)},
+    # #1 on persistent warps that take the live lanes 32 at a time
+    # (LaneQueue), #2 one thread a lane (each kernel's other design)
+    "hit-queue": [("pt_kernels.cu", "constexpr bool kHitQueue = false;",
+                   "constexpr bool kHitQueue = true;")],
+    "shadow-lanes": [("pt_kernels.cu", "constexpr bool kShadowQueue = true;",
+                      "constexpr bool kShadowQueue = false;")],
     # #8's table placements besides the resident one: per-warp 16-row
     # chunks, rows read from device memory (both 4 warps x 6 blocks an SM)
     "connect-chunked": [_CHUNKED],
@@ -298,6 +336,31 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, n: int = 100, reps: int = 10) -> float:
+    """Device milliseconds a call of ``fn``: ``n`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
+    enqueue is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
 def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
@@ -325,11 +388,13 @@ class Case:
     """A kernel's inputs: ``run(fn, abi)`` launches build ``fn`` on them
     (``abi`` as ``build_all`` returns it) and keeps its outputs,
     ``rows()`` reads the last run's outputs as comparable rows; ``reps``,
-    if set, caps the timed calls (a whole frame)."""
+    if set, caps the timed calls (a whole frame); ``graph``: the run makes
+    no host sync, so ``--graph`` can time it by CUDA-graph replay."""
 
-    def __init__(self, label: str, run, rows, info: dict, reps=None):
+    def __init__(self, label: str, run, rows, info: dict, reps=None,
+                 graph=False):
         self.label, self.run, self.rows, self.info = label, run, rows, info
-        self.reps = reps
+        self.reps, self.graph = reps, graph
 
 
 def _through_wrapper(name: str, wrapper, out: dict, module=None):
@@ -726,14 +791,20 @@ def eye_case():
                  dict(pixels=W * H, spp=SPP, rows=int(nv)))]
 
 
-def _entry(fn, abi):
-    """Build ``fn`` as the library's ``connect`` entry: one of the design
-    before (``abi`` "old", no ``work`` counter) is called with the
-    package's arguments less that counter."""
+def _old_entry(fn, abi, m: int):
+    """Build ``fn`` as the library's entry of its kernel: one of the design
+    before (``abi`` "old") is called with the package's arguments less
+    argument ``m`` (#8's ``work`` counter, #1's and #2's mask)."""
     if abi != "old":
         return fn
-    w = len(_kernels._ARGTYPES["connect"]) - 3  # ... work out | stream
-    return lambda *a: fn(*a[:w], *a[w + 1:])
+    return lambda *a: fn(*a[:m], *a[m + 1:])
+
+
+# the argument the designs before #8's and #1's/#2's did not take: #8's
+# work counter (before out and the stream), the mask (after with_uv ro rd,
+# or p1 rd max_d)
+_CONNECT_WORK = len(_kernels._ARGTYPES["connect"]) - 3
+_MASK = len(_kernels._TABLES) + 3
 
 
 def _swapped(name: str, fn, call):
@@ -805,7 +876,7 @@ def connect_case():
     kw = dict(clamp_val=15.0, dielectrics_block=True)
 
     def connect_with(fn, abi, a, k):
-        return _swapped("connect", _entry(fn, abi),
+        return _swapped("connect", _old_entry(fn, abi, _CONNECT_WORK),
                         lambda: cc.connect(*a, **k))
 
     out = {}
@@ -831,7 +902,8 @@ def connect_case():
         out["launches"] = [connect_with(fn, abi, a, k) for a, k, _ in calls]
 
     def frame(fn, abi):
-        out["frame"] = _swapped("connect", _entry(fn, abi), render)
+        out["frame"] = _swapped("connect",
+                                _old_entry(fn, abi, _CONNECT_WORK), render)
 
     def bits(x):
         return x.reshape(-1, 3).view(torch.int32)
@@ -892,22 +964,125 @@ def step_case():
              dict(pixels=W * H, spp=SPP))]
 
 
+def record_launches(call) -> tuple:
+    """``call()``'s result and the arguments of each launch of #1 and #2
+    that it makes, recorded where the wrappers launch
+    (``cuda_intersect._launch_hit``, ``_launch_blocker``), the tensors
+    cloned: ``{"nearest_hit": [(packed, ro, rd, with_uv, live), ...],
+    "any_blocker": [(packed, p1, rd, max_d, dielectrics_block, live),
+    ...]}`` in launch order, the counting builds' launches left out."""
+    from .ops import cuda_intersect as ci
+
+    got = {"nearest_hit": [], "any_blocker": []}
+    own = {"_launch_hit": ci._launch_hit,
+           "_launch_blocker": ci._launch_blocker}
+
+    def recording(fn):
+        def launch(name, *args, **kw):
+            if name in got:
+                got[name].append(tuple(x.clone() if torch.is_tensor(x)
+                                       else x for x in args))
+            return fn(name, *args, **kw)
+        return launch
+
+    for attr, fn in own.items():
+        setattr(ci, attr, recording(fn))
+    try:
+        res = call()
+    finally:
+        for attr, fn in own.items():
+            setattr(ci, attr, fn)
+    return res, got
+
+
+def launch_rows(name: str, out, args) -> torch.Tensor:
+    """A recorded launch's outputs (#1's fields or #2's verdicts) as rows
+    of 32-bit words on its live lanes (``args``' last, the mask)."""
+    if name == "any_blocker":
+        x = out.int()[:, None]
+    else:
+        x = torch.stack([v.view(torch.int32) if v.dtype == torch.float32
+                         else v for v in out.values()], dim=1)
+    return x if args[-1] is None else x[args[-1]]
+
+
+def lanes_case(name: str) -> list:
+    """#1 (``name`` "nearest_hit") or #2 ("any_blocker") on the recorded
+    launches of the split frame, its first, the BDPT fused exact frame and
+    the PPM eye pass (#1), and the whole split frame."""
+    from .config import RenderConfig
+    from .integrators import bdpt, ppm
+    from .integrators.pt import render_pt
+    from .ops import cuda_intersect as ci
+    from .ops import rng
+
+    scene, cam = _cornell(W, H)
+    cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    wrapper = getattr(ci, name)
+
+    def split():
+        return render_pt(scene, cam, W, H, SPP, cfg, key, tier="split")
+
+    sets = {"launches": record_launches(split)[1][name]}
+    sets["first"] = sets["launches"][:1]
+    if name == "nearest_hit":
+        bcfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                            light_depth=4, bdpt_resample_vertices=0)
+        sets["bdpt"] = record_launches(lambda: bdpt.render_bdpt(
+            scene, cam, W, H, SPP, SPL, bcfg, key, tier="fused"))[1][name]
+        pscene, pcam = _cornell(PPM_W, PPM_H)
+        pcfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
+                            eye_depth=4, light_depth=4)
+        idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
+        sets["ppm"] = record_launches(lambda: ppm.ppm_eye_trace(
+            pscene, pcam, pcfg, idx % PPM_W, idx // PPM_W,
+            rng.fold_in(key, 1)))[1][name]
+    out, cases = {}, []
+    for label, calls in sets.items():
+        def run(fn, abi, label=label, calls=calls):
+            out[label] = _swapped(name, _old_entry(fn, abi, _MASK),
+                                  lambda: [wrapper(*a) for a in calls])
+
+        def rows(label=label, calls=calls):
+            return torch.cat([launch_rows(name, o, a)
+                              for o, a in zip(out[label], calls)])
+
+        live = [a[1].shape[0] if a[-1] is None else int(a[-1].sum())
+                for a in calls]
+        cases.append(Case(label, run, rows, dict(
+            launches=len(calls), lanes=calls[0][1].shape[0], live=live),
+            reps=1 if len(calls) > 1 else None, graph=True))
+
+    def frame(fn, abi):
+        out["frame"] = _swapped(name, _old_entry(fn, abi, _MASK), split)
+
+    cases.append(Case("frame", frame,
+                      lambda: out["frame"].reshape(-1, 3).view(torch.int32),
+                      dict(pixels=W * H, spp=SPP), reps=1))
+    return cases
+
+
 CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
          "photon_trace": photon_case, "nearest_hit_stream": stream_case,
          "any_blocker_stream": blocker_case, "shade_step_tex": tex_case,
          "bdpt_eye": eye_case, "connect": connect_case,
-         "shade_step": step_case}
+         "shade_step": step_case,
+         "nearest_hit": lambda: lanes_case("nearest_hit"),
+         "any_blocker": lambda: lanes_case("any_blocker")}
 # the share of rows an older build must give bit for bit, where a bar is
 # set: #4 may pick another triangle on an exact tie of t (its frame the
-# image's pixels), #7's verdicts never differ, #8's and #3's redesigns
-# change no lane, launch or pixel
+# image's pixels), #7's verdicts never differ, #8's, #3's, #1's and #2's
+# redesigns change no lane read, launch or pixel
 BARS = {("shade_step_tex", "lanes"): 0.9999,
         ("shade_step_tex", "frame"): 0.999, ("any_blocker_stream", None): 1.0,
-        ("connect", None): 1.0, ("shade_step", None): 1.0}
+        ("connect", None): 1.0, ("shade_step", None): 1.0,
+        ("nearest_hit", None): 1.0, ("any_blocker", None): 1.0}
 ROWS = {"gather_flux": "hitpoints", "render_wavefront": "pixels",
         "photon_trace": "event rows", "nearest_hit_stream": "lanes",
         "any_blocker_stream": "lanes", "shade_step_tex": "lanes",
-        "bdpt_eye": "pixels", "connect": "lanes", "shade_step": "lanes"}
+        "bdpt_eye": "pixels", "connect": "lanes", "shade_step": "lanes",
+        "nearest_hit": "live lanes", "any_blocker": "live lanes"}
 
 
 def main() -> int:
@@ -921,6 +1096,9 @@ def main() -> int:
     ap.add_argument("--case", action="append", default=[],
                     help="time only the cases of this label (repeatable)")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--graph", action="store_true",
+                    help="time the cases that allow it device-only, by "
+                    "CUDA-graph replay")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device is available", file=sys.stderr)
@@ -931,6 +1109,8 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     own = _kernels.library().fns[k]
+    print("[build] package: "
+          + "; ".join(_ptxas(_kernels.library().ptxas_log, k)))
     dirs = a.old_csrc + [make_variant(v) for v in a.variant]
     olds = build_all(dirs, k)
     out = dict(card=torch.cuda.get_device_name(0), kernel=k)
@@ -940,6 +1120,7 @@ def main() -> int:
             continue
         tag = f"{k} {case.label}".strip()
         reps = min(a.reps, case.reps or a.reps)
+        timer = graph_ms if a.graph and case.graph else time_ms
         if case.info.get("inactive_zero") is False:
             missed.append(f"{tag}: the package's build wrote non-zero "
                           "inactive lanes")
@@ -949,7 +1130,7 @@ def main() -> int:
 
         new()
         ref = case.rows().clone()
-        res = dict(case.info, ms=time_ms(new, reps))
+        res = dict(case.info, ms=timer(new, reps))
         print(f"[{tag}] {case.info}: {res['ms']:.3f} ms")
         for d, (fn, abi) in zip(dirs, olds):
             def other(fn=fn, abi=abi, case=case):
@@ -957,8 +1138,8 @@ def main() -> int:
 
             other()
             equal = (case.rows() == ref).all(dim=1).float().mean().item()
-            turns = [time_ms(new, reps), time_ms(other, reps),
-                     time_ms(other, reps), time_ms(new, reps)]
+            turns = [timer(new, reps), timer(other, reps),
+                     timer(other, reps), timer(new, reps)]
             res[f"old {d}"] = dict(bit_equal=equal,
                                    turns_new_other_other_new=turns)
             bar = BARS.get((k, case.label), BARS.get((k, None)))

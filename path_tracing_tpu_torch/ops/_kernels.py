@@ -13,14 +13,16 @@ with nvcc's output; nothing falls back.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
-went through.  ``connect_counts``, ``bdpt_eye_counts``,
+went through.  ``nearest_hit_counts``, ``any_blocker_counts``,
+``connect_counts``, ``bdpt_eye_counts``,
 ``render_wavefront_counts``, ``shade_step_counts``,
 ``shade_step_tex_counts``, ``photon_trace_counts``,
 ``gather_flux_counts``, ``nearest_hit_stream_counts`` and
-``any_blocker_stream_counts`` are the counting builds of ``connect``,
-``bdpt_eye``, ``render_wavefront``, ``shade_step``, ``shade_step_tex``,
-``photon_trace``, ``gather_flux``, ``nearest_hit_stream`` and
-``any_blocker_stream``, launched under their own names.
+``any_blocker_stream_counts`` are the counting builds of ``nearest_hit``,
+``any_blocker``, ``connect``, ``bdpt_eye``, ``render_wavefront``,
+``shade_step``, ``shade_step_tex``, ``photon_trace``, ``gather_flux``,
+``nearest_hit_stream`` and ``any_blocker_stream``, launched under their
+own names.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ HEADERS = ("pt_device.cuh",)
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows",
+                   "nearest_hit_counts", "any_blocker_counts",
                    "render_wavefront_counts", "shade_step_counts",
                    "shade_step_tex_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
@@ -71,8 +74,10 @@ _STREAM = [_P, _I, _I, _P, _P, _I, _P, _I, _P]
 _STEP = [_P] * 10 + [_I, _F, _I, _I] + [_P] * 9
 # every entry ends in the stream
 _ARGTYPES = {
-    "nearest_hit": _TABLES + [_I, _P, _P, _I, _P, _P, _P],
-    "any_blocker": _TABLES + [_P, _P, _P, _I, _I, _P, _P],
+    # with_uv ro rd live | B | out flag
+    "nearest_hit": _TABLES + [_I, _P, _P, _P, _I, _P, _P, _P],
+    # p1 rd max_d live | B blocks_col | out
+    "any_blocker": _TABLES + [_P, _P, _P, _P, _I, _I, _P, _P],
     "shade_step": _TABLES + _STEP + [_P],
     "shade_step_tex": _TABLES + [_P, _P, _I, _I, _I] + _STEP + [_P],
     # lights cam px py | B spp eye_depth max_path_iters max_total | k0 k1
@@ -102,6 +107,8 @@ _ARGTYPES = {
     "onehot_fetch": [_P, _I, _P, _I, _P, _P],
 }
 # the counting builds: the same arguments, then the uint64 counters
+_ARGTYPES["nearest_hit_counts"] = _ARGTYPES["nearest_hit"][:-1] + [_P, _P]
+_ARGTYPES["any_blocker_counts"] = _ARGTYPES["any_blocker"][:-1] + [_P, _P]
 _ARGTYPES["connect_counts"] = _ARGTYPES["connect"][:-1] + [_P, _P]
 _ARGTYPES["bdpt_eye_counts"] = _ARGTYPES["bdpt_eye"][:-1] + [_P, _P]
 _ARGTYPES["render_wavefront_counts"] = (_ARGTYPES["render_wavefront"][:-1]

@@ -30,7 +30,11 @@ force over ``(rays, primitives)`` and run in chunks of rays, so a mesh at
 full lane count stays within device memory.  ``_count_nearest_walk`` and
 ``_count_shadow_walk`` are plain models of the kernels' walk (the flat
 cluster list, or the supers then their children), which the counting
-builds are held to.
+builds are held to.  Every function takes ``live``, the lanes whose
+result is read: the kernels walk only those, and the others get the miss
+record (``nearest_hit``) or ``False`` (``any_blocker``), in the plain
+versions too.  ``nearest_hit_counts`` and ``any_blocker_counts`` launch the
+counting builds.
 """
 from __future__ import annotations
 
@@ -358,8 +362,19 @@ def _count_shadow_walk(packed: PackedScene, p1, rd, max_d, col: int,
     return blocked
 
 
+def _miss_rows(B: int, with_uv: bool, device) -> dict:
+    """B miss records: t = INF, normal, material and flag 0 (iu, iv 0 and
+    tex -1 with ``with_uv``)."""
+    zero = torch.zeros(B, device=device)
+    out = {k: zero.clone() for k in HIT_FIELDS}
+    out["t"] = torch.full((B,), INF, device=device)
+    out["flag"] = torch.zeros(B, dtype=torch.int32, device=device)
+    if with_uv:
+        out.update(iu=zero.clone(), iv=zero.clone(), tex=zero - 1.0)
+    return out
+
+
 def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
-    B = ro.shape[0]
     n_s = packed.ns + packed.nl
     sph = packed.sph[:n_s]
     tri = packed.tri[:packed.nt]
@@ -368,13 +383,7 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
         ts.append(triangle_ts(ro, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
                               INF))
     if not ts:
-        zero = torch.zeros(B, device=ro.device)
-        out = {k: zero.clone() for k in HIT_FIELDS}
-        out["t"] = torch.full((B,), INF, device=ro.device)
-        out["flag"] = torch.zeros(B, dtype=torch.int32, device=ro.device)
-        if with_uv:
-            out.update(iu=zero.clone(), iv=zero.clone(), tex=zero - 1.0)
-        return out
+        return _miss_rows(ro.shape[0], with_uv, ro.device)
     all_t = torch.cat(ts, dim=1)
     idx = torch.argmin(all_t, dim=1)   # first minimum: the reference order
     best_t = torch.gather(all_t, 1, idx[:, None])[:, 0]
@@ -429,14 +438,24 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     1 surface, 2 light ball); misses report t = INF and zeros.
     ``with_uv`` adds the winning triangle's interpolated ``iu``, ``iv``
     and its texture id ``tex`` (float; 0, 0, -1 off triangles).  ``live``
-    (the lanes whose result is read, as the bounce passes it) does not
-    change the result: every lane is computed.  ``counts`` (from
-    ``cuda_connect.new_counts``), if given, gains the primitive tests the
-    kernels' walk makes for the live lanes."""
+    (B,) bool, the lanes whose result is read: the others get the miss
+    record, as the kernel writes it (every lane without it).  ``counts``
+    (from ``cuda_connect.new_counts``), if given, gains the primitive
+    tests the kernels' walk makes for the live lanes."""
     _kernels.plain_calls["nearest_hit"] += 1
+    if live is None:
+        return _nearest_all(packed, ro, rd, with_uv, counts)
+    out = _miss_rows(ro.shape[0], with_uv, ro.device)
+    for k, x in _nearest_all(packed, ro[live], rd[live], with_uv,
+                             counts).items():
+        out[k][live] = x
+    return out
+
+
+def _nearest_all(packed: PackedScene, ro, rd, with_uv: bool, counts):
+    """``nearest_hit_plain`` on every given lane, in chunks of rays."""
     if counts is not None:
-        keep = slice(None) if live is None else live
-        _count_nearest_walk(packed, ro[keep], rd[keep], counts)
+        _count_nearest_walk(packed, ro, rd, counts)
     parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
              for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
                                  + packed.nt)]
@@ -467,21 +486,26 @@ def any_blocker_plain(packed: PackedScene, p1: torch.Tensor,
                       counts: dict | None = None) -> torch.Tensor:
     """Brute-force shadow any-hit: (B,) bool, True where a sphere or
     triangle whose can-block column is set lies at t in (1e-3, max_d).
-    ``live`` does not change the result, as in :func:`nearest_hit_plain`.
-    ``counts``, if given, gains the primitive tests the kernels' walk makes
-    for the live lanes (every lane without ``live``), and the verdicts
-    come from that walk's model, which finds the brute force's (culling
-    never changes a verdict), with the lanes that are not live
-    unblocked."""
+    ``live`` (B,) bool: the other lanes are unblocked, as the kernel
+    writes them.  ``counts``, if given, gains the primitive tests the
+    kernels' walk makes for the live lanes (every lane without ``live``),
+    and the verdicts come from that walk's model, which finds the brute
+    force's (culling never changes a verdict)."""
     _kernels.plain_calls["any_blocker"] += 1
     col = 4 if dielectrics_block else 5
+    if live is None:
+        return _blocked_all(packed, p1, rd, max_d, col, counts)
+    out = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
+    out[live] = _blocked_all(packed, p1[live], rd[live], max_d[live], col,
+                             counts)
+    return out
+
+
+def _blocked_all(packed: PackedScene, p1, rd, max_d, col: int, counts):
+    """``any_blocker_plain`` on every given lane: the walk model's
+    verdicts given ``counts``, else the brute force in chunks of rays."""
     if counts is not None:
-        keep = (torch.ones(p1.shape[0], dtype=torch.bool, device=p1.device)
-                if live is None else live)
-        out = torch.zeros(p1.shape[0], dtype=torch.bool, device=p1.device)
-        out[keep] = _count_shadow_walk(packed, p1[keep], rd[keep],
-                                       max_d[keep], col, counts)
-        return out
+        return _count_shadow_walk(packed, p1, rd, max_d, col, counts)
     return torch.cat([
         _blocked_rows(packed, p1[a:b], rd[a:b], max_d[a:b], col)
         for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
@@ -527,12 +551,41 @@ def table_args(packed: PackedScene):
             ctypes.c_void_p(packed.sup.data_ptr()), packed.n_super]
 
 
+def _live_arg(live, B: int):
+    """The ctypes argument of a lane mask: null (every lane) or a
+    contiguous (B,) bool tensor's pointer."""
+    if live is None:
+        return ctypes.c_void_p(None)
+    check_tensor("live", live, (B,), torch.bool)
+    return ctypes.c_void_p(live.data_ptr())
+
+
 def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
                 with_uv: bool = False, live=None) -> dict:
-    """Nearest hit per ray; same fields as :func:`nearest_hit_plain`
-    (``live`` ignored: every lane is computed)."""
+    """Nearest hit per ray; same fields as :func:`nearest_hit_plain`,
+    lanes that are not ``live`` with the miss record."""
     if ro.device.type == "cpu" and rd.device.type == "cpu":
-        return nearest_hit_plain(packed, ro, rd, with_uv)
+        return nearest_hit_plain(packed, ro, rd, with_uv, live)
+    return _launch_hit("nearest_hit", packed, ro, rd, with_uv, live)
+
+
+def nearest_hit_counts(packed: PackedScene, ro: torch.Tensor,
+                       rd: torch.Tensor, with_uv: bool = False,
+                       live=None) -> tuple:
+    """``nearest_hit`` through the kernel's counting build: (the same
+    fields, its counters as a dict keyed by ``cuda_connect.COUNT_NAMES``:
+    the walk's sphere, box and triangle tests, as ``nearest_hit_plain``
+    counts them given ``counts=``).  CUDA tensors only."""
+    from .cuda_connect import counts_buffer, read_counts
+
+    buf = counts_buffer(ro.device)
+    out = _launch_hit("nearest_hit_counts", packed, ro, rd, with_uv, live,
+                      buf)
+    return out, read_counts(buf)
+
+
+def _launch_hit(name: str, packed, ro, rd, with_uv: bool, live,
+                counts=None) -> dict:
     B = ro.shape[0]
     check_tensor("ro", ro, (B, 3))
     check_tensor("rd", rd, (B, 3))
@@ -540,12 +593,14 @@ def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
     fields = HIT_FIELDS + (UV_FIELDS if with_uv else ())
     out = torch.empty((len(fields), B), device=ro.device)
     flag = torch.empty(B, dtype=torch.int32, device=ro.device)
+    mask = _live_arg(live, B)
     if B:
-        _kernels.launch("nearest_hit", *table_args(packed), int(with_uv),
+        _kernels.launch(name, *table_args(packed), int(with_uv),
                         ctypes.c_void_p(ro.data_ptr()),
-                        ctypes.c_void_p(rd.data_ptr()), B,
+                        ctypes.c_void_p(rd.data_ptr()), mask, B,
                         ctypes.c_void_p(out.data_ptr()),
-                        ctypes.c_void_p(flag.data_ptr()))
+                        ctypes.c_void_p(flag.data_ptr()),
+                        *_counts_arg(counts))
     res = {k: out[i] for i, k in enumerate(fields)}
     res["flag"] = flag
     return res
@@ -554,21 +609,66 @@ def nearest_hit(packed: PackedScene, ro: torch.Tensor, rd: torch.Tensor,
 def any_blocker(packed: PackedScene, p1: torch.Tensor, rd: torch.Tensor,
                 max_d: torch.Tensor, dielectrics_block: bool, live=None
                 ) -> torch.Tensor:
-    """Shadow any-hit per ray; (B,) bool like :func:`any_blocker_plain`
-    (``live`` ignored: every lane is computed)."""
+    """Shadow any-hit per ray; (B,) bool like :func:`any_blocker_plain`,
+    lanes that are not ``live`` unblocked."""
     if all(x.device.type == "cpu" for x in (p1, rd, max_d)):
-        return any_blocker_plain(packed, p1, rd, max_d, dielectrics_block)
+        return any_blocker_plain(packed, p1, rd, max_d, dielectrics_block,
+                                 live)
+    return _launch_blocker("any_blocker", packed, p1, rd, max_d,
+                           dielectrics_block, live)
+
+
+def any_blocker_counts(packed: PackedScene, p1: torch.Tensor,
+                       rd: torch.Tensor, max_d: torch.Tensor,
+                       dielectrics_block: bool, live=None) -> tuple:
+    """``any_blocker`` through the kernel's counting build: (the same
+    verdicts, its counters as a dict keyed by ``cuda_connect.COUNT_NAMES``:
+    the walk's sphere, box and triangle tests up to the first blocker, as
+    ``any_blocker_plain`` counts them given ``counts=``).  CUDA tensors
+    only."""
+    from .cuda_connect import counts_buffer, read_counts
+
+    buf = counts_buffer(p1.device)
+    out = _launch_blocker("any_blocker_counts", packed, p1, rd, max_d,
+                          dielectrics_block, live, buf)
+    return out, read_counts(buf)
+
+
+def _launch_blocker(name: str, packed, p1, rd, max_d,
+                    dielectrics_block: bool, live, counts=None
+                    ) -> torch.Tensor:
     B = p1.shape[0]
     check_tensor("p1", p1, (B, 3))
     check_tensor("rd", rd, (B, 3))
     check_tensor("max_d", max_d, (B,))
     check_tables(packed, p1.device)
     out = torch.empty(B, dtype=torch.bool, device=p1.device)
+    mask = _live_arg(live, B)
     if B:
-        _kernels.launch("any_blocker", *table_args(packed),
+        _kernels.launch(name, *table_args(packed),
                         ctypes.c_void_p(p1.data_ptr()),
                         ctypes.c_void_p(rd.data_ptr()),
-                        ctypes.c_void_p(max_d.data_ptr()), B,
+                        ctypes.c_void_p(max_d.data_ptr()), mask, B,
                         4 if dielectrics_block else 5,
-                        ctypes.c_void_p(out.data_ptr()))
+                        ctypes.c_void_p(out.data_ptr()),
+                        *_counts_arg(counts))
     return out
+
+
+def _counts_arg(counts) -> list:
+    return [] if counts is None else [ctypes.c_void_p(counts.data_ptr())]
+
+
+def occupancy() -> dict:
+    """Per build of #1 and #2 (their flat-walk instances): resident blocks
+    and warps per SM, threads per block, registers and local (spill)
+    bytes per thread, shared bytes."""
+    names = ("nearest_hit", "nearest_hit_counts", "any_blocker",
+             "any_blocker_counts")
+    out = (ctypes.c_int * (5 * len(names)))()
+    fn = _kernels.library().libs["pt_kernels"].pt_hit_occupancy
+    fn.argtypes = [ctypes.c_void_p]
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"pt_hit_occupancy failed: cudaError {rc}")
+    return _kernels.occupancy_rows(names, out)

@@ -77,7 +77,7 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
     """One PT bounce in PyTorch with the given intersection functions;
     ``tex`` textures the hit.  ``nearest`` gets the active lanes and
     ``blocker`` the NEE-eligible ones as ``live=`` (the lanes whose result
-    is read: the sorted stream calls skip the others).  ``counts``, if
+    is read: the kernels walk only those).  ``counts``, if
     given, gains the megakernel's work of the bounce (its active lanes as
     ``iterations``, NEE rays with their evaluation, pdf and draws, BSDF
     samples with theirs) and is handed to the intersection functions,

@@ -97,7 +97,8 @@ def test_nearest_plain_counts_the_cluster_walk():
     every non-empty box, and a box's triangles only where the ray enters
     it before its nearest hit so far: down onto the floor (2 triangles),
     up away from it (box missed) and down through the sphere, which hits
-    before the floor's box; a lane that is not live is not counted."""
+    before the floor's box; a lane that is not live is not counted and
+    gets the miss record."""
     from path_tracing_tpu_torch.ops.cuda_intersect import nearest_hit_plain
 
     pk = pack_scene(parse_scene_text(BLOCKER).to_device("cpu"))
@@ -108,11 +109,13 @@ def test_nearest_plain_counts_the_cluster_walk():
     live = torch.tensor([True, True, True, False])
     counts = cuda_connect.new_counts()
     hit = nearest_hit_plain(pk, ro, rd, live=live, counts=counts)
-    assert hit["flag"].tolist() == [1, 0, 1, 1]
+    assert hit["flag"].tolist() == [1, 0, 1, 0]
     assert {k: counts[k] for k in ("hit_spheres", "hit_boxes",
                                    "hit_tris")} == dict(
         hit_spheres=3 * (pk.ns + pk.nl), hit_boxes=3, hit_tris=2)
-    assert torch.equal(hit["t"], nearest_hit_plain(pk, ro, rd)["t"])
+    assert torch.equal(hit["t"][live],
+                       nearest_hit_plain(pk, ro, rd)["t"][live])
+    assert hit["t"][3] == torch.tensor(1e20)
 
 
 def test_connect_plain_counts_one_row_one_blocker():

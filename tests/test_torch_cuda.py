@@ -17,7 +17,8 @@ import torch
 
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.integrators.pt import _light_table, render_pt
-from path_tracing_tpu_torch.ops import _kernels, cuda_intersect, cuda_shade
+from path_tracing_tpu_torch.ops import (_kernels, cuda_connect,
+                                        cuda_intersect, cuda_shade)
 from path_tracing_tpu_torch.ops import intersect, rng
 from path_tracing_tpu_torch.scene import synth
 from path_tracing_tpu_torch.scene.camera import make_camera, primary_ray_dirs
@@ -64,6 +65,106 @@ def test_any_blocker_kernel_matches_plain(card, dielectrics_block):
     a = cuda_intersect.any_blocker(pk, p1, rd, md, dielectrics_block)
     b = cuda_intersect.any_blocker_plain(pk, p1, rd, md, dielectrics_block)
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# #1 and #2 with a lane mask, and their counting builds
+# ---------------------------------------------------------------------------
+
+MASKS = ("all", "none", "random")
+
+
+@pytest.fixture(scope="module")
+def super_mesh(card):
+    """The textured 17,000-triangle icosphere: 512 clusters, the super
+    walk."""
+    scene = synth.icosphere_scene(17000, textured=True).to_device("cuda")
+    pk = cuda_intersect.pack_scene(scene)
+    assert pk.n_super > 0
+    return pk
+
+
+def _walk_case(card, super_mesh, walk, seed):
+    """The scene of a walk and 65,536 rays through it: cornell's (the flat
+    walk) from inside the box, the icosphere's (the super walk) from a
+    box three times its size, half of them aimed at its centre."""
+    n = 1 << 16
+    if walk == "flat":
+        return card[1], _rays(n, seed)
+    ro, rd = _rays(n, seed, -3.0, 3.0)
+    aim = intersect.shadow_ray(ro, -0.1 * ro)[0]
+    half = (torch.arange(n, device="cuda") % 2 == 0)[:, None]
+    return super_mesh, (ro, torch.where(half, aim, rd).contiguous())
+
+
+def _mask(kind, n, seed):
+    if kind == "random":
+        return rng.uniform_rows(rng.prng_key(seed), n, 1,
+                                device="cuda")[0] < 0.4
+    return torch.full((n,), kind == "all", dtype=torch.bool, device="cuda")
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               if a[k].dtype == torch.float32 else torch.equal(a[k], b[k])
+               for k in b)
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("with_uv", [False, True])
+@pytest.mark.parametrize("walk", ["flat", "super"])
+def test_nearest_hit_with_a_mask_matches_plain_bit_for_bit(
+        card, super_mesh, walk, with_uv, mask):
+    """#1 given ``live``: every lane's record the plain version's bit for
+    bit (the lanes that are not live the miss record), and its counting
+    build's records #1's and its counters the plain version's count of the
+    live lanes' walks exactly."""
+    pk, (ro, rd) = _walk_case(card, super_mesh, walk, 20)
+    live = _mask(mask, ro.shape[0], 21)
+    a = cuda_intersect.nearest_hit(pk, ro, rd, with_uv, live)
+    b = cuda_intersect.nearest_hit_plain(pk, ro, rd, with_uv, live)
+    assert _same_bits(a, b)
+    assert (a["flag"][~live] == 0).all()
+    if mask != "none":
+        assert (a["flag"][live] > 0).float().mean().item() > 0.3
+    k, kc = cuda_intersect.nearest_hit_counts(pk, ro, rd, with_uv, live)
+    assert _same_bits(k, a)
+    pc = cuda_connect.new_counts()
+    cuda_intersect.nearest_hit_plain(pk, ro, rd, with_uv, live, counts=pc)
+    for name in ("hit_spheres", "hit_boxes", "hit_tris"):
+        assert kc[name] == pc[name], name
+    assert (kc["hit_spheres"] == 0) == (mask == "none")
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("dielectrics_block", [True, False])
+@pytest.mark.parametrize("walk", ["flat", "super"])
+def test_any_blocker_with_a_mask_matches_plain_bit_for_bit(
+        card, super_mesh, walk, dielectrics_block, mask):
+    """#2 given ``live``: every lane's verdict the plain version's (the
+    lanes that are not live false), and its counting build's verdicts #2's
+    and its counters the plain version's count of the live lanes' walks
+    exactly."""
+    pk, (p1, d) = _walk_case(card, super_mesh, walk, 22)
+    length = 0.05 + 1.5 * rng.uniform_rows(rng.prng_key(23), p1.shape[0], 1,
+                                            device="cuda")[0]
+    rd, _, md = intersect.shadow_ray(p1, p1 + d * length[:, None])
+    live = _mask(mask, p1.shape[0], 24)
+    a = cuda_intersect.any_blocker(pk, p1, rd, md, dielectrics_block, live)
+    b = cuda_intersect.any_blocker_plain(pk, p1, rd, md, dielectrics_block,
+                                         live)
+    assert torch.equal(a, b)
+    assert not a[~live].any()
+    if mask != "none":
+        assert 0.05 < a[live].float().mean().item() < 0.95
+    k, kc = cuda_intersect.any_blocker_counts(pk, p1, rd, md,
+                                              dielectrics_block, live)
+    assert torch.equal(k, a)
+    pc = cuda_connect.new_counts()
+    cuda_intersect.any_blocker_plain(pk, p1, rd, md, dielectrics_block, live,
+                                     counts=pc)
+    for name in ("shadow_spheres", "shadow_boxes", "shadow_tris"):
+        assert kc[name] == pc[name], name
 
 
 @pytest.fixture(scope="module")

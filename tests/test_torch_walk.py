@@ -208,6 +208,44 @@ def test_walk_models_count_cornell_as_before(dielectrics_block):
     assert all(got[k] > 0 for k in WALK + SHADOW)
 
 
+@pytest.mark.parametrize("mask", ["all", "none", "random"])
+@pytest.mark.parametrize("walk", ["flat", "super"])
+def test_plain_counts_with_live_are_the_live_lanes_walks(walk, mask):
+    """Given ``live``, the plain versions count the walk model's tests of
+    the live lanes and nothing for the others (what the counting builds
+    of #1 and #2 are held to), under both blocking rules."""
+    if walk == "flat":
+        _, _, ts, _ = jax_cornell(8, 8)
+        rs = np.random.default_rng(12)
+        ro = torch.from_numpy(rs.uniform(-0.9, 0.9, (1024, 3))
+                              .astype(np.float32))
+        rd, _, _ = shadow_ray(torch.zeros_like(ro), torch.from_numpy(
+            rs.normal(size=(1024, 3)).astype(np.float32)))
+        p1, srd, md = _segments(ts, 1024, 13)
+    else:
+        p, _, ts = _icosphere()
+        ro, rd = _aimed_rays(p, ts, n=1024, seed=14)
+        p1, srd, md = _segments(ts, 1024, 15)
+    pk = CI.pack_scene(ts)
+    assert (pk.n_super > 0) == (walk == "super")
+    live = (torch.from_numpy(np.random.default_rng(16).uniform(size=1024)
+                             < 0.4) if mask == "random"
+            else torch.full((1024,), mask == "all", dtype=torch.bool))
+    got, want = cuda_connect.new_counts(), cuda_connect.new_counts()
+    hit = CI.nearest_hit_plain(pk, ro, rd, live=live, counts=got)
+    t = CI._count_nearest_walk(pk, ro[live], rd[live], want)
+    assert torch.equal(hit["t"][live], t)
+    for rule, col in ((True, 4), (False, 5)):
+        blocked = CI.any_blocker_plain(pk, p1, srd, md, rule, live=live,
+                                       counts=got)
+        assert torch.equal(blocked[live], CI._count_shadow_walk(
+            pk, p1[live], srd[live], md[live], col, want))
+        assert not blocked[~live].any()
+    assert got == want
+    assert (got["hit_spheres"] == 0) == (mask == "none")
+    assert got["hit_spheres"] == int(live.sum()) * (pk.ns + pk.nl)
+
+
 def test_stream_shadow_walk_hand_counted():
     """#7's walk model on a floor of two triangles (one cluster, one
     block: the flat walk) under a sphere: (a) the sphere blocks first;
