@@ -96,7 +96,9 @@ Phases, each raising on failure:
    against the exact sweep's shared table (max-channel relative error
    < 1e-3 on every active lane, every inactive lane 0); ``bdpt_eye`` with
    the shared table at spp
-   1 and with the main path's 127 tile-local RIS K = 32 tables at spp 4
+   1 on the frame's middle quarter of lanes (rows 405-674: the window
+   draws the whole frame's Threefry counters) and with the main path's
+   127 tile-local RIS K = 32 tables at spp 4 on every lane
    (mean within 1e-3 and >= 99% of pixels within rtol 1e-4 / atol 1e-5,
    else the JAX package's BDPT tier bar: >= 97% within 1e-3, mean within
    5%; the bar that held is printed); each with its counting build's
@@ -114,10 +116,10 @@ Phases, each raising on failure:
    trace's and the eye pass's) are recorded, each held bit for bit
    against its plain version on every lane and timed device-only.  The
    exact mega image must equal the fused one on >= 99.9% of pixels.  Then
-   the BDPT ground truth, ``render_oracle`` on cornell at 256x256 spp 16
-   (spl 8, BASELINE config 1's shape), whose auto tier is the fused one:
-   rendered twice, the two images bit-equal, with its wall time and #8's
-   launches.
+   the BDPT ground truth through the CLI, ``--device oracle`` on cornell
+   at 256x256 spp 16 (spl 8, BASELINE config 1's shape), whose auto tier
+   is the fused one: rendered twice, the two images bit-equal, with its
+   wall time and #8's launches (no ``bdpt_eye``, no plain version).
 8. PPM kernels against their plain versions on cornell at the main path's
    shape, the CLI's first 512x512 PPM pass (4 lights x 262,144 = 1,048,576
    photons, eye and light depth 4, seed 0), built by the integrator's own
@@ -186,13 +188,44 @@ Phases, each raising on failure:
    beside both: device-only (100 calls captured in a CUDA graph and
    replayed: ``ms`` and ``library_ms``) and a call with the host's enqueue
    (20 calls back to back: ``host_ms`` and ``library_host_ms``).
-11. The big-mesh path: that OBJ through the CLI at 1920x1080 spp 4 (auto:
-   the stream tier, the main path; it must launch #6, #7 and
-   ``threefry_rows`` and no ``nearest_hit``, ``shade_step_tex`` or
-   ``render_wavefront``) and in the fused tier from the same key (>= 99%
-   of pixels, means within 1e-3); the untextured 327,680-triangle
-   icosphere in process in the stream and mega tiers in turns (stream,
-   mega, mega, stream; >= 99.9%); every image more than 1% non-zero.
+11. PT's ``auto`` above the resident ceiling: on the convex icosphere
+   and on the enclosed scene (``scenes/cornell.txt``'s room, blocks,
+   spheres and lights with the icosphere at radius 0.35 on the floor:
+   327,716 triangles), untextured and textured, in process at 1920x1080
+   spp 4 from one key, the stream tier against the resident one (mega
+   untextured, fused textured: #5 / #4 on the super walk) in turns
+   (stream, resident, resident, stream), the times printed; auto must not
+   pick a tier that was slower in every turn (each tier warmed up at
+   128x72 first), and #5's counting build at 128x72 prints the walks'
+   tests a bounce and a shadow ray on the untextured scenes; images >= 99.9% of
+   pixels equal on the untextured convex mesh, >= 99% textured and on the
+   enclosed scene (whose mirror, glass and diamond chains carry #6's
+   last-ulp differences from #1 into whole paths); every image more than
+   1% non-zero.  Then through the CLI: auto on the
+   textured OBJ (``shade_step_tex`` and ``threefry_rows``, no #5, #6),
+   ``--tier stream`` on it (#6, #7 and ``threefry_rows``, no #1, #4, #5;
+   the path #6's and #7's launches are counted on) and auto on the
+   untextured enclosed scene written as a text scene (#5 alone; its image
+   equal to the in-process mega image on >= 99.9%).
+12. PPM on the enclosed scene: the eye pass's #1 launches of the first
+   512x512 pass, recorded from the integrator, each against its plain
+   version bit for bit on a strided subset of at most 16,384 of its live
+   lanes (the plain version is a brute force over 327,716 triangles) and
+   timed device-only; #10 (its super-walk instance) against its plain
+   version on the pass's first 4,096 photons (valid flags equal and
+   fields within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows) and timed on
+   the whole pass; then through the CLI's auto at 512x512, 3 passes of 4 x
+   262,144 photons (#1, ``threefry_rows``, #10 and #11, no plain version),
+   with ms a pass and Mphotons/s.
+13. BDPT on the enclosed scene: #9 against its plain version at 32x18
+   spp 1 on its tile-RIS K = 32 tables (phase 6's bars), then through the
+   CLI's auto (mega: #9 once, no #8) at 1920x1080 spp 4, spl 8, tile-RIS
+   K = 32.
+14. Checkpoints through the CLI on cornell at 1920x1080 spp 4: two
+   iterations with ``--checkpoint``, then a resume for one more,
+   bit-equal to three uninterrupted iterations; and a 128x72 render with
+   ``--profile``, whose Chrome trace must hold events (its kernel events
+   are printed).
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -326,10 +359,16 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "bdpt_mega": ("bdpt_eye",) + BDPT_LIGHT,
                 "bdpt_exact": ("bdpt_eye",) + BDPT_LIGHT,
                 "bdpt_fused": ("connect",) + BDPT_LIGHT,
+                "oracle": ("connect",) + BDPT_LIGHT,
                 "ppm": ("photon_trace", "gather_flux", "nearest_hit",
                         "threefry_rows"),
                 "stream": ("nearest_hit_stream", "any_blocker_stream",
                            "threefry_rows"),
+                "big_tex": ("shade_step_tex", "threefry_rows"),
+                "big_mega": ("render_wavefront",),
+                "big_ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                            "threefry_rows"),
+                "big_bdpt": ("bdpt_eye",) + BDPT_LIGHT,
                 "probe": ("onehot_fetch",),
                 "hit_counting": ("nearest_hit_counts",),
                 "shadow_counting": ("any_blocker_counts",),
@@ -341,7 +380,16 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "stream_counting": ("nearest_hit_stream_counts",),
                 "blocker_counting": ("any_blocker_stream_counts",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
-BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS: the stream tier
+BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS (the TPU's ceiling)
+# the enclosed scene: the icosphere at this radius on cornell's floor
+ENCLOSED_R, ENCLOSED_C = 0.35, (0.0, -0.65, -0.55)
+ROOM_TRIS = 36            # cornell's walls and blocks
+ENCLOSED_TRIS = BIG_TRIS + ROOM_TRIS
+EYE_HOLD_LANES = 16384    # live lanes at most a launch, held on the big mesh
+PHOTON_SUBSET = 4096      # photons of the big mesh's pass held against plain
+BIG_PPM_PASSES = 3
+BIG_BDPT_W, BIG_BDPT_H = 32, 18
+ORACLE_W, ORACLE_SPP = 256, 16
 SUBSET = 65536            # lanes at least, strided, for #6/#7's plain sweeps
 PROBE_ROWS, PROBE_D = 128, (4352, 16640, 66048)   # bench.py's texprobe shapes
 # The card's published peaks (H100 SXM, 700 W) and the operations counted
@@ -997,13 +1045,14 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     return results, tex_small_err
 
 
-def run_cli(inp, w, h, tier, name, mode="pt", extra=()):
+def run_cli(inp, w, h, tier, name, mode="pt", extra=(), spp=SPP,
+            device="cuda"):
     from path_tracing_tpu_torch import cli
 
     out = OUT / f"{name}.png"
-    res = cli.run(["--input", str(inp), "--mode", mode, "--spp", str(SPP),
+    res = cli.run(["--input", str(inp), "--mode", mode, "--spp", str(spp),
                    "--width", str(w), "--height", str(h), "--eye-depth", "4",
-                   "--device", "cuda", "--tier", tier, "--output", str(out),
+                   "--device", device, "--tier", tier, "--output", str(out),
                    *extra])
     img = res["image"]
     check(img.shape == (w * h, 3), f"{name}: image shape {img.shape}")
@@ -1018,20 +1067,21 @@ def run_cli(inp, w, h, tier, name, mode="pt", extra=()):
               f"{sec * 1e3 / n:.2f} ms per pass, "
               f"{w * h * n / sec / 1e6:.3f} Mpaths/s, mean {img.mean():.6f}")
         return res
-    mpaths = w * h * SPP / res["seconds"] / 1e6
-    print(f"[render] {name}: {mode} {w}x{h} spp {SPP} {res['tier']} tier "
+    mpaths = w * h * spp * res["iters"] / res["seconds"] / 1e6
+    print(f"[render] {name}: {mode} {w}x{h} spp {spp} {res['tier']} tier "
           f"{res['seconds']:.3f} s, {mpaths:.3f} Mpaths/s, mean "
           f"{img.mean():.6f}")
     return res
 
 
-def counted(path, inp, w, h, tier, name, counts, mode="pt", extra=()):
+def counted(path, inp, w, h, tier, name, counts, mode="pt", extra=(),
+            **kw):
     """Render through the CLI with the counts reset just before and read
     just after; the path's kernels must launch and no plain version run."""
     from path_tracing_tpu_torch.ops import _kernels
 
     _kernels.reset_counts()
-    res = run_cli(inp, w, h, tier, name, mode, extra)
+    res = run_cli(inp, w, h, tier, name, mode, extra, **kw)
     launches = dict(_kernels.launches)
     plain = dict(_kernels.plain_calls)
     print(f"[render] {path} path launches {launches}, plain calls {plain}")
@@ -1113,25 +1163,42 @@ def same_launch(name: str, a, b) -> bool:
     return torch.equal(a, b) if name == "any_blocker" else same_bits(a, b)
 
 
-def hold_launches(name: str, calls: list, what: str) -> list:
+def thin(live: torch.Tensor, n: int) -> torch.Tensor:
+    """``live`` with every k-th live lane kept, so that at most ``n``
+    stay live."""
+    idx = live.nonzero().squeeze(1)
+    if idx.numel() <= n:
+        return live
+    out = torch.zeros_like(live)
+    out[idx[::-(-idx.numel() // n)]] = True
+    return out
+
+
+def hold_launches(name: str, calls: list, what: str,
+                  max_live: int | None = None) -> list:
     """Each recorded launch of #1 or #2 (``record_launches``' argument
     tuples) against its plain version on the same inputs, bit for bit on
     every lane (the lanes that are not live with the miss record or
-    false); returns each launch's device time (graph replay of 10 calls)
+    false; with ``max_live``, on the launch's rays with its live lanes
+    thinned to at most that many, for the plain brute force on a big
+    mesh); returns each launch's device time (graph replay of 10 calls)
     and live lanes."""
     from path_tracing_tpu_torch.kernel_times import graph_ms
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
 
     fast, plain = getattr(ci, name), getattr(ci, f"{name}_plain")
-    rows = []
+    rows, held = [], 0
     for i, a in enumerate(calls):
-        check(same_launch(name, fast(*a), plain(*a)),
+        h = a if max_live is None else (*a[:-1], thin(a[-1], max_live))
+        held += int(h[-1].sum())
+        check(same_launch(name, fast(*h), plain(*h)),
               f"{name} {what}: launch {i} differs from its plain version")
         rows.append(dict(ms=graph_ms(lambda a=a: fast(*a), 10, 5),
                          live=int(a[-1].sum())))
     total = sum(r["ms"] for r in rows)
     print(f"[kernels] {name} on each of the {what}'s {len(rows)} launches, "
-          f"every lane bit-equal to the plain version (device ms / live "
+          f"every lane bit-equal to the plain version ({held} of "
+          f"{sum(r['live'] for r in rows)} live lanes held; device ms / live "
           f"lanes of {calls[0][1].shape[0]}): "
           + ", ".join(f"{r['ms']:.4f} / {r['live']}" for r in rows)
           + f"; {total:.3f} ms in all")
@@ -1403,26 +1470,26 @@ def hold_eye(what: str, a, b, loose_ok: bool = False) -> str:
     return bar
 
 
-def small_bdpt(parsed, K: int):
-    """#9's arguments for a 128x72 spp 4 BDPT frame of ``parsed`` (spl 8,
-    depths 4, seed 0), as the mega tier builds them."""
+def small_bdpt(parsed, K: int, w=SMALL_W, h=SMALL_H, spp=SPP, scene=None):
+    """#9's arguments for a ``w`` x ``h`` (128x72) spp 4 BDPT frame of
+    ``parsed`` (spl 8, depths 4, seed 0; ``scene``: ``parsed`` already on
+    the card), as the mega tier builds them."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
 
-    w, h = SMALL_W, SMALL_H
-    scene = parsed.to_device("cuda")
+    scene = parsed.to_device("cuda") if scene is None else scene
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       w, h, device="cuda")
-    cfg = RenderConfig(width=w, height=h, spp=SPP, spl=SPL, eye_depth=4,
+    cfg = RenderConfig(width=w, height=h, spp=spp, spl=SPL, eye_depth=4,
                        light_depth=4, bdpt_resample_vertices=K)
     key = rng.fold_in(rng.prng_key(0), 0)
     used, lv, scale = bdpt.light_side(scene, cfg, SPL, key)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
-    return (ci.pack_scene(used), tab, nv, cam, idx % w, idx // w, SPP, cfg,
+    return (ci.pack_scene(used), tab, nv, cam, idx % w, idx // w, spp, cfg,
             key, scale)
 
 
@@ -1536,11 +1603,15 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     # shared table (spp 1, for the plain version's time) and the main
     # path's tile-RIS tables (spp 4) ----
     err, ris_img = 0.0, None
-    for what, K, spp in (("exact sweep", 0, 1),
-                         (f"tile-RIS K={RIS_K}", RIS_K, SPP)):
+    for what, K, spp, lo, n in (
+            ("exact sweep", 0, 1, 3 * B // 8, B // 4),
+            (f"tile-RIS K={RIS_K}", RIS_K, SPP, 0, B)):
         cfg, key, used, etab, env, px, py, scale = bdpt_frame(scene, cam, K)
         epk = ci.pack_scene(used)
-        eargs = (epk, etab, env, cam, px, py, spp, cfg, key, scale)
+        eargs = (epk, etab, env, cam, px[lo:lo + n], py[lo:lo + n], spp, cfg,
+                 key, scale, lo, B)
+        if n < B:
+            what += f" (lanes [{lo}, {lo + n}))"
         a, ms = once_ms(lambda: ce.bdpt_eye(*eargs))
         pc = cc.new_counts()
         b, plain_ms = once_ms(lambda: ce.bdpt_eye_plain(*eargs, counts=pc))
@@ -1655,52 +1726,40 @@ def connect_launches(call) -> tuple:
 
 
 def phase_oracle(counts: dict) -> dict:
-    """The deterministic BDPT ground truth, ``render_oracle`` on cornell at
-    256x256 spp 16 (spl 8, BASELINE config 1's shape; seed 1337): its auto
-    tier is the fused one, which launches #8 once an eye iteration.
-    Rendered twice, the images must be bit-equal; returns its wall time
-    and launches."""
-    from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.bdpt import render_oracle
-    from path_tracing_tpu_torch.ops import _kernels
-    from path_tracing_tpu_torch.scene.camera import make_camera
-    from path_tracing_tpu_torch.scene.parser import load_scene
+    """The deterministic BDPT ground truth through the CLI, ``--device
+    oracle`` on cornell at 256x256 spp 16 (spl 8, BASELINE config 1's
+    shape, seed 0): the fused tier, which launches #8 once an eye
+    iteration.  Rendered twice, the images must be bit-equal; returns its
+    wall times and launches, and #8's device time in a third render."""
+    import numpy as np
 
-    w = h = 256
-    spp, spl = 16, 8
-    p = load_scene(str(SCENE))
-    scene = p.to_device("cuda")
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
-                      device="cuda")
-    cfg = RenderConfig(width=w, height=h, spp=spp, spl=spl)
+    kw = dict(spp=ORACLE_SPP, device="oracle")
+    extra = ["--spl", str(SPL)]
     imgs, ms = [], []
-    for _ in range(2):
-        _kernels.reset_counts()
-        img, t = once_ms(lambda: render_oracle(scene, cam, w, h, spp, spl,
-                                               cfg))
-        imgs.append(img)
-        ms.append(t)
-        check(sum(_kernels.plain_calls.values()) == 0,
-              f"oracle: plain versions ran: {_kernels.plain_calls}")
-        counts["oracle"] = dict(_kernels.launches)
+    for i in range(2):
+        res = counted("oracle", SCENE, ORACLE_W, ORACLE_W, "auto",
+                      f"oracle_{ORACLE_W}_{i}", counts, "bdpt", extra, **kw)
+        check(res["tier"] == "fused" and counts["oracle"]["bdpt_eye"] == 0,
+              f"--device oracle ran the {res['tier']} tier: "
+              f"{counts['oracle']}")
+        imgs.append(res["image"])
+        ms.append(res["seconds"] * 1e3)
     # a third render with #8's launches timed (the events stay out of the
     # wall times above)
-    _, launches = connect_launches(lambda: render_oracle(
-        scene, cam, w, h, spp, spl, cfg))
+    _, launches = connect_launches(lambda: run_cli(
+        SCENE, ORACLE_W, ORACLE_W, "auto", f"oracle_{ORACLE_W}_timed",
+        "bdpt", extra, **kw))
     connect_ms = sum(x["ms"] for x in launches)
-    check(counts["oracle"]["connect"] > 0, "the oracle launched no connect")
-    check(torch.equal(imgs[0], imgs[1]), "oracle: two renders differ")
-    img = imgs[0]
-    check(bool(torch.isfinite(img).all()) and img.mean().item() > 0,
-          f"oracle: image not finite or black (mean {img.mean().item()})")
-    print(f"[oracle] render_oracle cornell {w}x{h} spp {spp} spl {spl}: "
-          f"bit-equal twice, {ms[0]:.1f} / {ms[1]:.1f} ms, "
-          f"{w * h * spp / ms[1] / 1e3:.3f} Mpaths/s, connect launches "
-          f"{counts['oracle']['connect']} ({connect_ms:.1f} ms of device time "
-          f"in a third render), nearest_hit "
-          f"{counts['oracle']['nearest_hit']}, mean {img.mean().item():.6f}")
-    return dict(ms=ms, launches=counts["oracle"]["connect"],
-                connect_ms=connect_ms)
+    check(np.array_equal(imgs[0], imgs[1]), "oracle: two renders differ")
+    c = counts["oracle"]
+    print(f"[oracle] --device oracle cornell {ORACLE_W}x{ORACLE_W} spp "
+          f"{ORACLE_SPP} spl {SPL} through the CLI: bit-equal twice, "
+          f"{ms[0]:.1f} / {ms[1]:.1f} ms, "
+          f"{ORACLE_W ** 2 * ORACLE_SPP / ms[1] / 1e3:.3f} Mpaths/s, connect "
+          f"launches {c['connect']} ({connect_ms:.1f} ms of device time in a "
+          f"third render), nearest_hit {c['nearest_hit']}, mean "
+          f"{imgs[0].mean():.6f}")
+    return dict(ms=ms, launches=c["connect"], connect_ms=connect_ms)
 
 
 def ppm_frame(scene, cam):
@@ -2165,11 +2224,11 @@ def retime_nearest_hit(parsed, row: dict) -> None:
               f"({row[what]['bound_by']})")
 
 
-def phase_mesh_kernels(counts: dict) -> tuple:
+def phase_mesh_kernels(counts: dict, mesh) -> tuple:
     """#6 and #7 on the stream tier's lanes of the 327,680-triangle
-    textured frame, against #1/#2 on every live lane and their plain
-    versions on a strided subset, with their times on sorted and unsorted
-    rays, and #7 on random shadow segments through the mesh; #12
+    textured frame (``mesh``), against #1/#2 on every live lane and their
+    plain versions on a strided subset, with their times on sorted and
+    unsorted rays, and #7 on random shadow segments through the mesh; #12
     at the probe's shapes.  Writes the frame's OBJ; returns the results and
     its path."""
     from path_tracing_tpu_torch.kernel_times import graph_ms, shadow_segments
@@ -2182,14 +2241,13 @@ def phase_mesh_kernels(counts: dict) -> tuple:
     from path_tracing_tpu_torch.scene.obj_loader import load_any_scene
 
     t0 = time.perf_counter()
-    obj = synth.write_obj(synth.icosphere_scene(BIG_TRIS, textured=True),
-                          str(OUT / f"icosphere_{BIG_TRIS}.obj"))
+    obj = synth.write_obj(mesh, str(OUT / f"icosphere_{BIG_TRIS}.obj"))
     t1 = time.perf_counter()
     parsed = load_any_scene(obj)
     t2 = time.perf_counter()
     scene = parsed.to_device("cuda")
-    print(f"[mesh] {BIG_TRIS}-triangle textured icosphere: synth and OBJ "
-          f"write {t1 - t0:.1f} s, OBJ parse {t2 - t1:.1f} s, to the card "
+    print(f"[mesh] {BIG_TRIS}-triangle textured icosphere: OBJ write "
+          f"{t1 - t0:.1f} s, OBJ parse {t2 - t1:.1f} s, to the card "
           f"{time.perf_counter() - t2:.1f} s")
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       W, H, device="cuda")
@@ -2360,53 +2418,308 @@ def nonzero_share(img, what: str) -> None:
     check(share > 0.01, f"{what}: only {share} of pixels are non-zero")
 
 
-def phase_big_render(counts: dict, obj: str) -> None:
-    """The 327,680-triangle icosphere: the CLI's main path (auto: the
-    stream tier) and the fused tier on the textured OBJ, then the stream
-    and mega tiers on the untextured mesh in process, from one key."""
+def enclosed_scene(mesh, textured: bool):
+    """``scenes/cornell.txt``'s room, blocks, spheres and lights, parsed by
+    the port's parser, with ``mesh``'s icosphere scaled to radius
+    ``ENCLOSED_R`` and standing on the floor at ``ENCLOSED_C`` (white
+    diffuse; ``textured``: with its UVs and checker texture, the room's
+    triangles untextured).  Float32 positions, so that a text scene
+    written with 9 significant digits parses back to the same scene."""
+    import numpy as np
+
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    p = load_scene(str(SCENE))
+    n_room = len(p.tri_verts)
+    tv = np.asarray(mesh.tri_verts, np.float32)
+    tv = tv * np.float32(ENCLOSED_R) + np.asarray(ENCLOSED_C, np.float32)
+    p.tri_verts += tv.tolist()
+    p.tri_mtl += mesh.tri_mtl
+    p.tri_group += [0] * len(tv)
+    if textured:
+        p.tri_uv = [[0.0] * 6] * n_room + list(mesh.tri_uv)
+        p.tri_tex = [-1] * n_room + list(mesh.tri_tex)
+        p.textures = list(mesh.textures)
+    return p
+
+
+def write_scene_txt(parsed, path) -> str:
+    """``parsed`` (an untextured ``enclosed_scene``) as a text scene for
+    the CLI: cornell's records, then the mesh's triangles."""
+    import numpy as np
+
+    tv = np.asarray(parsed.tri_verts[ROOM_TRIS:], np.float32).reshape(-1, 9)
+    with open(path, "w") as f:
+        f.write(SCENE.read_text())
+        f.write("\nM " + " ".join(f"{x:.9g}" for x in parsed.tri_mtl[-1])
+                + "\n")
+        np.savetxt(f, tv, fmt="T" + " %.9g" * 9)
+    return str(path)
+
+
+def walk_counts(scene, parsed, label: str) -> None:
+    """#5's counting build at 128x72 spp 4 on ``scene``: the walks' tests
+    a bounce and a shadow ray (where a big mesh's time goes)."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.pt import render_pt
+    from path_tracing_tpu_torch.integrators.pt import _light_table
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.ops import rng
-    from path_tracing_tpu_torch.scene import synth
     from path_tracing_tpu_torch.scene.camera import make_camera
 
-    res = counted("stream", obj, W, H, "auto", "big_1080p_stream", counts)
-    c = counts["stream"]
-    check(res["tier"] == "stream", f"auto picked {res['tier']} on "
-          f"{BIG_TRIS} triangles")
-    check(c["nearest_hit"] == c["shade_step_tex"] == c["render_wavefront"] == 0,
-          f"stream path launches {c}")
-    fused = run_cli(obj, W, H, "fused", "big_1080p_fused")
-    compare(res["image"], fused["image"], f"{BIG_TRIS} textured stream vs "
-            "fused", 0.99)
-    nonzero_share(res["image"], "textured stream")
-    nonzero_share(fused["image"], "textured fused")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      SMALL_W, SMALL_H, device="cuda")
+    idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
+    pk = ci.pack_scene(scene)
+    _, c = cw.render_wavefront_counts(
+        pk, _light_table(scene), cam, idx % SMALL_W, idx // SMALL_W, SPP,
+        RenderConfig(width=SMALL_W, height=SMALL_H, spp=SPP, eye_depth=4),
+        rng.fold_in(rng.prng_key(0), 0))
+    it, sh = max(c["iterations"], 1), max(c["shadow_rays"], 1)
+    print(f"[tier] {label} #5 counts at {SMALL_W}x{SMALL_H} spp {SPP} "
+          f"({pk.n_super} supers): {c['iterations']} bounces, "
+          f"{c['hit_boxes'] / it:.1f} boxes and {c['hit_tris'] / it:.1f} "
+          f"triangles a bounce; {c['shadow_rays']} shadow rays, "
+          f"{c['shadow_boxes'] / sh:.1f} boxes and {c['shadow_tris'] / sh:.1f}"
+          " triangles each")
 
-    p = synth.icosphere_scene(BIG_TRIS)
-    scene = p.to_device("cuda")
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H, device="cuda")
+
+def phase_tier_decision(counts: dict, mesh, obj: str) -> tuple:
+    """PT's ``auto`` above the resident ceiling.  On the convex icosphere
+    and on the enclosed scene (the icosphere in cornell's room), untextured
+    and textured, at 1920x1080 spp 4 from one key: the stream tier against
+    the resident tier (mega untextured, fused textured) in turns (stream,
+    resident, resident, stream).  The rule: auto takes the resident tier
+    where it was faster in every turn and stream where stream was;
+    ``resolve_tier`` must not pick a tier that was slower in every turn.
+    #5's walk counts on the untextured scenes.  Images: >= 99.9% of pixels
+    equal on the untextured convex mesh, >= 99% elsewhere.  Then through
+    the CLI: auto on the textured OBJ and on the untextured enclosed scene
+    (written as a text scene), and
+    ``--tier stream`` on the textured OBJ (#6/#7's path).  Returns the
+    enclosed scene (parsed and on the card) and its text scene's path."""
+    import dataclasses
+
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import render_pt, resolve_tier
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
-    imgs, ms = {}, {"stream": [], "mega": []}
-    for tier in ("stream", "mega", "mega", "stream"):     # in turns
-        img, t = once_ms(lambda: render_pt(scene, cam, W, H, SPP, cfg, key,
-                                           tier=tier))
-        imgs[tier] = img.cpu().numpy()
-        ms[tier].append(t)
-    for tier, t in ms.items():
-        print(f"[big] untextured {BIG_TRIS} {tier} tier in process, in turns:"
-              f" {', '.join(f'{x:.1f}' for x in t)} ms, "
-              f"{', '.join(f'{B * SPP / x / 1e3:.3f}' for x in t)} Mpaths/s")
-        nonzero_share(imgs[tier], f"untextured {tier}")
-    compare(imgs["mega"], imgs["stream"], f"{BIG_TRIS} untextured stream vs "
-            "mega", 0.999)
+    bare = dataclasses.replace(mesh, tri_uv=[], tri_tex=[], textures=[])
+    cases = (("convex", bare, False),
+             ("enclosed", enclosed_scene(mesh, False), False),
+             ("convex", mesh, True),
+             ("enclosed", enclosed_scene(mesh, True), True))
+    imgs = {}
+    for what, parsed, tex in cases:
+        t0 = time.perf_counter()
+        scene = parsed.to_device("cuda")
+        setup = time.perf_counter() - t0
+        cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up,
+                          parsed.fov, W, H, device="cuda")
+        res = "fused" if tex else "mega"
+        label = f"{what} {scene.num_triangles}" + (" textured" if tex
+                                                      else "")
+        small = make_camera(parsed.eye, parsed.look_at, parsed.view_up,
+                            parsed.fov, SMALL_W, SMALL_H, device="cuda")
+        for tier in ("stream", res):        # warm-up: first calls, packing
+            render_pt(scene, small, SMALL_W, SMALL_H, 1, cfg, key, tier=tier)
+        ms = {"stream": [], res: []}
+        for tier in ("stream", res, res, "stream"):         # in turns
+            img, t = once_ms(lambda: render_pt(scene, cam, W, H, SPP, cfg,
+                                               key, tier=tier))
+            imgs[(what, tex, tier)] = img.cpu().numpy()
+            ms[tier].append(t)
+        for tier, t in ms.items():
+            print(f"[tier] {label} {tier} in turns: "
+                  f"{', '.join(f'{x:.1f}' for x in t)} ms, "
+                  f"{', '.join(f'{B * SPP / x / 1e3:.3f}' for x in t)} "
+                  f"Mpaths/s (scene to the card {setup:.1f} s)")
+            nonzero_share(imgs[(what, tex, tier)], f"{label} {tier}")
+        # the enclosed scene's delta chains (cornell's mirror wall, glass
+        # and diamond) carry #6's last-ulp differences from #1 into whole
+        # paths, as the textured bounce's fetch does: the 99% bar there
+        compare(imgs[(what, tex, res)], imgs[(what, tex, "stream")],
+                f"{label} stream vs {res}",
+                0.999 if what == "convex" and not tex else 0.99)
+        if max(ms[res]) < min(ms["stream"]):
+            won = res
+        elif max(ms["stream"]) < min(ms[res]):
+            won = "stream"
+        else:
+            won = "neither"
+        auto = resolve_tier(scene, "auto")
+        print(f"[tier] {label}: {won} faster in every turn; auto picks "
+              f"{auto}")
+        check(won in (auto, "neither"), f"{label}: auto picks {auto}, "
+              f"{won} was faster in every turn")
+        if not tex:
+            walk_counts(scene, parsed, label)
+        if what == "enclosed" and not tex:
+            enclosed = (parsed, scene)
+        del scene
+
+    # ---- through the CLI: auto and --tier stream ----
+    res = counted("big_tex", obj, W, H, "auto", "big_1080p_auto", counts)
+    c = counts["big_tex"]
+    check(res["tier"] == "fused" and c["nearest_hit_stream"] == 0
+          and c["render_wavefront"] == 0, f"auto on the textured "
+          f"{BIG_TRIS}-triangle OBJ: {res['tier']} tier, launches {c}")
+    stream = counted("stream", obj, W, H, "stream", "big_1080p_stream",
+                     counts)
+    c = counts["stream"]
+    check(c["nearest_hit"] == c["shade_step_tex"] == c["render_wavefront"]
+          == 0, f"stream path launches {c}")
+    compare(res["image"], stream["image"], f"{BIG_TRIS} textured OBJ auto vs "
+            "stream through the CLI", 0.99)
+    t0 = time.perf_counter()
+    txt = write_scene_txt(enclosed[0], OUT / f"enclosed_{ENCLOSED_TRIS}.txt")
+    print(f"[tier] enclosed text scene written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    res = counted("big_mega", txt, W, H, "auto", "enclosed_1080p_auto",
+                  counts)
+    check(res["tier"] == "mega", f"auto picked {res['tier']} on the "
+          "enclosed scene")
+    compare(imgs[("enclosed", False, "mega")], res["image"],
+            "enclosed mega in process vs auto through the CLI", 0.999)
+    return enclosed, txt
+
+
+def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
+    """PPM on the enclosed scene: the eye pass's #1 launches (recorded from
+    the integrator's own first 512x512 pass) held against the plain
+    nearest hit on their live lanes (at most ``EYE_HOLD_LANES`` a launch:
+    the plain version is a brute force over 327,716 triangles), #10 (its
+    ``kWalkSuper`` instance) against ``photon_trace_plain`` on the pass's
+    first 4,096 photons, then the CLI's auto at 512x512, 3 passes of
+    4 x 262,144 photons.  Returns #1's times on the eye pass's launches
+    and #10's on the pass, with the CLI's ms a pass."""
+    from path_tracing_tpu_torch.kernel_times import record_launches
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    parsed, scene = enclosed
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
+                      PPM_W, PPM_H, device="cuda")
+    (cfg, _, _, emit, kp), rec = record_launches(lambda: ppm_frame(scene,
+                                                                   cam))
+    pk = ci.pack_scene(scene)
+    check(pk.n_super > 0, "the enclosed scene is not on the super walk")
+    eye = hold_launches("nearest_hit", rec["nearest_hit"],
+                        "enclosed PPM eye pass", max_live=EYE_HOLD_LANES)
+    P = emit[0].shape[0]
+    n = PHOTON_SUBSET
+    targs = (pk, *(x[:n] for x in emit), kp, cfg.light_depth,
+             cfg.max_light_iters, 0, P)
+    ev, valid = cp.photon_trace(*targs)
+    (ev_p, valid_p), plain_ms = once_ms(lambda: cp.photon_trace_plain(*targs))
+    same = (valid == valid_p).float().mean().item()
+    both = valid & valid_p
+    close = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(
+        dim=1).float().mean().item()
+    equal = (ev[both] == ev_p[both]).all(dim=1).float().mean().item()
+    check(same >= 0.9999 and close >= 0.9999 and int(valid.sum()) > 0,
+          f"photon_trace on the enclosed scene: valid flags agree on "
+          f"{same:.6f} of rows, fields on {close:.6f} of the valid ones")
+    full = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    ms = time_ms(lambda: cp.photon_trace(*full), 3)
+    print(f"[bigppm] photon_trace (the super walk, {pk.n_super} supers) on "
+          f"photons [0, {n}) of the {P}-photon pass: valid flags equal on "
+          f"{same:.6f} of rows, {int(valid.sum())} valid; fields within rtol "
+          f"1e-5 / atol 1e-6 on {close:.6f}, bit-equal {equal:.6f}; plain "
+          f"{plain_ms:.1f} ms; the whole pass {ms:.3f} ms kernel")
+    extra = ["--spl", str(PPM_SPL), "--light-depth", "4", "--iters",
+             str(BIG_PPM_PASSES)]
+    res = counted("big_ppm", txt, PPM_W, PPM_H, "auto", "enclosed_ppm_512",
+                  counts, "ppm", extra)
+    c = counts["big_ppm"]
+    check(res["tier"] == "mega" and c["photon_trace"] == BIG_PPM_PASSES
+          and c["gather_flux"] == BIG_PPM_PASSES,
+          f"PPM on the enclosed scene: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "enclosed PPM")
+    return dict(per_launch=eye, ms=sum(r["ms"] for r in eye)), dict(
+        ms=ms, plain_ms=plain_ms, plain_photons=n, pass_ms=res["seconds"]
+        * 1e3 / BIG_PPM_PASSES)
+
+
+def phase_big_bdpt(counts: dict, enclosed, txt: str) -> None:
+    """BDPT on the enclosed scene: #9 against ``bdpt_eye_plain`` at
+    ``BIG_BDPT_W`` x ``BIG_BDPT_H`` spp 1 on its tile-RIS K = 32 tables,
+    then the CLI's auto (mega) at 1920x1080 spp 4, tile-RIS K = 32."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
+
+    parsed, scene = enclosed
+    args = small_bdpt(parsed, RIS_K, BIG_BDPT_W, BIG_BDPT_H, 1, scene)
+    check(args[0].n_super > 0, "the enclosed scene is not on the super walk")
+    a, ms = once_ms(lambda: ce.bdpt_eye(*args))
+    b, plain_ms = once_ms(lambda: ce.bdpt_eye_plain(*args))
+    hold_eye(f"enclosed tile-RIS K={RIS_K} {BIG_BDPT_W}x{BIG_BDPT_H} spp 1",
+             a, b, loose_ok=True)
+    print(f"[bigbdpt] bdpt_eye {BIG_BDPT_W}x{BIG_BDPT_H}: {ms:.1f} ms "
+          f"kernel, {plain_ms:.1f} ms plain")
+    res = counted("big_bdpt", txt, W, H, "auto", "enclosed_bdpt_1080p",
+                  counts, "bdpt", ["--spl", str(SPL), "--light-depth", "4",
+                                   "--resample", str(RIS_K)])
+    c = counts["big_bdpt"]
+    check(res["tier"] == "mega" and c["bdpt_eye"] == 1 and c["connect"] == 0,
+          f"BDPT on the enclosed scene: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "enclosed BDPT")
+
+
+def phase_checkpoint() -> None:
+    """Checkpoint resume through the CLI on the PT main path (cornell,
+    1920x1080 spp 4): two iterations, then a resume for one more, bit-equal
+    to three uninterrupted iterations; and one ``--profile`` run whose
+    Chrome trace must exist and hold events."""
+    import numpy as np
+
+    from path_tracing_tpu_torch.film import load_checkpoint
+    from path_tracing_tpu_torch.profiling import TRACE_FILE
+
+    ck = OUT / "resume.npz"
+    ck.unlink(missing_ok=True)
+    full = run_cli(SCENE, W, H, "auto", "ckpt_full", extra=["--iters", "3"])
+    first = run_cli(SCENE, W, H, "auto", "ckpt_first",
+                    extra=["--iters", "2", "--checkpoint", str(ck)])
+    resumed = run_cli(SCENE, W, H, "auto", "ckpt_resumed",
+                      extra=["--iters", "1", "--checkpoint", str(ck)])
+    state, meta = load_checkpoint(str(ck))
+    check(first["iters"] == 2 and resumed["iters"] == 1
+          and state.n_iters == 3, f"checkpoint: {first['iters']} + "
+          f"{resumed['iters']} iterations, {state.n_iters} saved")
+    check(np.array_equal(full["image"], resumed["image"]),
+          "checkpoint: the resumed render differs from the uninterrupted one")
+    print(f"[ckpt] cornell {W}x{H} spp {SPP}: 2 iterations + a resume for 1 "
+          "bit-equal to 3 uninterrupted (mode "
+          f"{meta['mode']}, {state.n_iters} iterations in the checkpoint)")
+    prof = OUT / "profile"
+    run_cli(SCENE, SMALL_W, SMALL_H, "auto", "profiled",
+            extra=["--profile", str(prof)])
+    trace = prof / TRACE_FILE
+    events = json.loads(trace.read_text()).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(trace.stat().st_size > 0 and events, f"--profile: {trace} is "
+          "empty")
+    print(f"[ckpt] --profile wrote {trace} ({trace.stat().st_size} bytes, "
+          f"{len(events)} events, {len(kernels)} kernel events: "
+          f"{sorted({e['name'][:40] for e in kernels})})")
 
 
 def main() -> int:
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        print(f"[time] {what}: {laps[-1] - laps[-2]:.1f} s")
+
     name = phase_card()
     phase_build()
     occupancy = phase_occupancy()
+    lap("card, build, occupancy")
 
     from path_tracing_tpu_torch.scene import synth
     from path_tracing_tpu_torch.scene.camera import make_camera
@@ -2423,11 +2736,15 @@ def main() -> int:
         p.to_device("cuda"), cam, m.to_device("cuda"), mesh_cam, counts)
     rows = {r["name"]: r for r in results}
     retime_nearest_hit(p, rows["nearest_hit"])
+    lap("kernels (phase 3)")
     split, small = phase_render(counts)
     results += phase_lanes(split, small, counts, rows)
     del split, small
+    lap("PT renders and #1/#2 launches (phase 4)")
     results += phase_textured(counts, tex_small_err)
+    lap("textured (phase 5)")
     bdpt_results, ris_img = phase_bdpt_kernels(p, cam)
+    lap("BDPT kernels (phase 6)")
     for r in bdpt_results:
         r["occupancy"] = occupancy["exact" if r["name"] == "connect"
                                    else "tile-RIS"][r["name"]]
@@ -2437,13 +2754,31 @@ def main() -> int:
     rows["nearest_hit"]["bdpt_fused"] = dict(
         launches=len(hits), ms=sum(r["ms"] for r in hits), per_launch=hits)
     conn["oracle"] = phase_oracle(counts)
+    lap("BDPT renders and the oracle (phase 7)")
     ppm_results, pass0 = phase_ppm_kernels(p, counts)
     results += ppm_results
+    rows.update((r["name"], r) for r in ppm_results)
     phase_ppm_render(counts, pass0)
-    mesh_results, obj, big = phase_mesh_kernels(counts)
+    lap("PPM (phases 8-9)")
+    t0 = time.perf_counter()
+    mesh = synth.icosphere_scene(BIG_TRIS, textured=True)
+    print(f"[mesh] {BIG_TRIS}-triangle textured icosphere synthesised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh_results, obj, big = phase_mesh_kernels(counts, mesh)
     rows["nearest_hit"]["big_mesh"] = big
     results += mesh_results
-    phase_big_render(counts, obj)
+    lap("mesh kernels (phase 10)")
+    enclosed, txt = phase_tier_decision(counts, mesh, obj)
+    del mesh
+    lap("the tier decision (phase 11)")
+    rows["nearest_hit"]["ppm_eye_big"], rows["photon_trace"]["big_mesh"] = \
+        phase_big_ppm(counts, enclosed, txt)
+    lap("big-mesh PPM (phase 12)")
+    phase_big_bdpt(counts, enclosed, txt)
+    del enclosed
+    lap("big-mesh BDPT (phase 13)")
+    phase_checkpoint()
+    lap("checkpoint and profile (phase 14)")
     for r in results:
         if r["name"] in occupancy:
             r["occupancy"] = occupancy[r["name"]]
@@ -2455,7 +2790,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     extra = ("plain_lanes", "unsorted_ms", "per_bounce", "per_launch",
-             "split_ms", "bdpt_fused", "oracle", "ppm_eye",
+             "split_ms", "bdpt_fused", "oracle", "ppm_eye", "ppm_eye_big",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
              "occupancy", "host_ms", "library_host_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -53,3 +53,9 @@ class RenderConfig:
 
     def with_(self, **kw) -> "RenderConfig":
         return replace(self, **kw)
+
+
+def oracle_config(cfg: RenderConfig) -> RenderConfig:
+    """The CPU BDPT oracle's flags (cpu_bdpt.cpp semantics): dielectrics
+    do not block shadow rays."""
+    return cfg.with_(shadow_dielectrics_block=False)

@@ -1,5 +1,7 @@
-"""Film: progressive accumulation, tone mapping, PNG output and input
-(``path_tracing_tpu.film``; checkpoints are not ported yet)."""
+"""Film: progressive accumulation, tone mapping, PNG output and input,
+the terminal preview and checkpoints (``path_tracing_tpu.film``).  A
+checkpoint is the JAX package's npz (``radiance_sum``, ``n_iters``,
+``meta_*``), so each package resumes from the other's file."""
 from __future__ import annotations
 
 import struct
@@ -160,3 +162,60 @@ def read_png(path: str) -> np.ndarray:
 
 def save_image(path: str, linear, width: int, height: int) -> None:
     write_png(path, tonemap_u8(linear, width, height))
+
+
+def ansi_preview(rgb_u8: np.ndarray, max_cols: int = 80) -> str:
+    """An (H, W, 3) u8 image as 24-bit-colour Unicode half-blocks, the
+    JAX package's string for string: each cell shows two stacked pixels
+    ('▀', the top one as foreground, the bottom one as background), the
+    image box-averaged down to ``max_cols`` columns at about square
+    aspect."""
+    h, w, _ = rgb_u8.shape
+    cols = max(2, min(max_cols, w))
+    rows2 = max(2, int(round(h * cols / w)))  # pixel rows in the preview
+    rows2 += rows2 % 2
+
+    def bucket(img, n, axis):
+        edges = np.linspace(0, img.shape[axis], n + 1).astype(int)
+        sums = np.add.reduceat(img.astype(np.float32), edges[:-1], axis=axis)
+        cnt = np.maximum(np.diff(edges), 1)
+        shape = [1, 1, 1]
+        shape[axis] = n
+        return sums / cnt.reshape(shape)
+
+    small = bucket(bucket(rgb_u8, rows2, 0), cols, 1)
+    small = np.clip(small + 0.5, 0, 255).astype(np.uint8)
+    top, bot = small[0::2], small[1::2]
+    lines = []
+    for r in range(top.shape[0]):
+        cells = []
+        for c in range(cols):
+            tr, tg, tb = (int(v) for v in top[r, c])
+            br, bg, bb = (int(v) for v in bot[r, c])
+            cells.append(f"\x1b[38;2;{tr};{tg};{tb}m"
+                         f"\x1b[48;2;{br};{bg};{bb}m▀")
+        lines.append("".join(cells) + "\x1b[0m")
+    return "\n".join(lines)
+
+
+def save_checkpoint(path: str, state: AccumState, meta: dict | None = None
+                    ) -> None:
+    """Write the accumulation as the JAX package's npz: ``radiance_sum``
+    (H*W, 3) float32, ``n_iters`` int32 and one ``meta_<k>`` per entry."""
+    np.savez(path,
+             radiance_sum=state.radiance_sum.detach().cpu().numpy()
+             .astype(np.float32),
+             n_iters=np.asarray(state.n_iters, np.int32),
+             **{f"meta_{k}": v for k, v in (meta or {}).items()})
+
+
+def load_checkpoint(path: str, device="cpu") -> tuple[AccumState, dict]:
+    """Read a checkpoint of either package onto ``device``: the state and
+    its meta entries (numpy values, keys without ``meta_``)."""
+    z = np.load(path, allow_pickle=False)
+    state = AccumState(
+        radiance_sum=torch.from_numpy(
+            np.asarray(z["radiance_sum"], np.float32)).to(device),
+        n_iters=int(z["n_iters"]))
+    meta = {k[5:]: z[k] for k in z.files if k.startswith("meta_")}
+    return state, meta

@@ -32,6 +32,11 @@ Tiers (``resolve_tier``), as the JAX package picks its paths:
   table per sample;
 - ``plain``: the same loop on the plain versions.
 
+Meshes of any size take these routes: from 64 clusters on, #9, #8's
+shadow rays and #1 walk the super-cluster table (above the TPU's
+``MAX_RESIDENT_TRIS`` the JAX package streams the mesh through #6/#7
+instead, with the same hits).
+
 ``mega`` draws in the kernel the very numbers the per-bounce loop draws
 from the global Threefry counters, so with a shared table its image is the
 fused tier's.  On CPU tensors every kernel runs its plain version.  The
@@ -104,8 +109,10 @@ class LightVertices:
 
 def resolve_tier(scene: Scene, tier: str, cfg: RenderConfig) -> str:
     """The BDPT tier that renders ``scene`` when ``tier`` is asked for:
-    "auto" is "mega".  Raises ValueError for a tier BDPT does not have and
-    NotImplementedError for what is not ported yet."""
+    "auto" is "mega", at any triangle count (#9 on the resident super
+    walk; "fused" runs #1 and #8 on it).  Raises ValueError for a tier
+    BDPT does not have and NotImplementedError for what is not ported
+    yet."""
     if tier not in TIERS:
         raise ValueError(f"BDPT has no tier {tier!r}; expected one of "
                          f"{TIERS}")

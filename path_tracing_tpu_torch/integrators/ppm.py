@@ -23,13 +23,17 @@ accumulation is the caller's average over passes.
 Tiers (``resolve_tier``): ``mega`` (``auto``) runs the eye pass in PyTorch
 around the nearest-hit and Threefry kernels, the photon bounces in the
 ``photon_trace`` kernel (#10) and the join in the ``gather_flux`` kernel
-(#11); ``plain`` runs the plain versions of all of them.  On CPU tensors
-every kernel runs its plain version.  The random numbers are the JAX
-package's Threefry streams: the eye pass draws its jitter from
-``fold_in(key, 0x9E1)`` and bounce ``it`` from ``iter_key(fold_in(key,
-0x9E2), it)``; emission from ``fold_in(key, 0x407)``; photon bounces as
-``ops/cuda_photon.py`` says.  A pass renders from ``fold_in(frame_key, 1)``
-(eye) and ``fold_in(frame_key, 2)`` (photons), as the JAX package's does.
+(#11); ``plain`` runs the plain versions of all of them.  Meshes of any
+size take the same route: from 64 clusters on, #1 and #10 walk the
+super-cluster table (the JAX package streams meshes above its VMEM
+ceiling through #6/#7 and an XLA photon scan; the photons and hits are
+the same).  On CPU tensors every kernel runs its plain version.  The
+random numbers are the JAX package's Threefry streams: the eye pass
+draws its jitter from ``fold_in(key, 0x9E1)`` and bounce ``it`` from
+``iter_key(fold_in(key, 0x9E2), it)``; emission from ``fold_in(key,
+0x407)``; photon bounces as ``ops/cuda_photon.py`` says.  A pass renders
+from ``fold_in(frame_key, 1)`` (eye) and ``fold_in(frame_key, 2)``
+(photons), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from ..ops.intersect import hit_from_fields
 from ..ops.math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
 from ..ops.sampling import sample_light_emission
 from ..scene.camera import primary_ray_dirs
-from ..scene.types import MAX_RESIDENT_TRIS, Camera, Material, Scene
+from ..scene.types import Camera, Material, Scene
 
 TIERS = ("auto", "mega", "plain")
 
@@ -98,19 +102,17 @@ class PhotonEvents:
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The PPM tier that renders ``scene`` when ``tier`` is asked for:
-    "auto" is "mega".  Raises ValueError for a tier PPM does not have and
-    NotImplementedError for what is not ported yet."""
+    "auto" is "mega", at any triangle count (above ``MAX_RESIDENT_TRIS``
+    the eye pass's #1 and #10's ``kWalkSuper`` instance walk the
+    super-cluster table, #11 is unchanged).  Raises ValueError for a tier
+    PPM does not have and NotImplementedError for what is not ported
+    yet."""
     if tier not in TIERS:
         raise ValueError(f"PPM has no tier {tier!r}; expected one of {TIERS}")
     if scene.has_textures or scene.has_legacy_ks:
         raise NotImplementedError(
             "PPM of textured or legacy-Ks scenes is not ported yet "
             "(ROADMAP.md queue 1, 'textured and legacy-Ks PPM')")
-    if scene.num_triangles > MAX_RESIDENT_TRIS:
-        raise NotImplementedError(
-            f"PPM of meshes above {MAX_RESIDENT_TRIS} triangles is not "
-            "ported yet (ROADMAP.md queue 1, item [13], 'Big meshes in BDPT "
-            "and PPM')")
     return "mega" if tier == "auto" else tier
 
 

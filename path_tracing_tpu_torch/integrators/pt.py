@@ -14,12 +14,16 @@ Semantics kept from the reference, as the JAX package keeps them:
   iterations bound a path instead;
 - every contribution is validity-checked and clamped at ``cfg.clamp``.
 
-``wavefront_pt`` picks a tier as the JAX package's ``wavefront_pt`` picks
-its path on an accelerator: meshes above ``MAX_RESIDENT_TRIS`` triangles
-render in the per-bounce tier on the streamed kernels #6/#7 and sorted
-rays (``ops/cuda_stream.py``), other scenes without textures or legacy Ks
-in the megakernel (``ops/cuda_wavefront.py``, one launch for the whole spp
-loop), textured scenes in the per-bounce tier with the textured bounce.
+``wavefront_pt`` picks a tier (``resolve_tier``): scenes without textures
+or legacy Ks render in the megakernel (``ops/cuda_wavefront.py``, one
+launch for the whole spp loop), textured scenes in the per-bounce tier
+with the textured bounce, whatever their size: above ``MAX_RESIDENT_TRIS``
+triangles (the TPU's VMEM ceiling, where the JAX package streams the mesh)
+the resident kernels walk the super-cluster table, and on the card they
+were faster than the streamed kernels #6/#7 on sorted rays
+(``ops/cuda_stream.py``, ``--tier stream``, the JAX package's route
+there) in every turn on a convex and an enclosed 327,680-triangle mesh,
+or level with them (``chip_smoke.py`` phase 11, ``PERF.md``).
 The per-bounce tiers (``wavefront_loop``) are a Python loop that launches
 one bounce step per iteration and draws the uniforms from the global
 Threefry counters, exactly as the JAX package's ``PT_TPU_NO_MEGAKERNEL``
@@ -36,7 +40,7 @@ import torch
 from ..config import RenderConfig
 from ..ops import rng
 from ..ops.cuda_intersect import PackedScene, pack_scene
-from ..ops.intersect import Hit, resident, shadow_ray
+from ..ops.intersect import Hit, shadow_ray
 from ..ops.math3 import (EPSILON, PI, dot, is_valid_color, length,
                          normalize)
 from ..ops.sampling import uniform_sphere_dir
@@ -48,9 +52,9 @@ from ..scene.types import Camera, Scene
 # shade_step (textured: shade_step_tex) kernel per bounce; "split": the
 # nearest-hit and any-blocker kernels around a PyTorch bounce; "stream":
 # the streamed nearest-hit and any-blocker kernels on coherence-sorted rays
-# around a PyTorch bounce; "plain": PyTorch only; "auto": stream above
-# MAX_RESIDENT_TRIS triangles, else mega, or fused for textured scenes.  On
-# CPU tensors every tier runs plain code (stream its own plain versions).
+# around a PyTorch bounce; "plain": PyTorch only; "auto": mega, or fused
+# for textured scenes, at any size.  On CPU tensors every tier runs plain
+# code (stream its own plain versions).
 TIERS = ("auto", "mega", "fused", "split", "stream", "plain")
 
 
@@ -165,13 +169,15 @@ def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The tier that renders ``scene`` when ``tier`` is asked for: "auto"
-    is "stream" for meshes above ``MAX_RESIDENT_TRIS`` triangles, textured
-    or not, else "mega" for scenes without textures or legacy Ks and
-    "fused" otherwise, as the JAX package gates its megakernel and fused
-    kernels.  "mega" and "fused" stay allowed on big meshes and "stream"
-    on any scene.  Raises ValueError for an unknown tier or "mega" on a
-    textured scene, and NotImplementedError for legacy-Ks scenes (not
-    ported yet)."""
+    is "mega" for scenes without textures or legacy Ks and "fused"
+    otherwise, as the JAX package gates its megakernel and fused kernels,
+    at any triangle count.  Above ``MAX_RESIDENT_TRIS`` the JAX package
+    streams the mesh (#6/#7); on the card the resident super walk of
+    "mega" and "fused" was never slower than "stream" in every turn on the
+    big meshes ``chip_smoke.py`` times, so auto keeps them there.
+    "stream" stays allowed on any scene.  Raises ValueError for an
+    unknown tier or "mega" on a textured scene, and NotImplementedError
+    for legacy-Ks scenes (not ported yet)."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
     if scene.has_legacy_ks:
@@ -179,8 +185,6 @@ def resolve_tier(scene: Scene, tier: str) -> str:
             "legacy-Ks scenes are not ported yet (ROADMAP queue 1: legacy-Ks "
             "transmittance)")
     if tier == "auto":
-        if not resident(scene):
-            return "stream"
         return "fused" if scene.has_textures else "mega"
     if tier == "mega" and scene.has_textures:
         raise ValueError("tier 'mega' does not render textured scenes (the "

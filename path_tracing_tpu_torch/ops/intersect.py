@@ -9,9 +9,9 @@ minimum reproduces that tie-break.
 
 ``find_closest_hit`` and ``transmittance`` go through the nearest-hit and
 any-blocker wrappers of ``ops/cuda_intersect.py``: CUDA tensors launch the
-hand-written kernels, CPU tensors take the plain versions.  Above
-``MAX_RESIDENT_TRIS`` the PT bounce sorts its rays with ``sorted_call`` for
-the streamed wrappers of ``ops/cuda_stream.py``.
+hand-written kernels, CPU tensors take the plain versions.  The PT
+``stream`` tier sorts its rays with ``sorted_call`` for the streamed
+wrappers of ``ops/cuda_stream.py``.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..scene import types as scene_types
 from ..scene.types import Material, Scene
 from .math3 import EPSILON, length
 
@@ -119,14 +118,6 @@ def hit_from_fields(h: dict, ro, rd) -> Hit:
                                             dim=-1),
                      roughness=h["rough"], metallic=h["metal"], eta=h["eta"]),
         is_light=flag == 2)
-
-
-def resident(scene: Scene) -> bool:
-    """True while the scene's triangles stay within ``MAX_RESIDENT_TRIS``
-    (``vmem_tris_ok``): above it the JAX package turns off its fused
-    kernels and megakernel and streams the mesh through #6/#7.  Read at
-    call time, so tests can lower the constant."""
-    return scene.num_triangles <= scene_types.MAX_RESIDENT_TRIS
 
 
 def _spread6(x: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,10 @@ Renders once untraced (warm-up: kernel build and load, allocator), then
 once under the profiler, and prints the device time by kernel or op
 (``key_averages``, sorted by device time), the render's wall time and the
 device's busy time (kernels and copies over the traced call, which also
-holds the image's copy to the host).  Needs a CUDA card; the arguments
-are ``cli.py``'s, with ``--device cuda`` and an output under the build
-directory unless given.
+holds the image's copy to the host), and writes the timeline as a Chrome
+trace to ``build/profile_cli/trace.json`` (``profiling.maybe_trace``).
+Needs a CUDA card; the arguments are ``cli.py``'s, with ``--device cuda``
+and an output under the build directory unless given.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 
 from . import cli
 from .ops._kernels import BUILD_DIR
+from .profiling import TRACE_FILE, maybe_trace
 
 
 def main(argv=None) -> int:
@@ -34,10 +36,9 @@ def main(argv=None) -> int:
         argv += ["--output", str(BUILD_DIR / "profile_cli.png")]
     cli.run(argv)
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    trace_dir = BUILD_DIR / "profile_cli"
+    with maybe_trace(str(trace_dir)) as prof:
         t0 = time.perf_counter()
         res = cli.run(argv)
         wall = time.perf_counter() - t0
@@ -47,7 +48,7 @@ def main(argv=None) -> int:
                   if e.device_type == DeviceType.CUDA)
     print(f"[profile] {res['tier']} tier: render {res['seconds'] * 1e3:.3f}"
           f" ms wall, device busy {busy_us / 1e3:.3f} ms over the traced "
-          f"call of {wall * 1e3:.3f} ms")
+          f"call of {wall * 1e3:.3f} ms; trace {trace_dir / TRACE_FILE}")
     return 0
 
 

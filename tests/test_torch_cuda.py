@@ -962,3 +962,46 @@ def test_any_blocker_stream_counting_build_matches_the_model(
     assert 0.05 < m.float().mean().item() < 0.95
     assert {k: kc[k] for k in cst.PLAIN_COUNTS} == {
         k: pc[k] for k in cst.PLAIN_COUNTS}
+
+
+# ---- the big-mesh routes and the CLI's front-ends on the card ----
+
+def test_ppm_on_the_super_walk_matches_plain(card):
+    """A PPM pass on the 17,000-triangle icosphere (512 clusters: #1 and
+    #10 on the super walk) in the kernels' tier against the plain tier."""
+    from path_tracing_tpu_torch.integrators import ppm
+
+    p = synth.icosphere_scene(17000)
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 64, 48,
+                      device="cuda")
+    cfg = RenderConfig(width=64, height=48, spl=8192)
+    key = rng.prng_key(4)
+    a, ca, _ = ppm.render_ppm_with_stats(scene, cam, 64, 48, 8192, cfg, key)
+    b, cb, _ = ppm.render_ppm_with_stats(scene, cam, 64, 48, 8192, cfg, key,
+                                         tier="plain")
+    assert a.mean().item() > 0
+    assert abs(a.mean().item() - b.mean().item()) / b.mean().item() < 1e-3
+    close = torch.isclose(a, b, rtol=1e-3, atol=1e-5).all(dim=1)
+    assert close.float().mean().item() >= 0.99
+    assert (ca == cb).float().mean().item() >= 0.99
+
+
+def test_cli_oracle_and_checkpoint_on_the_card(card, tmp_path):
+    """``--device oracle`` renders bit-equal twice (the fused tier); a
+    checkpoint resume equals an uninterrupted render bit for bit."""
+    from path_tracing_tpu_torch import cli
+
+    def run(*extra, out="o.png"):
+        return cli.run(["--input", str(CORNELL), "--spp", "2", "--width",
+                        "48", "--height", "32", "--output",
+                        str(tmp_path / out), *extra])
+
+    a = run("--device", "oracle", "--spl", "4")
+    b = run("--device", "oracle", "--spl", "4")
+    assert a["tier"] == "fused" and (a["image"] == b["image"]).all()
+    ck = str(tmp_path / "ck.npz")
+    full = run("--iters", "3")
+    run("--iters", "2", "--checkpoint", ck)
+    resumed = run("--iters", "1", "--checkpoint", ck)
+    assert (resumed["image"] == full["image"]).all()

@@ -199,9 +199,15 @@ def test_scene_from_jax_arrays_carries_tables():
     assert ts.num_triangles == 36 and ts.num_lights == 4
 
 
+FRONT_ENDS = tuple(f"path_tracing_tpu_torch.{m}" for m in (
+    "cli", "compare", "profiling", "profile_cli", "runtime.live_http",
+    "runtime.resilience"))
+
+
 def test_port_never_imports_jax():
-    """Importing the port and every submodule leaves jax and the JAX
-    package out of sys.modules (a fresh interpreter)."""
+    """Importing the port and every submodule (the front-ends among them)
+    leaves jax and the JAX package out of sys.modules (a fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import path_tracing_tpu_torch as p\n"
@@ -210,6 +216,8 @@ def test_port_never_imports_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'path_tracing_tpu' or m.startswith('path_tracing_tpu.')]\n"
         "assert not bad, bad\n"
+        f"missing = set({FRONT_ENDS!r}) - set(sys.modules)\n"
+        "assert not missing, missing\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -304,16 +304,20 @@ def test_stream_bounce_passes_live_lanes_to_6_and_7(monkeypatch):
 
 
 def test_resolve_tier_picks_stream_above_the_ceiling(monkeypatch, tmp_path):
+    """Above the ceiling auto keeps the resident tiers (mega, or fused for
+    textured scenes), which beat the stream tier on the card; ``stream``
+    is picked only when asked for, on any scene."""
     plain = synth.icosphere_scene(1280).to_device("cpu")
     tex = synth.icosphere_scene(1280, textured=True).to_device("cpu")
     assert resolve_tier(plain, "auto") == "mega"
     assert resolve_tier(tex, "auto") == "fused"
     assert resolve_tier(plain, "stream") == "stream"
     monkeypatch.setattr(scene_types, "MAX_RESIDENT_TRIS", 1024)
-    assert resolve_tier(plain, "auto") == "stream"
-    assert resolve_tier(tex, "auto") == "stream"
-    for t in ("mega", "fused", "split", "plain"):
+    assert resolve_tier(plain, "auto") == "mega"
+    assert resolve_tier(tex, "auto") == "fused"
+    for t in ("mega", "fused", "split", "stream", "plain"):
         assert resolve_tier(plain, t) == t
+    assert resolve_tier(tex, "stream") == "stream"
     with pytest.raises(ValueError):
         resolve_tier(tex, "mega")
 
@@ -324,7 +328,8 @@ CFG = dict(width=W, height=H, eye_depth=3, light_depth=3, delta_budget=3)
 
 @pytest.mark.parametrize("textured", [False, True])
 def test_stream_render_matches_jax_per_bounce_stream(textured, monkeypatch):
-    """The port's ``stream`` tier (auto, the ceiling lowered to 512) on
+    """The port's ``stream`` tier (asked for; auto keeps the resident
+    tiers with the ceiling lowered to 512) on
     the 1,280-triangle icosphere against the JAX package's per-bounce body
     on its stream route (``PT_TPU_MAX_VMEM_TRIS=512``, kernels in
     interpret mode): the same sorted #6/#7 calls with the same live lanes,
@@ -334,10 +339,10 @@ def test_stream_render_matches_jax_per_bounce_stream(textured, monkeypatch):
     jc = jcamera.make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)
     ts, tc = scene_from_jax_arrays(jax_arrays(js, jc), "cpu")
     monkeypatch.setattr(scene_types, "MAX_RESIDENT_TRIS", 512)
-    assert resolve_tier(ts, "auto") == "stream"
+    assert resolve_tier(ts, "auto") == ("fused" if textured else "mega")
     _kernels.reset_counts()
     img = render_pt(ts, tc, W, H, SPP, RenderConfig(**CFG),
-                    rng.prng_key(0)).numpy()
+                    rng.prng_key(0), tier="stream").numpy()
     calls = dict(_kernels.plain_calls)
     assert calls["nearest_hit_stream"] > 0 and calls["any_blocker_stream"] > 0
     assert calls["nearest_hit"] == calls["shade_step_tex"] == 0
@@ -357,7 +362,7 @@ def test_stream_render_matches_jax_per_bounce_stream(textured, monkeypatch):
 
 def test_cli_stream_tier_on_cpu(tmp_path, capsys, monkeypatch):
     """``--tier stream`` renders through the plain versions on the CPU;
-    above the ceiling auto picks it."""
+    above the ceiling auto keeps the megakernel's tier."""
     out = tmp_path / "s.png"
     argv = ["--input", str(SPHERE_OBJ), "--spp", "1", "--width", "8",
             "--height", "6", "--device", "cpu", "--output", str(out)]
@@ -366,6 +371,6 @@ def test_cli_stream_tier_on_cpu(tmp_path, capsys, monkeypatch):
     assert np.isfinite(res["image"]).all() and res["image"].mean() > 0
     assert "(stream tier)" in capsys.readouterr().out
     monkeypatch.setattr(scene_types, "MAX_RESIDENT_TRIS", 1000)
-    assert cli.run(argv)["tier"] == "stream"
+    assert cli.run(argv)["tier"] == "mega"
     ts = obj_loader.load_any_scene(str(SPHERE_OBJ)).to_device("cpu")
     assert ts.num_triangles == 2304
