@@ -226,6 +226,31 @@ Phases, each raising on failure:
    bit-equal to three uninterrupted iterations; and a 128x72 render with
    ``--profile``, whose Chrome trace must hold events (its kernel events
    are printed).
+15. Legacy-Ks cornell (``legacy_cornell``: ``scenes/cornell.txt`` with a
+   K record on its glass sphere's material) through the CLI at 1920x1080
+   spp 4: PT (auto: the split tier, ``transmittance_rgb`` in place of
+   #2), every launch of the frame recorded where ``cuda_shade`` calls it
+   and held against ``transmittance_rgb_plain`` (rtol 1e-6 / atol 1e-7 on
+   every live lane, exactly 1 on the others), each timed, the first's
+   bound from the plain walk model's counts; BDPT (spl 8, global RIS
+   K = 32; auto: fused, #8's RGB instance ``connect_rgb``), every launch
+   recorded at ``cuda_connect._launch`` and held against ``connect_plain``
+   (phase 6's bar: max-channel relative error < 1e-3 on every active
+   lane, every inactive lane 0), each timed, the first's bound from the
+   plain counts; PPM at 512x512 for 3 passes, bit-equal to cornell's
+   without the record.
+16. Sampled connections: cornell through the CLI at 1080p spp 4, spl 8,
+   the exact table, ``--conn-samples 16`` (auto: fused, #8's sampled
+   instance ``connect_sampled``), every launch held and timed as in 15.
+17. BDPT and PPM on phase 5's textured OBJ through the CLI: BDPT at 1080p
+   spp 4, spl 8, K = 32 (auto: fused, the ``with_uv`` #1 and #8); #10's
+   textured instance ``photon_trace_tex`` against its plain version on the
+   first 4,096 photons of the first 512x512 pass (phase 12's bar), timed
+   there and on the whole pass (``pass_ms``), and on 4,096 photons of
+   cornell's lights with the 1,280-triangle textured icosphere in its room
+   (the same bar; photons bounce off the sphere onto the walls, so later
+   deposits carry the texel in their flux); then PPM at 512x512, 10
+   passes of 1,048,576 photons (#1, ``photon_trace_tex``, #11).
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -255,7 +280,9 @@ evaluations and pdfs).  The counting builds of #1-#7, #10 and #11
 ``any_blocker_stream_counts``, ``photon_trace_counts``,
 ``gather_flux_counts``) have entries of their
 own, their launches counted over their 1080p / main-pass / first-bounce
-call.  The BDPT kernels' ``simt`` has the share of a sweep's lanes that
+call.  ``transmittance_rgb``, ``connect_rgb`` and ``connect_sampled``
+carry their time on each launch of their frame (``per_launch``, summed in
+``split_ms``), ``photon_trace_tex`` its whole pass (``pass_ms``).  The BDPT kernels' ``simt`` has the share of a sweep's lanes that
 sweep a vertex (``sweep``).
 The last line is ``{"ok": true,
 "device": {...}}``.  Renders and the OBJ scenes are
@@ -305,13 +332,19 @@ REPLACES = {
     "nearest_hit_stream": "path_tracing_tpu/ops/pallas_intersect.py:1596",
     "any_blocker_stream": "path_tracing_tpu/ops/pallas_intersect.py:1642",
     "onehot_fetch": "path_tracing_tpu/ops/probes.py:41",
+    "transmittance_rgb": "path_tracing_tpu/ops/intersect.py:443",
+    "connect_rgb": "path_tracing_tpu/ops/pallas_connect.py:258",
+    "connect_sampled": "path_tracing_tpu/ops/pallas_connect.py:258",
+    "photon_trace_tex": "path_tracing_tpu/ops/pallas_photon.py:177",
 }
 for _k in ("nearest_hit", "any_blocker", "render_wavefront", "shade_step",
            "shade_step_tex", "photon_trace", "gather_flux",
            "nearest_hit_stream", "any_blocker_stream"):
     REPLACES[f"{_k}_counts"] = REPLACES[_k]
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
+           "connect_rgb": BDPT_SOURCE, "connect_sampled": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
+           "photon_trace_tex": PPM_SOURCE,
            "photon_trace_counts": PPM_SOURCE,
            "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
@@ -324,7 +357,7 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
                "threefry_rows", "connect", "bdpt_eye", "photon_trace",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
-               "onehot_fetch")
+               "onehot_fetch", "transmittance_rgb")
 # the kernels with a counting build (their *_counts entries)
 COUNTED = ("nearest_hit_uv", "nearest_hit", "any_blocker", "connect",
            "bdpt_eye", "render_wavefront", "shade_step", "shade_step_tex",
@@ -350,7 +383,10 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "photon_trace_counts": "photon_counting",
                "gather_flux_counts": "ppm_counting",
                "nearest_hit_stream_counts": "stream_counting",
-               "any_blocker_stream_counts": "blocker_counting"}
+               "any_blocker_stream_counts": "blocker_counting",
+               "transmittance_rgb": "legacy_pt",
+               "connect_rgb": "legacy_bdpt", "connect_sampled": "sampled",
+               "photon_trace_tex": "tex_ppm"}
 BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
@@ -378,7 +414,16 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "photon_counting": ("photon_trace_counts",),
                 "ppm_counting": ("gather_flux_counts",),
                 "stream_counting": ("nearest_hit_stream_counts",),
-                "blocker_counting": ("any_blocker_stream_counts",)}
+                "blocker_counting": ("any_blocker_stream_counts",),
+                "legacy_pt": ("nearest_hit", "transmittance_rgb",
+                              "threefry_rows"),
+                "legacy_bdpt": ("connect_rgb",) + BDPT_LIGHT,
+                "legacy_ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                               "threefry_rows"),
+                "sampled": ("connect_sampled",) + BDPT_LIGHT,
+                "tex_bdpt": ("connect",) + BDPT_LIGHT,
+                "tex_ppm": ("photon_trace_tex", "gather_flux", "nearest_hit",
+                            "threefry_rows")}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS (the TPU's ceiling)
 # the enclosed scene: the icosphere at this radius on cornell's floor
@@ -2708,6 +2753,324 @@ def phase_checkpoint() -> None:
           f"{sorted({e['name'][:40] for e in kernels})})")
 
 
+LEGACY_KS = (0.9, 0.6, 0.3)   # the Ks record on cornell's glass sphere
+GLASS = "M 1 1 1 0.0 0.0 1.5     // glass\n"
+LEGACY_PPM_PASSES = 3
+CONN_SAMPLES = 16             # M of the sampled-connection frame
+TEX_PPM_SPL = 1048576         # the textured OBJ's one light: 1,048,576 a pass
+
+
+def legacy_cornell(path) -> str:
+    """``scenes/cornell.txt`` with a K record on its glass sphere's
+    material (Ks ``LEGACY_KS``, refract 1.5), written to ``path``: under
+    the GPU rule that sphere multiplies its Ks into a shadow ray and every
+    other occluder blocks."""
+    txt = SCENE.read_text()
+    check(GLASS in txt, "cornell.txt has no glass material line")
+    Path(path).write_text(txt.replace(
+        GLASS, GLASS + "K %g %g %g 1.5\n" % LEGACY_KS))
+    return str(path)
+
+
+def _clone(x):
+    """``x`` with every tensor in it (tuples, lists, dicts, Materials)
+    cloned."""
+    import dataclasses
+
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _clone(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def record_calls(module, attr: str, call) -> tuple:
+    """``call()``'s result and the arguments of every call of
+    ``module.attr`` that it makes, cloned: [(args, kwargs), ...]."""
+    own, got = getattr(module, attr), []
+
+    def rec(*args, **kw):
+        got.append((_clone(args), _clone(kw)))
+        return own(*args, **kw)
+
+    setattr(module, attr, rec)
+    try:
+        res = call()
+    finally:
+        setattr(module, attr, own)
+    return res, got
+
+
+def hold_rgb(calls: list, what: str) -> dict:
+    """``transmittance_rgb`` on each recorded launch (the split frame's NEE
+    shadow rays with their live lanes) against its plain version: rtol
+    1e-6 / atol 1e-7 on every live lane, exactly 1 on the others; timed
+    (CUDA events) on each launch; the bound of the first from the plain
+    walk model's counts.  Returns its result row."""
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+
+    per, err, live_n, tinted = [], 0.0, 0, None
+    for i, (args, kw) in enumerate(calls):
+        live = kw["live"]
+        a = ci.transmittance_rgb(*args, **kw)
+        b = ci.transmittance_rgb_plain(*args, **kw)
+        if tinted is None:
+            tinted = ((b > 0) & (b < 1)).any(dim=1)[live].float().mean()
+        ok = torch.isclose(a, b, rtol=1e-6, atol=1e-7).all(dim=1)
+        check(bool(ok[live].all()) and bool((a[~live] == 1.0).all()),
+              f"transmittance_rgb {what}: launch {i} differs from its plain "
+              f"version on {int((~ok[live]).sum())} live lanes")
+        err = max(err, (a - b).abs().max().item())
+        live_n += int(live.sum())
+        per.append(dict(ms=time_ms(lambda: ci.transmittance_rgb(*args, **kw),
+                                   3), live=int(live.sum())))
+    args, kw = calls[0]
+    pc = cc.new_counts()
+    _, plain_ms = once_ms(lambda: ci.transmittance_rgb_plain(*args, **kw,
+                                                             counts=pc))
+    Bl, n = args[1].shape[0], int(kw["live"].sum())
+    bnd = bound(n * 28 + Bl + Bl * 12, walk_ops(pc))
+    print(f"[legacy] transmittance_rgb on each of the {what}'s {len(per)} "
+          f"launches, every live lane within rtol 1e-6 / atol 1e-7 of the "
+          f"plain version ({live_n} live lanes; max abs err {err:.3g}; the "
+          f"first launch's live lanes {tinted.item():.4f} tinted by the "
+          f"glass sphere); ms / live lanes: "
+          + ", ".join(f"{r['ms']:.4f} / {r['live']}" for r in per)
+          + f"; {sum(r['ms'] for r in per):.3f} ms in all; the first launch "
+          f"{per[0]['ms']:.4f} ms, plain {plain_ms:.1f} ms, counted bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; the walk's "
+          f"{ {k: pc[k] for k in WALK_KEYS['any_blocker']} })")
+    return dict(name="transmittance_rgb", max_abs_err=err, ms=per[0]["ms"],
+                plain_ms=plain_ms, per_launch=per,
+                split_ms=sum(r["ms"] for r in per), **bnd)
+
+
+def hold_connect(name: str, calls: list, what: str) -> dict:
+    """#8's instance ``name`` on each recorded launch (``cuda_connect``'s
+    ``_launch`` arguments) against ``connect_plain`` on the same inputs:
+    max-channel relative error < 1e-3 on every active lane, every inactive
+    lane 0 (phase 6's bar); timed (CUDA events) on each launch; the bound
+    of the first from the plain counts.  Returns its result row."""
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+
+    per, err, worst = [], 0.0, 0.0
+    for i, (args, _) in enumerate(calls):
+        nm, cargs, clamp_val, blocks, vidx = args
+        check(nm == name, f"{what}: launch {i} is {nm}, not {name}")
+        kw = dict(clamp_val=clamp_val, dielectrics_block=blocks, vidx=vidx)
+        act = cargs[-1]
+        a = cc.connect(*cargs, **kw)
+        b = cc.connect_plain(*cargs, **kw)
+        rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+        check(bool((rel < 1e-3).all()) and bool((a[~act] == 0).all()),
+              f"{name} {what}: launch {i} max relative error "
+              f"{rel.max().item() if rel.numel() else 0}")
+        err = max(err, (a - b).abs().max().item())
+        worst = max(worst, rel.max().item() if rel.numel() else 0.0)
+        per.append(dict(ms=time_ms(lambda: cc.connect(*cargs, **kw), 1),
+                        active=int(act.sum())))
+    (nm, cargs, clamp_val, blocks, vidx), _ = calls[0]
+    kw = dict(clamp_val=clamp_val, dielectrics_block=blocks, vidx=vidx)
+    pc = cc.new_counts()
+    _, plain_ms = once_ms(lambda: cc.connect_plain(*cargs, **kw, counts=pc))
+    Bl, n_valid = cargs[3].shape[0], cargs[2]
+    nbytes = Bl * (23 * 4 + 12) + n_valid * 160
+    if vidx is not None:
+        nbytes += vidx.numel() * 4
+    bnd = bound(nbytes, sweep_ops(pc))
+    print(f"[{what}] {name} on each of the frame's {len(per)} launches, "
+          f"every active lane within max-channel relative error "
+          f"{worst:.3g} < 1e-3 of connect_plain (max abs err {err:.3g}); "
+          f"ms / active lanes: "
+          + ", ".join(f"{r['ms']:.3f} / {r['active']}" for r in per)
+          + f"; {sum(r['ms'] for r in per):.1f} ms in all; the first launch "
+          f"{per[0]['ms']:.3f} ms, plain {plain_ms:.1f} ms, counted bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; rows "
+          f"{pc['rows']}, shadow rays {pc['shadow_rays']}, walk tests "
+          f"{pc['shadow_spheres']} / {pc['shadow_boxes']} / "
+          f"{pc['shadow_tris']})")
+    return dict(name=name, max_abs_err=err, ms=per[0]["ms"],
+                plain_ms=plain_ms, per_launch=per,
+                split_ms=sum(r["ms"] for r in per), **bnd)
+
+
+def phase_legacy(counts: dict) -> list:
+    """Legacy-Ks cornell (``legacy_cornell``) through the CLI: PT at
+    1920x1080 spp 4 (auto: the split tier, ``transmittance_rgb`` in place
+    of #2), BDPT at 1080p spp 4, spl 8, global RIS K = 32 (auto: fused,
+    #8's RGB instance), each kernel held on every launch of its frame; PPM
+    at 512x512 for ``LEGACY_PPM_PASSES`` passes, bit-equal to cornell's
+    without the record."""
+    import numpy as np
+
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+    from path_tracing_tpu_torch.ops import cuda_shade as cs
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    txt = legacy_cornell(OUT / "cornell_k.txt")
+    res, calls = record_calls(cs, "transmittance_rgb", lambda: counted(
+        "legacy_pt", txt, W, H, "auto", "legacy_pt_1080p", counts))
+    c = counts["legacy_pt"]
+    check(res["tier"] == "split" and c["any_blocker"] == 0
+          and c["render_wavefront"] == c["shade_step"] == 0
+          and len(calls) == c["transmittance_rgb"],
+          f"legacy PT: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "legacy PT")
+    rows = [hold_rgb(calls, "legacy PT 1080p split frame")]
+    del calls
+
+    bdpt = ["--spl", str(SPL), "--light-depth", "4", "--resample",
+            str(RIS_K)]
+    res, calls = record_calls(cc, "_launch", lambda: counted(
+        "legacy_bdpt", txt, W, H, "auto", "legacy_bdpt_1080p", counts,
+        "bdpt", bdpt))
+    c = counts["legacy_bdpt"]
+    check(res["tier"] == "fused" and c["connect"] == 0
+          and c["bdpt_eye"] == 0 and c["connect_rgb"] == len(calls),
+          f"legacy BDPT: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "legacy BDPT")
+    rows.append(hold_connect("connect_rgb", calls, "legacy"))
+    del calls
+
+    ppm = ["--spl", str(PPM_SPL), "--light-depth", "4", "--iters",
+           str(LEGACY_PPM_PASSES)]
+    a = counted("legacy_ppm", txt, PPM_W, PPM_H, "auto", "legacy_ppm_512",
+                counts, "ppm", ppm)
+    b = run_cli(SCENE, PPM_W, PPM_H, "auto", "cornell_ppm_512_3", "ppm", ppm)
+    check(np.array_equal(a["image"], b["image"]),
+          "legacy PPM differs from cornell's without the K record")
+    print(f"[legacy] PPM {PPM_W}x{PPM_H}, {LEGACY_PPM_PASSES} passes: "
+          "bit-equal to cornell's without the K record")
+    return rows
+
+
+def phase_sampled(counts: dict) -> dict:
+    """Sampled connections through the CLI: cornell at 1920x1080 spp 4,
+    spl 8, the exact table, ``--conn-samples CONN_SAMPLES`` (auto: fused,
+    #8's sampled instance), the kernel held on every launch of the frame;
+    its image against the exact fused sweep's in mean (5%: an estimate of
+    the same sum)."""
+    from path_tracing_tpu_torch.ops import cuda_connect as cc
+
+    bdpt = ["--spl", str(SPL), "--light-depth", "4", "--conn-samples",
+            str(CONN_SAMPLES)]
+    res, calls = record_calls(cc, "_launch", lambda: counted(
+        "sampled", SCENE, W, H, "auto", "bdpt_1080p_sampled", counts, "bdpt",
+        bdpt))
+    c = counts["sampled"]
+    check(res["tier"] == "fused" and c["connect"] == 0
+          and c["connect_sampled"] == len(calls),
+          f"sampled BDPT: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "sampled BDPT")
+    return hold_connect("connect_sampled", calls, "sampled")
+
+
+def phase_tex_integrators(counts: dict) -> dict:
+    """BDPT and PPM on phase 5's 81,920-triangle textured OBJ through the
+    CLI: BDPT at 1920x1080 spp 4, spl 8, global RIS K = 32 (auto: fused,
+    #1 with_uv and #8); PPM at 512x512, 10 passes of 1,048,576 photons
+    (#1 with_uv, #10's textured instance, #11), #10 first held against its
+    plain version on the first 4,096 photons of the first pass (valid
+    flags equal and fields within rtol 1e-5 / atol 1e-6 on >= 99.99% of
+    rows) and timed on them and on the whole pass."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.scene import synth
+    from path_tracing_tpu_torch.scene.obj_loader import load_any_scene
+
+    obj = OUT / f"icosphere_{MESH_TRIS}.obj"
+    if not obj.exists():
+        synth.write_obj(synth.icosphere_scene(MESH_TRIS, textured=True),
+                        str(obj))
+    res = counted("tex_bdpt", obj, W, H, "auto", "tex_bdpt_1080p", counts,
+                  "bdpt", ["--spl", str(SPL), "--light-depth", "4",
+                           "--resample", str(RIS_K)])
+    c = counts["tex_bdpt"]
+    check(res["tier"] == "fused" and c["bdpt_eye"] == 0,
+          f"textured BDPT: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "textured BDPT")
+
+    scene = load_any_scene(str(obj)).to_device("cuda")
+    pk = ci.pack_scene(scene)
+    check(pk.textured and pk.n_super > 0, "the textured OBJ's tables")
+    cfg = RenderConfig(width=PPM_W, height=PPM_H, spl=TEX_PPM_SPL,
+                       eye_depth=4, light_depth=4)
+    kp = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * TEX_PPM_SPL,
+                               TEX_PPM_SPL, kp)
+    P, n = emit[0].shape[0], PHOTON_SUBSET
+    sub = (pk, *(x[:n] for x in emit), kp, cfg.light_depth,
+           cfg.max_light_iters, 0, P)
+    ev, valid = cp.photon_trace(*sub)
+    pc = cp.new_counts()
+    (ev_p, valid_p), plain_ms = once_ms(lambda: cp.photon_trace_plain(
+        *sub, counts=pc))
+    same = (valid == valid_p).float().mean().item()
+    both = valid & valid_p
+    close = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(
+        dim=1).float().mean().item()
+    equal = (ev[both] == ev_p[both]).all(dim=1).float().mean().item()
+    check(same >= 0.9999 and close >= 0.9999 and int(valid.sum()) > 0,
+          f"photon_trace_tex: valid flags agree on {same:.6f} of rows, "
+          f"fields on {close:.6f} of the valid ones")
+    ms = time_ms(lambda: cp.photon_trace(*sub), 5)
+    full = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    pass_ms = time_ms(lambda: cp.photon_trace(*full), 3)
+    bnd = bound(n * 40 + ev.numel() * 4 + valid.numel(), photon_ops(pc))
+    print(f"[textured] photon_trace_tex on photons [0, {n}) of the "
+          f"{P}-photon pass: valid flags equal on {same:.6f} of rows, "
+          f"{int(valid.sum())} valid; fields within rtol 1e-5 / atol 1e-6 "
+          f"on {close:.6f}, bit-equal {equal:.6f}; {ms:.3f} ms kernel, "
+          f"plain {plain_ms:.1f} ms, counted bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}); the whole pass {pass_ms:.3f} ms")
+    err = (ev[both] - ev_p[both]).abs().max().item() if both.any() else 0.0
+    # the convex sphere sends no photon back to itself: the texel in a
+    # bounced photon's flux shows in cornell's room, on the walls
+    room = enclosed_scene(synth.icosphere_scene(SMALL_MESH_TRIS,
+                                                textured=True), True)
+    rs = room.to_device("cuda")
+    rpk = ci.pack_scene(rs)
+    remit = ppm.photon_emission(rs, PHOTON_SUBSET, PHOTON_SUBSET // 4, kp)
+    rargs = (rpk, *remit, kp, cfg.light_depth, cfg.max_light_iters)
+    ev, valid = cp.photon_trace(*rargs)
+    ev_p, valid_p = cp.photon_trace_plain(*rargs)
+    both = valid & valid_p
+    close = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(
+        dim=1).float().mean().item()
+    later = int(valid[PHOTON_SUBSET:].sum())
+    check(bool((valid == valid_p).float().mean() >= 0.9999)
+          and close >= 0.9999 and later > 0,
+          f"photon_trace_tex in the room: fields on {close:.6f} of the "
+          f"valid rows, {later} deposits past the first")
+    err = max(err, (ev[both] - ev_p[both]).abs().max().item())
+    print(f"[textured] photon_trace_tex on {PHOTON_SUBSET} photons of "
+          f"cornell's lights with the {SMALL_MESH_TRIS}-triangle textured "
+          f"icosphere in its room: valid flags equal, {int(valid.sum())} "
+          f"valid ({later} past the first deposit), fields within rtol "
+          f"1e-5 / atol 1e-6 on {close:.6f}")
+    row = dict(name="photon_trace_tex", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, plain_lanes=n, pass_ms=pass_ms, **bnd)
+    res = counted("tex_ppm", obj, PPM_W, PPM_H, "auto", "tex_ppm_512",
+                  counts, "ppm", ["--spl", str(TEX_PPM_SPL), "--light-depth",
+                                  "4", "--iters", str(PPM_PASSES)])
+    c = counts["tex_ppm"]
+    check(res["tier"] == "mega" and c["photon_trace_tex"] == PPM_PASSES
+          and c["photon_trace"] == 0 and c["gather_flux"] == PPM_PASSES,
+          f"textured PPM: {res['tier']} tier, launches {c}")
+    nonzero_share(res["image"], "textured PPM")
+    return row
+
+
 def main() -> int:
     t_start = time.perf_counter()
     laps = [t_start]
@@ -2779,6 +3142,12 @@ def main() -> int:
     lap("big-mesh BDPT (phase 13)")
     phase_checkpoint()
     lap("checkpoint and profile (phase 14)")
+    results += phase_legacy(counts)
+    lap("legacy-Ks PT, BDPT and PPM (phase 15)")
+    results.append(phase_sampled(counts))
+    lap("sampled connections (phase 16)")
+    results.append(phase_tex_integrators(counts))
+    lap("textured BDPT and PPM (phase 17)")
     for r in results:
         if r["name"] in occupancy:
             r["occupancy"] = occupancy[r["name"]]
@@ -2792,7 +3161,7 @@ def main() -> int:
     extra = ("plain_lanes", "unsorted_ms", "per_bounce", "per_launch",
              "split_ms", "bdpt_fused", "oracle", "ppm_eye", "ppm_eye_big",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
-             "occupancy", "host_ms", "library_host_ms")
+             "occupancy", "host_ms", "library_host_ms", "pass_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results]}))

@@ -7,6 +7,8 @@
         --mode bdpt --spp 4 --spl 8 --resample 32 --device cuda \\
         --output bdpt.png
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
+        --mode bdpt --spp 4 --spl 8 --conn-samples 16 --output bdpt_m16.png
+    python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
         --mode ppm --spl 262144 --iters 10 --width 512 --height 512 \\
         --output ppm.png
     python -m path_tracing_tpu_torch.cli --input scenes/cornell.txt \\
@@ -82,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "drawn by RIS (unbiased; tile-local tables in the "
                          "mega tier, one global table per sample "
                          "otherwise); 0 = the exact all-pairs sweep")
+    ap.add_argument("--conn-samples", type=int, default=0, metavar="M",
+                    help="BDPT: connect each eye vertex to M stratified "
+                         "light vertices, scaled by n_valid / M (bench.py's "
+                         "--conn-samples; the fused tier); 0 = all of them")
     ap.add_argument("--fix-pt-mis", action="store_true",
                     help="enable the MIS light-hit term the reference stubbed")
     ap.add_argument("--debug-nan", action="store_true",
@@ -190,7 +196,8 @@ def run(argv=None) -> dict:
                        seed=args.seed,
                        pt_stub_mis_strategy_a=not args.fix_pt_mis,
                        ppm_alpha=args.ppm_alpha,
-                       bdpt_resample_vertices=max(0, args.resample))
+                       bdpt_resample_vertices=max(0, args.resample),
+                       bdpt_connection_samples=max(0, args.conn_samples))
     mode, oracle = args.mode, args.device == "oracle"
     if oracle:
         cfg, mode = oracle_config(cfg), "bdpt"
@@ -203,7 +210,7 @@ def run(argv=None) -> dict:
                 else args.tier, cfg)
         else:
             tier = ppm.resolve_tier(scene, args.tier)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         raise CliError(str(e)) from e
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       W, H, device=device, force_fov=args.force_fov)
@@ -215,7 +222,8 @@ def run(argv=None) -> dict:
     print(f" SPP    : {args.spp}")
     if mode == "bdpt":
         print(f" SPL    : {args.spl}  light depth {args.light_depth}  "
-              f"resample {cfg.bdpt_resample_vertices}")
+              f"resample {cfg.bdpt_resample_vertices}  connection samples "
+              f"{cfg.bdpt_connection_samples}")
     if mode == "ppm":
         print(f" Photons: {scene.num_lights * args.spl} a pass ({args.spl} "
               f"per light)  light depth {args.light_depth}  alpha "

@@ -11,6 +11,20 @@
 //              bdpt_eye_pallas (_bdpt_eye_kernel): the whole eye pass of a
 //              frame, every sample of a pixel in one lane.
 //
+// #8 has two more instances, for the routes the JAX package keeps off its
+// Pallas kernels and runs through XLA (path_tracing_tpu/integrators/
+// bdpt.py:503 _connect on legacy-Ks scenes, :642 _connect_sampled):
+// connect_rgb, the exact sweep with the RGB shadow (each queued pair's
+// tp fE fL Le times the walk's factor from pt_device.cuh::shadow_rgb_dev
+// times G MIS, then checked and clamped, gated by any(factor > 0)), and
+// connect_sampled, which sweeps each lane's M stratified rows vidx (B, M)
+// instead of the whole table and sums them as the JAX package does: per
+// chunk of mc samples (the first of 8, 4, 2, 1 that divides M), then over
+// the chunks, then times n_valid / M; on legacy-Ks scenes with the RGB
+// shadow too.  Both run #8's persistent warps and warp sweep, the table
+// resident in shared memory when it fits (connect_sampled reads its rows
+// from device memory otherwise); neither has a counting build.
+//
 // No float atomics: a pixel's sum is a pure function of its inputs, added
 // in a fixed order (row after row, as connect_row's callers add them), so
 // renders are deterministic per seed and #9 equals the per-bounce tier
@@ -100,9 +114,23 @@ constexpr int kQueue = 64;             // a queue holds < 32 waiting + 32 new pa
 struct WarpQueue {
   float p1[3][32];      // each lane's eye vertex, offset along its normal
   float p2[3][kQueue];  // a queued pair's far endpoint
-  float c[3][kQueue];   // what it adds when its ray is clear
+  float c[3][kQueue];   // what it adds when its ray is clear (RGB: tp fE fL Le)
   int who[kQueue];      // its vertex's lane, + 32 when it failed valid3
   unsigned mask[32];    // per lane, the entries of a batch it adds
+};
+
+// The queue of #8's RGB and sampled instances: per entry also G MIS (the
+// RGB shadow's factor goes between it and c) and the sample index.
+struct WarpQueueX : WarpQueue {
+  float gm[kQueue];
+  int sj[kQueue];
+};
+
+// A lane's connection sum: the running sum, and for the sampled sweep the
+// sum of the current chunk of mc samples and its index.
+struct SweepAcc {
+  V3 total, part;
+  int chunk;
 };
 
 __device__ __forceinline__ void copy_f4(float* __restrict__ dst, const float* __restrict__ src,
@@ -112,11 +140,24 @@ __device__ __forceinline__ void copy_f4(float* __restrict__ dst, const float* __
   for (int k = t; k < n_floats / 4; k += stride) d[k] = __ldg(s + k);
 }
 
+// The instances of #8's sweep: the binary shadow on the whole table (#8,
+// #9), kRgb the RGB shadow (ks: the legacy rows), kSampled each lane's
+// own M rows (vidx) summed in chunks of mc.
+struct SweepRows {
+  const float* __restrict__ ks;
+  const int* __restrict__ vidx;  // (B, M) row indices, or null
+  int M, mc;
+};
+
 // Walk the first nb queued shadow rays, one a lane, then add each lane's
-// clear pairs of the batch to its sum in queue order.
-template <class Ctr>
-__device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int nb,
-                                             int blocks_col, V3* acc, Ctr& cnt) {
+// clear pairs of the batch to its sum in queue order.  kRgb: the walking
+// lane turns its entry into c tr gm, checked (valid3, any(tr > 0)) and
+// clamped; kSampled: a lane's entries go to its chunk sums.
+template <bool kRgb = false, bool kSampled = false, class Q, class Ctr>
+__device__ __forceinline__ void shadow_batch(const Tables& tb, Q& q, int nb, int blocks_col,
+                                             SweepAcc* acc, Ctr& cnt,
+                                             const SweepRows* sr = nullptr,
+                                             float clamp_val = 0.0f) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
   bool add = false;
@@ -129,7 +170,18 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int
     float md;
     shadow_setup(p1, mk(q.p2[0][lane], q.p2[1][lane], q.p2[2][lane]), &srd, &md);
     cnt.simt(kShLanes);
-    add = !shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt) && who < 32;
+    if constexpr (kRgb) {
+      const V3 tr = shadow_rgb_dev(tb, sr->ks, p1, srd, md, cnt);
+      const V3 c =
+          scale(mul(mk(q.c[0][lane], q.c[1][lane], q.c[2][lane]), tr), q.gm[lane]);
+      add = ((tr.x > 0.0f) || (tr.y > 0.0f) || (tr.z > 0.0f)) && valid3(c);
+      const V3 cc = clamp3(c, clamp_val);
+      q.c[0][lane] = cc.x;
+      q.c[1][lane] = cc.y;
+      q.c[2][lane] = cc.z;
+    } else {
+      add = !shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt) && who < 32;
+    }
     if (add) v = u;
   }
   q.mask[lane] = 0u;
@@ -141,10 +193,59 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int
   while (mine) {
     const int k = __ffs(mine) - 1;
     mine &= mine - 1u;
-    *acc = *acc + mk(q.c[0][k], q.c[1][k], q.c[2][k]);
+    const V3 c = mk(q.c[0][k], q.c[1][k], q.c[2][k]);
+    if constexpr (kSampled) {
+      const int ch = q.sj[k] / sr->mc;
+      if (ch != acc->chunk) {
+        acc->total = acc->total + acc->part;
+        acc->part = mk(0.f, 0.f, 0.f);
+        acc->chunk = ch;
+      }
+      acc->part = acc->part + c;
+    } else {
+      acc->total = acc->total + c;
+    }
     cnt.add(kContribs);
   }
   __syncwarp();
+}
+
+// Queue the pairs that passed (ballot and prefix count), and walk a batch
+// of 32 once 32 wait.
+template <bool kRgb, bool kSampled, class Q, class Ctr>
+__device__ __forceinline__ void queue_pair(const Tables& tb, Q& q, bool pass, V3 contrib, bool ok,
+                                           V3 p2, float gm, int j, int& nq, int blocks_col,
+                                           SweepAcc* acc, Ctr& cnt, const SweepRows* sr,
+                                           float clamp_val) {
+  const int lane = threadIdx.x & 31;
+  const unsigned pm = __ballot_sync(kFull, pass);
+  if (pass) {
+    const int k = nq + __popc(pm & ((1u << lane) - 1u));
+    q.p2[0][k] = p2.x;
+    q.p2[1][k] = p2.y;
+    q.p2[2][k] = p2.z;
+    q.c[0][k] = contrib.x;
+    q.c[1][k] = contrib.y;
+    q.c[2][k] = contrib.z;
+    q.who[k] = lane + (ok ? 0 : 32);
+    if constexpr (kRgb) q.gm[k] = gm;
+    if constexpr (kSampled) q.sj[k] = j;
+  }
+  nq += __popc(pm);
+  if (nq >= 32) {
+    shadow_batch<kRgb, kSampled>(tb, q, 32, blocks_col, acc, cnt, sr, clamp_val);
+    nq -= 32;
+    if (lane < nq) {  // the rest of the queue moves to its front
+      for (int d = 0; d < 3; ++d) {
+        q.p2[d][lane] = q.p2[d][32 + lane];
+        q.c[d][lane] = q.c[d][32 + lane];
+      }
+      q.who[lane] = q.who[32 + lane];
+      if constexpr (kRgb) q.gm[lane] = q.gm[32 + lane];
+      if constexpr (kSampled) q.sj[lane] = q.sj[32 + lane];
+    }
+    __syncwarp();
+  }
 }
 
 // The warp's connection sweep: each lane with has_v gets the sum over rows
@@ -153,15 +254,19 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, WarpQueue& q, int
 // per-warp buffer.  Each lane gates and evaluates its own vertex against
 // each row (the row a broadcast read); the pairs that need a shadow ray
 // are queued with a ballot and a prefix count, row after row, and walked
-// 32 at a time, one ray a lane.  Every lane of the warp calls this.  It
-// counts the vertices (kVertices) and the lanes that sweep one
+// 32 at a time, one ray a lane.  kSampled: lane i sweeps its own rows
+// rows + vidx[i, j] for j < M instead (a read of its own, from the staged
+// table or device memory; `chunk` unused), and its sum is scaled by
+// n_valid / M after the chunked sum.  Every lane of the warp calls this.
+// It counts the vertices (kVertices) and the lanes that sweep one
 // (kSweepLanes).
-template <class Ctr>
+template <bool kRgb = false, bool kSampled = false, class Q, class Ctr>
 __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
-                         const float* __restrict__ rows, float* chunk, int n_valid,
-                         WarpQueue& q, float clamp_val, int blocks_col, Ctr& cnt) {
-  V3 acc = mk(0.f, 0.f, 0.f);
-  if (!__any_sync(kFull, has_v)) return acc;
+                         const float* __restrict__ rows, float* chunk, int n_valid, Q& q,
+                         float clamp_val, int blocks_col, Ctr& cnt,
+                         const SweepRows* sr = nullptr, int i = 0) {
+  SweepAcc acc{mk(0.f, 0.f, 0.f), mk(0.f, 0.f, 0.f), 0};
+  if (!__any_sync(kFull, has_v)) return acc.total;
   const int lane = threadIdx.x & 31;
   if (has_v) {
     cnt.add(kVertices);
@@ -172,49 +277,45 @@ __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
     q.p1[2][lane] = p1.z;
   }
   int nq = 0;
-  for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
-    const int nr = chunk ? min(kChunk, n_valid - c0) : n_valid;
-    const float* R0 = rows + (size_t)c0 * kLvCols;
-    if (chunk) {
-      __syncwarp();
-      copy_f4(chunk, R0, nr * kLvCols, lane, 32);
-      __syncwarp();
-      R0 = chunk;
-    }
-    for (int r = 0; r < nr; ++r) {
+  if constexpr (kSampled) {
+    const int* __restrict__ vrow = sr->vidx + (size_t)i * sr->M;
+    for (int j = 0; j < sr->M; ++j) {
       V3 contrib, p2;
       bool ok = false;
-      const bool pass =
-          has_v && connect_row(e, R0 + r * kLvCols, clamp_val, cnt, &contrib, &ok, &p2);
-      const unsigned pm = __ballot_sync(kFull, pass);
-      if (pass) {
-        const int k = nq + __popc(pm & ((1u << lane) - 1u));
-        q.p2[0][k] = p2.x;
-        q.p2[1][k] = p2.y;
-        q.p2[2][k] = p2.z;
-        q.c[0][k] = contrib.x;
-        q.c[1][k] = contrib.y;
-        q.c[2][k] = contrib.z;
-        q.who[k] = lane + (ok ? 0 : 32);
-      }
-      nq += __popc(pm);
-      if (nq >= 32) {
-        shadow_batch(tb, q, 32, blocks_col, &acc, cnt);
-        nq -= 32;
-        if (lane < nq) {  // the rest of the queue moves to its front
-          for (int d = 0; d < 3; ++d) {
-            q.p2[d][lane] = q.p2[d][32 + lane];
-            q.c[d][lane] = q.c[d][32 + lane];
-          }
-          q.who[lane] = q.who[32 + lane];
-        }
-        __syncwarp();
-      }
+      float gm = 0.0f;
+      const bool pass = has_v && connect_row<kRgb>(e, rows + (size_t)vrow[j] * kLvCols, clamp_val,
+                                                   cnt, &contrib, &ok, &p2, &gm);
+      queue_pair<kRgb, kSampled>(tb, q, pass, contrib, ok, p2, gm, j, nq, blocks_col, &acc, cnt,
+                                 sr, clamp_val);
     }
-    if (!chunk) break;
+  } else {
+    for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
+      const int nr = chunk ? min(kChunk, n_valid - c0) : n_valid;
+      const float* R0 = rows + (size_t)c0 * kLvCols;
+      if (chunk) {
+        __syncwarp();
+        copy_f4(chunk, R0, nr * kLvCols, lane, 32);
+        __syncwarp();
+        R0 = chunk;
+      }
+      for (int r = 0; r < nr; ++r) {
+        V3 contrib, p2;
+        bool ok = false;
+        float gm = 0.0f;
+        const bool pass = has_v && connect_row<kRgb>(e, R0 + r * kLvCols, clamp_val, cnt,
+                                                     &contrib, &ok, &p2, &gm);
+        queue_pair<kRgb, kSampled>(tb, q, pass, contrib, ok, p2, gm, r, nq, blocks_col, &acc, cnt,
+                                   sr, clamp_val);
+      }
+      if (!chunk) break;
+    }
   }
-  if (nq > 0) shadow_batch(tb, q, nq, blocks_col, &acc, cnt);
-  return acc;
+  if (nq > 0) shadow_batch<kRgb, kSampled>(tb, q, nq, blocks_col, &acc, cnt, sr, clamp_val);
+  if constexpr (kSampled) {
+    const float nv = (float)(n_valid > 1 ? n_valid : 1);
+    return scale(acc.total + acc.part, nv / (float)sr->M);
+  }
+  return acc.total;
 }
 
 // ---------------------------------------------------------------------------
@@ -246,11 +347,14 @@ struct VertexQueue {
 };
 
 // #8's dynamic shared memory: the table or its buffers, then each warp's
-// shadow-ray and vertex queues (every part a multiple of 16 bytes).
-inline size_t connect_smem(int place, int n_valid) {
+// shadow-ray and vertex queues (every part a multiple of 16 bytes).  ext:
+// the RGB and sampled instances' queue (WarpQueueX); the sampled instance
+// stages at least row 0 (a lane of an empty table reads it).
+inline size_t connect_smem(int place, int n_valid, bool ext = false) {
   const int warps = place_warps(place);
-  const int rows = place == kRowsResident ? n_valid : warps * kChunk;
-  return (size_t)rows * kLvCols * 4 + warps * (sizeof(WarpQueue) + sizeof(VertexQueue));
+  const int rows = place == kRowsResident ? (ext && n_valid < 1 ? 1 : n_valid) : warps * kChunk;
+  return (size_t)rows * kLvCols * 4 +
+         warps * ((ext ? sizeof(WarpQueueX) : sizeof(WarpQueue)) + sizeof(VertexQueue));
 }
 
 // Persistent blocks fill the card.  Each warp takes the next span of 32
@@ -261,12 +365,18 @@ inline size_t connect_smem(int place, int n_valid) {
 // writes their sums.  Each vertex is summed by one lane in row order, so
 // the output is a pure function of the inputs and equals one thread's
 // sum of connect_row after connect_row.
-template <bool kCount, int kPlace>
+//
+// kRgb, kSampled: the RGB and sampled instances (SweepRows sr); the
+// sampled instance reads each lane's rows from the staged table, or with
+// kRowsChunked from device memory.
+template <bool kCount, int kPlace, bool kRgb = false, bool kSampled = false>
 __global__ void __launch_bounds__(32 * place_warps(kPlace), place_min_blocks(kPlace))
     connect_kernel(Tables tb, const float* __restrict__ lv, int n_valid, ConnectIn in, int B,
                    float clamp_val, int blocks_col, int* __restrict__ work,
-                   float* __restrict__ out, unsigned long long* __restrict__ counts) {
+                   float* __restrict__ out, unsigned long long* __restrict__ counts,
+                   SweepRows sr) {
   constexpr int kWarps = place_warps(kPlace);
+  using Q = typename std::conditional<kRgb || kSampled, WarpQueueX, WarpQueue>::type;
   extern __shared__ __align__(16) float smem[];
   typename std::conditional<kCount, Count, NoCount>::type cnt;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -274,17 +384,17 @@ __global__ void __launch_bounds__(32 * place_warps(kPlace), place_min_blocks(kPl
   const float* rows = lv;
   float* chunk = nullptr;
   if constexpr (kPlace == kRowsResident) {
-    copy_f4(sp, lv, n_valid * kLvCols, threadIdx.x, 32 * kWarps);
+    const int staged = kSampled && n_valid < 1 ? 1 : n_valid;
+    copy_f4(sp, lv, staged * kLvCols, threadIdx.x, 32 * kWarps);
     rows = sp;
-    sp += n_valid * kLvCols;
+    sp += staged * kLvCols;
   } else {
-    chunk = sp + warp * kChunk * kLvCols;
+    if constexpr (!kSampled) chunk = sp + warp * kChunk * kLvCols;
     sp += kWarps * kChunk * kLvCols;
   }
-  WarpQueue& q = reinterpret_cast<WarpQueue*>(sp)[warp];
+  Q& q = reinterpret_cast<Q*>(sp)[warp];
 
-  LaneQueue vq{reinterpret_cast<VertexQueue*>(sp + kWarps * sizeof(WarpQueue) / 4)[warp].idx, 0,
-               true};
+  LaneQueue vq{reinterpret_cast<VertexQueue*>(sp + kWarps * sizeof(Q) / 4)[warp].idx, 0, true};
   __syncthreads();
   for (;;) {
     // ---- take spans until 32 vertices wait or the lanes run out ----
@@ -301,7 +411,8 @@ __global__ void __launch_bounds__(32 * place_warps(kPlace), place_min_blocks(kPl
       e = make_eye_vertex(load3(in.pos, i), load3(in.n, i), load3(in.tp, i), m,
                           load3(in.wo_e, i), load3(in.wo_s, i), in.eye_f[i]);
     }
-    const V3 acc = warp_sweep(tb, e, has_v, rows, chunk, n_valid, q, clamp_val, blocks_col, cnt);
+    const V3 acc = warp_sweep<kRgb, kSampled>(tb, e, has_v, rows, chunk, n_valid, q, clamp_val,
+                                              blocks_col, cnt, &sr, i);
     if (has_v) store3(out, i, acc);
     vq.pop(nb);
   }
@@ -550,8 +661,9 @@ __global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
 }
 
 // The placement of #8's launch against n_valid rows: the whole table
-// when it fits the block's opt-in shared memory, else per-warp chunks.
-inline cudaError_t connect_place(int n_valid, int* place) {
+// when it fits the block's opt-in shared memory, else per-warp chunks
+// (ext: the RGB and sampled instances' layout).
+inline cudaError_t connect_place(int n_valid, int* place, bool ext = false) {
   static int optin = 0;
   if (optin == 0) {
     int dev = 0;
@@ -560,7 +672,8 @@ inline cudaError_t connect_place(int n_valid, int* place) {
       err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
   }
-  *place = connect_smem(kRowsResident, n_valid) <= (size_t)optin ? kRowsResident : kRowsChunked;
+  *place =
+      connect_smem(kRowsResident, n_valid, ext) <= (size_t)optin ? kRowsResident : kRowsChunked;
   return cudaSuccess;
 }
 
@@ -574,13 +687,14 @@ inline const void* connect_fn(bool count, int place) {
 
 // One launch of #8's instance at kPlace: as many persistent blocks as the
 // card holds at once (fewer for a small B).
-template <bool kCount, int kPlace>
+template <bool kCount, int kPlace, bool kRgb = false, bool kSampled = false>
 cudaError_t launch_connect_at(const Tables& tb, const float* lv, int n_valid, const ConnectIn& in,
                               int B, float clamp_val, int blocks_col, int* work, float* out,
-                              unsigned long long* counts, cudaStream_t stream) {
-  auto* fn = connect_kernel<kCount, kPlace>;
+                              unsigned long long* counts, cudaStream_t stream,
+                              const SweepRows& sr = SweepRows{nullptr, nullptr, 0, 1}) {
+  auto* fn = connect_kernel<kCount, kPlace, kRgb, kSampled>;
   const int threads = 32 * place_warps(kPlace);
-  const size_t smem = connect_smem(kPlace, n_valid);
+  const size_t smem = connect_smem(kPlace, n_valid, kRgb || kSampled);
   int blocks = 0;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -588,7 +702,7 @@ cudaError_t launch_connect_at(const Tables& tb, const float* lv, int n_valid, co
     err = persistent_blocks(fn, threads, smem, (B + threads - 1) / threads, &blocks);
   if (err != cudaSuccess) return err;
   fn<<<blocks, threads, smem, stream>>>(tb, lv, n_valid, in, B, clamp_val, blocks_col, work, out,
-                                        counts);
+                                        counts, sr);
   return cudaGetLastError();
 }
 
@@ -608,7 +722,31 @@ int launch_connect(const float* sph, int ns, int nl, const float* tri, const flo
   auto* go = place == kRowsResident ? &launch_connect_at<kCount, kRowsResident>
                                     : &launch_connect_at<kCount, kRowsChunked>;
   return (int)go(tb, lv, n_valid, in, B, clamp_val, blocks_col, work, out, counts,
-                 (cudaStream_t)stream);
+                 (cudaStream_t)stream, SweepRows{nullptr, nullptr, 0, 1});
+}
+
+// #8's RGB instance (ks non-null, vidx null) or its sampled instance
+// (vidx (B, M); with the RGB shadow where ks is non-null) at the
+// placement that fits the table.  mc: the chunk of samples the sampled
+// sum adds up first, the first of 8, 4, 2, 1 that divides M.
+template <bool kRgb, bool kSampled>
+int launch_connect_x(const Tables& tb, const float* ks, const float* lv, int n_valid,
+                     const ConnectIn& in, const int* vidx, int M, int B, float clamp_val,
+                     int blocks_col, int* work, float* out, void* stream) {
+  int mc = 1;
+  for (int cand = 8; cand > 1; cand /= 2)
+    if (M % cand == 0) {
+      mc = cand;
+      break;
+    }
+  const SweepRows sr{ks, vidx, M, mc};
+  int place = kRowsResident;
+  cudaError_t err = connect_place(n_valid, &place, true);
+  if (err != cudaSuccess) return (int)err;
+  auto* go = place == kRowsResident ? &launch_connect_at<false, kRowsResident, kRgb, kSampled>
+                                    : &launch_connect_at<false, kRowsChunked, kRgb, kSampled>;
+  return (int)go(tb, lv, n_valid, in, B, clamp_val, blocks_col, work, out, nullptr,
+                 (cudaStream_t)stream, sr);
 }
 
 }  // namespace
@@ -642,6 +780,36 @@ int pt_connect_counts(const float* sph, int ns, int nl, const float* tri, const 
   return launch_connect<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp,
                               bc, rough, metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val,
                               blocks_col, work, out, counts, stream);
+}
+
+// #8's RGB instance: the exact sweep of pt_connect with the RGB shadow
+// (ks: the legacy rows (ns + nt, 4)).
+int pt_connect_rgb(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                   const float* cl, int nc, const float* sup, int nsup, const float* ks,
+                   const float* lv, int n_valid, const float* pos, const float* n,
+                   const float* tp, const float* bc, const float* rough, const float* metal,
+                   const float* eta, const float* wo_e, const float* wo_s, const float* eye_f,
+                   const bool* act, int B, float clamp_val, int blocks_col, int* work, float* out,
+                   void* stream) {
+  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
+  return launch_connect_x<true, false>(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ks,
+                                       lv, n_valid, in, nullptr, 0, B, clamp_val, blocks_col,
+                                       work, out, stream);
+}
+
+// #8's sampled instance: lane i sweeps rows vidx[i, 0..M) of the table
+// (each < max(n_valid, 1)); ks non-null: with the RGB shadow.
+int pt_connect_sampled(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                       const float* cl, int nc, const float* sup, int nsup, const float* ks,
+                       const float* lv, int n_valid, const float* pos, const float* n,
+                       const float* tp, const float* bc, const float* rough, const float* metal,
+                       const float* eta, const float* wo_e, const float* wo_s,
+                       const float* eye_f, const bool* act, const int* vidx, int M, int B,
+                       float clamp_val, int blocks_col, int* work, float* out, void* stream) {
+  ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
+  const Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  auto* go = ks ? &launch_connect_x<true, true> : &launch_connect_x<false, true>;
+  return go(tb, ks, lv, n_valid, in, vidx, M, B, clamp_val, blocks_col, work, out, stream);
 }
 
 static int launch_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,

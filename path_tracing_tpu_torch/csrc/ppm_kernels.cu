@@ -7,6 +7,13 @@
 // 10. photon_trace  replaces path_tracing_tpu/ops/pallas_photon.py
 //                   photon_trace_pallas (_photon_kernel): the photon bounce
 //                   loop of a pass, writing depth-slotted deposit events.
+//                   photon_trace_tex is its textured instance: the
+//                   with_uv hit and the bilinear texel of a textured
+//                   triangle multiplied into its base color before the
+//                   deposit and the BSDF sample, as the JAX package's XLA
+//                   photon scan (integrators/ppm.py:245-283) textures its
+//                   hits through find_closest_hit (its photon megakernel
+//                   does not: it traces textured scenes untextured).
 // 11. gather_flux   replaces path_tracing_tpu/ops/pallas_ppm_gather.py
 //                   gather_flux_pallas (_gather_kernel): the exact join of
 //                   hitpoints and photon events over 27 neighbour cells.
@@ -120,9 +127,10 @@ enum PhotonCountIdx {
 // skipped.  The photon keeps its own index, so its draws and its event
 // rows are the one-thread-per-photon kernel's.  kW: the walk (an instance
 // per walk, pt_device.cuh::WalkKind).
-template <bool kCount, int kW>
+// kTex: the textured instance (tx, the atlas).
+template <bool kCount, int kW, bool kTex = false>
 __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
-    photon_trace_kernel(Tables tb, const float* __restrict__ ro_in,
+    photon_trace_kernel(Tables tb, Tex tx, const float* __restrict__ ro_in,
                         const float* __restrict__ rd_in, const float* __restrict__ flux_in,
                         const bool* __restrict__ real, PhotonCfg g, int P, int* __restrict__ work,
                         float* __restrict__ ev, bool* __restrict__ valid,
@@ -164,7 +172,11 @@ __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
     ++my_bounces;
     cnt.add(kBounces);
     cnt.simt(kBounceLanes);
-    const HitRec h = nearest_hit_dev<false, kW>(tb, ro, rd, cnt);
+    HitRec h = nearest_hit_dev<kTex, kW>(tb, ro, rd, cnt);
+    if (kTex) {
+      const int tex_id = (int)h.tex;
+      if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
+    }
     live = false;
     // a miss, a light ball or the depth limit ends the photon
     if (h.flag == 1 && dep < g.light_depth) {
@@ -212,10 +224,10 @@ __global__ void __launch_bounds__(kPhotonThreads, kPhotonMinBlocks)
   }
 }
 
-template <bool kCount, int kW>
+template <bool kCount, int kW, bool kTex = false>
 int launch_photon(const Tables& tb, const float* ro, const float* rd, const float* flux,
                   const bool* real, int P, const PhotonCfg& g, int* work, float* ev, bool* valid,
-                  unsigned long long* counts, void* stream) {
+                  unsigned long long* counts, void* stream, const Tex& tx) {
   // persistent blocks: as many as the card holds at once, or fewer
   static int resident = 0;
   if (resident == 0) {
@@ -224,13 +236,13 @@ int launch_photon(const Tables& tb, const float* ro, const float* rd, const floa
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, photon_trace_kernel<kCount, kW>, kPhotonThreads, 0);
+          &per_sm, photon_trace_kernel<kCount, kW, kTex>, kPhotonThreads, 0);
     if (err != cudaSuccess) return (int)err;
     resident = sms * per_sm;
   }
   const int blocks = std::min(resident, (P + kPhotonThreads - 1) / kPhotonThreads);
-  photon_trace_kernel<kCount, kW><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
-      tb, ro, rd, flux, real, g, P, work, ev, valid, counts);
+  photon_trace_kernel<kCount, kW, kTex><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
+      tb, tx, ro, rd, flux, real, g, P, work, ev, valid, counts);
   return (int)cudaGetLastError();
 }
 
@@ -475,7 +487,23 @@ int pt_photon_trace(const float* sph, int ns, int nl, const float* tri, const fl
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
   auto* launch = nsup ? &launch_photon<false, kWalkSuper> : &launch_photon<false, kWalkFlat>;
   return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
-                work, ev, valid, nullptr, stream);
+                work, ev, valid, nullptr, stream, Tex{});
+}
+
+// #10's textured instance: the atlas (n_tex, th1, tw1, 3) and its sizes
+// (n_tex, 2) after the scene tables, the rest as pt_photon_trace.
+int pt_photon_trace_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                        const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+                        const int* tex_size, int n_tex, int th1, int tw1, const float* ro,
+                        const float* rd, const float* flux, const bool* real, int P, uint32_t k0,
+                        uint32_t k1, uint32_t start, uint32_t total, int light_depth, int iters,
+                        int* work, float* ev, bool* valid, void* stream) {
+  PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
+  const Tex tx{atlas, tex_size, n_tex, th1, tw1};
+  auto* launch =
+      nsup ? &launch_photon<false, kWalkSuper, true> : &launch_photon<false, kWalkFlat, true>;
+  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+                work, ev, valid, nullptr, stream, tx);
 }
 
 // The counting build of #10: the same events, and the work counters added
@@ -489,7 +517,7 @@ int pt_photon_trace_counts(const float* sph, int ns, int nl, const float* tri, c
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
   auto* launch = nsup ? &launch_photon<true, kWalkSuper> : &launch_photon<true, kWalkFlat>;
   return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
-                work, ev, valid, counts, stream);
+                work, ev, valid, counts, stream, Tex{});
 }
 
 // occupancy_row of photon_trace and photon_trace_counts in turn (their

@@ -516,6 +516,89 @@ __device__ __forceinline__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 r
 }
 
 // ---------------------------------------------------------------------------
+// RGB shadow transmittance of legacy-Ks scenes (the JAX package's
+// ops/intersect.py transmittance_rgb, geometric.cuh:293-325 of the
+// reference): legacy rows ks (ns + nt, 4) = [ks_r ks_g ks_b refract], of
+// sphere i at row i and of triangle j at row ns + j
+// (ops/cuda_intersect.py::legacy_table)
+// ---------------------------------------------------------------------------
+
+// One occluder's factor, as the JAX fold 1 - occ (1 - ks) rounds it: 1 -
+// (1 - Ks) per component where refract > 0, else 1 - (1 - 0) = 0.
+__device__ __forceinline__ V3 legacy_factor(const float* __restrict__ ks, int row) {
+  const float4 k = __ldg(reinterpret_cast<const float4*>(ks) + row);
+  const bool r = k.w > 0.0f;
+  return mk(1.0f - (1.0f - (r ? k.x : 0.0f)), 1.0f - (1.0f - (r ? k.y : 0.0f)),
+            1.0f - (1.0f - (r ? k.z : 0.0f)));
+}
+
+// The RGB shadow walk's visitor: a box is entered if the segment enters it
+// in (kMinD, md); an entered cluster's triangles are tested in order, each
+// occluder's factor multiplied in; the walk ends once every component is 0.
+template <class Ctr>
+struct RgbShadowVisit {
+  const Tables& tb;
+  const float* __restrict__ ks;
+  Ctr& cnt;
+  V3 p1, rd, inv;
+  float md;
+  int cl_cols;
+  V3 tr;
+  __device__ __forceinline__ bool done() const {
+    return tr.x == 0.0f && tr.y == 0.0f && tr.z == 0.0f;
+  }
+  __device__ __forceinline__ bool enters_super(const float* S) {
+    cnt.add(kShBox);
+    return slab_hit(S, p1, inv, kMinD, md);
+  }
+  __device__ __forceinline__ void cluster(int c) {
+    const float* C = tb.cl + c * cl_cols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    cnt.add(kShBox);
+    if (!slab_hit(C, p1, inv, kMinD, md)) return;
+    const int start = (int)C[6];
+    for (int i = start; i < start + count; ++i) {
+      float u, v;
+      cnt.add(kShTri);
+      cnt.simt(kTriLanes);
+      const float t = triangle_t(p1, rd, tb.tri + i * kTriCols, &u, &v);
+      if (t < md && t > kMinD) {
+        tr = mul(tr, legacy_factor(ks, tb.ns + i));
+        if (done()) return;
+      }
+    }
+  }
+};
+
+// RGB transmittance of the segment for t in (kMinD, md): every sphere and
+// every triangle of the walk's entered clusters that occludes multiplies
+// its factor in (no early exit at the first occluder, as the binary walk
+// has); light balls never occlude and are not visited.  The walk is
+// shadow_blocked_dev's (cluster_walk, the same window and box test) and
+// ends once all three components are 0.  cnt counts the primitive tests
+// at the shadow walk's counters.  kW: the walk.
+template <int kW = kWalkAny, class Ctr>
+__device__ V3 shadow_rgb_dev(const Tables& tb, const float* __restrict__ ks, V3 p1, V3 rd,
+                             float md, Ctr& cnt) {
+  V3 tr = mk(1.f, 1.f, 1.f);
+  for (int i = 0; i < tb.ns; ++i) {
+    V3 oc;
+    cnt.add(kShSph);
+    const float t = sphere_t(p1, rd, tb.sph + i * kSphCols, md, &oc);
+    if (t < kInf && t > kMinD) tr = mul(tr, legacy_factor(ks, i));
+  }
+  const bool flat = flat_walk<kW>(tb);
+  RgbShadowVisit<Ctr> w{tb, ks, cnt, p1, rd, mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z)),
+                        md, flat ? kClCols : kSclCols, tr};
+  if (flat)
+    cluster_walk<true>(tb.cl, tb.nc, tb.sup, tb.nsup, 0, w);
+  else
+    cluster_walk<false>(tb.cl, tb.nc, tb.sup, tb.nsup, octant(rd), w);
+  return w.tr;
+}
+
+// ---------------------------------------------------------------------------
 // texture atlas: (n, th1, tw1, 3) float32, texture t in the top-left
 // size[t] = (h, w) texels of its slice plus a one-texel wrapped border
 // (row h = row 0, col w = col 0), as scene/parser.py builds it
@@ -866,11 +949,14 @@ __device__ __forceinline__ bool row_gate(V3 pos, V3 n, const float* __restrict__
 // counted where it runs.  Returns whether the pair needs its shadow ray;
 // then *p2 is the ray's far endpoint and, when the ray is clear, the pair
 // adds *contrib (G fE fL Le MIS, clamp3-ed) if *ok (it passed valid3),
-// else nothing.
-template <class Ctr>
+// else nothing.  kRgb (the RGB shadow of legacy-Ks scenes): *contrib is
+// tp fE fL Le and *gm G MIS, which the caller multiplies by the shadow
+// factor (contrib * tr * gm, the JAX package's order), then checks and
+// clamps.
+template <bool kRgb = false, class Ctr>
 __device__ __forceinline__ bool row_eval(const EyeVertex& e, const float* __restrict__ R,
                                          const RowGeo& g, float clamp_val, Ctr& cnt, V3* contrib,
-                                         bool* ok, V3* p2) {
+                                         bool* ok, V3* p2, float* gm = nullptr) {
   // eye side: eval with wo_e, MIS pdf with wo_s against wi * dist
   V3 wi_e_l = to_local(g.wi, e.t, e.b, e.n);
   bool wh_ok;
@@ -908,6 +994,11 @@ __device__ __forceinline__ bool row_eval(const EyeVertex& e, const float* __rest
   float sum_ratios = 1.0f + pdf_t_to_s * e.eye_f + pdf_s_to_t * R[24];
   bool mis_ok = isfinite(sum_ratios) && (sum_ratios > 0.0f);
   float mis_w = mis_ok ? 1.0f / jmax(sum_ratios, 1e-30f) : 0.0f;
+  if constexpr (kRgb) {
+    *contrib = mul(mul(mul(e.tp, f_e), f_l), mk(R[6], R[7], R[8]));
+    *gm = g_term * mis_w;
+    return true;
+  }
   // the shadow factor is 1 on every pair that adds
   V3 c = scale(mul(mul(mul(e.tp, f_e), f_l), mk(R[6], R[7], R[8])), g_term * mis_w);
   *ok = valid3(c);
@@ -915,17 +1006,17 @@ __device__ __forceinline__ bool row_eval(const EyeVertex& e, const float* __rest
   return true;
 }
 
-// Both halves on one pair, counted.
-template <class Ctr>
+// Both halves on one pair, counted (kRgb: row_eval's).
+template <bool kRgb = false, class Ctr>
 __device__ __forceinline__ bool connect_row(const EyeVertex& e, const float* __restrict__ R,
                                             float clamp_val, Ctr& cnt, V3* contrib, bool* ok,
-                                            V3* p2) {
+                                            V3* p2, float* gm = nullptr) {
   cnt.add(kRows);
   RowGeo g;
   if (!row_gate(e.pos, e.n, R, &g)) return false;
   cnt.add(kRowsGated);
   cnt.simt(kRowLanes);
-  if (!row_eval(e, R, g, clamp_val, cnt, contrib, ok, p2)) return false;
+  if (!row_eval<kRgb>(e, R, g, clamp_val, cnt, contrib, ok, p2, gm)) return false;
   cnt.add(kShadowRays);
   return true;
 }

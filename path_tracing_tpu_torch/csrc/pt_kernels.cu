@@ -36,6 +36,14 @@
 //                      in one thread.
 // 6. threefry_rows     replaces no Pallas kernel: the (n, P) Threefry table
 //                      that path_tracing_tpu/ops/rng.py:60 draws through XLA.
+// 7. transmittance_rgb replaces no Pallas kernel: the RGB shadow of
+//                      legacy-Ks scenes that path_tracing_tpu/ops/
+//                      intersect.py:443 transmittance_rgb computes through
+//                      XLA (the JAX package keeps those scenes off its
+//                      kernels); one thread a live lane on #2's resident
+//                      walk, every occluder of the window folded in
+//                      (pt_device.cuh::shadow_rgb_dev), an instance per
+//                      walk.  Bound: operations (the walk's tests, as #2).
 //
 // What bounds them on this card: the primitive sweeps are compute work per
 // ray (about 45 primitive tests per ray on a 36-triangle box; on a mesh of
@@ -259,6 +267,23 @@ __global__ void __launch_bounds__(kThreads, kShadowMinBlocks)
       },
       [&](int i) { out[i] = false; });
   if constexpr (kCount) cnt.flush(counts);
+}
+
+// transmittance_rgb: lane i's RGB factor (a lane that is not live gets 1).
+// kW: the walk (an instance per walk, WalkKind).
+template <int kW>
+__global__ void __launch_bounds__(kThreads, kShadowMinBlocks)
+    transmittance_rgb_kernel(Tables tb, const float* __restrict__ ks,
+                             const float* __restrict__ p1, const float* __restrict__ rd,
+                             const float* __restrict__ max_d, const bool* __restrict__ live,
+                             int B, float* __restrict__ out) {
+  NoCount cnt;
+  for_lanes<false>(
+      live, B,
+      [&](int i) {
+        store3(out, i, shadow_rgb_dev<kW>(tb, ks, load3(p1, i), load3(rd, i), max_d[i], cnt));
+      },
+      [&](int i) { store3(out, i, mk(1.f, 1.f, 1.f)); });
 }
 
 // (n, P) table of uniforms: element [j, lane] of the global (n, total) draw
@@ -907,6 +932,18 @@ int pt_any_blocker_counts(const float* sph, int ns, int nl, const float* tri, co
                           int blocks_col, bool* out, unsigned long long* counts, void* stream) {
   return launch_blocker<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, p1, rd, max_d, live, B,
                               blocks_col, out, counts, stream);
+}
+
+// ks: the legacy rows (ns + nt, 4); out (B, 3); a lane that is not live
+// (live null: every lane is) gets 1.
+int pt_transmittance_rgb(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                         const float* cl, int nc, const float* sup, int nsup, const float* ks,
+                         const float* p1, const float* rd, const float* max_d, const bool* live,
+                         int B, float* out, void* stream) {
+  auto* fn = nsup ? &transmittance_rgb_kernel<kWalkSuper> : &transmittance_rgb_kernel<kWalkFlat>;
+  fn<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ks, p1, rd, max_d, live, B, out);
+  return (int)cudaGetLastError();
 }
 
 // occupancy_row of nearest_hit, nearest_hit_counts, any_blocker and

@@ -32,6 +32,16 @@ Tiers (``resolve_tier``), as the JAX package picks its paths:
   table per sample;
 - ``plain``: the same loop on the plain versions.
 
+Textured and legacy-Ks scenes and sampled connections
+(``cfg.bdpt_connection_samples`` = M > 0) take the fused tier, as the
+JAX package keeps them off its megakernel: the light trace and the eye
+pass take the textured hit (``ops/intersect.py::packed_hit``), so light
+vertices and eye vertices carry the texel in their base color; a
+legacy-Ks scene's connections launch #8's RGB instance (``connect_rgb``,
+the RGB shadow of ``shadow_factor``; the oracle's rule stays binary), and
+M > 0 its sampled instance (``connect_sampled``: each eye vertex against
+M stratified rows, scaled by ``n_valid / M``).
+
 Meshes of any size take these routes: from 64 clusters on, #9, #8's
 shadow rays and #1 walk the super-cluster table (above the TPU's
 ``MAX_RESIDENT_TRIS`` the JAX package streams the mesh through #6/#7
@@ -54,10 +64,11 @@ from ..config import RenderConfig
 from ..ops import rng
 from ..ops.bsdf import bsdf_pdf, bsdf_sample
 from ..ops.cuda_bdpt_eye import TILE_LANES, bdpt_eye, eye_tiling
-from ..ops.cuda_connect import connect, connect_plain, pack_light_vertices
+from ..ops.cuda_connect import (connect, connect_plain, pack_light_vertices,
+                                sample_rows)
 from ..ops.cuda_intersect import (PackedScene, nearest_hit,
                                   nearest_hit_plain, pack_scene)
-from ..ops.intersect import hit_from_fields
+from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, PI, dot, is_valid_color, length, normalize
 from ..ops.sampling import sample_light_emission
 from ..scene.camera import primary_ray_dirs
@@ -110,20 +121,21 @@ class LightVertices:
 def resolve_tier(scene: Scene, tier: str, cfg: RenderConfig) -> str:
     """The BDPT tier that renders ``scene`` when ``tier`` is asked for:
     "auto" is "mega", at any triangle count (#9 on the resident super
-    walk; "fused" runs #1 and #8 on it).  Raises ValueError for a tier
-    BDPT does not have and NotImplementedError for what is not ported
-    yet."""
+    walk; "fused" runs #1 and #8 on it), or "fused" for a textured or
+    legacy-Ks scene or sampled connections (``bdpt_connection_samples`` >
+    0), which the JAX package keeps off its megakernel too.  Raises
+    ValueError for a tier BDPT does not have and for "mega" on those."""
     if tier not in TIERS:
         raise ValueError(f"BDPT has no tier {tier!r}; expected one of "
                          f"{TIERS}")
-    if scene.has_textures or scene.has_legacy_ks:
-        raise NotImplementedError(
-            "BDPT of textured or legacy-Ks scenes is not ported yet "
-            "(ROADMAP.md queue 1, 'textured and legacy-Ks BDPT')")
-    if cfg.bdpt_connection_samples > 0:
-        raise NotImplementedError(
-            "sampled BDPT connections (bdpt_connection_samples) are not "
-            "ported yet (ROADMAP.md queue 1, 'BDPT connection sampling')")
+    if (scene.has_textures or scene.has_legacy_ks
+            or cfg.bdpt_connection_samples > 0):
+        if tier == "mega":
+            raise ValueError(
+                "tier 'mega' does not render textured or legacy-Ks scenes "
+                "or sampled connections (the eye megakernel is gated off "
+                "them, as on the TPU); use 'auto' or 'fused'")
+        return "fused" if tier == "auto" else tier
     return "mega" if tier == "auto" else tier
 
 
@@ -189,7 +201,8 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
         if not bool(alive.any()):   # later iterations change nothing
             break
         u = draw(rng.iter_key(k_it, it), P, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
+        # textured: the light vertex keeps the texel in its base color
+        hit = packed_hit(packed, ro, rd, alive, nearest)
         act = alive & hit.hit
 
         # a light-ball hit stores a terminal light vertex; the throughput
@@ -395,7 +408,10 @@ def eye_sample(packed: PackedScene, cam: Camera, cfg: RenderConfig,
     """One eye path per lane from sample key ``key``, connecting at every
     vertex against ``lv_tab``; returns the path's valid radiance (B, 3).
     The bounce loop of the JAX package's ``eye_trace_and_connect``, with
-    the nearest-hit, connection and Threefry functions given."""
+    the nearest-hit, connection and Threefry functions given.  With
+    ``cfg.bdpt_connection_samples`` = M > 0 each vertex connects to M
+    stratified rows of the table (``sample_rows`` from ``fold_in(k,
+    0x5E1)``, ``k`` the bounce's key), as its ``_connect_sampled``."""
     dev = px.device
     B = px.shape[0]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -416,8 +432,9 @@ def eye_sample(packed: PackedScene, cam: Camera, cfg: RenderConfig,
     for it in range(cfg.max_eye_iters):
         if not bool(alive.any()):   # a dead path stays dead
             break
-        u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
+        k = rng.iter_key(k_it, it)
+        u = draw(k, B, 3, start, total, device=dev)
+        hit = packed_hit(packed, ro, rd, alive, nearest)
         act = alive & hit.hit
         m, n, pos = hit.mtl, hit.normal, hit.pos
 
@@ -435,9 +452,14 @@ def eye_sample(packed: PackedScene, cam: Camera, cfg: RenderConfig,
         eye_f = torch.where((depth == 0) | (m.eta > 0.0),
                             torch.zeros_like(g_mis),
                             (1.0 / PDF_FWD_FLOOR) * (1.0 + g_mis))
+        kw = {}
+        if cfg.bdpt_connection_samples > 0:
+            kw["vidx"] = sample_rows(draw, rng.fold_in(k, 0x5E1), B,
+                                     cfg.bdpt_connection_samples, n_valid,
+                                     start, total, device=dev)
         total_c = connect_fn(packed, lv_tab, n_valid, pos, n, tp, m, wo_e,
                              wo_s, eye_f, act, clamp_val=cfg.clamp,
-                             dielectrics_block=blocks)
+                             dielectrics_block=blocks, **kw)
         radiance = radiance + torch.where(act[:, None], total_c,
                                           torch.zeros_like(total_c))
 

@@ -47,7 +47,7 @@ from ..ops.bsdf import bsdf_sample
 from ..ops.cuda_intersect import nearest_hit, nearest_hit_plain, pack_scene
 from ..ops.cuda_photon import photon_trace, photon_trace_plain
 from ..ops.cuda_ppm_gather import gather_flux, gather_flux_plain
-from ..ops.intersect import hit_from_fields
+from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
 from ..ops.sampling import sample_light_emission
 from ..scene.camera import primary_ray_dirs
@@ -102,17 +102,14 @@ class PhotonEvents:
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The PPM tier that renders ``scene`` when ``tier`` is asked for:
-    "auto" is "mega", at any triangle count (above ``MAX_RESIDENT_TRIS``
-    the eye pass's #1 and #10's ``kWalkSuper`` instance walk the
-    super-cluster table, #11 is unchanged).  Raises ValueError for a tier
-    PPM does not have and NotImplementedError for what is not ported
-    yet."""
+    "auto" is "mega" on every scene, at any triangle count (above
+    ``MAX_RESIDENT_TRIS`` the eye pass's #1 and #10's ``kWalkSuper``
+    instance walk the super-cluster table), textured (the eye pass's
+    ``with_uv`` #1 and #10's textured instance) or with legacy Ks (which
+    PPM never reads: it casts no shadow rays).  Raises ValueError for a
+    tier PPM does not have."""
     if tier not in TIERS:
         raise ValueError(f"PPM has no tier {tier!r}; expected one of {TIERS}")
-    if scene.has_textures or scene.has_legacy_ks:
-        raise NotImplementedError(
-            "PPM of textured or legacy-Ks scenes is not ported yet "
-            "(ROADMAP.md queue 1, 'textured and legacy-Ks PPM')")
     return "mega" if tier == "auto" else tier
 
 
@@ -147,7 +144,8 @@ def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
         if not bool(alive.any()):   # a dead chain stays dead
             break
         u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
-        hit = hit_from_fields(nearest(packed, ro, rd, live=alive), ro, rd)
+        # textured: the hitpoint keeps the texel in its base color
+        hit = packed_hit(packed, ro, rd, alive, nearest)
         act = alive & hit.hit
         wo = -rd
         m, n = hit.mtl, hit.normal

@@ -17,7 +17,9 @@ Semantics kept from the reference, as the JAX package keeps them:
 ``wavefront_pt`` picks a tier (``resolve_tier``): scenes without textures
 or legacy Ks render in the megakernel (``ops/cuda_wavefront.py``, one
 launch for the whole spp loop), textured scenes in the per-bounce tier
-with the textured bounce, whatever their size: above ``MAX_RESIDENT_TRIS``
+with the textured bounce, legacy-Ks scenes in the split tier (the
+nearest-hit kernel and the RGB shadow's ``transmittance_rgb`` around a
+PyTorch bounce), whatever their size: above ``MAX_RESIDENT_TRIS``
 triangles (the TPU's VMEM ceiling, where the JAX package streams the mesh)
 the resident kernels walk the super-cluster table, and on the card they
 were faster than the streamed kernels #6/#7 on sorted rays
@@ -50,11 +52,12 @@ from ..scene.types import Camera, Scene
 
 # "mega": one render_wavefront kernel for the whole render; "fused": one
 # shade_step (textured: shade_step_tex) kernel per bounce; "split": the
-# nearest-hit and any-blocker kernels around a PyTorch bounce; "stream":
-# the streamed nearest-hit and any-blocker kernels on coherence-sorted rays
-# around a PyTorch bounce; "plain": PyTorch only; "auto": mega, or fused
-# for textured scenes, at any size.  On CPU tensors every tier runs plain
-# code (stream its own plain versions).
+# nearest-hit and any-blocker (legacy Ks: transmittance_rgb) kernels
+# around a PyTorch bounce; "stream": the streamed nearest-hit and
+# any-blocker kernels on coherence-sorted rays around a PyTorch bounce;
+# "plain": PyTorch only; "auto": mega, or fused for textured scenes, or
+# split for legacy-Ks ones, at any size.  On CPU tensors every tier runs
+# plain code (stream its own plain versions).
 TIERS = ("auto", "mega", "fused", "split", "stream", "plain")
 
 
@@ -108,12 +111,13 @@ def _light_emission_radiance(table: torch.Tensor, hit_pos, depth):
     return emission, li, ok
 
 
-def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
-         dielectrics_block: bool, blocker):
+def _nee(table, hit: Hit, wo, throughput, u_pick, u1, u2, shadow):
     """Next-event estimation at every lane (callers gate by eligibility).
     Returns the contribution including the path throughput, which callers
-    validity-check and clamp as the reference does.  ``blocker`` is the
-    any-blocker function of the shadow sweep."""
+    validity-check and clamp as the reference does.  ``shadow(p1, rd,
+    max_d)`` is the shadow sweep's transmittance, (B, 3): the binary
+    verdict broadcast, or the RGB factor of a legacy-Ks scene; a light
+    counts where any component is > 0."""
     nl = table.shape[0]
     li = torch.clamp((u_pick * nl).to(torch.int32), max=nl - 1).long()
     lt = _take_light(table, li)
@@ -142,22 +146,22 @@ def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
     p2 = torch.where(l_par[:, None], hit.pos + pdir * 1e4,
                      lp + d_local * EPSILON)
     srd, _, max_d = shadow_ray(p1, p2)
-    blocked = blocker(packed, p1, srd, max_d, dielectrics_block)
-    tr = torch.where(blocked, torch.zeros_like(max_d),
-                     torch.ones_like(max_d))
-    tr_pos = tr > 0.0
+    tr = shadow(p1, srd, max_d)
+    tr_pos = torch.any(tr > 0.0, dim=-1)
 
     brdf, pdf_b = bsdf_eval_pdf(hit.mtl, wo, wi, hit.normal)
 
-    base = throughput * brdf * l_illum
-    contrib_par = base * (tr * cos_surf * float(nl))[:, None]
+    # the JAX package's order: tp brdf Le tr, then the scalar factor (with
+    # a binary tr the products equal the unshadowed ones bit for bit)
+    base = throughput * brdf * l_illum * tr
+    contrib_par = base * (cos_surf * float(nl))[:, None]
     area = 4.0 * PI * l_r * l_r
     pdf_area = 1.0 / (nl * area)
     pdf_light_dir = pdf_area * dist2 / torch.clamp(cos_light, min=1e-6)
     p_l = pdf_light_dir * pdf_light_dir
     p_b = pdf_b * pdf_b
     mis_w = p_l / torch.clamp(p_l + p_b, min=1e-8)
-    contrib_sph = base * (tr * cos_surf / pdf_light_dir * mis_w)[:, None]
+    contrib_sph = base * (cos_surf / pdf_light_dir * mis_w)[:, None]
 
     gate_par = (cos_surf > 0.0) & tr_pos
     gate_sph = (cos_surf > 0.0) & (cos_light > 0.0) & inside_cone & tr_pos
@@ -169,21 +173,28 @@ def _nee(packed, table, hit: Hit, wo, throughput, u_pick, u1, u2, *,
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The tier that renders ``scene`` when ``tier`` is asked for: "auto"
-    is "mega" for scenes without textures or legacy Ks and "fused"
-    otherwise, as the JAX package gates its megakernel and fused kernels,
-    at any triangle count.  Above ``MAX_RESIDENT_TRIS`` the JAX package
+    is "mega" for scenes without textures or legacy Ks, "fused" for
+    textured ones and "split" for legacy-Ks ones (textured or not), as the
+    JAX package gates its megakernel and fused kernels (a legacy-Ks scene
+    takes its XLA route, whose shadow is the RGB ``shadow_factor``), at
+    any triangle count.  Above ``MAX_RESIDENT_TRIS`` the JAX package
     streams the mesh (#6/#7); on the card the resident super walk of
     "mega" and "fused" was never slower than "stream" in every turn on the
     big meshes ``chip_smoke.py`` times, so auto keeps them there.
-    "stream" stays allowed on any scene.  Raises ValueError for an
-    unknown tier or "mega" on a textured scene, and NotImplementedError
-    for legacy-Ks scenes (not ported yet)."""
+    "stream" stays allowed on any scene without legacy Ks.  Raises
+    ValueError for an unknown tier, "mega" on a textured scene and
+    "mega", "fused" or "stream" on a legacy-Ks scene (their shadow walks
+    are binary)."""
     if tier not in TIERS:
         raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
     if scene.has_legacy_ks:
-        raise NotImplementedError(
-            "legacy-Ks scenes are not ported yet (ROADMAP queue 1: legacy-Ks "
-            "transmittance)")
+        if tier in ("mega", "fused", "stream"):
+            raise ValueError(
+                f"tier {tier!r} does not render legacy-Ks scenes (its "
+                "shadow walk is binary; the RGB shadow runs in the split "
+                "tier, as the JAX package's XLA route); use 'auto' or "
+                "'split'")
+        return "split" if tier == "auto" else tier
     if tier == "auto":
         return "fused" if scene.has_textures else "mega"
     if tier == "mega" and scene.has_textures:

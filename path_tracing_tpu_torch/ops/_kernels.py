@@ -11,6 +11,11 @@ under a name keyed on a hash of its sources and the flags, so an edited
 source is rebuilt and an unchanged one is reused.  A failed build raises
 with nvcc's output; nothing falls back.
 
+``transmittance_rgb`` (in ``pt_kernels.cu``) is the RGB shadow of
+legacy-Ks scenes; ``connect_rgb`` and ``connect_sampled`` are #8's RGB and
+sampled instances, ``photon_trace_tex`` #10's textured one, each launched
+under its own name.
+
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
 went through.  ``nearest_hit_counts``, ``any_blocker_counts``,
@@ -43,12 +48,13 @@ HEADERS = ("pt_device.cuh",)
 LIBRARIES = {
     "pt_kernels": ("nearest_hit", "any_blocker", "shade_step",
                    "shade_step_tex", "render_wavefront", "threefry_rows",
-                   "nearest_hit_counts", "any_blocker_counts",
-                   "render_wavefront_counts", "shade_step_counts",
-                   "shade_step_tex_counts"),
-    "bdpt_kernels": ("connect", "bdpt_eye", "connect_counts", "bdpt_eye_counts"),
-    "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_counts",
-                    "gather_flux_counts"),
+                   "transmittance_rgb", "nearest_hit_counts",
+                   "any_blocker_counts", "render_wavefront_counts",
+                   "shade_step_counts", "shade_step_tex_counts"),
+    "bdpt_kernels": ("connect", "bdpt_eye", "connect_rgb", "connect_sampled",
+                     "connect_counts", "bdpt_eye_counts"),
+    "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_tex",
+                    "photon_trace_counts", "gather_flux_counts"),
     "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream",
                      "nearest_hit_stream_counts", "any_blocker_stream_counts"),
     "probe_kernels": ("onehot_fetch",),
@@ -88,6 +94,14 @@ _ARGTYPES = {
     # lv, n_valid | pos n tp bc rough metal eta wo_e wo_s eye_f act | B,
     # clamp, blocks_col | work out
     "connect": _TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P, _P],
+    # ks lv, n_valid | pos n tp bc rough metal eta wo_e wo_s eye_f act | B,
+    # clamp, blocks_col | work out
+    "connect_rgb": _TABLES + [_P, _P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P,
+                                                        _P],
+    # ks lv, n_valid | the 11 lane inputs | vidx M B, clamp, blocks_col |
+    # work out
+    "connect_sampled": _TABLES + [_P, _P, _I] + [_P] * 12 + [_I, _I, _F, _I,
+                                                            _P, _P, _P],
     # lv, n_valid, tile_lanes, tile_stride | cam px py | B spp eye_depth
     # max_iters | k0 k1 start total | clamp blocks_col light_hit_scale | img
     "bdpt_eye": _TABLES + [_P, _I, _I, ctypes.c_longlong, _P, _P, _P,
@@ -97,6 +111,11 @@ _ARGTYPES = {
     # valid
     "photon_trace": _TABLES + [_P] * 4 + [_I, _U, _U, _U, _U, _I, _I, _P, _P,
                                           _P, _P],
+    # the atlas's five arguments, then photon_trace's after the tables
+    "photon_trace_tex": _TABLES + [_P, _P, _I, _I, _I] + [_P] * 4 + [
+        _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P],
+    # ks p1 rd max_d live | B | out
+    "transmittance_rgb": _TABLES + [_P, _P, _P, _P, _P, _I, _P, _P],
     # hp perm win ev items | n_items r2 | flux count
     "gather_flux": [_P] * 5 + [_I, _F, _P, _P, _P],
     # the streamed tables | ro rd B n_live | t idx kind

@@ -19,9 +19,13 @@ same as the JAX package's ``pack_scene``:
   ``tex = -1`` for an untextured triangle (the JAX package's columns 24-30
   of its ``with_uv`` triangle table, kept apart here so the untextured
   sweeps keep their 24-column stride);
+- the legacy shadow rows, ``(ns + nt, 4)``: ``[ks_r, ks_g, ks_b,
+  refract]`` of sphere ``i`` at row ``i`` and of packed triangle ``j`` at
+  row ``ns + j`` (the scene's cluster order), or ``(0, 4)`` for a scene
+  without legacy Ks (the RGB shadow's tables; light balls have none);
 
-each padded with zero rows to a multiple of 8, and the scene's texture
-atlas and sizes as they are.
+each padded with zero rows to a multiple of 8 (the legacy rows aside),
+and the scene's texture atlas and sizes as they are.
 
 Each kernel has a wrapper and a plain version side by side.  The wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it launches
@@ -35,6 +39,15 @@ result is read: the kernels walk only those, and the others get the miss
 record (``nearest_hit``) or ``False`` (``any_blocker``), in the plain
 versions too.  ``nearest_hit_counts`` and ``any_blocker_counts`` launch the
 counting builds.
+
+``transmittance_rgb`` is the RGB shadow of legacy-Ks scenes (the JAX
+package's ``ops/intersect.py::transmittance_rgb``, which no Pallas kernel
+computes): its kernel walks the resident tables as ``any_blocker`` does
+but visits every occluder in the segment's window, multiplying its legacy
+Ks in (refract > 0) or zeroing the factor (refract <= 0), and stops once
+all three components are 0.  ``transmittance_rgb_plain`` is the JAX
+package's brute-force fold, chunked as it chunks it; given ``counts`` it
+also counts the kernel's walk (``_count_rgb_walk``).
 """
 from __future__ import annotations
 
@@ -75,6 +88,7 @@ class PackedScene:
     nt: int
     sup: torch.Tensor  # (NS, 16) super rows; (8, 16) zeros for the flat walk
     n_super: int       # super rows the walk visits (0: the flat walk)
+    legacy: torch.Tensor  # (ns + nt, 4) ks3 refract, or (0, 4): none
 
     @property
     def device(self) -> torch.device:
@@ -83,6 +97,10 @@ class PackedScene:
     @property
     def textured(self) -> bool:
         return self.atlas.shape[0] > 0
+
+    @property
+    def has_legacy(self) -> bool:
+        return self.legacy.shape[0] > 0
 
 
 def _rowpad(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -212,7 +230,19 @@ def pack_scene(scene: Scene) -> PackedScene:
                        uv=uv.contiguous(), cl=cl.contiguous(),
                        atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt,
                        sup=sup.contiguous(),
-                       n_super=cl.shape[0] // SUPER if use_super else 0)
+                       n_super=cl.shape[0] // SUPER if use_super else 0,
+                       legacy=legacy_table(scene))
+
+
+def legacy_table(scene: Scene) -> torch.Tensor:
+    """The ``(ns + nt, 4)`` legacy shadow rows (spheres, then the packed
+    triangles), or ``(0, 4)`` for a scene without legacy Ks."""
+    if not scene.has_legacy_ks:
+        return torch.zeros((0, 4), device=scene.device)
+    return torch.cat([
+        torch.cat([scene.sph_ks, scene.sph_refract[:, None]], 1),
+        torch.cat([scene.tri_ks, scene.tri_refract[:, None]], 1)],
+        0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +541,109 @@ def _blocked_all(packed: PackedScene, p1, rd, max_d, col: int, counts):
         for a, b in _chunks(p1.shape[0], packed.ns + packed.nt)])
 
 
+def _fold_factors(rows: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """Per (ray, occluder) the RGB factor ``1 - occ (1 - ks)`` of legacy
+    rows (N, 4) (``ks`` = Ks where refract > 0, else 0): (R, N, 3)."""
+    ks = torch.where(rows[:, 3:4] > 0.0, rows[:, 0:3],
+                     torch.zeros_like(rows[:, 0:3]))
+    return 1.0 - occ.to(torch.float32)[..., None] * (1.0 - ks)[None]
+
+
+def _rgb_rows(packed: PackedScene, p1, rd, max_d) -> torch.Tensor:
+    """The JAX package's ``_transmittance_rgb_block`` on packed tables:
+    the product over the triangles in table order, then the spheres."""
+    md = max_d[:, None]
+    trans = torch.ones((p1.shape[0], 3), device=p1.device)
+    ns, nt = packed.ns, packed.nt
+    if nt:
+        tri = packed.tri[:nt]
+        t = triangle_ts(p1, rd, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9], md)
+        trans = trans * torch.prod(_fold_factors(
+            packed.legacy[ns:ns + nt], (t < INF) & (t > SHADOW_EPS)), dim=1)
+    if ns:
+        sph = packed.sph[:ns]
+        t = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], md)
+        trans = trans * torch.prod(_fold_factors(
+            packed.legacy[:ns], (t < INF) & (t > SHADOW_EPS)), dim=1)
+    return trans
+
+
+def _count_rgb_walk(packed: PackedScene, p1, rd, max_d, counts: dict
+                    ) -> None:
+    """A plain model of the RGB shadow walk (``shadow_rgb_dev``) on every
+    given segment.  Adds to ``counts`` every sphere; then each box the
+    walk tests while some component of the segment's factor is not 0 and,
+    in a cluster box it enters, the triangles in order up to the one after
+    which every component is 0, which ends the walk.  A component is 0
+    once an occluder's factor in it is 0 (an opaque occluder, or Ks 0)."""
+    R = p1.shape[0]
+    zero = torch.zeros((R, 3), dtype=torch.bool, device=p1.device)
+    ns, nt = packed.ns, packed.nt
+    if ns and R:
+        counts["shadow_spheres"] += R * ns
+        sph = packed.sph[:ns]
+        ts = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], max_d[:, None])
+        f = _fold_factors(packed.legacy[:ns], (ts < INF) & (ts > SHADOW_EPS))
+        zero = (f == 0.0).any(dim=1)
+    inv = _safe_inv(rd)
+    rows = packed.cl[:, 6:8].tolist()
+
+    def enter(box, lanes):
+        lanes = lanes[~zero[lanes].all(dim=1)]
+        counts["shadow_boxes"] += lanes.numel()
+        return lanes[_slab_hit(box, p1[lanes], inv[lanes], SHADOW_EPS,
+                               max_d[lanes])]
+
+    def cluster(c, lanes):
+        a, n = int(rows[c][0]), int(rows[c][1])
+        if n <= 0 or not lanes.numel():
+            return
+        ent = enter(packed.cl[c], lanes)
+        if not ent.numel():
+            return
+        tri = packed.tri[a:a + n]
+        tt = triangle_ts(p1[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
+                         tri[:, 6:9], max_d[ent][:, None])
+        f = _fold_factors(packed.legacy[ns + a:ns + a + n],
+                          (tt < INF) & (tt > SHADOW_EPS))
+        z = torch.cummax(((f == 0.0) | zero[ent][:, None]).int(),
+                         dim=1).values.bool()                    # (E, n, 3)
+        done = z.all(dim=2)
+        hit = done.any(dim=1)
+        counts["shadow_tris"] += int(torch.where(
+            hit, torch.argmax(done.int(), dim=1) + 1,
+            torch.full_like(hit, n, dtype=torch.int64)).sum())
+        zero[ent] = z[:, -1]
+
+    walk_clusters(packed, rd, enter, cluster)
+
+
+def transmittance_rgb_plain(packed: PackedScene, p1: torch.Tensor,
+                            rd: torch.Tensor, max_d: torch.Tensor,
+                            live=None, counts: dict | None = None
+                            ) -> torch.Tensor:
+    """Plain version of the ``transmittance_rgb`` kernel: the JAX package's
+    brute-force fold (``_rgb_rows``) in ray chunks of ``max(8, min(65536,
+    2**24 // (nt + ns)))``, as its ``transmittance_rgb`` chunks them.
+    (B, 3); lanes that are not ``live`` get 1.  ``counts``, if given,
+    gains the tests of the kernel's walk for the live lanes
+    (``_count_rgb_walk``)."""
+    _kernels.plain_calls["transmittance_rgb"] += 1
+    if not packed.has_legacy:
+        raise ValueError("transmittance_rgb: the scene has no legacy rows")
+    out = torch.ones((p1.shape[0], 3), device=p1.device)
+    sel = (torch.arange(p1.shape[0], device=p1.device) if live is None
+           else torch.nonzero(live)[:, 0])
+    q1, qd, qm = p1[sel], rd[sel], max_d[sel]
+    if counts is not None:
+        _count_rgb_walk(packed, q1, qd, qm, counts)
+    chunk = max(8, min(65536, (1 << 24) // max(packed.nt + packed.ns, 1)))
+    for a in range(0, sel.shape[0], chunk):
+        out[sel[a:a + chunk]] = _rgb_rows(packed, q1[a:a + chunk],
+                                          qd[a:a + chunk], qm[a:a + chunk])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -653,6 +786,55 @@ def _launch_blocker(name: str, packed, p1, rd, max_d,
                         ctypes.c_void_p(out.data_ptr()),
                         *_counts_arg(counts))
     return out
+
+
+def transmittance_rgb(packed: PackedScene, p1: torch.Tensor,
+                      rd: torch.Tensor, max_d: torch.Tensor, live=None
+                      ) -> torch.Tensor:
+    """RGB shadow transmittance per segment, (B, 3) like
+    :func:`transmittance_rgb_plain`, lanes that are not ``live`` 1."""
+    if all(x.device.type == "cpu" for x in (p1, rd, max_d)):
+        return transmittance_rgb_plain(packed, p1, rd, max_d, live)
+    B = p1.shape[0]
+    check_tensor("p1", p1, (B, 3))
+    check_tensor("rd", rd, (B, 3))
+    check_tensor("max_d", max_d, (B,))
+    check_tables(packed, p1.device)
+    check_legacy(packed)
+    out = torch.empty((B, 3), device=p1.device)
+    mask = _live_arg(live, B)
+    if B:
+        _kernels.launch("transmittance_rgb", *table_args(packed),
+                        ctypes.c_void_p(packed.legacy.data_ptr()),
+                        ctypes.c_void_p(p1.data_ptr()),
+                        ctypes.c_void_p(rd.data_ptr()),
+                        ctypes.c_void_p(max_d.data_ptr()), mask, B,
+                        ctypes.c_void_p(out.data_ptr()))
+    return out
+
+
+def check_legacy(packed: PackedScene) -> None:
+    """The legacy rows a kernel's RGB shadow reads: (ns + nt, 4), 16-byte
+    aligned (a row is read as one float4)."""
+    if not packed.has_legacy:
+        raise ValueError("the RGB shadow needs a scene with legacy Ks rows")
+    check_tensor("legacy", packed.legacy, (packed.ns + packed.nt, 4))
+    if packed.legacy.data_ptr() % 16:
+        raise ValueError("legacy: rows must start 16-byte aligned")
+
+
+def atlas_args(packed: PackedScene) -> list:
+    """The texture atlas's ctypes arguments (atlas, sizes, NT, TH+1,
+    TW+1), checked: the textured kernels' (#4, #10's textured instance)."""
+    at = packed.atlas
+    if not packed.textured or at.dim() != 4 or at.shape[3] != 3:
+        raise ValueError(f"expected a (NT > 0, TH+1, TW+1, 3) texture "
+                         f"atlas, got {tuple(at.shape)}")
+    check_tensor("atlas", at, tuple(at.shape))
+    check_tensor("tex_size", packed.tex_size, (at.shape[0], 2), torch.int32)
+    return [ctypes.c_void_p(at.data_ptr()),
+            ctypes.c_void_p(packed.tex_size.data_ptr()), at.shape[0],
+            at.shape[1], at.shape[2]]
 
 
 def _counts_arg(counts) -> list:

@@ -15,7 +15,13 @@ the photon's lane, as the JAX package's XLA scan draws them
 them per iteration instead of per depth).  The TPU kernel drew from its
 on-core PRNG instead and agreed with the scan only in distribution.
 
-CUDA tensors launch ``photon_trace`` of ``csrc/ppm_kernels.cu`` or raise:
+On a textured scene the hit is the ``with_uv`` one with the bilinear
+texel multiplied into a textured triangle's base color before the
+deposit and the BSDF sample, as the XLA scan textures it (through
+``find_closest_hit``); the TPU kernel did not (it has no texture code).
+
+CUDA tensors launch ``photon_trace`` of ``csrc/ppm_kernels.cu`` (on a
+textured scene its textured instance, ``photon_trace_tex``) or raise:
 persistent threads, each tracing one photon at a time and taking the next
 index from a global counter (the wrapper zeroes it); a photon keeps its
 own index, so its draws and event rows do not depend on the thread.  CPU
@@ -29,15 +35,16 @@ returns the same events and the work it did (``COUNT_NAMES``);
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _kernels, rng
 from .bsdf import bsdf_sample
 from .cuda_connect import COUNT_NAMES as _WALK_NAMES
-from .cuda_intersect import (PackedScene, check_tables, check_tensor,
-                             nearest_hit_plain, table_args)
-from .intersect import hit_from_fields
+from .cuda_intersect import (PackedScene, atlas_args, check_tables,
+                             check_tensor, nearest_hit_plain, table_args)
+from .intersect import packed_hit
 from .math3 import EPSILON, dot, is_valid_color
 
 EV_COLS = 12      # pos3 normal3 wi3 flux3
@@ -100,8 +107,8 @@ def photon_trace_plain(packed: PackedScene, ro, rd, flux, real, key,
             break
         u = rng.uniform_rows_plain(rng.iter_key(k_it, it), P, 3, start, total,
                                    device=dev)
-        hit = hit_from_fields(nearest_hit_plain(packed, ro, rd, live=alive,
-                                                counts=counts), ro, rd)
+        hit = packed_hit(packed, ro, rd, alive, functools.partial(
+            nearest_hit_plain, counts=counts))
         m, n = hit.mtl, hit.normal
         act = alive & hit.hit & ~hit.is_light & (dep < light_depth)
         wi_light = -rd
@@ -153,8 +160,9 @@ def photon_trace(packed: PackedScene, ro, rd, flux, real, key,
     if ro.device.type == "cpu":
         return photon_trace_plain(packed, ro, rd, flux, real, key,
                                   light_depth, iters, start, total)
-    return _launch("photon_trace", packed, ro, rd, flux, real, key,
-                   light_depth, iters, start, total)[:2]
+    return _launch("photon_trace_tex" if packed.textured else "photon_trace",
+                   packed, ro, rd, flux, real, key, light_depth, iters,
+                   start, total)[:2]
 
 
 def photon_trace_counts(packed: PackedScene, ro, rd, flux, real, key,
@@ -162,7 +170,11 @@ def photon_trace_counts(packed: PackedScene, ro, rd, flux, real, key,
                         total: int | None = None) -> tuple:
     """``photon_trace`` through the kernel's counting build: (the same
     events, valid, the counters as a dict keyed by ``COUNT_NAMES``).  CUDA
-    tensors only."""
+    tensors only; untextured scenes only (the textured instance has no
+    counting build)."""
+    if packed.textured:
+        raise ValueError("photon_trace_counts: no counting build of the "
+                         "textured instance")
     return _launch("photon_trace_counts", packed, ro, rd, flux, real, key,
                    light_depth, iters, start, total)
 
@@ -190,6 +202,7 @@ def _launch(name, packed, ro, rd, flux, real, key, light_depth, iters,
         k0, k1 = (int(w) for w in rng.fold_in(key, PHOTON_STREAM).tolist())
         _kernels.launch(
             name, *table_args(packed),
+            *(atlas_args(packed) if name == "photon_trace_tex" else ()),
             *(ctypes.c_void_p(x.data_ptr()) for x in (ro, rd, flux, real)),
             P, k0, k1, start, total, int(light_depth), int(iters),
             *(ctypes.c_void_p(x.data_ptr()) for x in (work, ev, valid)),

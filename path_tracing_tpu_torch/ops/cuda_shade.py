@@ -18,7 +18,9 @@ The step functions share that signature:
 - ``shade_step_split``: the same PyTorch bounce on the nearest-hit and
   any-blocker wrappers, so on CUDA it launches those two kernels and shades
   with PyTorch (the JAX package's Pallas-intersect / XLA-shade tier);
-  ``tex=True`` textures it;
+  ``tex=True`` textures it; on a legacy-Ks scene the NEE shadow is
+  ``transmittance_rgb``'s RGB factor (the plain bounces take its plain
+  version), the JAX package's XLA route for those scenes;
 - ``shade_step_stream``: the same PyTorch bounce on the sorted streamed
   nearest-hit and any-blocker of ``ops/cuda_stream.py`` (#6/#7), the JAX
   package's per-bounce body on meshes above the resident ceiling;
@@ -40,11 +42,11 @@ import torch
 from . import _kernels
 from .bsdf import bsdf_sample
 from .cuda_intersect import (PackedScene, any_blocker, any_blocker_plain,
-                             check_tables, check_tensor, nearest_hit,
-                             nearest_hit_plain, table_args)
-from .intersect import hit_from_fields
+                             atlas_args, check_tables, check_tensor,
+                             nearest_hit, nearest_hit_plain, table_args,
+                             transmittance_rgb, transmittance_rgb_plain)
+from .intersect import hit_from_fields, texel_fields
 from .math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
-from .texture import sample_bilinear
 
 LIGHT_COLS = 12
 # The counters of the per-bounce kernels' counting builds (#3's and #4's)
@@ -57,27 +59,17 @@ STEP_COUNTS = ("iterations", "shadow_rays", "evals", "pdfs", "bsdf_samples",
                "shadow_boxes", "shadow_tris")
 
 
-def _textured_hit(packed: PackedScene, h: dict) -> dict:
-    """A ``with_uv`` hit with the bilinear texel multiplied into the base
-    color of textured triangles (``tex >= 0``)."""
-    tex_id = h["tex"].to(torch.int32)
-    texel = sample_bilinear(packed.atlas, packed.tex_size, tex_id,
-                            torch.stack([h["iu"], h["iv"]], dim=-1))
-    on = tex_id >= 0
-    h = dict(h)
-    for i, k in enumerate(("bcr", "bcg", "bcb")):
-        h[k] = torch.where(on, h[k] * texel[:, i], h[k])
-    return h
-
-
 def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
             last_delta, last_pdf, u, *, clamp_val, stub_mis,
-            dielectrics_block, nearest, blocker, tex=False,
+            dielectrics_block, nearest, blocker, tex=False, rgb=None,
             counts=None) -> dict:
     """One PT bounce in PyTorch with the given intersection functions;
     ``tex`` textures the hit.  ``nearest`` gets the active lanes and
     ``blocker`` the NEE-eligible ones as ``live=`` (the lanes whose result
-    is read: the kernels walk only those).  ``counts``, if
+    is read: the kernels walk only those).  ``rgb``, the RGB shadow
+    function (``transmittance_rgb`` or its plain version), takes the
+    blocker's place on a legacy-Ks scene under the GPU rule, as the JAX
+    package's ``shadow_factor`` does.  ``counts``, if
     given, gains the megakernel's work of the bounce (its active lanes as
     ``iterations``, NEE rays with their evaluation, pdf and draws, BSDF
     samples with theirs) and is handed to the intersection functions,
@@ -89,9 +81,11 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
         counts["iterations"] += int(act.sum())
         nearest = functools.partial(nearest, counts=counts)
         blocker = functools.partial(blocker, counts=counts)
+        if rgb is not None:
+            rgb = functools.partial(rgb, counts=counts)
     if tex:
-        h = _textured_hit(packed, nearest(packed, ro, rd, with_uv=True,
-                                          live=act))
+        h = texel_fields(packed, nearest(packed, ro, rd, with_uv=True,
+                                         live=act))
     else:
         h = nearest(packed, ro, rd, live=act)
     hit = hit_from_fields(h, ro, rd)
@@ -137,9 +131,17 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
         counts["bsdf_samples"] += n_bsdf
         counts["draws"] += 3 * (n_nee + n_bsdf)
     if nl > 0:
-        nee = _nee(packed, light_tab, hit, wo, tp, u[0], u[1], u[2],
-                   dielectrics_block=dielectrics_block,
-                   blocker=functools.partial(blocker, live=elig))
+        if rgb is not None and dielectrics_block and packed.has_legacy:
+            def shadow(p1, srd, max_d):
+                return rgb(packed, p1, srd, max_d, live=elig)
+        else:
+            def shadow(p1, srd, max_d):
+                blocked = blocker(packed, p1, srd, max_d, dielectrics_block,
+                                  live=elig)
+                tr = torch.where(blocked, torch.zeros_like(max_d),
+                                 torch.ones_like(max_d))
+                return tr[:, None].expand(-1, 3)
+        nee = _nee(light_tab, hit, wo, tp, u[0], u[1], u[2], shadow)
         nee = torch.where(is_valid_color(nee)[:, None],
                           clamp_radiance(nee, clamp_val),
                           torch.zeros_like(nee))
@@ -186,17 +188,19 @@ def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
                    nearest=nearest_hit_plain, blocker=any_blocker_plain,
-                   counts=counts)
+                   rgb=transmittance_rgb_plain, counts=counts)
 
 
 def shade_step_split(packed, light_tab, ro, rd, tp, eta, depth, act,
                      last_delta, last_pdf, u, *, clamp_val, stub_mis,
                      dielectrics_block, tex=False) -> dict:
-    """The PyTorch bounce on the nearest-hit and any-blocker wrappers."""
+    """The PyTorch bounce on the nearest-hit and any-blocker wrappers (on
+    a legacy-Ks scene the RGB shadow's, ``transmittance_rgb``)."""
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
-                   nearest=nearest_hit, blocker=any_blocker, tex=tex)
+                   nearest=nearest_hit, blocker=any_blocker, tex=tex,
+                   rgb=transmittance_rgb)
 
 
 def shade_step_stream(st, light_tab, ro, rd, tp, eta, depth, act, last_delta,
@@ -226,7 +230,7 @@ def shade_step_tex_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
                    nearest=nearest_hit_plain, blocker=any_blocker_plain,
-                   tex=True, counts=counts)
+                   tex=True, rgb=transmittance_rgb_plain, counts=counts)
 
 
 def _launch_step(name, extra, packed, light_tab, ro, rd, tp, eta, depth,
@@ -338,7 +342,7 @@ def shade_step_tex(packed: PackedScene, light_tab, ro, rd, tp, eta, depth,
         return shade_step_tex_plain(*args, clamp_val=clamp_val,
                                     stub_mis=stub_mis,
                                     dielectrics_block=dielectrics_block)
-    return _launch_step("shade_step_tex", _atlas_args(packed), *args,
+    return _launch_step("shade_step_tex", atlas_args(packed), *args,
                         clamp_val, stub_mis, dielectrics_block)
 
 
@@ -349,20 +353,6 @@ def shade_step_tex_counts(packed: PackedScene, light_tab, ro, rd, tp, eta,
     """``shade_step_tex`` through the kernel's counting build: (the same
     outputs, the counters as a dict keyed by
     ``cuda_wavefront.COUNT_NAMES``).  CUDA tensors only."""
-    return _counted("shade_step_tex_counts", _atlas_args(packed), packed,
+    return _counted("shade_step_tex_counts", atlas_args(packed), packed,
                     light_tab, ro, rd, tp, eta, depth, act, last_delta,
                     last_pdf, u, clamp_val, stub_mis, dielectrics_block)
-
-
-def _atlas_args(packed: PackedScene) -> list:
-    """The texture atlas's ctypes arguments (atlas, sizes, NT, TH+1,
-    TW+1), checked."""
-    at = packed.atlas
-    if not packed.textured or at.dim() != 4 or at.shape[3] != 3:
-        raise ValueError(f"shade_step_tex: expected a (NT > 0, TH+1, TW+1, "
-                         f"3) texture atlas, got {tuple(at.shape)}")
-    check_tensor("atlas", at, tuple(at.shape))
-    check_tensor("tex_size", packed.tex_size, (at.shape[0], 2), torch.int32)
-    return [ctypes.c_void_p(at.data_ptr()),
-            ctypes.c_void_p(packed.tex_size.data_ptr()), at.shape[0],
-            at.shape[1], at.shape[2]]

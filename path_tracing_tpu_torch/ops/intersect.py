@@ -7,11 +7,15 @@ spheres, then light balls, then triangles, keeping strictly-closer hits;
 concatenating the per-category ``t`` in that order and taking the first
 minimum reproduces that tie-break.
 
-``find_closest_hit`` and ``transmittance`` go through the nearest-hit and
-any-blocker wrappers of ``ops/cuda_intersect.py``: CUDA tensors launch the
-hand-written kernels, CPU tensors take the plain versions.  The PT
-``stream`` tier sorts its rays with ``sorted_call`` for the streamed
-wrappers of ``ops/cuda_stream.py``.
+``find_closest_hit`` (``packed_hit`` on packed tables), ``transmittance``
+and ``transmittance_rgb`` go through the nearest-hit, any-blocker and RGB
+transmittance wrappers of ``ops/cuda_intersect.py``: CUDA tensors launch
+the hand-written kernels, CPU tensors take the plain versions.  On a
+textured scene the hit is the ``with_uv`` one with the bilinear texel
+multiplied into a textured triangle's base color (``texel_fields``), as
+the JAX function does.  The PT ``stream`` tier sorts
+its rays with ``sorted_call`` for the streamed wrappers of
+``ops/cuda_stream.py``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from ..scene.types import Material, Scene
 from .math3 import EPSILON, length
+from .texture import sample_bilinear
 
 INF = 1e20      # miss sentinel
 SHADOW_EPS = 1e-3  # endpoint clearance on both ends of a shadow ray
@@ -169,12 +174,43 @@ def sorted_call(bounds, ro, rd, fn, *extras, live=None):
             else unsort(out))
 
 
-def find_closest_hit(scene: Scene, ro: torch.Tensor, rd: torch.Tensor
-                     ) -> Hit:
-    """Nearest hit over spheres, light balls and triangles."""
-    from .cuda_intersect import nearest_hit, pack_scene
+def texel_fields(packed, h: dict) -> dict:
+    """A ``with_uv`` hit record with the bilinear texel multiplied into the
+    base color of textured triangles (``tex >= 0``)."""
+    tex_id = h["tex"].to(torch.int32)
+    texel = sample_bilinear(packed.atlas, packed.tex_size, tex_id,
+                            torch.stack([h["iu"], h["iv"]], dim=-1))
+    on = tex_id >= 0
+    h = dict(h)
+    for i, k in enumerate(("bcr", "bcg", "bcb")):
+        h[k] = torch.where(on, h[k] * texel[:, i], h[k])
+    return h
 
-    return hit_from_fields(nearest_hit(pack_scene(scene), ro, rd), ro, rd)
+
+def packed_hit(packed, ro: torch.Tensor, rd: torch.Tensor, live=None,
+               nearest=None) -> Hit:
+    """The nearest hit on packed tables through ``nearest`` (the
+    ``nearest_hit`` wrapper by default, or a plain version): on a textured
+    scene the ``with_uv`` hit with its texel (``texel_fields``).  ``live``
+    (B,) bool: the lanes whose result is read (the others miss)."""
+    if nearest is None:
+        from .cuda_intersect import nearest_hit as nearest
+    if packed.textured:
+        h = texel_fields(packed, nearest(packed, ro, rd, with_uv=True,
+                                         live=live))
+    else:
+        h = nearest(packed, ro, rd, live=live)
+    return hit_from_fields(h, ro, rd)
+
+
+def find_closest_hit(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                     live=None) -> Hit:
+    """Nearest hit over spheres, light balls and triangles, textured on a
+    textured scene.  ``live`` (B,) bool: the lanes whose result is read;
+    the others get the miss record."""
+    from .cuda_intersect import pack_scene
+
+    return packed_hit(pack_scene(scene), ro, rd, live)
 
 
 def shadow_ray(p1: torch.Tensor, p2: torch.Tensor):
@@ -186,27 +222,42 @@ def shadow_ray(p1: torch.Tensor, p2: torch.Tensor):
 
 
 def transmittance(scene: Scene, p1: torch.Tensor, p2: torch.Tensor,
-                  dielectrics_block: bool) -> torch.Tensor:
+                  dielectrics_block: bool, live=None) -> torch.Tensor:
     """Binary shadow-ray transmittance (B,) between two points.
 
     ``dielectrics_block=True`` is the GPU rule (every occluder blocks);
     False is the CPU oracle's (only eta <= 0 materials block).  Light balls
-    never occlude."""
+    never occlude.  ``live`` (B,) bool: the lanes whose result is read (the
+    others are unblocked)."""
     from .cuda_intersect import any_blocker, pack_scene
 
     rd, _, max_d = shadow_ray(p1, p2)
     blocked = any_blocker(pack_scene(scene), p1, rd, max_d,
-                          dielectrics_block)
+                          dielectrics_block, live)
     return torch.where(blocked, torch.zeros_like(max_d),
                        torch.ones_like(max_d))
 
 
-def shadow_factor(scene: Scene, p1, p2, dielectrics_block: bool
-                  ) -> torch.Tensor:
-    """Shadow transmittance as (B, 3).  The RGB legacy-Ks path is not
-    ported yet: such scenes raise instead of shading with the wrong rule."""
+def transmittance_rgb(scene: Scene, p1: torch.Tensor, p2: torch.Tensor,
+                      live=None) -> torch.Tensor:
+    """RGB shadow transmittance (B, 3) between two points: every occluder
+    in the segment's (1e-3, dist - 1e-3) window multiplies its legacy
+    ``Ks`` in if its ``refract`` is > 0 and blocks fully otherwise; light
+    balls never occlude.  ``live`` (B,) bool: the other lanes get 1."""
+    from .cuda_intersect import pack_scene
+    from .cuda_intersect import transmittance_rgb as rgb
+
+    rd, _, max_d = shadow_ray(p1, p2)
+    return rgb(pack_scene(scene), p1, rd, max_d, live)
+
+
+def shadow_factor(scene: Scene, p1, p2, dielectrics_block: bool,
+                  live=None) -> torch.Tensor:
+    """Shadow transmittance as (B, 3): RGB (``transmittance_rgb``) when the
+    scene carries legacy Ks/refract rows under the GPU rule, else the
+    binary transmittance broadcast (the oracle's rule stays binary, as the
+    reference's CPU visibility test is)."""
     if dielectrics_block and scene.has_legacy_ks:
-        raise NotImplementedError(
-            "legacy Ks/refract RGB shadow transmittance is not ported yet")
-    return transmittance(scene, p1, p2, dielectrics_block)[:, None].expand(
-        p1.shape[0], 3)
+        return transmittance_rgb(scene, p1, p2, live)
+    return transmittance(scene, p1, p2, dielectrics_block, live)[
+        :, None].expand(p1.shape[0], 3)

@@ -640,8 +640,14 @@ def test_resolve_tier():
         assert bdpt.resolve_tier(ts, t, cfg) == t
     with pytest.raises(ValueError, match="split"):
         bdpt.resolve_tier(ts, "split", cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bdpt.resolve_tier(ts, "auto", cfg.with_(bdpt_connection_samples=4))
+    # sampled connections take the fused tier (#8's sampled instance), as
+    # the JAX package keeps them off its megakernel
+    sampled = cfg.with_(bdpt_connection_samples=4)
+    assert bdpt.resolve_tier(ts, "auto", sampled) == "fused"
+    for t in ("fused", "plain"):
+        assert bdpt.resolve_tier(ts, t, sampled) == t
+    with pytest.raises(ValueError, match="mega"):
+        bdpt.resolve_tier(ts, "mega", sampled)
 
 
 def test_kernel_wrappers_refuse_tensors_off_cpu():

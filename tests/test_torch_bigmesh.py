@@ -164,9 +164,10 @@ def test_ppm_resolve_tier_above_the_ceiling(big_route):
     assert ppm.resolve_tier(ts, "auto") == "mega"
     for t in ("mega", "plain"):
         assert ppm.resolve_tier(ts, t) == t
+    # a textured big mesh takes the same route (#10's textured instance)
     tex = synth.icosphere_scene(MESH_TRIS, textured=True).to_device("cpu")
-    with pytest.raises(NotImplementedError, match="textured and legacy-Ks"):
-        ppm.resolve_tier(tex, "auto")
+    assert tex.has_textures
+    assert ppm.resolve_tier(tex, "auto") == "mega"
 
 
 @pytest.mark.parametrize("pass_index", [0, 1])

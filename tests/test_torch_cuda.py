@@ -1005,3 +1005,114 @@ def test_cli_oracle_and_checkpoint_on_the_card(card, tmp_path):
     run("--iters", "2", "--checkpoint", ck)
     resumed = run("--iters", "1", "--checkpoint", ck)
     assert (resumed["image"] == full["image"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the RGB shadow, #8's RGB and sampled instances, #10's textured instance
+# ---------------------------------------------------------------------------
+
+GLASS = "M 1 1 1 0.0 0.0 1.5     // glass\n"
+
+
+@pytest.fixture(scope="module")
+def legacy(card):
+    """cornell with a K record on its glass sphere's material."""
+    from path_tracing_tpu_torch.scene.parser import parse_scene_text
+
+    txt = CORNELL.read_text().replace(GLASS, GLASS + "K 0.9 0.6 0.3 1.5\n")
+    scene = parse_scene_text(txt).to_device("cuda")
+    assert scene.has_legacy_ks
+    return scene, cuda_intersect.pack_scene(scene)
+
+
+def test_transmittance_rgb_kernel_matches_plain(legacy):
+    """On 65,536 segments through the room, every lane and then a third of
+    them live (the others 1): rtol 1e-6 / atol 1e-7."""
+    _, pk = legacy
+    p1, _ = _rays(1 << 16, 3, -0.95, 0.95)
+    p2, _ = _rays(1 << 16, 4, -0.95, 0.95)
+    rd, _, md = intersect.shadow_ray(p1, p2)
+    live = rng.uniform_rows(rng.prng_key(5), 1 << 16, 1,
+                            device="cuda")[0] < 1.0 / 3.0
+    for mask in (None, live):
+        a = cuda_intersect.transmittance_rgb(pk, p1, rd, md, mask)
+        b = cuda_intersect.transmittance_rgb_plain(pk, p1, rd, md, mask)
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+    assert bool((a[~live] == 1.0).all())
+    tinted = ((b > 0) & (b < 1)).any(dim=1)[live].float().mean().item()
+    assert tinted > 0.001
+
+
+@pytest.mark.parametrize("which", ["rgb", "sampled", "sampled_rgb"])
+def test_connect_instances_match_plain(card, legacy, which):
+    """#8's RGB and sampled instances on the primary hits of a 64x64
+    frame against a light trace's compacted table: max-channel relative
+    error < 1e-3 on every active lane, every inactive lane 0."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops.math3 import normalize
+
+    scene, pk = legacy if which != "sampled" else card
+    cfg = RenderConfig(width=64, height=64, eye_depth=3, light_depth=3)
+    lv = bdpt.trace_light_paths(scene, cfg, scene.num_lights * 16, 4,
+                                rng.prng_key(6))
+    flat, nv = bdpt.compact_flat(lv.flat())
+    tab = cuda_connect.pack_light_vertices(flat)
+    n = 64 * 64
+    cam = make_camera(*(getattr(load_scene(str(CORNELL)), k)
+                        for k in ("eye", "look_at", "view_up", "fov")),
+                      64, 64, device="cuda")
+    u = rng.uniform_rows(rng.prng_key(7), n, 8, device="cuda")
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    rd = primary_ray_dirs(cam, idx % 64, idx // 64, u[6], u[7])
+    ro = cam.eye[None].expand(n, 3).contiguous()
+    hit = intersect.hit_from_fields(cuda_intersect.nearest_hit(pk, ro, rd),
+                                    ro, rd)
+    act = hit.hit & ~hit.is_light
+    eye_f = torch.where(hit.mtl.eta > 0.0, torch.zeros_like(u[0]),
+                        1e8 * (1.0 + u[0] * 4.0))
+    args = (pk, tab, nv, hit.pos, hit.normal,
+            (u[1:4].T * 0.5 + 0.5).contiguous(), hit.mtl, -rd,
+            normalize(cam.eye[None] - hit.pos), eye_f, act)
+    kw = dict(clamp_val=15.0, dielectrics_block=True)
+    if which != "rgb":
+        kw["vidx"] = cuda_connect.sample_rows(
+            rng.uniform_rows, rng.prng_key(8), n, 6, nv, device="cuda")
+    _kernels.reset_counts()
+    a = cuda_connect.connect(*args, **kw)
+    name = "connect_rgb" if which == "rgb" else "connect_sampled"
+    assert _kernels.launches[name] == 1 and _kernels.launches["connect"] == 0
+    b = cuda_connect.connect_plain(*args, **kw)
+    rel = ((a - b).abs() / (b.abs() + 1e-3)).max(dim=1).values[act]
+    assert bool((rel < 1e-3).all()) and bool((a[~act] == 0).all())
+    assert a[act].abs().sum().item() > 0
+
+
+def test_photon_trace_tex_matches_plain(card):
+    """#10's textured instance on 16,384 photons of cornell's lights with
+    the 1,280-triangle textured icosphere in its room (photons bounce off
+    the sphere onto the walls): valid flags equal, fields within rtol 1e-5
+    / atol 1e-6 on >= 99.99% of the valid rows."""
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_photon
+
+    room = load_scene(str(CORNELL))
+    mesh = synth.icosphere_scene(1280, textured=True)
+    n_room = len(room.tri_verts)
+    room.tri_verts += [[[c * 0.35 + o for c, o in zip(v, (0, -0.65, -0.55))]
+                        for v in tri] for tri in mesh.tri_verts]
+    room.tri_mtl += mesh.tri_mtl
+    room.tri_group += [0] * len(mesh.tri_verts)
+    room.tri_uv = [[0.0] * 6] * n_room + list(mesh.tri_uv)
+    room.tri_tex = [-1] * n_room + list(mesh.tri_tex)
+    room.textures = list(mesh.textures)
+    scene = room.to_device("cuda")
+    pk = cuda_intersect.pack_scene(scene)
+    key = rng.prng_key(9)
+    emit = ppm.photon_emission(scene, 1 << 14, 1 << 12, key)
+    _kernels.reset_counts()
+    ev, valid = cuda_photon.photon_trace(pk, *emit, key, 4, 12)
+    assert _kernels.launches["photon_trace_tex"] == 1
+    ev_p, valid_p = cuda_photon.photon_trace_plain(pk, *emit, key, 4, 12)
+    assert torch.equal(valid, valid_p) and int(valid[1 << 14:].sum()) > 0
+    close = torch.isclose(ev[valid], ev_p[valid], rtol=1e-5, atol=1e-6)
+    assert close.all(dim=1).float().mean().item() >= 0.9999

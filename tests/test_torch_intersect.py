@@ -129,15 +129,36 @@ def test_wrappers_refuse_tensors_off_cpu_without_a_kernel(scenes):
 
 
 def test_legacy_ks_scene_is_refused():
+    """Once refused, a legacy-Ks scene now shades: ``shadow_factor`` under
+    the GPU rule returns the JAX package's RGB transmittance (its glass
+    sphere multiplies its Ks in), and under the oracle's rule the binary
+    one broadcast, as the JAX function does (rtol 1e-6, atol 1e-7)."""
+    from path_tracing_tpu.scene.parser import parse_scene_text as jparse
     from path_tracing_tpu_torch.scene.parser import parse_scene_text
 
     txt = ("E 0 0 3\nV 0 0 0 0 1 0\nF 50\nR 4 4\nM 1 1 1 0 0 1.5\n"
-           "K 0.5 0.5 0.5 1\nS 0 0 0 0.5\nL 0 2 0 0 -1 0 5 5 5 60 0 0.1\n")
+           "K 0.5 0.25 0.75 1\nS 0 0 0 0.5\nM 0.8 0.8 0.8 1 0 0\n"
+           "S 0 0 1.5 0.25\nL 0 2 0 0 -1 0 5 5 5 60 0 0.1\n")
     sc = parse_scene_text(txt).to_device("cpu")
+    js = jparse(txt).to_device()
     assert sc.has_legacy_ks
-    p = torch.zeros((2, 3))
-    with pytest.raises(NotImplementedError):
-        TI.shadow_factor(sc, p, p + 1.0, dielectrics_block=True)
+    rs = np.random.RandomState(12)
+    p1 = rs.uniform(-1.0, 1.0, (256, 3)).astype(np.float32)
+    p2 = rs.uniform(-1.0, 1.0, (256, 3)).astype(np.float32)
+    p1[:3] = [[0, 0, -2], [0, 0, -2], [2, 2, 2]]
+    p2[:3] = [[0, 0, 1.0], [0, 0, 3.0], [3, 3, 3]]
+    for rule in (True, False):
+        a = np.asarray(JI.shadow_factor(js, jnp.asarray(p1), jnp.asarray(p2),
+                                        dielectrics_block=rule))
+        b = TI.shadow_factor(sc, torch.from_numpy(p1), torch.from_numpy(p2),
+                             dielectrics_block=rule).numpy()
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
+        if rule:
+            np.testing.assert_allclose(b[:3], [[0.5, 0.25, 0.75], [0, 0, 0],
+                                               [1, 1, 1]], atol=1e-7)
+            assert ((b > 0) & (b < 1)).any(axis=1).mean() > 0.05
+        else:
+            assert (b == b[:, :1]).all()
 
 
 # ---------------------------------------------------------------------------

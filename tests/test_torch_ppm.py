@@ -504,12 +504,22 @@ def test_cli_ppm_writes_png_deterministically(tmp_path, capsys):
 
 
 def test_cli_ppm_textured_scene_exits_nonzero(tmp_path, capsys):
+    """A textured scene renders in PPM's mega tier (#10's textured
+    instance, here its plain version); a tier PPM does not have exits
+    non-zero without writing the image."""
     from conftest import make_textured_quad_obj
 
+    inp = make_textured_quad_obj(tmp_path)
     out = tmp_path / "t.png"
-    rc = cli.main(["--input", make_textured_quad_obj(tmp_path), "--mode",
-                   "ppm", "--tier", "mega", "--device", "cpu", "--spl", "16",
-                   "--width", "4", "--height", "4", "--output", str(out)])
+    rc = cli.main(["--input", inp, "--mode", "ppm", "--tier", "split",
+                   "--device", "cpu", "--spl", "16", "--width", "4",
+                   "--height", "4", "--output", str(out)])
     assert rc != 0 and not out.exists()
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "textured and legacy-Ks PPM" in err
+    assert "split" in capsys.readouterr().err
+    _kernels.reset_counts()
+    res = cli.run(["--input", inp, "--mode", "ppm", "--tier", "mega",
+                   "--device", "cpu", "--spl", "64", "--width", "4",
+                   "--height", "4", "--output", str(out)])
+    assert out.exists() and res["tier"] == "mega"
+    assert res["image"].shape == (16, 3) and np.isfinite(res["image"]).all()
+    assert _kernels.plain_calls["photon_trace"] == 1

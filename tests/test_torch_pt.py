@@ -141,11 +141,20 @@ def test_cli_cuda_without_card_exits_nonzero(tmp_path, capsys):
 
 @pytest.mark.parametrize("mode", ["bdpt", "ppm"])
 def test_cli_unported_modes_exit_nonzero(mode, capsys, tmp_path):
-    """BDPT and PPM are ported, but not on textured scenes."""
+    """BDPT and PPM render textured scenes; the tier each does not have
+    for them (BDPT's eye megakernel, PPM's fused) exits non-zero with the
+    reason."""
     from conftest import make_textured_quad_obj
 
     inp = make_textured_quad_obj(tmp_path)
-    rc = cli.main(["--input", inp, "--mode", mode, "--device", "cpu"])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err
+    tier = {"bdpt": "mega", "ppm": "fused"}[mode]
+    rc = cli.main(["--input", inp, "--mode", mode, "--device", "cpu",
+                   "--tier", tier, "--width", "4", "--height", "4",
+                   "--output", str(tmp_path / "t.png")])
+    assert rc != 0 and not (tmp_path / "t.png").exists()
+    assert tier in capsys.readouterr().err
+    res = cli.run(["--input", inp, "--mode", mode, "--device", "cpu",
+                   "--spp", "1", "--spl", "16", "--width", "4", "--height",
+                   "4", "--output", str(tmp_path / "u.png")])
+    assert res["tier"] == {"bdpt": "fused", "ppm": "mega"}[mode]
+    assert res["image"].shape == (16, 3) and np.isfinite(res["image"]).all()
