@@ -249,8 +249,36 @@ Phases, each raising on failure:
    there and on the whole pass (``pass_ms``), and on 4,096 photons of
    cornell's lights with the 1,280-triangle textured icosphere in its room
    (the same bar; photons bounce off the sphere onto the walls, so later
-   deposits carry the texel in their flux); then PPM at 512x512, 10
-   passes of 1,048,576 photons (#1, ``photon_trace_tex``, #11).
+   deposits carry the texel in their flux); its bound over the whole
+   pass (``pass_bound_ms``) from the pass's bytes and the walks of #10's
+   untextured counting build on the same photons (a texel scales a
+   photon's flux, not its path: their events' flags and positions are
+   held equal); then PPM at 512x512, 10 passes of 1,048,576 photons (#1,
+   ``photon_trace_tex``, #11).
+18. The hash-grid gather (``integrators/ppm.py::gather_flux_hash``,
+   PyTorch) on the first 512x512 pass's hitpoints and #10's events: at the
+   defaults (K = 64: kmax, overflow, time), then at K raised to the
+   pass's longest neighbour-cell run (no overflow) against #11 on the same
+   inputs (counts equal on >= 99.9% of valid hitpoints and fewer on
+   none, the rest the hash's collision double counts; flux within rtol
+   1e-4 / atol 1e-6 where they are equal, at least #11's where the count
+   is higher); ``--tier hash`` through the CLI, 3 passes.
+19. Sharded renders (``parallel/shard.py``): two gloo ranks on the one
+   card, spawned with ``torch.multiprocessing`` (NCCL refuses two ranks
+   on one device), each rank's kernels counted over each render: PT auto
+   (#5) at 1080p spp 4 and BDPT fused (global RIS K = 32, spl 8: #1, #8)
+   bit-equal to one process; BDPT mega tile-RIS K = 32 (#9): each rank's
+   half bit-equal to ``eye_pass`` over the same window; PPM, one 512x512
+   pass of 1,048,576 photons (#1, #10, #11): >= 99.9% of pixels within
+   rtol 1e-5 / atol 1e-6, total energy within 1e-5; then PT on a
+   one-rank NCCL mesh, bit-equal.  Wall times, each render warmed once,
+   beside one process's.
+20. The native runtime (``runtime/native.py``): available, its build
+   seconds; phase 10's 327,680-triangle textured OBJ parsed by it and by
+   the Python parser (every table equal, both times); phase 11's enclosed
+   text scene parsed by it; #5's walk counts at 128x72 and the mega frame
+   at 1080p spp 4 (in turns) on the enclosed mesh under the numpy and the
+   native cluster layouts.
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -423,7 +451,8 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "sampled": ("connect_sampled",) + BDPT_LIGHT,
                 "tex_bdpt": ("connect",) + BDPT_LIGHT,
                 "tex_ppm": ("photon_trace_tex", "gather_flux", "nearest_hit",
-                            "threefry_rows")}
+                            "threefry_rows"),
+                "ppm_hash": ("photon_trace", "nearest_hit", "threefry_rows")}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS (the TPU's ceiling)
 # the enclosed scene: the icosphere at this radius on cornell's floor
@@ -589,6 +618,14 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_label() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def phase_card() -> str:
@@ -2980,6 +3017,8 @@ def phase_tex_integrators(counts: dict) -> dict:
     plain version on the first 4,096 photons of the first pass (valid
     flags equal and fields within rtol 1e-5 / atol 1e-6 on >= 99.99% of
     rows) and timed on them and on the whole pass."""
+    import dataclasses
+
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import ppm
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
@@ -3027,6 +3066,27 @@ def phase_tex_integrators(counts: dict) -> dict:
     full = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
     pass_ms = time_ms(lambda: cp.photon_trace(*full), 3)
     bnd = bound(n * 40 + ev.numel() * 4 + valid.numel(), photon_ops(pc))
+    # the whole pass's bound: its bytes, and the operations of its walks as
+    # #10's untextured counting build counts them on the same photons (a
+    # texel scales a photon's flux, never its path: the events' flags,
+    # positions, normals and directions are held equal); the texel
+    # fetches are not counted
+    fev, fvalid = cp.photon_trace(*full)
+    bare = dataclasses.replace(pk, atlas=pk.atlas[:0],
+                               tex_size=pk.tex_size[:0])
+    cev, cvalid, fc = cp.photon_trace_counts(bare, *full[1:])
+    check(torch.equal(cvalid, fvalid)
+          and torch.equal(cev[fvalid, :9], fev[fvalid, :9]),
+          "photon_trace_counts on the textured pass: other photon paths")
+    # (the counting build has no count of the per-iteration fold_ins: at
+    # most cfg.max_light_iters of them, 1,440 operations, left out)
+    whole = bound(P * 40 + fev.numel() * 4 + fvalid.numel(),
+                  photon_ops(dict(fc, iteration_keys=0)))
+    print(f"[textured] photon_trace_tex over the whole {P}-photon pass: "
+          f"{pass_ms:.3f} ms, bound {whole['bound_ms']:.4f} ms "
+          f"({whole['bound_by']}; {fc['bounces']} bounces, "
+          f"{fc['hit_tris']} triangle tests), "
+          f"{whole['bound_ms'] / pass_ms:.2%} of it; {card_label()}")
     print(f"[textured] photon_trace_tex on photons [0, {n}) of the "
           f"{P}-photon pass: valid flags equal on {same:.6f} of rows, "
           f"{int(valid.sum())} valid; fields within rtol 1e-5 / atol 1e-6 "
@@ -3059,7 +3119,9 @@ def phase_tex_integrators(counts: dict) -> dict:
           f"valid ({later} past the first deposit), fields within rtol "
           f"1e-5 / atol 1e-6 on {close:.6f}")
     row = dict(name="photon_trace_tex", max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, plain_lanes=n, pass_ms=pass_ms, **bnd)
+               plain_ms=plain_ms, plain_lanes=n, pass_ms=pass_ms,
+               pass_bound_ms=whole["bound_ms"],
+               pass_bound_by=whole["bound_by"], **bnd)
     res = counted("tex_ppm", obj, PPM_W, PPM_H, "auto", "tex_ppm_512",
                   counts, "ppm", ["--spl", str(TEX_PPM_SPL), "--light-depth",
                                   "4", "--iters", str(PPM_PASSES)])
@@ -3071,7 +3133,332 @@ def phase_tex_integrators(counts: dict) -> dict:
     return row
 
 
+SHARD_RANKS = 2           # phase 19: ranks on the one card (gloo)
+PPM_HASH_PASSES = 3
+
+
+def phase_hash_gather(counts: dict) -> None:
+    """18. The hash-grid gather (``ppm.gather_flux_hash``, PyTorch) on the
+    hitpoints of the first 512x512 PPM pass on cornell and #10's events of
+    its 1,048,576 photons: at the defaults (K = 64), then with
+    ``ppm_max_per_cell`` raised to the pass's longest neighbour-cell run
+    (no overflow) against #11 on the same inputs (counts equal on >= 99.9%
+    of valid hitpoints and fewer on none, the rest the hash's collision
+    double counts; flux within rtol 1e-4 / atol 1e-6 where the counts are
+    equal, at least #11's within that tolerance where the hash counts
+    more); then ``--tier hash`` through the CLI, 3 passes."""
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    card = card_label()
+    p = load_scene(str(SCENE))
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, PPM_W, PPM_H,
+                      device="cuda")
+    cfg, _, hp, emit, kp = ppm_frame(scene, cam)
+    events = ppm.PhotonEvents(*cp.photon_trace(
+        ci.pack_scene(scene), *emit, kp, cfg.light_depth,
+        cfg.max_light_iters))
+    runs = ppm.hash_runs(scene, cfg, hp, events)[2]
+    most = int(runs.max())
+    ppm.gather_flux_hash(scene, cfg, hp, events)           # warm-up
+    (_, count, overflow), ms = once_ms(
+        lambda: ppm.gather_flux_hash(scene, cfg, hp, events))
+    n_ev, n_hp = int(events.valid.sum()), int(hp.valid.sum())
+    print(f"[hash] gather_flux_hash {PPM_W}x{PPM_H} ({n_hp} valid "
+          f"hitpoints), {emit[0].shape[0]} photons ({n_ev} valid events): "
+          f"K {cfg.ppm_max_per_cell}, kmax "
+          f"{min(most, cfg.ppm_max_per_cell)}, overflow {int(overflow)}, "
+          f"{ms:.3f} ms wall (one host read of kmax); {card}")
+    full = cfg.with_(ppm_max_per_cell=most)
+    (fh, ch, oh), ms_full = once_ms(
+        lambda: ppm.gather_flux_hash(scene, full, hp, events))
+    (fx, cx, ox), ms_x = once_ms(
+        lambda: cg.gather_flux(scene, cfg, hp, events))
+    check(int(oh) == 0 and int(ox) == 0,
+          f"overflow: hash {int(oh)} at K {most}, #11 {int(ox)}")
+    v = hp.valid
+    same, more = (ch == cx) & v, (ch > cx) & v
+    n_same, n_more = int(same.sum()), int(more.sum())
+    share = n_same / max(n_hp, 1)
+    fewer = int(((ch < cx) & v).sum())
+    close = int(torch.isclose(fh[same], fx[same], rtol=1e-4,
+                              atol=1e-6).all(dim=1).sum())
+    # a double count adds events, whose flux is not negative: at least
+    # #11's flux within the same tolerance
+    no_less = int((fh[more] >= fx[more] - (1e-6 + 1e-4 * fx[more].abs()))
+                  .all(dim=1).sum())
+    print(f"[hash] at K {most} (no overflow): {ms_full:.3f} ms wall against "
+          f"#11's {ms_x:.3f} (prepare and join); counts equal on "
+          f"{share:.6f} of valid hitpoints, {n_more} hitpoints with more "
+          f"(collision double counts), {fewer} with fewer; flux within rtol "
+          f"1e-4 / atol 1e-6 on {close} of the {n_same} equal ones, at least "
+          f"#11's on {no_less} of the {n_more} with more; {card}")
+    check(share >= 0.999 and close == n_same and fewer == 0
+          and no_less == n_more,
+          f"hash vs #11: counts equal on {share}, {fewer} fewer, flux on "
+          f"{close} of the {n_same} equal ones, at least #11's on {no_less} "
+          f"of the {n_more} with more")
+    extra = ["--spl", str(PPM_SPL), "--light-depth", "4", "--iters",
+             str(PPM_HASH_PASSES)]
+    res = counted("ppm_hash", SCENE, PPM_W, PPM_H, "hash", "ppm_512_hash",
+                  counts, "ppm", extra)
+    c = counts["ppm_hash"]
+    check(res["tier"] == "hash" and c["gather_flux"] == 0
+          and c["photon_trace"] == PPM_HASH_PASSES,
+          f"--tier hash: {res['tier']} tier, launches {c}")
+    print(f"[hash] --tier hash through the CLI: "
+          f"{res['photons'] / res['seconds'] / 1e6:.3f} Mphotons/s; {card}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_setup():
+    """Phase 19's scene, cameras (1080p, 512x512), key and configs (PT /
+    BDPT, global or tile-local RIS K = 32, PPM)."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.parser import load_scene
+
+    p = load_scene(str(SCENE))
+    scene = p.to_device("cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
+                      device="cuda")
+    pcam = make_camera(p.eye, p.look_at, p.view_up, p.fov, PPM_W, PPM_H,
+                       device="cuda")
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4)
+    pcfg = RenderConfig(width=PPM_W, height=PPM_H, spl=PPM_SPL, eye_depth=4,
+                        light_depth=4)
+    return (scene, cam, pcam, rng.fold_in(rng.prng_key(0), 0), cfg,
+            cfg.with_(bdpt_resample_vertices=RIS_K), pcfg)
+
+
+# phase 19's sharded renders and the kernels each must launch in each rank
+SHARD_KERNELS = {"pt": ("render_wavefront",),
+                 "bdpt_fused": ("connect",) + BDPT_LIGHT,
+                 "bdpt_tile_ris": ("bdpt_eye",) + BDPT_LIGHT,
+                 "ppm": ("photon_trace", "gather_flux", "nearest_hit")}
+
+
+def shard_rank(rank: int, world: int, port: int, backend: str,
+               out_dir: str) -> None:
+    """One rank of phase 19, started by ``torch.multiprocessing.spawn``:
+    each sharded render (only PT under NCCL) with the counts reset just
+    before and read just after, its wall time; rank 0 keeps the images."""
+    import torch.distributed as dist
+
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.parallel import shard
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = shard.make_mesh(world, backend=backend)
+        scene, cam, pcam, key, cfg, ris, pcfg = shard_setup()
+        runs = {"pt": lambda: shard.render_pt_sharded(
+                    scene, cam, W, H, SPP, cfg, key, mesh),
+                "bdpt_fused": lambda: shard.render_bdpt_sharded(
+                    scene, cam, W, H, SPP, SPL, ris, key, mesh,
+                    tier="fused"),
+                "bdpt_tile_ris": lambda: shard.render_bdpt_sharded(
+                    scene, cam, W, H, SPP, SPL, ris, key, mesh,
+                    tier="mega"),
+                "ppm": lambda: shard.render_ppm_sharded(
+                    scene, pcam, PPM_W, PPM_H, PPM_SPL, pcfg, key, mesh)}
+        if backend == "nccl":
+            runs = {"pt": runs["pt"]}
+        res = {}
+        for name, fn in runs.items():
+            fn()              # warm, as the single-process renders are
+            dist.barrier()
+            _kernels.reset_counts()
+            img, ms = once_ms(fn)
+            res[name] = dict(ms=ms, launches=dict(_kernels.launches),
+                             plain=dict(_kernels.plain_calls),
+                             image=img.cpu() if rank == 0 else None)
+        torch.save(res, Path(out_dir) / f"{backend}{world}_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str) -> list:
+    """Phase 19's ranks, each a process on the one card; their results."""
+    import torch.multiprocessing as mp
+
+    out = OUT / "shard"
+    out.mkdir(parents=True, exist_ok=True)
+    mp.spawn(shard_rank, args=(world, free_port(), backend, str(out)),
+             nprocs=world, join=True)
+    return [torch.load(out / f"{backend}{world}_rank{r}.pt")
+            for r in range(world)]
+
+
+def phase_sharded() -> None:
+    """19. ``parallel/shard.py`` with two ranks on the one card (gloo:
+    NCCL refuses two ranks on one device), the cornell frame of the
+    single-process renders and the same key: PT auto (#5) at 1080p spp 4
+    and BDPT fused, global RIS K = 32, spl 8 (#1, #8 in both ranks)
+    bit-equal to one process; BDPT mega, tile-local RIS K = 32 (#9): each
+    rank's half bit-equal to ``eye_pass`` over the same window in one
+    process; PPM, one 512x512 pass of 1,048,576 photons (#1, #10, #11):
+    >= 99.9% of pixels within rtol 1e-5 / atol 1e-6 and the total energy
+    within 1e-5; then PT on a one-rank NCCL mesh, bit-equal.  Each rank's
+    kernels are counted over each render.  Wall times beside one
+    process's (two ranks share one card: no scaling is claimed)."""
+    import numpy as np
+
+    from path_tracing_tpu_torch.integrators import bdpt, ppm
+    from path_tracing_tpu_torch.integrators.pt import render_pt
+
+    card = card_label()
+    scene, cam, pcam, key, cfg, ris, pcfg = shard_setup()
+    single = {"pt": lambda: render_pt(scene, cam, W, H, SPP, cfg, key),
+              "bdpt_fused": lambda: bdpt.render_bdpt(
+                  scene, cam, W, H, SPP, SPL, ris, key, tier="fused"),
+              "bdpt_tile_ris": lambda: bdpt.render_bdpt(
+                  scene, cam, W, H, SPP, SPL, ris, key),
+              "ppm": lambda: ppm.render_ppm(scene, pcam, PPM_W, PPM_H,
+                                            PPM_SPL, pcfg, key)}
+    ref, ref_ms = {}, {}
+    for name, fn in single.items():
+        fn()                                   # warm, as the ranks are
+        img, ref_ms[name] = once_ms(fn)
+        ref[name] = img.cpu()
+    # tile-local RIS folds a rank's first lane into its key: its windows
+    used, lv, scale = bdpt.light_side(scene, ris, SPL, key)
+    half = B // SHARD_RANKS
+    windows = []
+    for me in range(SHARD_RANKS):
+        idx = torch.arange(me * half, (me + 1) * half, dtype=torch.int32,
+                           device="cuda")
+        windows.append(bdpt.eye_pass(used, lv, cam, ris, idx % W, idx // W,
+                                     SPP, key, scale, start=me * half,
+                                     total=B, tier="mega").cpu())
+    windows = torch.cat(windows)
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SHARD_RANKS, "gloo")
+    nccl = spawn_ranks(1, "nccl")
+    print(f"[shard] {SHARD_RANKS} gloo ranks and 1 NCCL rank spawned, "
+          f"rendered and joined in {time.perf_counter() - t0:.1f} s")
+    for world, backend, rs in ((SHARD_RANKS, "gloo", ranks),
+                               (1, "nccl", nccl)):
+        for name in rs[0]:
+            for r, res in enumerate(rs):
+                check(sum(res[name]["plain"].values()) == 0,
+                      f"{backend} rank {r} {name}: plain versions ran")
+                for k in SHARD_KERNELS[name]:
+                    check(res[name]["launches"][k] > 0,
+                          f"{backend} rank {r} {name}: {k} not launched")
+            img = rs[0][name]["image"]
+            if name == "ppm":
+                a, b = ref[name].numpy(), img.numpy()
+                close = np.isclose(a, b, rtol=1e-5, atol=1e-6).all(
+                    axis=1).mean()
+                energy = abs(float(b.sum()) / float(a.sum()) - 1.0)
+                ok = close >= 0.999 and energy < 1e-5
+                what = (f"{close:.6f} of pixels within rtol 1e-5 / atol "
+                        f"1e-6, total energy {energy:.3g} relative apart")
+            else:
+                want = windows if name == "bdpt_tile_ris" else ref[name]
+                ok = torch.equal(img, want)
+                what = ("bit-equal to " + ("its windows" if name ==
+                        "bdpt_tile_ris" else "one process")) if ok else \
+                    f"{(img != want).any(dim=1).sum().item()} pixels differ"
+            ms = ", ".join(f"{res[name]['ms']:.1f}" for res in rs)
+            print(f"[shard] {backend} x{world} {name}: {what}; wall {ms} ms "
+                  f"a rank, one process {ref_ms[name]:.1f} ms; launches "
+                  f"(rank 0) {sum(rs[0][name]['launches'].values())}; "
+                  f"{card}")
+            check(ok, f"{backend} x{world} {name}: {what}")
+
+
+def phase_native(obj: str, txt: str) -> None:
+    """20. The native runtime (``runtime/native.py``, built from
+    ``csrc/pt_runtime.cc`` at first use): it must be available; the
+    327,680-triangle textured OBJ parsed by it and by the Python parser
+    (every table equal); the enclosed scene's text file parsed by it; #5's
+    counting build at 128x72 and the mega frame at 1080p spp 4 (in turns)
+    on the enclosed mesh under the numpy and the native cluster layouts."""
+    import dataclasses
+
+    import numpy as np
+
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import render_pt
+    from path_tracing_tpu_torch.ops import bvh, rng
+    from path_tracing_tpu_torch.runtime import native
+    from path_tracing_tpu_torch.scene.camera import make_camera
+    from path_tracing_tpu_torch.scene.obj_loader import load_obj
+
+    card = card_label()
+    check(native.native_available(),
+          f"the native runtime is not available: {native.build_info}")
+    info = native.build_info
+    print(f"[native] libpt_runtime {'built' if info['built'] else 'reused'}"
+          f" and loaded in {info['seconds']:.2f} s; {card}")
+    a, ms_native = once_ms(lambda: native.parse_scene_native(obj))
+    b, ms_py = once_ms(lambda: load_obj(obj))
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "textures":
+            check(len(x) == len(y) and all(np.array_equal(p, q)
+                                           for p, q in zip(x, y)),
+                  "native and Python parses: the textures differ")
+        elif f.name.endswith("_legacy") and min(len(x), len(y)) == 0:
+            check(not np.asarray(x).any() and not np.asarray(y).any(),
+                  f"native and Python parses: {f.name} differ")
+        else:
+            check(np.array_equal(np.asarray(x, np.float32),
+                                 np.asarray(y, np.float32)),
+                  f"native and Python parses: {f.name} differ")
+    print(f"[native] {BIG_TRIS}-triangle textured OBJ: native parse "
+          f"{ms_native:.1f} ms, Python parse {ms_py:.1f} ms, every table "
+          f"equal; {card}")
+    enc, ms_txt = once_ms(lambda: native.parse_scene_native(txt))
+    check(len(enc.tri_verts) == ENCLOSED_TRIS, "the enclosed text scene")
+    print(f"[native] the enclosed {ENCLOSED_TRIS}-triangle text scene: "
+          f"native parse {ms_txt:.1f} ms")
+    layouts = {}
+    for label, builder in (("numpy", bvh.build_clusters_py),
+                           ("native", bvh.build_clusters)):
+        saved, bvh.build_clusters = bvh.build_clusters, builder
+        try:
+            layouts[label] = enc.to_device("cuda")
+        finally:
+            bvh.build_clusters = saved
+        walk_counts(layouts[label], enc, f"enclosed, {label} layout:")
+    cam = make_camera(enc.eye, enc.look_at, enc.view_up, enc.fov, W, H,
+                      device="cuda")
+    cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    ms = {"numpy": [], "native": []}
+    for label in ("numpy", "native", "native", "numpy"):       # in turns
+        _, t = once_ms(lambda: render_pt(layouts[label], cam, W, H, SPP, cfg,
+                                         key, tier="mega"))
+        ms[label].append(t)
+    for label, t in ms.items():
+        print(f"[native] enclosed mega 1080p spp {SPP}, {label} layout, in "
+              f"turns: {', '.join(f'{x:.1f}' for x in t)} ms; {card}")
+
+
 def main() -> int:
+    import faulthandler
+
+    faulthandler.enable()     # a crash in native code prints where it was
     t_start = time.perf_counter()
     laps = [t_start]
 
@@ -3148,6 +3535,12 @@ def main() -> int:
     lap("sampled connections (phase 16)")
     results.append(phase_tex_integrators(counts))
     lap("textured BDPT and PPM (phase 17)")
+    phase_hash_gather(counts)
+    lap("the hash gather (phase 18)")
+    phase_sharded()
+    lap("sharded renders (phase 19)")
+    phase_native(obj, txt)
+    lap("the native runtime (phase 20)")
     for r in results:
         if r["name"] in occupancy:
             r["occupancy"] = occupancy[r["name"]]
@@ -3161,7 +3554,8 @@ def main() -> int:
     extra = ("plain_lanes", "unsorted_ms", "per_bounce", "per_launch",
              "split_ms", "bdpt_fused", "oracle", "ppm_eye", "ppm_eye_big",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
-             "occupancy", "host_ms", "library_host_ms", "pass_ms")
+             "occupancy", "host_ms", "library_host_ms", "pass_ms",
+             "pass_bound_ms", "pass_bound_by")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results]}))

@@ -46,8 +46,9 @@ class CliError(Exception):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from .integrators.pt import TIERS
+    from .integrators import ppm, pt
 
+    tiers = tuple(dict.fromkeys(pt.TIERS + ppm.TIERS))
     ap = argparse.ArgumentParser(prog="path_tracing_tpu_torch",
                                  description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -118,7 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the render loop "
                          "to DIR/trace.json (Chrome trace format)")
-    ap.add_argument("--tier", choices=TIERS, default="auto",
+    ap.add_argument("--tier", choices=tiers, default="auto",
                     help="PT: auto (default: mega, or fused for textured "
                          "scenes, at any triangle count), mega (one "
                          "render_wavefront kernel), fused (one bounce kernel "
@@ -130,7 +131,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(mega; fused for --device oracle), mega (one "
                          "bdpt_eye kernel), fused (nearest-hit and connect "
                          "kernels per bounce) or plain.  PPM: auto (mega: "
-                         "the photon_trace and gather_flux kernels) or plain")
+                         "the photon_trace and gather_flux kernels), hash "
+                         "(photon_trace, then the reference's spatial-hash "
+                         "gather in PyTorch) or plain")
     return ap
 
 
@@ -268,7 +271,11 @@ def run(argv=None) -> dict:
             scene, cam, W, H, args.spl, cfg, k,
             ppm.ppm_radius_scale(i, cfg.ppm_alpha), tier)
         dropped = int(overflow)
-        if dropped:
+        if dropped and tier == "hash":
+            print(f"[Warn] PPM gather dropped {dropped} candidate events "
+                  "(raise ppm_max_per_cell or use ppm_cell_samples)",
+                  file=sys.stderr)
+        elif dropped:
             print(f"[Warn] PPM gather dropped {dropped} hitpoints and "
                   "photon events (raise ppm_max_cells or "
                   "ppm_event_cap_frac)", file=sys.stderr)

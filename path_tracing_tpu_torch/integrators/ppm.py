@@ -23,7 +23,10 @@ accumulation is the caller's average over passes.
 Tiers (``resolve_tier``): ``mega`` (``auto``) runs the eye pass in PyTorch
 around the nearest-hit and Threefry kernels, the photon bounces in the
 ``photon_trace`` kernel (#10) and the join in the ``gather_flux`` kernel
-(#11); ``plain`` runs the plain versions of all of them.  Meshes of any
+(#11); ``hash`` runs the same eye pass and photon bounces and gathers
+through the reference's spatial hash (``gather_flux_hash``, PyTorch on any
+device, the JAX package's gather off the TPU); ``plain`` runs the plain
+versions of all of them.  Meshes of any
 size take the same route: from 64 clusters on, #1 and #10 walk the
 super-cluster table (the JAX package streams meshes above its VMEM
 ceiling through #6/#7 and an XLA photon scan; the photons and hits are
@@ -43,17 +46,22 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import rng
-from ..ops.bsdf import bsdf_sample
+from ..ops.bsdf import _eval_local, _half_vector, bsdf_sample
 from ..ops.cuda_intersect import nearest_hit, nearest_hit_plain, pack_scene
 from ..ops.cuda_photon import photon_trace, photon_trace_plain
 from ..ops.cuda_ppm_gather import gather_flux, gather_flux_plain
+from ..ops.frame import build_local_frame, world_to_local
 from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
+from ..ops.microfacet import roughness_to_alpha
 from ..ops.sampling import sample_light_emission
 from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Material, Scene
 
-TIERS = ("auto", "mega", "plain")
+TIERS = ("auto", "mega", "hash", "plain")
+# hitpoints a step of the hash gather takes at once: bounds its (n, 27, 12)
+# candidate block (at 512^2 all of them at once would be 340 MB a step)
+HASH_CHUNK = 1 << 16
 
 
 @dataclass
@@ -102,11 +110,12 @@ class PhotonEvents:
 
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The PPM tier that renders ``scene`` when ``tier`` is asked for:
-    "auto" is "mega" on every scene, at any triangle count (above
-    ``MAX_RESIDENT_TRIS`` the eye pass's #1 and #10's ``kWalkSuper``
-    instance walk the super-cluster table), textured (the eye pass's
-    ``with_uv`` #1 and #10's textured instance) or with legacy Ks (which
-    PPM never reads: it casts no shadow rays).  Raises ValueError for a
+    "auto" is "mega" (the exact gather, the JAX package's TPU route) on
+    every scene, at any triangle count (above ``MAX_RESIDENT_TRIS`` the eye
+    pass's #1 and #10's ``kWalkSuper`` instance walk the super-cluster
+    table), textured (the eye pass's ``with_uv`` #1 and #10's textured
+    instance) or with legacy Ks (which PPM never reads: it casts no shadow
+    rays); "hash" and "plain" are taken as asked.  Raises ValueError for a
     tier PPM does not have."""
     if tier not in TIERS:
         raise ValueError(f"PPM has no tier {tier!r}; expected one of {TIERS}")
@@ -235,6 +244,140 @@ def ppm_radius_scale(pass_index: int, alpha: float) -> float:
     return scale
 
 
+def hash_cell(ix, iy, iz, table_size: int) -> torch.Tensor:
+    """The reference's cell hash (ppm_cu.cu:27-30): int32 products that
+    wrap, their XOR read as uint32, modulo ``table_size``.  Computed in
+    int64 on the low 32 bits of each product, since torch's ``%`` on a
+    negative int32 is a floor modulo and its uint32 has few ops."""
+    m = 0xFFFFFFFF
+    h = (((ix.long() * 73856093) & m) ^ ((iy.long() * 19349663) & m)
+         ^ ((iz.long() * 83492791) & m))
+    return (h % table_size).to(torch.int32)
+
+
+def _cell_coords(pos, origin, cell_size: float) -> torch.Tensor:
+    """Integer cell of each position: ``floor((pos - origin) / cell_size)``
+    as the JAX package computes it under ``jit``, where XLA folds the
+    division by the constant cell size into a multiplication by its
+    float32 reciprocal; a position one ulp from a cell boundary then lands
+    where it lands there.  The reciprocal is rounded on the host and
+    multiplied as a float32 tensor."""
+    inv = (torch.tensor(1.0, dtype=torch.float32)
+           / torch.tensor(cell_size, dtype=torch.float32)).to(pos.device)
+    return torch.floor((pos - origin) * inv).to(torch.int32)
+
+
+_OFFS = tuple((dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+              for dz in (-1, 0, 1))
+
+
+def hash_runs(scene: Scene, cfg: RenderConfig, hp: HitPoints,
+              events: PhotonEvents):
+    """The hash grid of ``gather_flux_hash``: (the event rows sorted stably
+    by their cell's hash, invalid ones last (E, 12); the first sorted row
+    (B, 27) and the length (B, 27) of the run of each hitpoint's 27
+    neighbour cells).  The runs are a bincount over the
+    ``ppm_hash_size + 1`` hashes and its exclusive prefix sum."""
+    table, cell = cfg.ppm_hash_size, cfg.ppm_radius
+    origin = scene.scene_min
+    e_cells = _cell_coords(events.pos, origin, cell)
+    e_hash = hash_cell(e_cells[:, 0], e_cells[:, 1], e_cells[:, 2], table)
+    e_key = torch.where(events.valid, e_hash, table)
+    se = events.table[torch.argsort(e_key, stable=True)]
+    h_cells = _cell_coords(hp.pos, origin, cell)
+    offs = torch.tensor(_OFFS, dtype=torch.int32, device=hp.pos.device)
+    n_cells = h_cells[:, None, :] + offs[None]
+    n_hash = hash_cell(n_cells[..., 0], n_cells[..., 1], n_cells[..., 2],
+                       table)
+    counts = torch.bincount(e_key.long(), minlength=table + 1)
+    return se, (torch.cumsum(counts, 0) - counts)[n_hash], counts[n_hash]
+
+
+def gather_flux_hash(scene: Scene, cfg: RenderConfig, hp: HitPoints,
+                     events: PhotonEvents, r2_scale=1.0):
+    """Per-hitpoint flux gather over the 27 neighbour cells of the
+    reference's spatial hash (the JAX package's ``gather_flux``):
+    -> (flux (B, 3), count (B,) int32, overflow ()).
+
+    Events sort (stably) by their cell's hash, invalid ones last, into
+    each neighbour cell's run (``hash_runs``).  A hitpoint takes at most
+    ``ppm_max_per_cell`` events of a run, and ``overflow`` counts the
+    events the budget drops over every hitpoint, valid or not; with
+    ``ppm_cell_samples`` = M > 0 it takes M events strided through the run,
+    each weighted by ``count / M``, and nothing overflows.  Two
+    neighbouring cells whose hashes collide are gathered twice, as in the
+    reference.  ``kmax`` (the longest run taken) is read on the host once a
+    call."""
+    dev = hp.pos.device
+    K, M = cfg.ppm_max_per_cell, cfg.ppm_cell_samples
+    r2 = torch.tensor(cfg.ppm_radius * cfg.ppm_radius * r2_scale,
+                      dtype=torch.float32, device=dev)
+    se, start, counts_q = hash_runs(scene, cfg, hp, events)
+    E = se.shape[0]
+    most = int(counts_q.max())      # the one host sync of the call
+    if M > 0:
+        overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        kmax = min(most, M)
+        # the M strata of a run, each weighted by count / M (exact when
+        # the run has no more than M events)
+        stride = torch.clamp(counts_q.to(torch.float32) / torch.tensor(
+            float(M), device=dev), min=1.0)
+    else:
+        overflow = torch.clamp(counts_q - K, min=0).sum().to(torch.int32)
+        kmax = min(most, K)
+        stride = None
+
+    # the BSDF frame once per hitpoint: only the event's direction varies
+    tf, bf = build_local_frame(hp.normal)
+    wo_l = world_to_local(hp.wo, tf, bf, hp.normal)
+    alpha = roughness_to_alpha(hp.mtl.roughness)
+
+    B = hp.pos.shape[0]
+    flux = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    count = torch.zeros(B, dtype=torch.int32, device=dev)
+    for lo in range(0, B, HASH_CHUNK):
+        c = slice(lo, lo + HASH_CHUNK)
+        pos, n, tp = hp.pos[c, None], hp.normal[c, None], hp.throughput[c]
+        t_, b_, wo, a_ = tf[c, None], bf[c, None], wo_l[c, None], alpha[c]
+        mtl = Material(base_color=hp.mtl.base_color[c, None],
+                       roughness=hp.mtl.roughness[c, None],
+                       metallic=hp.mtl.metallic[c, None],
+                       eta=hp.mtl.eta[c, None])
+        st, cq, valid = start[c], counts_q[c], hp.valid[c, None]
+        f_c, n_c = flux[c], count[c]
+        for k in range(kmax):
+            off = k if stride is None else (k * stride[c]).to(torch.int64)
+            rows = se[torch.clamp(st + off, max=E - 1)]    # (n, 27, 12)
+            ev_pos, ev_n = rows[..., 0:3], rows[..., 3:6]
+            ev_wi, ev_flux = rows[..., 6:9], rows[..., 9:12]
+            d = pos - ev_pos
+            ok = ((off < cq) & (dot(n, ev_n) > 0.01) & (dot(d, d) < r2)
+                  & valid)
+            wi_l = world_to_local(ev_wi, t_, b_, n)
+            wh, wh_ok = _half_vector(wo, wi_l)
+            brdf = _eval_local(mtl, wo.expand_as(wi_l), wi_l, a_[:, None],
+                               wh, wh_ok)
+            ok &= is_valid_color(brdf)
+            energy = ev_flux * brdf * tp[:, None]
+            if stride is not None:
+                energy = energy * stride[c, :, None]
+            f_c += torch.where(ok[..., None], energy,
+                               torch.zeros_like(energy)).sum(dim=1)
+            n_c += ok.sum(dim=1, dtype=torch.int32)
+    return flux, count, overflow
+
+
+def gather_flux_dispatch(scene: Scene, cfg: RenderConfig, hp: HitPoints,
+                         events: PhotonEvents, r2_scale=1.0,
+                         tier: str = "auto"):
+    """The photon gather of a PPM tier: #11's exact join (mega), its plain
+    version (plain) or the spatial hash (hash).  Shared by
+    ``render_ppm_with_stats`` and ``parallel/shard.py``'s sharded PPM."""
+    gather = {"mega": gather_flux, "plain": gather_flux_plain,
+              "hash": gather_flux_hash}[resolve_tier(scene, tier)]
+    return gather(scene, cfg, hp, events, r2_scale)
+
+
 def resolve_image(cfg: RenderConfig, direct, hp: HitPoints, flux,
                   r2_scale=1.0) -> torch.Tensor:
     """direct + flux / (pi r^2 r2_scale) on valid hitpoints, clamped."""
@@ -252,14 +395,15 @@ def render_ppm_with_stats(scene: Scene, cam: Camera, width: int, height: int,
                           tier: str = "auto"):
     """One PPM pass from the pass key ``key``: (image (H*W, 3), photon
     count (H*W,), overflow ()), ``Nl * spl`` photons."""
-    plain = resolve_tier(scene, tier) == "plain"
+    tier = resolve_tier(scene, tier)
+    plain = tier == "plain"
     idx = torch.arange(width * height, dtype=torch.int32, device=scene.device)
     direct, hp = ppm_eye_trace(scene, cam, cfg, idx % width, idx // width,
                                rng.fold_in(key, 1), plain=plain)
     events = ppm_photon_trace(scene, cfg, scene.num_lights * spl, spl,
                               rng.fold_in(key, 2), plain=plain)
-    gather = gather_flux_plain if plain else gather_flux
-    flux, count, overflow = gather(scene, cfg, hp, events, r2_scale)
+    flux, count, overflow = gather_flux_dispatch(scene, cfg, hp, events,
+                                                 r2_scale, tier)
     return resolve_image(cfg, direct, hp, flux, r2_scale), count, overflow
 
 

@@ -8,7 +8,8 @@ the device functions of ``pt_device.cuh``, and ``probe_kernels.cu`` (the
 texture-fetch probe).  The builds run at first use, all at once
 (one ``nvcc`` per source), into ``path_tracing_tpu_torch/build/``, each
 under a name keyed on a hash of its sources and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  A failed build raises
+source is rebuilt and an unchanged one is reused; a file lock makes
+processes that start together build once.  A failed build raises
 with nvcc's output; nothing falls back.
 
 ``transmittance_rgb`` (in ``pt_kernels.cu``) is the RGB shadow of
@@ -32,6 +33,7 @@ own names.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -199,25 +201,31 @@ def library() -> KernelLibrary:
     sos = {n: BUILD_DIR / f"lib{n}_{_source_hash(n)}.so" for n in LIBRARIES}
     t0 = time.perf_counter()
     procs = {}
-    for n, so in sos.items():
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(SRC_DIR / f"{n}.cu")]
-            procs[n] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc {n}.cu failed ({proc.returncode}):\n{err}")
-            continue
-        os.replace(tmp, sos[n])
-        sos[n].with_suffix(".log").write_text(err)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    if not all(so.exists() for so in sos.values()):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # processes starting together (ranks on one card) build once: the
+        # first takes the lock, the others wait and find its libraries
+        with open(BUILD_DIR / "kernels.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            for n, so in sos.items():
+                if not so.exists():
+                    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+                    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(SRC_DIR / f"{n}.cu")]
+                    procs[n] = (tmp, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True))
+            failed = []
+            for n, (tmp, proc) in procs.items():
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(
+                        f"nvcc {n}.cu failed ({proc.returncode}):\n{err}")
+                    continue
+                os.replace(tmp, sos[n])
+                sos[n].with_suffix(".log").write_text(err)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0 if procs else 0.0
     fns, libs, logs = {}, {}, []
     for n, so in sos.items():

@@ -1,9 +1,13 @@
 """Triangle clustering: a median-split BVH cut at a fixed leaf size
-(``path_tracing_tpu.ops.bvh.build_clusters_py``, numpy only).
+(``path_tracing_tpu.ops.bvh``).
 
 Triangles are reordered into spatially coherent clusters; the CUDA kernels
 test each cluster's AABB per ray and skip the cluster's triangles when the
-ray cannot reach it.
+ray cannot reach it.  ``build_clusters`` takes the C++ builder of
+``csrc/pt_runtime.cc`` (``runtime/native.py``) when it builds, as the JAX
+package does, else the numpy builder.  The two split the same medians but
+break ties between equal centroids differently, so their layouts differ on
+scenes with many (cornell's axis-aligned walls).
 """
 from __future__ import annotations
 
@@ -43,3 +47,12 @@ def build_clusters_py(tris9: np.ndarray, leaf_size: int = 16):
     return (order.astype(np.int32),
             np.asarray(aabbs, np.float32),
             np.asarray(ranges, np.int32))
+
+
+def build_clusters(tris9: np.ndarray, leaf_size: int = 16):
+    """The C++ builder when the native runtime is available, else the
+    numpy builder."""
+    from ..runtime.native import build_clusters_native
+
+    out = build_clusters_native(tris9, leaf_size)
+    return out if out is not None else build_clusters_py(tris9, leaf_size)

@@ -1,6 +1,6 @@
 """Wavefront OBJ/MTL loader, the tinyobj-compatible subset of
-``path_tracing_tpu.scene.obj_loader`` (the Python parsers; the native C++
-parser is not ported yet).
+``path_tracing_tpu.scene.obj_loader`` (the Python parsers, the behaviour the
+native C++ parser of ``runtime/native.py`` implements too).
 
 - ``v`` positions, ``vt`` texcoords (``vn`` is skipped: shading uses
   geometric normals);
@@ -14,7 +14,9 @@ parser is not ported yet).
   decoded with PIL when it is installed, else with ``film.read_png``, and
   modulated onto the base color at hit time).
 
-``load_any_scene`` dispatches on the extension: a ``.obj`` takes its
+``load_any_scene`` parses with the native C++ runtime when it is
+available (``PT_TPU_NO_NATIVE=1`` forces the Python parsers), as the JAX
+package does, and dispatches on the extension: a ``.obj`` takes its
 camera and lights from a companion ``<name>.lights.txt`` text scene, or
 from ``default_framing``.
 """
@@ -222,10 +224,17 @@ def default_framing(out: ParsedScene) -> ParsedScene:
 def load_any_scene(path: str) -> ParsedScene:
     """A text scene, or an OBJ with the camera and lights of its companion
     ``<name>.lights.txt`` text scene when there is one, else of
-    ``default_framing``."""
+    ``default_framing``.  The file is parsed by the native C++ runtime
+    when it is available and ``PT_TPU_NO_NATIVE`` is not set, else by the
+    Python parsers."""
+    native_out = None
+    if not os.environ.get("PT_TPU_NO_NATIVE"):
+        from ..runtime.native import parse_scene_native
+
+        native_out = parse_scene_native(path)
     if not path.lower().endswith(".obj"):
-        return load_scene(path)
-    out = load_obj(path)
+        return native_out if native_out is not None else load_scene(path)
+    out = native_out if native_out is not None else load_obj(path)
     companion = os.path.splitext(path)[0] + ".lights.txt"
     if os.path.exists(companion):
         comp = load_scene(companion)

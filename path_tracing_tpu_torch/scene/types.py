@@ -148,10 +148,11 @@ def scene_from_numpy(
     ``tri_uv`` (N, 6), ``tri_tex`` (N,) and the atlas with its sizes come
     from ``ParsedScene.texture_atlas`` (default: no textures).
 
-    Triangles are reordered into clusters, their UVs and texture ids with
-    them; the scene AABB is the union of sphere bounds and triangle
+    Triangles are reordered into clusters (``ops/bvh.py::build_clusters``:
+    the native builder when it is available), their UVs and texture ids
+    with them; the scene AABB is the union of sphere bounds and triangle
     vertices (light balls excluded)."""
-    from ..ops.bvh import build_clusters_py
+    from ..ops.bvh import build_clusters
 
     f32 = np.float32
     sph_center = np.asarray(sph_center, f32).reshape(-1, 3)
@@ -188,7 +189,7 @@ def scene_from_numpy(
 
     if nt > leaf:
         tris9 = np.concatenate([tri_v0, tri_v1, tri_v2], axis=1)
-        order, cl_aabb, cl_range = build_clusters_py(tris9, leaf)
+        order, cl_aabb, cl_range = build_clusters(tris9, leaf)
         tri_v0, tri_v1, tri_v2 = tri_v0[order], tri_v1[order], tri_v2[order]
         tri_mtl = tri_mtl[order]
         tri_uv, tri_tex = tri_uv[order], tri_tex[order]

@@ -108,11 +108,9 @@ def test_parsed_tables_match(name):
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_scene_and_packed_tables_match(name, monkeypatch):
-    # the JAX package builds clusters natively when libpt_runtime.so loads;
-    # the port builds them in numpy, so the JAX side is pinned to its own
-    # numpy builder here (see test_cluster_builders_on_cornell)
-    monkeypatch.setattr(jbvh, "build_clusters", jbvh.build_clusters_py)
+def test_scene_and_packed_tables_match(name):
+    # both packages build clusters with the native builder of
+    # csrc/pt_runtime.cc by default (see test_cluster_builders_on_cornell)
     js = jparser.parse_scene_text(SCENES[name]).to_device()
     ts = parser.parse_scene_text(SCENES[name]).to_device("cpu")
     d = jax_arrays(js)
@@ -137,14 +135,22 @@ def test_scene_and_packed_tables_match(name, monkeypatch):
 
 
 def test_cluster_builders_on_cornell():
-    """The numpy builder and the JAX package's native builder: on this
-    scene (axis-aligned walls, many equal centroids at the median) they
-    split ties differently, so the triangle order and the cluster AABBs
-    differ while the cluster sizes agree.  What both must hold is pinned."""
+    """The numpy builder and the native one: on this scene (axis-aligned
+    walls, many equal centroids at the median) they split ties
+    differently, so the triangle order and the cluster AABBs differ while
+    the cluster sizes agree.  What both must hold is pinned, and the two
+    packages' default builders (native, the port's built from the same
+    source) give the same layout."""
     from path_tracing_tpu.runtime.native import build_clusters_native
+
+    from path_tracing_tpu_torch.ops.bvh import build_clusters
+    from path_tracing_tpu_torch.runtime.native import native_available
 
     tris = np.asarray(parser.load_scene(str(CORNELL)).tri_verts,
                       np.float32).reshape(-1, 9)
+    assert native_available()
+    for a, b in zip(jbvh.build_clusters(tris, 8), build_clusters(tris, 8)):
+        np.testing.assert_array_equal(a, b)
     ours = build_clusters_py(tris, 8)
     jours = jbvh.build_clusters_py(tris, 8)
     for a, b in zip(ours, jours):          # same numpy algorithm: identical
@@ -162,6 +168,7 @@ def test_cluster_builders_on_cornell():
             assert (t.max(axis=(0, 1)) <= box[3:]).all()
     if nat is not None:
         np.testing.assert_array_equal(ours[2], nat[2])
+        assert not np.array_equal(ours[0], nat[0])   # ties split apart
 
 
 def test_camera_matches():

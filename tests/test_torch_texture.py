@@ -4,8 +4,8 @@ interpolation and the bilinear atlas fetch, the ``with_uv`` nearest hit,
 the textured bounce and the textured render.
 
 The JAX side loads with its Python parsers (``PT_TPU_NO_NATIVE=1``) and
-its numpy cluster builder, or its tables are carried across with
-``scene_from_jax_arrays``; its Pallas kernels run in interpret mode.  Bars:
+both packages build clusters with their default (native) builder, or the
+JAX tables are carried across with ``scene_from_jax_arrays``; its Pallas kernels run in interpret mode.  Bars:
 loader tables equal; the atlas fetch within rtol 1e-6; the nearest hit as
 tests/test_torch_intersect.py (flags equal, t and UVs within 1e-5 on
 99.95% of rays); the bounce as tests/test_torch_shade.py (every output
@@ -24,7 +24,6 @@ from path_tracing_tpu.config import RenderConfig as JConfig
 from path_tracing_tpu.film import write_png as j_write_png
 from path_tracing_tpu.integrators.pt import _light_table as j_light_table
 from path_tracing_tpu.integrators.pt import render_pt as j_render_pt
-from path_tracing_tpu.ops import bvh as jbvh
 from path_tracing_tpu.ops import texture as jtexture
 from path_tracing_tpu.ops.pallas_intersect import nearest_hit_pallas
 from path_tracing_tpu.ops.pallas_intersect import pack_scene as jpack
@@ -85,9 +84,8 @@ def test_obj_loading_matches_jax(which, quad_obj, monkeypatch):
         assert b.tri_tex == [0, 0] and b.textures[0].shape == (8, 8, 3)
     else:
         assert len(b.tri_verts) > 1000 and set(b.tri_tex) == {-1}
-    # the Scene's texture fields and atlas, with the JAX side on its numpy
-    # cluster builder
-    monkeypatch.setattr(jbvh, "build_clusters", jbvh.build_clusters_py)
+    # the Scene's texture fields and atlas, each package on its default
+    # (native) cluster builder
     d = jax_arrays(a.to_device())
     ts = b.to_device("cpu")
     for f in ("tri_v0", "tri_uv", "tri_tex", "tex_atlas", "tex_size",
@@ -148,7 +146,7 @@ def test_read_png_decodes_every_row_filter(tmp_path):
 
 
 @pytest.mark.parametrize("n_tris", [80, 1280])
-def test_synth_matches_jax(n_tris, monkeypatch):
+def test_synth_matches_jax(n_tris):
     a, b = jsynth.icosphere(n_tris), synth.icosphere(n_tris)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
@@ -157,9 +155,8 @@ def test_synth_matches_jax(n_tris, monkeypatch):
     jp = jsynth.icosphere_scene(n_tris, textured=True)
     tp = synth.icosphere_scene(n_tris, textured=True)
     _assert_parsed_equal(jp, tp)
-    # each package's own Scene build (the JAX side on its numpy cluster
+    # each package's own Scene build (its default, native cluster
     # builder): the UVs and texture ids follow the cluster reorder
-    monkeypatch.setattr(jbvh, "build_clusters", jbvh.build_clusters_py)
     d = jax_arrays(jp.to_device())
     ts = tp.to_device("cpu")
     assert ts.tri_cluster_range.shape[0] > 1     # the triangles reorder
@@ -176,7 +173,7 @@ def test_write_obj_round_trips(tmp_path):
     np.testing.assert_array_equal(f32(s.tri_verts), f32(r.tri_verts))
     np.testing.assert_array_equal(f32(s.tri_uv), f32(r.tri_uv))
     np.testing.assert_array_equal(f32(s.tri_mtl), f32(r.tri_mtl))
-    assert r.tri_tex == s.tri_tex and len(r.textures) == 1
+    assert list(r.tri_tex) == list(s.tri_tex) and len(r.textures) == 1
     # texels through 8-bit gamma-encoded PNG: within half a code step
     np.testing.assert_allclose(r.textures[0], s.textures[0], atol=1e-2)
     np.testing.assert_array_equal(f32(r.lights), f32(s.lights))
@@ -519,7 +516,7 @@ def test_textured_obj_without_pil_keeps_its_texture(fmt, tmp_path,
     monkeypatch.setitem(sys.modules, "PIL", None)   # no PIL: read_png
     parsed = obj_loader.load_any_scene(str(obj))
     ref = obj_loader.load_any_scene(str(twin))
-    assert len(parsed.textures) == 1 and parsed.tri_tex == [0, 0]
+    assert len(parsed.textures) == 1 and list(parsed.tri_tex) == [0, 0]
     np.testing.assert_array_equal(parsed.textures[0], ref.textures[0])
     cfg = RenderConfig(width=8, height=8, eye_depth=2, delta_budget=2)
     imgs = []
@@ -537,6 +534,6 @@ def test_unreadable_texture_warns_and_keeps_flat_kd(tmp_path, monkeypatch,
     monkeypatch.setitem(sys.modules, "PIL", None)
     obj = _quad_with_png(tmp_path, b"not a png", "bad")
     parsed = obj_loader.load_any_scene(str(obj))
-    assert parsed.textures == [] and parsed.tri_tex == [-1, -1]
+    assert parsed.textures == [] and list(parsed.tri_tex) == [-1, -1]
     err = capsys.readouterr().err
     assert "check.png" in err and "flat Kd" in err
