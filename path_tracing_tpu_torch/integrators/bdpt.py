@@ -71,6 +71,7 @@ from ..ops.cuda_intersect import (PackedScene, nearest_hit,
 from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, PI, dot, is_valid_color, length, normalize
 from ..ops.sampling import sample_light_emission
+from ..profiling import span
 from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Material, Scene
 
@@ -198,7 +199,9 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
     last_pdf = torch.full((P,), 1.0 / PI, **f32)
     k_it = rng.fold_in(key, 0x11F7)
     for it in range(cfg.max_light_iters):
-        if not bool(alive.any()):   # later iterations change nothing
+        with span("sync.bdpt_light_loop"):
+            more = bool(alive.any())
+        if not more:   # later iterations change nothing
             break
         u = draw(rng.iter_key(k_it, it), P, 3, start, total, device=dev)
         # textured: the light vertex keeps the texel in its base color
@@ -225,7 +228,8 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
 
         # write the stored vertices at (lane, slot); only stored lanes are
         # written, and their slot is below L (alive needs it)
-        lane = torch.nonzero(store_light | store_surf)[:, 0]
+        with span("sync.bdpt_light_store"):
+            lane = torch.nonzero(store_light | store_surf)[:, 0]
         at = (lane, slot[lane])
         surf = store_surf[lane]
         zero = torch.zeros_like(pdf_fwd[lane])
@@ -240,9 +244,11 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
         lv.pdf_rev[at] = torch.where(surf, pdf_rev[lane], zero)
         lv.is_light_source[at] = store_light[lane]
         lv.source_cutoff[at] = zero
-        lv.is_parallel[at] = False
+        with span("sync.bdpt_light_parallel"):
+            lv.is_parallel[at] = False
         lv.wo[at] = wo[lane]
-        lv.valid[at] = True
+        with span("sync.bdpt_light_valid"):
+            lv.valid[at] = True
 
         # advance
         w = torch.where(s.is_delta, torch.ones_like(s.pdf),
@@ -290,7 +296,9 @@ def compact_flat(lv_flat: LightVertices):
     """Valid vertices first, in order (a stable sort of ~valid); returns
     (the sorted flat LightVertices, n_valid as an int)."""
     order = torch.argsort((~lv_flat.valid).to(torch.uint8), stable=True)
-    return lv_flat.take(order), int(lv_flat.valid.sum())
+    with span("sync.bdpt_n_valid"):
+        n_valid = int(lv_flat.valid.sum())
+    return lv_flat.take(order), n_valid
 
 
 def _ris_support(lv_flat: LightVertices, n_valid: int):
@@ -305,11 +313,14 @@ def _ris_support(lv_flat: LightVertices, n_valid: int):
     lum = tp[:, 0] * LUMA[0] + tp[:, 1] * LUMA[1] + tp[:, 2] * LUMA[2]
     contrib = in_prefix & lv_flat.valid & (lum > 0.0) & torch.isfinite(lum)
     nc = contrib.sum().to(torch.float32)
-    nv = torch.tensor(float(max(n_valid, 1)), device=dev)
+    with span("sync.bdpt_ris_nv"):
+        nv = torch.tensor(float(max(n_valid, 1)), device=dev)
     zero = torch.zeros_like(lum)
     base = torch.where(contrib, RIS_DEFENSIVE / torch.clamp(nc, min=1.0),
                        zero)
-    if not bool(nc > 0):
+    with span("sync.bdpt_ris_support"):
+        any_contrib = bool(nc > 0)
+    if not any_contrib:
         base = torch.where(in_prefix, 1.0 / nv, zero)
     return lum, contrib, base
 
@@ -430,7 +441,9 @@ def eye_sample(packed: PackedScene, cam: Camera, cfg: RenderConfig,
     g_mis = torch.zeros(B, **f32)
     k_it = rng.fold_in(key, 0xE7E)
     for it in range(cfg.max_eye_iters):
-        if not bool(alive.any()):   # a dead path stays dead
+        with span("sync.bdpt_eye_loop"):
+            more = bool(alive.any())
+        if not more:   # a dead path stays dead
             break
         k = rng.iter_key(k_it, it)
         u = draw(k, B, 3, start, total, device=dev)
@@ -579,8 +592,9 @@ def light_side(scene: Scene, cfg: RenderConfig, spl: int, key,
         scene_used = scene.with_illum_scaled(1.0 / ls)
         num_paths = scene.num_lights * ls * spl
         light_hit_scale = float(ls)
-    lv = trace_light_paths(scene_used, cfg, num_paths, spl,
-                           rng.fold_in(key, 0x0101), plain=plain)
+    with span("bdpt.light_trace"):
+        lv = trace_light_paths(scene_used, cfg, num_paths, spl,
+                               rng.fold_in(key, 0x0101), plain=plain)
     return scene_used, lv, light_hit_scale
 
 
@@ -614,21 +628,26 @@ def eye_pass(scene_used: Scene, lv: LightVertices, cam: Camera,
     """Mean over ``spp`` of the eye pass against the light vertices ``lv``
     in a resolved tier.  ``start``/``total``: these lanes are rows
     [start, start + B) of a ``total``-lane render."""
-    packed = pack_scene(scene_used)
+    with span("bdpt.pack"):
+        packed = pack_scene(scene_used)
     if tier == "mega":
-        lv_tab, n_valid = light_table(scene_used, lv, cam, cfg, px, py, key,
-                                      start, total)
-        return bdpt_eye(packed, lv_tab, n_valid, cam, px, py, spp, cfg, key,
-                        light_hit_scale, start, total) / spp
-    lv_flat, n_valid = compact_flat(lv.flat())
-    shared = (pack_light_vertices(lv_flat)
-              if cfg.bdpt_resample_vertices == 0 else None)
-    acc = torch.zeros((px.shape[0], 3), device=px.device)
-    for s in range(spp):
-        acc = acc + eye_trace_and_connect(
-            packed, cam, cfg, lv_flat, shared, n_valid, px, py,
-            _sample_key(key, s), light_hit_scale, start, total, tier)
-    return acc / spp
+        with span("bdpt.light_table"):
+            lv_tab, n_valid = light_table(scene_used, lv, cam, cfg, px, py,
+                                          key, start, total)
+        with span("bdpt.eye"):
+            return bdpt_eye(packed, lv_tab, n_valid, cam, px, py, spp, cfg,
+                            key, light_hit_scale, start, total) / spp
+    with span("bdpt.light_table"):
+        lv_flat, n_valid = compact_flat(lv.flat())
+        shared = (pack_light_vertices(lv_flat)
+                  if cfg.bdpt_resample_vertices == 0 else None)
+    with span("bdpt.eye"):
+        acc = torch.zeros((px.shape[0], 3), device=px.device)
+        for s in range(spp):
+            acc = acc + eye_trace_and_connect(
+                packed, cam, cfg, lv_flat, shared, n_valid, px, py,
+                _sample_key(key, s), light_hit_scale, start, total, tier)
+        return acc / spp
 
 
 def render_bdpt(scene: Scene, cam: Camera, width: int, height: int, spp: int,
@@ -644,11 +663,14 @@ def render_bdpt(scene: Scene, cam: Camera, width: int, height: int, spp: int,
     tier = resolve_tier(scene, tier, cfg)
     if oracle:
         cfg = cfg.with_(shadow_dielectrics_block=False)
-    scene_used, lv, light_hit_scale = light_side(
-        scene, cfg, spl, key, light_sample, oracle, plain=tier == "plain")
-    idx = torch.arange(width * height, dtype=torch.int32, device=scene.device)
-    return eye_pass(scene_used, lv, cam, cfg, idx % width, idx // width, spp,
-                    key, light_hit_scale, tier=tier)
+    with span("bdpt.frame"):
+        scene_used, lv, light_hit_scale = light_side(
+            scene, cfg, spl, key, light_sample, oracle,
+            plain=tier == "plain")
+        idx = torch.arange(width * height, dtype=torch.int32,
+                           device=scene.device)
+        return eye_pass(scene_used, lv, cam, cfg, idx % width, idx // width,
+                        spp, key, light_hit_scale, tier=tier)
 
 
 def render_oracle(scene: Scene, cam: Camera, width: int, height: int,

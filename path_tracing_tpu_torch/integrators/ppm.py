@@ -55,6 +55,7 @@ from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
 from ..ops.microfacet import roughness_to_alpha
 from ..ops.sampling import sample_light_emission
+from ..profiling import span
 from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Material, Scene
 
@@ -150,7 +151,9 @@ def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
                    valid=torch.zeros(B, dtype=torch.bool, device=dev))
     k_it = rng.fold_in(key, 0x9E2)
     for it in range(cfg.max_eye_iters):
-        if not bool(alive.any()):   # a dead chain stays dead
+        with span("sync.ppm_eye_loop"):
+            more = bool(alive.any())
+        if not more:   # a dead chain stays dead
             break
         u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
         # textured: the hitpoint keeps the texel in its base color
@@ -225,11 +228,13 @@ def ppm_photon_trace(scene: Scene, cfg: RenderConfig, num_photons: int,
                      plain: bool = False) -> PhotonEvents:
     """The photon pass: emission, then the bounces in ``photon_trace``
     (or its plain version), recording depth-slotted deposit events."""
-    ro, rd, flux0, real = photon_emission(scene, num_photons, spl, key,
-                                          start, total, plain)
+    with span("ppm.emission"):
+        ro, rd, flux0, real = photon_emission(scene, num_photons, spl, key,
+                                              start, total, plain)
     trace = photon_trace_plain if plain else photon_trace
-    ev, valid = trace(pack_scene(scene), ro, rd, flux0, real, key,
-                      cfg.light_depth, cfg.max_light_iters, start, total)
+    with span("ppm.photon_trace"):
+        ev, valid = trace(pack_scene(scene), ro, rd, flux0, real, key,
+                          cfg.light_depth, cfg.max_light_iters, start, total)
     return PhotonEvents(ev, valid)
 
 
@@ -263,7 +268,9 @@ def _cell_coords(pos, origin, cell_size: float) -> torch.Tensor:
     where it lands there.  The reciprocal is rounded on the host and
     multiplied as a float32 tensor."""
     inv = (torch.tensor(1.0, dtype=torch.float32)
-           / torch.tensor(cell_size, dtype=torch.float32)).to(pos.device)
+           / torch.tensor(cell_size, dtype=torch.float32))
+    with span("sync.ppm_cell_inv"):
+        inv = inv.to(pos.device)
     return torch.floor((pos - origin) * inv).to(torch.int32)
 
 
@@ -285,11 +292,13 @@ def hash_runs(scene: Scene, cfg: RenderConfig, hp: HitPoints,
     e_key = torch.where(events.valid, e_hash, table)
     se = events.table[torch.argsort(e_key, stable=True)]
     h_cells = _cell_coords(hp.pos, origin, cell)
-    offs = torch.tensor(_OFFS, dtype=torch.int32, device=hp.pos.device)
+    with span("sync.ppm_hash_offs"):
+        offs = torch.tensor(_OFFS, dtype=torch.int32, device=hp.pos.device)
     n_cells = h_cells[:, None, :] + offs[None]
     n_hash = hash_cell(n_cells[..., 0], n_cells[..., 1], n_cells[..., 2],
                        table)
-    counts = torch.bincount(e_key.long(), minlength=table + 1)
+    with span("sync.ppm_hash_bincount"):
+        counts = torch.bincount(e_key.long(), minlength=table + 1)
     return se, (torch.cumsum(counts, 0) - counts)[n_hash], counts[n_hash]
 
 
@@ -310,61 +319,66 @@ def gather_flux_hash(scene: Scene, cfg: RenderConfig, hp: HitPoints,
     call."""
     dev = hp.pos.device
     K, M = cfg.ppm_max_per_cell, cfg.ppm_cell_samples
-    r2 = torch.tensor(cfg.ppm_radius * cfg.ppm_radius * r2_scale,
-                      dtype=torch.float32, device=dev)
-    se, start, counts_q = hash_runs(scene, cfg, hp, events)
-    E = se.shape[0]
-    most = int(counts_q.max())      # the one host sync of the call
-    if M > 0:
-        overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        kmax = min(most, M)
-        # the M strata of a run, each weighted by count / M (exact when
-        # the run has no more than M events)
-        stride = torch.clamp(counts_q.to(torch.float32) / torch.tensor(
-            float(M), device=dev), min=1.0)
-    else:
-        overflow = torch.clamp(counts_q - K, min=0).sum().to(torch.int32)
-        kmax = min(most, K)
-        stride = None
+    with span("sync.ppm_hash_r2"):
+        r2 = torch.tensor(cfg.ppm_radius * cfg.ppm_radius * r2_scale,
+                          dtype=torch.float32, device=dev)
+    with span("ppm.gather_prepare"):
+        se, start, counts_q = hash_runs(scene, cfg, hp, events)
+    with span("ppm.gather"):
+        E = se.shape[0]
+        with span("sync.ppm_hash_kmax"):
+            most = int(counts_q.max())      # the one host sync of the call
+        if M > 0:
+            overflow = torch.zeros((), dtype=torch.int32, device=dev)
+            kmax = min(most, M)
+            # the M strata of a run, each weighted by count / M (exact when
+            # the run has no more than M events)
+            with span("sync.ppm_hash_m"):
+                m = torch.tensor(float(M), device=dev)
+            stride = torch.clamp(counts_q.to(torch.float32) / m, min=1.0)
+        else:
+            overflow = torch.clamp(counts_q - K, min=0).sum().to(torch.int32)
+            kmax = min(most, K)
+            stride = None
 
-    # the BSDF frame once per hitpoint: only the event's direction varies
-    tf, bf = build_local_frame(hp.normal)
-    wo_l = world_to_local(hp.wo, tf, bf, hp.normal)
-    alpha = roughness_to_alpha(hp.mtl.roughness)
+        # the BSDF frame once per hitpoint: only the event's direction varies
+        tf, bf = build_local_frame(hp.normal)
+        wo_l = world_to_local(hp.wo, tf, bf, hp.normal)
+        alpha = roughness_to_alpha(hp.mtl.roughness)
 
-    B = hp.pos.shape[0]
-    flux = torch.zeros((B, 3), dtype=torch.float32, device=dev)
-    count = torch.zeros(B, dtype=torch.int32, device=dev)
-    for lo in range(0, B, HASH_CHUNK):
-        c = slice(lo, lo + HASH_CHUNK)
-        pos, n, tp = hp.pos[c, None], hp.normal[c, None], hp.throughput[c]
-        t_, b_, wo, a_ = tf[c, None], bf[c, None], wo_l[c, None], alpha[c]
-        mtl = Material(base_color=hp.mtl.base_color[c, None],
-                       roughness=hp.mtl.roughness[c, None],
-                       metallic=hp.mtl.metallic[c, None],
-                       eta=hp.mtl.eta[c, None])
-        st, cq, valid = start[c], counts_q[c], hp.valid[c, None]
-        f_c, n_c = flux[c], count[c]
-        for k in range(kmax):
-            off = k if stride is None else (k * stride[c]).to(torch.int64)
-            rows = se[torch.clamp(st + off, max=E - 1)]    # (n, 27, 12)
-            ev_pos, ev_n = rows[..., 0:3], rows[..., 3:6]
-            ev_wi, ev_flux = rows[..., 6:9], rows[..., 9:12]
-            d = pos - ev_pos
-            ok = ((off < cq) & (dot(n, ev_n) > 0.01) & (dot(d, d) < r2)
-                  & valid)
-            wi_l = world_to_local(ev_wi, t_, b_, n)
-            wh, wh_ok = _half_vector(wo, wi_l)
-            brdf = _eval_local(mtl, wo.expand_as(wi_l), wi_l, a_[:, None],
-                               wh, wh_ok)
-            ok &= is_valid_color(brdf)
-            energy = ev_flux * brdf * tp[:, None]
-            if stride is not None:
-                energy = energy * stride[c, :, None]
-            f_c += torch.where(ok[..., None], energy,
-                               torch.zeros_like(energy)).sum(dim=1)
-            n_c += ok.sum(dim=1, dtype=torch.int32)
-    return flux, count, overflow
+        B = hp.pos.shape[0]
+        flux = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+        count = torch.zeros(B, dtype=torch.int32, device=dev)
+        for lo in range(0, B, HASH_CHUNK):
+            c = slice(lo, lo + HASH_CHUNK)
+            pos, n, tp = hp.pos[c, None], hp.normal[c, None], hp.throughput[c]
+            t_, b_, wo, a_ = tf[c, None], bf[c, None], wo_l[c, None], alpha[c]
+            mtl = Material(base_color=hp.mtl.base_color[c, None],
+                           roughness=hp.mtl.roughness[c, None],
+                           metallic=hp.mtl.metallic[c, None],
+                           eta=hp.mtl.eta[c, None])
+            st, cq, valid = start[c], counts_q[c], hp.valid[c, None]
+            f_c, n_c = flux[c], count[c]
+            for k in range(kmax):
+                off = k if stride is None else (k * stride[c]).to(torch.int64)
+                rows = se[torch.clamp(st + off, max=E - 1)]    # (n, 27, 12)
+                ev_pos, ev_n = rows[..., 0:3], rows[..., 3:6]
+                ev_wi, ev_flux = rows[..., 6:9], rows[..., 9:12]
+                d = pos - ev_pos
+                ok = ((off < cq) & (dot(n, ev_n) > 0.01) & (dot(d, d) < r2)
+                      & valid)
+                wi_l = world_to_local(ev_wi, t_, b_, n)
+                wh, wh_ok = _half_vector(wo, wi_l)
+                brdf = _eval_local(mtl, wo.expand_as(wi_l), wi_l, a_[:, None],
+                                   wh, wh_ok)
+                ok &= is_valid_color(brdf)
+                energy = ev_flux * brdf * tp[:, None]
+                if stride is not None:
+                    energy = energy * stride[c, :, None]
+                f_c += torch.where(ok[..., None], energy,
+                                   torch.zeros_like(energy)).sum(dim=1)
+                n_c += ok.sum(dim=1, dtype=torch.int32)
+        return flux, count, overflow
 
 
 def gather_flux_dispatch(scene: Scene, cfg: RenderConfig, hp: HitPoints,
@@ -383,7 +397,9 @@ def resolve_image(cfg: RenderConfig, direct, hp: HitPoints, flux,
     """direct + flux / (pi r^2 r2_scale) on valid hitpoints, clamped."""
     area = (torch.tensor(PI * cfg.ppm_radius * cfg.ppm_radius)
             * torch.tensor(float(r2_scale)))
-    radiance = flux / torch.clamp(area, min=1e-6).to(flux.device)
+    with span("sync.ppm_area"):
+        area = torch.clamp(area, min=1e-6).to(flux.device)
+    radiance = flux / area
     radiance = torch.where((hp.valid & is_valid_color(radiance))[:, None],
                            clamp_radiance(radiance, cfg.clamp),
                            torch.zeros_like(radiance))
@@ -397,14 +413,20 @@ def render_ppm_with_stats(scene: Scene, cam: Camera, width: int, height: int,
     count (H*W,), overflow ()), ``Nl * spl`` photons."""
     tier = resolve_tier(scene, tier)
     plain = tier == "plain"
-    idx = torch.arange(width * height, dtype=torch.int32, device=scene.device)
-    direct, hp = ppm_eye_trace(scene, cam, cfg, idx % width, idx // width,
-                               rng.fold_in(key, 1), plain=plain)
-    events = ppm_photon_trace(scene, cfg, scene.num_lights * spl, spl,
-                              rng.fold_in(key, 2), plain=plain)
-    flux, count, overflow = gather_flux_dispatch(scene, cfg, hp, events,
-                                                 r2_scale, tier)
-    return resolve_image(cfg, direct, hp, flux, r2_scale), count, overflow
+    with span("ppm.pass"):
+        with span("ppm.eye_pass"):
+            idx = torch.arange(width * height, dtype=torch.int32,
+                               device=scene.device)
+            direct, hp = ppm_eye_trace(scene, cam, cfg, idx % width,
+                                       idx // width, rng.fold_in(key, 1),
+                                       plain=plain)
+        events = ppm_photon_trace(scene, cfg, scene.num_lights * spl, spl,
+                                  rng.fold_in(key, 2), plain=plain)
+        flux, count, overflow = gather_flux_dispatch(scene, cfg, hp, events,
+                                                     r2_scale, tier)
+        with span("ppm.resolve"):
+            image = resolve_image(cfg, direct, hp, flux, r2_scale)
+        return image, count, overflow
 
 
 def render_ppm(scene: Scene, cam: Camera, width: int, height: int, spl: int,

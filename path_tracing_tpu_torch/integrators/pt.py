@@ -47,6 +47,7 @@ from ..ops.math3 import (EPSILON, PI, dot, is_valid_color, length,
                          normalize)
 from ..ops.sampling import uniform_sphere_dir
 from ..ops.bsdf import bsdf_eval_pdf
+from ..profiling import count, span
 from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Scene
 
@@ -232,13 +233,15 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
     from ..ops.cuda_stream import pack_scene_stream
     from ..ops.cuda_wavefront import render_wavefront
 
-    tier = resolve_tier(scene, tier)
-    packed = (pack_scene_stream(scene) if tier == "stream"
-              else pack_scene(scene))
-    light_tab = _light_table(scene)
+    with span("pt.setup"):
+        tier = resolve_tier(scene, tier)
+        packed = (pack_scene_stream(scene) if tier == "stream"
+                  else pack_scene(scene))
+        light_tab = _light_table(scene)
     if tier == "mega":
-        return render_wavefront(packed, light_tab, cam, px, py, spp, cfg,
-                                key, start, total)
+        with span("pt.megakernel"):
+            return render_wavefront(packed, light_tab, cam, px, py, spp, cfg,
+                                    key, start, total)
     draw = rng.uniform_rows_plain if tier == "plain" else rng.uniform_rows
     return wavefront_loop(packed, light_tab, cam, cfg, px, py, spp, key,
                           start, total, _step_fn(tier, scene.has_textures),
@@ -257,7 +260,9 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
     ``counts`` (``cuda_wavefront.new_counts``), if given, gains the
     megakernel's paths, their draws, ``pixel_warp_slots`` and
     ``iteration_keys``; the step counts the rest (its active lanes as
-    ``iterations``)."""
+    ``iterations``).  Under a profiler each iteration is a ``pt.bounce``
+    span and ``counters`` gains its live lanes (``pt.live_lanes``) and its
+    lanes (``pt.lane_slots``)."""
     dev = px.device
     B = px.shape[0]
     f32 = dict(device=dev, dtype=torch.float32)
@@ -279,54 +284,63 @@ def wavefront_loop(packed: PackedScene, light_tab: torch.Tensor,
     max_total = spp * cfg.max_eye_iters + cfg.max_eye_iters
     lane_iters = torch.zeros(B, dtype=torch.int64, device=dev)
     it = 0
-    # one host sync per iteration: stop once no lane is alive or owes samples
-    while it < max_total and bool(torch.any(alive | (sample < spp))):
-        u = draw(rng.iter_key(key, it), B, 8, start, total, device=dev)
+    while it < max_total:
+        # the one host read an iteration: the lanes this step works on
+        # (those alive or owing samples, alive once regenerated); none left
+        # ends the render
+        with span("sync.pt_loop"):
+            n = int((alive | (sample < spp)).sum())
+        if n == 0:
+            break
+        count("pt.live_lanes", n)
+        count("pt.lane_slots", B)
+        with span("pt.bounce"):
+            u = draw(rng.iter_key(key, it), B, 8, start, total, device=dev)
 
-        # ---- regenerate dead lanes that still owe samples ----
-        regen = ~alive & (sample < spp)
-        r3 = regen[:, None]
-        rd_new = primary_ray_dirs(cam, px, py, u[6], u[7])
-        ro = torch.where(r3, eye, ro)
-        rd = torch.where(r3, rd_new, rd)
-        tp = torch.where(r3, torch.ones_like(tp), tp)
-        radiance = torch.where(r3, torch.zeros_like(radiance), radiance)
-        eta = torch.where(regen, torch.ones_like(eta), eta)
-        depth = torch.where(regen, torch.zeros_like(depth), depth)
-        path_it = torch.where(regen, torch.zeros_like(path_it), path_it)
-        last_delta = last_delta | regen
-        last_pdf = torch.where(regen, torch.ones_like(last_pdf), last_pdf)
-        sample = sample + regen.to(torch.int32)
-        alive = alive | regen
-        if counts is not None:
-            # a fold_in an iteration and two jitter draws a path
-            lane_iters += alive
-            counts["samples"] += int(regen.sum())
-            counts["draws"] += int(alive.sum()) + 2 * int(regen.sum())
-            counts["iteration_keys"] += 1
+            # ---- regenerate dead lanes that still owe samples ----
+            regen = ~alive & (sample < spp)
+            r3 = regen[:, None]
+            rd_new = primary_ray_dirs(cam, px, py, u[6], u[7])
+            ro = torch.where(r3, eye, ro)
+            rd = torch.where(r3, rd_new, rd)
+            tp = torch.where(r3, torch.ones_like(tp), tp)
+            radiance = torch.where(r3, torch.zeros_like(radiance), radiance)
+            eta = torch.where(regen, torch.ones_like(eta), eta)
+            depth = torch.where(regen, torch.zeros_like(depth), depth)
+            path_it = torch.where(regen, torch.zeros_like(path_it), path_it)
+            last_delta = last_delta | regen
+            last_pdf = torch.where(regen, torch.ones_like(last_pdf), last_pdf)
+            sample = sample + regen.to(torch.int32)
+            alive = alive | regen
+            if counts is not None:
+                # a fold_in an iteration and two jitter draws a path
+                lane_iters += alive
+                counts["samples"] += int(regen.sum())
+                counts["draws"] += int(alive.sum()) + 2 * int(regen.sum())
+                counts["iteration_keys"] += 1
 
-        out = step(packed, light_tab, ro, rd, tp, eta, depth, alive,
-                   last_delta, last_pdf, u, clamp_val=cfg.clamp,
-                   stub_mis=cfg.pt_stub_mis_strategy_a,
-                   dielectrics_block=cfg.shadow_dielectrics_block)
-        radiance = radiance + out["radiance"]
-        alive_out = out["alive"] & (out["last_is_delta"]
-                                    | (out["depth"] < cfg.eye_depth))
-        path_it = torch.where(alive, path_it + 1, path_it)
-        alive_out = alive_out & (path_it < cfg.max_eye_iters)
+            out = step(packed, light_tab, ro, rd, tp, eta, depth, alive,
+                       last_delta, last_pdf, u, clamp_val=cfg.clamp,
+                       stub_mis=cfg.pt_stub_mis_strategy_a,
+                       dielectrics_block=cfg.shadow_dielectrics_block)
+            radiance = radiance + out["radiance"]
+            alive_out = out["alive"] & (out["last_is_delta"]
+                                        | (out["depth"] < cfg.eye_depth))
+            path_it = torch.where(alive, path_it + 1, path_it)
+            alive_out = alive_out & (path_it < cfg.max_eye_iters)
 
-        # ---- flush the paths that ended this iteration ----
-        died = (alive & ~alive_out)[:, None]
-        final = torch.where(is_valid_color(radiance)[:, None], radiance,
-                            torch.zeros_like(radiance))
-        image = image + torch.where(died, final, torch.zeros_like(final))
-        radiance = torch.where(died, torch.zeros_like(radiance), radiance)
+            # ---- flush the paths that ended this iteration ----
+            died = (alive & ~alive_out)[:, None]
+            final = torch.where(is_valid_color(radiance)[:, None], radiance,
+                                torch.zeros_like(radiance))
+            image = image + torch.where(died, final, torch.zeros_like(final))
+            radiance = torch.where(died, torch.zeros_like(radiance), radiance)
 
-        ro, rd, tp = out["ro"], out["rd"], out["tp"]
-        eta, depth = out["eta"], out["depth"]
-        alive, last_delta = alive_out, out["last_is_delta"]
-        last_pdf = out["last_pdf"]
-        it += 1
+            ro, rd, tp = out["ro"], out["rd"], out["tp"]
+            eta, depth = out["eta"], out["depth"]
+            alive, last_delta = alive_out, out["last_is_delta"]
+            last_pdf = out["last_pdf"]
+            it += 1
 
     if counts is not None and B:
         warps = torch.nn.functional.pad(lane_iters, (0, -B % 32))
@@ -342,7 +356,10 @@ def render_pt(scene: Scene, cam: Camera, width: int, height: int, spp: int,
               cfg: RenderConfig, key, tier: str = "auto") -> torch.Tensor:
     """One PT frame: mean radiance over ``spp`` paths per pixel, (H*W, 3),
     on the scene's device."""
-    B = width * height
-    idx = torch.arange(B, dtype=torch.int32, device=scene.device)
-    return wavefront_pt(scene, cam, cfg, idx % width, idx // width, spp, key,
-                        tier=tier) / spp
+    with span("pt.frame"):
+        with span("pt.setup"):
+            idx = torch.arange(width * height, dtype=torch.int32,
+                               device=scene.device)
+            px, py = idx % width, idx // width
+        return wavefront_pt(scene, cam, cfg, px, py, spp, key,
+                            tier=tier) / spp

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..profiling import span
 from ..scene.types import Material
 from .frame import (abs_cos_theta, build_local_frame, cos2_theta, cos_theta,
                     local_to_world, world_to_local)
@@ -174,8 +175,9 @@ def bsdf_sample(mtl: Material, wo_w, n, u_rr, u1, u2,
     diff_wi = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
                            torch.sqrt(torch.clamp(1.0 - u1, min=0.0))],
                           dim=-1)
-    flip = torch.tensor([1.0, 1.0, -1.0], dtype=diff_wi.dtype,
-                        device=diff_wi.device)
+    with span("sync.bsdf_flip"):
+        flip = torch.tensor([1.0, 1.0, -1.0], dtype=diff_wi.dtype,
+                            device=diff_wi.device)
     diff_wi = _where((wo[..., 2] < 0.0)[..., None], diff_wi * flip, diff_wi)
 
     take_spec = u_rr < spec_weight

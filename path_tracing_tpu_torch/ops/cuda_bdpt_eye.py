@@ -35,7 +35,8 @@ import torch
 
 from . import _kernels
 from .cuda_connect import check_table, counts_buffer, read_counts
-from .cuda_intersect import PackedScene, check_tables, check_tensor, table_args
+from .cuda_intersect import (PackedScene, camera_table, check_tables,
+                             check_tensor, table_args)
 from . import rng
 
 TILE_LANES = 128 * 128
@@ -100,8 +101,7 @@ def _launch(name, packed, lv_tab, n_valid, cam, px, py, spp, cfg, key,
         raise ValueError(f"bdpt_eye: {lv_tab.shape[0]} tile tables for "
                          f"{eye_tiling(B)[0]} tiles of {TILE_LANES} pixels")
     check_tables(packed, px.device)
-    cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).to(
-        device=px.device, dtype=torch.float32).contiguous()
+    cam_tab = camera_table(cam, px.device)
     out = torch.empty((B, 3), device=px.device)
     counted = name.endswith("_counts")
     buf = counts_buffer(px.device) if counted else None

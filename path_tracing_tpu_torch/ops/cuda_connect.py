@@ -44,6 +44,7 @@ import ctypes
 
 import torch
 
+from ..profiling import span
 from ..scene.types import Material
 from . import _kernels
 from .bsdf import _eval_local, _half_vector, _pdf_local
@@ -323,8 +324,9 @@ def sample_rows(draw, key, B: int, M: int, n_valid: int, start: int = 0,
     nv = max(n_valid, 1)
     u = draw(key, B, M, start, total, device=device)
     j = torch.arange(M, dtype=torch.float32, device=u.device)[:, None]
-    step = (torch.tensor(float(nv), dtype=torch.float32, device=u.device)
-            / float(M))
+    with span("sync.bdpt_conn_step"):
+        step = torch.tensor(float(nv), dtype=torch.float32, device=u.device)
+    step = step / float(M)
     v = torch.clamp(((j + u) * step).to(torch.int32), max=nv - 1)
     return v.t().contiguous()
 

@@ -56,6 +56,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..profiling import span
 from ..scene.types import Scene
 from . import _kernels
 from .intersect import INF, SHADOW_EPS, mt_core, sphere_ts, triangle_ts
@@ -673,6 +674,17 @@ def check_tables(packed: PackedScene, device):
     for nm, x in (("cl", packed.cl), ("sup", packed.sup)):
         if x.data_ptr() % 16:   # the slab test reads a box as two float4
             raise ValueError(f"{nm}: rows must start 16-byte aligned")
+
+
+def camera_table(cam, device) -> torch.Tensor:
+    """The (12,) float32 table of the kernels that cast primary rays: eye,
+    ul, dx, dy on ``device``.  A camera on the host makes it a blocking copy
+    to the card (``sync.cam_tab``)."""
+    tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy])
+    if tab.device == device:
+        return tab.to(dtype=torch.float32).contiguous()
+    with span("sync.cam_tab"):
+        return tab.to(device=device, dtype=torch.float32).contiguous()
 
 
 def table_args(packed: PackedScene):

@@ -49,6 +49,7 @@ from .cuda_intersect import check_tensor
 from .frame import build_local_frame, world_to_local
 from .math3 import dot, is_valid_color
 from .microfacet import roughness_to_alpha
+from ..profiling import span
 from ..scene.types import Material
 
 G = 200            # cells per axis in the key domain (G^3 < 2^23)
@@ -76,8 +77,9 @@ def _cell_size(scene, cfg) -> torch.Tensor:
     cell no smaller than the radius keeps the search ball inside the 27
     neighbours)."""
     ext = torch.max(scene.scene_max - scene.scene_min)
-    return torch.maximum(torch.tensor(float(cfg.ppm_radius),
-                                      device=ext.device), ext / (G - 4))
+    with span("sync.ppm_cell_radius"):
+        radius = torch.tensor(float(cfg.ppm_radius), device=ext.device)
+    return torch.maximum(radius, ext / (G - 4))
 
 
 def _keys(pos: torch.Tensor, origin: torch.Tensor, cell: torch.Tensor
@@ -198,8 +200,10 @@ def prepare(scene, cfg, hp, events, r2_scale=1.0,
     rank = torch.cumsum(starts.long(), 0) - 1
     gathered = real & (rank < cmax)
     hp_cell = torch.where(gathered, rank, torch.full_like(rank, -1))
-    cell_keys = shkey[starts][:cmax]
-    offs = torch.tensor(OFFS, dtype=torch.int64, device=dev)
+    with span("sync.ppm_cell_keys"):
+        cell_keys = shkey[starts][:cmax]
+    with span("sync.ppm_offs"):
+        offs = torch.tensor(OFFS, dtype=torch.int64, device=dev)
     qlo = cell_keys[:, None] + offs[None, :] - 1                 # (C, 9)
     lo = torch.searchsorted(skey, qlo, side="left")
     hi = torch.searchsorted(skey, qlo + 2, side="right")
@@ -364,12 +368,16 @@ def gather_flux(scene, cfg, hp, events, r2_scale=1.0,
     the hitpoints past the ``max_cells`` (default ``cfg.ppm_max_cells``)
     occupied cells plus the valid events past ``cfg.ppm_event_cap_frac``;
     0 means the gather covered everything."""
-    t = prepare(scene, cfg, hp, events, r2_scale, max_cells)
-    return (*join(t), t.overflow)
+    with span("ppm.gather_prepare"):
+        t = prepare(scene, cfg, hp, events, r2_scale, max_cells)
+    with span("ppm.gather"):
+        return (*join(t), t.overflow)
 
 
 def gather_flux_plain(scene, cfg, hp, events, r2_scale=1.0,
                       max_cells: int | None = None):
     """``gather_flux`` with the plain join on any device."""
-    t = prepare(scene, cfg, hp, events, r2_scale, max_cells)
-    return (*join_plain(t), t.overflow)
+    with span("ppm.gather_prepare"):
+        t = prepare(scene, cfg, hp, events, r2_scale, max_cells)
+    with span("ppm.gather"):
+        return (*join_plain(t), t.overflow)

@@ -49,6 +49,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..profiling import span
 from ..scene.types import Scene
 from . import _kernels
 from .cuda_intersect import (SENTINEL, SUB, SUPER,
@@ -144,8 +145,9 @@ def stream_layout(scene: Scene) -> dict:
         0, blk_id, vmin, "amin", include_self=True)
     bmax = torch.full((NB, 3), -SENTINEL, **f32).scatter_reduce(
         0, blk_id, vmax, "amax", include_self=True)
-    empty = torch.tensor([SENTINEL] * 3 + [-SENTINEL] * 3 + [0.0, 0.0],
-                         **f32).expand((-NB) % SUB, BLK_COLS)
+    with span("sync.stream_empty_block"):
+        empty = torch.tensor([SENTINEL] * 3 + [-SENTINEL] * 3 + [0.0, 0.0],
+                             **f32).expand((-NB) % SUB, BLK_COLS)
     blk = torch.cat([torch.cat([bmin, bmax, torch.zeros((NB, 2), **f32)], 1),
                      empty], 0)
 

@@ -32,7 +32,8 @@ import torch
 
 from . import _kernels, rng
 from .cuda_connect import COUNT_NAMES as _WALK_NAMES
-from .cuda_intersect import PackedScene, check_tables, check_tensor, table_args
+from .cuda_intersect import (PackedScene, camera_table, check_tables,
+                             check_tensor, table_args)
 from .cuda_shade import LIGHT_COLS, shade_step_plain
 
 # The counting build's counters: those of the BDPT kernels
@@ -115,8 +116,7 @@ def _launch(name, packed, light_tab, cam, px, py, spp, cfg, key, start,
     check_tensor("py", py, (B,), torch.int32)
     check_tensor("light_tab", light_tab, (packed.nl, LIGHT_COLS))
     check_tables(packed, px.device)
-    cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).to(
-        device=px.device, dtype=torch.float32).contiguous()
+    cam_tab = camera_table(cam, px.device)
     out = torch.empty((B, 3), device=px.device)
     work = torch.zeros(1, dtype=torch.int32, device=px.device)
     counted = name.endswith("_counts")

@@ -3,15 +3,26 @@ from __future__ import annotations
 
 import torch
 
+from ..profiling import span
+
+
+def _like(eta, x: torch.Tensor) -> torch.Tensor:
+    """``eta`` as ``x``'s dtype on its device, broadcast to its shape; a
+    number or a tensor on another device is a blocking copy there
+    (``sync.fresnel_eta``)."""
+    if isinstance(eta, torch.Tensor) and eta.device == x.device:
+        return eta.to(x.dtype).expand_as(x)
+    with span("sync.fresnel_eta"):
+        return torch.as_tensor(eta, dtype=x.dtype,
+                               device=x.device).expand_as(x)
+
 
 def fr_dielectric(cos_theta_i: torch.Tensor, eta_i, eta_t) -> torch.Tensor:
     """Unpolarized dielectric reflectance; swaps the media when exiting
     (cos < 0) and returns 1 on total internal reflection."""
     cos_i = torch.clamp(cos_theta_i, -1.0, 1.0)
-    eta_i = torch.as_tensor(eta_i, dtype=cos_i.dtype,
-                            device=cos_i.device).expand_as(cos_i)
-    eta_t = torch.as_tensor(eta_t, dtype=cos_i.dtype,
-                            device=cos_i.device).expand_as(cos_i)
+    eta_i = _like(eta_i, cos_i)
+    eta_t = _like(eta_t, cos_i)
     entering = cos_i > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)

@@ -5,9 +5,12 @@
 
 Renders once untraced (warm-up: kernel build and load, allocator), then
 once under the profiler, and prints the device time by kernel or op
-(``key_averages``, sorted by device time), the render's wall time and the
-device's busy time (kernels and copies over the traced call, which also
-holds the image's copy to the host), and writes the timeline as a Chrome
+(``key_averages``, sorted by device time; the integrators' spans there
+carry the device time of the kernels under them), the same spans by host
+time (each frame's phases and the ``sync.*`` host waits on the card,
+``profiling.span``), the render's wall time and the device's busy time
+(kernels and copies over the traced call, which also holds the image's
+copy to the host), and writes the timeline, spans included, as a Chrome
 trace to ``build/profile_cli/trace.json`` (``profiling.maybe_trace``).
 Needs a CUDA card; the arguments are ``cli.py``'s, with ``--device cuda``
 and an output under the build directory unless given.
@@ -22,6 +25,9 @@ import torch
 from . import cli
 from .ops._kernels import BUILD_DIR
 from .profiling import TRACE_FILE, maybe_trace
+
+# the names of the integrators' spans begin with these
+SPAN_PREFIXES = ("pt.", "bdpt.", "ppm.", "sync.")
 
 
 def main(argv=None) -> int:
@@ -44,8 +50,16 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=25))
+    print("[profile] the integrators' spans, host ms over the traced call:")
+    for e in sorted((e for e in events if e.key.startswith(SPAN_PREFIXES)
+                     and e.device_type == DeviceType.CPU),
+                    key=lambda e: -e.cpu_time_total):
+        print(f"  {e.key:<26} {e.count:>6} calls "
+              f"{e.cpu_time_total / 1e3:>10.3f} ms")
+    # a span's device row is the time of the kernels under it, not work
     busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA)
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith(SPAN_PREFIXES))
     print(f"[profile] {res['tier']} tier: render {res['seconds'] * 1e3:.3f}"
           f" ms wall, device busy {busy_us / 1e3:.3f} ms over the traced "
           f"call of {wall * 1e3:.3f} ms; trace {trace_dir / TRACE_FILE}")

@@ -4,6 +4,15 @@
 first when it renders there, and writes one JSON row per phase;
 ``maybe_trace`` records a ``torch.profiler`` trace of a block and writes
 it as a Chrome trace (``chrome://tracing``, Perfetto).
+
+``span`` and ``count`` mark the integrators' frames from inside: each
+frame's phases (``pt.frame``, ``bdpt.frame``, ``ppm.pass`` and their
+children) and every point where the host waits on the card
+(``sync.<site>``) are ``record_function`` spans, so they land in the same
+trace as the card's kernels, on the same clock; ``counters`` sums what
+``count`` is given.  Both act only while a ``torch.profiler`` runs (the
+benchmark's traced runs, ``cli --profile``, ``profile_cli``); otherwise
+each costs one read of the profiler's flag.
 """
 from __future__ import annotations
 
@@ -14,7 +23,31 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
 TRACE_FILE = "trace.json"
+# what ``count`` added while a profiler ran, by name
+counters: dict = {}
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the block as ``name`` in the running
+    ``torch.profiler``'s trace, or does nothing when none runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counters[name]`` while a profiler runs."""
+    if _autograd_profiler._is_profiler_enabled:
+        counters[name] = counters.get(name, 0) + n
+
+
+def reset_counters() -> None:
+    counters.clear()
 
 
 @dataclass

@@ -1116,3 +1116,122 @@ def test_photon_trace_tex_matches_plain(card):
     assert torch.equal(valid, valid_p) and int(valid[1 << 14:].sum()) > 0
     close = torch.isclose(ev[valid], ev_p[valid], rtol=1e-5, atol=1e-6)
     assert close.all(dim=1).float().mean().item() >= 0.9999
+
+
+# ---- the integrators' spans on the card's clock ----------------------------
+
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def _traced(fn, tmp_path):
+    """Run ``fn`` once untraced (warm-up), then under ``torch.profiler`` with
+    the card's activity: the Chrome trace's complete events."""
+    import json
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X" and "dur" in e]
+
+
+def _interval(e):
+    return e["ts"], e["ts"] + e["dur"], e.get("tid")
+
+
+def _within(e, outer):
+    a, b, tid = _interval(e)
+    oa, ob, otid = _interval(outer)
+    return tid == otid and oa <= a and b <= ob
+
+
+def _host_waits(events):
+    """The runtime calls in which the host waits on the card: synchronises
+    and copies to the host (by their copy's correlation)."""
+    to_host = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]}
+    return [e for e in events if e.get("cat") == "cuda_runtime" and (
+        e["name"] in HOST_WAITS or (e["name"].startswith("cudaMemcpy")
+                                    and e["args"].get("correlation")
+                                    in to_host))]
+
+
+@pytest.mark.parametrize("mode", ["ppm", "bdpt", "pt"])
+def test_every_host_wait_in_a_frame_lies_under_a_sync_span(card, mode,
+                                                           tmp_path):
+    """A traced cornell PPM pass (128x72, 65,536 photons), BDPT frame
+    (128x72 spp 2, K 32) and PT frame of the per-bounce fused tier (128x72
+    spp 2): each ``cudaStreamSynchronize`` (or device-wide synchronise) and
+    copy to the host inside the frame's span lies within a ``sync.*``
+    span, and the frame has some."""
+    from path_tracing_tpu_torch.integrators import bdpt, ppm
+
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    w, h = 128, 72
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    key = rng.prng_key(3)
+    if mode == "ppm":
+        cfg = RenderConfig(width=w, height=h, spl=16384)
+        frame_name = "ppm.pass"
+
+        def fn():
+            ppm.render_ppm_with_stats(scene, cam, w, h, 16384, cfg, key)
+    elif mode == "bdpt":
+        cfg = RenderConfig(width=w, height=h, spp=2, spl=4,
+                           bdpt_resample_vertices=32)
+        frame_name = "bdpt.frame"
+
+        def fn():
+            bdpt.render_bdpt(scene, cam, w, h, 2, 4, cfg, key)
+    else:
+        cfg = RenderConfig(width=w, height=h, spp=2)
+        frame_name = "pt.frame"
+
+        def fn():
+            render_pt(scene, cam, w, h, 2, cfg, key, tier="fused")
+    events = _traced(fn, tmp_path)
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    frames = [e for e in ann if e["name"] == frame_name]
+    syncs = [e for e in ann if e["name"].startswith("sync.")]
+    assert len(frames) == 1 and syncs
+    waits = [e for e in _host_waits(events) if _within(e, frames[0])]
+    assert waits
+    # each wait outside a sync span, with the innermost span around it
+    loose = [(e["name"], max(((a["ts"], a["name"]) for a in ann
+                              if _within(e, a)), default=(0, None))[1])
+             for e in waits if not any(_within(e, s) for s in syncs)]
+    assert not loose, loose
+
+
+def test_megakernel_span_encloses_its_launch_on_one_clock(card, tmp_path):
+    """A traced 1080p cornell PT frame (mega): a ``pt.megakernel`` span
+    encloses the launch of ``render_wavefront_kernel``, and the kernel
+    starts on the card after the span started (host and device events on
+    the trace's one clock)."""
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    w, h = 1920, 1080
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, spp=4)
+    events = _traced(lambda: render_pt(scene, cam, w, h, 4, cfg,
+                                       rng.prng_key(5)), tmp_path)
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "pt.megakernel"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "render_wavefront_kernel" in e["name"]]
+    assert len(spans) == 1 and len(kernels) == 1
+    corr = kernels[0]["args"]["correlation"]
+    launch = [e for e in events if e.get("cat") == "cuda_runtime"
+              and e["args"].get("correlation") == corr]
+    assert len(launch) == 1 and _within(launch[0], spans[0])
+    assert kernels[0]["ts"] > spans[0]["ts"]
