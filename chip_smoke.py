@@ -13,7 +13,7 @@ Phases, each raising on failure:
    bytes) of each BDPT kernel, for #9 on cornell against the main path's
    K = 32 tables and the exact table, for #8 against the exact table (its
    path's), and of #1, #2, #3, #5, #10 and #11 and their counting
-   builds.
+   builds, and of ``ppm_eye``.
 3. Kernels against their plain PyTorch versions at the main path's lane
    count (1920x1080 = 2,073,600), with their times (CUDA events):
    ``threefry_rows`` bit for bit; ``nearest_hit``, ``any_blocker`` (both
@@ -43,9 +43,11 @@ Phases, each raising on failure:
    (against one thread a pixel, from the plain counts) and #5's bound
    from the plain counts.  Then #1 at the shapes its main paths launch it
    on, recorded from the integrators' own calls: every launch of the PPM
-   eye pass (262,144 lanes, its alive lanes live), each bit-equal to its
-   plain version on every lane and timed device-only, and the first
-   launch of the BDPT light trace.
+   eye loop as it ran before ``ppm_eye`` (``ppm_eye_plain`` on #1; 262,144
+   lanes, its alive lanes live), each bit-equal to its plain version on
+   every lane and timed device-only, with ``ppm_eye``'s outputs bit-equal
+   to the loop's on every pixel, and the first launch of the BDPT light
+   trace.
 4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
    the default tier (auto, which is the megakernel: the main path), the
    fused tier (one ``shade_step`` per bounce) and the split tier (the
@@ -123,7 +125,12 @@ Phases, each raising on failure:
 8. PPM kernels against their plain versions on cornell at the main path's
    shape, the CLI's first 512x512 PPM pass (4 lights x 262,144 = 1,048,576
    photons, eye and light depth 4, seed 0), built by the integrator's own
-   functions: ``photon_trace`` on the pass's emission (valid flags equal and
+   functions: ``ppm_eye`` (the pass's eye pass) bit-equal to the eye loop
+   on #1 and ``threefry_rows`` (``ppm_eye_plain``, the pass before the
+   kernel) on every pixel, timed device-only (graph replay) and with the
+   host's enqueue, its bound from the loop's counts of its work on the
+   plain nearest hit (walk tests, chain links, delta samples, draws);
+   ``photon_trace`` on the pass's emission (valid flags equal and
    every field within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows; the share
    of bit-equal rows is printed), its counting build
    (``photon_trace_counts``: events bit-equal to #10's, its counters
@@ -148,8 +155,8 @@ Phases, each raising on failure:
 9. PPM through the CLI on cornell at 512x512, 262,144 photons a light, 10
    passes (the main path): one pass first, whose image must equal phase 8's
    on >= 99.9% of pixels, then the 10 passes with their launches counted:
-   ``photon_trace`` and ``gather_flux`` once a pass, the eye pass's
-   ``nearest_hit`` and ``threefry_rows``, no plain version.
+   ``ppm_eye``, ``photon_trace`` and ``gather_flux`` once a pass, no
+   ``nearest_hit`` and no plain version.
 10. The mesh kernels on a 327,680-triangle textured icosphere, written as
    OBJ + MTL + PNG (the write and the parse timed): on the lanes of the
    stream tier's first two iterations of the CLI's 1080p frame (2,073,600
@@ -207,15 +214,15 @@ Phases, each raising on failure:
    the path #6's and #7's launches are counted on) and auto on the
    untextured enclosed scene written as a text scene (#5 alone; its image
    equal to the in-process mega image on >= 99.9%).
-12. PPM on the enclosed scene: the eye pass's #1 launches of the first
-   512x512 pass, recorded from the integrator, each against its plain
+12. PPM on the enclosed scene: the eye loop's #1 launches of the first
+   512x512 pass (``ppm_eye_plain`` on #1), each against its plain
    version bit for bit on a strided subset of at most 16,384 of its live
    lanes (the plain version is a brute force over 327,716 triangles) and
    timed device-only; #10 (its super-walk instance) against its plain
    version on the pass's first 4,096 photons (valid flags equal and
    fields within rtol 1e-5 / atol 1e-6 on >= 99.99% of rows) and timed on
    the whole pass; then through the CLI's auto at 512x512, 3 passes of 4 x
-   262,144 photons (#1, ``threefry_rows``, #10 and #11, no plain version),
+   262,144 photons (``ppm_eye``, #10 and #11, no plain version),
    with ms a pass and Mphotons/s.
 13. BDPT on the enclosed scene: #9 against its plain version at 32x18
    spp 1 on its tile-RIS K = 32 tables (phase 6's bars), then through the
@@ -290,11 +297,11 @@ versions' counts of their algorithm's work in this run, which the
 counting builds' counters (``counts``, with ``simt`` and ``occupancy``)
 must equal; #6 and #7 also carry the lane count of their plain time,
 their time on unsorted rays and their per-bounce times, #4 its plain
-time's lane count, #1 its times at the PPM eye pass's and the BDPT light
+time's lane count, #1 its times at the PPM eye loop's and the BDPT light
 trace's first launch and on the big mesh's first bounce (``big_mesh``),
 its device time on each launch of the split frame (``per_launch``, summed
 in ``split_ms``) and of the BDPT fused exact frame (``bdpt_fused``) and
-on each of the PPM eye pass's (``ppm_eye``), #2 on each of the split
+on each of the PPM eye loop's (``ppm_eye``), #2 on each of the split
 frame's, #3 its time on each bounce of the fused frame (recorded, then
 timed one by one) and #8 on each launch of the fused exact frame (``per_launch``),
 #8 the oracle's wall times and launches (``oracle``),
@@ -310,8 +317,11 @@ evaluations and pdfs).  The counting builds of #1-#7, #10 and #11
 own, their launches counted over their 1080p / main-pass / first-bounce
 call.  ``transmittance_rgb``, ``connect_rgb`` and ``connect_sampled``
 carry their time on each launch of their frame (``per_launch``, summed in
-``split_ms``), ``photon_trace_tex`` its whole pass (``pass_ms``).  The BDPT kernels' ``simt`` has the share of a sweep's lanes that
-sweep a vertex (``sweep``).
+``split_ms``), ``photon_trace_tex`` its whole pass (``pass_ms``),
+``ppm_eye`` (which replaces no TPU kernel: ``replaces`` names the XLA
+loop) its time with the host's enqueue (``host_ms``).  The BDPT
+kernels' ``simt`` has the share of a sweep's lanes that sweep a vertex
+(``sweep``).
 The last line is ``{"ok": true,
 "device": {...}}``.  Renders and the OBJ scenes are
 written under
@@ -364,6 +374,7 @@ REPLACES = {
     "connect_rgb": "path_tracing_tpu/ops/pallas_connect.py:258",
     "connect_sampled": "path_tracing_tpu/ops/pallas_connect.py:258",
     "photon_trace_tex": "path_tracing_tpu/ops/pallas_photon.py:177",
+    "ppm_eye": "none: the XLA loop path_tracing_tpu/integrators/ppm.py:114",
 }
 for _k in ("nearest_hit", "any_blocker", "render_wavefront", "shade_step",
            "shade_step_tex", "photon_trace", "gather_flux",
@@ -372,7 +383,7 @@ for _k in ("nearest_hit", "any_blocker", "render_wavefront", "shade_step",
 SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "connect_rgb": BDPT_SOURCE, "connect_sampled": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
-           "photon_trace_tex": PPM_SOURCE,
+           "photon_trace_tex": PPM_SOURCE, "ppm_eye": PPM_SOURCE,
            "photon_trace_counts": PPM_SOURCE,
            "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
@@ -385,7 +396,7 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
                "threefry_rows", "connect", "bdpt_eye", "photon_trace",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
-               "onehot_fetch", "transmittance_rgb")
+               "onehot_fetch", "transmittance_rgb", "ppm_eye")
 # the kernels with a counting build (their *_counts entries)
 COUNTED = ("nearest_hit_uv", "nearest_hit", "any_blocker", "connect",
            "bdpt_eye", "render_wavefront", "shade_step", "shade_step_tex",
@@ -400,7 +411,7 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "shade_step": "fused", "shade_step_tex": "textured",
                "render_wavefront": "mega", "threefry_rows": "textured",
                "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega",
-               "photon_trace": "ppm", "gather_flux": "ppm",
+               "photon_trace": "ppm", "gather_flux": "ppm", "ppm_eye": "ppm",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
                "nearest_hit_counts": "hit_counting",
@@ -424,13 +435,13 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "bdpt_exact": ("bdpt_eye",) + BDPT_LIGHT,
                 "bdpt_fused": ("connect",) + BDPT_LIGHT,
                 "oracle": ("connect",) + BDPT_LIGHT,
-                "ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                "ppm": ("ppm_eye", "photon_trace", "gather_flux",
                         "threefry_rows"),
                 "stream": ("nearest_hit_stream", "any_blocker_stream",
                            "threefry_rows"),
                 "big_tex": ("shade_step_tex", "threefry_rows"),
                 "big_mega": ("render_wavefront",),
-                "big_ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                "big_ppm": ("ppm_eye", "photon_trace", "gather_flux",
                             "threefry_rows"),
                 "big_bdpt": ("bdpt_eye",) + BDPT_LIGHT,
                 "probe": ("onehot_fetch",),
@@ -446,13 +457,13 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "legacy_pt": ("nearest_hit", "transmittance_rgb",
                               "threefry_rows"),
                 "legacy_bdpt": ("connect_rgb",) + BDPT_LIGHT,
-                "legacy_ppm": ("photon_trace", "gather_flux", "nearest_hit",
+                "legacy_ppm": ("ppm_eye", "photon_trace", "gather_flux",
                                "threefry_rows"),
                 "sampled": ("connect_sampled",) + BDPT_LIGHT,
                 "tex_bdpt": ("connect",) + BDPT_LIGHT,
-                "tex_ppm": ("photon_trace_tex", "gather_flux", "nearest_hit",
+                "tex_ppm": ("ppm_eye_tex", "photon_trace_tex", "gather_flux",
                             "threefry_rows"),
-                "ppm_hash": ("photon_trace", "nearest_hit", "threefry_rows")}
+                "ppm_hash": ("ppm_eye", "photon_trace", "threefry_rows")}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS (the TPU's ceiling)
 # the enclosed scene: the icosphere at this radius on cornell's floor
@@ -534,6 +545,16 @@ def photon_ops(c: dict) -> int:
     its BSDF samples and their draws, and a fold_in per iteration any
     photon sampled in (its key is every photon's), not one per sample as
     the kernel draws it."""
+    return (c["hit_spheres"] * OPS["sphere"] + c["hit_boxes"] * OPS["box"]
+            + c["hit_tris"] * OPS["tri"] + c["bsdf_samples"] * OPS["sample"]
+            + (c["draws"] + c["iteration_keys"]) * OPS["draw"])
+
+
+def ppm_eye_ops(c: dict) -> int:
+    """``ppm_eye``'s counted operations (the eye loop's counts): its walks'
+    tests, a BSDF sample a delta link, its draws, and a fold_in per
+    iteration any pixel sampled in (its key is every pixel's), not one per
+    sample as the kernel draws it."""
     return (c["hit_spheres"] * OPS["sphere"] + c["hit_boxes"] * OPS["box"]
             + c["hit_tris"] * OPS["tri"] + c["bsdf_samples"] * OPS["sample"]
             + (c["draws"] + c["iteration_keys"]) * OPS["draw"])
@@ -678,7 +699,7 @@ def phase_occupancy() -> dict:
     cornell against the main path's K = 32 tables and the exact sweep's
     813 rows (streamed), #8's against the exact sweep's (the table resident
     in shared memory); then of #1, #2, #3, #5, #10 and #11 and their
-    counting builds."""
+    counting builds, and of ``ppm_eye``'s two instances."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
 
     occ = {}
@@ -695,12 +716,14 @@ def phase_occupancy() -> dict:
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as cpe
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
     from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
     for k, o in {**ci.occupancy(), **cs.occupancy(), **cw.occupancy(),
-                 **cp.occupancy(), **cg.occupancy()}.items():
+                 **cp.occupancy(), **cg.occupancy(),
+                 **cpe.occupancy()}.items():
         occ[k] = o
         print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
               f"{o['threads']} threads = {o['warps_per_sm']} warps an SM, "
@@ -1864,14 +1887,16 @@ def ppm_frame(scene, cam):
 
 
 def phase_ppm_kernels(parsed, counts: dict) -> tuple:
-    """#10 and #11 against their plain versions on the main path's first
-    pass, #11's counting build against the plain join's counts; returns the
-    kernels' results and the pass's image from the kernels' outputs, which
-    the main path's first pass must reproduce."""
+    """``ppm_eye``, #10 and #11 against their plain versions on the main
+    path's first pass, #11's counting build against the plain join's
+    counts; returns the kernels' results and the pass's image from the
+    kernels' outputs, which the main path's first pass must reproduce."""
     from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.kernel_times import graph_ms
     from path_tracing_tpu_torch.ops import _kernels
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
@@ -1884,6 +1909,33 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
     pk = ci.pack_scene(scene)
     P = emit[0].shape[0]
     targs = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
+
+    # ---- ppm_eye: the pass's eye pass against the loop it replaced ----
+    Bp = PPM_W * PPM_H
+    idx = torch.arange(Bp, dtype=torch.int32, device="cuda")
+    eargs = (pk, cam, cfg, idx % PPM_W, idx // PPM_W,
+             rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 1))
+    loop, eplain_ms = once_ms(lambda: ce.ppm_eye_plain(*eargs))
+    check(same_eye_pass((direct, hp), loop),
+          "ppm_eye differs from the eye loop on #1")
+    pc = ce.new_counts()
+    ce.ppm_eye_plain(*eargs, counts=pc)
+    # px, py read (8 bytes a pixel), the direct term and the hitpoint
+    # record written once (85), the scene's tables read once
+    bnd = bound(Bp * (8 + 85) + tables, ppm_eye_ops(pc))
+    ms = graph_ms(lambda: ce.ppm_eye(*eargs), 20)
+    print(f"[ppm] ppm_eye on {Bp} pixels: bit-equal to the eye loop on "
+          f"every pixel, {pc['deposits']} hitpoints; counts: {pc['links']} "
+          f"chain links ({pc['links'] / Bp:.4f} a pixel), "
+          f"{pc['bsdf_samples']} delta samples, {pc['draws']} draws, "
+          f"{pc['hit_tris']} triangle tests, {pc['hit_boxes']} box tests; "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / ms:.4f} of the kernel's {ms:.4f} ms "
+          "device-only")
+    results.append(dict(
+        name="ppm_eye", max_abs_err=0.0, ms=ms, plain_ms=eplain_ms,
+        host_ms=time_ms(lambda: ce.ppm_eye(*eargs), 10), counts=pc, **bnd))
 
     # ---- 10. photon_trace on the pass's photons ----
     ev, valid = cp.photon_trace(*targs)
@@ -1927,7 +1979,6 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
                   busy=kc["bounces"] / max(kc["warp_bounce_slots"], 1),
                   busy_one_thread_a_photon=pc["bounces"]
                   / max(pc["photon_warp_slots"], 1))
-    tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
     bnd = bound(P * 37 + tables + n_valid * 48 + ev.shape[0], photon_ops(pc))
     # the wrapper makes no device round trip (the pass's key lives on the
     # host), so its time is the kernel's plus the launch
@@ -1956,7 +2007,6 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
     flux, count = cg.join(t)
     pc = cg.new_counts()
     (flux_p, count_p), gplain_ms = once_ms(lambda: cg.join_plain(t, pc))
-    Bp = PPM_W * PPM_H
     same = (count == count_p).float().mean().item()
     close = share_close(flux, flux_p, 1e-4, 1e-6)
     mean, mean_p = flux.double().mean().item(), flux_p.double().mean().item()
@@ -2044,8 +2094,8 @@ def phase_ppm_render(counts: dict, pass0) -> None:
                   "ppm", extra + ["--iters", str(PPM_PASSES)])
     check(res["tier"] == "mega", f"auto picked {res['tier']} for PPM")
     c = counts["ppm"]
-    check(c["photon_trace"] == PPM_PASSES and c["gather_flux"] == PPM_PASSES,
-          f"PPM path launches {c}")
+    check(c["photon_trace"] == c["gather_flux"] == c["ppm_eye"] == PPM_PASSES
+          and c["nearest_hit"] == 0, f"PPM path launches {c}")
 
 
 def stream_lanes(scene, cam):
@@ -2258,18 +2308,28 @@ def per_bounce(st, lanes, res: dict) -> None:
               f"(mean {sum(r['ms'] for r in pb) / len(pb):.4f})")
 
 
+def same_eye_pass(a, b) -> bool:
+    """Two eye passes' outputs are equal bit for bit."""
+    from path_tracing_tpu_torch.ops.cuda_ppm_eye import eye_pass_bits
+
+    return torch.equal(eye_pass_bits(a), eye_pass_bits(b))
+
+
 def retime_nearest_hit(parsed, row: dict) -> None:
     """#1 at the shapes its main paths launch it on, recorded from the
-    integrators' own calls: every launch of the PPM eye pass (the first
-    512x512 pass of cornell, 262,144 rays), each held bit for bit against
-    its plain version and timed device-only (CUDA-graph replay), and the
+    integrators' own calls: every launch of the PPM eye loop on #1 (the
+    first 512x512 pass of cornell, 262,144 rays), each held bit for bit
+    against its plain version and timed device-only (CUDA-graph replay),
+    the ``ppm_eye`` kernel's outputs held bit for bit against the loop's,
+    and the
     first launch of the BDPT light trace (the 1080p frame's, spl 8); adds
     each first launch's time (device-only, and with the host's enqueue),
     lane count and bound to #1's row."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators import bdpt, ppm
+    from path_tracing_tpu_torch.integrators import bdpt
     from path_tracing_tpu_torch.kernel_times import graph_ms, record_launches
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
 
@@ -2282,13 +2342,17 @@ def retime_nearest_hit(parsed, row: dict) -> None:
                            eye_depth=4, light_depth=4)
     bdpt_cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
                             light_depth=4, bdpt_resample_vertices=RIS_K)
+    eye_args = (ci.pack_scene(scene), cam, ppm_cfg, idx % PPM_W,
+                idx // PPM_W, rng.fold_in(key, 1))
     for what, call in (
-            ("ppm_eye", lambda: ppm.ppm_eye_trace(
-                scene, cam, ppm_cfg, idx % PPM_W, idx // PPM_W,
-                rng.fold_in(key, 1))),
+            ("ppm_eye", lambda: ce.ppm_eye_plain(*eye_args)),
             ("bdpt_light", lambda: bdpt.light_side(scene, bdpt_cfg, SPL,
                                                    key))):
-        calls = record_launches(call)[1]["nearest_hit"]
+        res, rec = record_launches(call)
+        calls = rec["nearest_hit"]
+        if what == "ppm_eye":
+            check(same_eye_pass(ce.ppm_eye(*eye_args), res),
+                  "ppm_eye differs from the eye loop on #1")
         a = calls[0]
         pk, n = a[0], a[1].shape[0]
         row[what] = dict(
@@ -2670,8 +2734,9 @@ def phase_tier_decision(counts: dict, mesh, obj: str) -> tuple:
 
 
 def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
-    """PPM on the enclosed scene: the eye pass's #1 launches (recorded from
-    the integrator's own first 512x512 pass) held against the plain
+    """PPM on the enclosed scene: ``ppm_eye`` on the first 512x512 pass
+    held bit for bit against the eye loop on #1 (``ppm_eye_plain``), whose
+    #1 launches (recorded) are held against the plain
     nearest hit on their live lanes (at most ``EYE_HOLD_LANES`` a launch:
     the plain version is a brute force over 327,716 triangles), #10 (its
     ``kWalkSuper`` instance) against ``photon_trace_plain`` on the pass's
@@ -2681,15 +2746,22 @@ def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
     from path_tracing_tpu_torch.kernel_times import record_launches
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
+    from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
 
     parsed, scene = enclosed
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       PPM_W, PPM_H, device="cuda")
-    (cfg, _, _, emit, kp), rec = record_launches(lambda: ppm_frame(scene,
-                                                                   cam))
+    cfg, direct, hp, emit, kp = ppm_frame(scene, cam)
     pk = ci.pack_scene(scene)
     check(pk.n_super > 0, "the enclosed scene is not on the super walk")
+    idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
+    loop, rec = record_launches(lambda: ce.ppm_eye_plain(
+        pk, cam, cfg, idx % PPM_W, idx // PPM_W,
+        rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 1)))
+    check(same_eye_pass((direct, hp), loop),
+          "ppm_eye differs from the eye loop on #1 on the enclosed scene")
     eye = hold_launches("nearest_hit", rec["nearest_hit"],
                         "enclosed PPM eye pass", max_live=EYE_HOLD_LANES)
     P = emit[0].shape[0]
@@ -2718,8 +2790,8 @@ def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
     res = counted("big_ppm", txt, PPM_W, PPM_H, "auto", "enclosed_ppm_512",
                   counts, "ppm", extra)
     c = counts["big_ppm"]
-    check(res["tier"] == "mega" and c["photon_trace"] == BIG_PPM_PASSES
-          and c["gather_flux"] == BIG_PPM_PASSES,
+    check(res["tier"] == "mega" and c["photon_trace"] == c["gather_flux"]
+          == c["ppm_eye"] == BIG_PPM_PASSES,
           f"PPM on the enclosed scene: {res['tier']} tier, launches {c}")
     nonzero_share(res["image"], "enclosed PPM")
     return dict(per_launch=eye, ms=sum(r["ms"] for r in eye)), dict(
@@ -3249,7 +3321,7 @@ def shard_setup():
 SHARD_KERNELS = {"pt": ("render_wavefront",),
                  "bdpt_fused": ("connect",) + BDPT_LIGHT,
                  "bdpt_tile_ris": ("bdpt_eye",) + BDPT_LIGHT,
-                 "ppm": ("photon_trace", "gather_flux", "nearest_hit")}
+                 "ppm": ("ppm_eye", "photon_trace", "gather_flux")}
 
 
 def shard_rank(rank: int, world: int, port: int, backend: str,

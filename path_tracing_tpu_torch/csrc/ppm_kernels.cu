@@ -17,6 +17,14 @@
 // 11. gather_flux   replaces path_tracing_tpu/ops/pallas_ppm_gather.py
 //                   gather_flux_pallas (_gather_kernel): the exact join of
 //                   hitpoints and photon events over 27 neighbour cells.
+//     ppm_eye       replaces no TPU kernel: the JAX package runs the eye
+//                   pass as an XLA loop (path_tracing_tpu/integrators/
+//                   ppm.py ppm_eye_trace) around nearest_hit_pallas (#1).
+//                   Added because in PyTorch that loop is ~3,100 small
+//                   launches and 19 host reads a pass, and kept the card
+//                   idle four fifths of the pass: here the chase, its
+//                   Threefry draws and the hitpoint record are one launch.
+//                   ppm_eye_tex is its textured instance.
 //
 // #10: the design for this card.  Persistent blocks of kPhotonThreads fill
 // the card (as many an SM as cudaOccupancyMaxActiveBlocksPerMultiprocessor
@@ -87,6 +95,27 @@
 // the gates, the evaluations and the accepted pairs, the SIMT efficiency
 // of the pair test and the evaluation, and each warp's candidate pairs
 // (the largest against the mean: how far the densest cells set the pace).
+//
+// ppm_eye: the design for this card.  A pixel's delta chain (mirrors and
+// glass, up to max_eye_iters hits) runs in one thread, iteration for
+// iteration the pixel's lane of the PyTorch loop (ops/cuda_ppm_eye.py::
+// ppm_eye_plain): the jittered camera ray from rows 0-1 of
+// fold_in(key, 0x9E1), iteration it's draws rows 0-2 of
+// fold_in(fold_in(key, 0x9E2), it) at the pixel's lane, nearest_hit_dev
+// (#1's walk; the texel on a textured scene, as #10), and the BSDF sample
+// only on a delta surface (a rough one ends the chain with the hitpoint,
+// which needs no sample).  Each lane writes its direct term and hitpoint
+// record once, zeros where it has none, so the wrapper allocates with
+// torch.empty and the pass reads nothing back.  Under --fmad=false every
+// value rounds as the loop's PyTorch ops round it (the clamp's division
+// as Tensor.__rtruediv__ does: the reciprocal, then the product).
+// Bound on this card: operations (a walk per chain link and a BSDF sample
+// per delta link, against 85 bytes a pixel written once and 8 read).  One thread a pixel: most chains
+// end at the first hit (walls and the rough spheres), so the lanes of a
+// warp mostly run one link together.  #10's per-lane work stealing on
+// persistent blocks measured 8% slower on cornell's 512^2 pass (0.115
+// against 0.106 ms device-only, in turns) and 1% faster on the
+// 327,680-triangle textured icosphere's (PERF.md section 6).
 
 #include <algorithm>
 #include <type_traits>
@@ -243,6 +272,137 @@ int launch_photon(const Tables& tb, const float* ro, const float* rd, const floa
   const int blocks = std::min(resident, (P + kPhotonThreads - 1) / kPhotonThreads);
   photon_trace_kernel<kCount, kW, kTex><<<blocks, kPhotonThreads, 0, (cudaStream_t)stream>>>(
       tb, tx, ro, rd, flux, real, g, P, work, ev, valid, counts);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kEyeThreads = 128;
+constexpr int kEyeMinBlocks = 6;  // __launch_bounds__: at most 85 registers, as #10
+
+struct EyeCfg {
+  Key k_jit, k_it;        // fold_in(key, 0x9E1), fold_in(key, 0x9E2)
+  uint32_t start, total;  // pixel lane i is column start + i of a total-lane pass
+  int iters;              // max_eye_iters
+  float clamp;
+};
+
+// The pass's outputs: the direct term and the hitpoint record, (B, 3) or
+// (B,) each
+struct EyeOut {
+  float *direct, *pos, *normal, *wo, *bc, *rough, *metal, *eta, *tp;
+  bool* valid;
+};
+
+// A lane's chain: its pixel, ray, throughput, medium and iteration.
+struct EyeChain {
+  int i;
+  V3 ro, rd, tp;
+  float eta;
+  int it;
+};
+
+// ops/math3.py::clamp_radiance as PyTorch rounds it: max_val / m is
+// Tensor.__rtruediv__, m's reciprocal times max_val.
+__device__ __forceinline__ V3 clamp3_rdiv(V3 c, float mx) {
+  const float m = jmax(c.x, jmax(c.y, c.z));
+  return scale(c, m > mx ? (1.0f / m) * mx : 1.0f);
+}
+
+__device__ __forceinline__ void eye_write(const EyeOut& o, int i, V3 direct, bool deposit, V3 pos,
+                                          V3 n, V3 wo, const Mtl& m, V3 tp) {
+  const V3 z = mk(0.f, 0.f, 0.f);
+  store3(o.direct, i, direct);
+  store3(o.pos, i, deposit ? pos : z);
+  store3(o.normal, i, deposit ? n : z);
+  store3(o.wo, i, deposit ? wo : z);
+  store3(o.bc, i, deposit ? m.bc : z);
+  o.rough[i] = deposit ? m.rough : 0.f;
+  o.metal[i] = deposit ? m.metal : 0.f;
+  o.eta[i] = deposit ? m.eta : 0.f;
+  store3(o.tp, i, deposit ? tp : z);
+  o.valid[i] = deposit;
+}
+
+// Pixel i's chain before its first hit; a pass of no iterations writes
+// its zeros here.
+__device__ __forceinline__ EyeChain eye_start(const Cam& cam, const int* __restrict__ px,
+                                              const int* __restrict__ py, const EyeCfg& g,
+                                              const EyeOut& o, int i) {
+  const float jx = uniform_at(g.k_jit, 0, (uint32_t)i, g.start, g.total);
+  const float jy = uniform_at(g.k_jit, 1, (uint32_t)i, g.start, g.total);
+  const V3 z = mk(0.f, 0.f, 0.f);
+  if (g.iters <= 0) eye_write(o, i, z, false, z, z, z, Mtl{z, 0.f, 0.f, 0.f}, z);
+  return {i, cam.eye, primary_dir(cam, (float)px[i] + jx, (float)py[i] + jy), mk(1.f, 1.f, 1.f),
+          1.0f, 0};
+}
+
+// One iteration of chain c: true when the chain ends here, its outputs
+// written.  A miss ends it with nothing; a light ball with its radiance
+// through the chain (assigned, not added; zero if not a valid colour); a
+// rough surface with the hitpoint; a delta sample of pdf > 0 moves the
+// ray, and the chain goes on while its throughput is a valid colour and
+// iterations remain.
+template <int kW, bool kTex>
+__device__ bool eye_step(const Tables& tb, const Tex& tx, const EyeCfg& g, const EyeOut& o,
+                         EyeChain& c) {
+  NoCount cnt;
+  HitRec h = nearest_hit_dev<kTex, kW>(tb, c.ro, c.rd, cnt);
+  if (kTex) {
+    const int tex_id = (int)h.tex;
+    if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
+  }
+  const V3 z = mk(0.f, 0.f, 0.f);
+  const Mtl& m = h.m;
+  const V3 pos = c.ro + scale(c.rd, h.t);
+  V3 direct = z;
+  bool deposit = false;
+  if (h.flag == 2) {
+    const V3 e = mul(c.tp, m.bc);
+    if (valid3(e)) direct = clamp3_rdiv(e, g.clamp);
+  } else if (h.flag == 1) {
+    const bool diel = (m.eta > 0.0f) && (m.rough < 0.001f) && (m.metal < 0.01f);
+    deposit = !diel && !((m.metal > 0.99f) && (m.rough < 0.001f));
+    if (!deposit) {
+      const Key ki = fold_in(g.k_it, (uint32_t)c.it);
+      const BsdfSample b = bsdf_sample_dev(m, -c.rd, h.n, uniform_at(ki, 0, c.i, g.start, g.total),
+                                           uniform_at(ki, 1, c.i, g.start, g.total),
+                                           uniform_at(ki, 2, c.i, g.start, g.total), c.eta);
+      if (b.pdf > 0.0f) {
+        const V3 tp = mul(c.tp, b.val);
+        if (valid3(tp)) {
+          c.ro = pos + scale(dot3(b.wi, h.n) < 0.0f ? -h.n : h.n, kEps);
+          c.rd = b.wi;
+          c.tp = tp;
+          c.eta = b.new_eta;
+          if (++c.it < g.iters) return false;
+        }
+      }
+    }
+  }
+  eye_write(o, c.i, direct, deposit, pos, h.n, -c.rd, m, c.tp);
+  return true;
+}
+
+// The eye pass of B pixels.  kW: the walk (an instance per walk,
+// pt_device.cuh::WalkKind); kTex: the textured instance (tx, the atlas).
+template <int kW, bool kTex>
+__global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
+    ppm_eye_kernel(Tables tb, Tex tx, const float* __restrict__ cam_tab,
+                   const int* __restrict__ px, const int* __restrict__ py, EyeCfg g, int B,
+                   EyeOut o) {
+  const int i = blockIdx.x * kEyeThreads + threadIdx.x;
+  if (i >= B) return;
+  const Cam cam = load_cam(cam_tab);
+  EyeChain c = eye_start(cam, px, py, g, o, i);
+  if (g.iters > 0)
+    while (!eye_step<kW, kTex>(tb, tx, g, o, c)) {
+    }
+}
+
+template <int kW, bool kTex>
+int launch_eye(const Tables& tb, const Tex& tx, const float* cam, const int* px, const int* py,
+               int B, const EyeCfg& g, const EyeOut& o, void* stream) {
+  ppm_eye_kernel<kW, kTex><<<(B + kEyeThreads - 1) / kEyeThreads, kEyeThreads, 0,
+                             (cudaStream_t)stream>>>(tb, tx, cam, px, py, g, B, o);
   return (int)cudaGetLastError();
 }
 
@@ -528,6 +688,51 @@ int pt_photon_occupancy(int* out) {
   if (err == cudaSuccess)
     err = occupancy_row((const void*)photon_trace_kernel<true, kWalkFlat>, kPhotonThreads, 0,
                         out + 5);
+  return (int)err;
+}
+
+// The eye pass of B pixels px, py (int32) through the camera cam_tab (eye
+// ul dx dy, 12 floats): jitter key (j0, j1) = fold_in(key, 0x9E1),
+// iteration key (i0, i1) = fold_in(key, 0x9E2), lanes [start, start + B)
+// of a total-lane pass, at most iters chain links, the direct term's
+// clamp; every output row written.
+int pt_ppm_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
+               const float* cl, int nc, const float* sup, int nsup, const float* cam,
+               const int* px, const int* py, int B, uint32_t j0, uint32_t j1, uint32_t i0,
+               uint32_t i1, uint32_t start, uint32_t total, int iters, float clamp,
+               float* direct, float* pos, float* normal, float* wo, float* bc, float* rough,
+               float* metal, float* eta, float* tp, bool* valid, void* stream) {
+  const EyeCfg g{{j0, j1}, {i0, i1}, start, total, iters, clamp};
+  const EyeOut o{direct, pos, normal, wo, bc, rough, metal, eta, tp, valid};
+  auto* launch = nsup ? &launch_eye<kWalkSuper, false> : &launch_eye<kWalkFlat, false>;
+  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), Tex{}, cam, px, py, B, g,
+                o, stream);
+}
+
+// ppm_eye's textured instance: the atlas (n_tex, th1, tw1, 3) and its sizes
+// (n_tex, 2) after the scene tables, the rest as pt_ppm_eye.
+int pt_ppm_eye_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
+                   const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+                   const int* tex_size, int n_tex, int th1, int tw1, const float* cam,
+                   const int* px, const int* py, int B, uint32_t j0, uint32_t j1, uint32_t i0,
+                   uint32_t i1, uint32_t start, uint32_t total, int iters, float clamp,
+                   float* direct, float* pos, float* normal, float* wo, float* bc, float* rough,
+                   float* metal, float* eta, float* tp, bool* valid, void* stream) {
+  const EyeCfg g{{j0, j1}, {i0, i1}, start, total, iters, clamp};
+  const EyeOut o{direct, pos, normal, wo, bc, rough, metal, eta, tp, valid};
+  const Tex tx{atlas, tex_size, n_tex, th1, tw1};
+  auto* launch = nsup ? &launch_eye<kWalkSuper, true> : &launch_eye<kWalkFlat, true>;
+  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), tx, cam, px, py, B, g, o,
+                stream);
+}
+
+// occupancy_row of ppm_eye and ppm_eye_tex in turn (their flat-walk
+// instances).
+int pt_ppm_eye_occupancy(int* out) {
+  cudaError_t err =
+      occupancy_row((const void*)ppm_eye_kernel<kWalkFlat, false>, kEyeThreads, 0, out);
+  if (err == cudaSuccess)
+    err = occupancy_row((const void*)ppm_eye_kernel<kWalkFlat, true>, kEyeThreads, 0, out + 5);
   return (int)err;
 }
 

@@ -20,14 +20,14 @@ One pass:
 The radius may shrink from pass to pass (``ppm_radius_scale``); progressive
 accumulation is the caller's average over passes.
 
-Tiers (``resolve_tier``): ``mega`` (``auto``) runs the eye pass in PyTorch
-around the nearest-hit and Threefry kernels, the photon bounces in the
+Tiers (``resolve_tier``): ``mega`` (``auto``) runs the eye pass in the
+``ppm_eye`` kernel (``ops/cuda_ppm_eye.py``), the photon bounces in the
 ``photon_trace`` kernel (#10) and the join in the ``gather_flux`` kernel
 (#11); ``hash`` runs the same eye pass and photon bounces and gathers
 through the reference's spatial hash (``gather_flux_hash``, PyTorch on any
 device, the JAX package's gather off the TPU); ``plain`` runs the plain
 versions of all of them.  Meshes of any
-size take the same route: from 64 clusters on, #1 and #10 walk the
+size take the same route: from 64 clusters on, ``ppm_eye`` and #10 walk the
 super-cluster table (the JAX package streams meshes above its VMEM
 ceiling through #6/#7 and an XLA photon scan; the photons and hits are
 the same).  On CPU tensors every kernel runs its plain version.  The
@@ -46,37 +46,22 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import rng
-from ..ops.bsdf import _eval_local, _half_vector, bsdf_sample
-from ..ops.cuda_intersect import nearest_hit, nearest_hit_plain, pack_scene
+from ..ops.bsdf import _eval_local, _half_vector
+from ..ops.cuda_intersect import pack_scene
 from ..ops.cuda_photon import photon_trace, photon_trace_plain
+from ..ops.cuda_ppm_eye import HitPoints, ppm_eye
 from ..ops.cuda_ppm_gather import gather_flux, gather_flux_plain
 from ..ops.frame import build_local_frame, world_to_local
-from ..ops.intersect import packed_hit
-from ..ops.math3 import EPSILON, PI, clamp_radiance, dot, is_valid_color
+from ..ops.math3 import PI, clamp_radiance, dot, is_valid_color
 from ..ops.microfacet import roughness_to_alpha
 from ..ops.sampling import sample_light_emission
 from ..profiling import span
-from ..scene.camera import primary_ray_dirs
 from ..scene.types import Camera, Material, Scene
 
 TIERS = ("auto", "mega", "hash", "plain")
 # hitpoints a step of the hash gather takes at once: bounds its (n, 27, 12)
 # candidate block (at 512^2 all of them at once would be 340 MB a step)
 HASH_CHUNK = 1 << 16
-
-
-@dataclass
-class HitPoints:
-    """The eye pass's hitpoints (B, ...): where the delta chain of each
-    pixel first met a rough surface, with the direction back along the
-    chain, the surface's material and the chain's throughput."""
-
-    pos: torch.Tensor
-    normal: torch.Tensor
-    wo: torch.Tensor
-    mtl: Material
-    throughput: torch.Tensor
-    valid: torch.Tensor
 
 
 @dataclass
@@ -112,10 +97,10 @@ class PhotonEvents:
 def resolve_tier(scene: Scene, tier: str) -> str:
     """The PPM tier that renders ``scene`` when ``tier`` is asked for:
     "auto" is "mega" (the exact gather, the JAX package's TPU route) on
-    every scene, at any triangle count (above ``MAX_RESIDENT_TRIS`` the eye
-    pass's #1 and #10's ``kWalkSuper`` instance walk the super-cluster
-    table), textured (the eye pass's ``with_uv`` #1 and #10's textured
-    instance) or with legacy Ks (which PPM never reads: it casts no shadow
+    every scene, at any triangle count (above ``MAX_RESIDENT_TRIS`` the
+    ``kWalkSuper`` instances of ``ppm_eye`` and #10 walk the super-cluster
+    table), textured (the textured instances of ``ppm_eye`` and #10) or
+    with legacy Ks (which PPM never reads: it casts no shadow
     rays); "hash" and "plain" are taken as asked.  Raises ValueError for a
     tier PPM does not have."""
     if tier not in TIERS:
@@ -126,76 +111,13 @@ def resolve_tier(scene: Scene, tier: str) -> str:
 def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
                   start: int = 0, total: int | None = None,
                   plain: bool = False):
-    """Delta-chase eye pass -> (direct image (B, 3), HitPoints).
-    ``start``/``total``: these lanes are columns [start, start + B) of a
-    ``total``-lane pass.  ``plain`` runs the plain nearest hit and
-    Threefry."""
-    nearest = nearest_hit_plain if plain else nearest_hit
-    draw = rng.uniform_rows_plain if plain else rng.uniform_rows
-    packed = pack_scene(scene)
-    dev = px.device
-    B = px.shape[0]
-    f32 = dict(device=dev, dtype=torch.float32)
-    j = draw(rng.fold_in(key, 0x9E1), B, 2, start, total, device=dev)
-    rd = primary_ray_dirs(cam, px, py, j[0], j[1])
-    ro = cam.eye[None].expand(B, 3).contiguous()
-    tp = torch.ones((B, 3), **f32)
-    eta = torch.ones(B, **f32)
-    alive = torch.ones(B, dtype=torch.bool, device=dev)
-    direct = torch.zeros((B, 3), **f32)
-    z3, z1 = torch.zeros((B, 3), **f32), torch.zeros(B, **f32)
-    hp = HitPoints(pos=z3, normal=z3, wo=z3,
-                   mtl=Material(base_color=z3, roughness=z1, metallic=z1,
-                                eta=z1),
-                   throughput=z3,
-                   valid=torch.zeros(B, dtype=torch.bool, device=dev))
-    k_it = rng.fold_in(key, 0x9E2)
-    for it in range(cfg.max_eye_iters):
-        with span("sync.ppm_eye_loop"):
-            more = bool(alive.any())
-        if not more:   # a dead chain stays dead
-            break
-        u = draw(rng.iter_key(k_it, it), B, 3, start, total, device=dev)
-        # textured: the hitpoint keeps the texel in its base color
-        hit = packed_hit(packed, ro, rd, alive, nearest)
-        act = alive & hit.hit
-        wo = -rd
-        m, n = hit.mtl, hit.normal
-
-        # a light ball at the end of a delta chain: assigned, not added
-        light_hit = act & hit.is_light
-        contrib = tp * m.base_color
-        contrib = torch.where(is_valid_color(contrib)[:, None],
-                              clamp_radiance(contrib, cfg.clamp),
-                              torch.zeros_like(contrib))
-        direct = torch.where(light_hit[:, None], contrib, direct)
-
-        s = bsdf_sample(m, wo, n, u[0], u[1], u[2], eta)
-        surf = act & ~hit.is_light
-        delta = surf & s.is_delta & (s.pdf > 0.0)
-        deposit = surf & ~s.is_delta
-        d3 = deposit[:, None]
-        hp = HitPoints(
-            pos=torch.where(d3, hit.pos, hp.pos),
-            normal=torch.where(d3, n, hp.normal),
-            wo=torch.where(d3, wo, hp.wo),
-            mtl=Material(
-                base_color=torch.where(d3, m.base_color, hp.mtl.base_color),
-                roughness=torch.where(deposit, m.roughness, hp.mtl.roughness),
-                metallic=torch.where(deposit, m.metallic, hp.mtl.metallic),
-                eta=torch.where(deposit, m.eta, hp.mtl.eta)),
-            throughput=torch.where(d3, tp, hp.throughput),
-            valid=hp.valid | deposit)
-
-        new_tp = tp * s.value
-        off = torch.where((dot(s.wi, n) < 0.0)[:, None], -n, n) * EPSILON
-        up = delta[:, None]
-        ro = torch.where(up, hit.pos + off, ro)
-        rd = torch.where(up, s.wi, rd)
-        tp = torch.where(up, new_tp, tp)
-        eta = torch.where(delta, s.new_eta, eta)
-        alive = delta & is_valid_color(new_tp)
-    return direct, hp
+    """Delta-chase eye pass -> (direct image (B, 3), HitPoints)
+    (``ops/cuda_ppm_eye.py::ppm_eye``: the kernel on CUDA tensors, the
+    PyTorch loop on CPU tensors or with ``plain``).  ``start``/``total``:
+    these lanes are columns [start, start + B) of a ``total``-lane pass.
+    ``plain`` runs the loop on the plain nearest hit and Threefry."""
+    return ppm_eye(pack_scene(scene), cam, cfg, px, py, key, start, total,
+                   plain)
 
 
 def photon_emission(scene: Scene, num_photons: int, spl: int, key,

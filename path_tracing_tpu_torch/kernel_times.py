@@ -50,11 +50,19 @@ the main path's inputs:
   render (``launches``, timed as the sum of the frame's launches); its
   first launch, every lane live (``first``); every launch of the BDPT
   fused exact frame (spl 8, spp 4, depths 4: the light trace's and the
-  eye pass's, ``bdpt``) and of the first 512x512 PPM pass's eye pass
-  (``ppm``); then the whole split frame with the build's #1 in place of
+  eye pass's, ``bdpt``) and of the first 512x512 PPM pass's eye pass as
+  the loop ran it before ``ppm_eye`` (``ppm``, ``ppm_eye_plain`` on #1);
+  then the whole split frame with the build's #1 in place of
   the package's (``frame``);
 - ``any_blocker`` (#2): the split frame's launches (``launches``), its
-  first (``first``) and the whole split frame (``frame``), as for #1.
+  first (``first``) and the whole split frame (``frame``), as for #1;
+- ``ppm_eye``: the eye pass of the CLI's first 512x512 PPM pass on
+  cornell (seed 0), and ``ppm_eye_tex`` (its textured instance) that of
+  a 512x512 PPM pass on the 327,680-triangle textured icosphere
+  (``synth.icosphere_scene``, default framing: the super walk), each with
+  the plain loop on #1 and ``threefry_rows`` (the eye pass before the
+  kernel) timed and compared on every pixel, and the instances'
+  occupancy.
 
 #1's and #2's launches are recorded where the wrappers launch
 (``record_launches``), and their outputs compared on the live lanes (the
@@ -82,8 +90,8 @@ of the package's nine.  A #8 build whose ``pt_connect`` takes no ``work``
 counter is called with the package's arguments less that counter.
 
 ``--graph`` times the cases whose calls make no host sync (#1's and #2's
-launch sets) device-only, by CUDA-graph replay: the PPM eye pass's small
-launches are shorter than their host enqueue.
+launch sets, ``ppm_eye``) device-only, by CUDA-graph replay: the PPM eye
+loop's small launches are shorter than their host enqueue.
 
 ``--variant NAME`` (repeatable) times a copy of the package's ``csrc``
 with one change (``VARIANTS``: a table placement, a launch bound, a
@@ -113,7 +121,8 @@ SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
           "any_blocker_stream": "mesh_kernels.cu",
           "shade_step_tex": "pt_kernels.cu", "bdpt_eye": "bdpt_kernels.cu",
           "connect": "bdpt_kernels.cu", "shade_step": "pt_kernels.cu",
-          "nearest_hit": "pt_kernels.cu", "any_blocker": "pt_kernels.cu"}
+          "nearest_hit": "pt_kernels.cu", "any_blocker": "pt_kernels.cu",
+          "ppm_eye": "ppm_kernels.cu", "ppm_eye_tex": "ppm_kernels.cu"}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the scene tables before the super table: sph ns nl tri uv cl n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
@@ -1009,11 +1018,12 @@ def launch_rows(name: str, out, args) -> torch.Tensor:
 def lanes_case(name: str) -> list:
     """#1 (``name`` "nearest_hit") or #2 ("any_blocker") on the recorded
     launches of the split frame, its first, the BDPT fused exact frame and
-    the PPM eye pass (#1), and the whole split frame."""
+    the PPM eye loop (#1), and the whole split frame."""
     from .config import RenderConfig
-    from .integrators import bdpt, ppm
+    from .integrators import bdpt
     from .integrators.pt import render_pt
     from .ops import cuda_intersect as ci
+    from .ops import cuda_ppm_eye as ce
     from .ops import rng
 
     scene, cam = _cornell(W, H)
@@ -1035,8 +1045,8 @@ def lanes_case(name: str) -> list:
         pcfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
                             eye_depth=4, light_depth=4)
         idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
-        sets["ppm"] = record_launches(lambda: ppm.ppm_eye_trace(
-            pscene, pcam, pcfg, idx % PPM_W, idx // PPM_W,
+        sets["ppm"] = record_launches(lambda: ce.ppm_eye_plain(
+            ci.pack_scene(pscene), pcam, pcfg, idx % PPM_W, idx // PPM_W,
             rng.fold_in(key, 1)))[1][name]
     out, cases = {}, []
     for label, calls in sets.items():
@@ -1063,13 +1073,55 @@ def lanes_case(name: str) -> list:
     return cases
 
 
+def eye_pass_case(textured: bool) -> list:
+    """The eye pass of a 512x512 PPM pass (seed 0's first) through
+    ``ppm_eye``: on cornell, or on the 327,680-triangle textured icosphere
+    (``ppm_eye_tex``); the plain loop on #1 and ``threefry_rows`` timed
+    and compared bit for bit beside it."""
+    from .config import RenderConfig
+    from .ops import cuda_intersect as ci
+    from .ops import cuda_ppm_eye as ce
+    from .ops import rng
+    from .ops.cuda_ppm_eye import eye_pass_bits
+    from .scene import synth
+    from .scene.camera import make_camera
+
+    if textured:
+        p = synth.icosphere_scene(BIG_TRIS, textured=True)
+        scene = p.to_device("cuda")
+        cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, PPM_W, PPM_H,
+                          device="cuda")
+    else:
+        scene, cam = _cornell(PPM_W, PPM_H)
+    cfg = RenderConfig(width=PPM_W, height=PPM_H, spp=SPP, spl=PPM_SPL,
+                       eye_depth=4, light_depth=4)
+    key = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 1)
+    idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
+    pk, out = ci.pack_scene(scene), {}
+    args = (pk, cam, cfg, idx % PPM_W, idx // PPM_W, key)
+    name = "ppm_eye_tex" if textured else "ppm_eye"
+    run = _through_wrapper(name, lambda: ce.ppm_eye(*args), out, ce)
+    run(_kernels.library().fns[name], "now")
+    plain = ce.ppm_eye_plain(*args)
+    same = (eye_pass_bits(plain) == eye_pass_bits(out["last"])).all(
+        dim=1).float().mean()
+    return [Case("", run, lambda: eye_pass_bits(out["last"]), dict(
+        pixels=PPM_W * PPM_H, triangles=scene.num_triangles,
+        supers=pk.n_super, hitpoints=int(out["last"][1].valid.sum()),
+        plain_ms=time_ms(lambda: ce.ppm_eye_plain(*args), 3),
+        plain_bit_equal=same.item(), occupancy=ce.occupancy()[name]),
+        graph=True)]
+
+
 CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
          "photon_trace": photon_case, "nearest_hit_stream": stream_case,
          "any_blocker_stream": blocker_case, "shade_step_tex": tex_case,
          "bdpt_eye": eye_case, "connect": connect_case,
          "shade_step": step_case,
          "nearest_hit": lambda: lanes_case("nearest_hit"),
-         "any_blocker": lambda: lanes_case("any_blocker")}
+         "any_blocker": lambda: lanes_case("any_blocker"),
+         "ppm_eye": lambda: eye_pass_case(False),
+         "ppm_eye_tex": lambda: eye_pass_case(True)}
 # the share of rows an older build must give bit for bit, where a bar is
 # set: #4 may pick another triangle on an exact tie of t (its frame the
 # image's pixels), #7's verdicts never differ, #8's, #3's, #1's and #2's
@@ -1082,7 +1134,8 @@ ROWS = {"gather_flux": "hitpoints", "render_wavefront": "pixels",
         "photon_trace": "event rows", "nearest_hit_stream": "lanes",
         "any_blocker_stream": "lanes", "shade_step_tex": "lanes",
         "bdpt_eye": "pixels", "connect": "lanes", "shade_step": "lanes",
-        "nearest_hit": "live lanes", "any_blocker": "live lanes"}
+        "nearest_hit": "live lanes", "any_blocker": "live lanes",
+        "ppm_eye": "pixels", "ppm_eye_tex": "pixels"}
 
 
 def main() -> int:

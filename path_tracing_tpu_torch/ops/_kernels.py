@@ -14,8 +14,9 @@ with nvcc's output; nothing falls back.
 
 ``transmittance_rgb`` (in ``pt_kernels.cu``) is the RGB shadow of
 legacy-Ks scenes; ``connect_rgb`` and ``connect_sampled`` are #8's RGB and
-sampled instances, ``photon_trace_tex`` #10's textured one, each launched
-under its own name.
+sampled instances, ``photon_trace_tex`` #10's textured one and
+``ppm_eye_tex`` the PPM eye pass's (``ppm_eye``, in ``ppm_kernels.cu``),
+each launched under its own name.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
@@ -56,7 +57,8 @@ LIBRARIES = {
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_rgb", "connect_sampled",
                      "connect_counts", "bdpt_eye_counts"),
     "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_tex",
-                    "photon_trace_counts", "gather_flux_counts"),
+                    "photon_trace_counts", "gather_flux_counts", "ppm_eye",
+                    "ppm_eye_tex"),
     "mesh_kernels": ("nearest_hit_stream", "any_blocker_stream",
                      "nearest_hit_stream_counts", "any_blocker_stream_counts"),
     "probe_kernels": ("onehot_fetch",),
@@ -116,6 +118,13 @@ _ARGTYPES = {
     # the atlas's five arguments, then photon_trace's after the tables
     "photon_trace_tex": _TABLES + [_P, _P, _I, _I, _I] + [_P] * 4 + [
         _I, _U, _U, _U, _U, _I, _I, _P, _P, _P, _P],
+    # cam px py B | j0 j1 i0 i1 start total | iters clamp | direct pos
+    # normal wo bc rough metal eta tp valid
+    "ppm_eye": _TABLES + [_P, _P, _P, _I, _U, _U, _U, _U, _U, _U, _I, _F]
+    + [_P] * 11,
+    # the atlas's five arguments, then ppm_eye's after the tables
+    "ppm_eye_tex": _TABLES + [_P, _P, _I, _I, _I]
+    + [_P, _P, _P, _I, _U, _U, _U, _U, _U, _U, _I, _F] + [_P] * 11,
     # ks p1 rd max_d live | B | out
     "transmittance_rgb": _TABLES + [_P, _P, _P, _P, _P, _I, _P, _P],
     # hp perm win ev items | n_items r2 | flux count

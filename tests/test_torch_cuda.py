@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card, the PT and
 BDPT megakernels' images against their fused tiers', the PPM kernels
-launched twice on the same inputs, the streamed mesh kernels against #1/#2
+launched twice on the same inputs, the PPM eye pass's kernel against its
+loop bit for bit, the streamed mesh kernels against #1/#2
 and their plain versions, and the fetch probe against ``tab[:, idx]``.
 
 These need an NVIDIA card, nvcc and the port's build, so they skip
@@ -20,6 +21,7 @@ from path_tracing_tpu_torch.integrators.pt import _light_table, render_pt
 from path_tracing_tpu_torch.ops import (_kernels, cuda_connect,
                                         cuda_intersect, cuda_shade)
 from path_tracing_tpu_torch.ops import intersect, rng
+from path_tracing_tpu_torch.ops.cuda_ppm_eye import eye_pass_bits
 from path_tracing_tpu_torch.scene import synth
 from path_tracing_tpu_torch.scene.camera import make_camera, primary_ray_dirs
 from path_tracing_tpu_torch.scene.parser import load_scene
@@ -1087,14 +1089,9 @@ def test_connect_instances_match_plain(card, legacy, which):
     assert a[act].abs().sum().item() > 0
 
 
-def test_photon_trace_tex_matches_plain(card):
-    """#10's textured instance on 16,384 photons of cornell's lights with
-    the 1,280-triangle textured icosphere in its room (photons bounce off
-    the sphere onto the walls): valid flags equal, fields within rtol 1e-5
-    / atol 1e-6 on >= 99.99% of the valid rows."""
-    from path_tracing_tpu_torch.integrators import ppm
-    from path_tracing_tpu_torch.ops import cuda_photon
-
+def _room_with_textured_sphere():
+    """cornell's room with the 1,280-triangle textured icosphere inside,
+    scaled to 0.35 and set on the floor (the parsed scene)."""
     room = load_scene(str(CORNELL))
     mesh = synth.icosphere_scene(1280, textured=True)
     n_room = len(room.tri_verts)
@@ -1105,7 +1102,18 @@ def test_photon_trace_tex_matches_plain(card):
     room.tri_uv = [[0.0] * 6] * n_room + list(mesh.tri_uv)
     room.tri_tex = [-1] * n_room + list(mesh.tri_tex)
     room.textures = list(mesh.textures)
-    scene = room.to_device("cuda")
+    return room
+
+
+def test_photon_trace_tex_matches_plain(card):
+    """#10's textured instance on 16,384 photons of cornell's lights with
+    the 1,280-triangle textured icosphere in its room (photons bounce off
+    the sphere onto the walls): valid flags equal, fields within rtol 1e-5
+    / atol 1e-6 on >= 99.99% of the valid rows."""
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_photon
+
+    scene = _room_with_textured_sphere().to_device("cuda")
     pk = cuda_intersect.pack_scene(scene)
     key = rng.prng_key(9)
     emit = ppm.photon_emission(scene, 1 << 14, 1 << 12, key)
@@ -1116,6 +1124,90 @@ def test_photon_trace_tex_matches_plain(card):
     assert torch.equal(valid, valid_p) and int(valid[1 << 14:].sum()) > 0
     close = torch.isclose(ev[valid], ev_p[valid], rtol=1e-5, atol=1e-6)
     assert close.all(dim=1).float().mean().item() >= 0.9999
+
+
+# ---- the PPM eye pass in one launch -----------------------------------------
+
+EYE_W = EYE_H = 512
+
+
+def _eye_args(parsed, seed=7):
+    """A 512x512 eye pass's arguments on ``parsed``: (packed tables,
+    camera, config, px, py, the pass's eye key)."""
+    scene = parsed.to_device("cuda")
+    cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up,
+                      parsed.fov, EYE_W, EYE_H, device="cuda")
+    idx = torch.arange(EYE_W * EYE_H, dtype=torch.int32, device="cuda")
+    return (cuda_intersect.pack_scene(scene), cam,
+            RenderConfig(width=EYE_W, height=EYE_H), idx % EYE_W,
+            idx // EYE_W, rng.fold_in(rng.prng_key(seed), 1))
+
+
+EYE_SCENES = {
+    "cornell": lambda: load_scene(str(CORNELL)),
+    "textured": _room_with_textured_sphere,
+    "super": lambda: synth.icosphere_scene(17000),
+}
+
+
+@pytest.mark.parametrize("which", sorted(EYE_SCENES))
+def test_ppm_eye_kernel_equals_the_loop_bit_for_bit(card, which):
+    """``ppm_eye`` against the eye loop on #1 and ``threefry_rows`` (the
+    pass as it ran before the kernel) at 512x512, every output bit for bit
+    (both round each operation alone: --fmad=false): cornell (mirrors,
+    glass, light balls; the flat walk), cornell's room with the
+    1,280-triangle textured icosphere (``ppm_eye_tex``: the texel in the
+    base color), the 17,000-triangle icosphere (512 clusters: the super
+    walk)."""
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
+
+    args = _eye_args(EYE_SCENES[which]())
+    pk = args[0]
+    assert pk.textured == (which == "textured")
+    assert (pk.n_super > 0) == (which == "super")
+    _kernels.reset_counts()
+    a = ce.ppm_eye(*args)
+    assert _kernels.launches["ppm_eye_tex" if pk.textured
+                             else "ppm_eye"] == 1
+    assert _kernels.launches["nearest_hit"] == 0
+    b = ce.ppm_eye_plain(*args)
+    assert torch.equal(eye_pass_bits(a), eye_pass_bits(b))
+    direct, hp = a
+    assert bool(hp.valid.any())
+    if which == "cornell":   # chains through mirrors and glass, to lights
+        assert bool((direct > 0).any())
+        assert bool((hp.throughput[hp.valid] != 1.0).any())
+
+
+def test_ppm_eye_kernel_window_equals_the_slice(card):
+    """Lanes [100000, 165536) of cornell's 512x512 eye pass launched alone
+    (``start``/``total``, as ``parallel/shard.py`` launches a rank's
+    pixels) give the full launch's rows bit for bit."""
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
+
+    pk, cam, cfg, px, py, key = _eye_args(load_scene(str(CORNELL)))
+    lo, n = 100000, 65536
+    full = ce.ppm_eye(pk, cam, cfg, px, py, key)
+    part = ce.ppm_eye(pk, cam, cfg, px[lo:lo + n], py[lo:lo + n], key,
+                      start=lo, total=EYE_W * EYE_H)
+    assert torch.equal(eye_pass_bits(full)[lo:lo + n], eye_pass_bits(part))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "int32"), ("shape", "shape"), ("contiguity", "contiguous")])
+def test_ppm_eye_wrapper_refuses_lanes_its_kernel_does_not_take(card, case,
+                                                                 match):
+    """On the card, ``ppm_eye`` raises on a lane tensor that is not a
+    contiguous (B,) int32 tensor, before any launch."""
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
+
+    pk, cam, cfg, px, py, key = _eye_args(load_scene(str(CORNELL)))
+    bad = {"dtype": px.long(), "shape": px[:, None],
+           "contiguity": torch.stack([px, px], dim=1)[:, 0]}[case]
+    _kernels.reset_counts()
+    with pytest.raises(ValueError, match=match):
+        ce.ppm_eye(pk, cam, cfg, bad, py, key)
+    assert _kernels.launches["ppm_eye"] == 0
 
 
 # ---- the integrators' spans on the card's clock ----------------------------
@@ -1210,6 +1302,41 @@ def test_every_host_wait_in_a_frame_lies_under_a_sync_span(card, mode,
                               if _within(e, a)), default=(0, None))[1])
              for e in waits if not any(_within(e, s) for s in syncs)]
     assert not loose, loose
+
+
+def test_ppm_pass_runs_its_eye_pass_in_one_launch(card, tmp_path):
+    """A traced cornell PPM pass (128x72, 65,536 photons) on the mega
+    tier: one ``ppm_eye`` launch a pass (``ppm_eye_kernel`` once on the
+    card, no #1), ``ppm.eye_kernel`` counted once, and no
+    ``sync.ppm_eye_loop``, ``sync.bsdf_flip`` or ``sync.fresnel_eta``
+    span inside ``ppm.pass``."""
+    from path_tracing_tpu_torch import profiling
+    from path_tracing_tpu_torch.integrators import ppm
+
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    w, h = 128, 72
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, spl=16384)
+    _kernels.reset_counts()
+    profiling.reset_counters()
+    events = _traced(lambda: ppm.render_ppm_with_stats(
+        scene, cam, w, h, 16384, cfg, rng.prng_key(3)), tmp_path)
+    assert _kernels.launches["ppm_eye"] == 2      # the warm-up and the pass
+    assert _kernels.launches["nearest_hit"] == 0
+    assert profiling.counters.get("ppm.eye_kernel") == 1
+    assert "ppm.eye_plain" not in profiling.counters
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    frames = [e for e in ann if e["name"] == "ppm.pass"]
+    assert len(frames) == 1
+    inside = {e["name"] for e in ann if _within(e, frames[0])}
+    assert "ppm.eye_pass" in inside
+    assert not inside & {"sync.ppm_eye_loop", "sync.bsdf_flip",
+                         "sync.fresnel_eta"}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "ppm_eye_kernel" in e["name"]]
+    assert len(kernels) == 1
 
 
 def test_megakernel_span_encloses_its_launch_on_one_clock(card, tmp_path):

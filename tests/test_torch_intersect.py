@@ -298,12 +298,12 @@ def test_eye_pass_and_light_trace_hand_over_their_alive_lanes(which,
     is computed: every read of the hit is gated by ``alive & hit``."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt, ppm
-    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye, rng
 
     _, _, ts, tc = jax_cornell(24, 16)
     key = rng.prng_key(3)
     if which == "ppm_eye":
-        module = ppm
+        module = cuda_ppm_eye    # the loop: CPU tensors take it
         idx = torch.arange(24 * 16, dtype=torch.int32)
         cfg = RenderConfig(width=24, height=16)
 

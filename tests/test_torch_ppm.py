@@ -67,9 +67,10 @@ from path_tracing_tpu.scene.types import Material as JMaterial
 from path_tracing_tpu_torch import cli
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.integrators import ppm
-from path_tracing_tpu_torch.ops import _kernels, cuda_photon, rng
+from path_tracing_tpu_torch.ops import _kernels, cuda_photon, cuda_ppm_eye, rng
 from path_tracing_tpu_torch.ops import cuda_ppm_gather as gather
 from path_tracing_tpu_torch.ops.cuda_intersect import pack_scene
+from path_tracing_tpu_torch.ops.cuda_ppm_eye import eye_pass_bits
 from path_tracing_tpu_torch.scene.types import Material, scene_from_jax_arrays
 
 from test_torch_scene import CORNELL, jax_arrays, jax_cornell
@@ -470,6 +471,90 @@ def test_kernel_wrappers_refuse_tensors_off_cpu():
         overflow=torch.zeros((), dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         gather.join(t)
+
+
+EYE_REFUSALS = {
+    "device": ("CUDA", lambda px: dict(px=px, py=px)),
+    "dtype": ("CUDA", lambda px: dict(px=px.long(), py=px)),
+    "contiguity": ("CUDA", lambda px: dict(
+        px=torch.zeros(32, dtype=torch.int32, device="meta")[::2], py=px)),
+    "window": ("Threefry", lambda px: dict(px=px, py=px, start=8, total=20)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EYE_REFUSALS))
+def test_ppm_eye_wrapper_refuses_what_its_kernel_does_not_take(case):
+    """Tensors off the CPU go to ``ppm_eye``'s kernel, whose wrapper raises
+    on lane tensors off a CUDA device, whatever their type or layout (the
+    card tests hold it to its dtype, shape and layout messages), or on a
+    window past its pass (meta tensors stand in for a device here)."""
+    _, _, ts, tc = jax_cornell(4, 4)
+    match, make = EYE_REFUSALS[case]
+    kw = make(torch.zeros(16, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match=match):
+        cuda_ppm_eye.ppm_eye(pack_scene(ts), tc, RenderConfig(width=4,
+                                                              height=4),
+                             kw.pop("px"), kw.pop("py"), rng.prng_key(0),
+                             **kw)
+
+
+@pytest.mark.parametrize("lo,n", [(0, 256), (200, 300), (700, 68)])
+def test_eye_loop_window_equals_the_slice_of_the_full_pass(lo, n):
+    """Lanes [lo, lo + n) of a pass run alone with ``start=lo`` and the
+    pass's ``total`` give the full pass's rows, bit for bit: every draw is
+    a function of the lane's column, and a chain of its own lane."""
+    _, _, ts, tc = jax_cornell(W, H)
+    px, py = (_t(x) for x in _pixels(W, H))
+    args = (pack_scene(ts), tc, RenderConfig(width=W, height=H))
+    key = rng.fold_in(rng.prng_key(5), 1)
+    full = cuda_ppm_eye.ppm_eye_plain(*args, px, py, key)
+    part = cuda_ppm_eye.ppm_eye_plain(*args, px[lo:lo + n], py[lo:lo + n],
+                                      key, start=lo, total=W * H)
+    assert torch.equal(eye_pass_bits(full)[lo:lo + n], eye_pass_bits(part))
+    assert bool(part[1].valid.any())
+
+
+def test_eye_loop_counts_the_kernels_work():
+    """Given ``counts``, the loop walks on the plain nearest hit, whose
+    rows equal the wrapper's, and counts the kernel's work: a walk a chain
+    link (the links of iteration 0 are the pixels), a sample and three
+    draws a delta link beside two jitter draws a pixel, one hitpoint a
+    deposit; the walk's tests equal the plain nearest hit's counts of the
+    same rays."""
+    from path_tracing_tpu_torch.ops import cuda_connect, cuda_intersect
+
+    _, _, ts, tc = jax_cornell(W, H)
+    px, py = (_t(x) for x in _pixels(W, H))
+    pk = pack_scene(ts)
+    args = (pk, tc, RenderConfig(width=W, height=H), px, py,
+            rng.fold_in(rng.prng_key(5), 1))
+    rays = []
+    own = cuda_intersect.nearest_hit_plain
+
+    def record(packed, ro, rd, with_uv=False, live=None, counts=None):
+        rays.append((ro.clone(), rd.clone(), live.clone()))
+        return own(packed, ro, rd, with_uv, live, counts)
+
+    c = cuda_ppm_eye.new_counts()
+    cuda_ppm_eye.nearest_hit_plain = record
+    try:
+        out = cuda_ppm_eye.ppm_eye_plain(*args, counts=c)
+    finally:
+        cuda_ppm_eye.nearest_hit_plain = own
+    assert torch.equal(eye_pass_bits(out),
+                       eye_pass_bits(cuda_ppm_eye.ppm_eye_plain(*args)))
+    B = W * H
+    assert c["pixels"] == B and c["deposits"] == int(out[1].valid.sum())
+    assert c["links"] == sum(int(live.sum()) for _, _, live in rays) > B
+    # every link after a chain's first follows a delta sample
+    assert c["links"] - B <= c["bsdf_samples"] < c["links"]
+    assert c["draws"] == 2 * B + 3 * c["bsdf_samples"]
+    assert 0 < c["iteration_keys"] <= len(rays)
+    walk = cuda_connect.new_counts()
+    for ro, rd, live in rays:
+        own(pk, ro, rd, live=live, counts=walk)
+    assert all(c[k] == walk[k] > 0
+               for k in ("hit_spheres", "hit_boxes", "hit_tris"))
 
 
 def test_cli_ppm_writes_png_deterministically(tmp_path, capsys):

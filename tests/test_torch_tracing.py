@@ -14,7 +14,7 @@ import torch
 from path_tracing_tpu_torch import profiling
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.integrators import bdpt, ppm, pt
-from path_tracing_tpu_torch.ops import cuda_intersect, cuda_shade, rng
+from path_tracing_tpu_torch.ops import _kernels, cuda_intersect, cuda_shade, rng
 from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 from path_tracing_tpu_torch.scene import synth
 from path_tracing_tpu_torch.scene.camera import make_camera
@@ -118,6 +118,23 @@ def test_each_frame_holds_its_phases(mode, tier, scene_name, tmp_path):
     for name, a, b in inner:
         assert any(f[1] <= a and b <= f[2] for f in frames), name
     assert any(a[0].startswith("sync.") for a in inner)
+
+
+@pytest.mark.parametrize("tier,scene_name", [
+    ("auto", "cornell"), ("plain", "cornell"), ("auto", "textured")])
+def test_ppm_eye_pass_on_cpu_tensors_counts_the_loop(tier, scene_name,
+                                                     tmp_path):
+    """CPU tensors, in any tier, and the plain tier take the eye loop
+    (``ppm_eye_plain``): ``ppm.eye_plain`` counted once a pass, no
+    ``ppm.eye_kernel``, no launch of either ``ppm_eye`` instance."""
+    _kernels.reset_counts()
+    _profiled(lambda: [_frame("ppm", tier, scene_name, i) for i in range(2)],
+              tmp_path)
+    assert profiling.counters.get("ppm.eye_plain") == 2
+    assert "ppm.eye_kernel" not in profiling.counters
+    assert _kernels.plain_calls["ppm_eye"] == 2
+    assert _kernels.launches["ppm_eye"] == _kernels.launches["ppm_eye_tex"] \
+        == 0
 
 
 @pytest.mark.parametrize("tier", ["fused", "plain"])
