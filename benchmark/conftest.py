@@ -15,14 +15,18 @@ TINY = {
                  light_depth=3, resample=8),
     "ppm": dict(mode="ppm", width=24, height=16, spl=256),
 }
+TINY_ENCLOSED = {"icosphere_tris": 320, "textured": False,
+                 "material": [0.75, 0.75, 0.75, 1.0, 0.0, 0.0],
+                 "radius": 0.35, "center": [0.0, -0.65, -0.55]}
 
 
 def make_tiny_root(path: Path) -> Path:
     """A root under ``path`` with the benchmark's configurations and
     metrics, a tiny traffic mix and cell for each integrator
     (``tiny-pt``, ``tiny-bdpt``, ``tiny-ppm`` on cornell), a tiny
-    textured icosphere with PT's (``tiny-tex``) and a ``BENCHMARK.json``
-    that lists them."""
+    textured icosphere with PT's (``tiny-tex``), a tiny icosphere in
+    cornell's room with the same traffic (``tiny-enclosed``) and a
+    ``BENCHMARK.json`` that lists them."""
     for d in ("configs", "metrics", "limits"):
         shutil.copytree(HERE / d, path / d)
     (path / "workloads").mkdir()
@@ -52,6 +56,16 @@ def make_tiny_root(path: Path) -> Path:
     t.update(check_pixels=768, check_prim_tests=321 * 256)
     (path / "workloads" / "tiny-tex.json").write_text(json.dumps(t))
     spec["workloads"].append({"name": "tiny-tex", "config": "tiny_textured",
+                              "traffic": "tiny-tex", "chips": 1,
+                              "why": "a test"})
+    # a configuration that places a mesh in a scene: a 320-triangle
+    # icosphere on cornell's floor, under the same traffic as ``tiny-tex``
+    (path / "configs" / "tiny_enclosed.json").write_text(json.dumps(
+        {"scene": "cornell.txt", "mesh": TINY_ENCLOSED}))
+    (path / "limits" / "tiny-enclosed.json").write_text(
+        json.dumps({"frame_rel_l1": 1e-6, "accum_mismatch": 0}))
+    spec["workloads"].append({"name": "tiny-enclosed",
+                              "config": "tiny_enclosed",
                               "traffic": "tiny-tex", "chips": 1,
                               "why": "a test"})
     for m in spec["end_to_end"] + spec["per_layer"]:

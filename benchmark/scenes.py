@@ -1,13 +1,16 @@
 """The scene file of a configuration.
 
-``configs/<name>.json`` names either a plain reference scene (``scene``: a
-text scene beside it under ``configs/``) or a generated ``mesh``: an
-icosphere of at least ``icosphere_tris`` triangles with one material row,
-optionally ``textured``, written once as OBJ + MTL (+ a checker PNG)
-under ``cache/scenes/`` at a path fixed by the configuration's bytes.
-Both the program and the reference parse that file, and both loaders
-frame an OBJ by their default framing (the camera outside the mesh along
--z and one overhead spot light)."""
+``configs/<name>.json`` names a plain reference scene (``scene``: a text
+scene beside it under ``configs/``), a generated ``mesh`` (an icosphere
+of at least ``icosphere_tris`` triangles with one material row,
+optionally ``textured``), or both: an untextured ``mesh`` placed in the
+``scene`` by ``radius`` and ``center``.  A mesh alone is written once as
+OBJ + MTL (+ a checker PNG), which both loaders frame by their default
+framing (the camera outside the mesh along -z and one overhead spot
+light); a mesh in a scene is written once as a text scene: the scene's
+text, the mesh's material and one triangle a line.  Either lies under
+``cache/scenes/`` at a path fixed by the configuration's bytes (and the
+scene's).  Both the program and the reference parse that file."""
 from __future__ import annotations
 
 import hashlib
@@ -123,24 +126,51 @@ def write_mesh_obj(mesh: dict, out: Path) -> None:
     out.write_text("".join(lines))
 
 
+def write_placed_txt(scene: Path, mesh: dict, out: Path) -> None:
+    """``scene``'s text byte for byte, then ``mesh``'s material as an ``M``
+    record and one ``T`` record a triangle of its icosphere, each vertex
+    scaled by ``radius`` and moved to ``center`` in float32.  Positions
+    with 9 significant digits, which parse back to the same float32."""
+    v, f = icosphere(int(mesh["icosphere_tris"]))
+    tv = v[f] * np.float32(mesh["radius"]) + np.asarray(mesh["center"],
+                                                        np.float32)
+    with open(out, "wb") as fh:
+        fh.write(scene.read_bytes())
+        fh.write(("\nM " + " ".join(f"{x:.9g}" for x in mesh["material"])
+                  + "\n").encode())
+        np.savetxt(fh, tv.reshape(-1, 9), fmt="T" + " %.9g" * 9)
+
+
 def scene_file(config_name: str, config: dict, root: Path | None = None
                ) -> Path:
-    """The scene file the configuration renders, written first if it is a
-    generated mesh that is not in the cache yet."""
+    """The scene file the configuration renders, written first if it holds
+    a generated mesh that is not in the cache yet.  Raises ValueError for a
+    textured mesh in a scene: a text scene has no UVs."""
     root = HERE if root is None else root
+    scene = config.get("scene")
     if "mesh" not in config:
-        return root / "configs" / config["scene"]
-    digest = hashlib.sha256(
-        (root / "configs" / f"{config_name}.json").read_bytes()
-    ).hexdigest()[:12]
-    # the OBJ with its MTL and PNG is written into a directory of its own,
-    # which appears whole or not at all
+        return root / "configs" / scene
+    if scene is not None and config["mesh"].get("textured"):
+        raise ValueError(f"{config_name}: a mesh in a scene is written as a "
+                         "text scene, which has no UVs; it cannot be "
+                         "textured")
+    h = hashlib.sha256(
+        (root / "configs" / f"{config_name}.json").read_bytes())
+    if scene is not None:
+        h.update((root / "configs" / scene).read_bytes())
+    digest = h.hexdigest()[:12]
+    # the scene file (and an OBJ's MTL and PNG) is written into a
+    # directory of its own, which appears whole or not at all
     final = CACHE / f"{config_name}-{digest}"
-    out = final / f"{config_name}.obj"
+    out = final / f"{config_name}{'.obj' if scene is None else '.txt'}"
     if not out.exists():
         tmp = CACHE / f".{config_name}-{digest}.{os.getpid()}.tmp"
         tmp.mkdir(parents=True, exist_ok=True)
-        write_mesh_obj(config["mesh"], tmp / out.name)
+        if scene is None:
+            write_mesh_obj(config["mesh"], tmp / out.name)
+        else:
+            write_placed_txt(root / "configs" / scene, config["mesh"],
+                             tmp / out.name)
         try:
             os.replace(tmp, final)
         except OSError:           # another process wrote it first

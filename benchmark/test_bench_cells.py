@@ -50,9 +50,11 @@ def test_spec_shape():
 def test_cell_files_by_name(cell):
     c = load_cell(cell)
     assert c.chips == 1 and c.limits["accum_mismatch"] == 0
-    # a plain reference scene beside the configuration, or a generated mesh
-    assert "mesh" in c.config or (
-        HERE / "configs" / c.config["scene"]).is_file()
+    # a plain reference scene beside the configuration, a generated mesh,
+    # or a mesh placed in such a scene
+    assert "mesh" in c.config or "scene" in c.config
+    if "scene" in c.config:
+        assert (HERE / "configs" / c.config["scene"]).is_file()
     e2e = [m["name"] for m in c.end_to_end]
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
     for m in c.end_to_end + c.per_layer:

@@ -15,7 +15,7 @@ import torch
 from benchmark.cells import load_cell
 from benchmark.run import run_cell
 
-MODES = ("pt", "bdpt", "ppm", "tex")
+MODES = ("pt", "bdpt", "ppm", "tex", "enclosed")
 
 
 def _run(root, mode, **kw):
@@ -28,6 +28,7 @@ def _wrap(monkeypatch, mode, change_args=None, change_out=None):
     from path_tracing_tpu_torch.integrators import bdpt, ppm, pt
 
     mod, name = {"pt": (pt, "render_pt"), "tex": (pt, "render_pt"),
+                 "enclosed": (pt, "render_pt"),
                  "bdpt": (bdpt, "render_bdpt"),
                  "ppm": (ppm, "render_ppm_with_stats")}[mode]
     orig = getattr(mod, name)

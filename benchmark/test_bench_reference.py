@@ -30,7 +30,8 @@ def _pair(tiny_root, mode):
 @pytest.mark.parametrize("mode,start,n,step", [
     ("pt", 0, 768, 1), ("pt", 300, 200, 1), ("tex", 0, 768, 1),
     ("tex", 300, 200, 1), ("tex", 5, 96, 8), ("pt", 2, 100, 7),
-    ("ppm", 0, 384, 1), ("ppm", 100, 150, 1)])
+    ("ppm", 0, 384, 1), ("ppm", 100, 150, 1), ("enclosed", 0, 768, 1),
+    ("enclosed", 300, 200, 1), ("enclosed", 5, 96, 8)])
 def test_block_equals_the_ports_frame(tiny_root, mode, start, n, step):
     prog, ref = _pair(tiny_root, mode)
     sl = check.pixel_slice(start, n, step)
