@@ -286,6 +286,22 @@ Phases, each raising on failure:
    text scene parsed by it; #5's walk counts at 128x72 and the mega frame
    at 1080p spp 4 (in turns) on the enclosed mesh under the numpy and the
    native cluster layouts.
+21. The sphere index on SPD's sphereflake at size factor 4 (7,381
+   spheres, 2 ground triangles, 3 light balls: the benchmark's
+   ``sphereflake-pt-1080p`` scene, ``synth.sphereflake_scene(4)``), on
+   the indexed instances of #1, #2 and #5: #1 on the 1080p camera rays
+   (t bit-equal to the brute force on every ray, the whole record on >=
+   99.9%: exact ties in t go to the first sphere the walk visits) and #2
+   on their shadow rays to the lights under both can-block rules
+   (verdicts equal on all but 1e-5 of the rays), each counting build's
+   tests equal to the walk model's on 131,072 of the lanes, each timed
+   with its launches counted, and its bound from the counts; #5 against
+   its plain loop at 480x270 spp 4 (pixels within rtol 1e-4 / atol 1e-5
+   on >= 99%, its counting build within 0.1% of the plain counts), then
+   through the CLI at 1920x1080 spp 4, tier auto (mega: one #5 launch,
+   no plain version), timed, and its bound from its counting build's
+   counts on that frame; sphere and box tests a walk against the linear
+   loop's 7,384 (at least 10 times fewer).
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -319,7 +335,9 @@ call.  ``transmittance_rgb``, ``connect_rgb`` and ``connect_sampled``
 carry their time on each launch of their frame (``per_launch``, summed in
 ``split_ms``), ``photon_trace_tex`` its whole pass (``pass_ms``),
 ``ppm_eye`` (which replaces no TPU kernel: ``replaces`` names the XLA
-loop) its time with the host's enqueue (``host_ms``).  The BDPT
+loop) its time with the host's enqueue (``host_ms``), #1, #2 and #5 their
+times, launches, counts a walk and bounds on the sphereflake
+(``flake``, phase 21).  The BDPT
 kernels' ``simt`` has the share of a sweep's lanes that sweep a vertex
 (``sweep``).
 The last line is ``{"ok": true,
@@ -463,11 +481,15 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "tex_bdpt": ("connect",) + BDPT_LIGHT,
                 "tex_ppm": ("ppm_eye_tex", "photon_trace_tex", "gather_flux",
                             "threefry_rows"),
-                "ppm_hash": ("ppm_eye", "photon_trace", "threefry_rows")}
+                "ppm_hash": ("ppm_eye", "photon_trace", "threefry_rows"),
+                "flake_mega": ("render_wavefront",)}
 PIXEL_RTOL, PIXEL_ATOL = 1e-4, 1e-5
 BIG_TRIS = 327680         # above MAX_RESIDENT_TRIS (the TPU's ceiling)
 # the enclosed scene: the icosphere at this radius on cornell's floor
 ENCLOSED_R, ENCLOSED_C = 0.35, (0.0, -0.65, -0.55)
+FLAKE_LEVELS = 4          # SPD's default size factor: 7,381 spheres
+FLAKE_SMALL_W, FLAKE_SMALL_H = 480, 270   # #5 against its plain loop
+FLAKE_COUNT_LANES = 1 << 17   # lanes whose walks the walk model counts
 ROOM_TRIS = 36            # cornell's walls and blocks
 ENCLOSED_TRIS = BIG_TRIS + ROOM_TRIS
 EYE_HOLD_LANES = 16384    # live lanes at most a launch, held on the big mesh
@@ -3527,6 +3549,200 @@ def phase_native(obj: str, txt: str) -> None:
               f"turns: {', '.join(f'{x:.1f}' for x in t)} ms; {card}")
 
 
+def flake_walks(name: str, fast, counting, plain, args: tuple,
+                live: torch.Tensor, timed=None) -> tuple:
+    """#1's or #2's counting build on the sphereflake against the walk
+    model's counts of the same ``live`` lanes (exactly), its output the
+    kernel's; then the kernel timed on the ``timed`` lanes (every lane
+    without) with its launches counted.  Returns (the plain counts, ms,
+    launches)."""
+    from path_tracing_tpu_torch.ops import _kernels, cuda_connect
+
+    k, kc = counting(*args, live=live)
+    out = fast(*args, live=live)
+    check(torch.equal(k, out) if name == "any_blocker" else same_bits(k, out),
+          f"{name}_counts on the flake: its output differs from {name}'s")
+    pc = cuda_connect.new_counts()
+    plain(*args, live=live, counts=pc)
+    kind = "hit" if name == "nearest_hit" else "shadow"
+    hold_counts(f"{name} sphereflake ({int(live.sum())} lanes)", kc, pc,
+                tuple(f"{kind}_{t}" for t in ("spheres", "boxes", "tris")),
+                exact=True)
+    _kernels.reset_counts()
+    ms = time_ms(lambda: fast(*args, live=timed), 10)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    check(launches == {name: 11} and sum(_kernels.plain_calls.values()) == 0,
+          f"{name} on the flake: launches {launches}, plain calls "
+          f"{_kernels.plain_calls}")
+    return pc, ms, launches
+
+
+def phase_flake(counts: dict) -> dict:
+    """21. The sphere index on SPD's sphereflake (see the module's
+    docstring): #1, #2 and #5 on their indexed instances, each against
+    its plain version, its counting build against the plain counts, its
+    time, launches and bound.  Returns each kernel's ``flake`` entry."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators.pt import _light_table
+    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+    from path_tracing_tpu_torch.ops import rng
+    from path_tracing_tpu_torch.ops.intersect import INF, shadow_ray
+    from path_tracing_tpu_torch.scene import synth
+    from path_tracing_tpu_torch.scene.camera import make_camera
+
+    p = synth.sphereflake_scene(FLAKE_LEVELS)
+    scene = p.to_device("cuda")
+    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    check(pk.ns == 7381 and pk.nl == 3 and pk.nsc > 0 and pk.n_ssuper > 0,
+          f"sphereflake: {pk.ns} spheres, {pk.nl} lights, {pk.nsc} "
+          f"clusters, {pk.n_ssuper} supers")
+    linear = pk.ns + pk.nl
+    print(f"[flake] {pk.ns} spheres in {int((pk.scl[:pk.nsc, 7] > 0).sum())}"
+          f" clusters under {pk.n_ssuper} supers, {pk.nt} triangles, "
+          f"{pk.nl} light balls")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
+                      device="cuda")
+    key = rng.prng_key(21)
+    u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
+    ro, rd = camera_rays(cam, u)
+    live = thin(torch.ones(B, dtype=torch.bool, device="cuda"),
+                FLAKE_COUNT_LANES)
+    out = {}
+
+    # #1 on the camera rays: t of every ray the brute force's bit for bit
+    a = ci.nearest_hit(pk, ro, rd)
+    b = ci.nearest_hit_plain(pk, ro, rd)
+    t_equal = torch.equal(a["t"].view(torch.int32), b["t"].view(torch.int32))
+    rec = torch.stack([(a[k].view(torch.int32) == b[k].view(torch.int32))
+                       if a[k].dtype == torch.float32 else a[k] == b[k]
+                       for k in b], 0).all(dim=0).float().mean().item()
+    hits = (a["t"] < INF).float().mean().item()
+    check(t_equal and rec >= 0.999,
+          f"nearest_hit on the flake: t bit-equal {t_equal}, records "
+          f"{rec:.6f}")
+    pc, ms, launches = flake_walks("nearest_hit", ci.nearest_hit,
+                                   ci.nearest_hit_counts, ci.nearest_hit_plain,
+                                   (pk, ro, rd), live)
+    n = int(live.sum())
+    per = {k: pc[f"hit_{k}"] / n for k in ("spheres", "boxes", "tris")}
+    bnd = bound(B * 24 + B * 4 * HIT_ROWS, walk_ops(pc) * B / n)
+    out["nearest_hit"] = dict(ms=ms, launches=launches, per_walk=per,
+                              records_equal=rec, **bnd)
+    print(f"[flake] nearest_hit on {B} camera rays ({hits:.4f} hit): t "
+          f"bit-equal to the brute force on every ray, records on {rec:.6f};"
+          f" {per['spheres']:.2f} sphere and {per['boxes']:.2f} box tests a "
+          f"walk against {linear} linear; {ms:.3f} ms kernel, bound "
+          f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, the walks' counted "
+          f"tests scaled from {n} lanes)")
+    check(per["spheres"] * 10 <= linear,
+          f"nearest_hit on the flake: {per['spheres']} sphere tests a walk")
+
+    # #2 on shadow rays from the camera hits to the three lights
+    hit = a["flag"] > 0
+    nrm = torch.stack([a["nx"], a["ny"], a["nz"]], -1)
+    pos = ro + rd * torch.where(hit, a["t"], torch.zeros_like(a["t"]))[:, None]
+    li = torch.clamp((u[0] * pk.nl).long(), max=pk.nl - 1)
+    p1 = (pos + nrm * 1e-4).contiguous()
+    srd, _, md = shadow_ray(p1, lt[li, 0:3])
+    out["any_blocker"] = {}
+    for rule in (True, False):
+        va = ci.any_blocker(pk, p1, srd, md, rule, live=hit)
+        vb = ci.any_blocker_plain(pk, p1, srd, md, rule, live=hit)
+        differ = int((va != vb).sum())
+        blocked = va[hit].float().mean().item()
+        check(differ <= B * 1e-5,
+              f"any_blocker on the flake (dielectrics_block={rule}): "
+              f"{differ} verdicts differ")
+        pc, ms, launches = flake_walks(
+            "any_blocker", ci.any_blocker, ci.any_blocker_counts,
+            ci.any_blocker_plain, (pk, p1, srd, md, rule), live & hit, hit)
+        n = int((live & hit).sum())
+        per = {k: pc[f"shadow_{k}"] / n for k in ("spheres", "boxes", "tris")}
+        n_hit = int(hit.sum())
+        bnd = bound(n_hit * 28 + 2 * B, walk_ops(pc) * n_hit / n)
+        out["any_blocker"][f"dielectrics_block={rule}"] = dict(
+            ms=ms, launches=launches, per_walk=per, verdicts_differ=differ,
+            **bnd)
+        print(f"[flake] any_blocker dielectrics_block={rule} on {n_hit} "
+              f"shadow rays ({blocked:.4f} blocked): {differ} verdicts "
+              f"differ from the brute force; {per['spheres']:.2f} sphere and"
+              f" {per['boxes']:.2f} box tests a ray against {pk.ns} linear; "
+              f"{ms:.3f} ms kernel, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']})")
+        check(per["spheres"] * 10 <= pk.ns,
+              f"any_blocker on the flake: {per['spheres']} sphere tests a ray")
+
+    # #5 against its plain loop on a 480x270 frame
+    w, h = FLAKE_SMALL_W, FLAKE_SMALL_H
+    scam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                       device="cuda")
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    sargs = (pk, lt, scam, idx % w, idx // w, SPP,
+             RenderConfig(width=w, height=h, spp=SPP, eye_depth=4), key)
+    img = cw.render_wavefront(*sargs)
+    pc = cw.new_counts()
+    ref, plain_ms = once_ms(lambda: cw.render_wavefront_plain(*sargs,
+                                                              counts=pc))
+    share = share_close(img, ref)
+    rel = abs(img.mean().item() - ref.mean().item()) / max(
+        ref.mean().item(), 1e-6)
+    check(share >= 0.99 and rel < 1e-3,
+          f"render_wavefront on the flake {w}x{h}: {share:.6f} of pixels "
+          f"agree, mean rel {rel}")
+    img_c, kc = cw.render_wavefront_counts(*sargs)
+    check(torch.equal(img_c, img),
+          "render_wavefront_counts on the flake: its image differs")
+    hold_counts(f"render_wavefront sphereflake {w}x{h} spp {SPP}", kc, pc,
+                cw.PLAIN_COUNTS, exact=False)
+    print(f"[flake] render_wavefront {w}x{h} spp {SPP}: pixels within rtol "
+          f"1e-4 / atol 1e-5 {share:.6f}, mean rel diff {rel:.3g}; plain "
+          f"loop {plain_ms:.1f} ms")
+
+    # #5 through the CLI at 1080p (tier auto: mega), then timed and counted
+    OUT.mkdir(parents=True, exist_ok=True)
+    txt = OUT / "sphereflake.txt"
+    txt.write_text(synth.sphereflake_text(FLAKE_LEVELS))
+    res = counted("flake_mega", txt, W, H, "auto", "flake_mega", counts)
+    launches = {k: v for k, v in counts["flake_mega"].items() if v}
+    check(res["tier"] == "mega" and launches == {"render_wavefront": 1},
+          f"sphereflake through the CLI: tier {res['tier']}, launches "
+          f"{launches}")
+    idx = torch.arange(B, dtype=torch.int32, device="cuda")
+    margs = (pk, lt, cam, idx % W, idx // W, SPP,
+             RenderConfig(width=W, height=H, spp=SPP, eye_depth=4), key)
+    ms = time_ms(lambda: cw.render_wavefront(*margs), 5)
+    a_c, kc = cw.render_wavefront_counts(*margs)
+    check(torch.equal(a_c, cw.render_wavefront(*margs)),
+          "render_wavefront_counts on the flake at 1080p: its image differs")
+    # the loop's fold_ins (a plain-only count) from the 480x270 frame
+    bnd = bound(B * (8 + 12), mega_ops(dict(kc, iteration_keys=pc[
+        "iteration_keys"])))
+    it, sr = kc["iterations"], max(kc["shadow_rays"], 1)
+    per = dict(hit_spheres=kc["hit_spheres"] / it,
+               hit_boxes=kc["hit_boxes"] / it,
+               shadow_spheres=kc["shadow_spheres"] / sr,
+               shadow_boxes=kc["shadow_boxes"] / sr)
+    check(per["hit_spheres"] * 10 <= linear
+          and per["shadow_spheres"] * 10 <= pk.ns,
+          f"render_wavefront on the flake: tests a walk {per}")
+    eff = {k: lane_share(kc, k) for k in ("walk", "shade", "shadow")}
+    out["render_wavefront"] = dict(ms=ms, launches=launches,
+                                   per_walk=per, counts=kc, simt=eff,
+                                   cli_seconds=res["seconds"], **bnd)
+    print(f"[flake] render_wavefront {W}x{H} spp {SPP} (the CLI's auto: "
+          f"mega, launches {launches}): {ms:.3f} ms kernel; "
+          f"counting build: {it} iterations, {kc['shadow_rays']} shadow "
+          f"rays; a bounce {per['hit_spheres']:.2f} sphere and "
+          f"{per['hit_boxes']:.2f} box tests against {linear} linear, a "
+          f"shadow ray {per['shadow_spheres']:.2f} and "
+          f"{per['shadow_boxes']:.2f} against {pk.ns}; SIMT walk "
+          f"{eff['walk']:.4f}, shade {eff['shade']:.4f}, shadow step "
+          f"{eff['shadow']:.4f}; counted bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}), {bnd['bound_ms'] / ms:.4f} of the kernel's")
+    return out
+
+
 def main() -> int:
     import faulthandler
 
@@ -3613,6 +3829,9 @@ def main() -> int:
     lap("sharded renders (phase 19)")
     phase_native(obj, txt)
     lap("the native runtime (phase 20)")
+    for k, v in phase_flake(counts).items():
+        rows[k]["flake"] = v
+    lap("the sphereflake (phase 21)")
     for r in results:
         if r["name"] in occupancy:
             r["occupancy"] = occupancy[r["name"]]
@@ -3627,7 +3846,7 @@ def main() -> int:
              "split_ms", "bdpt_fused", "oracle", "ppm_eye", "ppm_eye_big",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
              "occupancy", "host_ms", "library_host_ms", "pass_ms",
-             "pass_bound_ms", "pass_bound_by")
+             "pass_bound_ms", "pass_bound_by", "flake")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results]}))

@@ -117,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "the iteration re-run on the same device; 0 "
                          "disables")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the render loop "
-                         "to DIR/trace.json (Chrome trace format)")
+                    help="write a torch.profiler trace of the scene's "
+                         "set-up and the render loop to DIR/trace.json "
+                         "(Chrome trace format)")
     ap.add_argument("--tier", choices=tiers, default="auto",
                     help="PT: auto (default: mega, or fused for textured "
                          "scenes, at any triangle count), mega (one "
@@ -172,18 +173,30 @@ def run(argv=None) -> dict:
     if args.live_term is not None and args.live_term < 2:
         parser.error("--live-term COLS must be >= 2")
 
-    import numpy as np
     import torch
 
     if args.device != "cpu" and not torch.cuda.is_available():
         raise CliError(f"--device {args.device}: no CUDA device is available")
     device = torch.device("cpu" if args.device == "cpu" else "cuda")
 
+    from .profiling import maybe_trace
+
+    with maybe_trace(args.profile, cuda=device.type == "cuda"):
+        out = _render(args, device)
+    if args.profile:
+        print(f"[Profile] trace in {args.profile}")
+    return out
+
+
+def _render(args, device) -> dict:
+    """``run``'s render from the parsed arguments on ``device``."""
+    import numpy as np
+    import torch
+
     from . import film
     from .config import RenderConfig, oracle_config
     from .integrators import bdpt, ppm, pt
     from .ops import rng
-    from .profiling import maybe_trace
     from .runtime.resilience import RenderSupervisor, StopRender
     from .scene.camera import make_camera
     from .scene.obj_loader import load_any_scene
@@ -346,8 +359,6 @@ def run(argv=None) -> dict:
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         flags = stack.enter_context(_signal_flags())
-        stack.enter_context(maybe_trace(args.profile,
-                                        cuda=device.type == "cuda"))
         if args.live_http is not None:
             from .runtime.live_http import LiveServer
 
@@ -365,8 +376,6 @@ def run(argv=None) -> dict:
             pass            # SIGUSR2: save as at the end
         sync()
     seconds = time.perf_counter() - t0
-    if args.profile:
-        print(f"[Profile] trace in {args.profile}")
     # completed iterations: a SIGUSR2 stop renders fewer than --iters
     done = state.n_iters - start_iter
     rate = 1e-6 * done / max(seconds, 1e-9)

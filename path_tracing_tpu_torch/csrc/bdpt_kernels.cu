@@ -153,7 +153,7 @@ struct SweepRows {
 // clear pairs of the batch to its sum in queue order.  kRgb: the walking
 // lane turns its entry into c tr gm, checked (valid3, any(tr > 0)) and
 // clamped; kSampled: a lane's entries go to its chunk sums.
-template <bool kRgb = false, bool kSampled = false, class Q, class Ctr>
+template <bool kRgb = false, bool kSampled = false, int kW = kWalkAny, class Q, class Ctr>
 __device__ __forceinline__ void shadow_batch(const Tables& tb, Q& q, int nb, int blocks_col,
                                              SweepAcc* acc, Ctr& cnt,
                                              const SweepRows* sr = nullptr,
@@ -180,7 +180,7 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, Q& q, int nb, int
       q.c[1][lane] = cc.y;
       q.c[2][lane] = cc.z;
     } else {
-      add = !shadow_blocked_dev(tb, p1, srd, md, blocks_col, cnt) && who < 32;
+      add = !shadow_blocked_dev<kW>(tb, p1, srd, md, blocks_col, cnt) && who < 32;
     }
     if (add) v = u;
   }
@@ -212,7 +212,7 @@ __device__ __forceinline__ void shadow_batch(const Tables& tb, Q& q, int nb, int
 
 // Queue the pairs that passed (ballot and prefix count), and walk a batch
 // of 32 once 32 wait.
-template <bool kRgb, bool kSampled, class Q, class Ctr>
+template <bool kRgb, bool kSampled, int kW, class Q, class Ctr>
 __device__ __forceinline__ void queue_pair(const Tables& tb, Q& q, bool pass, V3 contrib, bool ok,
                                            V3 p2, float gm, int j, int& nq, int blocks_col,
                                            SweepAcc* acc, Ctr& cnt, const SweepRows* sr,
@@ -233,7 +233,7 @@ __device__ __forceinline__ void queue_pair(const Tables& tb, Q& q, bool pass, V3
   }
   nq += __popc(pm);
   if (nq >= 32) {
-    shadow_batch<kRgb, kSampled>(tb, q, 32, blocks_col, acc, cnt, sr, clamp_val);
+    shadow_batch<kRgb, kSampled, kW>(tb, q, 32, blocks_col, acc, cnt, sr, clamp_val);
     nq -= 32;
     if (lane < nq) {  // the rest of the queue moves to its front
       for (int d = 0; d < 3; ++d) {
@@ -260,7 +260,7 @@ __device__ __forceinline__ void queue_pair(const Tables& tb, Q& q, bool pass, V3
 // n_valid / M after the chunked sum.  Every lane of the warp calls this.
 // It counts the vertices (kVertices) and the lanes that sweep one
 // (kSweepLanes).
-template <bool kRgb = false, bool kSampled = false, class Q, class Ctr>
+template <bool kRgb = false, bool kSampled = false, int kW = kWalkAny, class Q, class Ctr>
 __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
                          const float* __restrict__ rows, float* chunk, int n_valid, Q& q,
                          float clamp_val, int blocks_col, Ctr& cnt,
@@ -285,8 +285,8 @@ __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
       float gm = 0.0f;
       const bool pass = has_v && connect_row<kRgb>(e, rows + (size_t)vrow[j] * kLvCols, clamp_val,
                                                    cnt, &contrib, &ok, &p2, &gm);
-      queue_pair<kRgb, kSampled>(tb, q, pass, contrib, ok, p2, gm, j, nq, blocks_col, &acc, cnt,
-                                 sr, clamp_val);
+      queue_pair<kRgb, kSampled, kW>(tb, q, pass, contrib, ok, p2, gm, j, nq, blocks_col, &acc,
+                                     cnt, sr, clamp_val);
     }
   } else {
     for (int c0 = 0; c0 < n_valid; c0 += kChunk) {
@@ -304,13 +304,13 @@ __device__ V3 warp_sweep(const Tables& tb, const EyeVertex& e, bool has_v,
         float gm = 0.0f;
         const bool pass = has_v && connect_row<kRgb>(e, R0 + r * kLvCols, clamp_val, cnt,
                                                      &contrib, &ok, &p2, &gm);
-        queue_pair<kRgb, kSampled>(tb, q, pass, contrib, ok, p2, gm, r, nq, blocks_col, &acc, cnt,
-                                   sr, clamp_val);
+        queue_pair<kRgb, kSampled, kW>(tb, q, pass, contrib, ok, p2, gm, r, nq, blocks_col, &acc,
+                                       cnt, sr, clamp_val);
       }
       if (!chunk) break;
     }
   }
-  if (nq > 0) shadow_batch<kRgb, kSampled>(tb, q, nq, blocks_col, &acc, cnt, sr, clamp_val);
+  if (nq > 0) shadow_batch<kRgb, kSampled, kW>(tb, q, nq, blocks_col, &acc, cnt, sr, clamp_val);
   if constexpr (kSampled) {
     const float nv = (float)(n_valid > 1 ? n_valid : 1);
     return scale(acc.total + acc.part, nv / (float)sr->M);
@@ -470,8 +470,9 @@ inline EyeLayout eye_layout(int n_valid) {
 // column of integrators/bdpt.py::eye_sample: hit, the depth-0 light
 // credit, the connection sweep (warp_sweep), the BSDF bounce and the G
 // recurrence; a sample ends where that loop's lane stops changing, and the
-// lane's next sample starts at the next step.
-template <bool kCount>
+// lane's next sample starts at the next step.  kW: kWalkIndexed for a
+// scene with a sphere index, else kWalkAny (WalkKind).
+template <bool kCount, int kW = kWalkAny>
 __global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
     bdpt_eye_kernel(Tables tb, EyeTable tab, const float* __restrict__ cam_tab, EyeCfg g,
                     const int* __restrict__ px, const int* __restrict__ py, int B,
@@ -549,7 +550,7 @@ __global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
       if (it >= g.max_iters) {
         ends = true;
       } else {
-        HitRec h = nearest_hit_dev<false>(tb, ro, rd, cnt);
+        HitRec h = nearest_hit_dev<false, kW>(tb, ro, rd, cnt);
         if (h.flag == 0) {  // a miss ends the path
           ends = true;
         } else {
@@ -580,8 +581,8 @@ __global__ void __launch_bounds__(kEyeThreads, kEyeMinBlocks)
     pk[22 * kEyeThreads] = __uint_as_float(ke.k1);
 
     // ---- connect the warp's vertices to the light vertices ----
-    const V3 acc =
-        warp_sweep(tb, e, has_v, rows, chunk, tab.n_valid, q, g.clamp_val, g.blocks_col, cnt);
+    const V3 acc = warp_sweep<false, false, kW>(tb, e, has_v, rows, chunk, tab.n_valid, q,
+                                                g.clamp_val, g.blocks_col, cnt);
 
     rd = get(0);
     last_p = get(3);
@@ -707,15 +708,14 @@ cudaError_t launch_connect_at(const Tables& tb, const float* lv, int n_valid, co
 }
 
 template <bool kCount>
-int launch_connect(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, const float* lv,
+int launch_connect(PTK_TABLE_PARAMS, const float* lv,
                    int n_valid, const float* pos, const float* n, const float* tp,
                    const float* bc, const float* rough, const float* metal, const float* eta,
                    const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
                    int B, float clamp_val, int blocks_col, int* work, float* out,
                    unsigned long long* counts, void* stream) {
   ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  Tables tb = make_tables(PTK_TABLE_ARGS);
   int place = kRowsResident;
   cudaError_t err = connect_place(n_valid, &place);
   if (err != cudaSuccess) return (int)err;
@@ -755,65 +755,60 @@ extern "C" {
 
 // Each entry launches on the caller's stream and returns cudaGetLastError()
 // (0 on success); the Python wrapper raises on anything else.  The scene
-// tables come first: sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super.
+// tables come first (PTK_TABLE_PARAMS).
 
-int pt_connect(const float* sph, int ns, int nl, const float* tri, const float* uv, const float* cl,
-               int nc, const float* sup, int nsup, const float* lv, int n_valid, const float* pos,
+int pt_connect(PTK_TABLE_PARAMS, const float* lv, int n_valid, const float* pos,
                const float* n, const float* tp, const float* bc, const float* rough,
                const float* metal, const float* eta, const float* wo_e, const float* wo_s,
                const float* eye_f, const bool* act, int B, float clamp_val, int blocks_col,
                int* work, float* out, void* stream) {
-  return launch_connect<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp,
+  return launch_connect<false>(PTK_TABLE_ARGS, lv, n_valid, pos, n, tp,
                                bc, rough, metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val,
                                blocks_col, work, out, nullptr, stream);
 }
 
 // The counting build of #8: the same sums, and the work counters added
 // into counts[kNumCounts] (zeroed by the caller).
-int pt_connect_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* sup, int nsup, const float* lv,
+int pt_connect_counts(PTK_TABLE_PARAMS, const float* lv,
                       int n_valid, const float* pos, const float* n, const float* tp,
                       const float* bc, const float* rough, const float* metal, const float* eta,
                       const float* wo_e, const float* wo_s, const float* eye_f, const bool* act,
                       int B, float clamp_val, int blocks_col, int* work, float* out,
                       unsigned long long* counts, void* stream) {
-  return launch_connect<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, pos, n, tp,
+  return launch_connect<true>(PTK_TABLE_ARGS, lv, n_valid, pos, n, tp,
                               bc, rough, metal, eta, wo_e, wo_s, eye_f, act, B, clamp_val,
                               blocks_col, work, out, counts, stream);
 }
 
 // #8's RGB instance: the exact sweep of pt_connect with the RGB shadow
 // (ks: the legacy rows (ns + nt, 4)).
-int pt_connect_rgb(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, const float* ks,
+int pt_connect_rgb(PTK_TABLE_PARAMS, const float* ks,
                    const float* lv, int n_valid, const float* pos, const float* n,
                    const float* tp, const float* bc, const float* rough, const float* metal,
                    const float* eta, const float* wo_e, const float* wo_s, const float* eye_f,
                    const bool* act, int B, float clamp_val, int blocks_col, int* work, float* out,
                    void* stream) {
   ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  return launch_connect_x<true, false>(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ks,
+  return launch_connect_x<true, false>(make_tables(PTK_TABLE_ARGS), ks,
                                        lv, n_valid, in, nullptr, 0, B, clamp_val, blocks_col,
                                        work, out, stream);
 }
 
 // #8's sampled instance: lane i sweeps rows vidx[i, 0..M) of the table
 // (each < max(n_valid, 1)); ks non-null: with the RGB shadow.
-int pt_connect_sampled(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                       const float* cl, int nc, const float* sup, int nsup, const float* ks,
+int pt_connect_sampled(PTK_TABLE_PARAMS, const float* ks,
                        const float* lv, int n_valid, const float* pos, const float* n,
                        const float* tp, const float* bc, const float* rough, const float* metal,
                        const float* eta, const float* wo_e, const float* wo_s,
                        const float* eye_f, const bool* act, const int* vidx, int M, int B,
                        float clamp_val, int blocks_col, int* work, float* out, void* stream) {
   ConnectIn in{pos, n, tp, bc, rough, metal, eta, wo_e, wo_s, eye_f, act};
-  const Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  const Tables tb = make_tables(PTK_TABLE_ARGS);
   auto* go = ks ? &launch_connect_x<true, true> : &launch_connect_x<false, true>;
   return go(tb, ks, lv, n_valid, in, vidx, M, B, clamp_val, blocks_col, work, out, stream);
 }
 
-static int launch_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* sup, int nsup, const float* lv,
+static int launch_eye(PTK_TABLE_PARAMS, const float* lv,
                       int n_valid, int tile_lanes, long long tile_stride, const float* cam,
                       const int* px, const int* py, int B, int spp, int eye_depth, int max_iters,
                       uint32_t k0, uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
@@ -823,38 +818,34 @@ static int launch_eye(const float* sph, int ns, int nl, const float* tri, const 
   EyeTable tab{lv, n_valid, tile_lanes, tile_stride};
   EyeCfg g{{k0, k1}, start, total, spp, eye_depth, max_iters, clamp_val, light_hit_scale,
            blocks_col, L.resident};
-  Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
+  Tables tb = make_tables(PTK_TABLE_ARGS);
   const int blocks = (B + kEyeThreads - 1) / kEyeThreads;
-  if (counts)
-    bdpt_eye_kernel<true><<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(
-        tb, tab, cam, g, px, py, B, img, counts);
-  else
-    bdpt_eye_kernel<false><<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(
-        tb, tab, cam, g, px, py, B, img, nullptr);
+  auto* fn = counts ? (nsc ? &bdpt_eye_kernel<true, kWalkIndexed> : &bdpt_eye_kernel<true>)
+                    : (nsc ? &bdpt_eye_kernel<false, kWalkIndexed> : &bdpt_eye_kernel<false>);
+  fn<<<blocks, kEyeThreads, L.bytes, (cudaStream_t)stream>>>(tb, tab, cam, g, px, py, B, img,
+                                                             counts);
   return (int)cudaGetLastError();
 }
 
-int pt_bdpt_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                const float* cl, int nc, const float* sup, int nsup, const float* lv, int n_valid,
+int pt_bdpt_eye(PTK_TABLE_PARAMS, const float* lv, int n_valid,
                 int tile_lanes, long long tile_stride, const float* cam, const int* px,
                 const int* py, int B, int spp, int eye_depth, int max_iters, uint32_t k0,
                 uint32_t k1, uint32_t start, uint32_t total, float clamp_val, int blocks_col,
                 float light_hit_scale, float* img, void* stream) {
-  return launch_eye(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, tile_lanes, tile_stride,
+  return launch_eye(PTK_TABLE_ARGS, lv, n_valid, tile_lanes, tile_stride,
                     cam, px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
                     blocks_col, light_hit_scale, img, nullptr, stream);
 }
 
 // The counting build of #9: the same image, and the work counters added
 // into counts[kNumCounts] (zeroed by the caller).
-int pt_bdpt_eye_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                       const float* cl, int nc, const float* sup, int nsup, const float* lv,
+int pt_bdpt_eye_counts(PTK_TABLE_PARAMS, const float* lv,
                        int n_valid, int tile_lanes, long long tile_stride, const float* cam,
                        const int* px, const int* py, int B, int spp, int eye_depth, int max_iters,
                        uint32_t k0, uint32_t k1, uint32_t start, uint32_t total, float clamp_val,
                        int blocks_col, float light_hit_scale, float* img,
                        unsigned long long* counts, void* stream) {
-  return launch_eye(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lv, n_valid, tile_lanes, tile_stride,
+  return launch_eye(PTK_TABLE_ARGS, lv, n_valid, tile_lanes, tile_stride,
                     cam, px, py, B, spp, eye_depth, max_iters, k0, k1, start, total, clamp_val,
                     blocks_col, light_hit_scale, img, counts, stream);
 }

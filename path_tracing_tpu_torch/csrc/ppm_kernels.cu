@@ -639,21 +639,21 @@ extern "C" {
 
 // work: one int32, zeroed by the caller (the next photon to hand out);
 // valid holds zeros beforehand (rows never written are never read).
-int pt_photon_trace(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                    const float* cl, int nc, const float* sup, int nsup, const float* ro,
+int pt_photon_trace(PTK_TABLE_PARAMS, const float* ro,
                     const float* rd, const float* flux, const bool* real, int P, uint32_t k0,
                     uint32_t k1, uint32_t start, uint32_t total, int light_depth, int iters,
                     int* work, float* ev, bool* valid, void* stream) {
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
-  auto* launch = nsup ? &launch_photon<false, kWalkSuper> : &launch_photon<false, kWalkFlat>;
-  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+  auto* launch = nsc    ? &launch_photon<false, kWalkIndexed>
+                 : nsup ? &launch_photon<false, kWalkSuper>
+                        : &launch_photon<false, kWalkFlat>;
+  return launch(make_tables(PTK_TABLE_ARGS), ro, rd, flux, real, P, g,
                 work, ev, valid, nullptr, stream, Tex{});
 }
 
 // #10's textured instance: the atlas (n_tex, th1, tw1, 3) and its sizes
 // (n_tex, 2) after the scene tables, the rest as pt_photon_trace.
-int pt_photon_trace_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                        const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+int pt_photon_trace_tex(PTK_TABLE_PARAMS, const float* atlas,
                         const int* tex_size, int n_tex, int th1, int tw1, const float* ro,
                         const float* rd, const float* flux, const bool* real, int P, uint32_t k0,
                         uint32_t k1, uint32_t start, uint32_t total, int light_depth, int iters,
@@ -661,22 +661,25 @@ int pt_photon_trace_tex(const float* sph, int ns, int nl, const float* tri, cons
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
   const Tex tx{atlas, tex_size, n_tex, th1, tw1};
   auto* launch =
-      nsup ? &launch_photon<false, kWalkSuper, true> : &launch_photon<false, kWalkFlat, true>;
-  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+      nsc    ? &launch_photon<false, kWalkIndexed, true>
+      : nsup ? &launch_photon<false, kWalkSuper, true>
+             : &launch_photon<false, kWalkFlat, true>;
+  return launch(make_tables(PTK_TABLE_ARGS), ro, rd, flux, real, P, g,
                 work, ev, valid, nullptr, stream, tx);
 }
 
 // The counting build of #10: the same events, and the work counters added
 // into counts[kPhotonCounts] (zeroed by the caller).
-int pt_photon_trace_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                           const float* cl, int nc, const float* sup, int nsup, const float* ro,
+int pt_photon_trace_counts(PTK_TABLE_PARAMS, const float* ro,
                            const float* rd, const float* flux, const bool* real, int P,
                            uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
                            int light_depth, int iters, int* work, float* ev, bool* valid,
                            unsigned long long* counts, void* stream) {
   PhotonCfg g{{k0, k1}, start, total, light_depth, iters};
-  auto* launch = nsup ? &launch_photon<true, kWalkSuper> : &launch_photon<true, kWalkFlat>;
-  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, flux, real, P, g,
+  auto* launch = nsc    ? &launch_photon<true, kWalkIndexed>
+                 : nsup ? &launch_photon<true, kWalkSuper>
+                        : &launch_photon<true, kWalkFlat>;
+  return launch(make_tables(PTK_TABLE_ARGS), ro, rd, flux, real, P, g,
                 work, ev, valid, counts, stream, Tex{});
 }
 
@@ -696,23 +699,23 @@ int pt_photon_occupancy(int* out) {
 // iteration key (i0, i1) = fold_in(key, 0x9E2), lanes [start, start + B)
 // of a total-lane pass, at most iters chain links, the direct term's
 // clamp; every output row written.
-int pt_ppm_eye(const float* sph, int ns, int nl, const float* tri, const float* uv,
-               const float* cl, int nc, const float* sup, int nsup, const float* cam,
+int pt_ppm_eye(PTK_TABLE_PARAMS, const float* cam,
                const int* px, const int* py, int B, uint32_t j0, uint32_t j1, uint32_t i0,
                uint32_t i1, uint32_t start, uint32_t total, int iters, float clamp,
                float* direct, float* pos, float* normal, float* wo, float* bc, float* rough,
                float* metal, float* eta, float* tp, bool* valid, void* stream) {
   const EyeCfg g{{j0, j1}, {i0, i1}, start, total, iters, clamp};
   const EyeOut o{direct, pos, normal, wo, bc, rough, metal, eta, tp, valid};
-  auto* launch = nsup ? &launch_eye<kWalkSuper, false> : &launch_eye<kWalkFlat, false>;
-  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), Tex{}, cam, px, py, B, g,
+  auto* launch = nsc    ? &launch_eye<kWalkIndexed, false>
+                 : nsup ? &launch_eye<kWalkSuper, false>
+                        : &launch_eye<kWalkFlat, false>;
+  return launch(make_tables(PTK_TABLE_ARGS), Tex{}, cam, px, py, B, g,
                 o, stream);
 }
 
 // ppm_eye's textured instance: the atlas (n_tex, th1, tw1, 3) and its sizes
 // (n_tex, 2) after the scene tables, the rest as pt_ppm_eye.
-int pt_ppm_eye_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+int pt_ppm_eye_tex(PTK_TABLE_PARAMS, const float* atlas,
                    const int* tex_size, int n_tex, int th1, int tw1, const float* cam,
                    const int* px, const int* py, int B, uint32_t j0, uint32_t j1, uint32_t i0,
                    uint32_t i1, uint32_t start, uint32_t total, int iters, float clamp,
@@ -721,8 +724,10 @@ int pt_ppm_eye_tex(const float* sph, int ns, int nl, const float* tri, const flo
   const EyeCfg g{{j0, j1}, {i0, i1}, start, total, iters, clamp};
   const EyeOut o{direct, pos, normal, wo, bc, rough, metal, eta, tp, valid};
   const Tex tx{atlas, tex_size, n_tex, th1, tw1};
-  auto* launch = nsup ? &launch_eye<kWalkSuper, true> : &launch_eye<kWalkFlat, true>;
-  return launch(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), tx, cam, px, py, B, g, o,
+  auto* launch = nsc    ? &launch_eye<kWalkIndexed, true>
+                 : nsup ? &launch_eye<kWalkSuper, true>
+                        : &launch_eye<kWalkFlat, true>;
+  return launch(make_tables(PTK_TABLE_ARGS), tx, cam, px, py, B, g, o,
                 stream);
 }
 

@@ -22,6 +22,10 @@
 //   sup (NS, 16): min3 max3 0 count | super order per octant, the union
 //                 boxes of 16 consecutive clusters (nsup 0: none, the flat
 //                 walk); ops/cuda_intersect.py::super_table builds both
+//   scl, ssup:    the sphere index, cl's and sup's layout over the spheres
+//                 sph[0, ns) (nsc 0: none, every ray tests each sphere),
+//                 then one row min3 max3 r_min 0 of its bounds and least
+//                 radius (ops/bvh.py::sphere_index)
 //   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
 //   light vertices (V, 40): see ops/cuda_connect.py::pack_light_vertices
 #pragma once
@@ -98,6 +102,10 @@ struct Tables {
   int nc;
   const float* __restrict__ sup;
   int nsup;  // super rows the walk visits; 0: the flat walk over 8-column cl rows
+  const float* __restrict__ scl;
+  int nsc;  // the sphere index's cluster rows; 0: no index
+  const float* __restrict__ ssup;
+  int nssup;  // its super rows the walk visits; 0: its flat walk
 };
 
 // ---------------------------------------------------------------------------
@@ -283,6 +291,71 @@ __device__ __forceinline__ bool slab_hit(const float* __restrict__ B, V3 ro, V3 
   return (tn <= tf) && (tn < tlimit);
 }
 
+// How much the sphere index's boxes grow for a ray (sphere_pad): pad,
+// and for a wide ray (pad above the index's least radius) k, the factor
+// of a box's own bound, k times the distance to its farthest corner (0:
+// the ray takes pad alone).
+struct SpherePad {
+  float pad, k;
+};
+
+// slab_hit on the box grown by the ray's pad on every side, for a wide ray
+// by no more than the box's own bound.
+__device__ __forceinline__ bool slab_hit_pad(const float* __restrict__ B, V3 ro, V3 inv,
+                                             SpherePad p, float tlo, float tlimit) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(B));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(B) + 1);
+  float pad = p.pad;
+  if (p.k > 0.0f) {
+    const float qx = jmax(fabsf(ro.x - a.x), fabsf(ro.x - a.w));
+    const float qy = jmax(fabsf(ro.y - a.y), fabsf(ro.y - b.x));
+    const float qz = jmax(fabsf(ro.z - a.z), fabsf(ro.z - b.y));
+    pad = jmin(pad, p.k * sqrtf(qx * qx + qy * qy + qz * qz));
+  }
+  const float t0x = ((a.x - pad) - ro.x) * inv.x, t1x = ((a.w + pad) - ro.x) * inv.x;
+  const float t0y = ((a.y - pad) - ro.y) * inv.y, t1y = ((b.x + pad) - ro.y) * inv.y;
+  const float t0z = ((a.z - pad) - ro.z) * inv.z, t1z = ((b.y + pad) - ro.z) * inv.z;
+  const float tn = max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
+                           max_nan(min_nan(t0z, t1z), tlo));
+  const float tf = min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)), max_nan(t0z, t1z));
+  return (tn <= tf) && (tn < tlimit);
+}
+
+// The pad of a ray's walk through the sphere index.  sphere_t forms h =
+// b^2 - c with c = |oc|^2 - r^2, which cancels, and takes rd as unit, so
+// it reports hits off the sphere: the point at the t it returns lies
+// within sqrt(r^2 + E) of the centre, E = 16 eps |oc|^2 + |1 - |rd|^2| t^2
+// at most (eps = 2^-24; a direction's length is off 1 where the
+// reference's unnormalised sphere normals pass that on to the rays they
+// reflect).  The near root's t is at most |rd| |oc|; the far root, taken
+// only from on or inside the sphere, at most 3 |rd| r, and there the
+// farthest corner is at least sqrt(3) r away.  So with q2 the squared
+// distance to the index's farthest corner from the ray's origin, E <=
+// (16 eps + 3 eta (1 + eta)) q2, eta = |1 - |rd|^2|; the pad takes 32 eps
+// and 4 eta (1 + eta), sqrt(r^2 + E) - r <= min(sqrt(E), E / 2r) with r
+// the index's least radius, plus 32 eps sqrt(q2) for the slab test's own
+// rounding.  A box grown by it holds every such hit, so culling never
+// drops a hit the linear loop finds.  The same bound from a box's own
+// farthest corner holds for the spheres inside it, so a wide ray (one
+// whose direction is off unit length, with a pad wider than the least
+// sphere) grows each box by no more than k = sqrt(32 eps + 4 eta (1 +
+// eta)) + 32 eps times that corner's distance: its near boxes little.  M:
+// the index's bounds row.  ops/cuda_intersect.py::sphere_pad computes the
+// same, in the same order.
+constexpr float kPadEps = 1.9073486328125e-6f;  // 2^-19: 32 eps
+
+__device__ __forceinline__ SpherePad sphere_pad(const float* __restrict__ M, V3 ro, V3 rd) {
+  const float qx = jmax(fabsf(ro.x - M[0]), fabsf(ro.x - M[3]));
+  const float qy = jmax(fabsf(ro.y - M[1]), fabsf(ro.y - M[4]));
+  const float qz = jmax(fabsf(ro.z - M[2]), fabsf(ro.z - M[5]));
+  const float q2 = qx * qx + qy * qy + qz * qz;
+  const float eta = fabsf(rd.x * rd.x + rd.y * rd.y + rd.z * rd.z - 1.0f);
+  const float coef = kPadEps + 4.0f * eta * (1.0f + eta);
+  const float e = coef * q2;
+  const float pad = jmin(sqrtf(e), e / (2.0f * M[6])) + kPadEps * sqrtf(q2);
+  return {pad, pad > M[6] ? sqrtf(coef) + kPadEps : 0.0f};
+}
+
 __device__ __forceinline__ int octant(V3 rd) {
   return (rd.x >= 0.0f ? 1 : 0) + (rd.y >= 0.0f ? 2 : 0) + (rd.z >= 0.0f ? 4 : 0);
 }
@@ -290,12 +363,22 @@ __device__ __forceinline__ int octant(V3 rd) {
 // Which cluster walk a kernel instance takes: chosen at run time by nsup,
 // or fixed.  #4, #5 and #10 launch an instance per walk (the flat one
 // below SUPER_MIN_CLUSTERS), since the branch cost #5 and #10 registers
-// and time on cornell.
-enum WalkKind { kWalkAny, kWalkFlat, kWalkSuper };
+// and time on cornell.  Only kWalkIndexed (the triangle walk chosen at run
+// time) walks a sphere index, where nsc > 0: #1-#5, #9, #10 and ppm_eye
+// launch it for scenes that have one, so the other instances keep the
+// spheres' loop alone (the index's code cost #5 11% on cornell, unused).
+// An instance without the index tests every sphere in turn, which finds
+// the same hits.
+enum WalkKind { kWalkAny, kWalkFlat, kWalkSuper, kWalkIndexed };
 
 template <int kW>
 __device__ __forceinline__ bool flat_walk(const Tables& tb) {
-  return kW == kWalkFlat || (kW == kWalkAny && tb.nsup == 0);
+  return kW == kWalkFlat || (kW != kWalkSuper && tb.nsup == 0);
+}
+
+template <int kW>
+__device__ __forceinline__ bool sphere_indexed(const Tables& tb) {
+  return kW == kWalkIndexed && tb.nsc > 0;
 }
 
 // The cluster walk of the resident kernels, as the JAX package's kernels
@@ -382,10 +465,67 @@ struct NearestVisit {
   }
 };
 
+// One sphere (or light ball) row s against the running nearest hit:
+// strictly closer wins; the normal (oc + rd t) / r, the row's material, a
+// light ball's flag 2.
+__device__ __forceinline__ void test_sphere(const float* __restrict__ s, V3 ro, V3 rd,
+                                            HitRec& best) {
+  V3 oc;
+  float t = sphere_t(ro, rd, s, INFINITY, &oc);
+  if (t < best.t) {
+    float inv_r = 1.0f / jmax(s[3], 1e-20f);
+    best.t = t;
+    best.n = scale(oc + scale(rd, t), inv_r);
+    best.m = {mk(s[8], s[9], s[10]), s[11], s[12], s[13]};
+    best.flag = s[14] > 0.0f ? 2 : 1;
+  }
+}
+
+// The sphere index's visitor for the nearest hit: a box grown by the
+// ray's pad is entered if the ray enters it before the running nearest t,
+// an entered cluster's spheres are tested in order (test_sphere).
+template <class Ctr>
+struct NearestSphereVisit {
+  const Tables& tb;
+  Ctr& cnt;
+  V3 ro, rd, inv;
+  SpherePad pad;
+  int cl_cols;
+  HitRec& best;
+  __device__ __forceinline__ bool done() const { return false; }
+  __device__ __forceinline__ bool enters_super(const float* S) {
+    cnt.add(kHitBox);
+    return slab_hit_pad(S, ro, inv, pad, kEps, best.t);
+  }
+  __device__ __forceinline__ void cluster(int c) {
+    const float* C = tb.scl + c * cl_cols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    cnt.add(kHitBox);
+    if (!slab_hit_pad(C, ro, inv, pad, kEps, best.t)) return;
+    const int start = (int)C[6];
+    cnt.add(kHitSph, (unsigned)count);
+    for (int i = start; i < start + count; ++i) test_sphere(tb.sph + i * kSphCols, ro, rd, best);
+  }
+};
+
+// The sphere index's walk (flat below SUPER_MIN_CLUSTERS clusters, else
+// the supers in the ray's octant order) with visitor w.
+template <class Visit>
+__device__ __forceinline__ void sphere_walk(const Tables& tb, V3 rd, Visit& w) {
+  if (tb.nssup)
+    cluster_walk<false>(tb.scl, tb.nsc, tb.ssup, tb.nssup, octant(rd), w);
+  else
+    cluster_walk<true>(tb.scl, tb.nsc, tb.ssup, 0, 0, w);
+}
+
 // kUV keeps the winning triangle's Moller-Trumbore barycentrics and
 // interpolates its vertex UVs as ops/texture.py::interpolate_uv does:
 // w0 = 1 - u - v, iu = w0*u0 + u*u1 + v*u2.  cnt counts the primitive
-// tests (a super box as a box).  The triangles are walked by cluster_walk:
+// tests (a super box as a box).  Spheres and light balls are tested in
+// turn; with a sphere index (sphere_indexed) the light balls alone, then
+// the index is walked (sphere_walk, NearestSphereVisit), all under one
+// running nearest t.  The triangles are walked by cluster_walk:
 // from 64 clusters on the supers in the ray's octant order, as
 // nearest_hit_pallas walks them; t is the flat walk's, and only the winner
 // of an exact tie may differ (the first visited wins).  kW: the walk
@@ -400,22 +540,20 @@ __device__ HitRec nearest_hit_dev(const Tables& tb, V3 ro, V3 rd, Ctr& cnt) {
   w.best.flag = 0;
   w.best_tri = -1;
   w.best_u = w.best_v = 0.f;
-  for (int i = 0; i < tb.ns + tb.nl; ++i) {
-    const float* s = tb.sph + i * kSphCols;
-    V3 oc;
+  const bool indexed = sphere_indexed<kW>(tb);
+  for (int i = indexed ? tb.ns : 0; i < tb.ns + tb.nl; ++i) {
     cnt.add(kHitSph);
-    float t = sphere_t(ro, rd, s, INFINITY, &oc);
-    if (t < w.best.t) {
-      float inv_r = 1.0f / jmax(s[3], 1e-20f);
-      w.best.t = t;
-      w.best.n = scale(oc + scale(rd, t), inv_r);
-      w.best.m = {mk(s[8], s[9], s[10]), s[11], s[12], s[13]};
-      w.best.flag = s[14] > 0.0f ? 2 : 1;
-    }
+    test_sphere(tb.sph + i * kSphCols, ro, rd, w.best);
   }
   // per-ray culling: a box the ray cannot enter before the current best
   // hit is skipped
   w.inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+  if (indexed) {
+    const int cols = tb.nssup ? kSclCols : kClCols;
+    NearestSphereVisit<Ctr> sv{tb,   cnt, ro, rd, w.inv, sphere_pad(tb.scl + tb.nsc * cols, ro, rd),
+                               cols, w.best};
+    sphere_walk(tb, rd, sv);
+  }
   if (flat)
     cluster_walk<true>(tb.cl, tb.nc, tb.sup, tb.nsup, 0, w);
   else
@@ -481,23 +619,72 @@ struct ShadowVisit {
   }
 };
 
+// The sphere index's visitor for a shadow ray: a box grown by the ray's
+// pad is entered if the segment enters it in (kMinD, md); an entered
+// cluster's can-block spheres are tested in order up to the first that
+// occludes, which ends the walk.
+template <class Ctr>
+struct ShadowSphereVisit {
+  const Tables& tb;
+  Ctr& cnt;
+  V3 p1, rd, inv;
+  float md;
+  SpherePad pad;
+  int cl_cols, blocks_col;
+  bool blocked;
+  __device__ __forceinline__ bool done() const { return blocked; }
+  __device__ __forceinline__ bool enters_super(const float* S) {
+    cnt.add(kShBox);
+    return slab_hit_pad(S, p1, inv, pad, kMinD, md);
+  }
+  __device__ __forceinline__ void cluster(int c) {
+    const float* C = tb.scl + c * cl_cols;
+    const int count = (int)C[7];
+    if (count <= 0) return;
+    cnt.add(kShBox);
+    if (!slab_hit_pad(C, p1, inv, pad, kMinD, md)) return;
+    const int start = (int)C[6];
+    for (int i = start; i < start + count; ++i) {
+      const float* s = tb.sph + i * kSphCols;
+      if (!(s[blocks_col] > 0.0f)) continue;
+      V3 oc;
+      cnt.add(kShSph);
+      const float t = sphere_t(p1, rd, s, md, &oc);
+      if (t < kInf && t > kMinD) {
+        blocked = true;
+        return;
+      }
+    }
+  }
+};
+
 // Shadow any-hit for t in (kMinD, md): spheres and triangles whose
 // can-block column (4 GPU rule / 5 oracle rule) is set; light balls never
-// block and are not visited.  cnt counts the primitive tests (a super box
-// as a box).  From 64 clusters on the walk takes the supers in the ray's
+// block and are not visited.  The spheres in turn, or with a sphere index
+// (sphere_indexed) its walk (ShadowSphereVisit).  cnt counts the primitive tests (a super
+// box as a box).  From 64 clusters on the walk takes the supers in the ray's
 // octant order and each entered super's children in theirs (the JAX
 // package's blocker takes the children in table order: the verdict is the
 // same, the tests up to the first blocker may differ).  kW: the walk.
 template <int kW = kWalkAny, class Ctr>
 __device__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 rd, float md, int blocks_col,
                                    Ctr& cnt) {
-  for (int i = 0; i < tb.ns; ++i) {
-    const float* s = tb.sph + i * kSphCols;
-    if (!(s[blocks_col] > 0.0f)) continue;
-    V3 oc;
-    cnt.add(kShSph);
-    float t = sphere_t(p1, rd, s, md, &oc);
-    if (t < kInf && t > kMinD) return true;
+  if (sphere_indexed<kW>(tb)) {
+    const int cols = tb.nssup ? kSclCols : kClCols;
+    ShadowSphereVisit<Ctr> sv{tb,   cnt, p1, rd, mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z)),
+                              md,   sphere_pad(tb.scl + tb.nsc * cols, p1, rd),
+                              cols, blocks_col, false};
+    sphere_walk(tb, rd, sv);
+    if (sv.blocked) return true;
+  } else {
+    for (int i = 0; i < tb.ns; ++i) {
+      const float* s = tb.sph + i * kSphCols;
+      if (!(s[blocks_col] > 0.0f)) continue;
+      V3 oc;
+      cnt.add(kShSph);
+      float t = sphere_t(p1, rd, s, md, &oc);
+      if (t < kInf && t > kMinD) return true;
+    }
   }
   const bool flat = flat_walk<kW>(tb);
   ShadowVisit<Ctr> w{tb, cnt, p1, rd, mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z)), md,
@@ -1112,8 +1299,17 @@ inline cudaError_t occupancy_row(const void* fn, int threads, int dynamic_smem, 
   return err;
 }
 
-inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc, const float* sup, int nsup) {
+// The scene tables as every entry of the libraries takes them, first, in
+// ops/cuda_intersect.py::table_args's order: spheres (ns) then light balls
+// (nl), triangles and their UVs, the triangle clusters (nc rows) and
+// supers (nsup walked), the sphere index's clusters (nsc rows; 0: none)
+// and supers (nssup walked).
+#define PTK_TABLE_PARAMS                                                                        \
+  const float *sph, int ns, int nl, const float *tri, const float *uv, const float *cl, int nc, \
+      const float *sup, int nsup, const float *scl, int nsc, const float *ssup, int nssup
+#define PTK_TABLE_ARGS sph, ns, nl, tri, uv, cl, nc, sup, nsup, scl, nsc, ssup, nssup
+
+inline Tables make_tables(PTK_TABLE_PARAMS) {
   Tables tb;
   tb.sph = sph;
   tb.ns = ns;
@@ -1124,6 +1320,10 @@ inline Tables make_tables(const float* sph, int ns, int nl, const float* tri, co
   tb.nc = nc;
   tb.sup = sup;
   tb.nsup = nsup;
+  tb.scl = scl;
+  tb.nsc = nsc;
+  tb.ssup = ssup;
+  tb.nssup = nssup;
   return tb;
 }
 

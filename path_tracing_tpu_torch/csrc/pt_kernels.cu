@@ -746,8 +746,7 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
 }
 
 template <bool kCount, int kW>
-int launch_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                     const float* cl, int nc, const float* sup, int nsup, const float* lights,
+int launch_wavefront(PTK_TABLE_PARAMS, const float* lights,
                      const float* cam, const int* px, const int* py, int B, int spp,
                      int eye_depth, int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
                      uint32_t start, uint32_t total, float clamp_val, int stub_mis,
@@ -769,14 +768,13 @@ int launch_wavefront(const float* sph, int ns, int nl, const float* tri, const f
   }
   const int blocks = std::min(resident, (B + kMegaThreads - 1) / kMegaThreads);
   render_wavefront_kernel<kCount, kW><<<blocks, kMegaThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, cam, g, px, py, B, work, img,
+      make_tables(PTK_TABLE_ARGS), c, cam, g, px, py, B, work, img,
       counts);
   return (int)cudaGetLastError();
 }
 
 template <bool kCount>
-int launch_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
-               const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+int launch_tex(PTK_TABLE_PARAMS, const float* atlas,
                const int* tex_size, int n_tex, int th1, int tw1, const float* lights,
                const float* ro, const float* rd, const float* tp, const float* eta,
                const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
@@ -788,8 +786,11 @@ int launch_tex(const float* sph, int ns, int nl, const float* tri, const float* 
   StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
   ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
   Tex tx{atlas, tex_size, n_tex, th1, tw1};
-  const Tables tb = make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup);
-  if (nsup)
+  const Tables tb = make_tables(PTK_TABLE_ARGS);
+  if (nsc)
+    shade_step_tex_kernel<kCount, kWalkIndexed><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
+        tb, tx, c, in, out, B, counts);
+  else if (nsup)
     shade_step_tex_kernel<kCount, kWalkSuper><<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
         tb, tx, c, in, out, B, counts);
   else
@@ -810,8 +811,7 @@ cudaError_t launch_step_at(const Tables& tb, const ShadeCfg& c, const StateIn& i
 
 // #3's instance at the scene's walk (the flat one below 64 clusters).
 template <bool kCount>
-int launch_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                const float* cl, int nc, const float* sup, int nsup, const float* lights,
+int launch_step(PTK_TABLE_PARAMS, const float* lights,
                 const float* ro, const float* rd, const float* tp, const float* eta,
                 const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
                 const float* u, int B, float clamp_val, int stub_mis, int blocks_col, float* o_rad,
@@ -820,8 +820,10 @@ int launch_step(const float* sph, int ns, int nl, const float* tri, const float*
   StateIn in{ro, rd, tp, eta, depth, act, last_delta, last_pdf, u};
   StateOut out{o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf};
   ShadeCfg c{lights, clamp_val, stub_mis, blocks_col};
-  auto* go = nsup ? &launch_step_at<kCount, kWalkSuper> : &launch_step_at<kCount, kWalkFlat>;
-  return (int)go(make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), c, in, out, B, counts,
+  auto* go = nsc    ? &launch_step_at<kCount, kWalkIndexed>
+             : nsup ? &launch_step_at<kCount, kWalkSuper>
+                    : &launch_step_at<kCount, kWalkFlat>;
+  return (int)go(make_tables(PTK_TABLE_ARGS), c, in, out, B, counts,
                  (cudaStream_t)stream);
 }
 
@@ -854,35 +856,36 @@ cudaError_t lanes_grid(F fn, const bool* live, int B, cudaStream_t stream, int* 
 
 // #1's instance at the scene's walk (the flat one below 64 clusters).
 template <bool kCount>
-int launch_hit(const float* sph, int ns, int nl, const float* tri, const float* uv,
-               const float* cl, int nc, const float* sup, int nsup, int with_uv, const float* ro,
+int launch_hit(PTK_TABLE_PARAMS, int with_uv, const float* ro,
                const float* rd, const bool* live, int B, float* out, int* flag,
                unsigned long long* counts, void* stream) {
-  auto* fn = with_uv ? (nsup ? &nearest_hit_uv_kernel<kCount, kWalkSuper>
-                             : &nearest_hit_uv_kernel<kCount, kWalkFlat>)
-                     : (nsup ? &nearest_hit_kernel<kCount, kWalkSuper>
-                             : &nearest_hit_kernel<kCount, kWalkFlat>);
+  auto* fn = with_uv ? (nsc    ? &nearest_hit_uv_kernel<kCount, kWalkIndexed>
+                        : nsup ? &nearest_hit_uv_kernel<kCount, kWalkSuper>
+                               : &nearest_hit_uv_kernel<kCount, kWalkFlat>)
+                     : (nsc    ? &nearest_hit_kernel<kCount, kWalkIndexed>
+                        : nsup ? &nearest_hit_kernel<kCount, kWalkSuper>
+                               : &nearest_hit_kernel<kCount, kWalkFlat>);
   int blocks = 0;
   cudaError_t err = lanes_grid<kHitQueue>(fn, live, B, (cudaStream_t)stream, &blocks);
   if (err != cudaSuccess) return (int)err;
   fn<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ro, rd, live, B, out, flag, counts);
+      make_tables(PTK_TABLE_ARGS), ro, rd, live, B, out, flag, counts);
   return (int)cudaGetLastError();
 }
 
 // #2's instance at the scene's walk.
 template <bool kCount>
-int launch_blocker(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, const float* p1,
+int launch_blocker(PTK_TABLE_PARAMS, const float* p1,
                    const float* rd, const float* max_d, const bool* live, int B, int blocks_col,
                    bool* out, unsigned long long* counts, void* stream) {
-  auto* fn =
-      nsup ? &any_blocker_kernel<kCount, kWalkSuper> : &any_blocker_kernel<kCount, kWalkFlat>;
+  auto* fn = nsc    ? &any_blocker_kernel<kCount, kWalkIndexed>
+             : nsup ? &any_blocker_kernel<kCount, kWalkSuper>
+                    : &any_blocker_kernel<kCount, kWalkFlat>;
   int blocks = 0;
   cudaError_t err = lanes_grid<kShadowQueue>(fn, live, B, (cudaStream_t)stream, &blocks);
   if (err != cudaSuccess) return (int)err;
   fn<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), p1, rd, max_d, live, B, blocks_col,
+      make_tables(PTK_TABLE_ARGS), p1, rd, max_d, live, B, blocks_col,
       out, counts);
   return (int)cudaGetLastError();
 }
@@ -893,56 +896,50 @@ extern "C" {
 
 // Each entry launches on the caller's stream and returns cudaGetLastError()
 // (0 on success); the Python wrapper raises on anything else.  The scene
-// tables come first in every entry: sph, ns, nl, tri, uv, cl, n_clusters,
-// sup, n_super.
+// tables come first in every entry (PTK_TABLE_PARAMS).
 
 // live: the lanes whose result is read (null: every lane); a lane that
 // is not live gets #1's miss record or #2's false.
-int pt_nearest_hit(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, int with_uv,
+int pt_nearest_hit(PTK_TABLE_PARAMS, int with_uv,
                    const float* ro, const float* rd, const bool* live, int B, float* out,
                    int* flag, void* stream) {
-  return launch_hit<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, with_uv, ro, rd, live, B, out,
+  return launch_hit<false>(PTK_TABLE_ARGS, with_uv, ro, rd, live, B, out,
                            flag, nullptr, stream);
 }
 
 // The counting build of #1: the same records, and the walk's counters
 // added into counts[kNumCounts] (zeroed by the caller).
-int pt_nearest_hit_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc, const float* sup, int nsup, int with_uv,
+int pt_nearest_hit_counts(PTK_TABLE_PARAMS, int with_uv,
                           const float* ro, const float* rd, const bool* live, int B, float* out,
                           int* flag, unsigned long long* counts, void* stream) {
-  return launch_hit<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, with_uv, ro, rd, live, B, out,
+  return launch_hit<true>(PTK_TABLE_ARGS, with_uv, ro, rd, live, B, out,
                           flag, counts, stream);
 }
 
-int pt_any_blocker(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                   const float* cl, int nc, const float* sup, int nsup, const float* p1,
+int pt_any_blocker(PTK_TABLE_PARAMS, const float* p1,
                    const float* rd, const float* max_d, const bool* live, int B, int blocks_col,
                    bool* out, void* stream) {
-  return launch_blocker<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, p1, rd, max_d, live, B,
+  return launch_blocker<false>(PTK_TABLE_ARGS, p1, rd, max_d, live, B,
                                blocks_col, out, nullptr, stream);
 }
 
 // The counting build of #2: the same verdicts, and the walk's counters
 // added into counts[kNumCounts] (zeroed by the caller).
-int pt_any_blocker_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                          const float* cl, int nc, const float* sup, int nsup, const float* p1,
+int pt_any_blocker_counts(PTK_TABLE_PARAMS, const float* p1,
                           const float* rd, const float* max_d, const bool* live, int B,
                           int blocks_col, bool* out, unsigned long long* counts, void* stream) {
-  return launch_blocker<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, p1, rd, max_d, live, B,
+  return launch_blocker<true>(PTK_TABLE_ARGS, p1, rd, max_d, live, B,
                               blocks_col, out, counts, stream);
 }
 
 // ks: the legacy rows (ns + nt, 4); out (B, 3); a lane that is not live
 // (live null: every lane is) gets 1.
-int pt_transmittance_rgb(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                         const float* cl, int nc, const float* sup, int nsup, const float* ks,
+int pt_transmittance_rgb(PTK_TABLE_PARAMS, const float* ks,
                          const float* p1, const float* rd, const float* max_d, const bool* live,
                          int B, float* out, void* stream) {
   auto* fn = nsup ? &transmittance_rgb_kernel<kWalkSuper> : &transmittance_rgb_kernel<kWalkFlat>;
   fn<<<blocks_for(B), kThreads, 0, (cudaStream_t)stream>>>(
-      make_tables(sph, ns, nl, tri, uv, cl, nc, sup, nsup), ks, p1, rd, max_d, live, B, out);
+      make_tables(PTK_TABLE_ARGS), ks, p1, rd, max_d, live, B, out);
   return (int)cudaGetLastError();
 }
 
@@ -960,14 +957,13 @@ int pt_hit_occupancy(int* out) {
   return 0;
 }
 
-int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                  const float* cl, int nc, const float* sup, int nsup, const float* lights,
+int pt_shade_step(PTK_TABLE_PARAMS, const float* lights,
                   const float* ro, const float* rd, const float* tp, const float* eta,
                   const int* depth, const bool* act, const bool* last_delta, const float* last_pdf,
                   const float* u, int B, float clamp_val, int stub_mis, int blocks_col,
                   float* o_rad, float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
                   bool* o_alive, bool* o_delta, float* o_pdf, void* stream) {
-  return launch_step<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
+  return launch_step<false>(PTK_TABLE_ARGS, lights, ro, rd, tp, eta, depth,
                             act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col,
                             o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
                             nullptr, stream);
@@ -975,8 +971,7 @@ int pt_shade_step(const float* sph, int ns, int nl, const float* tri, const floa
 
 // The counting build of #3: the same outputs, and the work counters added
 // into counts[kMegaCounts] (zeroed by the caller).
-int pt_shade_step_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                         const float* cl, int nc, const float* sup, int nsup,
+int pt_shade_step_counts(PTK_TABLE_PARAMS,
                          const float* lights, const float* ro, const float* rd, const float* tp,
                          const float* eta, const int* depth, const bool* act,
                          const bool* last_delta, const float* last_pdf, const float* u, int B,
@@ -984,14 +979,13 @@ int pt_shade_step_counts(const float* sph, int ns, int nl, const float* tri, con
                          float* o_ro, float* o_rd, float* o_tp, float* o_eta, int* o_depth,
                          bool* o_alive, bool* o_delta, float* o_pdf,
                          unsigned long long* counts, void* stream) {
-  return launch_step<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, ro, rd, tp, eta, depth,
+  return launch_step<true>(PTK_TABLE_ARGS, lights, ro, rd, tp, eta, depth,
                            act, last_delta, last_pdf, u, B, clamp_val, stub_mis, blocks_col,
                            o_rad, o_ro, o_rd, o_tp, o_eta, o_depth, o_alive, o_delta, o_pdf,
                            counts, stream);
 }
 
-int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                      const float* cl, int nc, const float* sup, int nsup, const float* atlas,
+int pt_shade_step_tex(PTK_TABLE_PARAMS, const float* atlas,
                       const int* tex_size, int n_tex, int th1, int tw1, const float* lights,
                       const float* ro, const float* rd, const float* tp, const float* eta,
                       const int* depth, const bool* act, const bool* last_delta,
@@ -999,7 +993,7 @@ int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const 
                       int blocks_col, float* o_rad, float* o_ro, float* o_rd, float* o_tp,
                       float* o_eta, int* o_depth, bool* o_alive, bool* o_delta, float* o_pdf,
                       void* stream) {
-  return launch_tex<false>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, atlas, tex_size, n_tex, th1,
+  return launch_tex<false>(PTK_TABLE_ARGS, atlas, tex_size, n_tex, th1,
                            tw1, lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u, B,
                            clamp_val, stub_mis, blocks_col, o_rad, o_ro, o_rd, o_tp, o_eta,
                            o_depth, o_alive, o_delta, o_pdf, nullptr, stream);
@@ -1007,8 +1001,7 @@ int pt_shade_step_tex(const float* sph, int ns, int nl, const float* tri, const 
 
 // The counting build of #4: the same outputs, and the work counters added
 // into counts[kMegaCounts] (zeroed by the caller).
-int pt_shade_step_tex_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                             const float* cl, int nc, const float* sup, int nsup,
+int pt_shade_step_tex_counts(PTK_TABLE_PARAMS,
                              const float* atlas, const int* tex_size, int n_tex, int th1,
                              int tw1, const float* lights, const float* ro, const float* rd,
                              const float* tp, const float* eta, const int* depth,
@@ -1018,36 +1011,38 @@ int pt_shade_step_tex_counts(const float* sph, int ns, int nl, const float* tri,
                              float* o_tp, float* o_eta, int* o_depth, bool* o_alive,
                              bool* o_delta, float* o_pdf, unsigned long long* counts,
                              void* stream) {
-  return launch_tex<true>(sph, ns, nl, tri, uv, cl, nc, sup, nsup, atlas, tex_size, n_tex, th1,
+  return launch_tex<true>(PTK_TABLE_ARGS, atlas, tex_size, n_tex, th1,
                           tw1, lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u, B,
                           clamp_val, stub_mis, blocks_col, o_rad, o_ro, o_rd, o_tp, o_eta,
                           o_depth, o_alive, o_delta, o_pdf, counts, stream);
 }
 
 // work: one int32, zeroed by the caller (the next pixel to hand out).
-int pt_render_wavefront(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                        const float* cl, int nc, const float* sup, int nsup, const float* lights,
+int pt_render_wavefront(PTK_TABLE_PARAMS, const float* lights,
                         const float* cam, const int* px, const int* py, int B, int spp,
                         int eye_depth, int max_path_iters, int max_total, uint32_t k0, uint32_t k1,
                         uint32_t start, uint32_t total, float clamp_val, int stub_mis,
                         int blocks_col, int* work, float* img, void* stream) {
-  auto* launch = nsup ? &launch_wavefront<false, kWalkSuper> : &launch_wavefront<false, kWalkFlat>;
-  return launch(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, cam, px, py, B, spp, eye_depth,
+  auto* launch = nsc    ? &launch_wavefront<false, kWalkIndexed>
+                 : nsup ? &launch_wavefront<false, kWalkSuper>
+                        : &launch_wavefront<false, kWalkFlat>;
+  return launch(PTK_TABLE_ARGS, lights, cam, px, py, B, spp, eye_depth,
                 max_path_iters, max_total, k0, k1, start, total, clamp_val, stub_mis, blocks_col,
                 work, img, nullptr, stream);
 }
 
 // The counting build of #5: the same image, and the work counters added
 // into counts[kMegaCounts] (zeroed by the caller).
-int pt_render_wavefront_counts(const float* sph, int ns, int nl, const float* tri, const float* uv,
-                               const float* cl, int nc, const float* sup, int nsup,
+int pt_render_wavefront_counts(PTK_TABLE_PARAMS,
                                const float* lights, const float* cam, const int* px, const int* py,
                                int B, int spp, int eye_depth, int max_path_iters, int max_total,
                                uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
                                float clamp_val, int stub_mis, int blocks_col, int* work, float* img,
                                unsigned long long* counts, void* stream) {
-  auto* launch = nsup ? &launch_wavefront<true, kWalkSuper> : &launch_wavefront<true, kWalkFlat>;
-  return launch(sph, ns, nl, tri, uv, cl, nc, sup, nsup, lights, cam, px, py, B, spp, eye_depth,
+  auto* launch = nsc    ? &launch_wavefront<true, kWalkIndexed>
+                 : nsup ? &launch_wavefront<true, kWalkSuper>
+                        : &launch_wavefront<true, kWalkFlat>;
+  return launch(PTK_TABLE_ARGS, lights, cam, px, py, B, spp, eye_depth,
                 max_path_iters, max_total, k0, k1, start, total, clamp_val, stub_mis, blocks_col,
                 work, img, counts, stream);
 }

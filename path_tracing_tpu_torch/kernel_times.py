@@ -86,7 +86,9 @@ before they took a mask are called without it).  A build
 whose ``pt_device.cuh`` predates the super table takes the seven
 scene-table arguments of before (``prev_table_args``: the 8-column
 cluster rows, no super table) in place
-of the package's nine.  A #8 build whose ``pt_connect`` takes no ``work``
+of the package's thirteen; one whose ``pt_device.cuh`` predates the
+sphere index is called with the package's arguments less the index's
+four (the spheres then in turn, as that design tests them).  A #8 build whose ``pt_connect`` takes no ``work``
 counter is called with the package's arguments less that counter.
 
 ``--graph`` times the cases whose calls make no host sync (#1's and #2's
@@ -126,15 +128,17 @@ SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the scene tables before the super table: sph ns nl tri uv cl n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
+# and before the sphere index: those, sup n_super
+_TABLES9 = _kernels._TABLES[:9]
 # the C entries of the designs before the counted ones: #11 one thread per
 # hitpoint (hp hp_cell perm B | win ev r2 | flux count | stream), #5 one
 # thread per pixel (no work counter), #10 one thread per photon (no work
 # counter), #8 one thread per lane (no work counter), #1 and #2 without
 # a mask; #6 kept its argument list
 OLD_ARGS = {
-    "nearest_hit": _kernels._TABLES + [_I, _P, _P, _I, _P, _P, _P],
-    "any_blocker": _kernels._TABLES + [_P, _P, _P, _I, _I, _P, _P],
-    "connect": _kernels._TABLES + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
+    "nearest_hit": _TABLES9 + [_I, _P, _P, _I, _P, _P, _P],
+    "any_blocker": _TABLES9 + [_P, _P, _P, _I, _I, _P, _P],
+    "connect": _TABLES9 + [_P, _I] + [_P] * 11 + [_I, _F, _I, _P, _P],
     "gather_flux": [_P, _P, _P, _I, _P, _P, _F, _P, _P, _P],
     "render_wavefront": _TABLES + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
                                    _U, _U, _U, _F, _I, _I, _P, _P],
@@ -284,8 +288,10 @@ def _old_abi(lib, d: Path, kernel: str) -> bool:
 def build_all(dirs, kernel: str) -> list:
     """nvcc each directory's source of ``kernel`` (with its own header)
     into the build directory, all at once; returns for each (the C entry,
-    "now" if it takes the package's argument list, "tables7" if only the
-    scene tables of before, "old" if the design before's)."""
+    "now" if it takes the package's argument list (a build before the
+    sphere index wrapped to drop the index's arguments), "tables7" if only
+    the scene tables of before the super table, "old" if the design
+    before's)."""
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     sos = [_kernels.BUILD_DIR / f"lib{kernel}_old{i}.so"
            for i in range(len(dirs))]
@@ -301,18 +307,31 @@ def build_all(dirs, kernel: str) -> list:
         print(f"[build] {d}: " + "; ".join(_ptxas(err, kernel)))
         lib = ctypes.CDLL(str(so))
         fn = getattr(lib, f"pt_{kernel}")
+        header = (d / "pt_device.cuh").read_text()
+        n = len(_kernels._TABLES)
         if _old_abi(lib, d, kernel):
             fn.argtypes, abi = OLD_ARGS[kernel], "old"
-        elif (_resident(kernel)
-              and "int nsup" not in (d / "pt_device.cuh").read_text()):
-            n = len(_kernels._TABLES)
+        elif _resident(kernel) and "int nsup" not in header:
             fn.argtypes = _TABLES + _kernels._ARGTYPES[kernel][n:]
             abi = "tables7"
+        elif _resident(kernel) and "int nssup" not in header:
+            fn.argtypes = _TABLES9 + _kernels._ARGTYPES[kernel][n:]
+            abi = "now"
         else:
             fn.argtypes, abi = _kernels._ARGTYPES[kernel], "now"
         fn.restype = ctypes.c_int
+        if (_resident(kernel) and "int nsup" in header
+                and "int nssup" not in header):
+            fn = _without_index(fn)
         out.append((fn, abi))
     return out
+
+
+def _without_index(fn):
+    """A build before the sphere index, called with the package's
+    arguments: the index's four dropped."""
+    n = len(_TABLES9)
+    return lambda *a: fn(*a[:n], *a[len(_kernels._TABLES):])
 
 
 _FLAT = {}

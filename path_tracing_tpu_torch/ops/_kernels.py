@@ -75,8 +75,9 @@ launches = {k: 0 for k in KERNELS}
 plain_calls = {k: 0 for k in KERNELS}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-# sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super
-_TABLES = [_P, _I, _I, _P, _P, _P, _I, _P, _I]
+# sph, ns, nl, tri, uv, cl, n_clusters, sup, n_super, and the sphere
+# index's scl, n_clusters, ssup, n_super (pt_device.cuh::PTK_TABLE_PARAMS)
+_TABLES = [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I]
 # sph, ns, nl, tri, cl, n_clusters, sup, n_super, blk (ops/cuda_stream.py)
 _STREAM = [_P, _I, _I, _P, _P, _I, _P, _I, _P]
 # lights, ro, rd, tp, eta, depth, act, last_delta, last_pdf, u | B, clamp,

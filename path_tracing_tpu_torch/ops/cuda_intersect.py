@@ -23,6 +23,12 @@ same as the JAX package's ``pack_scene``:
   refract]`` of sphere ``i`` at row ``i`` and of packed triangle ``j`` at
   row ``ns + j`` (the scene's cluster order), or ``(0, 4)`` for a scene
   without legacy Ks (the RGB shadow's tables; light balls have none);
+- the sphere index, from ``bvh.SPHERE_INDEX_MIN`` spheres on (the scene
+  keeps its spheres cluster-contiguous): cluster rows over the spheres'
+  rows in ``cl``'s layout, its super table in ``sup``'s, then one row of
+  the index's bounds and least radius, as the scene holds them
+  (``bvh.sphere_index`` built them once, at set-up); without one ``(0,
+  8)`` and ``(0, 16)``, and every ray tests every sphere in turn;
 
 each padded with zero rows to a multiple of 8 (the legacy rows aside),
 and the scene's texture atlas and sizes as they are.
@@ -33,8 +39,9 @@ the kernel of ``csrc/pt_kernels.cu`` or raises.  The plain sweeps are brute
 force over ``(rays, primitives)`` and run in chunks of rays, so a mesh at
 full lane count stays within device memory.  ``_count_nearest_walk`` and
 ``_count_shadow_walk`` are plain models of the kernels' walk (the flat
-cluster list, or the supers then their children), which the counting
-builds are held to.  Every function takes ``live``, the lanes whose
+cluster list, or the supers then their children; the sphere index's boxes
+grown by the ray's ``sphere_pad``), which the counting builds are held
+to.  Every function takes ``live``, the lanes whose
 result is read: the kernels walk only those, and the others get the miss
 record (``nearest_hit``) or ``False`` (``any_blocker``), in the plain
 versions too.  ``nearest_hit_counts`` and ``any_blocker_counts`` launch the
@@ -56,7 +63,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..profiling import span
+from ..profiling import count, span
 from ..scene.types import Scene
 from . import _kernels
 from .intersect import INF, SHADOW_EPS, mt_core, sphere_ts, triangle_ts
@@ -77,6 +84,13 @@ _PLAIN_CHUNK = 1 << 25
 
 
 @dataclass
+class ClusterTables:
+    cl: torch.Tensor   # (Mc, 8), or (Mc, 16) with the super walk
+    sup: torch.Tensor  # (NS, 16) super rows
+    n_super: int       # super rows the walk visits (0: the flat walk)
+
+
+@dataclass
 class PackedScene:
     sph: torch.Tensor  # (Ms, 16) spheres then light balls
     tri: torch.Tensor  # (Mt, 24)
@@ -90,6 +104,13 @@ class PackedScene:
     sup: torch.Tensor  # (NS, 16) super rows; (8, 16) zeros for the flat walk
     n_super: int       # super rows the walk visits (0: the flat walk)
     legacy: torch.Tensor  # (ns + nt, 4) ks3 refract, or (0, 4): none
+    # the sphere index (``bvh.sphere_index``): nsc cluster rows over sph[:ns]
+    # as ``cl`` over the triangles, then its bounds row ((0, 8) and nsc 0
+    # without an index), and its supers as ``sup``
+    scl: torch.Tensor
+    nsc: int
+    ssup: torch.Tensor
+    n_ssuper: int
 
     @property
     def device(self) -> torch.device:
@@ -98,6 +119,11 @@ class PackedScene:
     @property
     def textured(self) -> bool:
         return self.atlas.shape[0] > 0
+
+    @property
+    def sphere_walk(self) -> "ClusterTables":
+        """The sphere index as ``walk_clusters`` walks it."""
+        return ClusterTables(self.scl[:self.nsc], self.ssup, self.n_ssuper)
 
     @property
     def has_legacy(self) -> bool:
@@ -227,12 +253,25 @@ def pack_scene(scene: Scene) -> PackedScene:
                     scene.tri_cluster_range.float()], 1)
     cl, sup, use_super = super_table(_rowpad(cl, _padded_rows(cl.shape[0])))
     atlas, tex_size = texture_tables(scene)
+    scl, ssup = scene.sph_index, scene.sph_index_sup
+    nsc = max(scl.shape[0] - 1, 0)
+    if not nsc:     # a scene carried over without one: the empty tables
+        scl = torch.zeros((0, CL_COLS), device=dev)
+        ssup = torch.zeros((0, SUP_COLS), device=dev)
+    else:
+        # what a ray tests: the spheres through the index, the light balls
+        # in turn
+        count("scene.spheres_indexed", ns)
+        count("scene.spheres_scanned", nl)
     return PackedScene(sph=sph, tri=tri.contiguous(),
                        uv=uv.contiguous(), cl=cl.contiguous(),
                        atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt,
                        sup=sup.contiguous(),
                        n_super=cl.shape[0] // SUPER if use_super else 0,
-                       legacy=legacy_table(scene))
+                       legacy=legacy_table(scene), scl=scl, nsc=nsc,
+                       ssup=ssup, n_ssuper=(nsc // SUPER
+                                            if scl.shape[1] > CL_COLS
+                                            else 0))
 
 
 def legacy_table(scene: Scene) -> torch.Tensor:
@@ -257,11 +296,22 @@ def _chunks(n_rays: int, n_prims: int):
             for a in range(0, n_rays, step)] or [(0, 0)]
 
 
-def _slab_hit(box, ro, inv, tlo: float, tlimit):
+def _slab_hit(box, ro, inv, tlo: float, tlimit, pad=None):
     """``csrc/pt_device.cuh::slab_hit`` on every ray: the ray enters the
-    box ``box`` (>= 6,) past ``tlo`` and before ``tlimit``."""
-    t0 = (box[0:3] - ro) * inv
-    t1 = (box[3:6] - ro) * inv
+    box ``box`` (>= 6,) past ``tlo`` and before ``tlimit``; given each
+    ray's ``pad`` (``sphere_pad``'s (pad, k)), ``slab_hit_pad``'s: the
+    box grown by the pad, for a wide ray (k > 0) by no more than k times
+    the distance to the box's farthest corner."""
+    lo, hi = box[0:3], box[3:6]
+    if pad is not None:
+        p, k = pad
+        q = torch.maximum((ro - lo).abs(), (ro - hi).abs())
+        own = k * torch.sqrt(q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]
+                             + q[:, 2] * q[:, 2])
+        p = torch.where(k > 0.0, torch.minimum(p, own), p)
+        lo, hi = lo - p[:, None], hi + p[:, None]
+    t0 = (lo - ro) * inv
+    t1 = (hi - ro) * inv
     lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
     tn = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
                        torch.maximum(lo[:, 2], lo.new_tensor(tlo)))
@@ -272,6 +322,28 @@ def _slab_hit(box, ro, inv, tlo: float, tlimit):
 def _safe_inv(rd):
     return 1.0 / torch.where(torch.abs(rd) < 1e-12,
                              torch.where(rd >= 0.0, 1e-12, -1e-12), rd)
+
+
+PAD_EPS = 2.0 ** -19   # pt_device.cuh::kPadEps
+
+
+def sphere_pad(packed: PackedScene, ro, rd) -> tuple:
+    """``csrc/pt_device.cuh::sphere_pad`` on every ray: (pad, k), each
+    (R,), how much the sphere index's boxes grow for the ray, so that they
+    hold every hit the sphere test's rounding reports (k > 0: a wide ray,
+    whose boxes grow by no more than k times the distance to their
+    farthest corner); the same float32 operations in the same order."""
+    m = packed.scl[packed.nsc]
+    q = torch.maximum((ro - m[0:3]).abs(), (ro - m[3:6]).abs())
+    q2 = q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1] + q[:, 2] * q[:, 2]
+    eta = (rd[:, 0] * rd[:, 0] + rd[:, 1] * rd[:, 1] + rd[:, 2] * rd[:, 2]
+           - 1.0).abs()
+    coef = PAD_EPS + 4.0 * eta * (1.0 + eta)
+    e = coef * q2
+    pad = (torch.minimum(torch.sqrt(e), e / (2.0 * m[6]))
+           + PAD_EPS * torch.sqrt(q2))
+    return pad, torch.where(pad > m[6], torch.sqrt(coef) + PAD_EPS,
+                            torch.zeros_like(pad))
 
 
 def walk_clusters(packed, rd, enter_super, cluster) -> None:
@@ -306,90 +378,152 @@ def walk_clusters(packed, rd, enter_super, cluster) -> None:
                 cluster(s * SUPER + int(child[s * SUPER + k][o]), ent)
 
 
-def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict
-                        ) -> torch.Tensor:
+def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict,
+                        winner: bool = False):
     """A plain model of the kernels' nearest-hit walk (``nearest_hit_dev``)
-    on every given ray.  Adds to ``counts`` every sphere and light ball,
-    each box tested (the supers', then the children's of an entered super;
-    every non-empty cluster's without supers) and every triangle of a box
-    the ray enters before its running nearest t.  Returns that t (INF on a
-    miss): the brute force's, since culling never drops a closer hit."""
+    on every given ray.  Adds to ``counts`` every sphere and light ball
+    tested in turn (the light balls alone with a sphere index), then, with
+    an index, each of its boxes tested and every sphere of a box the ray
+    enters before its running nearest t, then each triangle box tested
+    (the supers', then the children's of an entered super; every non-empty
+    cluster's without supers) and every triangle of a box the ray enters
+    before its running nearest t.  Returns that t (INF on a miss): the
+    brute force's, since culling never drops a closer hit; with
+    ``winner`` also the row that won, strictly closer in the walk's order
+    (a sphere's or light ball's row of ``sph``, or ``ns + nl`` plus a
+    triangle's of ``tri``, as ``_nearest_rows`` numbers them; -1 on a
+    miss)."""
     R, dev = ro.shape[0], ro.device
-    n_s = packed.ns + packed.nl
+    a0 = packed.ns if packed.nsc else 0
+    n_s = packed.ns + packed.nl - a0
     counts["hit_spheres"] += R * n_s
-    t = (sphere_ts(ro, rd, packed.sph[:n_s, 0:3], packed.sph[:n_s, 3],
-                   INF).amin(dim=1) if n_s and R
-         else torch.full((R,), INF, device=dev))
+    t = torch.full((R,), INF, device=dev)
+    row = torch.full((R,), -1, dtype=torch.long, device=dev)
     inv = _safe_inv(rd)
-    rows = packed.cl[:, 6:8].tolist()
+    pad = sphere_pad(packed, ro, rd) if packed.nsc else None
 
-    def enter(box, lanes):
+    def closer(lanes, ts, base):
+        """The first of each lane's nearest tests, where strictly closer
+        than the lane's running t."""
+        tt, k = ts.min(dim=1)
+        win = tt < t[lanes]
+        t[lanes[win]] = tt[win]
+        row[lanes[win]] = base + k[win]
+
+    if n_s and R:
+        lin = packed.sph[a0:a0 + n_s]
+        closer(torch.arange(R, device=dev),
+               sphere_ts(ro, rd, lin[:, 0:3], lin[:, 3], INF), a0)
+
+    def enter(box, lanes, pad=None):
         counts["hit_boxes"] += lanes.numel()
-        return lanes[_slab_hit(box, ro[lanes], inv[lanes], EPSILON, t[lanes])]
+        return lanes[_slab_hit(box, ro[lanes], inv[lanes], EPSILON, t[lanes],
+                               None if pad is None
+                               else (pad[0][lanes], pad[1][lanes]))]
 
-    def cluster(c, lanes):
-        a, n = int(rows[c][0]), int(rows[c][1])
-        if n <= 0 or not lanes.numel():
-            return
-        ent = enter(packed.cl[c], lanes)
-        if not ent.numel():
-            return
+    def visit(tab, test, base, pad=None):
+        rows = tab[:, 6:8].tolist()
+
+        def cluster(c, lanes):
+            a, n = int(rows[c][0]), int(rows[c][1])
+            if n <= 0 or not lanes.numel():
+                return
+            ent = enter(tab[c], lanes, pad)
+            if ent.numel():
+                closer(ent, test(ent, a, n), base + a)
+        return cluster
+
+    def spheres(ent, a, n):
+        counts["hit_spheres"] += ent.numel() * n
+        sph = packed.sph[a:a + n]
+        return sphere_ts(ro[ent], rd[ent], sph[:, 0:3], sph[:, 3], INF)
+
+    def triangles(ent, a, n):
         counts["hit_tris"] += ent.numel() * n
         tri = packed.tri[a:a + n]
-        tt = triangle_ts(ro[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
-                         tri[:, 6:9], INF).amin(dim=1)
-        t[ent] = torch.minimum(t[ent], tt)
+        return triangle_ts(ro[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
+                           tri[:, 6:9], INF)
 
-    walk_clusters(packed, rd, enter, cluster)
-    return t
+    if packed.nsc:
+        walk_clusters(packed.sphere_walk, rd,
+                      lambda box, lanes: enter(box, lanes, pad),
+                      visit(packed.scl, spheres, 0, pad))
+    walk_clusters(packed, rd, enter,
+                  visit(packed.cl, triangles, packed.ns + packed.nl))
+    return (t, row) if winner else t
 
 
 def _count_shadow_walk(packed: PackedScene, p1, rd, max_d, col: int,
                        counts: dict) -> torch.Tensor:
     """A plain model of the kernels' shadow walk (``shadow_blocked_dev``)
     on every given segment.  Adds to ``counts`` the blocking spheres in
-    order up to the first that occludes; then, if none did, each box the
-    walk tests while the segment is unblocked and, in a cluster box it
-    enters, the blocking triangles in order up to the first that occludes,
-    which ends the walk.  Returns the verdicts."""
+    order up to the first that occludes (without a sphere index), or each
+    box of the index the walk tests while the segment is unblocked and, in
+    a box it enters, the blocking spheres in order up to the first that
+    occludes; then, if none did, each triangle box the walk tests while
+    the segment is unblocked and, in a cluster box it enters, the blocking
+    triangles in order up to the first that occludes, which ends the walk.
+    Returns the verdicts."""
     R, dev = p1.shape[0], p1.device
     blocked = torch.zeros(R, dtype=torch.bool, device=dev)
-    if packed.ns and R:
+
+    def first(occ, cb):
+        """The occluded lanes and the can-block tests up to the first."""
+        hit = occ.any(dim=1)
+        cbc = torch.cumsum(cb.long(), 0)
+        return hit, int(torch.where(hit, cbc[torch.argmax(occ.int(), dim=1)],
+                                    cbc[-1]).sum())
+
+    if packed.ns and R and not packed.nsc:
         sph = packed.sph[:packed.ns]
         ts = sphere_ts(p1, rd, sph[:, 0:3], sph[:, 3], max_d[:, None])
-        occ = (ts < INF) & (ts > SHADOW_EPS) & (sph[:, col] > 0.0)[None]
-        cb = torch.cumsum((sph[:, col] > 0.0).long(), 0)
-        blocked = occ.any(dim=1)
-        counts["shadow_spheres"] += int(torch.where(
-            blocked, cb[torch.argmax(occ.int(), dim=1)], cb[-1]).sum())
+        cb = sph[:, col] > 0.0
+        blocked, n = first((ts < INF) & (ts > SHADOW_EPS) & cb[None], cb)
+        counts["shadow_spheres"] += n
     inv = _safe_inv(rd)
-    rows = packed.cl[:, 6:8].tolist()
+    pad = sphere_pad(packed, p1, rd) if packed.nsc else None
 
-    def enter(box, lanes):
+    def enter(box, lanes, pad=None):
         lanes = lanes[~blocked[lanes]]
         counts["shadow_boxes"] += lanes.numel()
         return lanes[_slab_hit(box, p1[lanes], inv[lanes], SHADOW_EPS,
-                               max_d[lanes])]
+                               max_d[lanes],
+                               None if pad is None
+                               else (pad[0][lanes], pad[1][lanes]))]
 
-    def cluster(c, lanes):
-        a, n = int(rows[c][0]), int(rows[c][1])
-        if n <= 0 or not lanes.numel():
-            return
-        ent = enter(packed.cl[c], lanes)
-        if not ent.numel():
-            return
+    def visit(tab, test, key, pad=None):
+        rows = tab[:, 6:8].tolist()
+
+        def cluster(c, lanes):
+            a, n = int(rows[c][0]), int(rows[c][1])
+            if n <= 0 or not lanes.numel():
+                return
+            ent = enter(tab[c], lanes, pad)
+            if not ent.numel():
+                return
+            ts, cb = test(ent, a, n)
+            hit, k = first((ts < INF) & (ts > SHADOW_EPS) & cb[None], cb)
+            counts[key] += k
+            blocked[ent[hit]] = True
+        return cluster
+
+    def spheres(ent, a, n):
+        sph = packed.sph[a:a + n]
+        return (sphere_ts(p1[ent], rd[ent], sph[:, 0:3], sph[:, 3],
+                          max_d[ent][:, None]), sph[:, col] > 0.0)
+
+    def triangles(ent, a, n):
         tri = packed.tri[a:a + n]
-        cb = tri[:, col + 5] > 0.0
-        tt = triangle_ts(p1[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
-                         tri[:, 6:9], max_d[ent][:, None])
-        occ = (tt < INF) & (tt > SHADOW_EPS) & cb[None]
-        hit = occ.any(dim=1)
-        cbc = torch.cumsum(cb.long(), 0)
-        counts["shadow_tris"] += int(torch.where(
-            hit, cbc[torch.argmax(occ.int(), dim=1)], cbc[-1]).sum())
-        blocked[ent[hit]] = True
+        return (triangle_ts(p1[ent], rd[ent], tri[:, 0:3], tri[:, 3:6],
+                            tri[:, 6:9], max_d[ent][:, None]),
+                tri[:, col + 5] > 0.0)
 
-    walk_clusters(packed, rd, enter, cluster)
+    if packed.nsc:
+        walk_clusters(packed.sphere_walk, rd,
+                      lambda box, lanes: enter(box, lanes, pad),
+                      visit(packed.scl, spheres, "shadow_spheres", pad))
+    walk_clusters(packed, rd, enter,
+                  visit(packed.cl, triangles, "shadow_tris"))
     return blocked
 
 
@@ -671,7 +805,13 @@ def check_tables(packed: PackedScene, device):
                                    2 * CL_COLS if packed.n_super else CL_COLS))
     check_tensor("sup", packed.sup, (max(packed.sup.shape[0],
                                          packed.n_super), SUP_COLS))
-    for nm, x in (("cl", packed.cl), ("sup", packed.sup)):
+    check_tensor("scl", packed.scl, (packed.nsc + (packed.nsc > 0),
+                                     2 * CL_COLS if packed.n_ssuper
+                                     else CL_COLS))
+    check_tensor("ssup", packed.ssup, (max(packed.ssup.shape[0],
+                                           packed.n_ssuper), SUP_COLS))
+    for nm, x in (("cl", packed.cl), ("sup", packed.sup),
+                  ("scl", packed.scl), ("ssup", packed.ssup)):
         if x.data_ptr() % 16:   # the slab test reads a box as two float4
             raise ValueError(f"{nm}: rows must start 16-byte aligned")
 
@@ -693,7 +833,9 @@ def table_args(packed: PackedScene):
             ctypes.c_void_p(packed.tri.data_ptr()),
             ctypes.c_void_p(packed.uv.data_ptr()),
             ctypes.c_void_p(packed.cl.data_ptr()), packed.cl.shape[0],
-            ctypes.c_void_p(packed.sup.data_ptr()), packed.n_super]
+            ctypes.c_void_p(packed.sup.data_ptr()), packed.n_super,
+            ctypes.c_void_p(packed.scl.data_ptr()), packed.nsc,
+            ctypes.c_void_p(packed.ssup.data_ptr()), packed.n_ssuper]
 
 
 def _live_arg(live, B: int):

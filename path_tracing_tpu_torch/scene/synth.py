@@ -1,7 +1,9 @@
-"""Synthetic mesh scenes (``path_tracing_tpu.scene.synth``): subdivided
+"""Synthetic scenes (``path_tracing_tpu.scene.synth``): subdivided
 icospheres at a given triangle count, optionally with spherical UVs and a
 procedural checker texture, and ``write_obj`` to store one as OBJ + MTL +
-PNG so it can be rendered through the CLI's ``--input``."""
+PNG so it can be rendered through the CLI's ``--input``; SPD's
+sphereflake (``sphereflake_scene``), and ``scene_text`` to store a scene
+as a text scene (``sphereflake_text``: the sphereflake's)."""
 from __future__ import annotations
 
 import math
@@ -131,3 +133,151 @@ def write_obj(scene: ParsedScene, path: str) -> str:
     with open(path, "w") as f:
         f.writelines(lines)
     return path
+
+
+# Eric Haines' Standard Procedural Databases (SPD), balls.c: the
+# sphereflake at the size factor ``levels`` (4 by default, 7,381 spheres).
+# SPD's source is not in this repository; what follows is written from
+# its description and printed output (benchmark/configs/sphereflake.json
+# lists each constant so written under "assumed").
+FLAKE_UP_ELEVATION = math.asin(2.0 / math.sqrt(6.0))  # the upper trio
+FLAKE_GROUND_HALF = 12.0
+FLAKE_VIEW = dict(eye=(2.1, 1.3, 1.7), look_at=(0.0, 0.0, 0.0),
+                  view_up=(0.0, 0.0, 1.0), fov=45.0)
+FLAKE_LIGHTS = ((4.0, 3.0, 2.0), (1.0, -4.0, 4.0), (-3.0, 1.0, 5.0))
+FLAKE_LIGHT_FLUX = 300.0
+FLAKE_LIGHT_BALL = 0.05
+FLAKE_SPHERE_MTL = (1.0, 0.9, 0.7, 0.1, 1.0, 0.0)
+FLAKE_GROUND_MTL = (1.0, 0.75, 0.33, 1.0, 0.0, 0.0)
+
+
+def _flake_dirs() -> np.ndarray:
+    """The nine child directions in the parent's frame (its axis +z):
+    six 60 degrees apart about the equator, then three above at
+    ``FLAKE_UP_ELEVATION``, 120 degrees apart and turned 30 degrees from
+    the six (float64, unit)."""
+    out = [(math.cos(a), math.sin(a), 0.0)
+           for a in (math.radians(60.0 * k) for k in range(6))]
+    ce, se = math.cos(FLAKE_UP_ELEVATION), math.sin(FLAKE_UP_ELEVATION)
+    out += [(ce * math.cos(a), ce * math.sin(a), se)
+            for a in (math.radians(30.0 + 120.0 * k) for k in range(3))]
+    return np.asarray(out, np.float64)
+
+
+def _turn_z_to(d: np.ndarray) -> np.ndarray:
+    """The rotation (3, 3) that takes +z to the unit ``d`` about the axis
+    z x d (the identity for d = +z)."""
+    k = np.cross((0.0, 0.0, 1.0), d)
+    s, c = np.linalg.norm(k), d[2]
+    if s < 1e-12:
+        return np.eye(3)
+    k = k / s
+    kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + s * kx + (1.0 - c) * (kx @ kx)
+
+
+def sphereflake_spheres(levels: int = 4):
+    """Centres (N, 3) and radii (N,) in float64 of the sphereflake with
+    ``levels`` levels of children below the root (1 + 9 + ... + 9^levels
+    spheres), parents before their children, level by level.  The root
+    sits at the origin with radius 0.5 and axis +z; each sphere's nine
+    children have a third of its radius and touch it (centre distance
+    r + r/3) in the directions of ``_flake_dirs`` turned into its frame,
+    whose axis points from its parent to it."""
+    dirs = _flake_dirs()
+    centers = [np.zeros(3)]
+    radii = [0.5]
+    frames = [np.eye(3)]
+    level = [0]
+    for _ in range(levels):
+        nxt = []
+        for i in level:
+            c, r, f = centers[i], radii[i], frames[i]
+            for d in dirs:
+                w = f @ d
+                centers.append(c + w * (r + r / 3.0))
+                radii.append(r / 3.0)
+                frames.append(f @ _turn_z_to(d))
+                nxt.append(len(centers) - 1)
+        level = nxt
+    return np.asarray(centers), np.asarray(radii)
+
+
+def sphereflake_scene(levels: int = 4) -> ParsedScene:
+    """SPD's sphereflake as a ParsedScene: ``sphereflake_spheres(levels)``
+    in ``FLAKE_SPHERE_MTL`` (a low-roughness metal), the ground square of
+    half-side ``FLAKE_GROUND_HALF`` at z = -0.5 as two triangles in
+    ``FLAKE_GROUND_MTL``, the view of ``FLAKE_VIEW`` at 1920x1080 and three
+    point lights (spot lights with a 180 degree cutoff) of flux
+    ``FLAKE_LIGHT_FLUX`` each, aimed at the origin."""
+    c, r = sphereflake_spheres(levels)
+    out = ParsedScene()
+    out.eye = np.asarray(FLAKE_VIEW["eye"], np.float32)
+    out.look_at = np.asarray(FLAKE_VIEW["look_at"], np.float32)
+    out.view_up = np.asarray(FLAKE_VIEW["view_up"], np.float32)
+    out.fov = FLAKE_VIEW["fov"]
+    out.width, out.height = 1920, 1080
+    out.sph_center = np.float32(c).tolist()
+    out.sph_radius = np.float32(r).tolist()
+    out.sph_mtl = [list(FLAKE_SPHERE_MTL)] * len(r)
+    out.sph_legacy = [[0.0] * 4] * len(r)
+    out.sph_group = [0] * len(r)
+    g, z = FLAKE_GROUND_HALF, -0.5
+    quad = [(-g, -g, z), (g, -g, z), (g, g, z), (-g, g, z)]
+    out.tri_verts = [[list(quad[0]), list(quad[1]), list(quad[2])],
+                     [list(quad[0]), list(quad[2]), list(quad[3])]]
+    out.tri_mtl = [list(FLAKE_GROUND_MTL)] * 2
+    out.tri_legacy = [[0.0] * 4] * 2
+    out.tri_group = [0] * 2
+    for p in FLAKE_LIGHTS:
+        d = -np.asarray(p) / np.linalg.norm(p)
+        out.lights.append([*p, *d, *([FLAKE_LIGHT_FLUX] * 3), math.pi, 0.0,
+                           FLAKE_LIGHT_BALL])
+    return out
+
+
+def scene_text(scene: ParsedScene, title: str = "") -> str:
+    """``scene`` (untextured, no legacy Ks) as a text scene in the
+    ``E/V/F/R/M/S/T/L`` grammar that ``parser.parse_scene_text`` reads back
+    to the same float32 values: an ``M`` record where the material
+    changes, spheres, then triangles, then the lights (cutoff in degrees).
+    Each number is the shortest decimal that parses back to its float32;
+    ``title`` opens it as comment lines."""
+    def num(x) -> str:
+        return str(np.float32(x))
+
+    def nums(xs) -> str:
+        return " ".join(num(x) for x in xs)
+
+    lines = [f"// {t}" for t in title.splitlines()]
+    lines += [f"E {nums(scene.eye)}",
+              f"V {nums(scene.look_at)}  {nums(scene.view_up)}",
+              f"F {num(scene.fov)}", f"R {scene.width} {scene.height}"]
+    cur = None
+
+    def mtl(row):
+        nonlocal cur
+        if cur is None or list(row) != cur:
+            cur = list(row)
+            lines.append(f"M {nums(row)}")
+
+    for c, r, m in zip(scene.sph_center, scene.sph_radius, scene.sph_mtl):
+        mtl(m)
+        lines.append(f"S {nums(c)}  {num(r)}")
+    for tv, m in zip(scene.tri_verts, scene.tri_mtl):
+        mtl(m)
+        lines.append("T " + "  ".join(nums(v) for v in tv))
+    for li in scene.lights:
+        lines.append(f"L {nums(li[0:3])}  {nums(li[3:6])}  {nums(li[6:9])}  "
+                     f"{num(math.degrees(li[9]))} {int(li[10])} {num(li[11])}")
+    return "\n".join(lines) + "\n"
+
+
+def sphereflake_text(levels: int = 4) -> str:
+    """``sphereflake_scene(levels)`` as a text scene, titled."""
+    n = len(sphereflake_spheres(levels)[1])
+    return scene_text(sphereflake_scene(levels), (
+        "SPD sphereflake (Eric Haines, Standard Procedural Databases, "
+        f"balls.c), size factor {levels}:\n{n} spheres, the ground square "
+        "as 2 triangles, 3 point lights.\nWritten by "
+        f"path_tracing_tpu_torch.scene.synth.sphereflake_text({levels})."))

@@ -3,7 +3,9 @@
 
 ``scene_from_numpy`` builds a Scene from host arrays: it reorders the
 triangles, with their UVs and texture ids, into spatial clusters
-(``ops/bvh.py``) and computes the scene bounds.  ``scene_from_jax_arrays`` carries a Scene and Camera over from the
+(``ops/bvh.py``), and the spheres too from ``SPHERE_INDEX_MIN`` of them
+on (building the sphere index's tables once), and computes the scene
+bounds.  ``scene_from_jax_arrays`` carries a Scene and Camera over from the
 JAX package's arrays unchanged, so both packages can render the very same
 tables.
 """
@@ -58,7 +60,10 @@ class Scene:
     """Spheres, triangles (cluster-contiguous), lights, the scene AABB and
     the triangle clusters (rows ``[min3, max3]`` and ``[start, count]``).
     The texture atlas and legacy Ks/refract tables are empty for text
-    scenes."""
+    scenes.  The sphere index (``sph_index``: its cluster rows over the
+    cluster-contiguous spheres and its bounds row; ``sph_index_sup``: its
+    super rows; ``ops/bvh.py::sphere_index``) is empty below
+    ``SPHERE_INDEX_MIN`` spheres."""
 
     sph_center: torch.Tensor
     sph_radius: torch.Tensor
@@ -88,6 +93,9 @@ class Scene:
     sph_refract: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
     tri_ks: torch.Tensor = field(default_factory=lambda: torch.zeros(0, 3))
     tri_refract: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
+    sph_index: torch.Tensor = field(default_factory=lambda: torch.zeros(0, 8))
+    sph_index_sup: torch.Tensor = field(
+        default_factory=lambda: torch.zeros(0, 16))
 
     @property
     def device(self) -> torch.device:
@@ -150,9 +158,15 @@ def scene_from_numpy(
 
     Triangles are reordered into clusters (``ops/bvh.py::build_clusters``:
     the native builder when it is available), their UVs and texture ids
-    with them; the scene AABB is the union of sphere bounds and triangle
-    vertices (light balls excluded)."""
-    from ..ops.bvh import build_clusters
+    with them; from ``SPHERE_INDEX_MIN`` spheres on the spheres are
+    reordered into the clusters of ``build_sphere_clusters``, their
+    materials and legacy rows with them, and the index's tables are built
+    (``sphere_index``; both in a ``scene.sphere_index`` span);
+    the scene AABB is the union of sphere bounds and triangle vertices
+    (light balls excluded)."""
+    from ..ops.bvh import (SPHERE_INDEX_MIN, SPHERE_LEAF, build_clusters,
+                           build_sphere_clusters, sphere_index)
+    from ..profiling import span
 
     f32 = np.float32
     sph_center = np.asarray(sph_center, f32).reshape(-1, 3)
@@ -204,6 +218,22 @@ def scene_from_numpy(
             cl_aabb = np.array([[1e9, 1e9, 1e9, -1e9, -1e9, -1e9]], f32)
         cl_range = np.array([[0, nt]], np.int32)
 
+    ns = sph_center.shape[0]
+    sph_index = torch.zeros((0, 8), device=device)
+    sph_index_sup = torch.zeros((0, 16), device=device)
+    if ns >= SPHERE_INDEX_MIN:
+        with span("scene.sphere_index"):
+            order, sph_cl_aabb, sph_cl_range = build_sphere_clusters(
+                sph_center, sph_radius, SPHERE_LEAF)
+            sph_center, sph_radius = sph_center[order], sph_radius[order]
+            sph_mtl = sph_mtl[order]
+            if sph_legacy.shape[0]:
+                sph_legacy = sph_legacy[order]
+            sph_index, sph_index_sup = sphere_index(
+                _f32(sph_cl_aabb, device, (-1, 6)),
+                _i32(sph_cl_range, device, (-1, 2)),
+                _f32(sph_radius, device))
+
     mins, maxs = [], []
     if sph_center.shape[0]:
         mins.append((sph_center - sph_radius[:, None]).min(axis=0))
@@ -248,6 +278,7 @@ def scene_from_numpy(
         sph_refract=_f32(sph_legacy[:, 3], device),
         tri_ks=_f32(tri_legacy[:, 0:3], device),
         tri_refract=_f32(tri_legacy[:, 3], device),
+        sph_index=sph_index, sph_index_sup=sph_index_sup,
     )
 
 

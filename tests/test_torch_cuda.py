@@ -1362,3 +1362,202 @@ def test_megakernel_span_encloses_its_launch_on_one_clock(card, tmp_path):
               and e["args"].get("correlation") == corr]
     assert len(launch) == 1 and _within(launch[0], spans[0])
     assert kernels[0]["ts"] > spans[0]["ts"]
+
+
+# ---------------------------------------------------------------------------
+# the sphere index: SPD's sphereflake, 820 and 7,381 spheres
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[3, 4], ids=["flake3", "flake4"])
+def flake(card, request):
+    """The sphereflake of ``levels`` 3 or 4 on the card: (parsed, scene,
+    packed; the super walk of the index)."""
+    p = synth.sphereflake_scene(request.param)
+    scene = p.to_device("cuda")
+    pk = cuda_intersect.pack_scene(scene)
+    assert pk.nsc > 0 and pk.n_ssuper > 0
+    return p, scene, pk
+
+
+def _flake_rays(p, scene, n, seed):
+    """65,536-ray sets through the flake, a third each: from the eye
+    through jittered pixels, from points inside the index's bounds in
+    every direction, and those with directions of length 1 +- 2% (the
+    reference's sphere normals are not of unit length, and pass that on
+    to the rays they reflect)."""
+    m = n // 3
+    u = rng.uniform_rows(rng.prng_key(seed), n, 8, device="cuda")
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 256, 144,
+                      device="cuda")
+    idx = (u[0, :m] * (256 * 144 - 1)).int()
+    rd0 = primary_ray_dirs(cam, idx % 256, idx // 256, u[1, :m], u[2, :m])
+    lo, hi = scene.sph_index[-1, 0:3], scene.sph_index[-1, 3:6]
+    k = n - m
+    ro1 = lo + (hi - lo) * u[0:3, m:].T
+    rd1 = intersect.shadow_ray(torch.zeros_like(ro1), u[3:6, m:].T - 0.5)[0]
+    stretch = 1.0 + 0.04 * (u[6, m:] - 0.5) * (torch.arange(
+        k, device="cuda") % 2)
+    return (torch.cat([cam.eye[None].expand(m, 3), ro1]).contiguous(),
+            torch.cat([rd0, rd1 * stretch[:, None]]).contiguous())
+
+
+@pytest.mark.parametrize("with_uv", [False, True])
+def test_flake_nearest_hit_walks_the_index_as_plain(flake, with_uv):
+    """#1 on the sphere index: every record the brute force's bit for bit
+    (the walk's pad keeps the hits the sphere test's rounding reports
+    off the sphere), and the counting build's counters the walk model's
+    exactly."""
+    p, scene, pk = flake
+    ro, rd = _flake_rays(p, scene, 1 << 16, 40)
+    a = cuda_intersect.nearest_hit(pk, ro, rd, with_uv)
+    b = cuda_intersect.nearest_hit_plain(pk, ro, rd, with_uv)
+    assert _same_bits(a, b)
+    assert 0.3 < (a["flag"] > 0).float().mean().item() < 0.97
+    k, kc = cuda_intersect.nearest_hit_counts(pk, ro, rd, with_uv)
+    assert _same_bits(k, a)
+    pc = cuda_connect.new_counts()
+    cuda_intersect.nearest_hit_plain(pk, ro, rd, with_uv, counts=pc)
+    for name in ("hit_spheres", "hit_boxes", "hit_tris"):
+        assert kc[name] == pc[name], name
+
+
+@pytest.mark.parametrize("dielectrics_block", [True, False])
+def test_flake_any_blocker_walks_the_index_as_plain(flake, dielectrics_block):
+    """#2 on the index of the flake with every fifth sphere glass (the two
+    can-block rules differ there): the brute force's verdicts, and the
+    counting build's counters the walk model's exactly."""
+    p = synth.sphereflake_scene({820: 3, 7381: 4}[flake[1].num_spheres])
+    p.sph_mtl = [[1.0, 1.0, 1.0, 0.0, 0.0, 1.5] if i % 5 == 0 else m
+                 for i, m in enumerate(p.sph_mtl)]
+    scene = p.to_device("cuda")
+    pk = cuda_intersect.pack_scene(scene)
+    ro, rd = _flake_rays(p, scene, 1 << 16, 41)
+    md = 0.05 + 2.5 * rng.uniform_rows(rng.prng_key(42), ro.shape[0], 1,
+                                       device="cuda")[0]
+    a = cuda_intersect.any_blocker(pk, ro, rd, md, dielectrics_block)
+    b = cuda_intersect.any_blocker_plain(pk, ro, rd, md, dielectrics_block)
+    assert torch.equal(a, b)
+    assert 0.1 < a.float().mean().item() < 0.9
+    k, kc = cuda_intersect.any_blocker_counts(pk, ro, rd, md,
+                                              dielectrics_block)
+    assert torch.equal(k, a)
+    pc = cuda_connect.new_counts()
+    cuda_intersect.any_blocker_plain(pk, ro, rd, md, dielectrics_block,
+                                     counts=pc)
+    for name in ("shadow_spheres", "shadow_boxes", "shadow_tris"):
+        assert kc[name] == pc[name], name
+
+
+def test_flake_megakernel_equals_fused_tier_and_counts_as_plain(flake):
+    """#5 on the index: the fused tier's image (#3 a bounce, #1/#2 in it)
+    bit for bit at 96x54 spp 4, and the counting build's counters the
+    plain loop's count (the walks' tests in the kernel's order) exactly
+    at 48x27."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    p, scene, pk = flake
+    w, h = 96, 54
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4)
+    key = rng.prng_key(8)
+    imgs = [render_pt(scene, cam, w, h, 4, cfg, key, tier=t)
+            for t in ("mega", "fused")]
+    assert torch.equal(imgs[0], imgs[1]) and imgs[0].sum() > 0
+    w, h = 48, 27
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    args = (pk, _light_table(scene), cam, idx % w, idx // w, 4,
+            RenderConfig(width=w, height=h, eye_depth=4), key)
+    img, kc = cw.render_wavefront_counts(*args)
+    assert torch.equal(img, cw.render_wavefront(*args))
+    pc = cw.new_counts()
+    cw.render_wavefront_plain(*args, counts=pc)
+    assert {k: kc[k] for k in cw.PLAIN_COUNTS} == {
+        k: pc[k] for k in cw.PLAIN_COUNTS}
+
+
+def test_flake_bdpt_eye_matches_plain(flake):
+    """#9 (tile-RIS K = 32) on the index against its plain version at
+    64x36 spp 2, at test_bdpt_eye_kernel_matches_plain_at_128x72's bar,
+    and its counting build's counters within 0.1% of the plain count."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_eye
+
+    p, _, _ = flake
+    args = _bdpt_args(p, 32, 64, 36, 2)
+    assert args[0].nsc > 0
+    a = cuda_bdpt_eye.bdpt_eye(*args)
+    b = cuda_bdpt_eye.bdpt_eye_plain(*args)
+    assert b.mean().item() > 0
+    assert abs(a.mean().item() - b.mean().item()) < 1e-3 * b.mean().item()
+    ok = torch.isclose(a, b, rtol=1e-4, atol=1e-5).all(dim=1)
+    assert ok.float().mean().item() >= 0.99
+    img, kc = cuda_bdpt_eye.bdpt_eye_counts(*args)
+    assert torch.equal(img, a)
+    pc = cuda_connect.new_counts()
+    cuda_bdpt_eye.bdpt_eye_plain(*args, counts=pc)
+    for k in ("hit_spheres", "hit_boxes", "shadow_spheres", "shadow_boxes"):
+        assert pc[k] > 0 and abs(kc[k] - pc[k]) <= 1e-3 * pc[k], k
+
+
+def test_flake_photon_trace_matches_plain(flake):
+    """#10 on the index against its plain version on 3 x 16,384 photons:
+    test_photon_trace_kernel_matches_plain's bar on the valid flags, and
+    every field within rtol 1e-5 / atol 1e-6 on >= 99.9% of rows (99.99%
+    on cornell: a photon reflected from sphere to sphere of the flake
+    carries a last-bit difference between kernel and plain arithmetic on
+    through its later events)."""
+    from path_tracing_tpu_torch.integrators import ppm
+    from path_tracing_tpu_torch.ops import cuda_photon
+
+    _, scene, pk = flake
+    cfg = RenderConfig(width=64, height=36, spl=16384)
+    kp = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 2)
+    emit = ppm.photon_emission(scene, scene.num_lights * 16384, 16384, kp)
+    args = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
+    ev, valid = cuda_photon.photon_trace(*args)
+    ev_p, valid_p = cuda_photon.photon_trace_plain(*args)
+    assert (valid == valid_p).float().mean().item() >= 0.9999
+    both = valid & valid_p
+    ok = torch.isclose(ev[both], ev_p[both], rtol=1e-5, atol=1e-6).all(dim=1)
+    assert both.sum().item() > 16384 and ok.float().mean().item() >= 0.999
+
+
+def test_flake_ppm_eye_kernel_equals_the_loop_bit_for_bit(flake):
+    """``ppm_eye`` on the index against the eye loop on #1 at 512x512,
+    every output bit for bit."""
+    from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
+
+    p, _, _ = flake
+    args = _eye_args(p)
+    assert args[0].nsc > 0
+    a = ce.ppm_eye(*args)
+    b = ce.ppm_eye_plain(*args)
+    assert torch.equal(eye_pass_bits(a), eye_pass_bits(b))
+    assert bool(a[1].valid.any())
+
+
+def test_flake_walk_tests_a_tenth_of_the_spheres(flake):
+    """The counting builds on the 7,381-sphere flake: a camera ray's walk
+    (#1) and a bounce of #5 test at least 10 times fewer spheres and
+    light balls than the linear loop's ns + nl."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    p, scene, pk = flake
+    if pk.ns < 7381:
+        pytest.skip("the 7,381-sphere flake's measure")
+    linear = pk.ns + pk.nl
+    w, h = 256, 144
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    u = rng.uniform_rows(rng.prng_key(9), w * h, 2, device="cuda")
+    rd = primary_ray_dirs(cam, idx % w, idx // w, u[0], u[1])
+    ro = cam.eye[None].expand(w * h, 3).contiguous()
+    _, kc = cuda_intersect.nearest_hit_counts(pk, ro, rd)
+    assert kc["hit_spheres"] * 10 <= w * h * linear
+    _, kc = cw.render_wavefront_counts(
+        pk, _light_table(scene), cam, idx % w, idx // w, 1,
+        RenderConfig(width=w, height=h, eye_depth=4), rng.prng_key(9))
+    assert kc["hit_spheres"] * 10 <= kc["iterations"] * linear

@@ -73,16 +73,21 @@ def test_count_stream_walk_finds_the_brute_force_t(which):
 
 def test_kernel_argtypes_match_the_c_entries():
     """Every kernel entry's ctypes argument list has one type per
-    parameter of its C function in ``csrc/`` (the stream last): an entry
-    missing the stream's type passes it as a 32-bit int, which the host
-    side of a launch can crash on."""
+    parameter of its C function in ``csrc/`` (the stream last; the scene
+    tables' ``PTK_TABLE_PARAMS`` expanded from ``pt_device.cuh``): an
+    entry missing the stream's type passes it as a 32-bit int, which the
+    host side of a launch can crash on."""
     import ctypes
     import re
 
     from path_tracing_tpu_torch.ops import _kernels
 
+    hdr = (_kernels.SRC_DIR / "pt_device.cuh").read_text().replace("\\\n", " ")
+    tables = re.search(r"#define PTK_TABLE_PARAMS (.*)", hdr).group(1)
+    assert len(tables.split(",")) == len(_kernels._TABLES)
     for lib, names in _kernels.LIBRARIES.items():
-        src = (_kernels.SRC_DIR / f"{lib}.cu").read_text()
+        src = (_kernels.SRC_DIR / f"{lib}.cu").read_text().replace(
+            "PTK_TABLE_PARAMS", tables)
         for k in names:
             params = re.search(rf"int pt_{k}\(([^)]*)\)", src).group(1)
             n = len([x for x in params.split(",") if x.strip()])

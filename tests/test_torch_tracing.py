@@ -3,8 +3,10 @@ without a profiler (one flag read, no ``record_function``, no counter), the
 image unchanged under one, each frame's top-level span once with its
 phases inside it, one ``sync.pt_loop`` span per host read of the
 per-bounce PT loop, and ``pt.live_lanes`` equal to the counting plain
-loop's ``iterations``.  Tiny renders of cornell and a textured icosphere
-on the CPU."""
+loop's ``iterations``; the sphere index's ``scene.sphere_index`` span and
+``scene.spheres_indexed`` / ``scene.spheres_scanned`` counters, which the
+benchmark's ``indexed_sphere_share.render`` reads.  Tiny renders of
+cornell, a textured icosphere and small sphereflakes on the CPU."""
 import functools
 import json
 
@@ -177,3 +179,67 @@ def test_live_lanes_equal_the_counting_loops_iterations(scene_name,
                       rng.uniform_rows_plain, counts=c)
     assert got["pt.live_lanes"] == c["iterations"] > 0
     assert got["pt.lane_slots"] == W * H * c["iteration_keys"]
+
+
+def _flake(levels):
+    p = synth.sphereflake_scene(levels)
+    return p, make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H,
+                          device="cpu")
+
+
+def test_sphere_index_costs_nothing_without_a_profiler(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("record_function called without a profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.reset_counters()
+    p, cam = _flake(2)
+    scene = p.to_device("cpu")
+    assert scene.sph_index.shape[0] > 0
+    cfg = RenderConfig(width=W, height=H, spp=2, eye_depth=3)
+    img = pt.render_pt(scene, cam, W, H, 2, cfg, rng.prng_key(5))
+    assert bool(torch.isfinite(img).all()) and profiling.counters == {}
+
+
+def test_sphere_index_span_and_counters_under_a_profiler(tmp_path):
+    """The set-up build of a 91-sphere flake is one ``scene.sphere_index``
+    span; each pack of its tables counts the 91 spheres reached through
+    the index and the 3 light balls every ray tests in turn, and a frame
+    packs them; cornell (5 spheres: no index) counts neither."""
+    p, cam = _flake(2)
+    scene, ann = _profiled(lambda: p.to_device("cpu"), tmp_path)
+    assert [a[0] for a in ann].count("scene.sphere_index") == 1
+    _profiled(lambda: [cuda_intersect.pack_scene(scene) for _ in range(3)],
+              tmp_path)
+    assert profiling.counters == {"scene.spheres_indexed": 3 * 91,
+                                  "scene.spheres_scanned": 3 * 3}
+    cfg = RenderConfig(width=W, height=H, spp=2, eye_depth=3)
+    _profiled(lambda: pt.render_pt(scene, cam, W, H, 2, cfg,
+                                   rng.prng_key(5), tier="mega"), tmp_path)
+    assert profiling.counters["scene.spheres_indexed"] >= 91
+    cornell, _ = _scene("cornell")
+    _, ann = _profiled(lambda: (load_scene(str(CORNELL)).to_device("cpu"),
+                                cuda_intersect.pack_scene(cornell)), tmp_path)
+    assert "scene.sphere_index" not in {a[0] for a in ann}
+    assert profiling.counters == {}
+
+
+def test_indexed_sphere_share_reads_the_counters(tmp_path):
+    """``indexed_sphere_share.render``: 100 x indexed / (indexed +
+    scanned): 91 of 94 on the 91-sphere flake, above 99.9% on the
+    7,381-sphere one (its 3 light balls in turn), None on cornell (no
+    index, no counters)."""
+    from types import SimpleNamespace
+
+    from benchmark.cells import metric_reader
+
+    read = metric_reader("indexed_sphere_share.render")
+    ctx = SimpleNamespace(mode="pt")
+    for levels, share in ((2, 100.0 * 91 / 94), (4, 100.0 * 7381 / 7384)):
+        scene = _flake(levels)[0].to_device("cpu")
+        _profiled(lambda: cuda_intersect.pack_scene(scene), tmp_path)
+        assert read(ctx) == pytest.approx(share)
+    assert read(ctx) > 99.9
+    cornell, _ = _scene("cornell")
+    _profiled(lambda: cuda_intersect.pack_scene(cornell), tmp_path)
+    assert read(ctx) is None
