@@ -47,7 +47,14 @@ Phases, each raising on failure:
    lanes, its alive lanes live), each bit-equal to its plain version on
    every lane and timed device-only, with ``ppm_eye``'s outputs bit-equal
    to the loop's on every pixel, and the first launch of the BDPT light
-   trace.
+   loop as it ran before ``bdpt_light`` (``light_trace_plain`` on #1).
+   Then ``bdpt_light`` on the main path's light trace (cornell, spl 8:
+   256 paths, light depth 4, seed 0), its 13 fields bit-equal to that
+   loop's on every vertex, timed device-only (graph replay) and with the
+   host's enqueue beside the loop with its host, its bound from the
+   loop's count of its work (walks' tests, BSDF samples, reverse pdfs,
+   draws: ``cuda_bdpt_light.new_counts``), and the light side of the
+   frame (``light_side``) with its host through either.
 4. PT paths on cornell through the CLI at 1920x1080, spp 4, eye depth 4:
    the default tier (auto, which is the megakernel: the main path), the
    fused tier (one ``shade_step`` per bounce) and the split tier (the
@@ -112,10 +119,10 @@ Phases, each raising on failure:
    of pixels; the exact sweep in the mega tier and in the fused tier from
    the same key.  Mega launches ``bdpt_eye`` once a frame and no
    ``connect``, fused launches ``connect`` per bounce; both trace the light
-   paths with ``nearest_hit`` and ``threefry_rows``; no plain version may
-   run; #8 is timed (CUDA events) on each of the fused frame's launches,
-   beside its active lanes, and #1's 56 launches there (the light
-   trace's and the eye pass's) are recorded, each held bit for bit
+   paths with one ``bdpt_light`` launch after the emission's
+   ``threefry_rows``; no plain version may run; #8 is timed (CUDA events)
+   on each of the fused frame's launches, beside its active lanes, and
+   #1's 48 launches there (the eye pass's) are recorded, each held bit for bit
    against its plain version on every lane and timed device-only.  The
    exact mega image must equal the fused one on >= 99.9% of pixels.  Then
    the BDPT ground truth through the CLI, ``--device oracle`` on cornell
@@ -225,9 +232,10 @@ Phases, each raising on failure:
    262,144 photons (``ppm_eye``, #10 and #11, no plain version),
    with ms a pass and Mphotons/s.
 13. BDPT on the enclosed scene: #9 against its plain version at 32x18
-   spp 1 on its tile-RIS K = 32 tables (phase 6's bars), then through the
-   CLI's auto (mega: #9 once, no #8) at 1920x1080 spp 4, spl 8, tile-RIS
-   K = 32.
+   spp 1 on its tile-RIS K = 32 tables (phase 6's bars), ``bdpt_light``'s
+   super-walk instance on the 1080p frame's light trace held and timed as
+   in phase 3 (``bdpt_light_super``), then through the CLI's auto (mega:
+   #9 once, no #8) at 1920x1080 spp 4, spl 8, tile-RIS K = 32.
 14. Checkpoints through the CLI on cornell at 1920x1080 spp 4: two
    iterations with ``--checkpoint``, then a resume for one more,
    bit-equal to three uninterrupted iterations; and a 128x72 render with
@@ -250,7 +258,11 @@ Phases, each raising on failure:
    the exact table, ``--conn-samples 16`` (auto: fused, #8's sampled
    instance ``connect_sampled``), every launch held and timed as in 15.
 17. BDPT and PPM on phase 5's textured OBJ through the CLI: BDPT at 1080p
-   spp 4, spl 8, K = 32 (auto: fused, the ``with_uv`` #1 and #8); #10's
+   spp 4, spl 8, K = 32 (auto: fused, the ``with_uv`` #1 and #8), and
+   ``bdpt_light_tex`` (its super walk) on that frame's light trace held
+   and timed as in phase 3, and held on the 1,280-triangle textured
+   icosphere in cornell's room (its walls send light paths onto the
+   texture); #10's
    textured instance ``photon_trace_tex`` against its plain version on the
    first 4,096 photons of the first 512x512 pass (phase 12's bar), timed
    there and on the whole pass (``pass_ms``), and on 4,096 photons of
@@ -334,8 +346,12 @@ own, their launches counted over their 1080p / main-pass / first-bounce
 call.  ``transmittance_rgb``, ``connect_rgb`` and ``connect_sampled``
 carry their time on each launch of their frame (``per_launch``, summed in
 ``split_ms``), ``photon_trace_tex`` its whole pass (``pass_ms``),
-``ppm_eye`` (which replaces no TPU kernel: ``replaces`` names the XLA
-loop) its time with the host's enqueue (``host_ms``), #1, #2 and #5 their
+``ppm_eye`` and ``bdpt_light`` (which replace no TPU kernel:
+``replaces`` names the XLA loop or scan) their time with the host's
+enqueue (``host_ms``), ``bdpt_light`` with its instances on the enclosed
+scene (``bdpt_light_super``) and the textured OBJ (``bdpt_light_tex``)
+the loop's with its host (``plain_host_ms``), ``bdpt_light`` the light
+side's with either (``side_ms``, ``side_loop_ms``), #1, #2 and #5 their
 times, launches, counts a walk and bounds on the sphereflake
 (``flake``, phase 21).  The BDPT
 kernels' ``simt`` has the share of a sweep's lanes that sweep a vertex
@@ -393,7 +409,14 @@ REPLACES = {
     "connect_sampled": "path_tracing_tpu/ops/pallas_connect.py:258",
     "photon_trace_tex": "path_tracing_tpu/ops/pallas_photon.py:177",
     "ppm_eye": "none: the XLA loop path_tracing_tpu/integrators/ppm.py:114",
+    "bdpt_light":
+        "none: the XLA scan path_tracing_tpu/integrators/bdpt.py:131",
 }
+# the rows of a kernel's other instances, and the entry each launches by
+for _k, _e in (("bdpt_light_super", "bdpt_light"),
+               ("bdpt_light_tex", "bdpt_light")):
+    REPLACES[_k] = REPLACES[_e]
+ENTRY = {"bdpt_light_super": "bdpt_light"}
 for _k in ("nearest_hit", "any_blocker", "render_wavefront", "shade_step",
            "shade_step_tex", "photon_trace", "gather_flux",
            "nearest_hit_stream", "any_blocker_stream"):
@@ -402,6 +425,8 @@ SOURCES = {"connect": BDPT_SOURCE, "bdpt_eye": BDPT_SOURCE,
            "connect_rgb": BDPT_SOURCE, "connect_sampled": BDPT_SOURCE,
            "photon_trace": PPM_SOURCE, "gather_flux": PPM_SOURCE,
            "photon_trace_tex": PPM_SOURCE, "ppm_eye": PPM_SOURCE,
+           "bdpt_light": BDPT_SOURCE, "bdpt_light_super": BDPT_SOURCE,
+           "bdpt_light_tex": BDPT_SOURCE,
            "photon_trace_counts": PPM_SOURCE,
            "gather_flux_counts": PPM_SOURCE,
            "nearest_hit_stream": MESH_SOURCE,
@@ -414,7 +439,7 @@ PTXAS_NAMES = ("nearest_hit_uv", "nearest_hit", "any_blocker",
                "shade_step_tex", "shade_step", "render_wavefront",
                "threefry_rows", "connect", "bdpt_eye", "photon_trace",
                "gather_flux", "nearest_hit_stream", "any_blocker_stream",
-               "onehot_fetch", "transmittance_rgb", "ppm_eye")
+               "onehot_fetch", "transmittance_rgb", "ppm_eye", "bdpt_light")
 # the kernels with a counting build (their *_counts entries)
 COUNTED = ("nearest_hit_uv", "nearest_hit", "any_blocker", "connect",
            "bdpt_eye", "render_wavefront", "shade_step", "shade_step_tex",
@@ -430,6 +455,8 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "render_wavefront": "mega", "threefry_rows": "textured",
                "connect": "bdpt_fused", "bdpt_eye": "bdpt_mega",
                "photon_trace": "ppm", "gather_flux": "ppm", "ppm_eye": "ppm",
+               "bdpt_light": "bdpt_mega", "bdpt_light_super": "big_bdpt",
+               "bdpt_light_tex": "tex_bdpt",
                "nearest_hit_stream": "stream",
                "any_blocker_stream": "stream", "onehot_fetch": "probe",
                "nearest_hit_counts": "hit_counting",
@@ -444,7 +471,7 @@ KERNEL_PATH = {"nearest_hit": "split", "any_blocker": "split",
                "transmittance_rgb": "legacy_pt",
                "connect_rgb": "legacy_bdpt", "connect_sampled": "sampled",
                "photon_trace_tex": "tex_ppm"}
-BDPT_LIGHT = ("nearest_hit", "threefry_rows")   # the light trace
+BDPT_LIGHT = ("bdpt_light", "threefry_rows")   # the light trace
 PATH_KERNELS = {"mega": ("render_wavefront",),
                 "fused": ("shade_step", "threefry_rows"),
                 "split": ("nearest_hit", "any_blocker", "threefry_rows"),
@@ -478,7 +505,7 @@ PATH_KERNELS = {"mega": ("render_wavefront",),
                 "legacy_ppm": ("ppm_eye", "photon_trace", "gather_flux",
                                "threefry_rows"),
                 "sampled": ("connect_sampled",) + BDPT_LIGHT,
-                "tex_bdpt": ("connect",) + BDPT_LIGHT,
+                "tex_bdpt": ("connect", "bdpt_light_tex", "threefry_rows"),
                 "tex_ppm": ("ppm_eye_tex", "photon_trace_tex", "gather_flux",
                             "threefry_rows"),
                 "ppm_hash": ("ppm_eye", "photon_trace", "threefry_rows"),
@@ -580,6 +607,14 @@ def ppm_eye_ops(c: dict) -> int:
     return (c["hit_spheres"] * OPS["sphere"] + c["hit_boxes"] * OPS["box"]
             + c["hit_tris"] * OPS["tri"] + c["bsdf_samples"] * OPS["sample"]
             + (c["draws"] + c["iteration_keys"]) * OPS["draw"])
+
+
+def light_ops(c: dict) -> int:
+    """``bdpt_light``'s counted operations (the light loop's counts):
+    ``ppm_eye_ops``'s kinds (walks' tests, BSDF samples, draws, a fold_in
+    per iteration any path sampled in) and a BSDF pdf a stored surface
+    vertex."""
+    return ppm_eye_ops(c) + c["pdfs"] * OPS["pdf"]
 
 
 def stream_ops(c: dict, supers: bool = True) -> int:
@@ -721,7 +756,8 @@ def phase_occupancy() -> dict:
     cornell against the main path's K = 32 tables and the exact sweep's
     813 rows (streamed), #8's against the exact sweep's (the table resident
     in shared memory); then of #1, #2, #3, #5, #10 and #11 and their
-    counting builds, and of ``ppm_eye``'s two instances."""
+    counting builds, of ``ppm_eye``'s two instances and of
+    ``bdpt_light``'s six."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
 
     occ = {}
@@ -736,6 +772,7 @@ def phase_occupancy() -> dict:
                   f"registers, {o['local_bytes']} B local, "
                   f"{o['smem_bytes']} B shared")
             check(o["blocks_per_sm"] > 0, f"{k} cannot be resident")
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_eye as cpe
@@ -744,8 +781,8 @@ def phase_occupancy() -> dict:
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
     for k, o in {**ci.occupancy(), **cs.occupancy(), **cw.occupancy(),
-                 **cp.occupancy(), **cg.occupancy(),
-                 **cpe.occupancy()}.items():
+                 **cp.occupancy(), **cg.occupancy(), **cpe.occupancy(),
+                 **cbl.occupancy()}.items():
         occ[k] = o
         print(f"[build] occupancy {k}: {o['blocks_per_sm']} blocks x "
               f"{o['threads']} threads = {o['warps_per_sm']} warps an SM, "
@@ -1772,8 +1809,8 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
 def phase_bdpt_render(counts: dict, ris_img) -> tuple:
     """The BDPT main path and the exact sweep through the CLI; returns #8's
     time and active lanes on each launch of the fused exact frame, and #1's
-    on each of that frame's launches (the light trace's and the eye
-    pass's), each held bit for bit against its plain version."""
+    on each of that frame's launches (the eye pass's: the light trace is
+    ``bdpt_light``), each held bit for bit against its plain version."""
     from path_tracing_tpu_torch.kernel_times import record_launches
 
     bdpt = ["--spl", str(SPL), "--light-depth", "4"]
@@ -2337,16 +2374,115 @@ def same_eye_pass(a, b) -> bool:
     return torch.equal(eye_pass_bits(a), eye_pass_bits(b))
 
 
+def through_light_loop(call):
+    """``call()`` with the BDPT light trace run by its loop
+    (``light_trace_plain`` on #1 and ``threefry_rows``), as every tier ran
+    it before ``bdpt_light``."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+
+    own, bdpt.light_trace = bdpt.light_trace, cbl.light_trace_plain
+    try:
+        return call()
+    finally:
+        bdpt.light_trace = own
+
+
+def hold_light(scene, name: str, what: str) -> tuple:
+    """``bdpt_light``'s instance ``name`` on the light trace of the 1080p
+    BDPT frame on ``scene`` (a device scene; spl 8, light depth 4, the
+    first frame of seed 0), its arguments recorded from ``light_side``:
+    every field of every vertex bit-equal to the loop it replaced
+    (``light_trace_plain`` on #1), the kernel timed device-only (graph
+    replay) and with the host's enqueue, the loop with its host.  Returns
+    the kernel's row and the recorded arguments."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.kernel_times import _recorded, graph_ms
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+    from path_tracing_tpu_torch.ops import rng
+
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=RIS_K)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    args = _recorded(bdpt, "light_trace", lambda: bdpt.light_side(
+        scene, cfg, SPL, key))[0][0]
+    lv = cbl.light_trace(*args)
+    loop, plain_ms = once_ms(lambda: cbl.light_trace_plain(*args))
+    check(torch.equal(cbl.light_vertex_bits(lv), cbl.light_vertex_bits(loop)),
+          f"{name} differs from the light loop on #1 on {what}")
+    P, L = lv.valid.shape
+    row = dict(
+        name=name, max_abs_err=0.0, paths=P, slots=L,
+        stored=int(lv.valid[:, 1:].sum()),
+        ms=graph_ms(lambda: cbl.light_trace(*args), 20),
+        host_ms=time_ms(lambda: cbl.light_trace(*args), 20),
+        plain_ms=plain_ms,
+        plain_host_ms=time_ms(lambda: cbl.light_trace_plain(*args), 5))
+    print(f"[bdpt] {name} on {what}, {P} paths x {L} slots: bit-equal to "
+          f"the light loop on every vertex ({row['stored']} stored past the "
+          f"emitters); {row['ms']:.4f} ms device-only (graph replay), "
+          f"{row['host_ms']:.4f} ms with the host's enqueue, the loop "
+          f"{row['plain_host_ms']:.3f} ms with its host")
+    return row, args
+
+
+def phase_bdpt_light(parsed) -> dict:
+    """``bdpt_light`` on the main path's light trace (cornell, spl 8: 4 x 8
+    x 8 = 256 paths, light depth 4, the first frame of seed 0) by
+    ``hold_light``, its bound from the loop's count of its work (walks,
+    BSDF samples, reverse pdfs, draws), and the frame's whole light side
+    (emission, pack, trace) with its host through the kernel and through
+    the loop."""
+    from path_tracing_tpu_torch.config import RenderConfig
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+    from path_tracing_tpu_torch.ops import rng
+
+    scene = parsed.to_device("cuda")
+    row, args = hold_light(scene, "bdpt_light", "cornell")
+    pc = cbl.new_counts()
+    check(torch.equal(cbl.light_vertex_bits(cbl.light_trace_plain(
+        *args, counts=pc)), cbl.light_vertex_bits(cbl.light_trace(*args))),
+          "bdpt_light differs from the light loop on the plain #1")
+    pk, nl = args[0], args[1].num_lights
+    P, L = row["paths"], row["slots"]
+    tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
+    # the emission sample read (37 bytes a path), the lights' rows (20
+    # bytes each), every vertex row written once (103 bytes), the scene's
+    # tables read once
+    bnd = bound(P * 37 + nl * 20 + P * L * 103 + tables,
+                light_ops(pc))
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=RIS_K)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    row.update(
+        counts=pc, **bnd,
+        side_ms=time_ms(lambda: bdpt.light_side(scene, cfg, SPL, key), 20),
+        side_loop_ms=time_ms(lambda: through_light_loop(
+            lambda: bdpt.light_side(scene, cfg, SPL, key)), 5))
+    print(f"[bdpt] bdpt_light counts: {pc['walks']} walks, "
+          f"{pc['bsdf_samples']} BSDF samples, {pc['pdfs']} reverse pdfs, "
+          f"{pc['draws']} draws, {pc['hit_tris']} triangle tests, "
+          f"{pc['hit_boxes']} box tests, {pc['stored']} vertices stored; "
+          f"bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}), "
+          f"{bnd['bound_ms'] / row['ms']:.4%} of the kernel's "
+          f"{row['ms']:.4f} ms device-only; the light side "
+          f"{row['side_ms']:.3f} ms through the kernel, "
+          f"{row['side_loop_ms']:.3f} ms through the loop")
+    return row
+
+
 def retime_nearest_hit(parsed, row: dict) -> None:
     """#1 at the shapes its main paths launch it on, recorded from the
     integrators' own calls: every launch of the PPM eye loop on #1 (the
     first 512x512 pass of cornell, 262,144 rays), each held bit for bit
     against its plain version and timed device-only (CUDA-graph replay),
     the ``ppm_eye`` kernel's outputs held bit for bit against the loop's,
-    and the
-    first launch of the BDPT light trace (the 1080p frame's, spl 8); adds
-    each first launch's time (device-only, and with the host's enqueue),
-    lane count and bound to #1's row."""
+    and the first launch of the BDPT light loop as it ran before
+    ``bdpt_light`` (the 1080p frame's, spl 8; ``light_trace_plain`` on
+    #1); adds each first launch's time (device-only, and with the host's
+    enqueue), lane count and bound to #1's row."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt
     from path_tracing_tpu_torch.kernel_times import graph_ms, record_launches
@@ -2368,8 +2504,8 @@ def retime_nearest_hit(parsed, row: dict) -> None:
                 idx // PPM_W, rng.fold_in(key, 1))
     for what, call in (
             ("ppm_eye", lambda: ce.ppm_eye_plain(*eye_args)),
-            ("bdpt_light", lambda: bdpt.light_side(scene, bdpt_cfg, SPL,
-                                                   key))):
+            ("bdpt_light", lambda: through_light_loop(
+                lambda: bdpt.light_side(scene, bdpt_cfg, SPL, key)))):
         res, rec = record_launches(call)
         calls = rec["nearest_hit"]
         if what == "ppm_eye":
@@ -2821,15 +2957,18 @@ def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
         * 1e3 / BIG_PPM_PASSES)
 
 
-def phase_big_bdpt(counts: dict, enclosed, txt: str) -> None:
+def phase_big_bdpt(counts: dict, enclosed, txt: str) -> dict:
     """BDPT on the enclosed scene: #9 against ``bdpt_eye_plain`` at
     ``BIG_BDPT_W`` x ``BIG_BDPT_H`` spp 1 on its tile-RIS K = 32 tables,
-    then the CLI's auto (mega) at 1920x1080 spp 4, tile-RIS K = 32."""
+    ``bdpt_light``'s super-walk instance on the 1080p frame's light trace
+    (``hold_light``), then the CLI's auto (mega) at 1920x1080 spp 4,
+    tile-RIS K = 32.  Returns the light trace's row."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
 
     parsed, scene = enclosed
     args = small_bdpt(parsed, RIS_K, BIG_BDPT_W, BIG_BDPT_H, 1, scene)
     check(args[0].n_super > 0, "the enclosed scene is not on the super walk")
+    light, _ = hold_light(scene, "bdpt_light_super", "the enclosed scene")
     a, ms = once_ms(lambda: ce.bdpt_eye(*args))
     b, plain_ms = once_ms(lambda: ce.bdpt_eye_plain(*args))
     hold_eye(f"enclosed tile-RIS K={RIS_K} {BIG_BDPT_W}x{BIG_BDPT_H} spp 1",
@@ -2843,6 +2982,7 @@ def phase_big_bdpt(counts: dict, enclosed, txt: str) -> None:
     check(res["tier"] == "mega" and c["bdpt_eye"] == 1 and c["connect"] == 0,
           f"BDPT on the enclosed scene: {res['tier']} tier, launches {c}")
     nonzero_share(res["image"], "enclosed BDPT")
+    return light
 
 
 def phase_checkpoint() -> None:
@@ -3103,10 +3243,12 @@ def phase_sampled(counts: dict) -> dict:
     return hold_connect("connect_sampled", calls, "sampled")
 
 
-def phase_tex_integrators(counts: dict) -> dict:
+def phase_tex_integrators(counts: dict) -> list:
     """BDPT and PPM on phase 5's 81,920-triangle textured OBJ through the
     CLI: BDPT at 1920x1080 spp 4, spl 8, global RIS K = 32 (auto: fused,
-    #1 with_uv and #8); PPM at 512x512, 10 passes of 1,048,576 photons
+    #1 with_uv and #8), ``bdpt_light_tex`` (its super walk) first held
+    against the light loop on the frame's light trace (``hold_light``),
+    and on the 1,280-triangle textured icosphere in cornell's room; PPM at 512x512, 10 passes of 1,048,576 photons
     (#1 with_uv, #10's textured instance, #11), #10 first held against its
     plain version on the first 4,096 photons of the first pass (valid
     flags equal and fields within rtol 1e-5 / atol 1e-6 on >= 99.99% of
@@ -3136,6 +3278,7 @@ def phase_tex_integrators(counts: dict) -> dict:
     scene = load_any_scene(str(obj)).to_device("cuda")
     pk = ci.pack_scene(scene)
     check(pk.textured and pk.n_super > 0, "the textured OBJ's tables")
+    light, _ = hold_light(scene, "bdpt_light_tex", "the textured OBJ")
     cfg = RenderConfig(width=PPM_W, height=PPM_H, spl=TEX_PPM_SPL,
                        eye_depth=4, light_depth=4)
     kp = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 2)
@@ -3194,6 +3337,11 @@ def phase_tex_integrators(counts: dict) -> dict:
                                                 textured=True), True)
     rs = room.to_device("cuda")
     rpk = ci.pack_scene(rs)
+    # the sphere alone stores few light vertices: the room's walls send
+    # light paths onto the texture
+    hold_light(rs, "bdpt_light_tex",
+               f"the {SMALL_MESH_TRIS}-triangle textured icosphere in "
+               "cornell's room")
     remit = ppm.photon_emission(rs, PHOTON_SUBSET, PHOTON_SUBSET // 4, kp)
     rargs = (rpk, *remit, kp, cfg.light_depth, cfg.max_light_iters)
     ev, valid = cp.photon_trace(*rargs)
@@ -3224,7 +3372,7 @@ def phase_tex_integrators(counts: dict) -> dict:
           and c["photon_trace"] == 0 and c["gather_flux"] == PPM_PASSES,
           f"textured PPM: {res['tier']} tier, launches {c}")
     nonzero_share(res["image"], "textured PPM")
-    return row
+    return [row, light]
 
 
 SHARD_RANKS = 2           # phase 19: ranks on the one card (gloo)
@@ -3774,6 +3922,7 @@ def main() -> int:
         p.to_device("cuda"), cam, m.to_device("cuda"), mesh_cam, counts)
     rows = {r["name"]: r for r in results}
     retime_nearest_hit(p, rows["nearest_hit"])
+    results.append(phase_bdpt_light(p))
     lap("kernels (phase 3)")
     split, small = phase_render(counts)
     results += phase_lanes(split, small, counts, rows)
@@ -3812,7 +3961,7 @@ def main() -> int:
     rows["nearest_hit"]["ppm_eye_big"], rows["photon_trace"]["big_mesh"] = \
         phase_big_ppm(counts, enclosed, txt)
     lap("big-mesh PPM (phase 12)")
-    phase_big_bdpt(counts, enclosed, txt)
+    results.append(phase_big_bdpt(counts, enclosed, txt))
     del enclosed
     lap("big-mesh BDPT (phase 13)")
     phase_checkpoint()
@@ -3821,7 +3970,7 @@ def main() -> int:
     lap("legacy-Ks PT, BDPT and PPM (phase 15)")
     results.append(phase_sampled(counts))
     lap("sampled connections (phase 16)")
-    results.append(phase_tex_integrators(counts))
+    results += phase_tex_integrators(counts)
     lap("textured BDPT and PPM (phase 17)")
     phase_hash_gather(counts)
     lap("the hash gather (phase 18)")
@@ -3838,7 +3987,7 @@ def main() -> int:
         path = KERNEL_PATH[r["name"]]
         r.update(route="cuda", source=SOURCES.get(r["name"], PT_SOURCE),
                  replaces=REPLACES[r["name"]], path=path,
-                 launches=counts[path][r["name"]])
+                 launches=counts[path][ENTRY.get(r["name"], r["name"])])
     keys = ("name", "route", "source", "replaces", "path", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3846,7 +3995,8 @@ def main() -> int:
              "split_ms", "bdpt_fused", "oracle", "ppm_eye", "ppm_eye_big",
              "bdpt_light", "big_mesh", "floor_ms", "counts", "simt",
              "occupancy", "host_ms", "library_host_ms", "pass_ms",
-             "pass_bound_ms", "pass_bound_by", "flake")
+             "pass_bound_ms", "pass_bound_by", "flake", "paths", "slots",
+             "stored", "plain_host_ms", "side_ms", "side_loop_ms")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in results]}))

@@ -1,4 +1,4 @@
-// Hand-written CUDA kernels of the BDPT eye pass, for Hopper (sm_90a).
+// Hand-written CUDA kernels of BDPT (the eye pass and the light trace), for Hopper (sm_90a).
 //
 // Build (ops/_kernels.py does this at first use, beside pt_kernels.cu):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -10,6 +10,15 @@
 // 9. bdpt_eye  replaces path_tracing_tpu/ops/pallas_bdpt_eye.py
 //              bdpt_eye_pallas (_bdpt_eye_kernel): the whole eye pass of a
 //              frame, every sample of a pixel in one lane.
+//    bdpt_light replaces no TPU kernel: the JAX package traces the light
+//              subpaths as an XLA lax.scan (path_tracing_tpu/integrators/
+//              bdpt.py trace_light_paths) around nearest_hit_pallas (#1).
+//              Added because in PyTorch that loop is up to 12 iterations of
+//              a hundred small launches and four host reads each, which
+//              kept the card idle for most of a BDPT frame's light side:
+//              here the trace, its Threefry draws, the vertex rows and the
+//              MIS factor are one launch.  bdpt_light_tex is its textured
+//              instance.
 //
 // #8 has two more instances, for the routes the JAX package keeps off its
 // Pallas kernels and runs through XLA (path_tracing_tpu/integrators/
@@ -74,6 +83,27 @@
 // the gate-passing pairs for their evaluations too raised that step's SIMT
 // efficiency from 0.47 to 0.97 but made the kernel slower: PERF.md
 // section 6.)
+//
+// bdpt_light's design for this card: one thread a light subpath, iteration
+// for iteration the path's lane of the PyTorch loop (ops/cuda_bdpt_light.py
+// ::light_trace_plain): nearest_hit_dev (#1's walk; the texel on a
+// textured scene, as #10), the terminal light-ball vertex, the throughput
+// and distance guards, bsdf_sample_dev with iteration it's draws (rows 0-2
+// of fold_in(fold_in(key, 0x11F7), it) at the path's lane of a total-path
+// trace), delta bounces that spend no slot, the pdf of the reverse
+// direction for a stored vertex.  Its BSDF instances divide by pi as the
+// loop does on the card (pt_device.cuh::over_pi<true>: PyTorch multiplies
+// by the float reciprocal of a Python divisor), so the rough lobe's pdf
+// and value are the loop's bit for bit; the other kernels keep IEEE
+// division.  Each path owns rows [i*L, i*L + L) of
+// every (P, L) field, so a stored vertex is written where it belongs (one
+// writer, no atomics, no compaction); the thread then reads its own rows
+// back for the loop's epilogue (validity, wo, the light-side MIS factor).
+// Every row is written, so the wrapper allocates with torch.empty.  Under
+// --fmad=false every value rounds as the loop's PyTorch ops round it.
+// What bounds it: a frame traces a few hundred paths (4 lights x 8 x 8 on
+// the main path), so the launch and its latency; the loop it replaces was
+// bound by its host.
 
 #include <type_traits>
 
@@ -749,6 +779,180 @@ int launch_connect_x(const Tables& tb, const float* ks, const float* lv, int n_v
                  (cudaStream_t)stream, sr);
 }
 
+// ---------------------------------------------------------------------------
+// bdpt_light
+// ---------------------------------------------------------------------------
+
+constexpr int kLightThreads = 128;
+// the loop's first last_pdf: 1 / PI in float64, rounded to float32 once
+constexpr float kInvPi = (float)(1.0 / 3.14159265358979323846);
+
+struct LightCfg {
+  Key k_it;               // fold_in(key, 0x11F7)
+  uint32_t start, total;  // path i is row start + i of a total-path trace
+  int L, iters, n_lights; // light_depth, max_light_iters, the scene's lights
+};
+
+// Each path's emission sample, and the scene's lights (path i uses light
+// (start + i) % n_lights).
+struct LightIn {
+  const float* __restrict__ ro;       // (P, 3) emission origin
+  const float* __restrict__ rd;       // (P, 3) emission direction
+  const float* __restrict__ tp0;      // (P, 3) emitted throughput
+  const bool* __restrict__ real;      // (P,) the path exists
+  const float* __restrict__ dir;      // (n_lights, 3) light_dir
+  const float* __restrict__ cutoff;   // (n_lights,) light_cutoff
+  const int* __restrict__ parallel;   // (n_lights,) light_is_parallel
+};
+
+// The (P, L, ...) vertex fields; vertex (i, slot) is row i * L + slot.
+struct LightOut {
+  float *pos, *normal, *tp, *bc, *rough, *metal, *eta, *pdf_fwd, *pdf_rev;
+  bool* is_light;
+  float* cutoff;
+  bool* parallel;
+  float *emit_dir, *wo, *mis_a;
+  bool* valid;
+};
+
+// Row r's fields but wo and mis_a, which the epilogue writes.
+__device__ __forceinline__ void light_write(const LightOut& o, int r, V3 pos, V3 n, V3 tp,
+                                            const Mtl& m, float pdf_fwd, float pdf_rev,
+                                            bool is_light, float cutoff, bool parallel,
+                                            V3 emit_dir, bool valid) {
+  store3(o.pos, r, pos);
+  store3(o.normal, r, n);
+  store3(o.tp, r, tp);
+  store3(o.bc, r, m.bc);
+  o.rough[r] = m.rough;
+  o.metal[r] = m.metal;
+  o.eta[r] = m.eta;
+  o.pdf_fwd[r] = pdf_fwd;
+  o.pdf_rev[r] = pdf_rev;
+  o.is_light[r] = is_light;
+  o.cutoff[r] = cutoff;
+  o.parallel[r] = parallel;
+  store3(o.emit_dir, r, emit_dir);
+  o.valid[r] = valid;
+}
+
+// Light subpath i: vertex 0 the emitter, then the bounces of the loop's
+// lane i until it stops changing, then the epilogue over the path's rows
+// (valid &= |throughput| >= 1e-6; wo the emission direction at slot 0,
+// else toward the previous row; mis_a's recurrence).  kW: the walk (an
+// instance per walk, pt_device.cuh::WalkKind); kTex: the textured instance
+// (tx, the atlas).
+template <int kW, bool kTex>
+__global__ void __launch_bounds__(kLightThreads)
+    bdpt_light_kernel(Tables tb, Tex tx, LightIn in, LightCfg g, int P, LightOut o) {
+  const int i = blockIdx.x * kLightThreads + threadIdx.x;
+  if (i >= P) return;
+  const int L = g.L, r0 = i * L;
+  const uint32_t lane = (uint32_t)i;
+  const V3 z = mk(0.f, 0.f, 0.f);
+  const Mtl none = {z, 0.f, 0.f, 0.f};
+
+  // ---- vertex 0, the emitter (its normal the emission direction); the
+  // other rows zero until a vertex is stored there ----
+  const int li = (int)((g.start + lane) % (uint32_t)g.n_lights);
+  V3 ro = load3(in.ro, i), rd = load3(in.rd, i), tp = load3(in.tp0, i);
+  const bool real = in.real[i];
+  light_write(o, r0, ro, rd, tp, none, 0.f, 0.f, true, in.cutoff[li], in.parallel[li] != 0,
+              normalize3(load3(in.dir, li)), real);
+  for (int t = 1; t < L; ++t)
+    light_write(o, r0 + t, z, z, z, none, 0.f, 0.f, false, 0.f, false, z, false);
+
+  // ---- the bounces ----
+  NoCount cnt;
+  float eta = 1.0f, last_pdf = kInvPi;
+  V3 last_n = rd, last_p = ro;
+  int slot = 1;
+  bool alive = real && L > 1;
+  for (int it = 0; alive && it < g.iters; ++it) {
+    HitRec h = nearest_hit_dev<kTex, kW>(tb, ro, rd, cnt);
+    if (kTex) {
+      const int tex_id = (int)h.tex;
+      if (tex_id >= 0) h.m.bc = mul(h.m.bc, sample_bilinear_dev(tx, tex_id, h.iu, h.iv));
+    }
+    if (h.flag == 0) break;  // a miss ends the path
+    const V3 pos = ro + scale(rd, h.t);
+    if (h.flag == 2) {  // a light ball: the terminal light vertex
+      light_write(o, r0 + slot, pos, h.n, tp, h.m, 0.f, 0.f, true, 0.f, false, z, true);
+      break;
+    }
+    // the throughput and distance guards come after the light-ball test
+    const V3 d_vec = pos - last_p;
+    const float dist2 = dot3(d_vec, d_vec);
+    if (!(norm3(tp) >= 1e-4f && dist2 >= 1e-6f)) break;
+    const float cos_at_hit = fabsf(dot3(h.n, -rd));
+    const float cos_at_prev = fabsf(dot3(last_n, rd));
+    const float pdf_fwd = last_pdf * cos_at_hit / jmax(dist2, 1e-20f);
+    const V3 wo = -rd;
+    const Key ki = fold_in(g.k_it, (uint32_t)it);
+    const BsdfSample b =
+        bsdf_sample_dev<true>(h.m, wo, h.n, uniform_at(ki, 0, lane, g.start, g.total),
+                              uniform_at(ki, 1, lane, g.start, g.total),
+                              uniform_at(ki, 2, lane, g.start, g.total), eta);
+    if (!((b.pdf > 0.0f) || b.is_delta)) break;
+    const float w = b.is_delta ? 1.0f : fabsf(dot3(h.n, b.wi)) / jmax(b.pdf, 1e-20f);
+    const V3 new_tp = scale(mul(tp, b.val), w);
+    if (b.is_delta) {  // spends no slot and leaves the previous vertex
+      ro = pos + scale(dot3(b.wi, h.n) < 0.0f ? -h.n : h.n, kEps);
+    } else {
+      // pdf_rev: bsdf_pdf(m, wo = the sampled wi, wi = wo) in the hit frame
+      V3 ft, fb;
+      build_frame(h.n, &ft, &fb);
+      const V3 wi_l = to_local(b.wi, ft, fb, h.n);
+      const V3 wo_l = to_local(wo, ft, fb, h.n);
+      bool wh_ok;
+      const V3 wh = half_vector(wi_l, wo_l, &wh_ok);
+      const float pdf_rev =
+          pdf_local<true>(h.m, wi_l, wo_l, roughness_to_alpha(h.m.rough), wh, wh_ok) * cos_at_prev /
+          jmax(dist2, 1e-20f);
+      light_write(o, r0 + slot, pos, h.n, tp, h.m, pdf_fwd, pdf_rev, false, 0.f, false, z, true);
+      ++slot;
+      ro = pos + scale(h.n, kEps);
+      last_n = h.n;
+      last_p = pos;
+      last_pdf = b.pdf;
+      alive = valid3(new_tp) && slot < L;
+    }
+    rd = b.wi;
+    tp = new_tp;
+    eta = b.new_eta;
+  }
+
+  // ---- the epilogue, on the path's own rows ----
+  float a = 0.0f;
+  V3 prev = z;
+  for (int t = 0; t < L; ++t) {
+    const int r = r0 + t;
+    const V3 p = load3(o.pos, r);
+    o.valid[r] = o.valid[r] && norm3(load3(o.tp, r)) >= 1e-6f;
+    if (t == 0) {
+      store3(o.wo, r, load3(o.normal, r));
+      o.mis_a[r] = 0.0f;
+    } else {
+      const V3 d = prev - p;
+      const float len = jmax(norm3(d), 1e-20f);
+      store3(o.wo, r, mk(d.x / len, d.y / len, d.z / len));
+      // A: emitters 1 / pdf_fwd, dielectrics 0
+      const float inv_fwd = 1.0f / jmax(o.pdf_fwd[r], kPdfFwdFloor);
+      a = o.is_light[r] ? inv_fwd : (o.eta[r] > 0.0f ? 0.0f : inv_fwd * (1.0f + o.pdf_rev[r] * a));
+      o.mis_a[r] = a;
+    }
+    prev = p;
+  }
+}
+
+template <int kW, bool kTex>
+int launch_light(const Tables& tb, const Tex& tx, const LightIn& in, const LightCfg& g, int P,
+                 const LightOut& o, void* stream) {
+  bdpt_light_kernel<kW, kTex><<<(P + kLightThreads - 1) / kLightThreads, kLightThreads, 0,
+                                (cudaStream_t)stream>>>(tb, tx, in, g, P, o);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -870,6 +1074,66 @@ int pt_bdpt_occupancy(int n_valid, int* out) {
       if (err != cudaSuccess) return (int)err;
     }
     err = occupancy_row(fns[k], threads[k], smem[k], out + 5 * k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// bdpt_light's textured instance (the atlas (n_tex, th1, tw1, 3) and its
+// sizes (n_tex, 2) after the scene tables), or with a null atlas the
+// untextured one: the light trace of P paths from their emission sample
+// (ro, rd, tp0 (P, 3), real (P,)) and the scene's lights (light_dir
+// (n_lights, 3), light_cutoff, light_is_parallel (n_lights,)), iteration
+// key (k0, k1) = fold_in(key, 0x11F7), rows [start, start + P) of a
+// total-path trace, L = light_depth slots a path, at most iters
+// iterations; the 16 (P, L, ...) outputs in LightOut's order, every row
+// written.
+int pt_bdpt_light_tex(PTK_TABLE_PARAMS, const float* atlas, const int* tex_size, int n_tex,
+                      int th1, int tw1, const float* ro, const float* rd, const float* tp0,
+                      const bool* real, const float* ldir, const float* lcut, const int* lpar,
+                      int n_lights, int P, uint32_t k0, uint32_t k1, uint32_t start,
+                      uint32_t total, int L, int iters, float* pos, float* normal, float* tp,
+                      float* bc, float* rough, float* metal, float* eta, float* pdf_fwd,
+                      float* pdf_rev, bool* is_light, float* cutoff, bool* parallel,
+                      float* emit_dir, float* wo, float* mis_a, bool* valid, void* stream) {
+  const LightIn in{ro, rd, tp0, real, ldir, lcut, lpar};
+  const LightCfg g{{k0, k1}, start, total, L, iters, n_lights};
+  const LightOut o{pos,     normal,   tp,     bc,       rough,    metal, eta,   pdf_fwd,
+                   pdf_rev, is_light, cutoff, parallel, emit_dir, wo,    mis_a, valid};
+  auto* launch = atlas ? (nsc    ? &launch_light<kWalkIndexed, true>
+                          : nsup ? &launch_light<kWalkSuper, true>
+                                 : &launch_light<kWalkFlat, true>)
+                       : (nsc    ? &launch_light<kWalkIndexed, false>
+                          : nsup ? &launch_light<kWalkSuper, false>
+                                 : &launch_light<kWalkFlat, false>);
+  return launch(make_tables(PTK_TABLE_ARGS), Tex{atlas, tex_size, n_tex, th1, tw1}, in, g, P,
+                o, stream);
+}
+
+int pt_bdpt_light(PTK_TABLE_PARAMS, const float* ro, const float* rd, const float* tp0,
+                  const bool* real, const float* ldir, const float* lcut, const int* lpar,
+                  int n_lights, int P, uint32_t k0, uint32_t k1, uint32_t start, uint32_t total,
+                  int L, int iters, float* pos, float* normal, float* tp, float* bc, float* rough,
+                  float* metal, float* eta, float* pdf_fwd, float* pdf_rev, bool* is_light,
+                  float* cutoff, bool* parallel, float* emit_dir, float* wo, float* mis_a,
+                  bool* valid, void* stream) {
+  return pt_bdpt_light_tex(PTK_TABLE_ARGS, nullptr, nullptr, 0, 0, 0, ro, rd, tp0, real, ldir,
+                           lcut, lpar, n_lights, P, k0, k1, start, total, L, iters, pos, normal,
+                           tp, bc, rough, metal, eta, pdf_fwd, pdf_rev, is_light, cutoff,
+                           parallel, emit_dir, wo, mis_a, valid, stream);
+}
+
+// occupancy_row of each bdpt_light instance in turn: the flat, super and
+// indexed walks' untextured, then textured.
+int pt_bdpt_light_occupancy(int* out) {
+  const void* fns[6] = {(const void*)bdpt_light_kernel<kWalkFlat, false>,
+                        (const void*)bdpt_light_kernel<kWalkSuper, false>,
+                        (const void*)bdpt_light_kernel<kWalkIndexed, false>,
+                        (const void*)bdpt_light_kernel<kWalkFlat, true>,
+                        (const void*)bdpt_light_kernel<kWalkSuper, true>,
+                        (const void*)bdpt_light_kernel<kWalkIndexed, true>};
+  for (int k = 0; k < 6; ++k) {
+    const cudaError_t err = occupancy_row(fns[k], kLightThreads, 0, out + 5 * k);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -908,12 +908,26 @@ __device__ __forceinline__ V3 half_vector(V3 wo, V3 wi, bool* ok) {
   return wh;
 }
 
+// x / pi.  kTorchPi: as PyTorch's CUDA division of a tensor by a Python
+// number rounds it, the product with the float reciprocal 1 / pi (the
+// plain loops' rounding on the card, which bdpt_light matches bit for
+// bit); else IEEE division, which the other kernels keep.
+template <bool kTorchPi>
+__device__ __forceinline__ float over_pi(float x) {
+  if constexpr (kTorchPi) {
+    return x * (1.0f / kPi);
+  } else {
+    return x / kPi;
+  }
+}
+
+template <bool kTorchPi = false>
 __device__ V3 eval_local(const Mtl& m, V3 wo, V3 wi, float alpha, V3 wh, bool wh_ok) {
   bool zero_cos = (wo.z == 0.0f) || (wi.z == 0.0f);
   bool smooth_diel = (m.eta > 0.0f) && (m.rough < 0.001f);
   if (zero_cos || smooth_diel || !wh_ok) return mk(0.f, 0.f, 0.f);
   bool same = wo.z * wi.z > 0.0f;
-  float kd = (1.0f - m.metal) / kPi;
+  float kd = over_pi<kTorchPi>(1.0f - m.metal);
   V3 diffuse = mk(m.bc.x * kd, m.bc.y * kd, m.bc.z * kd);
   if (wo.z * wi.z < 0.0f) diffuse = mk(0.f, 0.f, 0.f);
   if (!same) return diffuse;
@@ -930,11 +944,12 @@ __device__ V3 eval_local(const Mtl& m, V3 wo, V3 wi, float alpha, V3 wh, bool wh
   return diffuse + scale(f, d * g / denom);
 }
 
+template <bool kTorchPi = false>
 __device__ float pdf_local(const Mtl& m, V3 wo, V3 wi, float alpha, V3 wh, bool wh_ok) {
   bool opposite = wo.z * wi.z <= 0.0f;
   bool smooth_diel = (m.eta > 0.0f) && (m.rough < 0.001f);
   if (opposite || smooth_diel || !wh_ok) return 0.0f;
-  float pdf_diff = fabsf(wi.z) / kPi;
+  float pdf_diff = over_pi<kTorchPi>(fabsf(wi.z));
   float g1 = 1.0f / (1.0f + tr_lambda(wo, alpha));
   float dwh = dot3(wo, wh);
   float pdf_wh = tr_d(wh, alpha) * g1 * jmax(0.0f, dwh) / jmax(fabsf(wo.z), 1e-20f);
@@ -968,7 +983,8 @@ struct BsdfSample {
 };
 
 // Sample an outgoing direction: smooth dielectric, smooth conductor or the
-// rough VNDF/cosine mix, picked by the material.
+// rough VNDF/cosine mix, picked by the material (kTorchPi: over_pi's).
+template <bool kTorchPi = false>
 __device__ BsdfSample bsdf_sample_dev(const Mtl& m, V3 wo_w, V3 n, float u_rr, float u1, float u2,
                                       float cur_eta) {
   V3 t, b;
@@ -1024,8 +1040,8 @@ __device__ BsdfSample bsdf_sample_dev(const Mtl& m, V3 wo_w, V3 n, float u_rr, f
     }
     bool wh_ok;
     V3 wh_r = half_vector(wo, wi_l, &wh_ok);
-    out.pdf = dead ? 0.0f : pdf_local(m, wo, wi_l, alpha, wh_r, wh_ok);
-    out.val = dead ? mk(0.f, 0.f, 0.f) : eval_local(m, wo, wi_l, alpha, wh_r, wh_ok);
+    out.pdf = dead ? 0.0f : pdf_local<kTorchPi>(m, wo, wi_l, alpha, wh_r, wh_ok);
+    out.val = dead ? mk(0.f, 0.f, 0.f) : eval_local<kTorchPi>(m, wo, wi_l, alpha, wh_r, wh_ok);
   }
   out.wi = to_world(wi_l, t, b, n);
   return out;

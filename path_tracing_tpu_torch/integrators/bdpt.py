@@ -49,14 +49,11 @@ instead, with the same hits).
 
 ``mega`` draws in the kernel the very numbers the per-bounce loop draws
 from the global Threefry counters, so with a shared table its image is the
-fused tier's.  On CPU tensors every kernel runs its plain version.  The
-light subpaths are traced in PyTorch around the nearest-hit and Threefry
-kernels.
+fused tier's.  On CPU tensors every kernel runs its plain version.  Every
+tier on the card traces the light subpaths in one ``bdpt_light`` launch
+(``ops/cuda_bdpt_light.py``), the plain tier in its loop.
 """
 from __future__ import annotations
-
-import dataclasses
-from dataclasses import dataclass
 
 import torch
 
@@ -64,59 +61,21 @@ from ..config import RenderConfig
 from ..ops import rng
 from ..ops.bsdf import bsdf_pdf, bsdf_sample
 from ..ops.cuda_bdpt_eye import TILE_LANES, bdpt_eye, eye_tiling
+from ..ops.cuda_bdpt_light import PDF_FWD_FLOOR, LightVertices, light_trace
 from ..ops.cuda_connect import (connect, connect_plain, pack_light_vertices,
                                 sample_rows)
 from ..ops.cuda_intersect import (PackedScene, nearest_hit,
                                   nearest_hit_plain, pack_scene)
 from ..ops.intersect import packed_hit
-from ..ops.math3 import EPSILON, PI, dot, is_valid_color, length, normalize
+from ..ops.math3 import EPSILON, dot, is_valid_color, normalize
 from ..ops.sampling import sample_light_emission
 from ..profiling import span
 from ..scene.camera import primary_ray_dirs
-from ..scene.types import Camera, Material, Scene
+from ..scene.types import Camera, Scene
 
-PDF_FWD_FLOOR = 1e-8   # the fmaxf clamp of both MIS walks
 RIS_DEFENSIVE = 0.5    # uniform share of the RIS proposal mixture
 LUMA = (0.2126, 0.7152, 0.0722)
 TIERS = ("auto", "mega", "fused", "plain")
-
-
-@dataclass
-class LightVertices:
-    """Light-subpath vertices, ``(P, L, ...)`` (or flat ``(V, ...)``):
-    position, normal, throughput, material, stored pdfs, the emitter
-    flags, the owning light's direction (for the cone gate), ``wo`` (the
-    emission direction at vertex 0, else the unit direction to the
-    previous stored vertex), the light-side MIS factor and validity."""
-
-    pos: torch.Tensor
-    normal: torch.Tensor
-    throughput: torch.Tensor
-    mtl: Material
-    pdf_fwd: torch.Tensor
-    pdf_rev: torch.Tensor
-    is_light_source: torch.Tensor
-    source_cutoff: torch.Tensor
-    is_parallel: torch.Tensor
-    emit_dir: torch.Tensor
-    wo: torch.Tensor
-    mis_a: torch.Tensor
-    valid: torch.Tensor
-
-    def map(self, fn) -> "LightVertices":
-        kw = {}
-        for f in dataclasses.fields(self):
-            v = getattr(self, f.name)
-            kw[f.name] = (Material(**{g.name: fn(getattr(v, g.name))
-                                      for g in dataclasses.fields(v)})
-                          if isinstance(v, Material) else fn(v))
-        return LightVertices(**kw)
-
-    def flat(self) -> "LightVertices":
-        return self.map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])))
-
-    def take(self, idx: torch.Tensor) -> "LightVertices":
-        return self.map(lambda x: x[idx])
 
 
 def resolve_tier(scene: Scene, tier: str, cfg: RenderConfig) -> str:
@@ -147,13 +106,14 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
     """Trace ``num_paths`` light subpaths (global path ``i`` uses light
     ``i % Nl``) into a (P, L) vertex tensor, ``L = cfg.light_depth``.
     ``start``/``total``: these paths are rows [start, start + P) of a
-    ``total``-path trace and draw its Threefry counters.  ``plain`` runs
-    the plain nearest-hit and Threefry versions (the plain tier)."""
-    nearest = nearest_hit_plain if plain else nearest_hit
+    ``total``-path trace and draw its Threefry counters.  The emission
+    sample is drawn here; the bounces are ``cuda_bdpt_light.light_trace``:
+    one ``bdpt_light`` launch on CUDA tensors, the loop on CPU tensors or
+    with ``plain`` (the plain tier, on the plain nearest-hit and Threefry
+    versions)."""
     draw = rng.uniform_rows_plain if plain else rng.uniform_rows
-    P, L = num_paths, cfg.light_depth
+    P = num_paths
     dev = scene.device
-    f32 = dict(device=dev, dtype=torch.float32)
     packed = pack_scene(scene)
     gi = start + torch.arange(P, device=dev)
     li = gi % scene.num_lights
@@ -166,130 +126,8 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
         scene.light_is_parallel[li], scene.light_ball_r[li], scene.scene_min,
         scene.scene_max, u[0], u[1])
     tp0 = scene.light_illum[li] / max(float(spl), 1.0)
-
-    lv = LightVertices(
-        pos=torch.zeros(P, L, 3, **f32), normal=torch.zeros(P, L, 3, **f32),
-        throughput=torch.zeros(P, L, 3, **f32),
-        mtl=Material(base_color=torch.zeros(P, L, 3, **f32),
-                     roughness=torch.zeros(P, L, **f32),
-                     metallic=torch.zeros(P, L, **f32),
-                     eta=torch.zeros(P, L, **f32)),
-        pdf_fwd=torch.zeros(P, L, **f32), pdf_rev=torch.zeros(P, L, **f32),
-        is_light_source=torch.zeros(P, L, dtype=torch.bool, device=dev),
-        source_cutoff=torch.zeros(P, L, **f32),
-        is_parallel=torch.zeros(P, L, dtype=torch.bool, device=dev),
-        emit_dir=torch.zeros(P, L, 3, **f32), wo=torch.zeros(P, L, 3, **f32),
-        mis_a=torch.zeros(P, L, **f32),
-        valid=torch.zeros(P, L, dtype=torch.bool, device=dev))
-    # vertex 0: the emitter; its normal is the emission direction
-    lv.pos[:, 0] = emit.origin
-    lv.normal[:, 0] = emit.direction
-    lv.throughput[:, 0] = tp0
-    lv.is_light_source[:, 0] = True
-    lv.source_cutoff[:, 0] = scene.light_cutoff[li]
-    lv.is_parallel[:, 0] = scene.light_is_parallel[li] != 0
-    lv.emit_dir[:, 0] = normalize(scene.light_dir[li])
-    lv.valid[:, 0] = real
-
-    ro, rd, tp = emit.origin, emit.direction, tp0
-    eta = torch.ones(P, **f32)
-    slot = torch.ones(P, dtype=torch.int64, device=dev)
-    alive = real & (L > 1)
-    last_n, last_p = emit.direction, emit.origin
-    last_pdf = torch.full((P,), 1.0 / PI, **f32)
-    k_it = rng.fold_in(key, 0x11F7)
-    for it in range(cfg.max_light_iters):
-        with span("sync.bdpt_light_loop"):
-            more = bool(alive.any())
-        if not more:   # later iterations change nothing
-            break
-        u = draw(rng.iter_key(k_it, it), P, 3, start, total, device=dev)
-        # textured: the light vertex keeps the texel in its base color
-        hit = packed_hit(packed, ro, rd, alive, nearest)
-        act = alive & hit.hit
-
-        # a light-ball hit stores a terminal light vertex; the throughput
-        # and distance guards come after that test, as in the reference
-        store_light = act & hit.is_light
-        d_vec = hit.pos - last_p
-        dist2 = dot(d_vec, d_vec)
-        ok = act & ~hit.is_light & (length(tp) >= 1e-4) & (dist2 >= 1e-6)
-        cos_at_hit = torch.abs(dot(hit.normal, -rd))
-        cos_at_prev = torch.abs(dot(last_n, rd))
-        pdf_fwd = last_pdf * cos_at_hit / torch.clamp(dist2, min=1e-20)
-
-        wo = -rd
-        s = bsdf_sample(hit.mtl, wo, hit.normal, u[0], u[1], u[2], eta)
-        sample_ok = (s.pdf > 0.0) | s.is_delta
-        store_surf = ok & sample_ok & ~s.is_delta
-        delta = ok & sample_ok & s.is_delta
-        pdf_rev = (bsdf_pdf(hit.mtl, s.wi, wo, hit.normal) * cos_at_prev
-                   / torch.clamp(dist2, min=1e-20))
-
-        # write the stored vertices at (lane, slot); only stored lanes are
-        # written, and their slot is below L (alive needs it)
-        with span("sync.bdpt_light_store"):
-            lane = torch.nonzero(store_light | store_surf)[:, 0]
-        at = (lane, slot[lane])
-        surf = store_surf[lane]
-        zero = torch.zeros_like(pdf_fwd[lane])
-        lv.pos[at] = hit.pos[lane]
-        lv.normal[at] = hit.normal[lane]
-        lv.throughput[at] = tp[lane]
-        lv.mtl.base_color[at] = hit.mtl.base_color[lane]
-        lv.mtl.roughness[at] = hit.mtl.roughness[lane]
-        lv.mtl.metallic[at] = hit.mtl.metallic[lane]
-        lv.mtl.eta[at] = hit.mtl.eta[lane]
-        lv.pdf_fwd[at] = torch.where(surf, pdf_fwd[lane], zero)
-        lv.pdf_rev[at] = torch.where(surf, pdf_rev[lane], zero)
-        lv.is_light_source[at] = store_light[lane]
-        lv.source_cutoff[at] = zero
-        with span("sync.bdpt_light_parallel"):
-            lv.is_parallel[at] = False
-        lv.wo[at] = wo[lane]
-        with span("sync.bdpt_light_valid"):
-            lv.valid[at] = True
-
-        # advance
-        w = torch.where(s.is_delta, torch.ones_like(s.pdf),
-                        torch.abs(dot(hit.normal, s.wi))
-                        / torch.clamp(s.pdf, min=1e-20))
-        new_tp = tp * s.value * w[:, None]
-        off = torch.where((dot(s.wi, hit.normal) < 0.0)[:, None],
-                          -hit.normal, hit.normal) * EPSILON
-        new_ro = torch.where(delta[:, None], hit.pos + off,
-                             hit.pos + hit.normal * EPSILON)
-        slot = slot + store_surf.long()
-        upd = (delta | store_surf)[:, None]
-        alive = torch.where(act, delta | (store_surf & is_valid_color(new_tp)
-                                          & (slot < L)),
-                            alive & hit.hit)
-        ro = torch.where(upd, new_ro, ro)
-        rd = torch.where(upd, s.wi, rd)
-        tp = torch.where(upd, new_tp, tp)
-        eta = torch.where(upd[:, 0], s.new_eta, eta)
-        # a delta bounce leaves the previous vertex where it was
-        sf = store_surf[:, None]
-        last_n = torch.where(sf, hit.normal, last_n)
-        last_p = torch.where(sf, hit.pos, last_p)
-        last_pdf = torch.where(store_surf, s.pdf, last_pdf)
-
-    lv.valid &= length(lv.throughput) >= 1e-6
-    # wo: the emission direction at vertex 0, else toward the previous
-    # stored vertex (not the incoming ray, which delta bounces bend)
-    to_prev = torch.cat([lv.pos[:, :1], lv.pos[:, :-1]], dim=1) - lv.pos
-    to_prev = to_prev / torch.clamp(length(to_prev), min=1e-20)[..., None]
-    lv.wo = torch.cat([lv.normal[:, :1], to_prev[:, 1:]], dim=1)
-    # light-side MIS factor A: A[0] = 0; emitters 1/pdf_fwd; dielectrics 0
-    a = [torch.zeros(P, **f32)]
-    for t in range(1, L):
-        inv_fwd = 1.0 / torch.clamp(lv.pdf_fwd[:, t], min=PDF_FWD_FLOOR)
-        a.append(torch.where(
-            lv.is_light_source[:, t], inv_fwd,
-            torch.where(lv.mtl.eta[:, t] > 0.0, torch.zeros_like(inv_fwd),
-                        inv_fwd * (1.0 + lv.pdf_rev[:, t] * a[t - 1]))))
-    lv.mis_a = torch.stack(a, dim=1)
-    return lv
+    return light_trace(packed, scene, emit, tp0, real, key, cfg.light_depth,
+                       cfg.max_light_iters, start, total, plain)
 
 
 def compact_flat(lv_flat: LightVertices):

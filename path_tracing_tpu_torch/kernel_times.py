@@ -49,9 +49,10 @@ the main path's inputs:
   frame on cornell (eye depth 4, seed 0) with its mask, recorded from the
   render (``launches``, timed as the sum of the frame's launches); its
   first launch, every lane live (``first``); every launch of the BDPT
-  fused exact frame (spl 8, spp 4, depths 4: the light trace's and the
-  eye pass's, ``bdpt``) and of the first 512x512 PPM pass's eye pass as
-  the loop ran it before ``ppm_eye`` (``ppm``, ``ppm_eye_plain`` on #1);
+  fused exact frame (spl 8, spp 4, depths 4: the eye pass's, since the
+  light trace is ``bdpt_light``; ``bdpt``) and of the first 512x512 PPM
+  pass's eye pass as the loop ran it before ``ppm_eye`` (``ppm``,
+  ``ppm_eye_plain`` on #1);
   then the whole split frame with the build's #1 in place of
   the package's (``frame``);
 - ``any_blocker`` (#2): the split frame's launches (``launches``), its
@@ -62,7 +63,14 @@ the main path's inputs:
   (``synth.icosphere_scene``, default framing: the super walk), each with
   the plain loop on #1 and ``threefry_rows`` (the eye pass before the
   kernel) timed and compared on every pixel, and the instances'
-  occupancy.
+  occupancy;
+- ``bdpt_light``: the light trace of the 1920x1080 BDPT frame on cornell
+  (spl 8: 4 lights x 8 x 8 = 256 paths, light depth 4, seed 0), recorded
+  from ``light_side``, with the loop on #1 and ``threefry_rows`` (the
+  trace before the kernel, ``light_trace_plain``) timed with its host and
+  compared on every vertex, and the six instances' occupancy.  An older
+  build has no such kernel: of an ``--old-csrc`` build only its registers
+  and spills are read.
 
 #1's and #2's launches are recorded where the wrappers launch
 (``record_launches``), and their outputs compared on the live lanes (the
@@ -95,6 +103,13 @@ counter is called with the package's arguments less that counter.
 launch sets, ``ppm_eye``) device-only, by CUDA-graph replay: the PPM eye
 loop's small launches are shorter than their host enqueue.
 
+Given ``--old-csrc`` or ``--variant``, ptxas's registers and spills of
+every instance of #1, #3, #4, #5, #8, #9, #10, ``ppm_eye`` and
+``bdpt_light`` (``PTXAS_KERNELS``) are printed for the package's build and
+for each other build, whose libraries of those kernels are built whole,
+so a kernel's build can be checked against its parent's where shared
+device code or another kernel of its source changed.
+
 ``--variant NAME`` (repeatable) times a copy of the package's ``csrc``
 with one change (``VARIANTS``: a table placement, a launch bound, a
 design option), written to ``build/variants/NAME``, as another build.
@@ -124,7 +139,14 @@ SOURCE = {"gather_flux": "ppm_kernels.cu", "render_wavefront": "pt_kernels.cu",
           "shade_step_tex": "pt_kernels.cu", "bdpt_eye": "bdpt_kernels.cu",
           "connect": "bdpt_kernels.cu", "shade_step": "pt_kernels.cu",
           "nearest_hit": "pt_kernels.cu", "any_blocker": "pt_kernels.cu",
-          "ppm_eye": "ppm_kernels.cu", "ppm_eye_tex": "ppm_kernels.cu"}
+          "ppm_eye": "ppm_kernels.cu", "ppm_eye_tex": "ppm_kernels.cu",
+          "bdpt_light": "bdpt_kernels.cu"}
+# the kernels whose registers and spills every build beside the package's
+# reports: those on pt_device.cuh's BSDF (#3, #4, #5, #8, #9, #10), #1,
+# ppm_eye and bdpt_light
+PTXAS_KERNELS = ("shade_step", "shade_step_tex", "render_wavefront",
+                 "connect", "bdpt_eye", "photon_trace", "nearest_hit",
+                 "ppm_eye", "bdpt_light")
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the scene tables before the super table: sph ns nl tri uv cl n_clusters
 _TABLES = [_P, _I, _I, _P, _P, _P, _I]
@@ -236,20 +258,25 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def _ptxas(log: str, kernel: str) -> list:
-    """ptxas's registers and spills of each build of ``kernel`` in
-    ``log``."""
+    """ptxas's registers and spills of each instance of ``kernel`` in
+    ``log``, a template's arguments as mangled before its line."""
     out, entry, spill = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = re.search(rf"\d{kernel}_kernel(ILb(\d)E)?", line)
+            entry = re.search(rf"\d{kernel}_kernel(I\w*?EE)?", line)
         elif entry and "spill stores" in line:
             spill = line.strip()
         elif entry and "Used" in line:
             n = re.search(r"Used (\d+) registers", line).group(1)
-            tag = " (counting)" if entry.group(2) == "1" else ""
-            out.append(f"{n} registers{tag}, {spill}")
+            inst = f"{entry.group(1)}: " if entry.group(1) else ""
+            out.append(f"{inst}{n} registers, {spill}")
             entry = None
     return out
+
+
+def print_ptxas(build, log: str, kernels) -> None:
+    for k in kernels:
+        print(f"[build] {build} {k}: " + "; ".join(_ptxas(log, k)))
 
 
 def _resident(kernel: str) -> bool:
@@ -286,26 +313,39 @@ def _old_abi(lib, d: Path, kernel: str) -> bool:
 
 
 def build_all(dirs, kernel: str) -> list:
-    """nvcc each directory's source of ``kernel`` (with its own header)
-    into the build directory, all at once; returns for each (the C entry,
-    "now" if it takes the package's argument list (a build before the
-    sphere index wrapped to drop the index's arguments), "tables7" if only
-    the scene tables of before the super table, "old" if the design
-    before's)."""
+    """nvcc each directory's sources of ``kernel`` and of
+    ``PTXAS_KERNELS`` (with its own header) into the build directory, all
+    at once, and print each build's registers and spills of those
+    kernels; returns for each directory None if its source has no
+    ``kernel`` (a build from before it), else (the C entry, "now" if it
+    takes the package's argument list (a build before the sphere index
+    wrapped to drop the index's arguments), "tables7" if only the scene
+    tables of before the super table, "old" if the design before's)."""
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sos = [_kernels.BUILD_DIR / f"lib{kernel}_old{i}.so"
-           for i in range(len(dirs))]
-    procs = [subprocess.Popen([_kernels._find_nvcc(), *_kernels.NVCC_FLAGS,
-                               "-o", str(so), str(d / SOURCE[kernel])],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for d, so in zip(dirs, sos)]
-    out = []
-    for d, so, proc in zip(dirs, sos, procs):
+    names = tuple(dict.fromkeys((kernel, *PTXAS_KERNELS)))
+    srcs = sorted({SOURCE[k] for k in names})
+
+    def so(i: int, src: str) -> Path:
+        return _kernels.BUILD_DIR / f"lib{Path(src).stem}_old{i}.so"
+
+    procs = {(i, src): subprocess.Popen(
+        [_kernels._find_nvcc(), *_kernels.NVCC_FLAGS, "-o", str(so(i, src)),
+         str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i, d in enumerate(dirs) for src in srcs}
+    logs = [""] * len(dirs)
+    for (i, src), proc in procs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {d / SOURCE[kernel]} failed:\n{err}")
-        print(f"[build] {d}: " + "; ".join(_ptxas(err, kernel)))
-        lib = ctypes.CDLL(str(so))
+            raise RuntimeError(f"nvcc {dirs[i] / src} failed:\n{err}")
+        logs[i] += err
+    out = []
+    for i, d in enumerate(dirs):
+        print_ptxas(d, logs[i], names)
+        lib = ctypes.CDLL(str(so(i, SOURCE[kernel])))
+        if not hasattr(lib, f"pt_{kernel}"):
+            print(f"[build] {d}: no {kernel}, not timed")
+            out.append(None)
+            continue
         fn = getattr(lib, f"pt_{kernel}")
         header = (d / "pt_device.cuh").read_text()
         n = len(_kernels._TABLES)
@@ -1132,6 +1172,36 @@ def eye_pass_case(textured: bool) -> list:
         graph=True)]
 
 
+def light_case() -> list:
+    """The light trace of the 1920x1080 BDPT frame on cornell (spl 8, 256
+    paths, light depth 4, seed 0's first frame) through ``bdpt_light``,
+    its arguments recorded from ``light_side``; the loop on #1 and
+    ``threefry_rows`` (the trace before the kernel) timed with its host
+    and compared on every vertex beside it."""
+    from .config import RenderConfig
+    from .integrators import bdpt
+    from .ops import cuda_bdpt_light as cbl
+    from .ops import rng
+
+    scene, _ = _cornell(W, H)
+    cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
+                       light_depth=4, bdpt_resample_vertices=RIS_K)
+    key = rng.fold_in(rng.prng_key(0), 0)
+    args = _recorded(bdpt, "light_trace", lambda: bdpt.light_side(
+        scene, cfg, SPL, key))[0][0]
+    out = {}
+    run = _through_wrapper("bdpt_light", lambda: cbl.light_trace(*args), out)
+    run(_kernels.library().fns["bdpt_light"], "now")
+    plain = cbl.light_vertex_bits(cbl.light_trace_plain(*args))
+    same = (plain == cbl.light_vertex_bits(out["last"])).all(
+        dim=1).float().mean()
+    return [Case("", run, lambda: cbl.light_vertex_bits(out["last"]), dict(
+        paths=args[3].shape[0], stored=int(out["last"].valid[:, 1:].sum()),
+        plain_ms=time_ms(lambda: cbl.light_trace_plain(*args), 3),
+        plain_bit_equal=same.item(),
+        occupancy=cbl.occupancy()), graph=True)]
+
+
 CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
          "photon_trace": photon_case, "nearest_hit_stream": stream_case,
          "any_blocker_stream": blocker_case, "shade_step_tex": tex_case,
@@ -1140,7 +1210,8 @@ CASES = {"gather_flux": gather_case, "render_wavefront": wavefront_case,
          "nearest_hit": lambda: lanes_case("nearest_hit"),
          "any_blocker": lambda: lanes_case("any_blocker"),
          "ppm_eye": lambda: eye_pass_case(False),
-         "ppm_eye_tex": lambda: eye_pass_case(True)}
+         "ppm_eye_tex": lambda: eye_pass_case(True),
+         "bdpt_light": light_case}
 # the share of rows an older build must give bit for bit, where a bar is
 # set: #4 may pick another triangle on an exact tie of t (its frame the
 # image's pixels), #7's verdicts never differ, #8's, #3's, #1's and #2's
@@ -1154,7 +1225,8 @@ ROWS = {"gather_flux": "hitpoints", "render_wavefront": "pixels",
         "any_blocker_stream": "lanes", "shade_step_tex": "lanes",
         "bdpt_eye": "pixels", "connect": "lanes", "shade_step": "lanes",
         "nearest_hit": "live lanes", "any_blocker": "live lanes",
-        "ppm_eye": "pixels", "ppm_eye_tex": "pixels"}
+        "ppm_eye": "pixels", "ppm_eye_tex": "pixels",
+        "bdpt_light": "vertices"}
 
 
 def main() -> int:
@@ -1181,9 +1253,9 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     own = _kernels.library().fns[k]
-    print("[build] package: "
-          + "; ".join(_ptxas(_kernels.library().ptxas_log, k)))
     dirs = a.old_csrc + [make_variant(v) for v in a.variant]
+    print_ptxas("package", _kernels.library().ptxas_log,
+                dict.fromkeys((k, *PTXAS_KERNELS)) if dirs else (k,))
     olds = build_all(dirs, k)
     out = dict(card=torch.cuda.get_device_name(0), kernel=k)
     missed = []
@@ -1204,7 +1276,11 @@ def main() -> int:
         ref = case.rows().clone()
         res = dict(case.info, ms=timer(new, reps))
         print(f"[{tag}] {case.info}: {res['ms']:.3f} ms")
-        for d, (fn, abi) in zip(dirs, olds):
+        for d, old in zip(dirs, olds):
+            if old is None:
+                continue
+            fn, abi = old
+
             def other(fn=fn, abi=abi, case=case):
                 case.run(fn, abi)
 

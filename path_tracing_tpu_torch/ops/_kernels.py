@@ -15,8 +15,9 @@ with nvcc's output; nothing falls back.
 ``transmittance_rgb`` (in ``pt_kernels.cu``) is the RGB shadow of
 legacy-Ks scenes; ``connect_rgb`` and ``connect_sampled`` are #8's RGB and
 sampled instances, ``photon_trace_tex`` #10's textured one and
-``ppm_eye_tex`` the PPM eye pass's (``ppm_eye``, in ``ppm_kernels.cu``),
-each launched under its own name.
+``ppm_eye_tex`` the PPM eye pass's (``ppm_eye``, in ``ppm_kernels.cu``)
+and ``bdpt_light_tex`` the BDPT light trace's (``bdpt_light``, in
+``bdpt_kernels.cu``), each launched under its own name.
 
 Each launch adds one to ``launches[name]``; each call of a plain version
 adds one to ``plain_calls[name]``.  A run reads them to show which path it
@@ -55,7 +56,8 @@ LIBRARIES = {
                    "any_blocker_counts", "render_wavefront_counts",
                    "shade_step_counts", "shade_step_tex_counts"),
     "bdpt_kernels": ("connect", "bdpt_eye", "connect_rgb", "connect_sampled",
-                     "connect_counts", "bdpt_eye_counts"),
+                     "connect_counts", "bdpt_eye_counts", "bdpt_light",
+                     "bdpt_light_tex"),
     "ppm_kernels": ("photon_trace", "gather_flux", "photon_trace_tex",
                     "photon_trace_counts", "gather_flux_counts", "ppm_eye",
                     "ppm_eye_tex"),
@@ -126,6 +128,13 @@ _ARGTYPES = {
     # the atlas's five arguments, then ppm_eye's after the tables
     "ppm_eye_tex": _TABLES + [_P, _P, _I, _I, _I]
     + [_P, _P, _P, _I, _U, _U, _U, _U, _U, _U, _I, _F] + [_P] * 11,
+    # ro rd tp0 real light_dir light_cutoff light_is_parallel | n_lights P
+    # | k0 k1 start total | light_depth iters | the 16 vertex fields
+    "bdpt_light": _TABLES + [_P] * 7 + [_I, _I, _U, _U, _U, _U, _I, _I]
+    + [_P] * 17,
+    # the atlas's five arguments, then bdpt_light's after the tables
+    "bdpt_light_tex": _TABLES + [_P, _P, _I, _I, _I] + [_P] * 7
+    + [_I, _I, _U, _U, _U, _U, _I, _I] + [_P] * 17,
     # ks p1 rd max_d live | B | out
     "transmittance_rgb": _TABLES + [_P, _P, _P, _P, _P, _I, _P, _P],
     # hp perm win ev items | n_items r2 | flux count

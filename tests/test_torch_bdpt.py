@@ -234,6 +234,92 @@ def test_trace_light_paths_window_is_slice_of_full_trace():
         np.testing.assert_array_equal(full[k][9:21], part[k], err_msg=k)
 
 
+@pytest.mark.parametrize("plain", [False, True])
+def test_light_trace_on_cpu_tensors_runs_the_loop(plain):
+    """CPU tensors take the light loop with or without ``plain`` (both
+    draw and walk on the plain versions there), once a call, no kernel
+    launched, the same vertices bit for bit; a light depth with no slot
+    for the emitter is refused before the loop."""
+    from path_tracing_tpu_torch.ops import _kernels
+    from path_tracing_tpu_torch.ops.cuda_bdpt_light import light_vertex_bits
+
+    _, _, ts, _ = jax_cornell(4, 4)
+    cfg = RenderConfig(**CFG)
+    key = rng.prng_key(8)
+    _kernels.reset_counts()
+    lv = bdpt.trace_light_paths(ts, cfg, 24, SPL, key, plain=plain)
+    assert _kernels.plain_calls["bdpt_light"] == 1
+    assert _kernels.launches["bdpt_light"] == 0
+    other = bdpt.trace_light_paths(ts, cfg, 24, SPL, key, plain=not plain)
+    assert torch.equal(light_vertex_bits(lv), light_vertex_bits(other))
+    with pytest.raises(ValueError, match="light_depth"):
+        bdpt.trace_light_paths(ts, cfg.with_(light_depth=0), 24, SPL, key,
+                               plain=plain)
+    assert _kernels.plain_calls["bdpt_light"] == 2
+
+
+def test_light_vertex_bits_lays_out_a_row_a_vertex():
+    """``light_vertex_bits``: one row of 28 32-bit words a vertex, (path,
+    slot) row-major, the fields in ``LightVertices``' order (the bools as
+    0.0 / 1.0)."""
+    from path_tracing_tpu_torch.ops.cuda_bdpt_light import light_vertex_bits
+
+    _, _, ts, _ = jax_cornell(4, 4)
+    cfg = RenderConfig(**CFG)
+    lv = bdpt.trace_light_paths(ts, cfg, 12, SPL, rng.prng_key(9))
+    bits = light_vertex_bits(lv)
+    L = cfg.light_depth
+    assert bits.dtype == torch.int32 and bits.shape == (12 * L, 28)
+    words = {"pos": (0, 3), "normal": (3, 6), "throughput": (6, 9),
+             "mtl.base_color": (9, 12), "mtl.roughness": (12, 13),
+             "mtl.metallic": (13, 14), "mtl.eta": (14, 15),
+             "pdf_fwd": (15, 16), "pdf_rev": (16, 17),
+             "is_light_source": (17, 18), "source_cutoff": (18, 19),
+             "is_parallel": (19, 20), "emit_dir": (20, 23), "wo": (23, 26),
+             "mis_a": (26, 27), "valid": (27, 28)}
+    for name, (a, b) in words.items():
+        x = lv.mtl if name.startswith("mtl.") else lv
+        x = getattr(x, name.split(".")[-1]).float().reshape(12 * L, b - a)
+        assert torch.equal(bits[:, a:b], x.view(torch.int32)), name
+    r = 5 * L + 1                                   # path 5, slot 1
+    assert torch.equal(bits[r, 0:3], lv.pos[5, 1].view(torch.int32))
+    ones = bits[:, 27][lv.valid.reshape(-1)]
+    assert ones.numel() > 12 and bool((ones == 0x3F800000).all())
+
+
+def test_light_loop_counts_the_kernels_work(monkeypatch):
+    """``light_trace_plain`` given ``counts`` walks on the plain nearest hit
+    and returns the same vertices bit for bit; it counts every path, a walk
+    for every live path-iteration, three draws a BSDF sample, a reverse pdf
+    for every stored surface vertex, and a stored vertex for each valid one
+    past the emitters."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+
+    _, _, ts, _ = jax_cornell(4, 4)
+    cfg = RenderConfig(**CFG)
+    got = []
+
+    def record(*args):
+        got.append(args)
+        return cbl.light_trace(*args)
+
+    monkeypatch.setattr(bdpt, "light_trace", record)
+    lv = bdpt.trace_light_paths(ts, cfg, 24, SPL, rng.prng_key(10))
+    (args,) = got
+    c = cbl.new_counts()
+    counted = cbl.light_trace_plain(*args, counts=c)
+    assert torch.equal(cbl.light_vertex_bits(counted),
+                       cbl.light_vertex_bits(lv))
+    assert set(c) == set(cbl.COUNT_NAMES)
+    assert c["paths"] == 24
+    assert c["walks"] >= int(lv.valid[:, 0].sum()) > 0
+    assert c["walks"] >= c["bsdf_samples"] >= c["pdfs"] > 0
+    assert c["draws"] == 3 * c["bsdf_samples"]
+    assert c["stored"] >= int(lv.valid[:, 1:].sum()) > 0
+    assert 0 < c["iteration_keys"] <= cfg.max_light_iters
+    assert c["hit_spheres"] > 0 and c["hit_tris"] > 0
+
+
 def _port_traced_table(light_depth=4, paths=24, spl=4):
     """tests/test_bdpt.py::_traced_table from the port's light trace."""
     p = jparser.parse_scene_text(DIFFUSE_BOX)

@@ -1210,6 +1210,169 @@ def test_ppm_eye_wrapper_refuses_lanes_its_kernel_does_not_take(card, case,
     assert _kernels.launches["ppm_eye"] == 0
 
 
+# ---- the BDPT light trace in one launch ------------------------------------
+
+LIGHT_SCENES = {
+    "cornell": lambda: load_scene(str(CORNELL)),
+    "textured": _room_with_textured_sphere,
+    "super": lambda: synth.icosphere_scene(17000),
+    "super_textured": lambda: synth.icosphere_scene(17000, textured=True),
+    "flake": lambda: synth.sphereflake_scene(4),
+}
+
+
+def _light_args(parsed, seed, spl=8):
+    """``trace_light_paths``' arguments for the light side of a BDPT frame
+    on ``parsed`` at the main path's shape (GPU parity: flux / spl, Nl x
+    spl x spl paths, light depth 4) from frame ``seed``'s key."""
+    scene = parsed.to_device("cuda").with_illum_scaled(1.0 / spl)
+    cfg = RenderConfig(spl=spl, light_depth=4)
+    key = rng.fold_in(rng.fold_in(rng.prng_key(seed), 0), 0x0101)
+    return scene, cfg, scene.num_lights * spl * spl, spl, key
+
+
+def _through_the_loop(monkeypatch, fn):
+    """``fn()`` with the light trace run by its loop (on #1 and
+    ``threefry_rows``), as every tier ran it before ``bdpt_light``."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+
+    with monkeypatch.context() as m:
+        m.setattr(bdpt, "light_trace", cbl.light_trace_plain)
+        return fn()
+
+
+@pytest.mark.parametrize("which,seed", [
+    ("cornell", 0), ("cornell", 1), ("cornell", 2), ("textured", 0),
+    ("super", 0), ("super_textured", 0), ("flake", 0)])
+def test_bdpt_light_kernel_equals_the_loop_bit_for_bit(card, which, seed,
+                                                       monkeypatch):
+    """``bdpt_light`` against the light loop on #1 and ``threefry_rows``
+    (the trace as it ran before the kernel), every field of every vertex
+    bit for bit (both round each operation alone: --fmad=false): cornell
+    at the main path's 256 paths on three keys (mirrors, glass, light
+    balls; the flat walk), cornell's room with the 1,280-triangle textured
+    icosphere (``bdpt_light_tex``: the texel in the base color), the
+    17,000-triangle icosphere untextured and textured (the super walk) and
+    SPD's 7,381-sphere flake (the sphere index)."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops.cuda_bdpt_light import light_vertex_bits
+
+    args = _light_args(LIGHT_SCENES[which](), seed)
+    pk = cuda_intersect.pack_scene(args[0])
+    assert pk.textured == which.endswith("textured")
+    assert (pk.n_super > 0) == which.startswith("super")
+    assert (pk.nsc > 0) == (which == "flake")
+    _kernels.reset_counts()
+    a = bdpt.trace_light_paths(*args)
+    assert _kernels.launches["bdpt_light_tex" if pk.textured
+                             else "bdpt_light"] == 1
+    assert _kernels.launches["nearest_hit"] == 0
+    b = _through_the_loop(monkeypatch, lambda: bdpt.trace_light_paths(*args))
+    assert _kernels.launches["nearest_hit"] > 0
+    assert torch.equal(light_vertex_bits(a), light_vertex_bits(b))
+    assert int(a.valid[:, 1:].sum()) > 0     # bounces stored vertices
+    if which == "cornell":
+        assert a.valid[:, 0].all() and (a.mis_a[a.valid] > 0).any()
+
+
+def test_bdpt_light_kernel_window_equals_the_slice(card, monkeypatch):
+    """Rows [100, 164) of cornell's 256-path trace traced alone
+    (``start``/``total``, as ``parallel/shard.py`` traces a rank's rows)
+    give the full launch's rows bit for bit, and the loop's on the same
+    slice."""
+    from path_tracing_tpu_torch.integrators import bdpt
+    from path_tracing_tpu_torch.ops.cuda_bdpt_light import light_vertex_bits
+
+    scene, cfg, paths, spl, key = _light_args(load_scene(str(CORNELL)), 5)
+    lo, n = 100, 64
+    full = light_vertex_bits(bdpt.trace_light_paths(scene, cfg, paths, spl,
+                                                    key))
+    L = cfg.light_depth
+
+    def part():
+        return light_vertex_bits(bdpt.trace_light_paths(
+            scene, cfg, n, spl, key, start=lo, total=paths))
+
+    got = part()
+    assert torch.equal(full[lo * L:(lo + n) * L], got)
+    assert torch.equal(got, _through_the_loop(monkeypatch, part))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "float32"), ("window", "Threefry"), ("depth", "light_depth")])
+def test_bdpt_light_wrapper_refuses_what_its_kernel_does_not_take(card, case,
+                                                                  match):
+    """On the card, ``light_trace`` raises before any launch on an emitted
+    throughput that is not float32, on rows outside the trace's window and
+    on a light depth with no slot for the emitter."""
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light as cbl
+    from path_tracing_tpu_torch.ops.sampling import EmissionSample
+
+    scene = load_scene(str(CORNELL)).to_device("cuda")
+    pk = cuda_intersect.pack_scene(scene)
+    P = 8
+    o = torch.zeros((P, 3), device="cuda")
+    emit = EmissionSample(origin=o, direction=o + 1.0)
+    tp0, real = o + 0.5, torch.ones(P, dtype=torch.bool, device="cuda")
+    kw = dict(light_depth=4, iters=6, start=0, total=P)
+    if case == "dtype":
+        tp0 = tp0.double()
+    elif case == "window":
+        kw["start"] = 4
+    else:
+        kw["light_depth"] = 0
+    _kernels.reset_counts()
+    with pytest.raises(ValueError, match=match):
+        cbl.light_trace(pk, scene, emit, tp0, real, rng.prng_key(1), **kw)
+    assert _kernels.launches["bdpt_light"] == 0
+
+
+@pytest.mark.parametrize("tier,K", [("mega", 32), ("fused", 0)])
+def test_bdpt_frame_traces_its_lights_in_one_launch(card, tier, K, tmp_path,
+                                                    monkeypatch):
+    """A traced cornell BDPT frame (128x72, spp 1, spl 8, light depth 4)
+    on the mega (tile-RIS K = 32) and fused (exact) tiers: one
+    ``bdpt_light`` launch a frame, ``bdpt.light_kernel`` counted once, no
+    ``bdpt.light_plain`` and no ``sync.bdpt_light_*`` span inside
+    ``bdpt.frame``; its image is the frame's with the light trace run by
+    the loop, bit for bit."""
+    from path_tracing_tpu_torch import profiling
+    from path_tracing_tpu_torch.integrators import bdpt
+
+    scene, _ = card
+    p = load_scene(str(CORNELL))
+    w, h = 128, 72
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4, light_depth=4,
+                       bdpt_resample_vertices=K)
+
+    def frame():
+        return bdpt.render_bdpt(scene, cam, w, h, 1, 8, cfg,
+                                rng.prng_key(6), tier=tier)
+
+    _kernels.reset_counts()
+    profiling.reset_counters()
+    events = _traced(frame, tmp_path)
+    assert _kernels.launches["bdpt_light"] == 2   # the warm-up and the frame
+    assert profiling.counters.get("bdpt.light_kernel") == 1
+    assert "bdpt.light_plain" not in profiling.counters
+    ann = [e for e in events if e.get("cat") == "user_annotation"]
+    frames = [e for e in ann if e["name"] == "bdpt.frame"]
+    assert len(frames) == 1
+    inside = {e["name"] for e in ann if _within(e, frames[0])}
+    assert "bdpt.light_trace" in inside
+    assert not {n for n in inside if n.startswith("sync.bdpt_light")}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "bdpt_light_kernel" in e["name"]]
+    assert len(kernels) == 1
+    img = frame()
+    loop = _through_the_loop(monkeypatch, frame)
+    assert torch.equal(img.view(torch.int32), loop.view(torch.int32))
+    assert float(img.sum()) > 0.0
+
+
 # ---- the integrators' spans on the card's clock ----------------------------
 
 HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",

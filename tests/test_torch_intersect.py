@@ -298,7 +298,7 @@ def test_eye_pass_and_light_trace_hand_over_their_alive_lanes(which,
     is computed: every read of the hit is gated by ``alive & hit``."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt, ppm
-    from path_tracing_tpu_torch.ops import cuda_ppm_eye, rng
+    from path_tracing_tpu_torch.ops import cuda_bdpt_light, cuda_ppm_eye, rng
 
     _, _, ts, tc = jax_cornell(24, 16)
     key = rng.prng_key(3)
@@ -315,7 +315,7 @@ def test_eye_pass_and_light_trace_hand_over_their_alive_lanes(which,
                 *(getattr(hp.mtl, f) for f in ("base_color", "roughness",
                                                 "metallic", "eta"))]
     else:
-        module = bdpt
+        module = cuda_bdpt_light    # the loop: CPU tensors take it
         cfg = RenderConfig(width=24, height=16, light_depth=4)
 
         def run():

@@ -139,6 +139,30 @@ def test_ppm_eye_pass_on_cpu_tensors_counts_the_loop(tier, scene_name,
         == 0
 
 
+@pytest.mark.parametrize("tier,scene_name", [
+    ("auto", "cornell"), ("plain", "cornell"), ("auto", "textured")])
+def test_bdpt_light_trace_on_cpu_tensors_counts_the_loop(tier, scene_name,
+                                                         tmp_path):
+    """CPU tensors, in any tier, and the plain tier take the light loop
+    (``light_trace_plain``): ``bdpt.light_plain`` counted once a frame,
+    no ``bdpt.light_kernel``, no launch of either ``bdpt_light``
+    instance, and the loop's ``sync.bdpt_light_loop`` reads inside
+    ``bdpt.light_trace``."""
+    _kernels.reset_counts()
+    _, ann = _profiled(lambda: [_frame("bdpt", tier, scene_name, i)
+                                for i in range(2)], tmp_path)
+    assert profiling.counters.get("bdpt.light_plain") == 2
+    assert "bdpt.light_kernel" not in profiling.counters
+    assert _kernels.plain_calls["bdpt_light"] == 2
+    assert (_kernels.launches["bdpt_light"]
+            == _kernels.launches["bdpt_light_tex"] == 0)
+    traces = [a for a in ann if a[0] == "bdpt.light_trace"]
+    reads = [a for a in ann if a[0] == "sync.bdpt_light_loop"]
+    assert len(traces) == 2 and reads
+    assert all(any(t[1] <= r[1] and r[2] <= t[2] for t in traces)
+               for r in reads)
+
+
 @pytest.mark.parametrize("tier", ["fused", "plain"])
 def test_one_sync_span_per_read_of_the_pt_loop(tier, tmp_path):
     """The per-bounce loop reads the card once an iteration and once more
