@@ -888,13 +888,12 @@ def mega_small_counts(p, what: str, key) -> None:
     """#5's counting build at 128x72 spp 4 on the parsed scene ``p``: its
     image #5's bit for bit, its counters the plain loop's exactly."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.pt import _light_table
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.scene.camera import make_camera
 
     scene = p.to_device("cuda")
-    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    pk = scene.packed
+    lt = pk.light
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
                       device="cuda")
     idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
@@ -915,15 +914,14 @@ def step_small_counts(p, key) -> None:
     of the parsed scene ``p``: its outputs #3's bit for bit, its counters
     summed over the bounces the plain version's exactly."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.pt import (_light_table,
-                                                       wavefront_loop)
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
+    from path_tracing_tpu_torch.integrators.pt import wavefront_loop
     from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.scene.camera import make_camera
 
     scene = p.to_device("cuda")
-    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    pk = scene.packed
+    lt = pk.light
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, SMALL_W, SMALL_H,
                       device="cuda")
     idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
@@ -1036,7 +1034,6 @@ def step_main_shape(scene, cam, key, small_err: float, counts: dict) -> list:
 def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.ops import _kernels
-    from path_tracing_tpu_torch.integrators.pt import _light_table
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_shade as cs
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
@@ -1060,8 +1057,8 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
             lambda: rng.uniform_rows_plain(ik, B, 8, device="cuda"), 3),
         **bound(8 * B * 4, 8 * B * OPS["draw"])))
 
-    pk = ci.pack_scene(scene)
-    lt = _light_table(scene)
+    pk = scene.packed
+    lt = scene.packed.light
     u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
     ro, rd = camera_rays(cam, u)
 
@@ -1123,8 +1120,8 @@ def phase_kernels(scene, cam, mesh, mesh_cam, counts: dict) -> list:
     results += step_main_shape(scene, cam, key, r["max_abs_err"], counts)
 
     # ---- 4. the textured bounce on the 1,280-triangle icosphere ----
-    mpk = ci.pack_scene(mesh)
-    mlt = _light_table(mesh)
+    mpk = mesh.packed
+    mlt = mesh.packed.light
     mro, mrd = camera_rays(mesh_cam, u)
     err = compare_hits(mpk, mro, mrd, True,
                        f"with_uv ({mesh.num_triangles} tris)")
@@ -1640,7 +1637,6 @@ def small_bdpt(parsed, K: int, w=SMALL_W, h=SMALL_H, spp=SPP, scene=None):
     the card), as the mega tier builds them."""
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import bdpt
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
 
@@ -1653,7 +1649,7 @@ def small_bdpt(parsed, K: int, w=SMALL_W, h=SMALL_H, spp=SPP, scene=None):
     used, lv, scale = bdpt.light_side(scene, cfg, SPL, key)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
-    return (ci.pack_scene(used), tab, nv, cam, idx % w, idx // w, spp, cfg,
+    return (used.packed, tab, nv, cam, idx % w, idx // w, spp, cfg,
             key, scale)
 
 
@@ -1729,13 +1725,12 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
     reproduce."""
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
     from path_tracing_tpu_torch.ops import cuda_connect as cc
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
 
     phase_bdpt_small(parsed)
     results = []
     scene = parsed.to_device("cuda")
     _, _, used, tab, n_valid, _, _, _ = bdpt_frame(scene, cam, 0)
-    pk = ci.pack_scene(used)
+    pk = used.packed
 
     # ---- 8. connect on the 1080p primary hits, eye_f with a random G ----
     args = connect_args(pk, tab, n_valid, cam, W, H)
@@ -1771,7 +1766,7 @@ def phase_bdpt_kernels(parsed, cam) -> tuple:
             ("exact sweep", 0, 1, 3 * B // 8, B // 4),
             (f"tile-RIS K={RIS_K}", RIS_K, SPP, 0, B)):
         cfg, key, used, etab, env, px, py, scale = bdpt_frame(scene, cam, K)
-        epk = ci.pack_scene(used)
+        epk = used.packed
         eargs = (epk, etab, env, cam, px[lo:lo + n], py[lo:lo + n], spp, cfg,
                  key, scale, lo, B)
         if n < B:
@@ -1953,7 +1948,6 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
     from path_tracing_tpu_torch.integrators import ppm
     from path_tracing_tpu_torch.kernel_times import graph_ms
     from path_tracing_tpu_torch.ops import _kernels
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
@@ -1965,7 +1959,7 @@ def phase_ppm_kernels(parsed, counts: dict) -> tuple:
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       PPM_W, PPM_H, device="cuda")
     cfg, direct, hp, emit, kp = ppm_frame(scene, cam)
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     P = emit[0].shape[0]
     targs = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
     tables = (pk.sph.numel() + pk.tri.numel() + pk.cl.numel()) * 4
@@ -2500,7 +2494,7 @@ def retime_nearest_hit(parsed, row: dict) -> None:
                            eye_depth=4, light_depth=4)
     bdpt_cfg = RenderConfig(width=W, height=H, spp=SPP, spl=SPL, eye_depth=4,
                             light_depth=4, bdpt_resample_vertices=RIS_K)
-    eye_args = (ci.pack_scene(scene), cam, ppm_cfg, idx % PPM_W,
+    eye_args = (scene.packed, cam, ppm_cfg, idx % PPM_W,
                 idx // PPM_W, rng.fold_in(key, 1))
     for what, call in (
             ("ppm_eye", lambda: ce.ppm_eye_plain(*eye_args)),
@@ -2556,7 +2550,7 @@ def phase_mesh_kernels(counts: dict, mesh) -> tuple:
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       W, H, device="cuda")
     st, lanes = stream_lanes(scene, cam)
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     print(f"[mesh] streamed tables: Tp {st.tri.shape[0]}, {st.cl.shape[0]} "
           f"cluster rows, {st.n_super} supers, {st.blk.shape[0]} blocks")
     sub = torch.arange(0, B, B // SUBSET, device="cuda")
@@ -2765,8 +2759,6 @@ def walk_counts(scene, parsed, label: str) -> None:
     """#5's counting build at 128x72 spp 4 on ``scene``: the walks' tests
     a bounce and a shadow ray (where a big mesh's time goes)."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.pt import _light_table
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene.camera import make_camera
@@ -2774,9 +2766,9 @@ def walk_counts(scene, parsed, label: str) -> None:
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       SMALL_W, SMALL_H, device="cuda")
     idx = torch.arange(SMALL_W * SMALL_H, dtype=torch.int32, device="cuda")
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     _, c = cw.render_wavefront_counts(
-        pk, _light_table(scene), cam, idx % SMALL_W, idx // SMALL_W, SPP,
+        pk, scene.packed.light, cam, idx % SMALL_W, idx // SMALL_W, SPP,
         RenderConfig(width=SMALL_W, height=SMALL_H, spp=SPP, eye_depth=4),
         rng.fold_in(rng.prng_key(0), 0))
     it, sh = max(c["iterations"], 1), max(c["shadow_rays"], 1)
@@ -2902,7 +2894,6 @@ def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
     4 x 262,144 photons.  Returns #1's times on the eye pass's launches
     and #10's on the pass, with the CLI's ms a pass."""
     from path_tracing_tpu_torch.kernel_times import record_launches
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_eye as ce
     from path_tracing_tpu_torch.ops import rng
@@ -2912,7 +2903,7 @@ def phase_big_ppm(counts: dict, enclosed, txt: str) -> tuple:
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up, parsed.fov,
                       PPM_W, PPM_H, device="cuda")
     cfg, direct, hp, emit, kp = ppm_frame(scene, cam)
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     check(pk.n_super > 0, "the enclosed scene is not on the super walk")
     idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
     loop, rec = record_launches(lambda: ce.ppm_eye_plain(
@@ -3257,7 +3248,6 @@ def phase_tex_integrators(counts: dict) -> list:
 
     from path_tracing_tpu_torch.config import RenderConfig
     from path_tracing_tpu_torch.integrators import ppm
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import rng
     from path_tracing_tpu_torch.scene import synth
@@ -3276,7 +3266,7 @@ def phase_tex_integrators(counts: dict) -> list:
     nonzero_share(res["image"], "textured BDPT")
 
     scene = load_any_scene(str(obj)).to_device("cuda")
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     check(pk.textured and pk.n_super > 0, "the textured OBJ's tables")
     light, _ = hold_light(scene, "bdpt_light_tex", "the textured OBJ")
     cfg = RenderConfig(width=PPM_W, height=PPM_H, spl=TEX_PPM_SPL,
@@ -3336,7 +3326,7 @@ def phase_tex_integrators(counts: dict) -> list:
     room = enclosed_scene(synth.icosphere_scene(SMALL_MESH_TRIS,
                                                 textured=True), True)
     rs = room.to_device("cuda")
-    rpk = ci.pack_scene(rs)
+    rpk = rs.packed
     # the sphere alone stores few light vertices: the room's walls send
     # light paths onto the texture
     hold_light(rs, "bdpt_light_tex",
@@ -3390,7 +3380,6 @@ def phase_hash_gather(counts: dict) -> None:
     equal, at least #11's within that tolerance where the hash counts
     more); then ``--tier hash`` through the CLI, 3 passes."""
     from path_tracing_tpu_torch.integrators import ppm
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_photon as cp
     from path_tracing_tpu_torch.ops import cuda_ppm_gather as cg
     from path_tracing_tpu_torch.scene.camera import make_camera
@@ -3403,7 +3392,7 @@ def phase_hash_gather(counts: dict) -> None:
                       device="cuda")
     cfg, _, hp, emit, kp = ppm_frame(scene, cam)
     events = ppm.PhotonEvents(*cp.photon_trace(
-        ci.pack_scene(scene), *emit, kp, cfg.light_depth,
+        scene.packed, *emit, kp, cfg.light_depth,
         cfg.max_light_iters))
     runs = ppm.hash_runs(scene, cfg, hp, events)[2]
     most = int(runs.max())
@@ -3731,7 +3720,6 @@ def phase_flake(counts: dict) -> dict:
     its plain version, its counting build against the plain counts, its
     time, launches and bound.  Returns each kernel's ``flake`` entry."""
     from path_tracing_tpu_torch.config import RenderConfig
-    from path_tracing_tpu_torch.integrators.pt import _light_table
     from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
     from path_tracing_tpu_torch.ops import rng
@@ -3741,7 +3729,8 @@ def phase_flake(counts: dict) -> dict:
 
     p = synth.sphereflake_scene(FLAKE_LEVELS)
     scene = p.to_device("cuda")
-    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    pk = scene.packed
+    lt = pk.light
     check(pk.ns == 7381 and pk.nl == 3 and pk.nsc > 0 and pk.n_ssuper > 0,
           f"sphereflake: {pk.ns} spheres, {pk.nl} lights, {pk.nsc} "
           f"clusters, {pk.n_ssuper} supers")

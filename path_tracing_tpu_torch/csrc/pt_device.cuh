@@ -25,7 +25,7 @@
 //   scl, ssup:    the sphere index, cl's and sup's layout over the spheres
 //                 sph[0, ns) (nsc 0: none, every ray tests each sphere),
 //                 then one row min3 max3 r_min 0 of its bounds and least
-//                 radius (ops/bvh.py::sphere_index)
+//                 radius
 //   lights (Nl, 12): pos3 dir3 illum3 cutoff is_parallel ball_r
 //   light vertices (V, 40): see ops/cuda_connect.py::pack_light_vertices
 #pragma once
@@ -707,7 +707,7 @@ __device__ __forceinline__ bool shadow_blocked_dev(const Tables& tb, V3 p1, V3 r
 // ops/intersect.py transmittance_rgb, geometric.cuh:293-325 of the
 // reference): legacy rows ks (ns + nt, 4) = [ks_r ks_g ks_b refract], of
 // sphere i at row i and of triangle j at row ns + j
-// (ops/cuda_intersect.py::legacy_table)
+// (ops/cuda_intersect.py::pack_scene)
 // ---------------------------------------------------------------------------
 
 // One occluder's factor, as the JAX fold 1 - occ (1 - ks) rounds it: 1 -

@@ -64,8 +64,7 @@ from ..ops.cuda_bdpt_eye import TILE_LANES, bdpt_eye, eye_tiling
 from ..ops.cuda_bdpt_light import PDF_FWD_FLOOR, LightVertices, light_trace
 from ..ops.cuda_connect import (connect, connect_plain, pack_light_vertices,
                                 sample_rows)
-from ..ops.cuda_intersect import (PackedScene, nearest_hit,
-                                  nearest_hit_plain, pack_scene)
+from ..ops.cuda_intersect import PackedScene, nearest_hit, nearest_hit_plain
 from ..ops.intersect import packed_hit
 from ..ops.math3 import EPSILON, dot, is_valid_color, normalize
 from ..ops.sampling import sample_light_emission
@@ -114,7 +113,7 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
     draw = rng.uniform_rows_plain if plain else rng.uniform_rows
     P = num_paths
     dev = scene.device
-    packed = pack_scene(scene)
+    packed = scene.packed.take()
     gi = start + torch.arange(P, device=dev)
     li = gi % scene.num_lights
     real = (torch.ones(P, dtype=torch.bool, device=dev) if total is None
@@ -466,8 +465,7 @@ def eye_pass(scene_used: Scene, lv: LightVertices, cam: Camera,
     """Mean over ``spp`` of the eye pass against the light vertices ``lv``
     in a resolved tier.  ``start``/``total``: these lanes are rows
     [start, start + B) of a ``total``-lane render."""
-    with span("bdpt.pack"):
-        packed = pack_scene(scene_used)
+    packed = scene_used.packed.take()
     if tier == "mega":
         with span("bdpt.light_table"):
             lv_tab, n_valid = light_table(scene_used, lv, cam, cfg, px, py,

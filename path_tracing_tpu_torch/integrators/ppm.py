@@ -47,7 +47,6 @@ import torch
 from ..config import RenderConfig
 from ..ops import rng
 from ..ops.bsdf import _eval_local, _half_vector
-from ..ops.cuda_intersect import pack_scene
 from ..ops.cuda_photon import photon_trace, photon_trace_plain
 from ..ops.cuda_ppm_eye import HitPoints, ppm_eye
 from ..ops.cuda_ppm_gather import gather_flux, gather_flux_plain
@@ -116,8 +115,8 @@ def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
     PyTorch loop on CPU tensors or with ``plain``).  ``start``/``total``:
     these lanes are columns [start, start + B) of a ``total``-lane pass.
     ``plain`` runs the loop on the plain nearest hit and Threefry."""
-    return ppm_eye(pack_scene(scene), cam, cfg, px, py, key, start, total,
-                   plain)
+    return ppm_eye(scene.packed.take(), cam, cfg, px, py, key, start,
+                   total, plain)
 
 
 def photon_emission(scene: Scene, num_photons: int, spl: int, key,
@@ -155,7 +154,7 @@ def ppm_photon_trace(scene: Scene, cfg: RenderConfig, num_photons: int,
                                               start, total, plain)
     trace = photon_trace_plain if plain else photon_trace
     with span("ppm.photon_trace"):
-        ev, valid = trace(pack_scene(scene), ro, rd, flux0, real, key,
+        ev, valid = trace(scene.packed.take(), ro, rd, flux0, real, key,
                           cfg.light_depth, cfg.max_light_iters, start, total)
     return PhotonEvents(ev, valid)
 

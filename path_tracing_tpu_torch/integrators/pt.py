@@ -41,7 +41,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import rng
-from ..ops.cuda_intersect import PackedScene, pack_scene
+from ..ops.cuda_intersect import PackedScene
 from ..ops.intersect import Hit, shadow_ray
 from ..ops.math3 import (EPSILON, PI, dot, is_valid_color, length,
                          normalize)
@@ -60,16 +60,6 @@ from ..scene.types import Camera, Scene
 # split for legacy-Ks ones, at any size.  On CPU tensors every tier runs
 # plain code (stream its own plain versions).
 TIERS = ("auto", "mega", "fused", "split", "stream", "plain")
-
-
-def _light_table(scene: Scene) -> torch.Tensor:
-    """All per-light fields as one (Nl, 12) table: pos3, dir3 (raw),
-    illum3, cutoff, is_parallel, ball_r."""
-    return torch.cat([
-        scene.light_pos, scene.light_dir, scene.light_illum,
-        scene.light_cutoff[:, None],
-        scene.light_is_parallel.to(torch.float32)[:, None],
-        scene.light_ball_r[:, None]], dim=1).contiguous()
 
 
 def _take_light(table: torch.Tensor, li: torch.Tensor) -> dict:
@@ -230,14 +220,13 @@ def wavefront_pt(scene: Scene, cam: Camera, cfg: RenderConfig,
     ``start``/``total``: the lanes are rows [start, start+B) of a global
     ``total``-lane render and draw the matching Threefry counters.
     ``tier`` picks the path (see ``TIERS`` and ``resolve_tier``)."""
-    from ..ops.cuda_stream import pack_scene_stream
     from ..ops.cuda_wavefront import render_wavefront
 
     with span("pt.setup"):
         tier = resolve_tier(scene, tier)
-        packed = (pack_scene_stream(scene) if tier == "stream"
-                  else pack_scene(scene))
-        light_tab = _light_table(scene)
+        packed = (scene.stream_tables() if tier == "stream"
+                  else scene.packed.take())
+    light_tab = scene.packed.light
     if tier == "mega":
         with span("pt.megakernel"):
             return render_wavefront(packed, light_tab, cam, px, py, spp, cfg,

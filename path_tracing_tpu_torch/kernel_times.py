@@ -532,7 +532,6 @@ def gather_case():
 def wavefront_case():
     """The 1080p spp 4 cornell frame's megakernel arguments."""
     from .config import RenderConfig
-    from .integrators.pt import _light_table
     from .ops import cuda_intersect as ci
     from .ops import cuda_wavefront as cw
     from .ops import rng
@@ -541,7 +540,8 @@ def wavefront_case():
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
     idx = torch.arange(W * H, dtype=torch.int32, device="cuda")
-    pk, lt = ci.pack_scene(scene), _light_table(scene)
+    pk = scene.packed
+    lt = pk.light
     px, py = idx % W, idx // W
     cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).contiguous()
     k0, k1 = (int(w) for w in key.tolist())
@@ -577,7 +577,7 @@ def photon_case():
                        eye_depth=4, light_depth=4)
     kp = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 2)
     emit = ppm.photon_emission(scene, scene.num_lights * PPM_SPL, PPM_SPL, kp)
-    pk = ci.pack_scene(scene)
+    pk = scene.packed
     targs = (pk, *emit, kp, cfg.light_depth, cfg.max_light_iters)
     P = emit[0].shape[0]
     k0, k1 = (int(w) for w in rng.fold_in(kp, cp.PHOTON_STREAM).tolist())
@@ -840,7 +840,6 @@ def eye_case():
     from .config import RenderConfig
     from .integrators import bdpt
     from .ops import cuda_bdpt_eye as ce
-    from .ops import cuda_intersect as ci
     from .ops import rng
 
     scene, cam = _cornell(W, H)
@@ -851,7 +850,7 @@ def eye_case():
     idx = torch.arange(W * H, dtype=torch.int32, device="cuda")
     px, py = idx % W, idx // W
     tab, nv = bdpt.light_table(used, lv, cam, cfg, px, py, key)
-    pk, out = ci.pack_scene(used), {}
+    pk, out = used.packed, {}
     wrapper = (lambda: ce.bdpt_eye(pk, tab, nv, cam, px, py, SPP, cfg, key,
                                    scale))
     return [Case("", _through_wrapper("bdpt_eye", wrapper, out, ce),
@@ -930,7 +929,7 @@ def connect_case():
     used, lv, lhs = bdpt.light_side(scene, cfg, SPL, key)
     idx = torch.arange(B, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % W, idx // W, key)
-    pk = ci.pack_scene(used)
+    pk = used.packed
     u = rng.uniform_rows(rng.iter_key(key, 0), B, 8, device="cuda")
     rd = primary_ray_dirs(cam, idx % W, idx // W, u[6], u[7])
     ro = cam.eye[None].expand(B, 3).contiguous()
@@ -1105,7 +1104,7 @@ def lanes_case(name: str) -> list:
                             eye_depth=4, light_depth=4)
         idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
         sets["ppm"] = record_launches(lambda: ce.ppm_eye_plain(
-            ci.pack_scene(pscene), pcam, pcfg, idx % PPM_W, idx // PPM_W,
+            pscene.packed, pcam, pcfg, idx % PPM_W, idx // PPM_W,
             rng.fold_in(key, 1)))[1][name]
     out, cases = {}, []
     for label, calls in sets.items():
@@ -1138,7 +1137,6 @@ def eye_pass_case(textured: bool) -> list:
     (``ppm_eye_tex``); the plain loop on #1 and ``threefry_rows`` timed
     and compared bit for bit beside it."""
     from .config import RenderConfig
-    from .ops import cuda_intersect as ci
     from .ops import cuda_ppm_eye as ce
     from .ops import rng
     from .ops.cuda_ppm_eye import eye_pass_bits
@@ -1156,7 +1154,7 @@ def eye_pass_case(textured: bool) -> list:
                        eye_depth=4, light_depth=4)
     key = rng.fold_in(rng.fold_in(rng.prng_key(0), 0), 1)
     idx = torch.arange(PPM_W * PPM_H, dtype=torch.int32, device="cuda")
-    pk, out = ci.pack_scene(scene), {}
+    pk, out = scene.packed, {}
     args = (pk, cam, cfg, idx % PPM_W, idx // PPM_W, key)
     name = "ppm_eye_tex" if textured else "ppm_eye"
     run = _through_wrapper(name, lambda: ce.ppm_eye(*args), out, ce)

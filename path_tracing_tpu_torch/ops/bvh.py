@@ -4,8 +4,8 @@
 Triangles are reordered into spatially coherent clusters; the CUDA kernels
 test each cluster's AABB per ray and skip the cluster's triangles when the
 ray cannot reach it.  Scenes of ``SPHERE_INDEX_MIN`` spheres or more get
-the same index over their spheres (``build_sphere_clusters``), built once
-with its supers and bounds as the kernels walk it (``sphere_index``).
+the same index over their spheres (``build_sphere_clusters``), which
+``cuda_intersect.pack_scene`` lays out as the kernels walk it.
 ``build_clusters`` takes the C++ builder of
 ``csrc/pt_runtime.cc`` (``runtime/native.py``) when it builds, as the JAX
 package does, else the numpy builder.  The two split the same medians but
@@ -15,7 +15,6 @@ scenes with many (cornell's axis-aligned walls).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 SPHERE_INDEX_MIN = 64     # below this many spheres every ray tests each
 SPHERE_LEAF = 16          # spheres a cluster of the sphere index
@@ -83,27 +82,6 @@ def build_sphere_clusters(center: np.ndarray, radius: np.ndarray,
              for a, k in ranges]
     return (order.astype(np.int32), np.asarray(aabbs, np.float32),
             np.asarray(ranges, np.int32))
-
-
-def sphere_index(aabb: torch.Tensor, ranges: torch.Tensor,
-                 radius: torch.Tensor) -> tuple:
-    """The sphere index's tables as the kernels walk them, from
-    ``build_sphere_clusters``' boxes and ranges on the scene's device:
-    (cluster rows ``[min3, max3, start, count]``, grown by
-    ``cuda_intersect.super_table`` from ``SUPER_MIN_CLUSTERS`` clusters
-    on, then one row ``[min3, max3, r_min, 0]`` of the index's bounds and
-    the spheres' least radius (at least 1e-30), which ``sphere_pad``
-    reads; its super rows, zeros without supers)."""
-    from .cuda_intersect import _padded_rows, _rowpad, super_table
-
-    m = aabb.shape[0]
-    cl = torch.cat([aabb, ranges.float()], 1)
-    cl, sup, use_super = super_table(_rowpad(cl, _padded_rows(m)))
-    bounds = torch.cat([aabb[:, 0:3].amin(dim=0), aabb[:, 3:6].amax(dim=0),
-                        radius.amin().clamp(min=1e-30)[None]])
-    cl = torch.cat([cl, torch.zeros((1, cl.shape[1]), device=cl.device)], 0)
-    cl[-1, 0:7] = bounds
-    return cl.contiguous(), sup.contiguous()
 
 
 def build_clusters(tris9: np.ndarray, leaf_size: int = 16):

@@ -2,7 +2,9 @@
 (counterpart of ``path_tracing_tpu.ops.pallas_intersect``).
 
 ``pack_scene`` builds the tables every kernel reads, column for column the
-same as the JAX package's ``pack_scene``:
+same as the JAX package's ``pack_scene``, once, when the scene is built
+(``scene/types.py``): the scene carries them as ``scene.packed`` and every
+frame takes them from there (``PackedScene.take``):
 
 - spheres then light balls, ``(Ms, 16)``: ``[cx, cy, cz, r, blocks_gpu,
   blocks_cpu, 0, 0, r, g, b, roughness, metallic, eta, is_light, 0]``;
@@ -23,15 +25,19 @@ same as the JAX package's ``pack_scene``:
   refract]`` of sphere ``i`` at row ``i`` and of packed triangle ``j`` at
   row ``ns + j`` (the scene's cluster order), or ``(0, 4)`` for a scene
   without legacy Ks (the RGB shadow's tables; light balls have none);
-- the sphere index, from ``bvh.SPHERE_INDEX_MIN`` spheres on (the scene
-  keeps its spheres cluster-contiguous): cluster rows over the spheres'
-  rows in ``cl``'s layout, its super table in ``sup``'s, then one row of
-  the index's bounds and least radius, as the scene holds them
-  (``bvh.sphere_index`` built them once, at set-up); without one ``(0,
-  8)`` and ``(0, 16)``, and every ray tests every sphere in turn;
+- the sphere index, over the clusters ``bvh.build_sphere_clusters`` gave
+  a scene of ``bvh.SPHERE_INDEX_MIN`` spheres or more (which the scene
+  keeps cluster-contiguous): cluster rows over the spheres' rows in
+  ``cl``'s layout, its super table in ``sup``'s, then one row ``[min3,
+  max3, r_min, 0]`` of the index's bounds and the spheres' least radius
+  (at least 1e-30), which ``sphere_pad`` reads; without one ``(0, 8)``
+  and ``(0, 16)``, and every ray tests every sphere in turn;
+- the lights, ``(Nl, 12)``: ``[pos3, dir3 (raw), illum3, cutoff,
+  is_parallel, ball_r]``, which the bounce kernels read;
 
-each padded with zero rows to a multiple of 8 (the legacy rows aside),
-and the scene's texture atlas and sizes as they are.
+each padded with zero rows to a multiple of 8 (the legacy rows, the
+sphere index's bounds row and the lights aside), and the scene's texture
+atlas and sizes as they are (empty for an untextured scene).
 
 Each kernel has a wrapper and a plain version side by side.  The wrapper
 takes the plain version only for CPU tensors; for CUDA tensors it launches
@@ -59,6 +65,7 @@ also counts the kernel's walk (``_count_rgb_walk``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -104,17 +111,37 @@ class PackedScene:
     sup: torch.Tensor  # (NS, 16) super rows; (8, 16) zeros for the flat walk
     n_super: int       # super rows the walk visits (0: the flat walk)
     legacy: torch.Tensor  # (ns + nt, 4) ks3 refract, or (0, 4): none
-    # the sphere index (``bvh.sphere_index``): nsc cluster rows over sph[:ns]
+    # the sphere index (see above): nsc cluster rows over sph[:ns]
     # as ``cl`` over the triangles, then its bounds row ((0, 8) and nsc 0
     # without an index), and its supers as ``sup``
     scl: torch.Tensor
     nsc: int
     ssup: torch.Tensor
     n_ssuper: int
+    light: torch.Tensor   # (Nl, 12)
 
     @property
     def device(self) -> torch.device:
         return self.sph.device
+
+    def take(self) -> "PackedScene":
+        """These tables as a frame takes them: under a profiler the sphere
+        index's counters gain what each ray reaches through it
+        (``scene.spheres_indexed``) and tests in turn, the light balls
+        (``scene.spheres_scanned``)."""
+        if self.nsc:
+            count("scene.spheres_indexed", self.ns)
+            count("scene.spheres_scanned", self.nl)
+        return self
+
+    def with_illum(self, illum: torch.Tensor) -> "PackedScene":
+        """These tables with the light flux ``illum`` (Nl, 3) in the
+        light-ball rows and the lights (``pack_scene`` of the scene with
+        that flux, bit for bit), the other tables shared."""
+        sph, light = self.sph.clone(), self.light.clone()
+        sph[self.ns:self.ns + self.nl, 8:11] = illum
+        light[:, 6:9] = illum
+        return dataclasses.replace(self, sph=sph, light=light)
 
     @property
     def textured(self) -> bool:
@@ -143,41 +170,6 @@ def _padded_rows(n: int) -> int:
 def _mtl_cols(m, n: int, dev) -> torch.Tensor:
     return torch.cat([m.base_color, m.roughness[:, None], m.metallic[:, None],
                       m.eta[:, None], torch.zeros((n, 1), device=dev)], 1)
-
-
-def sphere_table(scene: Scene) -> torch.Tensor:
-    """The ``(Ms, 16)`` table of spheres then light balls (see above)."""
-    ns, nl, dev = scene.num_spheres, scene.num_lights, scene.device
-
-    def z(n, k):
-        return torch.zeros((n, k), device=dev)
-
-    def o(n, k):
-        return torch.ones((n, k), device=dev)
-
-    sph_rows = torch.cat([
-        torch.cat([scene.sph_center, scene.sph_radius[:, None], o(ns, 1),
-                   (scene.sph_mtl.eta <= 0.0).float()[:, None], z(ns, 2),
-                   _mtl_cols(scene.sph_mtl, ns, dev), z(ns, 1)], 1),
-        torch.cat([scene.light_pos, scene.light_ball_r[:, None], z(nl, 4),
-                   scene.light_illum, o(nl, 1), z(nl, 2), o(nl, 1),
-                   z(nl, 1)], 1),
-    ], 0)
-    return _rowpad(sph_rows, _padded_rows(ns + nl)).contiguous()
-
-
-def is_textured(scene: Scene) -> bool:
-    return scene.has_textures and scene.tri_uv.shape[0] == scene.num_triangles
-
-
-def texture_tables(scene: Scene):
-    """The atlas and its (h, w) sizes, empty for an untextured scene."""
-    dev = scene.device
-    if not is_textured(scene):
-        return (torch.zeros((0, 1, 1, 3), device=dev),
-                torch.zeros((0, 2), dtype=torch.int32, device=dev))
-    return (scene.tex_atlas.contiguous(),
-            scene.tex_size.to(torch.int32).contiguous())
 
 
 def _octant_orders(ctr: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
@@ -224,7 +216,11 @@ def super_table(cl: torch.Tensor):
     return torch.cat([cl, corder.reshape(-1, 8)], 1), sup, True
 
 
-def pack_scene(scene: Scene) -> PackedScene:
+def pack_scene(scene: Scene, sphere_clusters=None) -> PackedScene:
+    """The tables of ``scene`` on its device (see above), with the sphere
+    index over ``sphere_clusters``: boxes (M, 6) and ranges (M, 2) of
+    ``bvh.build_sphere_clusters`` over the scene's spheres in their order
+    (None: no index)."""
     ns, nl, nt = scene.num_spheres, scene.num_lights, scene.num_triangles
     dev = scene.device
 
@@ -234,55 +230,64 @@ def pack_scene(scene: Scene) -> PackedScene:
     def o(n, k):
         return torch.ones((n, k), device=dev)
 
-    sph = sphere_table(scene)
+    sph = torch.cat([
+        torch.cat([scene.sph_center, scene.sph_radius[:, None], o(ns, 1),
+                   (scene.sph_mtl.eta <= 0.0).float()[:, None], z(ns, 2),
+                   _mtl_cols(scene.sph_mtl, ns, dev), z(ns, 1)], 1),
+        torch.cat([scene.light_pos, scene.light_ball_r[:, None], z(nl, 4),
+                   scene.light_illum, o(nl, 1), z(nl, 2), o(nl, 1),
+                   z(nl, 1)], 1),
+    ], 0)
     tn = cross(scene.tri_v1 - scene.tri_v0, scene.tri_v2 - scene.tri_v0)
     tn = tn / torch.clamp(length(tn), min=1e-20)[:, None]
-    tri_rows = torch.cat([
+    tri = torch.cat([
         scene.tri_v0, scene.tri_v1, scene.tri_v2, o(nt, 1),
         (scene.tri_mtl.eta <= 0.0).float()[:, None], z(nt, 1), tn, z(nt, 1),
         _mtl_cols(scene.tri_mtl, nt, dev), z(nt, 1)], 1)
-    tri = _rowpad(tri_rows, _padded_rows(nt))
 
-    textured = is_textured(scene)
+    textured = scene.has_textures and scene.tri_uv.shape[0] == nt
     uv6 = scene.tri_uv if textured else z(nt, 6)
     tex = (scene.tri_tex.float()[:, None] if textured
            else torch.full((nt, 1), -1.0, device=dev))
-    uv = _rowpad(torch.cat([uv6, tex, z(nt, 1)], 1), _padded_rows(nt))
+    uv = torch.cat([uv6, tex, z(nt, 1)], 1)
+    atlas = (scene.tex_atlas if textured
+             else torch.zeros((0, 1, 1, 3), device=dev))
+    tex_size = (scene.tex_size.to(torch.int32) if textured
+                else torch.zeros((0, 2), dtype=torch.int32, device=dev))
 
     cl = torch.cat([scene.tri_cluster_aabb,
                     scene.tri_cluster_range.float()], 1)
     cl, sup, use_super = super_table(_rowpad(cl, _padded_rows(cl.shape[0])))
-    atlas, tex_size = texture_tables(scene)
-    scl, ssup = scene.sph_index, scene.sph_index_sup
-    nsc = max(scl.shape[0] - 1, 0)
-    if not nsc:     # a scene carried over without one: the empty tables
-        scl = torch.zeros((0, CL_COLS), device=dev)
-        ssup = torch.zeros((0, SUP_COLS), device=dev)
-    else:
-        # what a ray tests: the spheres through the index, the light balls
-        # in turn
-        count("scene.spheres_indexed", ns)
-        count("scene.spheres_scanned", nl)
-    return PackedScene(sph=sph, tri=tri.contiguous(),
-                       uv=uv.contiguous(), cl=cl.contiguous(),
-                       atlas=atlas, tex_size=tex_size, ns=ns, nl=nl, nt=nt,
-                       sup=sup.contiguous(),
-                       n_super=cl.shape[0] // SUPER if use_super else 0,
-                       legacy=legacy_table(scene), scl=scl, nsc=nsc,
-                       ssup=ssup, n_ssuper=(nsc // SUPER
-                                            if scl.shape[1] > CL_COLS
-                                            else 0))
-
-
-def legacy_table(scene: Scene) -> torch.Tensor:
-    """The ``(ns + nt, 4)`` legacy shadow rows (spheres, then the packed
-    triangles), or ``(0, 4)`` for a scene without legacy Ks."""
-    if not scene.has_legacy_ks:
-        return torch.zeros((0, 4), device=scene.device)
-    return torch.cat([
-        torch.cat([scene.sph_ks, scene.sph_refract[:, None]], 1),
-        torch.cat([scene.tri_ks, scene.tri_refract[:, None]], 1)],
-        0).contiguous()
+    scl, ssup, nsc, n_ssuper = z(0, CL_COLS), z(0, SUP_COLS), 0, 0
+    if sphere_clusters is not None:
+        aabb, ranges = sphere_clusters
+        scl, ssup, use = super_table(_rowpad(
+            torch.cat([aabb, ranges.float()], 1),
+            _padded_rows(aabb.shape[0])))
+        nsc, n_ssuper = scl.shape[0], scl.shape[0] // SUPER if use else 0
+        scl = torch.cat([scl, z(1, scl.shape[1])], 0)
+        scl[-1, 0:7] = torch.cat([
+            aabb[:, 0:3].amin(dim=0), aabb[:, 3:6].amax(dim=0),
+            scene.sph_radius.amin().clamp(min=1e-30)[None]])
+    legacy = z(0, 4)
+    if scene.has_legacy_ks:
+        legacy = torch.cat([
+            torch.cat([scene.sph_ks, scene.sph_refract[:, None]], 1),
+            torch.cat([scene.tri_ks, scene.tri_refract[:, None]], 1)], 0)
+    light = torch.cat([
+        scene.light_pos, scene.light_dir, scene.light_illum,
+        scene.light_cutoff[:, None],
+        scene.light_is_parallel.to(torch.float32)[:, None],
+        scene.light_ball_r[:, None]], dim=1)
+    return PackedScene(
+        sph=_rowpad(sph, _padded_rows(ns + nl)).contiguous(),
+        tri=_rowpad(tri, _padded_rows(nt)).contiguous(),
+        uv=_rowpad(uv, _padded_rows(nt)).contiguous(), cl=cl.contiguous(),
+        atlas=atlas.contiguous(), tex_size=tex_size.contiguous(),
+        ns=ns, nl=nl, nt=nt, sup=sup.contiguous(),
+        n_super=cl.shape[0] // SUPER if use_super else 0,
+        legacy=legacy.contiguous(), scl=scl.contiguous(), nsc=nsc,
+        ssup=ssup.contiguous(), n_ssuper=n_ssuper, light=light.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
 ``_nearest_hit_stream`` (#6) and ``_any_blocker_stream`` (#7)).
 
 ``pack_scene_stream`` builds the JAX package's streamed layout
-(``_stream_layout``): every cluster's triangles re-scatter to a
-``TB``-aligned padded start, so a cluster is a whole number of 32-triangle
-blocks; ``idx`` of a hit is the PADDED triangle index.  Its tables:
+(``_stream_layout``), once a scene (``Scene.stream_tables``): every
+cluster's triangles re-scatter to a ``TB``-aligned padded start, so a
+cluster is a whole number of 32-triangle blocks; ``idx`` of a hit is the
+PADDED triangle index.  Beside the sphere table and the texture atlas of
+``scene.packed``, its tables:
 
 - ``tri (Tp, 12)``: ``[v0, e1, e2, blocks_gpu, blocks_cpu, 0]`` per padded
   triangle, the edges subtracted once here in float32 as #1 subtracts them
@@ -54,10 +56,9 @@ from ..scene.types import Scene
 from . import _kernels
 from .cuda_intersect import (SENTINEL, SUB, SUPER,
                              _chunks, _rowpad, _safe_inv, _slab_hit,
-                             check_tensor, sphere_table, super_table,
-                             texture_tables, walk_clusters)
+                             check_tensor, super_table, walk_clusters)
 from .intersect import INF, SHADOW_EPS, mt_from_edges, sorted_call, sphere_ts
-from .math3 import EPSILON, cross, dot, length
+from .math3 import EPSILON, cross, dot
 
 TB = 32                   # triangles per block; clusters start on a block
 TRI_COLS, ATTR_COLS, VERT_COLS, BLK_COLS, CL_COLS = 12, 16, 9, 8, 16
@@ -124,8 +125,7 @@ def stream_layout(scene: Scene) -> dict:
     dest = padded_start[cid] + (i - starts[cid])
 
     v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
-    n = cross(v1 - v0, v2 - v0)
-    nn = n / torch.clamp(length(n), min=1e-20)[:, None]
+    nn = scene.packed.tri[:nt, 12:15]     # the unit normals
     m = scene.tri_mtl
     uv6 = (scene.tri_uv if scene.tri_uv.shape[0] == nt
            else torch.zeros((nt, 6), **f32))
@@ -172,14 +172,14 @@ def pack_scene_stream(scene: Scene) -> StreamScene:
     cl, sup, use_super = super_table(lay["cl"])
     if not use_super:
         cl = torch.cat([cl, torch.zeros((cl.shape[0], 8), device=dev)], 1)
-    atlas, tex_size = texture_tables(scene)
+    pk = scene.packed
     return StreamScene(
-        sph=sphere_table(scene), tri=tri, attr=lay["attr"], vert=lay["vert"],
+        sph=pk.sph, tri=tri, attr=lay["attr"], vert=lay["vert"],
         blk=lay["blk"].contiguous(), cl=cl.contiguous(),
         sup=sup.contiguous(), use_super=use_super, dest=dest,
         ns=scene.num_spheres, nl=scene.num_lights, nt=nt,
         scene_min=scene.scene_min, scene_max=scene.scene_max,
-        atlas=atlas, tex_size=tex_size)
+        atlas=pk.atlas, tex_size=pk.tex_size)
 
 
 # ---------------------------------------------------------------------------

@@ -208,9 +208,7 @@ def find_closest_hit(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """Nearest hit over spheres, light balls and triangles, textured on a
     textured scene.  ``live`` (B,) bool: the lanes whose result is read;
     the others get the miss record."""
-    from .cuda_intersect import pack_scene
-
-    return packed_hit(pack_scene(scene), ro, rd, live)
+    return packed_hit(scene.packed.take(), ro, rd, live)
 
 
 def shadow_ray(p1: torch.Tensor, p2: torch.Tensor):
@@ -229,10 +227,10 @@ def transmittance(scene: Scene, p1: torch.Tensor, p2: torch.Tensor,
     False is the CPU oracle's (only eta <= 0 materials block).  Light balls
     never occlude.  ``live`` (B,) bool: the lanes whose result is read (the
     others are unblocked)."""
-    from .cuda_intersect import any_blocker, pack_scene
+    from .cuda_intersect import any_blocker
 
     rd, _, max_d = shadow_ray(p1, p2)
-    blocked = any_blocker(pack_scene(scene), p1, rd, max_d,
+    blocked = any_blocker(scene.packed.take(), p1, rd, max_d,
                           dielectrics_block, live)
     return torch.where(blocked, torch.zeros_like(max_d),
                        torch.ones_like(max_d))
@@ -244,11 +242,10 @@ def transmittance_rgb(scene: Scene, p1: torch.Tensor, p2: torch.Tensor,
     in the segment's (1e-3, dist - 1e-3) window multiplies its legacy
     ``Ks`` in if its ``refract`` is > 0 and blocks fully otherwise; light
     balls never occlude.  ``live`` (B,) bool: the other lanes get 1."""
-    from .cuda_intersect import pack_scene
     from .cuda_intersect import transmittance_rgb as rgb
 
     rd, _, max_d = shadow_ray(p1, p2)
-    return rgb(pack_scene(scene), p1, rd, max_d, live)
+    return rgb(scene.packed.take(), p1, rd, max_d, live)
 
 
 def shadow_factor(scene: Scene, p1, p2, dielectrics_block: bool,

@@ -4,18 +4,24 @@
 ``scene_from_numpy`` builds a Scene from host arrays: it reorders the
 triangles, with their UVs and texture ids, into spatial clusters
 (``ops/bvh.py``), and the spheres too from ``SPHERE_INDEX_MIN`` of them
-on (building the sphere index's tables once), and computes the scene
-bounds.  ``scene_from_jax_arrays`` carries a Scene and Camera over from the
-JAX package's arrays unchanged, so both packages can render the very same
-tables.
+on (the sphere index), and computes the scene bounds.
+``scene_from_jax_arrays`` carries a Scene and Camera over from the JAX
+package's arrays unchanged, so both packages can render the very same
+tables.  Both pack the kernels' tables once (``ops/cuda_intersect.py::
+pack_scene``), and the Scene carries them as ``packed``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from ..ops.cuda_intersect import PackedScene
+    from ..ops.cuda_stream import StreamScene
 
 MAX_RESIDENT_TRIS = 131072  # leaf-size rule threshold (TPU VMEM ceiling)
 
@@ -60,10 +66,9 @@ class Scene:
     """Spheres, triangles (cluster-contiguous), lights, the scene AABB and
     the triangle clusters (rows ``[min3, max3]`` and ``[start, count]``).
     The texture atlas and legacy Ks/refract tables are empty for text
-    scenes.  The sphere index (``sph_index``: its cluster rows over the
-    cluster-contiguous spheres and its bounds row; ``sph_index_sup``: its
-    super rows; ``ops/bvh.py::sphere_index``) is empty below
-    ``SPHERE_INDEX_MIN`` spheres."""
+    scenes.  ``packed`` holds the kernels' tables, the sphere index's among
+    them (``ops/cuda_intersect.py::pack_scene``); ``stream`` the stream
+    tier's, once a frame asked for them (``stream_tables``)."""
 
     sph_center: torch.Tensor
     sph_radius: torch.Tensor
@@ -93,9 +98,9 @@ class Scene:
     sph_refract: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
     tri_ks: torch.Tensor = field(default_factory=lambda: torch.zeros(0, 3))
     tri_refract: torch.Tensor = field(default_factory=lambda: torch.zeros(0))
-    sph_index: torch.Tensor = field(default_factory=lambda: torch.zeros(0, 8))
-    sph_index_sup: torch.Tensor = field(
-        default_factory=lambda: torch.zeros(0, 16))
+    packed: "PackedScene | None" = None
+    stream: "StreamScene | None" = field(default=None, init=False,
+                                         repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -123,8 +128,19 @@ class Scene:
 
     def with_illum_scaled(self, scale: float) -> "Scene":
         """The scene with light flux scaled (BDPT divides it by the light
-        sample count)."""
-        return dataclasses.replace(self, light_illum=self.light_illum * scale)
+        sample count), its tables the scene's but for the flux columns."""
+        illum = self.light_illum * scale
+        return dataclasses.replace(self, light_illum=illum,
+                                   packed=self.packed.with_illum(illum))
+
+    def stream_tables(self) -> "StreamScene":
+        """The stream tier's tables (``ops/cuda_stream.py``), built by the
+        first call and held."""
+        if self.stream is None:
+            from ..ops.cuda_stream import pack_scene_stream
+
+            self.stream = pack_scene_stream(self)
+        return self.stream
 
 
 @dataclass
@@ -160,12 +176,13 @@ def scene_from_numpy(
     the native builder when it is available), their UVs and texture ids
     with them; from ``SPHERE_INDEX_MIN`` spheres on the spheres are
     reordered into the clusters of ``build_sphere_clusters``, their
-    materials and legacy rows with them, and the index's tables are built
-    (``sphere_index``; both in a ``scene.sphere_index`` span);
-    the scene AABB is the union of sphere bounds and triangle vertices
-    (light balls excluded)."""
+    materials and legacy rows with them (in a ``scene.sphere_index``
+    span), and the tables are packed over those clusters; the scene AABB is
+    the union of sphere bounds and triangle vertices (light balls
+    excluded)."""
     from ..ops.bvh import (SPHERE_INDEX_MIN, SPHERE_LEAF, build_clusters,
-                           build_sphere_clusters, sphere_index)
+                           build_sphere_clusters)
+    from ..ops.cuda_intersect import pack_scene
     from ..profiling import span
 
     f32 = np.float32
@@ -218,10 +235,8 @@ def scene_from_numpy(
             cl_aabb = np.array([[1e9, 1e9, 1e9, -1e9, -1e9, -1e9]], f32)
         cl_range = np.array([[0, nt]], np.int32)
 
-    ns = sph_center.shape[0]
-    sph_index = torch.zeros((0, 8), device=device)
-    sph_index_sup = torch.zeros((0, 16), device=device)
-    if ns >= SPHERE_INDEX_MIN:
+    sph_clusters = None
+    if sph_center.shape[0] >= SPHERE_INDEX_MIN:
         with span("scene.sphere_index"):
             order, sph_cl_aabb, sph_cl_range = build_sphere_clusters(
                 sph_center, sph_radius, SPHERE_LEAF)
@@ -229,10 +244,8 @@ def scene_from_numpy(
             sph_mtl = sph_mtl[order]
             if sph_legacy.shape[0]:
                 sph_legacy = sph_legacy[order]
-            sph_index, sph_index_sup = sphere_index(
-                _f32(sph_cl_aabb, device, (-1, 6)),
-                _i32(sph_cl_range, device, (-1, 2)),
-                _f32(sph_radius, device))
+            sph_clusters = (_f32(sph_cl_aabb, device, (-1, 6)),
+                            _i32(sph_cl_range, device, (-1, 2)))
 
     mins, maxs = [], []
     if sph_center.shape[0]:
@@ -255,7 +268,7 @@ def scene_from_numpy(
                         metallic=_f32(rows[:, 4], device),
                         eta=_f32(rows[:, 5], device))
 
-    return Scene(
+    scene = Scene(
         sph_center=_f32(sph_center, device),
         sph_radius=_f32(sph_radius, device),
         sph_mtl=mtl(sph_mtl),
@@ -278,8 +291,9 @@ def scene_from_numpy(
         sph_refract=_f32(sph_legacy[:, 3], device),
         tri_ks=_f32(tri_legacy[:, 0:3], device),
         tri_refract=_f32(tri_legacy[:, 3], device),
-        sph_index=sph_index, sph_index_sup=sph_index_sup,
     )
+    scene.packed = pack_scene(scene, sph_clusters)
+    return scene
 
 
 def scene_from_jax_arrays(d: dict, device):
@@ -287,8 +301,11 @@ def scene_from_jax_arrays(d: dict, device):
 
     ``d`` maps each Scene field name to a numpy array, with Material
     sub-fields flattened as ``"sph_mtl.base_color"`` and the Camera fields
-    as ``"camera.eye"`` etc.  Returns ``(scene, camera)``; ``camera`` is
-    None when ``d`` has no camera fields."""
+    as ``"camera.eye"`` etc.  The spheres keep their order, without a
+    sphere index.  Returns ``(scene, camera)``; ``camera`` is None when
+    ``d`` has no camera fields."""
+    from ..ops.cuda_intersect import pack_scene
+
     def t(a):
         a = np.array(a)   # a writable copy
         if a.dtype == np.float64:
@@ -304,6 +321,7 @@ def scene_from_jax_arrays(d: dict, device):
         elif f.name in d:
             kw[f.name] = t(d[f.name])
     scene = Scene(**kw)
+    scene.packed = pack_scene(scene)
     cam = None
     if "camera.eye" in d:
         cam = Camera(**{f.name: t(d[f"camera.{f.name}"])

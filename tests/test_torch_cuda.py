@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from path_tracing_tpu_torch.config import RenderConfig
-from path_tracing_tpu_torch.integrators.pt import _light_table, render_pt
+from path_tracing_tpu_torch.integrators.pt import render_pt
 from path_tracing_tpu_torch.ops import (_kernels, cuda_connect,
                                         cuda_intersect, cuda_shade)
 from path_tracing_tpu_torch.ops import intersect, rng
@@ -37,7 +37,7 @@ def card():
         pytest.skip("needs a CUDA card")
     _kernels.library()          # builds, or raises with nvcc's output
     scene = load_scene(str(CORNELL)).to_device("cuda")
-    return scene, cuda_intersect.pack_scene(scene)
+    return scene, scene.packed
 
 
 def _rays(n, seed, lo=-0.9, hi=0.9):
@@ -81,7 +81,7 @@ def super_mesh(card):
     """The textured 17,000-triangle icosphere: 512 clusters, the super
     walk."""
     scene = synth.icosphere_scene(17000, textured=True).to_device("cuda")
-    pk = cuda_intersect.pack_scene(scene)
+    pk = scene.packed
     assert pk.n_super > 0
     return pk
 
@@ -172,7 +172,7 @@ def test_any_blocker_with_a_mask_matches_plain_bit_for_bit(
 @pytest.fixture(scope="module")
 def mesh(card):
     scene = synth.icosphere_scene(1280, textured=True).to_device("cuda")
-    return scene, cuda_intersect.pack_scene(scene)
+    return scene, scene.packed
 
 
 def _state(ro, rd):
@@ -191,7 +191,7 @@ def test_shade_step_kernels_match_plain(card, mesh, textured):
     fast, plain = ((cuda_shade.shade_step_tex, cuda_shade.shade_step_tex_plain)
                    if textured else
                    (cuda_shade.shade_step, cuda_shade.shade_step_plain))
-    lt = _light_table(scene)
+    lt = scene.packed.light
     B = 1 << 15
     ro, rd = _rays(B, 3)
     if textured:   # rays from outside toward the icosphere
@@ -266,7 +266,7 @@ def test_connect_kernel_matches_plain(card):
     scene, _ = card
     key = rng.prng_key(6)
     used, tab, nv = _bdpt_table(scene, key)
-    pk = cuda_intersect.pack_scene(used)
+    pk = used.packed
     p = load_scene(str(CORNELL))
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 128, 96,
                       device="cuda")
@@ -305,7 +305,7 @@ def test_bdpt_eye_kernel_matches_plain(card, K):
                       device="cuda")
     key = rng.prng_key(7)
     used, tab, nv = _bdpt_table(scene, key, K, cam, w, h)
-    pk = cuda_intersect.pack_scene(used)
+    pk = used.packed
     cfg = RenderConfig(width=w, height=h, eye_depth=4, light_depth=4)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     args = (pk, tab, nv, cam, idx % w, idx // w, 2, cfg, key, 4.0)
@@ -330,7 +330,7 @@ def _bdpt_args(parsed, K, w=128, h=72, spp=4):
     used, lv, scale = bdpt.light_side(scene, cfg, 8, key)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
-    return (cuda_intersect.pack_scene(used), tab, nv, cam, idx % w, idx // w,
+    return (used.packed, tab, nv, cam, idx % w, idx // w,
             spp, cfg, key, scale)
 
 
@@ -455,7 +455,7 @@ def stream_mesh(card):
                                                       cluster_leaf_size=32)
     st = cuda_stream.pack_scene_stream(scene)
     assert st.use_super
-    return cuda_intersect.pack_scene(scene), st
+    return scene.packed, st
 
 
 def _mesh_rays(n, seed):
@@ -541,7 +541,7 @@ def _ppm_frame(scene, w=128, h=72, spl=16384):
                               rng.fold_in(key, 1))
     kp = rng.fold_in(key, 2)
     emit = ppm.photon_emission(scene, scene.num_lights * spl, spl, kp)
-    return cfg, hp, cuda_intersect.pack_scene(scene), emit, kp
+    return cfg, hp, scene.packed, emit, kp
 
 
 def test_photon_trace_kernel_matches_plain(card):
@@ -606,7 +606,7 @@ def test_render_wavefront_counting_build_matches_plain_counts(card):
                       device="cuda")
     cfg = RenderConfig(width=w, height=h, eye_depth=4)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
-    args = (pk, _light_table(scene), cam, idx % w, idx // w, 4, cfg,
+    args = (pk, scene.packed.light, cam, idx % w, idx // w, 4, cfg,
             rng.prng_key(0))
     img, kc = cw.render_wavefront_counts(*args)
     assert torch.equal(img, cw.render_wavefront(*args))
@@ -635,7 +635,7 @@ def test_shade_step_counting_build_matches_plain_counts(card):
                       device="cuda")
     cfg = RenderConfig(width=w, height=h, eye_depth=4)
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
-    lt = _light_table(scene)
+    lt = scene.packed.light
     kc, pc = cw.new_counts(), cw.new_counts()
 
     def step(*args, **kw):
@@ -721,7 +721,7 @@ def test_connect_kernel_streams_a_table_too_large_to_stage(card):
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
     tab, nv = bdpt.light_table(used, lv, cam, cfg, idx % w, idx // w, key)
     assert nv > 1100
-    pk = cuda_intersect.pack_scene(used)
+    pk = used.packed
     u = rng.uniform_rows(key, w * h, 6, device="cuda")
     rd = primary_ray_dirs(cam, idx % w, idx // w, u[0], u[1])
     ro = cam.eye[None].expand(w * h, 3).contiguous()
@@ -900,7 +900,8 @@ def test_shade_step_tex_counting_build_matches_plain_counts(card):
     from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 
     scene = synth.icosphere_scene(17000, textured=True).to_device("cuda")
-    pk, lt = cuda_intersect.pack_scene(scene), _light_table(scene)
+    pk = scene.packed
+    lt = pk.light
     assert pk.n_super == 32
     B = 1 << 14
     ro, rd = _rays(B, 14)
@@ -1024,7 +1025,7 @@ def legacy(card):
     txt = CORNELL.read_text().replace(GLASS, GLASS + "K 0.9 0.6 0.3 1.5\n")
     scene = parse_scene_text(txt).to_device("cuda")
     assert scene.has_legacy_ks
-    return scene, cuda_intersect.pack_scene(scene)
+    return scene, scene.packed
 
 
 def test_transmittance_rgb_kernel_matches_plain(legacy):
@@ -1114,7 +1115,7 @@ def test_photon_trace_tex_matches_plain(card):
     from path_tracing_tpu_torch.ops import cuda_photon
 
     scene = _room_with_textured_sphere().to_device("cuda")
-    pk = cuda_intersect.pack_scene(scene)
+    pk = scene.packed
     key = rng.prng_key(9)
     emit = ppm.photon_emission(scene, 1 << 14, 1 << 12, key)
     _kernels.reset_counts()
@@ -1138,7 +1139,7 @@ def _eye_args(parsed, seed=7):
     cam = make_camera(parsed.eye, parsed.look_at, parsed.view_up,
                       parsed.fov, EYE_W, EYE_H, device="cuda")
     idx = torch.arange(EYE_W * EYE_H, dtype=torch.int32, device="cuda")
-    return (cuda_intersect.pack_scene(scene), cam,
+    return (scene.packed, cam,
             RenderConfig(width=EYE_W, height=EYE_H), idx % EYE_W,
             idx // EYE_W, rng.fold_in(rng.prng_key(seed), 1))
 
@@ -1259,7 +1260,7 @@ def test_bdpt_light_kernel_equals_the_loop_bit_for_bit(card, which, seed,
     from path_tracing_tpu_torch.ops.cuda_bdpt_light import light_vertex_bits
 
     args = _light_args(LIGHT_SCENES[which](), seed)
-    pk = cuda_intersect.pack_scene(args[0])
+    pk = args[0].packed
     assert pk.textured == which.endswith("textured")
     assert (pk.n_super > 0) == which.startswith("super")
     assert (pk.nsc > 0) == (which == "flake")
@@ -1310,7 +1311,7 @@ def test_bdpt_light_wrapper_refuses_what_its_kernel_does_not_take(card, case,
     from path_tracing_tpu_torch.ops.sampling import EmissionSample
 
     scene = load_scene(str(CORNELL)).to_device("cuda")
-    pk = cuda_intersect.pack_scene(scene)
+    pk = scene.packed
     P = 8
     o = torch.zeros((P, 3), device="cuda")
     emit = EmissionSample(origin=o, direction=o + 1.0)
@@ -1537,7 +1538,7 @@ def flake(card, request):
     packed; the super walk of the index)."""
     p = synth.sphereflake_scene(request.param)
     scene = p.to_device("cuda")
-    pk = cuda_intersect.pack_scene(scene)
+    pk = scene.packed
     assert pk.nsc > 0 and pk.n_ssuper > 0
     return p, scene, pk
 
@@ -1554,7 +1555,7 @@ def _flake_rays(p, scene, n, seed):
                       device="cuda")
     idx = (u[0, :m] * (256 * 144 - 1)).int()
     rd0 = primary_ray_dirs(cam, idx % 256, idx // 256, u[1, :m], u[2, :m])
-    lo, hi = scene.sph_index[-1, 0:3], scene.sph_index[-1, 3:6]
+    lo, hi = scene.packed.scl[-1, 0:3], scene.packed.scl[-1, 3:6]
     k = n - m
     ro1 = lo + (hi - lo) * u[0:3, m:].T
     rd1 = intersect.shadow_ray(torch.zeros_like(ro1), u[3:6, m:].T - 0.5)[0]
@@ -1593,7 +1594,7 @@ def test_flake_any_blocker_walks_the_index_as_plain(flake, dielectrics_block):
     p.sph_mtl = [[1.0, 1.0, 1.0, 0.0, 0.0, 1.5] if i % 5 == 0 else m
                  for i, m in enumerate(p.sph_mtl)]
     scene = p.to_device("cuda")
-    pk = cuda_intersect.pack_scene(scene)
+    pk = scene.packed
     ro, rd = _flake_rays(p, scene, 1 << 16, 41)
     md = 0.05 + 2.5 * rng.uniform_rows(rng.prng_key(42), ro.shape[0], 1,
                                        device="cuda")[0]
@@ -1631,7 +1632,7 @@ def test_flake_megakernel_equals_fused_tier_and_counts_as_plain(flake):
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
                       device="cuda")
     idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
-    args = (pk, _light_table(scene), cam, idx % w, idx // w, 4,
+    args = (pk, scene.packed.light, cam, idx % w, idx // w, 4,
             RenderConfig(width=w, height=h, eye_depth=4), key)
     img, kc = cw.render_wavefront_counts(*args)
     assert torch.equal(img, cw.render_wavefront(*args))
@@ -1721,6 +1722,6 @@ def test_flake_walk_tests_a_tenth_of_the_spheres(flake):
     _, kc = cuda_intersect.nearest_hit_counts(pk, ro, rd)
     assert kc["hit_spheres"] * 10 <= w * h * linear
     _, kc = cw.render_wavefront_counts(
-        pk, _light_table(scene), cam, idx % w, idx // w, 1,
+        pk, scene.packed.light, cam, idx % w, idx // w, 1,
         RenderConfig(width=w, height=h, eye_depth=4), rng.prng_key(9))
     assert kc["hit_spheres"] * 10 <= kc["iterations"] * linear

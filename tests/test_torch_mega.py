@@ -25,8 +25,7 @@ from path_tracing_tpu.integrators.pt import render_pt as j_render_pt
 from path_tracing_tpu.scene import camera as jcamera
 from path_tracing_tpu.scene import parser as jparser
 from path_tracing_tpu_torch.config import RenderConfig
-from path_tracing_tpu_torch.integrators.pt import (_light_table, render_pt,
-                                                   wavefront_pt)
+from path_tracing_tpu_torch.integrators.pt import render_pt, wavefront_pt
 from path_tracing_tpu_torch.ops import cuda_intersect, cuda_wavefront, rng
 from path_tracing_tpu_torch.scene.types import scene_from_jax_arrays
 
@@ -101,7 +100,7 @@ def test_render_wavefront_refuses_tensors_off_cpu():
     kernel path, which checks the window, the scene and the device and
     raises (meta tensors stand in for a device here)."""
     _, _, ts, tc = jax_cornell(4, 4)
-    pk, lt = cuda_intersect.pack_scene(ts), _light_table(ts)
+    pk, lt = cuda_intersect.pack_scene(ts), ts.packed.light
     cfg = RenderConfig(width=4, height=4)
     px = torch.zeros(16, dtype=torch.int32, device="meta")
     key = rng.prng_key(0)

@@ -4,7 +4,6 @@ against what the per-bounce loop itself does on cornell at 16x12 spp 2."""
 import torch
 
 from path_tracing_tpu_torch.config import RenderConfig
-from path_tracing_tpu_torch.integrators.pt import _light_table
 from path_tracing_tpu_torch.ops import cuda_intersect, cuda_shade, rng
 from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 from path_tracing_tpu_torch.scene.camera import make_camera
@@ -29,7 +28,7 @@ def test_render_wavefront_plain_counts_the_loop(monkeypatch):
     cfg = RenderConfig(width=w, height=h, spp=spp, eye_depth=4)
     key = rng.fold_in(rng.prng_key(5), 0)
     idx = torch.arange(w * h, dtype=torch.int32)
-    args = (cuda_intersect.pack_scene(scene), _light_table(scene), cam,
+    args = (cuda_intersect.pack_scene(scene), scene.packed.light, cam,
             idx % w, idx // w, spp, cfg, key)
 
     seen, walks = dict(act=0, elig=0), cw.new_counts()
@@ -83,7 +82,7 @@ def test_shade_step_plain_counts_sum_to_the_megakernel_counts():
     cfg = RenderConfig(width=w, height=h, spp=spp, eye_depth=4)
     key = rng.fold_in(rng.prng_key(5), 0)
     idx = torch.arange(w * h, dtype=torch.int32)
-    pk, lt = cuda_intersect.pack_scene(scene), _light_table(scene)
+    pk, lt = cuda_intersect.pack_scene(scene), scene.packed.light
     steps = cw.new_counts()
     img = wavefront_loop(pk, lt, cam, cfg, idx % w, idx // w, spp, key, 0,
                          None, functools.partial(cuda_shade.shade_step_plain,

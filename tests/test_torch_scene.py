@@ -116,9 +116,8 @@ def test_scene_and_packed_tables_match(name):
     d = jax_arrays(js)
     for f in dataclasses.fields(ts):
         v = getattr(ts, f.name)
-        if f.name.startswith("sph_index"):
-            # the port's sphere index, empty below SPHERE_INDEX_MIN spheres
-            assert v.shape[0] == 0, f.name
+        if f.name in ("packed", "stream"):
+            # the port's tables, held to the JAX package's below
             continue
         if dataclasses.is_dataclass(v):
             for g in dataclasses.fields(v):

@@ -16,7 +16,6 @@ import torch
 
 from path_tracing_tpu.integrators.pt import _light_table as j_light_table
 from path_tracing_tpu.ops.pallas_shade import shade_step_pallas
-from path_tracing_tpu_torch.integrators.pt import _light_table
 from path_tracing_tpu_torch.ops import cuda_shade, rng
 from path_tracing_tpu_torch.ops.cuda_intersect import pack_scene
 from path_tracing_tpu_torch.scene.camera import primary_ray_dirs
@@ -34,7 +33,7 @@ def matched_state():
     surface, light and miss lanes, delta and rough vertices, lanes that
     died), plus a fresh row of uniforms."""
     js, _, ts, tc = jax_cornell(W, H)
-    pk, lt = pack_scene(ts), _light_table(ts)
+    pk, lt = pack_scene(ts), ts.packed.light
     B = W * H
     idx = torch.arange(B, dtype=torch.int32)
     key = rng.prng_key(7)

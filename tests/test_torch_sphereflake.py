@@ -3,9 +3,9 @@
 The generator gives 1 + 9 + ... + 9^levels spheres, each child touching
 its parent, and writes the committed benchmark scene byte for byte.  From
 ``SPHERE_INDEX_MIN`` spheres on ``scene_from_numpy`` clusters the spheres
-(every sphere in exactly one cluster, inside its box) and builds the
-index's tables once; ``pack_scene`` carries them beside the triangles'
-tables, built by no pack; below it the tables are the parent's.  The plain models of the kernels' walks through the index
+(every sphere in exactly one cluster, inside its box), and the scene's
+tables (``scene.packed``) carry the index beside the triangles' tables;
+below it the tables are the parent's.  The plain models of the kernels' walks through the index
 (``_count_nearest_walk``, ``_count_shadow_walk``, which the card's
 counting builds are held to) find the linear loop's nearest hit, row and
 verdicts, with fewer sphere tests, also on rays whose direction is not of
@@ -38,7 +38,7 @@ def _clusters(scene):
     """The sphere index's cluster boxes (M, 6) and ranges (M, 2) in the
     builder's order: the scene's index rows without their padding rows
     (count 0) and its bounds row."""
-    rows = scene.sph_index[:-1]
+    rows = scene.packed.scl[:scene.packed.nsc]
     rows = rows[rows[:, 7] > 0]
     return rows[:, 0:6], rows[:, 6:8].int()
 
@@ -54,7 +54,7 @@ def _flake(levels, glass_every=0):
             p.sph_mtl = [[1.0, 1.0, 1.0, 0.0, 0.0, 1.5] if i % glass_every
                          == 0 else m for i, m in enumerate(p.sph_mtl)]
         scene = p.to_device("cpu")
-        _FLAKES[key] = (p, scene, CI.pack_scene(scene))
+        _FLAKES[key] = (p, scene, scene.packed)
     return _FLAKES[key]
 
 
@@ -124,19 +124,25 @@ def test_index_puts_every_sphere_in_one_cluster_inside_its_box(levels):
 @pytest.mark.parametrize("levels", [2, 4])
 def test_pack_scene_carries_the_index_built_at_set_up(levels, monkeypatch):
     """The index's tables, supers and bounds row are built once, by
-    ``scene_from_numpy``: ``pack_scene`` hands the scene's own tensors to
-    the kernels and builds no super table for them (the triangles' one
-    alone), and they are the tables ``super_table`` gives over the
-    builder's clusters."""
-    p, scene, _ = _flake(levels)
+    ``scene_from_numpy``, with the triangles' (two super tables); a frame
+    builds none and takes the scene's own tensors; they are the tables
+    ``super_table`` gives over the builder's clusters."""
+    p, _, _ = _flake(levels)
     calls = []
     real = CI.super_table
     monkeypatch.setattr(CI, "super_table",
                         lambda cl: calls.append(cl.shape) or real(cl))
-    pk = CI.pack_scene(scene)
-    assert len(calls) == 1 and calls[0][0] == CI._padded_rows(
-        scene.tri_cluster_aabb.shape[0])
-    assert pk.scl is scene.sph_index and pk.ssup is scene.sph_index_sup
+    scene = p.to_device("cpu")
+    pk = scene.packed
+    assert [c[0] for c in calls] == [
+        CI._padded_rows(scene.tri_cluster_aabb.shape[0]),
+        CI._padded_rows(_clusters(scene)[0].shape[0])]
+    W, H = 8, 6
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H, device="cpu")
+    pt.render_pt(scene, cam, W, H, 1, RenderConfig(width=W, height=H, spp=1,
+                                                   eye_depth=2),
+                 rng.prng_key(1), tier="mega")
+    assert len(calls) == 2 and scene.packed is pk
     box, rng_ = _clusters(scene)
     cl, sup, use = real(CI._rowpad(torch.cat([box, rng_.float()], 1),
                                    CI._padded_rows(box.shape[0])))
@@ -157,7 +163,7 @@ def _rays(p, scene, n, seed):
                            torch.rand(n, generator=g),
                            torch.rand(n, generator=g))
     ro0 = cam.eye.expand(n, 3)
-    lo, hi = scene.sph_index[-1, 0:3], scene.sph_index[-1, 3:6]
+    lo, hi = scene.packed.scl[-1, 0:3], scene.packed.scl[-1, 3:6]
     ro1 = lo + (hi - lo) * torch.rand(n, 3, generator=g)
     rd1 = torch.randn(n, 3, generator=g)
     rd1 = rd1 / rd1.norm(dim=1, keepdim=True)
@@ -228,7 +234,7 @@ def test_plain_pt_on_a_small_flake_equals_the_benchmarks_reference(
     ref = check.Reference(traffic, path, seed, "cpu")
     p = load_scene(str(path))
     scene = p.to_device("cpu")
-    assert scene.sph_index.shape[0] > 0
+    assert scene.packed.nsc > 0
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, 32, 24,
                       device="cpu")
     cfg = RenderConfig(width=32, height=24, spp=2, eye_depth=4, seed=seed)
@@ -246,12 +252,10 @@ def test_pack_scene_on_cornell_is_the_parents():
     from benchmark.reference.ops.cuda_intersect import pack_scene as frozen
 
     scene = load_scene(str(CORNELL)).to_device("cpu")
-    assert scene.sph_index.shape == (0, CI.CL_COLS)
-    assert scene.sph_index_sup.shape == (0, CI.SUP_COLS)
     p = load_scene(str(CORNELL))
     assert torch.equal(scene.sph_center,
                        torch.tensor(p.sph_center, dtype=torch.float32))
-    pk, old = CI.pack_scene(scene), frozen(scene)
+    pk, old = scene.packed, frozen(scene)
     for f in ("sph", "tri", "uv", "cl", "sup", "atlas", "tex_size"):
         assert torch.equal(getattr(pk, f), getattr(old, f)), f
     for f in ("ns", "nl", "nt", "n_super"):

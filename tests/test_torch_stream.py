@@ -258,13 +258,12 @@ def test_stream_bounce_passes_live_lanes_to_6_and_7(monkeypatch):
     """``shade_step_stream`` hands #6 the active lanes and #7 the
     NEE-eligible ones as ``live``, and its bounce equals the split tier's
     (the resident #1/#2) on the active lanes."""
-    from path_tracing_tpu_torch.integrators.pt import _light_table
     from path_tracing_tpu_torch.ops import cuda_shade as CSH
     from path_tracing_tpu_torch.ops.cuda_intersect import pack_scene
     from path_tracing_tpu_torch.ops.intersect import hit_from_fields
 
     _, ts = _sphere(32)
-    st, pk, lt = CS.pack_scene_stream(ts), pack_scene(ts), _light_table(ts)
+    st, pk, lt = CS.pack_scene_stream(ts), pack_scene(ts), ts.packed.light
     assert lt.shape[0] > 0
     n = 512
     ro, rd = (_t(x) for x in _rays(n, 11))

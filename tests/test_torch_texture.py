@@ -33,8 +33,7 @@ from path_tracing_tpu.scene import obj_loader as jobj
 from path_tracing_tpu.scene import synth as jsynth
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.film import read_png, write_png
-from path_tracing_tpu_torch.integrators.pt import (_light_table, render_pt,
-                                                   resolve_tier)
+from path_tracing_tpu_torch.integrators.pt import render_pt, resolve_tier
 from path_tracing_tpu_torch.ops import cuda_intersect as CI
 from path_tracing_tpu_torch.ops import cuda_shade, rng, texture
 from path_tracing_tpu_torch.scene import obj_loader, synth
@@ -290,7 +289,7 @@ def test_shade_step_tex_matches_pallas(mesh, stub_mis, dielectrics_block):
     hit, the XLA atlas gather, shade_step_tex_pallas); the port's is one
     function.  Same tables, path state and uniforms."""
     js, _, ts, tc = mesh
-    pk, lt = CI.pack_scene(ts), _light_table(ts)
+    pk, lt = CI.pack_scene(ts), ts.packed.light
     key = rng.prng_key(8)
     ro, rd = _camera_state(tc, 64, key)
     B = ro.shape[0]

@@ -16,7 +16,7 @@ import torch
 from path_tracing_tpu_torch import profiling
 from path_tracing_tpu_torch.config import RenderConfig
 from path_tracing_tpu_torch.integrators import bdpt, ppm, pt
-from path_tracing_tpu_torch.ops import _kernels, cuda_intersect, cuda_shade, rng
+from path_tracing_tpu_torch.ops import _kernels, cuda_shade, rng
 from path_tracing_tpu_torch.ops import cuda_wavefront as cw
 from path_tracing_tpu_torch.scene import synth
 from path_tracing_tpu_torch.scene.camera import make_camera
@@ -28,8 +28,7 @@ W, H = 8, 6
 FRAMES = {"pt": "pt.frame", "bdpt": "bdpt.frame", "ppm": "ppm.pass"}
 PHASES = {
     "pt": {"pt.setup", "pt.bounce"},
-    "bdpt": {"bdpt.light_trace", "bdpt.light_table", "bdpt.pack",
-             "bdpt.eye"},
+    "bdpt": {"bdpt.light_trace", "bdpt.light_table", "bdpt.eye"},
     "ppm": {"ppm.eye_pass", "ppm.emission", "ppm.photon_trace",
             "ppm.gather_prepare", "ppm.gather", "ppm.resolve"},
 }
@@ -197,8 +196,8 @@ def test_live_lanes_equal_the_counting_loops_iterations(scene_name,
     idx = torch.arange(W * H, dtype=torch.int32)
     step = (cuda_shade.shade_step_tex_plain if scene.has_textures
             else cuda_shade.shade_step_plain)
-    pt.wavefront_loop(cuda_intersect.pack_scene(scene),
-                      pt._light_table(scene), cam, cfg, idx % W, idx // W, 2,
+    pt.wavefront_loop(scene.packed, scene.packed.light, cam, cfg, idx % W,
+                      idx // W, 2,
                       key, 0, None, functools.partial(step, counts=c),
                       rng.uniform_rows_plain, counts=c)
     assert got["pt.live_lanes"] == c["iterations"] > 0
@@ -219,33 +218,39 @@ def test_sphere_index_costs_nothing_without_a_profiler(monkeypatch):
     profiling.reset_counters()
     p, cam = _flake(2)
     scene = p.to_device("cpu")
-    assert scene.sph_index.shape[0] > 0
+    assert scene.packed.nsc > 0
     cfg = RenderConfig(width=W, height=H, spp=2, eye_depth=3)
     img = pt.render_pt(scene, cam, W, H, 2, cfg, rng.prng_key(5))
     assert bool(torch.isfinite(img).all()) and profiling.counters == {}
 
 
+def _index_counters():
+    return {k: v for k, v in profiling.counters.items()
+            if k.startswith("scene.")}
+
+
 def test_sphere_index_span_and_counters_under_a_profiler(tmp_path):
     """The set-up build of a 91-sphere flake is one ``scene.sphere_index``
-    span; each pack of its tables counts the 91 spheres reached through
-    the index and the 3 light balls every ray tests in turn, and a frame
-    packs them; cornell (5 spheres: no index) counts neither."""
+    span and counts nothing; each frame that takes its tables counts the
+    91 spheres reached through the index and the 3 light balls every ray
+    tests in turn; cornell (5 spheres: no index) counts neither."""
     p, cam = _flake(2)
     scene, ann = _profiled(lambda: p.to_device("cpu"), tmp_path)
     assert [a[0] for a in ann].count("scene.sphere_index") == 1
-    _profiled(lambda: [cuda_intersect.pack_scene(scene) for _ in range(3)],
-              tmp_path)
-    assert profiling.counters == {"scene.spheres_indexed": 3 * 91,
-                                  "scene.spheres_scanned": 3 * 3}
-    cfg = RenderConfig(width=W, height=H, spp=2, eye_depth=3)
-    _profiled(lambda: pt.render_pt(scene, cam, W, H, 2, cfg,
-                                   rng.prng_key(5), tier="mega"), tmp_path)
-    assert profiling.counters["scene.spheres_indexed"] >= 91
-    cornell, _ = _scene("cornell")
-    _, ann = _profiled(lambda: (load_scene(str(CORNELL)).to_device("cpu"),
-                                cuda_intersect.pack_scene(cornell)), tmp_path)
-    assert "scene.sphere_index" not in {a[0] for a in ann}
     assert profiling.counters == {}
+    cfg = RenderConfig(width=W, height=H, spp=2, eye_depth=3)
+    _profiled(lambda: [pt.render_pt(scene, cam, W, H, 2, cfg,
+                                    rng.prng_key(5), tier="mega")
+                       for _ in range(3)], tmp_path)
+    assert _index_counters() == {"scene.spheres_indexed": 3 * 91,
+                                 "scene.spheres_scanned": 3 * 3}
+    cornell, ccam = _scene("cornell")
+    _, ann = _profiled(lambda: (load_scene(str(CORNELL)).to_device("cpu"),
+                                pt.render_pt(cornell, ccam, W, H, 2, cfg,
+                                             rng.prng_key(5), tier="mega")),
+                       tmp_path)
+    assert "scene.sphere_index" not in {a[0] for a in ann}
+    assert profiling.counters and _index_counters() == {}
 
 
 def test_indexed_sphere_share_reads_the_counters(tmp_path):
@@ -259,11 +264,16 @@ def test_indexed_sphere_share_reads_the_counters(tmp_path):
 
     read = metric_reader("indexed_sphere_share.render")
     ctx = SimpleNamespace(mode="pt")
+    cfg = RenderConfig(width=W, height=H, spp=1, eye_depth=2)
     for levels, share in ((2, 100.0 * 91 / 94), (4, 100.0 * 7381 / 7384)):
-        scene = _flake(levels)[0].to_device("cpu")
-        _profiled(lambda: cuda_intersect.pack_scene(scene), tmp_path)
+        p, cam = _flake(levels)
+        scene = p.to_device("cpu")
+        _profiled(lambda: pt.render_pt(scene, cam, W, H, 1, cfg,
+                                       rng.prng_key(5), tier="mega"),
+                  tmp_path)
         assert read(ctx) == pytest.approx(share)
     assert read(ctx) > 99.9
-    cornell, _ = _scene("cornell")
-    _profiled(lambda: cuda_intersect.pack_scene(cornell), tmp_path)
+    cornell, ccam = _scene("cornell")
+    _profiled(lambda: pt.render_pt(cornell, ccam, W, H, 1, cfg,
+                                   rng.prng_key(5), tier="mega"), tmp_path)
     assert read(ctx) is None

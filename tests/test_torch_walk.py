@@ -27,7 +27,6 @@ from path_tracing_tpu.ops import texture as jtexture
 from path_tracing_tpu.ops.pallas_intersect import nearest_hit_pallas
 from path_tracing_tpu.ops.pallas_shade import shade_step_tex_pallas
 from path_tracing_tpu.scene import synth as jsynth
-from path_tracing_tpu_torch.integrators.pt import _light_table
 from path_tracing_tpu_torch.ops import cuda_intersect as CI
 from path_tracing_tpu_torch.ops import (cuda_connect, cuda_shade,
                                         cuda_wavefront, rng)
@@ -314,7 +313,7 @@ def test_shade_step_tex_above_64_clusters_matches_pallas(tex_mesh):
     """256 lanes on the textured 17,000-triangle icosphere (the super walk
     on both sides): half at their aimed ray, half after one bounce."""
     p, js, ts = tex_mesh
-    pk, lt = CI.pack_scene(ts), _light_table(ts)
+    pk, lt = CI.pack_scene(ts), ts.packed.light
     assert pk.n_super == 32 and pk.textured
     ro, rd = _aimed_rays(p, ts)
     key = rng.prng_key(12)
@@ -360,7 +359,7 @@ def test_shade_step_tex_plain_counts_its_walks(tex_mesh):
     lanes, their nearest-hit walks and the NEE lanes' shadow walks as the
     walk models count them, and the outputs unchanged by counting."""
     p, _, ts = tex_mesh
-    pk, lt = CI.pack_scene(ts), _light_table(ts)
+    pk, lt = CI.pack_scene(ts), ts.packed.light
     ro, rd = _aimed_rays(p, ts, 512, 4)
     st = _state(ro, rd)
     st["alive"] = torch.arange(512) % 4 != 0

@@ -118,7 +118,6 @@ def main() -> int:
     out = dict(card=cs.phase_card())
     cs.phase_build()
     from path_tracing_tpu_torch.ops import cuda_bdpt_eye as ce
-    from path_tracing_tpu_torch.ops import cuda_intersect as ci
     from path_tracing_tpu_torch.scene.camera import make_camera
     from path_tracing_tpu_torch.scene.parser import load_scene
 
@@ -132,7 +131,7 @@ def main() -> int:
     for what, K, spp in (("tile-RIS K=32", cs.RIS_K, cs.SPP),
                          ("exact", 0, 1)):
         cfg, key, used, tab, nv, px, py, scale = cs.bdpt_frame(scene, cam, K)
-        args = (ci.pack_scene(used), tab, nv, cam, px, py, spp, cfg, key,
+        args = (used.packed, tab, nv, cam, px, py, spp, cfg, key,
                 scale)
         img = ce.bdpt_eye(*args)
         reps = a.reps if K else 1
