@@ -313,7 +313,9 @@ Phases, each raising on failure:
    through the CLI at 1920x1080 spp 4, tier auto (mega: one #5 launch,
    no plain version), timed, and its bound from its counting build's
    counts on that frame; sphere and box tests a walk against the linear
-   loop's 7,384 (at least 10 times fewer).
+   loop's 7,384 (at least 10 times fewer); the wide rays its warps walked
+   (``wide_walks`` over ``iterations``) and the warp steps they took
+   (``wide_steps``).
 
 The line before the last is a JSON object with one entry per kernel, whose
 ``launches`` are the counts of the render of the path it runs on
@@ -3864,16 +3866,23 @@ def phase_flake(counts: dict) -> dict:
           and per["shadow_spheres"] * 10 <= pk.ns,
           f"render_wavefront on the flake: tests a walk {per}")
     eff = {k: lane_share(kc, k) for k in ("walk", "shade", "shadow")}
+    wide = dict(walks_per_iteration=kc["wide_walks"] / it,
+                steps=kc["wide_steps"],
+                steps_per_walk=kc["wide_steps"] / max(kc["wide_walks"], 1))
     out["render_wavefront"] = dict(ms=ms, launches=launches,
                                    per_walk=per, counts=kc, simt=eff,
-                                   cli_seconds=res["seconds"], **bnd)
+                                   wide=wide, cli_seconds=res["seconds"],
+                                   **bnd)
     print(f"[flake] render_wavefront {W}x{H} spp {SPP} (the CLI's auto: "
           f"mega, launches {launches}): {ms:.3f} ms kernel; "
           f"counting build: {it} iterations, {kc['shadow_rays']} shadow "
           f"rays; a bounce {per['hit_spheres']:.2f} sphere and "
           f"{per['hit_boxes']:.2f} box tests against {linear} linear, a "
           f"shadow ray {per['shadow_spheres']:.2f} and "
-          f"{per['shadow_boxes']:.2f} against {pk.ns}; SIMT walk "
+          f"{per['shadow_boxes']:.2f} against {pk.ns}; wide rays walked by"
+          f" their warp {kc['wide_walks']} ({wide['walks_per_iteration']:.4f}"
+          f" of iterations) in {kc['wide_steps']} warp steps "
+          f"({wide['steps_per_walk']:.2f} a walk); SIMT walk "
           f"{eff['walk']:.4f}, shade {eff['shade']:.4f}, shadow step "
           f"{eff['shadow']:.4f}; counted bound {bnd['bound_ms']:.4f} ms "
           f"({bnd['bound_by']}), {bnd['bound_ms'] / ms:.4f} of the kernel's")

@@ -512,7 +512,7 @@ constexpr int kStepMinBlocks = 8;   // #3's __launch_bounds__: 32 warps an SM
 // #4's counting build fills the same
 enum MegaCountIdx {
   kIters = kNumCounts, kBsdfSamples, kDraws, kWalkLanes, kWalkSlots, kShadeLanes, kShadeSlots,
-  kWarpIterSlots, kMegaCounts
+  kWarpIterSlots, kWideWalks, kWideSteps, kMegaCounts
 };
 
 struct StateIn {
@@ -635,6 +635,188 @@ struct WavefrontCfg {
   int spp, eye_depth, max_path_iters, max_total;
 };
 
+// #5's indexed instance walks each wide ray (sphere_pad's k > 0) with its
+// whole warp.  A wide ray tests far more of the index than the others
+// (its boxes grow by up to k times their farthest corner's distance), so
+// a lane that walked one alone held its warp's other 31.  Once the narrow
+// lanes have walked their own rays, the warp takes its wide rays one
+// after another in ballot order: the owner's ray, pad and running t go to
+// every lane; the octant's supers are tested 32 a step, each entered
+// super's 16 children two supers a step, each entered cluster's spheres
+// two clusters a step (a cluster holds at most 16, bvh.SPHERE_LEAF).
+// Each lane keeps its first least t and the sphere step that found it;
+// after each sphere step the warp's least t culls the boxes that follow.
+// Steps come in walk order, a step's lanes in walk order, and no box is
+// tested with a t found after it in that order, so the least (t, step,
+// lane) is the lane walk's winner: the least t, on an exact tie the first
+// sphere the walk visits.  The owner rebuilds the record from the winning
+// row with test_sphere, as the lane walk wrote it.  The counting build
+// counts each box and sphere test on the lane that makes it (the rebuild
+// is no test), and on the owner the walk (kWideWalks) and its steps
+// (kWideSteps): a super step, a children step and a sphere step each one;
+// ops/cuda_intersect.py::_count_nearest_walk's warp model counts the same.
+
+__device__ __forceinline__ V3 shfl3(V3 v, int src) {
+  return mk(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+            __shfl_sync(kFull, v.z, src));
+}
+
+// The warp's least t: a hit's t is above kEps and a miss's kInf, so the
+// bits of these positive floats order as their values.
+__device__ __forceinline__ float warp_min_t(float t) {
+  return __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(t)));
+}
+
+// The sphere index walked for lane owner's wide ray by the whole warp (every
+// lane calls it); best: the owner's running hit (the light balls'), which
+// gains the winning sphere's record.
+template <class Ctr>
+__device__ __forceinline__ void warp_sphere_walk(const Tables& tb, int owner, V3 ro_own,
+                                                 V3 rd_own, V3 inv_own, SpherePad pad_own,
+                                                 HitRec& best, Ctr& cnt) {
+  const int lane = threadIdx.x & 31;
+  const V3 ro = shfl3(ro_own, owner), rd = shfl3(rd_own, owner), inv = shfl3(inv_own, owner);
+  const SpherePad pad = {__shfl_sync(kFull, pad_own.pad, owner),
+                         __shfl_sync(kFull, pad_own.k, owner)};
+  const int cols = tb.nssup ? kSclCols : kClCols;
+  const int oct = octant(rd);
+  float run_t = __shfl_sync(kFull, best.t, owner);  // the warp's running t
+  float bt = run_t;                                 // the lane's least t
+  int brow = -1, bstep = 0, step = 0;
+  unsigned steps = 0;
+  // the spheres of the entered clusters (lane l's cluster c, entered on
+  // the lanes of cm), two clusters a step: lanes 0-15 the first's, 16-31
+  // the second's
+  auto spheres = [&](unsigned cm, int c) {
+    while (cm) {
+      const int la = __ffs(cm) - 1;
+      cm &= cm - 1;
+      const bool two = cm != 0;
+      const int lb = two ? __ffs(cm) - 1 : la;
+      cm &= cm - 1;
+      const int ca = __shfl_sync(kFull, c, la), cb = __shfl_sync(kFull, c, lb);
+      if (lane < 16 || two) {
+        const float* C = tb.scl + (lane < 16 ? ca : cb) * cols;
+        if ((lane & 15) < (int)C[7]) {
+          const int i = (int)C[6] + (lane & 15);
+          V3 oc;
+          cnt.add(kHitSph);
+          const float t = sphere_t(ro, rd, tb.sph + i * kSphCols, INFINITY, &oc);
+          if (t < bt) {
+            bt = t;
+            brow = i;
+            bstep = step;
+          }
+        }
+      }
+      ++step;
+      ++steps;
+      run_t = warp_min_t(bt);
+    }
+  };
+  // lane l's cluster c (valid: a row the walk visits): its box, then the
+  // spheres of the clusters entered
+  auto clusters = [&](int c, bool valid) {
+    bool in = false;
+    if (valid) {
+      const float* C = tb.scl + c * cols;
+      if ((int)C[7] > 0) {
+        cnt.add(kHitBox);
+        in = slab_hit_pad(C, ro, inv, pad, kEps, run_t);
+      }
+    }
+    ++steps;
+    spheres(__ballot_sync(kFull, in), c);
+  };
+  if (tb.nssup) {
+    for (int base = 0; base < tb.nssup; base += 32) {
+      int s = 0;
+      bool in = false;
+      if (base + lane < tb.nssup) {
+        s = (int)tb.ssup[(base + lane) * kSupCols + 8 + oct];
+        const float* S = tb.ssup + s * kSupCols;
+        if ((int)S[7] > 0) {
+          cnt.add(kHitBox);
+          in = slab_hit_pad(S, ro, inv, pad, kEps, run_t);
+        }
+      }
+      ++steps;
+      // the entered supers' children, two supers a step
+      for (unsigned sm = __ballot_sync(kFull, in); sm;) {
+        const int la = __ffs(sm) - 1;
+        sm &= sm - 1;
+        const bool two = sm != 0;
+        const int lb = two ? __ffs(sm) - 1 : la;
+        sm &= sm - 1;
+        const int sa = __shfl_sync(kFull, s, la), sb = __shfl_sync(kFull, s, lb);
+        const int first = (lane < 16 ? sa : sb) * kSuper;
+        clusters(first + (int)tb.scl[(first + (lane & 15)) * kSclCols + 8 + oct],
+                 lane < 16 || two);
+      }
+    }
+  } else {
+    for (int base = 0; base < tb.nsc; base += 32) clusters(base + lane, base + lane < tb.nsc);
+  }
+  const float tmin = warp_min_t(bt);
+  const unsigned rank = (brow >= 0 && bt == tmin) ? ((unsigned)bstep << 5) | (unsigned)lane : ~0u;
+  const unsigned win = __reduce_min_sync(kFull, rank);
+  const int row = __shfl_sync(kFull, brow, win & 31u);
+  if (lane == owner) {
+    cnt.add(kWideWalks);
+    cnt.add(kWideSteps, steps);
+    if (win != ~0u) test_sphere(tb.sph + row * kSphCols, ro_own, rd_own, best);
+  }
+}
+
+// #5's nearest hit in its indexed instance: nearest_hit_dev<false,
+// kWalkIndexed>'s record, the index walked by the lane for a narrow ray
+// and by the whole warp for a wide one (warp_sphere_walk).  Every lane of
+// the warp calls it; run: the lane has a ray (a lane without one helps).
+template <class Ctr>
+__device__ __forceinline__ HitRec nearest_hit_warp(const Tables& tb, V3 ro, V3 rd, bool run,
+                                                   Ctr& cnt) {
+  const bool flat = tb.nsup == 0;
+  NearestVisit<false, Ctr> w{tb, cnt, ro, rd, mk(0.f, 0.f, 0.f), flat ? kClCols : kSclCols};
+  w.best.t = kInf;
+  w.best.n = mk(0.f, 0.f, 0.f);
+  w.best.m = {mk(0.f, 0.f, 0.f), 0.f, 0.f, 0.f};
+  w.best.flag = 0;
+  w.best_tri = -1;
+  w.best_u = w.best_v = 0.f;
+  SpherePad pad = {0.f, 0.f};
+  if (run) {
+    for (int i = tb.nsc ? tb.ns : 0; i < tb.ns + tb.nl; ++i) {
+      cnt.add(kHitSph);
+      test_sphere(tb.sph + i * kSphCols, ro, rd, w.best);
+    }
+    w.inv = mk(safe_inv(rd.x), safe_inv(rd.y), safe_inv(rd.z));
+    if (tb.nsc) {
+      const int cols = tb.nssup ? kSclCols : kClCols;
+      pad = sphere_pad(tb.scl + tb.nsc * cols, ro, rd);
+      if (!(pad.k > 0.0f)) {
+        NearestSphereVisit<Ctr> sv{tb, cnt, ro, rd, w.inv, pad, cols, w.best};
+        sphere_walk(tb, rd, sv);
+      }
+    }
+  }
+  for (unsigned m = __ballot_sync(kFull, run && pad.k > 0.0f); m; m &= m - 1)
+    warp_sphere_walk(tb, __ffs(m) - 1, ro, rd, w.inv, pad, w.best, cnt);
+  if (run) {
+    if (flat)
+      cluster_walk<true>(tb.cl, tb.nc, tb.sup, tb.nsup, 0, w);
+    else
+      cluster_walk<false>(tb.cl, tb.nc, tb.sup, tb.nsup, octant(rd), w);
+  }
+  HitRec best = w.best;
+  float sgn = dot3(best.n, rd) > 0.0f ? -1.0f : 1.0f;
+  best.n = scale(best.n, sgn);
+  if (!(best.t < kInf)) best.flag = 0;
+  best.iu = 0.0f;
+  best.iv = 0.0f;
+  best.tex = -1.0f;
+  return best;
+}
+
 // Each lane runs the loop of _wavefront_kernel for the pixels it takes,
 // iteration for iteration the pixel's column of integrators/pt.py::
 // wavefront_loop: regenerate while samples are owed, one bounce, the
@@ -644,7 +826,9 @@ struct WavefrontCfg {
 // per-bounce tier's.  A pixel is done when its lane has no work left (the
 // loop of that pixel leaves it untouched from then on) or after max_total
 // iterations; paths cut by that cap still contribute what they gathered.
-// kW: the walk (an instance per walk, WalkKind).
+// kW: the walk (an instance per walk, WalkKind); kWalkIndexed, the
+// instance for scenes with a sphere index, walks wide rays by the warp
+// (nearest_hit_warp), so there every lane of a warp runs its nearest hit.
 template <bool kCount, int kW>
 __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
     render_wavefront_kernel(Tables tb, ShadeCfg c, const float* __restrict__ cam_tab,
@@ -690,30 +874,40 @@ __global__ void __launch_bounds__(kMegaThreads, kMegaMinBlocks)
       }
     }
     if (!__any_sync(kFull, pix < B)) break;
-    if (pix >= B || pixel_done()) continue;  // nothing to run; its warp goes on
+    // nothing to run; its warp goes on (the indexed instance's lane first
+    // helps its warp walk the wide rays)
+    const bool run = pix < B && !pixel_done();
+    if (kW != kWalkIndexed && !run) continue;
 
     // ---- one iteration of the lane's pixel ----
-    ++my_iters;
-    cnt.add(kIters);
-    cnt.add(kDraws);
     ThreefryDraws u{fold_in(g.key, (uint32_t)it), (uint32_t)pix, g.start, g.total};
-    if (!s.alive) {  // regenerate: the pixel's next sample
-      s.rd = primary_dir(cam, (float)px[pix] + u(6), (float)py[pix] + u(7));
-      s.ro = cam.eye;
-      s.tp = mk(1.f, 1.f, 1.f);
-      rad = mk(0.f, 0.f, 0.f);
-      s.eta = 1.0f;
-      s.dep = 0;
-      path_it = 0;
-      s.last_delta = true;
-      s.last_pdf = 1.0f;
-      sample += 1;
-      s.alive = true;
-      cnt.add(kSamples);
-      cnt.add(kDraws, 2u);
+    if (run) {
+      ++my_iters;
+      cnt.add(kIters);
+      cnt.add(kDraws);
+      if (!s.alive) {  // regenerate: the pixel's next sample
+        s.rd = primary_dir(cam, (float)px[pix] + u(6), (float)py[pix] + u(7));
+        s.ro = cam.eye;
+        s.tp = mk(1.f, 1.f, 1.f);
+        rad = mk(0.f, 0.f, 0.f);
+        s.eta = 1.0f;
+        s.dep = 0;
+        path_it = 0;
+        s.last_delta = true;
+        s.last_pdf = 1.0f;
+        sample += 1;
+        s.alive = true;
+        cnt.add(kSamples);
+        cnt.add(kDraws, 2u);
+      }
+      cnt.simt(kWalkLanes);
     }
-    cnt.simt(kWalkLanes);
-    HitRec h = nearest_hit_dev<false, kW>(tb, s.ro, s.rd, cnt);
+    HitRec h;
+    if constexpr (kW == kWalkIndexed)
+      h = nearest_hit_warp(tb, s.ro, s.rd, run, cnt);
+    else
+      h = nearest_hit_dev<false, kW>(tb, s.ro, s.rd, cnt);
+    if (!run) continue;
     cnt.simt(kShadeLanes);
     WalkShadow<decltype(cnt), kW> walk{tb, c.blocks_col, cnt, false};
     rad = rad + shade_from_hit(tb, c, h, s, u, walk);

@@ -10,7 +10,9 @@ the main path's inputs:
   ``scenes/cornell.txt`` (4 lights x 262,144 = 1,048,576 photons, depths
   4, seed 0), the tables built by ``cuda_ppm_gather.prepare``;
 - ``render_wavefront`` (#5): the CLI's 1920x1080 spp 4 frame on cornell
-  (eye depth 4, seed 0);
+  (eye depth 4, seed 0) and on SPD's sphereflake (``flake``: the
+  instance for scenes with a sphere index, with its counting build's wide
+  rays a bounce, ``wide_walks`` over ``iterations``, and ``wide_steps``);
 - ``photon_trace`` (#10): that PPM pass's 1,048,576 emitted photons
   (the wrapper makes no device round trip: the pass's key lives on the
   host);
@@ -530,38 +532,59 @@ def gather_case():
 
 
 def wavefront_case():
-    """The 1080p spp 4 cornell frame's megakernel arguments."""
+    """The 1080p spp 4 megakernel frames' arguments: cornell's (the flat
+    walk) and, labelled ``flake``, SPD's sphereflake's (the indexed
+    instance, whose counting build's wide-ray counters go in the case's
+    line)."""
     from .config import RenderConfig
     from .ops import cuda_intersect as ci
     from .ops import cuda_wavefront as cw
     from .ops import rng
+    from .scene import synth
+    from .scene.camera import make_camera
 
-    scene, cam = _cornell(W, H)
     cfg = RenderConfig(width=W, height=H, spp=SPP, eye_depth=4)
     key = rng.fold_in(rng.prng_key(0), 0)
     idx = torch.arange(W * H, dtype=torch.int32, device="cuda")
-    pk = scene.packed
-    lt = pk.light
     px, py = idx % W, idx // W
-    cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).contiguous()
     k0, k1 = (int(w) for w in key.tolist())
     B = W * H
+    flake = synth.sphereflake_scene(4)
+    scenes = [("", *_cornell(W, H)),
+              ("flake", flake.to_device("cuda"),
+               make_camera(flake.eye, flake.look_at, flake.view_up,
+                           flake.fov, W, H, device="cuda"))]
+    cases = []
+    for label, scene, cam in scenes:
+        pk = scene.packed
+        lt = pk.light
+        cam_tab = torch.cat([cam.eye, cam.ul, cam.dx, cam.dy]).contiguous()
 
-    def old(fn):
-        img = torch.empty((B, 3), device="cuda")
-        _check(fn(*ci.table_args(pk), _ptr(lt), _ptr(cam_tab), _ptr(px),
-                  _ptr(py), B, SPP, cfg.eye_depth, cfg.max_eye_iters,
-                  SPP * cfg.max_eye_iters + cfg.max_eye_iters, k0, k1, 0, B,
-                  float(cfg.clamp), int(cfg.pt_stub_mis_strategy_a),
-                  4 if cfg.shadow_dielectrics_block else 5, _ptr(img),
-                  _stream()), "old render_wavefront")
-        return img
+        def old(fn, pk=pk, lt=lt, cam_tab=cam_tab):
+            img = torch.empty((B, 3), device="cuda")
+            _check(fn(*ci.table_args(pk), _ptr(lt), _ptr(cam_tab), _ptr(px),
+                      _ptr(py), B, SPP, cfg.eye_depth, cfg.max_eye_iters,
+                      SPP * cfg.max_eye_iters + cfg.max_eye_iters, k0, k1, 0,
+                      B, float(cfg.clamp), int(cfg.pt_stub_mis_strategy_a),
+                      4 if cfg.shadow_dielectrics_block else 5, _ptr(img),
+                      _stream()), "old render_wavefront")
+            return img
 
-    out = dict(old=old)
-    wrapper = (lambda: cw.render_wavefront(pk, lt, cam, px, py, SPP, cfg,
-                                           key))
-    return [Case("", _through_wrapper("render_wavefront", wrapper, out, cw),
-                 lambda: out["last"], dict(pixels=B, spp=SPP))]
+        out = dict(old=old)
+        args = (pk, lt, cam, px, py, SPP, cfg, key)
+        info = dict(pixels=B, spp=SPP)
+        if pk.nsc:
+            _, kc = cw.render_wavefront_counts(*args)
+            info.update(
+                iterations=kc["iterations"], wide_walks=kc["wide_walks"],
+                wide_steps=kc["wide_steps"],
+                wide_walks_per_iteration=kc["wide_walks"] / kc["iterations"],
+                steps_per_wide_walk=kc["wide_steps"] / max(kc["wide_walks"],
+                                                           1))
+        cases.append(Case(label, _through_wrapper(
+            "render_wavefront", lambda args=args: cw.render_wavefront(*args),
+            out, cw), lambda out=out: out["last"], info))
+    return cases
 
 
 def photon_case():

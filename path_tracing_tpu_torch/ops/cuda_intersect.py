@@ -73,7 +73,8 @@ import torch
 from ..profiling import count, span
 from ..scene.types import Scene
 from . import _kernels
-from .intersect import INF, SHADOW_EPS, mt_core, sphere_ts, triangle_ts
+from .intersect import (INF, SHADOW_EPS, mt_core, sphere_t_pairs,
+                        sphere_ts, triangle_ts)
 from .math3 import EPSILON, cross, dot, length
 from .texture import interpolate_uv
 
@@ -303,11 +304,12 @@ def _chunks(n_rays: int, n_prims: int):
 
 def _slab_hit(box, ro, inv, tlo: float, tlimit, pad=None):
     """``csrc/pt_device.cuh::slab_hit`` on every ray: the ray enters the
-    box ``box`` (>= 6,) past ``tlo`` and before ``tlimit``; given each
-    ray's ``pad`` (``sphere_pad``'s (pad, k)), ``slab_hit_pad``'s: the
-    box grown by the pad, for a wide ray (k > 0) by no more than k times
-    the distance to the box's farthest corner."""
-    lo, hi = box[0:3], box[3:6]
+    box ``box`` (>= 6,), or each ray its own row of ``box`` (R, >= 6),
+    past ``tlo`` and before ``tlimit``; given each ray's ``pad``
+    (``sphere_pad``'s (pad, k)), ``slab_hit_pad``'s: the box grown by the
+    pad, for a wide ray (k > 0) by no more than k times the distance to
+    the box's farthest corner."""
+    lo, hi = box[..., 0:3], box[..., 3:6]
     if pad is not None:
         p, k = pad
         q = torch.maximum((ro - lo).abs(), (ro - hi).abs())
@@ -351,25 +353,32 @@ def sphere_pad(packed: PackedScene, ro, rd) -> tuple:
                             torch.zeros_like(pad))
 
 
-def walk_clusters(packed, rd, enter_super, cluster) -> None:
+def _octant(rd):
+    """Each ray's octant (bit 0: x >= 0, 1: y, 2: z): its orders'
+    column."""
+    return ((rd[:, 0] >= 0).long() + 2 * (rd[:, 1] >= 0).long()
+            + 4 * (rd[:, 2] >= 0).long())
+
+
+def walk_clusters(packed, rd, enter_super, cluster, lanes=None) -> None:
     """The kernels' cluster walk (``csrc/pt_device.cuh::cluster_walk``) on
-    every given ray at once, a lane set per step: without supers,
+    every given ray (or the rays ``lanes`` of them) at once, a lane set
+    per step: without supers,
     ``cluster(c, lanes)`` for every cluster row in table order; else, per
     octant, ``enter_super(box, lanes)`` (the lanes that enter the super's
     box) for each non-empty super in the octant's order, and the entered
     lanes' ``cluster(c, lanes)`` for its 16 children in their order.
     ``packed`` is resident or streamed: both carry ``cl``, ``sup`` and
     ``n_super``."""
-    every = torch.arange(rd.shape[0], device=rd.device)
+    every = (torch.arange(rd.shape[0], device=rd.device) if lanes is None
+             else lanes)
     if not packed.n_super:
         for c in range(packed.cl.shape[0]):
             cluster(c, every)
         return
     sup = packed.sup[:, 7:16].tolist()    # child count, 8 super orders
     child = packed.cl[:, 8:16].tolist()   # 8 child orders
-    # each ray's octant (bit 0: x >= 0, 1: y, 2: z): its orders' column
-    octant = ((rd[:, 0] >= 0).long() + 2 * (rd[:, 1] >= 0).long()
-              + 4 * (rd[:, 2] >= 0).long())
+    octant = _octant(rd[every])
     for o in range(8):
         lanes = every[octant == o]
         if not lanes.numel():
@@ -384,7 +393,7 @@ def walk_clusters(packed, rd, enter_super, cluster) -> None:
 
 
 def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict,
-                        winner: bool = False):
+                        winner: bool = False, warp: bool = False):
     """A plain model of the kernels' nearest-hit walk (``nearest_hit_dev``)
     on every given ray.  Adds to ``counts`` every sphere and light ball
     tested in turn (the light balls alone with a sphere index), then, with
@@ -397,7 +406,10 @@ def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict,
     ``winner`` also the row that won, strictly closer in the walk's order
     (a sphere's or light ball's row of ``sph``, or ``ns + nl`` plus a
     triangle's of ``tri``, as ``_nearest_rows`` numbers them; -1 on a
-    miss)."""
+    miss).  With ``warp``, the index walks of the wide rays (``sphere_pad``'s
+    k > 0) are #5's indexed instance's, each by its whole warp
+    (``_warp_sphere_walk``), which also counts ``wide_walks`` and
+    ``wide_steps``; the same t and row."""
     R, dev = ro.shape[0], ro.device
     a0 = packed.ns if packed.nsc else 0
     n_s = packed.ns + packed.nl - a0
@@ -450,12 +462,120 @@ def _count_nearest_walk(packed: PackedScene, ro, rd, counts: dict,
                            tri[:, 6:9], INF)
 
     if packed.nsc:
+        wide = (pad[1] > 0.0) if warp else torch.zeros_like(t, dtype=bool)
         walk_clusters(packed.sphere_walk, rd,
                       lambda box, lanes: enter(box, lanes, pad),
-                      visit(packed.scl, spheres, 0, pad))
+                      visit(packed.scl, spheres, 0, pad),
+                      lanes=torch.nonzero(~wide)[:, 0])
+        if warp:
+            _warp_sphere_walk(packed, ro, rd, inv, pad, t, row,
+                              torch.nonzero(wide)[:, 0], counts)
     walk_clusters(packed, rd, enter,
                   visit(packed.cl, triangles, packed.ns + packed.nl))
     return (t, row) if winner else t
+
+
+def _warp_sphere_walk(packed: PackedScene, ro, rd, inv, pad, t, row, wide,
+                      counts: dict) -> None:
+    """A plain model of #5's warp walk of the sphere index
+    (``csrc/pt_kernels.cu::warp_sphere_walk``) for the wide rays ``wide``,
+    each walked as its warp walks it, all of them step by step at once:
+    the octant's supers 32 a step, the entered supers' children two supers
+    a step, the entered clusters' spheres two clusters a step, every box
+    culled by the least t of the sphere steps before it.  Lowers ``t`` and
+    sets ``row`` where a sphere is strictly closer (the least t, on a tie
+    the first in walk order, as the lane walk finds it); adds each box and
+    sphere tested to ``counts``, each ray to ``wide_walks`` and its steps
+    to ``wide_steps``."""
+    R, dev = wide.numel(), ro.device
+    counts["wide_walks"] += R
+    if not R:
+        return
+    ro, rd, inv, t0 = ro[wide], rd[wide], inv[wide], t[wide]
+    pad = (pad[0][wide], pad[1][wide])
+    lane = torch.arange(32, device=dev)
+    low = lane < 16
+    oct_ = _octant(rd)[:, None]
+    scl = packed.scl
+    run_t = t0.clone()                  # the warp's running t
+    bt = t0[:, None].repeat(1, 32)      # each lane's least t
+    brow = torch.full((R, 32), -1, dtype=torch.long, device=dev)
+    bstep = torch.zeros((R, 32), dtype=torch.long, device=dev)
+    step = torch.zeros(R, dtype=torch.long, device=dev)   # sphere steps
+
+    def boxes(rays, tab, ids, valid):
+        """One box step of ``rays``: lane l tests row ``ids[:, l]`` of
+        ``tab`` where ``valid`` and the row is not empty; the entered."""
+        valid = valid & (tab[ids.clamp(0, tab.shape[0] - 1), 7] > 0)
+        counts["hit_boxes"] += int(valid.sum())
+        counts["wide_steps"] += rays.numel()
+        r, k = torch.nonzero(valid, as_tuple=True)
+        g = rays[r]
+        ent = torch.zeros_like(valid)
+        ent[r, k] = _slab_hit(tab[ids[r, k]], ro[g], inv[g], EPSILON,
+                              run_t[g], (pad[0][g], pad[1][g]))
+        return ent
+
+    def pairs(rays, ent, ids):
+        """The entered items of each ray two at a time, in lane order:
+        (the rays that have a j-th pair, their ids in lanes 0-15 and
+        16-31, whether lanes 16-31 hold one) for each j."""
+        n = ent.sum(dim=1)
+        ids = torch.gather(ids, 1, torch.argsort((~ent).int(), dim=1,
+                                                 stable=True))
+        for j in range(0, int(n.max()) if n.numel() else 0, 2):
+            sel = n > j
+            two = n[sel] > j + 1
+            a = ids[sel, j]
+            b = torch.where(two, ids[sel, min(j + 1, 31)], a)
+            yield rays[sel], torch.where(low, a[:, None], b[:, None]), \
+                low | two[:, None]
+
+    def spheres(rays, ent, cids):
+        """The sphere steps of the entered clusters."""
+        for rr, c, valid in pairs(rays, ent, cids):
+            rows = scl[c]
+            valid = valid & ((lane & 15) < rows[..., 7])
+            i = torch.where(valid, rows[..., 6].long() + (lane & 15), 0)
+            counts["hit_spheres"] += int(valid.sum())
+            counts["wide_steps"] += rr.numel()
+            s = packed.sph[i]
+            ts = sphere_t_pairs(ro[rr][:, None], rd[rr][:, None], s[..., 0:3],
+                                s[..., 3], INF)
+            better = valid & (ts < bt[rr])
+            bt[rr] = torch.where(better, ts, bt[rr])
+            brow[rr] = torch.where(better, i, brow[rr])
+            bstep[rr] = torch.where(better, step[rr][:, None], bstep[rr])
+            step[rr] += 1
+            run_t[rr] = bt[rr].amin(dim=1)
+
+    every = torch.arange(R, device=dev)
+    if packed.n_ssuper:
+        for base in range(0, packed.n_ssuper, 32):
+            si = base + lane
+            valid = (si < packed.n_ssuper).expand(R, 32)
+            s = torch.gather(packed.ssup[si.clamp(max=packed.n_ssuper - 1),
+                                         8:16].long().expand(R, 32, 8), 2,
+                             oct_[:, :, None].expand(R, 32, 1))[..., 0]
+            for rr, sid, v in pairs(every, boxes(every, packed.ssup, s,
+                                                 valid), s):
+                first = sid * SUPER
+                c = first + torch.gather(
+                    scl[first + (lane & 15), 8:16].long(), 2,
+                    oct_[rr][:, :, None].expand(-1, 32, 1))[..., 0]
+                spheres(rr, boxes(rr, scl, c, v), c)
+    else:
+        for base in range(0, packed.nsc, 32):
+            c = (base + lane).expand(R, 32)
+            valid = c < packed.nsc
+            spheres(every, boxes(every, scl, c, valid), c)
+    tmin = bt.amin(dim=1)
+    rank = torch.where((brow >= 0) & (bt == tmin[:, None]), bstep * 32 + lane,
+                       torch.iinfo(torch.long).max)
+    win = rank.argmin(dim=1)
+    ok = brow[every, win] >= 0
+    t[wide[ok]] = tmin[ok]
+    row[wide[ok]] = brow[every, win][ok]
 
 
 def _count_shadow_walk(packed: PackedScene, p1, rd, max_d, col: int,
@@ -602,7 +722,8 @@ def _nearest_rows(packed: PackedScene, ro, rd, with_uv: bool) -> dict:
 
 def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
                       rd: torch.Tensor, with_uv: bool = False,
-                      live=None, counts: dict | None = None) -> dict:
+                      live=None, counts: dict | None = None,
+                      warp_walk: bool = False) -> dict:
     """Brute-force nearest hit on the packed tables.  Returns (B,) fields
     t, normal (flipped toward the ray), material and flag (0 miss,
     1 surface, 2 light ball); misses report t = INF and zeros.
@@ -611,21 +732,24 @@ def nearest_hit_plain(packed: PackedScene, ro: torch.Tensor,
     (B,) bool, the lanes whose result is read: the others get the miss
     record, as the kernel writes it (every lane without it).  ``counts``
     (from ``cuda_connect.new_counts``), if given, gains the primitive
-    tests the kernels' walk makes for the live lanes."""
+    tests the kernels' walk makes for the live lanes; with ``warp_walk``
+    (``cuda_wavefront.new_counts``) those of #5's indexed instance, which
+    walks a wide ray's index by the warp (``_count_nearest_walk``)."""
     _kernels.plain_calls["nearest_hit"] += 1
     if live is None:
-        return _nearest_all(packed, ro, rd, with_uv, counts)
+        return _nearest_all(packed, ro, rd, with_uv, counts, warp_walk)
     out = _miss_rows(ro.shape[0], with_uv, ro.device)
     for k, x in _nearest_all(packed, ro[live], rd[live], with_uv,
-                             counts).items():
+                             counts, warp_walk).items():
         out[k][live] = x
     return out
 
 
-def _nearest_all(packed: PackedScene, ro, rd, with_uv: bool, counts):
+def _nearest_all(packed: PackedScene, ro, rd, with_uv: bool, counts,
+                 warp_walk: bool = False):
     """``nearest_hit_plain`` on every given lane, in chunks of rays."""
     if counts is not None:
-        _count_nearest_walk(packed, ro, rd, counts)
+        _count_nearest_walk(packed, ro, rd, counts, warp=warp_walk)
     parts = [_nearest_rows(packed, ro[a:b], rd[a:b], with_uv)
              for a, b in _chunks(ro.shape[0], packed.ns + packed.nl
                                  + packed.nt)]

@@ -179,15 +179,20 @@ def _bounce(packed: PackedScene, light_tab, ro, rd, tp, eta, depth, act,
 
 def shade_step_plain(packed, light_tab, ro, rd, tp, eta, depth, act,
                      last_delta, last_pdf, u, *, clamp_val, stub_mis,
-                     dielectrics_block, counts=None) -> dict:
+                     dielectrics_block, counts=None,
+                     warp_walk: bool = False) -> dict:
     """Plain PyTorch version of the ``shade_step`` kernel.  ``counts``
     (``cuda_wavefront.new_counts()``), if given, gains the work its
-    counting build counts (``STEP_COUNTS``: see ``_bounce``)."""
+    counting build counts (``STEP_COUNTS``: see ``_bounce``); with
+    ``warp_walk`` the walks' tests as #5 makes them
+    (``nearest_hit_plain``'s)."""
     _kernels.plain_calls["shade_step"] += 1
+    nearest = (functools.partial(nearest_hit_plain, warp_walk=True)
+               if warp_walk else nearest_hit_plain)
     return _bounce(packed, light_tab, ro, rd, tp, eta, depth, act,
                    last_delta, last_pdf, u, clamp_val=clamp_val,
                    stub_mis=stub_mis, dielectrics_block=dielectrics_block,
-                   nearest=nearest_hit_plain, blocker=any_blocker_plain,
+                   nearest=nearest, blocker=any_blocker_plain,
                    rgb=transmittance_rgb_plain, counts=counts)
 
 

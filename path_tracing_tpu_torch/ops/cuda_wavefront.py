@@ -44,17 +44,23 @@ from .cuda_shade import LIGHT_COLS, shade_step_plain
 # Threefry draws (a fold_in an iteration, 2 a path, 3 an NEE ray, 3 a BSDF
 # sample), the lanes and slots of the walk and of the shade, and 32 times
 # each warp's most iterations in one lane (iterations over it: the share a
-# warp's lanes are busy).  The plain version counts ``PLAIN_COUNTS`` and
+# warp's lanes are busy), then, of the instance for scenes with a sphere
+# index, the wide rays walked by their warp and the warp steps those walks
+# took (``csrc/pt_kernels.cu::warp_sphere_walk``; the plain loop's walk
+# model counts them, and the walks' tests, as that instance makes them).
+# The plain version counts ``PLAIN_COUNTS`` and
 # ``PLAIN_ONLY``: ``pixel_warp_slots``, the last for one thread per pixel in
 # warps of 32 consecutive pixels (the design before work stealing), and
 # ``iteration_keys``, the iterations of the frame (the distinct fold_in
 # keys, which the bound charges once each).
 COUNT_NAMES = _WALK_NAMES + (
     "iterations", "bsdf_samples", "draws", "walk_lanes", "walk_slots",
-    "shade_lanes", "shade_slots", "warp_iter_slots")
+    "shade_lanes", "shade_slots", "warp_iter_slots", "wide_walks",
+    "wide_steps")
 PLAIN_COUNTS = ("samples", "evals", "pdfs", "shadow_rays", "hit_spheres",
                 "hit_boxes", "hit_tris", "shadow_spheres", "shadow_boxes",
-                "shadow_tris", "iterations", "bsdf_samples", "draws")
+                "shadow_tris", "iterations", "bsdf_samples", "draws",
+                "wide_walks", "wide_steps")
 PLAIN_ONLY = ("pixel_warp_slots", "iteration_keys")
 
 
@@ -72,7 +78,8 @@ def render_wavefront_plain(packed: PackedScene, light_tab, cam, px, py,
 
     _kernels.plain_calls["render_wavefront"] += 1
     step = (shade_step_plain if counts is None
-            else functools.partial(shade_step_plain, counts=counts))
+            else functools.partial(shade_step_plain, counts=counts,
+                                   warp_walk=True))
     return wavefront_loop(packed, light_tab, cam, cfg, px, py, spp, key,
                           start, total, step, rng.uniform_rows_plain,
                           counts=counts)

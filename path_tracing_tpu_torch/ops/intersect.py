@@ -45,11 +45,18 @@ def sphere_ts(ro, rd, centers, radii, max_dist) -> torch.Tensor:
     """Per-(ray, sphere) hit distance (B, N) or INF: the near root, else
     the far root, each inside (EPSILON, max_dist); zero-radius rows never
     hit.  ``max_dist``: float or (B, 1)."""
-    ocx = ro[:, 0:1] - centers[None, :, 0]
-    ocy = ro[:, 1:2] - centers[None, :, 1]
-    ocz = ro[:, 2:3] - centers[None, :, 2]
-    rdx, rdy, rdz = rd[:, 0:1], rd[:, 1:2], rd[:, 2:3]
-    r = radii[None, :]
+    return sphere_t_pairs(ro[:, None], rd[:, None], centers[None],
+                          radii[None], max_dist)
+
+
+def sphere_t_pairs(ro, rd, centers, radii, max_dist) -> torch.Tensor:
+    """``sphere_ts``'s distance of rays against spheres paired by
+    broadcasting: ``ro``, ``rd``, ``centers`` (..., 3), ``radii`` (...)."""
+    ocx = ro[..., 0] - centers[..., 0]
+    ocy = ro[..., 1] - centers[..., 1]
+    ocz = ro[..., 2] - centers[..., 2]
+    rdx, rdy, rdz = rd[..., 0], rd[..., 1], rd[..., 2]
+    r = radii
     b = ocx * rdx + ocy * rdy + ocz * rdz
     c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     h = b * b - c

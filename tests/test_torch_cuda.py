@@ -1642,6 +1642,33 @@ def test_flake_megakernel_equals_fused_tier_and_counts_as_plain(flake):
         k: pc[k] for k in cw.PLAIN_COUNTS}
 
 
+def test_flake_megakernel_walks_wide_rays_by_warp_as_lanes_do(flake):
+    """#5's indexed instance walks each wide ray's index with its whole
+    warp: at 256x144 spp 4 its image is bit for bit the fused tier's (#3,
+    whose lanes walk their own rays) on two keys, and its counting build
+    gives that image with the warp walks counted (a wide ray a walk, at
+    least two steps a walk)."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    p, scene, pk = flake
+    w, h = 256, 144
+    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, w, h,
+                      device="cuda")
+    cfg = RenderConfig(width=w, height=h, eye_depth=4)
+    for seed in (23, 2 ** 31 + 5):
+        key = rng.prng_key(seed)
+        mega = render_pt(scene, cam, w, h, 4, cfg, key, tier="mega")
+        fused = render_pt(scene, cam, w, h, 4, cfg, key, tier="fused")
+        assert torch.equal(mega.view(torch.int32), fused.view(torch.int32))
+        assert mega.sum() > 0
+    idx = torch.arange(w * h, dtype=torch.int32, device="cuda")
+    args = (pk, pk.light, cam, idx % w, idx // w, 4, cfg, key)
+    img, kc = cw.render_wavefront_counts(*args)
+    assert torch.equal(img, cw.render_wavefront(*args))
+    assert 0.05 * kc["iterations"] < kc["wide_walks"] < kc["iterations"]
+    assert kc["wide_steps"] >= 2 * kc["wide_walks"]
+
+
 def test_flake_bdpt_eye_matches_plain(flake):
     """#9 (tile-RIS K = 32) on the index against its plain version at
     64x36 spp 2, at test_bdpt_eye_kernel_matches_plain_at_128x72's bar,

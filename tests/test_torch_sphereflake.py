@@ -200,6 +200,44 @@ def test_walk_model_finds_the_linear_loops_nearest_hit(levels):
     assert counts["hit_boxes"] > 0
 
 
+@pytest.mark.parametrize("levels", [2, 3])
+def test_warp_walk_model_finds_the_lane_walks_hit_and_counts_wide_rays(
+        levels):
+    """#5's indexed instance walks a wide ray's index with its whole warp
+    (the flat index at level 2, the supers at level 3): the model of that
+    walk finds the brute force's t and the lane walk's row on every ray,
+    the directions of length 1 +- 2% among them, and counts a walk for
+    each ray ``sphere_pad`` calls wide, with at least one step each and
+    no fewer box tests than the lane walk makes."""
+    from path_tracing_tpu_torch.ops import cuda_wavefront as cw
+
+    p, scene, pk = _flake(levels)
+    assert (pk.n_ssuper > 0) == (levels == 3)
+    ro, rd = _rays(p, scene, 4000, 20 + levels)
+    lane, warp = cuda_connect.new_counts(), cw.new_counts()
+    t_l, row_l = CI._count_nearest_walk(pk, ro, rd, lane, winner=True)
+    t_w, row_w = CI._count_nearest_walk(pk, ro, rd, warp, winner=True,
+                                        warp=True)
+    assert torch.equal(t_w, CI.nearest_hit_plain(pk, ro, rd)["t"])
+    assert torch.equal(t_w, t_l) and torch.equal(row_w, row_l)
+    wide = int((CI.sphere_pad(pk, ro, rd)[1] > 0).sum())
+    assert 0.1 * ro.shape[0] < wide < 0.9 * ro.shape[0]
+    assert warp["wide_walks"] == wide
+    assert warp["wide_steps"] >= 2 * wide
+    # the warp culls with the least t of its steps before, so it tests at
+    # least the boxes and spheres of the lane walk
+    assert warp["hit_boxes"] >= lane["hit_boxes"]
+    assert warp["hit_spheres"] >= lane["hit_spheres"]
+    assert warp["hit_tris"] == lane["hit_tris"]
+    # narrow rays alone: the lane walk's counts, no warp walk
+    narrow = CI.sphere_pad(pk, ro, rd)[1] == 0
+    a, b = cuda_connect.new_counts(), cw.new_counts()
+    CI._count_nearest_walk(pk, ro[narrow], rd[narrow], a)
+    CI._count_nearest_walk(pk, ro[narrow], rd[narrow], b, warp=True)
+    assert b["wide_walks"] == b["wide_steps"] == 0
+    assert all(a[k] == b[k] for k in a)
+
+
 @pytest.mark.parametrize("dielectrics_block", [True, False])
 @pytest.mark.parametrize("levels", [2, 3])
 def test_walk_model_finds_the_linear_loops_shadow_verdicts(levels,
